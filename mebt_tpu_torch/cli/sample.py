@@ -1,0 +1,98 @@
+"""MaskGIT video sampling CLI (the --random_weights path of
+mebt_tpu/cli/sample.py).
+
+  python -m mebt_tpu_torch.cli.sample --base configs/stl/mebt_16f.yaml \\
+      --random_weights --batch_size 16 --n_sample 16 --vid_n_steps 32 \\
+      --vid_c_temp 8.0 --total_length 16 --step_size 16
+
+Runs on the GPU unless --device cpu is given. Writes the uint8 videos
+(N, T, H, W, C), the per-sample scores and, with --save_codemap, the
+code maps as .npy files.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+
+
+def build_argparser():
+    from mebt_tpu_torch.cli.common import add_common_args
+
+    p = argparse.ArgumentParser(description=__doc__)
+    add_common_args(p)
+    p.add_argument("--top_k", type=int, default=None)
+    p.add_argument("--top_p", type=float, default=None)
+    p.add_argument("--temp", type=float, default=1.0)
+    p.add_argument("--vid_c_temp", type=float, default=1.0)
+    p.add_argument("--vid_n_steps", type=int, default=128)
+    p.add_argument("--total_length", type=int, default=32)
+    p.add_argument("--context_size", type=int, default=12)
+    p.add_argument("--step_size", type=int, default=16)
+    p.add_argument("--schedule", type=str, default="cosine")
+    p.add_argument(
+        "--ctemp_schedule", type=str, default="linear",
+        choices=["linear", "constant", "cosine"],
+    )
+    return p
+
+
+def save_tag(args) -> str:
+    tag = f"VID_n_steps{args.vid_n_steps}"
+    if args.top_k is not None:
+        tag += f"_k{args.top_k}"
+    if args.top_p is not None:
+        tag += f"_p{args.top_p}"
+    tag += (
+        f"_temp{args.temp}_ctemp{args.vid_c_temp}{args.ctemp_schedule}"
+        f"_maskgit_{args.schedule}"
+    )
+    return tag + f"_run{args.run}"
+
+
+def main(argv=None):
+    import torch
+
+    from mebt_tpu_torch.cli.common import load_model_bundle, parse_config
+    from mebt_tpu_torch.runtime import resolve_device
+    from mebt_tpu_torch.sampler.generation import bidirect_generate
+
+    args, unknown = build_argparser().parse_known_args(argv)
+    device = resolve_device(args.device)
+    config = parse_config(args, unknown)
+    model, vqgan = load_model_bundle(args, config, device)
+
+    save_np = os.path.join(
+        args.save, f"numpy_files_{args.total_length}", args.dataset, save_tag(args)
+    )
+    os.makedirs(os.path.dirname(save_np), exist_ok=True)
+
+    seeds = torch.Generator().manual_seed(args.seed if args.seed is not None else args.run)
+    n_batch = -(-args.n_sample // args.batch_size)
+    all_pix, all_code, all_score = [], [], []
+    for i in range(n_batch):
+        res = bidirect_generate(
+            model, vqgan, int(torch.randint(2**62, (1,), generator=seeds)),
+            args.batch_size,
+            total_length=args.total_length, step_size=args.step_size,
+            context_size=args.context_size, temperature=args.temp,
+            top_k=args.top_k, top_p=args.top_p, vid_n_steps=args.vid_n_steps,
+            vid_c_temp=args.vid_c_temp, ctemp_schedule=args.ctemp_schedule,
+            schedule=args.schedule,
+        )
+        all_pix.append(res.samples)
+        all_code.append(res.code_maps)
+        all_score.append(res.score)
+        print(f"batch {i + 1}/{n_batch} done", flush=True)
+
+    if args.save_codemap:
+        np.save(save_np + "_codemap", np.concatenate(all_code, 0)[: args.n_sample])
+    np.save(save_np + "_score", np.concatenate(all_score, 0)[: args.n_sample])
+    np.save(save_np + ".npy", np.concatenate(all_pix, 0)[: args.n_sample])
+    print(f"saved {save_np}.npy", flush=True)
+
+
+if __name__ == "__main__":
+    main()

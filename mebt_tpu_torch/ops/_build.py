@@ -1,0 +1,108 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` becomes `_build/lib<name>-<hash>.so` (the hash is
+of the source and the flags, so an edit rebuilds), compiled at first use
+for sm_90a. `build_all` starts one nvcc per missing library, all at
+once, and waits for them. Only the repository's own sources are built.
+Every C entry point returns `cudaGetLastError()`; `check` raises on a
+non-zero status.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD = PKG / "_build"
+SOURCES = ("attention", "head_sample")
+FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    return BUILD / f"lib{name}-{digest}.so"
+
+
+def build_all(names=SOURCES) -> dict[str, str]:
+    """Compile every missing library in parallel; returns nvcc's
+    messages (ptxas register and shared-memory reports) per source.
+    Raises with the compiler's output if any build fails."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (
+            subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ),
+            tmp,
+            out,
+        )
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError(
+            "nvcc failed for "
+            + ", ".join(failed)
+            + "\n"
+            + "\n".join(logs[n] for n in failed)
+        )
+    return logs
+
+
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu`, built on first use;
+    `signatures` maps each entry point to (restype, argtypes)."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build_all((name,))
+        lib = ctypes.CDLL(str(path))
+        for fn, (restype, argtypes) in signatures.items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        _libs[name] = lib
+    return lib
+
+
+def check(status: int, what: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+def stream_ptr(t) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -1,0 +1,112 @@
+"""Batch video generation (mebt_tpu/sampler/generation.py:35-200):
+`bidirect_generate`, the first window plus the sliding-window shift,
+then the VQGAN pixel decode.
+
+Sizes arrive in pixel frames and are converted to latent frames by the
+VQGAN's temporal downsample. Results come back as numpy, as in the JAX
+package.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from mebt_tpu_torch.sampler.decode import maskgit_sample
+from mebt_tpu_torch.sampler.mask_schedule import maskgit_plan
+
+
+@dataclass
+class GenerationResult:
+    samples: np.ndarray  # (B, T, H, W, C) uint8
+    code_maps: np.ndarray  # (B, t, h, w) int64
+    score: np.ndarray  # (B,) sum log prob over the first window
+
+
+@torch.no_grad()
+def _decode_pixels(vqgan, codes_bthw: torch.Tensor) -> np.ndarray:
+    """VQGAN decode, clip to [-0.5, 0.5], + 0.5, uint8 on the device
+    (reference sample script:75-83). Returns (B, T, H, W, C) uint8."""
+    pix = vqgan.decode(codes_bthw).float()  # (B, C, T, H, W)
+    pix = torch.clamp(pix, -0.5, 0.5) + 0.5
+    pix = torch.round(pix * 255.0).to(torch.uint8)
+    return np.moveaxis(pix.cpu().numpy(), 1, -1)
+
+
+def _split(seed_gen: torch.Generator) -> int:
+    return int(torch.randint(2**62, (1,), generator=seed_gen))
+
+
+def bidirect_generate(
+    model,
+    vqgan,
+    seed: int,
+    batch_size: int,
+    *,
+    total_length: int,
+    step_size: int,
+    context_size: int,
+    temperature: float = 1.0,
+    top_k: int | None = None,
+    top_p: float | None = None,
+    vid_n_steps: int = 8,
+    vid_c_temp: float = 4.5,
+    ctemp_schedule: str = "linear",
+    schedule: str = "cosine",
+) -> GenerationResult:
+    """MaskGIT generation with the sliding-window long-video loop, on
+    the device of `model`."""
+    T, h, w = model.config.latent_shape
+    device = next(model.parameters()).device
+    ratio = 1.0 / vqgan.config.downsample[0]
+    step_lat = int(step_size * ratio)
+    ctx_lat = int(context_size * ratio)
+    total_lat = int(total_length * ratio)
+    if step_lat != T:
+        raise ValueError(
+            f"step_size {step_size} must map to the model window ({T} latent "
+            f"frames), got {step_lat}"
+        )
+    num_pos = h * w
+    N = T * num_pos
+    B = batch_size
+    seeds = torch.Generator().manual_seed(int(seed))
+    sample_kw = dict(
+        temperature=temperature, top_k=top_k, top_p=top_p,
+        context_temperature=vid_c_temp,
+    )
+    plan = maskgit_plan(N, vid_n_steps, schedule, ctemp_schedule)
+    state = maskgit_sample(model, _split(seeds), B, plan, **sample_kw)
+    # per-sample score: sum log prob of each token at its final sampling
+    # (reference sample script:85-91; first window only)
+    score = torch.log(state.chosen_prob).sum(dim=-1).cpu().numpy().astype(np.float64)
+
+    codes = np.zeros((B, max(total_lat, T), h, w), np.int64)
+    codes[:, :T] = state.codes.cpu().numpy().reshape(B, T, h, w)
+    curr = T
+    if total_lat > T:
+        shift_plan = maskgit_plan(
+            N, vid_n_steps, schedule, ctemp_schedule, n_ctx_init=ctx_lat * num_pos
+        )
+        ctx_mask = torch.zeros((B, N), dtype=torch.bool, device=device)
+        ctx_mask[:, : ctx_lat * num_pos] = True
+        while curr < total_lat:
+            window = np.zeros((B, T, h, w), np.int64)
+            window[:, :ctx_lat] = codes[:, curr - ctx_lat : curr]
+            state = maskgit_sample(
+                model, _split(seeds), B, shift_plan,
+                codes=torch.from_numpy(window.reshape(B, N)),
+                ctx_mask=ctx_mask, **sample_kw,
+            )
+            fresh = state.codes.cpu().numpy().reshape(B, T, h, w)[:, ctx_lat:]
+            take = min(T - ctx_lat, total_lat - curr)
+            codes[:, curr : curr + take] = fresh[:, :take]
+            curr += take
+
+    codes = codes[:, :total_lat]
+    samples = _decode_pixels(vqgan, torch.from_numpy(codes).to(device))
+    return GenerationResult(
+        samples=samples[:, :total_length], code_maps=codes, score=score
+    )
