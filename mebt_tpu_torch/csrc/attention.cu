@@ -13,8 +13,10 @@
 //   and lse = +1e30 (the first MaskGIT step has no context at all).
 //   Emits lse (B, H, NQ) fp32 for the later backward.
 //   Bound on the card: at the 16f shapes the work is O(NQ*NK*Dh) with
-//   NQ = 256, so bytes (Q/K/V/out, ~100 MB in lt2l at M = 1024) set the
-//   floor; this first version runs both products as fp32 FMA loops from
+//   NQ = 256, so bytes set the floor: Q/out plus K/V of the LIVE keys
+//   only (~64 MB in lt2l at M = 1024 with half the targets live, where
+//   all of K/V would be ~100 MB); this first version runs both products
+//   as fp32 FMA loops from
 //   shared memory, so it is bounded by FMA throughput, not by
 //   memory. Tensor-core tiles (mma.sync / wgmma) are later work.
 //

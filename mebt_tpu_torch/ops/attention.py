@@ -23,6 +23,13 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor | None) -> torch.Ten
     return e / torch.where(denom == 0, torch.ones_like(denom), denom)
 
 
+def attention_scores(q: torch.Tensor, k: torch.Tensor, scale: float | None = None) -> torch.Tensor:
+    """Scaled q @ k^T in fp32, (B, H, NQ, NK); the scale defaults to 1/sqrt(Dh)."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    return torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
+
+
 def masked_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -34,9 +41,7 @@ def masked_attention(
     """q (B, H, NQ, Dh), k/v (B, H, NK, Dh), key_mask (B, NK) or
     (B, 1, NQ, NK) bool, True = attendable. Scores and softmax in fp32;
     the output is cast back to q.dtype."""
-    if scale is None:
-        scale = 1.0 / (q.shape[-1] ** 0.5)
-    scores = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
+    scores = attention_scores(q, k, scale)
     if key_mask is not None and key_mask.dim() == 2:
         key_mask = key_mask[:, None, None, :]
     probs = masked_softmax(scores, key_mask)

@@ -17,16 +17,16 @@ Tensors are (B, H, N, Dh); key_mask is (B, NK) bool, True = live key.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from mebt_tpu_torch.ops import _build
-from mebt_tpu_torch.ops.attention import masked_softmax
+from mebt_tpu_torch.ops.attention import attention_scores, masked_attention
 
 NEG_BIG = -1e30
 HEAD_DIM = 64  # the head width of every MeBT config; see csrc/attention.cu
-SMEM_PER_BLOCK = 232448  # H100: 227 KB of dynamic shared memory per block
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,25 +47,27 @@ def _lib():
     return _build.load("attention", _SIGNATURES)
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_per_block(device: torch.device) -> int:
+    """Dynamic shared memory one block may opt in to, as the card reports it."""
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
 def smallq_attention_ref(q, k, v, key_mask):
-    """Plain K1: (out, lse). Scores, softmax and P@V in fp32; a fully
-    masked row gives out 0 and lse +1e30."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    m = key_mask.bool()[:, None, None, :]
-    probs = masked_softmax(s, m)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
-    lse = torch.logsumexp(s.masked_fill(~m, float("-inf")), dim=-1)
+    """Plain K1: (out, lse), masked_attention in fp32 plus the row lse; a
+    fully masked row gives out 0 and lse +1e30."""
+    key_mask = key_mask.bool()
+    qf, kf = q.float(), k.float()
+    out = masked_attention(qf, kf, v.float(), key_mask).to(q.dtype)
+    s = attention_scores(qf, kf).masked_fill(~key_mask[:, None, None, :], float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
     lse = torch.where(torch.isfinite(lse), lse, torch.full_like(lse, -NEG_BIG))
     return out, lse
 
 
 def largeq_attention_ref(q, k, v):
-    """Plain K2: unmasked softmax attention, fp32 inside."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    probs = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+    """Plain K2: unmasked masked_attention in fp32."""
+    return masked_attention(q.float(), k.float(), v.float()).to(q.dtype)
 
 
 def _check(q, k, v):
@@ -126,11 +128,11 @@ def largeq_attention(q, k, v):
     NK = k.shape[2]
     bf16 = int(q.dtype == torch.bfloat16)
     lib = _lib()
-    smem = lib.mebt_largeq_smem_bytes(NK, bf16)
-    if smem > SMEM_PER_BLOCK:
+    smem, limit = lib.mebt_largeq_smem_bytes(NK, bf16), _smem_per_block(q.device)
+    if smem > limit:
         raise ValueError(
             f"largeq_attention keeps K/V resident: NK={NK}, Dh={Dh}, "
-            f"{q.dtype} needs {smem} B of shared memory > {SMEM_PER_BLOCK}"
+            f"{q.dtype} needs {smem} B of shared memory > {limit}"
         )
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
