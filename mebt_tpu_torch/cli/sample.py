@@ -32,6 +32,7 @@ def build_argparser():
     p.add_argument("--context_size", type=int, default=12)
     p.add_argument("--step_size", type=int, default=16)
     p.add_argument("--schedule", type=str, default="cosine")
+    p.add_argument("--bootstrap", type=int, default=0)
     p.add_argument(
         "--ctemp_schedule", type=str, default="linear",
         choices=["linear", "constant", "cosine"],
@@ -80,7 +81,7 @@ def main(argv=None):
             context_size=args.context_size, temperature=args.temp,
             top_k=args.top_k, top_p=args.top_p, vid_n_steps=args.vid_n_steps,
             vid_c_temp=args.vid_c_temp, ctemp_schedule=args.ctemp_schedule,
-            schedule=args.schedule,
+            schedule=args.schedule, bootstrap=args.bootstrap,
         )
         all_pix.append(res.samples)
         all_code.append(res.code_maps)

@@ -1,16 +1,24 @@
-"""K3: vocab head + Gumbel-max sampling in one CUDA kernel
-(csrc/head_sample.cu; replaces head_sample_pallas.py:fused_head_sample).
+"""K3 and K4: vocab head + Gumbel-max sampling in one CUDA kernel each
+(csrc/head_sample.cu).
 
-`head_sample(x, w, seed, temperature)` samples one id per row of x from
-softmax(x @ w.T / T) and returns (ids int32, prob of the id fp32); the
-(R, V) logits never reach device memory. `w` is the head's nn.Linear
-weight, (V, D). The noise is Philox4x32-10 keyed on (seed, row, column);
-`philox_exponential` computes the same draws in plain PyTorch, so the
-kernel and `head_sample_ref` agree on the samples for one seed, up to
-near-ties of the perturbed logits.
+  K3 `head_sample(x, w, seed, temperature)` samples one id per row of x
+     from softmax(x @ w.T / T) (replaces
+     head_sample_pallas.py:fused_head_sample).
+  K4 `head_topk_sample(x, w, seed, k, temperature)` samples from the
+     softmax over each row's k largest logits, an exact top-k under the
+     order (value descending, index ascending) (replaces
+     head_sample_pallas.py:fused_head_topk_sample_v2; it has no overflow
+     flag because the kernel's top-k is exact).
 
-The wrapper runs `head_sample_ref` only for tensors on the CPU; a CUDA
-tensor launches the kernel or the call raises. `head_sample.launches`
+Both return (ids int32, prob of the id fp32); the (R, V) logits never
+reach device memory. `w` is the head's nn.Linear weight, (V, D). The
+noise is Philox4x32-10 keyed on (seed, row, vocabulary column);
+`philox_exponential` computes the same draws in plain PyTorch, so each
+kernel and its plain version (`*_ref`) agree on the samples for one
+seed, up to near-ties of the logits.
+
+A wrapper runs its plain version only for tensors on the CPU; a CUDA
+tensor launches the kernel or the call raises. `<wrapper>.launches`
 counts launches.
 """
 
@@ -29,7 +37,12 @@ _SIGNATURES = {
         ctypes.c_int,
         [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, ctypes.c_uint, _I, _P],
     ),
+    "mebt_head_topk_sample": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, ctypes.c_uint, _I, _P],
+    ),
 }
+MAX_TOPK = 256  # K4's (64, k) buffers of values and indices live in shared memory
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -48,7 +61,8 @@ def _mulhilo(a: torch.Tensor, m: int):
 
 def philox_bits(seed: int, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
     """Philox4x32-10, key (seed, 0), counter (col, row, 0, 0); first
-    output word, as int64 in [0, 2^32). rows (R, 1), cols (1, V)."""
+    output word, as int64 in [0, 2^32). rows (R, 1); cols (1, V), or
+    (R, k) for a row's own columns."""
     c0 = cols.to(torch.int64).expand(rows.shape[0], cols.shape[1])
     c1 = rows.to(torch.int64).expand_as(c0)
     c2 = torch.zeros_like(c0)
@@ -63,14 +77,19 @@ def philox_bits(seed: int, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tens
     return c0
 
 
-def philox_exponential(seed: int, R: int, V: int, device) -> torch.Tensor:
-    """(R, V) Exp(1) draws q = -log(u), u from the top 23 bits of the
-    Philox word as in the kernel (u in [2^-25, 1))."""
-    rows = torch.arange(R, device=device)[:, None]
-    cols = torch.arange(V, device=device)[None, :]
+def philox_exponential_at(seed: int, cols: torch.Tensor) -> torch.Tensor:
+    """Exp(1) draws q = -log(u) at row r's columns cols[r] (cols (R, k),
+    or (1, V) for the same columns in one row), u from the top 23 bits
+    of the Philox word as in the kernels (u in [2^-25, 1))."""
+    rows = torch.arange(cols.shape[0], device=cols.device)[:, None]
     bits = ((philox_bits(seed, rows, cols) >> 9) | 0x3F800000).to(torch.int32)
     u = (bits.view(torch.float32) - 1.0) + 2.9802322e-8
     return -torch.log(u)
+
+
+def philox_exponential(seed: int, R: int, V: int, device) -> torch.Tensor:
+    """(R, V) Exp(1) draws: `philox_exponential_at` every column."""
+    return philox_exponential_at(seed, torch.arange(V, device=device).expand(R, V))
 
 
 def head_sample_ref(x, w, temperature: float, noise=None, *, seed: int = 0):
@@ -86,10 +105,29 @@ def head_sample_ref(x, w, temperature: float, noise=None, *, seed: int = 0):
     return ids.to(torch.int32), probs
 
 
-def head_sample(x, w, seed: int, temperature: float = 1.0):
-    """K3 on CUDA tensors: x (R, D), w (V, D) cast to x.dtype."""
-    if not x.is_cuda:
-        return head_sample_ref(x, w, temperature, seed=seed)
+def head_topk_sample_ref(x, w, k: int, temperature: float, noise=None, *,
+                         seed: int = 0):
+    """Plain K4: the k largest logits per row by a stable descending
+    sort (so the lower index comes first among equal values),
+    Gumbel-max among them, probability under the softmax of the k.
+    `noise` (R, k) Exp(1) draws in sorted order; None = the Philox draws
+    of `seed` at the survivors' columns. Returns (ids (R,) int32, prob at
+    id (R,) fp32)."""
+    inv_temp = 1.0 / (float(temperature) + 1e-8)
+    logits = (x.float() @ w.float().t()) * inv_temp
+    k = min(int(k), logits.shape[1])
+    vals, cols = torch.sort(logits, dim=-1, descending=True, stable=True)
+    vals, cols = vals[:, :k], cols[:, :k]
+    if noise is None:
+        noise = philox_exponential_at(seed, cols)
+    j = torch.argmax(vals - torch.log(noise), dim=-1, keepdim=True)
+    probs = torch.exp(vals.gather(-1, j)[:, 0] - torch.logsumexp(vals, dim=-1))
+    return cols.gather(-1, j)[:, 0].to(torch.int32), probs
+
+
+def _launch(entry: str, x, w, seed: int, temperature: float, *extra: int):
+    """Check x (R, D) and w (V, D), allocate the outputs and call one of
+    the library's entry points; `extra` are its integers after V."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1]:
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do not chain")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -103,15 +141,39 @@ def head_sample(x, w, seed: int, temperature: float = 1.0):
     ids = torch.empty(R, device=x.device, dtype=torch.int32)
     probs = torch.empty(R, device=x.device, dtype=torch.float32)
     lib = _build.load("head_sample", _SIGNATURES)
-    status = lib.mebt_head_sample(
+    status = getattr(lib, entry)(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
         ctypes.c_void_p(ids.data_ptr()), ctypes.c_void_p(probs.data_ptr()),
-        R, D, V, 1.0 / (float(temperature) + 1e-8), int(seed) & 0xFFFFFFFF,
+        R, D, V, *extra, 1.0 / (float(temperature) + 1e-8), int(seed) & 0xFFFFFFFF,
         int(x.dtype == torch.bfloat16), _build.stream_ptr(x),
     )
-    _build.check(status, "head_sample")
-    head_sample.launches += 1
+    _build.check(status, entry)
     return ids, probs
 
 
+def head_sample(x, w, seed: int, temperature: float = 1.0):
+    """K3 on CUDA tensors: x (R, D), w (V, D) cast to x.dtype."""
+    if not x.is_cuda:
+        return head_sample_ref(x, w, temperature, seed=seed)
+    out = _launch("mebt_head_sample", x, w, seed, temperature)
+    head_sample.launches += 1
+    return out
+
+
 head_sample.launches = 0
+
+
+def head_topk_sample(x, w, seed: int, k: int, temperature: float = 1.0):
+    """K4 on CUDA tensors: x (R, D), w (V, D) cast to x.dtype; k is cut
+    to V."""
+    if not x.is_cuda:
+        return head_topk_sample_ref(x, w, k, temperature, seed=seed)
+    k = min(int(k), w.shape[0])
+    if not 1 <= k <= MAX_TOPK:
+        raise ValueError(f"top-k {k} not taken by the kernel (1..{MAX_TOPK})")
+    out = _launch("mebt_head_topk_sample", x, w, seed, temperature, k)
+    head_topk_sample.launches += 1
+    return out
+
+
+head_topk_sample.launches = 0

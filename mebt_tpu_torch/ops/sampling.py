@@ -1,5 +1,5 @@
 """Token sampling and confidence-based mask promotion
-(mebt_tpu/ops/sampling.py:75-296).
+(mebt_tpu/ops/sampling.py:26-296).
 
 Conventions kept from the JAX package: logits are scaled by
 1/(T + 1e-8); Gumbel-max sampling is argmax(l/T - log q) with
@@ -85,6 +85,34 @@ def sample_tokens(
     samples = torch.argmax(perturbed, dim=-1)
     chosen = probs.gather(-1, samples[..., None])[..., 0]
     return samples.to(torch.int32), chosen, probs
+
+
+def sample_topk_tokens(
+    logits: torch.Tensor,
+    k: int,
+    temperature: float,
+    noise: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+):
+    """Sample from the top-k-filtered softmax without perturbing the
+    whole vocabulary: take the k largest values, Gumbel-max among them
+    (`noise` (rows, k) Exp(1) draws, else drawn from `generator`), and
+    recover the id as the lowest index whose logit equals the chosen
+    value. The search runs in the input dtype; temperature and the
+    softmax over the k values run in fp32. Returns (samples int32,
+    chosen_prob), each of logits.shape[:-1]."""
+    *lead, V = logits.shape
+    flat = logits.reshape(-1, V)
+    vals = torch.topk(flat, min(int(k), V), dim=-1).values  # sorted descending
+    valsf = vals.float() / (temperature + 1e-8)
+    if noise is None:
+        noise = _exponential(valsf.shape, valsf.device, generator)
+    j = torch.argmax(valsf - torch.log(noise), dim=-1, keepdim=True)
+    chosen = vals.gather(-1, j)
+    samples = torch.argmax((flat == chosen).to(torch.uint8), dim=-1)
+    lse = torch.logsumexp(valsf, dim=-1)
+    chosen_prob = torch.exp(valsf.gather(-1, j)[:, 0] - lse)
+    return samples.to(torch.int32).reshape(lead), chosen_prob.reshape(lead)
 
 
 def exact_rank_desc(values: torch.Tensor) -> torch.Tensor:

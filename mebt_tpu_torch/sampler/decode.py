@@ -1,20 +1,27 @@
-"""MaskGIT decoding (mebt_tpu/sampler/decode.py:58-810, confidence
-strategy).
+"""MaskGIT decoding (mebt_tpu/sampler/decode.py:58-810 and :946-968;
+strategies maskgit, random and bootstrap).
 
 The per-step counts come from a host-side `DecodePlan`. Two paths:
 
 * dense: every step runs the full-canvas forward (`MeBT.forward`) and
   samples every position; the `sample_noise=` / `promote_noise=` hooks
   make its draws equal to the JAX package's in the tests.
-* staged (default when the mode list allows it): the plan is cut into
-  segments by the joint segment DP; each segment runs with static
-  bucket shapes, the enc phase over a compacted context bucket
-  (`stage_a_compact`) and the dec phase + K3 over a compacted target
-  bucket (`stage_b_tokens` + `head_sample`).
+* staged (default when the mode list allows it), the enc phase over a
+  compacted context bucket (`stage_a_compact`) and the dec phase over a
+  compacted target bucket, at static bucket shapes:
+  - confidence (maskgit): the plan is cut into segments by the joint
+    segment DP; every remaining target is sampled by a fused head
+    kernel on `stage_b_tokens`, K3 (`head_sample`) without top-k and K4
+    (`head_topk_sample`) with it, so the (rows, vocab) logits never
+    reach device memory; top-p materializes them.
+  - random/bootstrap: promotion ignores confidence, so one noise draw
+    ranked once fixes the whole promotion order, each step compacts the
+    positions it promotes BEFORE the forward, and logits are computed
+    at those few slots only (`stage_b_compact` + `sample_tokens`).
 
-`lax.scan` becomes a Python loop per segment. Inside a segment nothing
-waits for the device: counts and skipped steps are known on the host,
-K3's per-step seeds come from a host generator and the promotion noise
+`lax.scan` becomes a Python loop. Inside a loop nothing waits for the
+device: counts, offsets and skipped steps are known on the host, the
+kernels' per-step seeds come from a host generator and the other noise
 from a device generator. Padding slots of a compact index hold N:
 gathers clip them, scatters drop them.
 """
@@ -28,8 +35,12 @@ import torch
 
 from mebt_tpu_torch.models.mebt import transformer_split
 from mebt_tpu_torch.models.transformer import default_mode_list
-from mebt_tpu_torch.ops.head_sample import head_sample
-from mebt_tpu_torch.ops.sampling import promote_targets, sample_tokens
+from mebt_tpu_torch.ops.head_sample import head_sample, head_topk_sample
+from mebt_tpu_torch.ops.sampling import (
+    exact_rank_desc,
+    promote_targets,
+    sample_tokens,
+)
 from mebt_tpu_torch.sampler.mask_schedule import DecodePlan, plan_segments_joint
 
 
@@ -71,8 +82,9 @@ class DecodeState:
 
 class _Rng:
     """The decode's random streams, from one integer seed: a host
-    generator for K3's per-step seeds and a device generator for the
-    noise drawn on the device. Neither waits for the device."""
+    generator for the head kernels' per-step seeds and a device
+    generator for the noise drawn on the device. Neither waits for the
+    device."""
 
     def __init__(self, seed: int, device: torch.device):
         self.host = torch.Generator().manual_seed(int(seed))
@@ -145,15 +157,18 @@ def _stage_a_latents(model, state: DecodeState, ctx_bucket: int):
 def _sample_compact_bucket(model, latents, idx, cvalid, temperature, top_k,
                            top_p, rng: _Rng):
     """Dec phase + head + sampling on a compact target bucket. Without
-    top-k/top-p this is K3 (the logits never reach device memory);
-    otherwise the logits are materialized and sampled plainly."""
-    if top_k is None and top_p is None:
+    top-p this is K3, or K4 when top-k is set (the logits never reach
+    device memory); with top-p the logits are materialized and sampled
+    plainly."""
+    if top_p is None:
         tokens = model.stage_b_tokens(latents, idx, cvalid)
         B, M, D = tokens.shape
-        ids, probs = head_sample(
-            tokens.reshape(B * M, D), model.transformer.head.weight,
-            rng.next_int(2**32), temperature,
-        )
+        x, w = tokens.reshape(B * M, D), model.transformer.head.weight
+        seed = rng.next_int(2**32)
+        if top_k is None:
+            ids, probs = head_sample(x, w, seed, temperature)
+        else:
+            ids, probs = head_topk_sample(x, w, seed, int(top_k), temperature)
         return ids.view(B, M), probs.view(B, M)
     logits = model.stage_b_compact(latents, idx, cvalid)
     sampled, chosen_p, _ = sample_tokens(
@@ -192,10 +207,74 @@ def _staged_confidence_scan(model, state: DecodeState, plan: DecodePlan,
     return state
 
 
+def random_path_buckets(plan: DecodePlan, N: int, n_ctx0: int) -> tuple[int, int]:
+    """(target_bucket, ctx_bucket) of the staged random/bootstrap scan:
+    one 8-aligned target bucket from the largest per-step promotion
+    count (logits are computed at promoted slots only) and one
+    128-aligned context bucket for the final context count, `n_ctx0`
+    being the largest initial one."""
+    bucket = max(8, int(np.max(plan.n_new, initial=0)))
+    bucket = -(-bucket // 8) * 8
+    n_ctx = max(1, n_ctx0 + int(np.sum(plan.n_new, initial=0)))
+    return bucket, int(min(N, -(-n_ctx // 128) * 128))
+
+
+def _staged_random_scan(model, state: DecodeState, plan: DecodePlan, *,
+                        bucket: int, ctx_bucket: int, temperature, top_k,
+                        top_p, rng: _Rng, perm_noise=None) -> DecodeState:
+    """Staged random/bootstrap decode. Taking the top n_new of fresh
+    noise among the remaining targets at every step is sampling without
+    replacement, the same as consuming one random permutation of the
+    initial targets n_new at a time: so ONE uniform draw (`perm_noise`
+    (B, N) replaces it) is ranked once, and step i promotes the ranks in
+    [off_i, off_i + n_new_i). The forward conditions on the context
+    before the step's promotion, as the dense scan does."""
+    B = state.codes.shape[0]
+    device = state.codes.device
+    tgt0 = ~state.ctx_mask
+    noise = (
+        torch.rand(tgt0.shape, device=device, generator=rng.dev)
+        if perm_noise is None else perm_noise.to(device, torch.float32)
+    )
+    perm_rank = exact_rank_desc(
+        torch.where(tgt0, noise, torch.full_like(noise, float("-inf")))
+    )
+    offsets = np.concatenate([[0], np.cumsum(plan.n_new)[:-1]])
+    slots = torch.arange(bucket, device=device)
+    for i in range(len(plan.do_step)):
+        if not plan.do_step[i]:
+            continue
+        off, n_new = int(offsets[i]), int(plan.n_new[i])
+        promote = tgt0 & (perm_rank >= off) & (perm_rank < off + n_new)
+        idx = compact_indices(promote, bucket)
+        cvalid = (slots < n_new).expand(B, bucket)
+        latents = _stage_a_latents(model, state, ctx_bucket)
+        logits = model.stage_b_compact(latents, idx, cvalid)
+        sampled, chosen_p, _ = sample_tokens(
+            logits, temperature, top_k, top_p, generator=rng.dev
+        )
+        state = DecodeState(
+            codes=_scatter_drop(state.codes, idx, sampled),
+            ctx_mask=state.ctx_mask | promote,
+            chosen_prob=_scatter_drop(state.chosen_prob, idx, chosen_p),
+        )
+    return state
+
+
 def _staged_sample(model, state: DecodeState, plan: DecodePlan, *,
                    temperature, top_k, top_p, context_temperature,
-                   rng: _Rng) -> DecodeState:
+                   random_scores: bool, n_ctx0: int, rng: _Rng,
+                   perm_noise=None) -> DecodeState:
+    """`n_ctx0`: the largest initial context count of a row, known on
+    the host; it sizes the random path's context bucket."""
     N = state.codes.shape[1]
+    if random_scores:
+        bucket, ctx_bucket = random_path_buckets(plan, N, n_ctx0)
+        return _staged_random_scan(
+            model, state, plan, bucket=bucket, ctx_bucket=ctx_bucket,
+            temperature=temperature, top_k=top_k, top_p=top_p, rng=rng,
+            perm_noise=perm_noise,
+        )
     n_tgt = plan.n_targets_before(N)
     segments = plan_segments_joint(plan, N, ctx_weight=_ctx_weight(model.config))
     for start, stop, bucket, ctx_bucket in segments:
@@ -226,17 +305,18 @@ def maskgit_sample(
     staged: bool = True,
     sample_noise: torch.Tensor | None = None,
     promote_noise: torch.Tensor | None = None,
+    perm_noise: torch.Tensor | None = None,
 ) -> DecodeState:
-    """One MaskGIT decode pass (reference sample(), transformer.py:353-447)
-    on the device of `model`.
+    """One MaskGIT/bootstrap/random decode pass (reference sample(),
+    transformer.py:353-447) on the device of `model`.
 
     `staged=True` uses the compacted two-stage forward when the mode
     list allows it and no noise is injected; `staged=False` forces the
-    dense scan. `sample_noise` (S, B, N, V) and
-    `promote_noise` (S, B, N) replace the random draws per plan step
-    (test hooks; they force the dense scan). Strategies: `maskgit`, and
-    `random`/`bootstrap` on the dense scan only (their staged path is not
-    ported yet)."""
+    dense scan. Test hooks: `sample_noise` (S, B, N, V) and
+    `promote_noise` (S, B, N) replace the random draws per plan step and
+    force the dense scan; `perm_noise` (B, N) replaces the one draw that
+    fixes the promotion order of the staged `random`/`bootstrap` decode
+    (larger = promoted earlier)."""
     if strategy not in ("maskgit", "random", "bootstrap"):
         raise NotImplementedError(f"strategy {strategy!r} is not ported yet")
     device = next(model.parameters()).device
@@ -248,30 +328,28 @@ def maskgit_sample(
     use_staged = (
         staged and transformer_split(model.config) is not None and not with_noise
     )
+    if perm_noise is not None and not (use_staged and random_scores):
+        raise ValueError(
+            "perm_noise belongs to the staged random/bootstrap decode only"
+        )
     if use_staged:
-        if random_scores:
-            raise NotImplementedError(
-                "the staged random/bootstrap decode is not ported yet; "
-                "pass staged=False"
-            )
-        # the staged scan takes its target counts from the plan; check
-        # the given context once (one host fetch, before any segment)
-        if ctx_mask is not None:
-            n_ctx = np.unique(state.ctx_mask.sum(dim=-1).cpu().numpy())
-            if not np.all(n_ctx == plan.n_ctx_init):
-                raise ValueError(
-                    f"ctx_mask context counts {n_ctx} != plan.n_ctx_init "
-                    f"{plan.n_ctx_init}; build the plan with matching "
-                    "n_ctx_init or pass staged=False"
-                )
-        elif plan.n_ctx_init != 0:
+        # the given context's per-row counts: one host fetch, before any step
+        n_ctx = (
+            np.zeros(1, np.int64) if ctx_mask is None
+            else np.unique(state.ctx_mask.sum(dim=-1).cpu().numpy())
+        )
+        # the confidence scan takes its target counts from the plan
+        if not random_scores and not np.all(n_ctx == plan.n_ctx_init):
             raise ValueError(
-                f"plan.n_ctx_init {plan.n_ctx_init} != 0 but no ctx_mask was given"
+                f"ctx_mask context counts {n_ctx} != plan.n_ctx_init "
+                f"{plan.n_ctx_init}; build the plan with matching "
+                "n_ctx_init (and pass the ctx_mask) or pass staged=False"
             )
         return _staged_sample(
             model, state, plan, temperature=float(temperature), top_k=top_k,
             top_p=top_p, context_temperature=float(context_temperature),
-            rng=rng,
+            random_scores=random_scores, n_ctx0=int(n_ctx.max()), rng=rng,
+            perm_noise=perm_noise,
         )
     if with_noise and (sample_noise is None or promote_noise is None):
         raise ValueError("sample_noise and promote_noise must be passed together")

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from mebt_tpu_torch.sampler.decode import maskgit_sample
-from mebt_tpu_torch.sampler.mask_schedule import maskgit_plan
+from mebt_tpu_torch.sampler.mask_schedule import bootstrap_plan, maskgit_plan
 
 
 @dataclass
@@ -54,10 +54,21 @@ def bidirect_generate(
     vid_n_steps: int = 8,
     vid_c_temp: float = 4.5,
     ctemp_schedule: str = "linear",
+    strategy: str = "maskgit",
     schedule: str = "cosine",
+    bootstrap: int = 0,
+    _noise_hook=None,
 ) -> GenerationResult:
     """MaskGIT generation with the sliding-window long-video loop, on
-    the device of `model`."""
+    the device of `model`. `bootstrap` > 0 first promotes that many
+    random positions of the first window one per step, sampled at
+    temperature 1.0 without filtering, and the main plan starts from
+    them.
+
+    `_noise_hook(call_idx, plan) -> dict(sample_noise=, promote_noise=)`
+    is a test-only seam, called once per decode pass (the bootstrap
+    phase is call 0 when enabled, then the main window, then each shift
+    window), so that a test can share noise with the JAX package."""
     T, h, w = model.config.latent_shape
     device = next(model.parameters()).device
     ratio = 1.0 / vqgan.config.downsample[0]
@@ -75,10 +86,29 @@ def bidirect_generate(
     seeds = torch.Generator().manual_seed(int(seed))
     sample_kw = dict(
         temperature=temperature, top_k=top_k, top_p=top_p,
-        context_temperature=vid_c_temp,
+        context_temperature=vid_c_temp, strategy=strategy,
     )
-    plan = maskgit_plan(N, vid_n_steps, schedule, ctemp_schedule)
-    state = maskgit_sample(model, _split(seeds), B, plan, **sample_kw)
+    n_call = 0
+
+    def decode(plan, **kw):
+        nonlocal n_call
+        noise = {} if _noise_hook is None else _noise_hook(n_call, plan)
+        n_call += 1
+        return maskgit_sample(model, _split(seeds), B, plan, **kw, **noise)
+
+    carried = {}
+    if bootstrap > 0:
+        state = decode(
+            bootstrap_plan(N, bootstrap), temperature=1.0,
+            strategy="bootstrap", context_temperature=vid_c_temp,
+        )
+        # positions promoted here are never sampled again: their
+        # probabilities enter the score with those of the main phase
+        carried = dict(codes=state.codes, ctx_mask=state.ctx_mask,
+                       chosen_prob=state.chosen_prob)
+    plan = maskgit_plan(N, vid_n_steps, schedule, ctemp_schedule,
+                        n_ctx_init=bootstrap if carried else 0)
+    state = decode(plan, **carried, **sample_kw)
     # per-sample score: sum log prob of each token at its final sampling
     # (reference sample script:85-91; first window only)
     score = torch.log(state.chosen_prob).sum(dim=-1).cpu().numpy().astype(np.float64)
@@ -95,9 +125,8 @@ def bidirect_generate(
         while curr < total_lat:
             window = np.zeros((B, T, h, w), np.int64)
             window[:, :ctx_lat] = codes[:, curr - ctx_lat : curr]
-            state = maskgit_sample(
-                model, _split(seeds), B, shift_plan,
-                codes=torch.from_numpy(window.reshape(B, N)),
+            state = decode(
+                shift_plan, codes=torch.from_numpy(window.reshape(B, N)),
                 ctx_mask=ctx_mask, **sample_kw,
             )
             fresh = state.codes.cpu().numpy().reshape(B, T, h, w)[:, ctx_lat:]

@@ -1,4 +1,4 @@
-"""K1-K3 against their plain versions on a CUDA card, at small shapes
+"""K1-K4 against their plain versions on a CUDA card, at small shapes
 with ragged edges, in fp32 (tolerance 1e-5: fp32 sums in another order)
 and bf16 (both sides round one fp32 result to bf16, so an element may
 differ by one bf16 ulp, at most 2^-7 of its value: the tolerance is two
@@ -17,7 +17,12 @@ from mebt_tpu_torch.ops.attention_cuda import (
     smallq_attention,
     smallq_attention_ref,
 )
-from mebt_tpu_torch.ops.head_sample import head_sample, head_sample_ref
+from mebt_tpu_torch.ops.head_sample import (
+    head_sample,
+    head_sample_ref,
+    head_topk_sample,
+    head_topk_sample_ref,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -96,3 +101,51 @@ def test_head_sample_matches_plain(dev, dtype):
     ids0, _ = head_sample(x, w, 5, 0.0)
     logits = x.float() @ w.float().t()
     assert (ids0.long() == logits.argmax(-1)).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V,k", [(1000, 32), (1000, 1), (20, 32)])  # k >= V: k = V
+def test_head_topk_sample_matches_plain(dev, dtype, V, k):
+    gen = torch.Generator(dev).manual_seed(V + k)
+    R, D = 300, 96  # no multiple of the 64-row / 64-column tiles
+    x = _randn(gen, R, D, dtype=dtype, dev=dev)
+    w = (0.1 * torch.randn(V, D, generator=gen, device=dev)).to(dtype)
+    logits = x.float() @ w.float().t()
+    kk = min(k, V)
+    before = head_topk_sample.launches
+    for temp in (1.0, 0.7):
+        ids, probs = head_topk_sample(x, w, 5, k, temp)
+        rids, rprobs = head_topk_sample_ref(x, w, k, temp, seed=5)
+        assert (ids != rids).sum().item() <= 1  # a near-tie may flip
+        same = ids == rids
+        torch.testing.assert_close(probs[same], rprobs[same], rtol=1e-4, atol=1e-7)
+        # inside the top-k set, but for a near-tie at its edge
+        kth = torch.topk(logits, kk, dim=-1).values[:, -1]
+        assert (logits.gather(1, ids.long()[:, None])[:, 0] >= kth - 1e-4).all()
+    assert head_topk_sample.launches == before + 2
+    ids0, probs0 = head_topk_sample(x, w, 5, k, 0.0)
+    assert (ids0.long() == logits.argmax(-1)).float().mean().item() >= 0.99
+    assert (probs0 > 0.5).float().mean().item() >= 0.99
+
+
+def test_head_topk_sample_frequencies(dev):
+    """One row repeated: the draws follow the top-k-filtered softmax and
+    never leave the top-k (chi-square, 7 dof, upper 1e-4 quantile)."""
+    gen = torch.Generator(dev).manual_seed(1)
+    D, V, k, R = 32, 64, 8, 1 << 15
+    x1 = torch.randn(1, D, generator=gen, device=dev)
+    w = 0.3 * torch.randn(V, D, generator=gen, device=dev)
+    ids, _ = head_topk_sample(x1.expand(R, D).contiguous(), w, 9, k, 1.0)
+    vals, cols = torch.topk((x1 @ w.t())[0], k)
+    counts = torch.bincount(ids.long(), minlength=V).double()
+    assert counts.sum() == counts[cols].sum()
+    expect = torch.softmax(vals.double(), 0) * R
+    chi2 = ((counts[cols] - expect) ** 2 / expect).sum().item()
+    assert chi2 < 29.878
+
+
+def test_head_topk_sample_refuses_large_k(dev):
+    x = torch.zeros(4, 8, device=dev)
+    w = torch.zeros(1000, 8, device=dev)
+    with pytest.raises(ValueError, match="top-k"):
+        head_topk_sample(x, w, 0, 257)

@@ -36,6 +36,38 @@ def test_sample_tokens_with_noise_matches_jax(temp, top_k, top_p):
     np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("temp,k", [(1.0, 5), (0.8, 1), (1.3, 32)])
+def test_sample_topk_tokens_matches_jax(dtype, temp, k):
+    """The JAX function draws q = exponential(key, (rows, k)); the test
+    computes that draw with the same key and hands it to the port: ids
+    bit-equal, chosen_prob to 1e-5. bf16 logits have exact ties, which
+    both sides resolve to the lowest index."""
+    rng = np.random.default_rng(k)
+    logits = jnp.asarray(rng.normal(size=(3, 8, 40)).astype(np.float32) * 2, dtype)
+    key = jax.random.PRNGKey(7)
+    want_s, want_p = js.sample_topk_tokens(key, logits, k, temp)
+    q = np.array(jax.random.exponential(key, (24, k), dtype=jnp.float32))
+    tl = torch.from_numpy(np.array(logits, np.float32)).to(getattr(torch, dtype))
+    got_s, got_p = ts.sample_topk_tokens(tl, k, temp, noise=torch.from_numpy(q))
+    assert got_s.shape == (3, 8) and got_s.dtype == torch.int32
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), atol=1e-5)
+
+
+def test_sample_topk_tokens_draws_inside_the_top_k():
+    rng = np.random.default_rng(9)
+    logits = torch.from_numpy(rng.normal(size=(64, 50)).astype(np.float32))
+    gen = torch.Generator().manual_seed(0)
+    ids, probs = ts.sample_topk_tokens(logits, 4, 1.0, generator=gen)
+    top = torch.topk(logits, 4, dim=-1).indices
+    assert (ids[:, None] == top).any(-1).all()
+    assert len(torch.unique((ids[:, None] == top).int().argmax(-1))) > 1  # not greedy
+    want = torch.softmax(torch.topk(logits, 4, dim=-1).values, -1)
+    slot = (ids[:, None] == top).int().argmax(-1)
+    torch.testing.assert_close(probs, want.gather(1, slot[:, None])[:, 0])
+
+
 def test_filters_and_rank_match_jax():
     rng = np.random.default_rng(1)
     x = rng.normal(size=(4, 30)).astype(np.float32)
