@@ -1,7 +1,8 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
 Each `csrc/<name>.cu` becomes `_build/lib<name>-<hash>.so` (the hash is
-of the source and the flags, so an edit rebuilds), compiled at first use
+of the source, the shared headers `csrc/*.cuh` and the flags, so an edit
+rebuilds), compiled at first use
 for sm_90a. `build_all` starts one nvcc per missing library, all at
 once, and waits for them. Only the repository's own sources are built.
 Every C entry point returns `cudaGetLastError()`; `check` raises on a
@@ -41,6 +42,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD / f"lib{name}-{digest}.so"
 

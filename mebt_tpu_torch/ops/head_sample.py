@@ -13,8 +13,8 @@
 Both return (ids int32, prob of the id fp32); the (R, V) logits never
 reach device memory. `w` is the head's nn.Linear weight, (V, D). The
 noise is Philox4x32-10 keyed on (seed, row, vocabulary column);
-`philox_exponential` computes the same draws in plain PyTorch, so each
-kernel and its plain version (`*_ref`) agree on the samples for one
+`philox_exponential` (ops/philox.py) computes the same draws in plain
+PyTorch, so each kernel and its plain version (`*_ref`) agree on the samples for one
 seed, up to near-ties of the logits.
 
 A wrapper runs its plain version only for tensors on the CPU; a CUDA
@@ -29,6 +29,11 @@ import ctypes
 import torch
 
 from mebt_tpu_torch.ops import _build
+from mebt_tpu_torch.ops.philox import (  # noqa: F401  (re-exported)
+    philox_bits,
+    philox_exponential,
+    philox_exponential_at,
+)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,53 +48,6 @@ _SIGNATURES = {
     ),
 }
 MAX_TOPK = 256  # K4's (64, k) buffers of values and indices live in shared memory
-
-_M0, _M1 = 0xD2511F53, 0xCD9E8D57
-_W0, _W1 = 0x9E3779B9, 0xBB67AE85
-_MASK32 = 0xFFFFFFFF
-
-
-def _mulhilo(a: torch.Tensor, m: int):
-    """(hi, lo) 32-bit halves of a * m for int64 tensors a < 2^32,
-    without leaving int64."""
-    p_lo = a * (m & 0xFFFF)
-    p_hi = a * (m >> 16)
-    hi = (p_hi + (p_lo >> 16)) >> 16
-    lo = (((p_hi & 0xFFFF) << 16) + p_lo) & _MASK32
-    return hi, lo
-
-
-def philox_bits(seed: int, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
-    """Philox4x32-10, key (seed, 0), counter (col, row, 0, 0); first
-    output word, as int64 in [0, 2^32). rows (R, 1); cols (1, V), or
-    (R, k) for a row's own columns."""
-    c0 = cols.to(torch.int64).expand(rows.shape[0], cols.shape[1])
-    c1 = rows.to(torch.int64).expand_as(c0)
-    c2 = torch.zeros_like(c0)
-    c3 = torch.zeros_like(c0)
-    k0, k1 = int(seed) & _MASK32, 0
-    for _ in range(10):
-        hi0, lo0 = _mulhilo(c0, _M0)
-        hi1, lo1 = _mulhilo(c2, _M1)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-        k0 = (k0 + _W0) & _MASK32
-        k1 = (k1 + _W1) & _MASK32
-    return c0
-
-
-def philox_exponential_at(seed: int, cols: torch.Tensor) -> torch.Tensor:
-    """Exp(1) draws q = -log(u) at row r's columns cols[r] (cols (R, k),
-    or (1, V) for the same columns in one row), u from the top 23 bits
-    of the Philox word as in the kernels (u in [2^-25, 1))."""
-    rows = torch.arange(cols.shape[0], device=cols.device)[:, None]
-    bits = ((philox_bits(seed, rows, cols) >> 9) | 0x3F800000).to(torch.int32)
-    u = (bits.view(torch.float32) - 1.0) + 2.9802322e-8
-    return -torch.log(u)
-
-
-def philox_exponential(seed: int, R: int, V: int, device) -> torch.Tensor:
-    """(R, V) Exp(1) draws: `philox_exponential_at` every column."""
-    return philox_exponential_at(seed, torch.arange(V, device=device).expand(R, V))
 
 
 def head_sample_ref(x, w, temperature: float, noise=None, *, seed: int = 0):

@@ -1,15 +1,17 @@
-"""Decode plans and the segment DP, host-side (numpy only).
+"""Mask schedules, training masks, decode plans and the segment DP,
+host-side (numpy only).
 
-A copy of the decode half of mebt_tpu/sampler/mask_schedule.py; the
-float arithmetic is kept verbatim, because the segment DP decides every
-bucket shape of the staged decode. tests/test_torch_mask_schedule.py
-holds this copy equal to the original.
+A copy of mebt_tpu/sampler/mask_schedule.py; the float arithmetic is kept
+verbatim, because the segment DP decides every bucket shape of the staged
+decode and `MaskGen` decides every training mask.
+tests/test_torch_mask_schedule.py and tests/test_torch_train_masks.py
+hold this copy equal to the original.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -42,6 +44,164 @@ CTEMP_SCHEDULES = {
     "constant": lambda t: 1.0,
     "cosine": lambda t: math.cos(t * math.pi / 2.0),
 }
+
+
+# -- temporal-window priors (reference: transformer.py:25-49) -----------------
+
+
+def t_prior_uniform(vid_lengths, step):
+    return np.ones_like(vid_lengths, dtype=float)
+
+
+def _t_prior_gaussian(vid_lengths, step, b, c):
+    x = -((step - (vid_lengths - 1) * b) ** 2) / (2 * (b * c) ** 2)
+    return np.exp(x)
+
+
+def t_prior_gaussian2(vid_lengths, step):
+    return _t_prior_gaussian(vid_lengths, step, b=30000, c=2)
+
+
+def t_prior_gaussian100000_2(vid_lengths, step):
+    return _t_prior_gaussian(vid_lengths, step, b=100000, c=2)
+
+
+def t_prior_longest(vid_lengths, step):
+    x = np.zeros_like(vid_lengths, dtype=float)
+    x[-1] = 1.0
+    return x
+
+
+T_PRIORS = {
+    "uniform": t_prior_uniform,
+    "gaussian2": t_prior_gaussian2,
+    "gaussian100000_2": t_prior_gaussian100000_2,
+    "longest": t_prior_longest,
+}
+
+
+# -- training-time mask construction ------------------------------------------
+
+
+@dataclass
+class TrainMasks:
+    """Static-shape mask bundle for one training batch."""
+
+    ctx_mask: np.ndarray  # (B, N) bool
+    tgt_mask: np.ndarray  # (B, N) bool
+    seq_len: int  # tokens in the sampled temporal window
+    n_targets: int
+    n_contexts: int
+    t: float
+    window: tuple[int, int]  # (start_frame, n_frames)
+
+    @property
+    def masked_weight(self) -> float:
+        """Window length - contexts: the number of MASKED tokens, which
+        exceeds n_targets when the budget caps the predicted set."""
+        return float(self.seq_len - self.n_contexts)
+
+
+@dataclass
+class MaskGen:
+    """Mask generator with the reference's config surface
+    (mebt/mask_sampler.py:9-115); methods other than 'mlm' raise, as
+    they do upstream."""
+
+    iid: bool = False
+    schedule: str = "cosine"
+    max_token: int = 256
+    method: str | None = None
+    shape: tuple[int, int, int] = (4, 16, 16)
+    t_range: tuple[float, float] = (0.0, 1.0)
+    budget: int = 1024
+
+    seq_len: int = field(init=False)
+    num_pos: int = field(init=False)
+
+    def __post_init__(self):
+        schedule_fn(self.schedule)  # validate
+        if self.method is None:
+            self.method = "iid" if self.iid else "mlm"
+        if self.method not in ("mlm",):
+            raise NotImplementedError(f"method {self.method!r} not implemented")
+        self.shape = tuple(self.shape)
+        self.t_range = tuple(self.t_range)
+        self.seq_len = int(np.prod(self.shape))
+        self.num_pos = int(np.prod(self.shape[1:]))
+
+    def mask_ratio(self, t):
+        return schedule_fn(self.schedule)(t)
+
+    def counts(self, t: float, seq_len: int, training: bool = True):
+        """(n_contexts, n_targets) per reference mask_sampler.py:101-115."""
+        n_masked = int(np.ceil(float(self.mask_ratio(t)) * seq_len))
+        n_contexts = seq_len - n_masked
+        budget = self.budget if training else seq_len
+        n_targets = min(budget, seq_len - n_contexts)
+        return n_contexts, n_targets
+
+    def sample_window(self, rng: np.random.Generator, prior_t: np.ndarray):
+        """Window length T from the curriculum prior and a uniform start
+        offset (reference mask_sampler.py:84-99)."""
+        max_T = self.shape[0]
+        prior = np.asarray(prior_t, dtype=float)
+        prior = prior / prior.sum()
+        T = int(rng.choice(np.arange(1, max_T + 1), p=prior))
+        start_t = 0 if T == max_T else int(rng.integers(0, max_T - T + 1))
+        return start_t, T
+
+    def train_masks(
+        self,
+        perms: np.ndarray,
+        t: float,
+        start_t: int,
+        T: int,
+        training: bool = True,
+    ) -> TrainMasks:
+        """Context/target masks from per-sample permutations perms
+        (B, N): within the window [start_t, start_t + T) latent frames, a
+        position is a context iff its rank in the window-restricted
+        permutation is < n_contexts and a target iff it is >= seq_len -
+        n_targets. training=False lifts the target budget to seq_len and
+        takes the full window only."""
+        B, N = perms.shape
+        if N != self.seq_len:
+            raise ValueError(f"perm length {N} != seq_len {self.seq_len}")
+        if not training and (start_t, T) != (0, self.shape[0]):
+            raise ValueError("eval-mode masks use the full window")
+        start_idx = start_t * self.num_pos
+        end_idx = (start_t + T) * self.num_pos
+        seq_len = T * self.num_pos
+
+        n_contexts, n_targets = self.counts(t, seq_len, training=training)
+
+        in_window = (perms >= start_idx) & (perms < end_idx)  # order: perm
+        csum = np.cumsum(in_window, axis=1)
+        rank = csum - in_window.astype(csum.dtype)  # exclusive prefix count
+
+        ctx_sel = in_window & (rank < n_contexts)
+        tgt_sel = in_window & (rank >= seq_len - n_targets)
+
+        ctx_mask = np.zeros((B, N), dtype=bool)
+        tgt_mask = np.zeros((B, N), dtype=bool)
+        rows = np.nonzero(ctx_sel)[0]
+        ctx_mask[rows, perms[ctx_sel]] = True
+        rows = np.nonzero(tgt_sel)[0]
+        tgt_mask[rows, perms[tgt_sel]] = True
+
+        return TrainMasks(
+            ctx_mask=ctx_mask,
+            tgt_mask=tgt_mask,
+            seq_len=seq_len,
+            n_targets=n_targets,
+            n_contexts=n_contexts,
+            t=float(t),
+            window=(start_t, T),
+        )
+
+
+# -- decode plans (static per (N, n_steps, schedule)) ---------------------------
 
 
 @dataclass

@@ -47,7 +47,11 @@ def _convt(p: Mapping, key: str) -> dict:
 
 
 def mebt_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
-    """State dict for models/mebt.py:MeBT from mebt_tpu MeBT params."""
+    """State dict for models/mebt.py:MeBT from mebt_tpu MeBT params. Any
+    tree of the parameters' structure maps the same way: a gradient tree
+    or an updated parameter tree lands on the names and layouts of
+    `model.named_parameters()` (and their `.grad`), a tree of 0 / 1 flags
+    such as the optimizer's decay mask on one flag per name."""
     tp = params["transformer"]
     sd = {
         "tok_emb.weight": _t(params["tok_emb"]["embedding"]),

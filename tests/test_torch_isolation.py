@@ -26,6 +26,12 @@ print("ok", len([n for n in sys.modules if n.startswith("mebt_tpu_torch")]))
 """
 
 
+def test_the_training_slices_modules_are_covered():
+    covered = {str(p.relative_to(ROOT / "mebt_tpu_torch")) for p in PORT_FILES[:-1]}
+    assert {"train/trainer.py", "train/train_state.py", "utils/metrics.py",
+            "ops/philox.py", "sampler/mask_schedule.py"} <= covered
+
+
 def test_import_pulls_in_no_jax_and_no_jax_package():
     # a fresh interpreter: this process has jax loaded already
     out = subprocess.run(
