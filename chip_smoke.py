@@ -515,7 +515,7 @@ def check_k7(dev, gen):
             torch.cuda.synchronize()
             err, over = grad_errors(got, ref, dtype)
             require(over <= 1, f"K7 {case} {dtype}: err {err} ({over} of its bound)")
-            bnd, by = bound_ms(nbytes(q, k, v, g, *got), 12.0 * B * H * NQ * NK * Dh, dtype)
+            bnd, by = bound_ms(nbytes(q, k, v, g, *got), 10.0 * B * H * NQ * NK * Dh, dtype)
             row = dict(
                 case=case, dtype=str(dtype).split(".")[-1], shape=[B, H, NQ, NK, Dh],
                 max_abs_err=err, max_abs_ref=max(r.float().abs().max().item() for r in ref),
@@ -544,9 +544,20 @@ def probe_dropped_probs(fwd, v_shape, dev):
     return torch.cat(cols, dim=-1).double()
 
 
+# (case, regime, queries, keys, leading keys always live, probe the mask):
+# the four attention calls of an STL-16f training step, batch 6. The masked
+# ones have a batch row with no live key, as latent_enc has at a small t.
+K8_CASES = (
+    ("latent_enc", "smallq", 256, 1024, 0, False), ("lt2l", "smallq", 256, 1280, 256, True),
+    ("latent_self", "largeq", 256, 256, 0, False), ("latent_dec", "largeq", 1024, 256, 0, True),
+)
+
+
 def check_k8(dev, gen):
-    """Dropout at rate 0.1 in K1, K2, K6, K7, at the 16f training shapes
-    (lt2l and latent_dec, batch 6)."""
+    """Dropout at rate 0.1 in K1, K2, K6, K7, forward and backward against
+    the plain versions under the same Philox mask, at every attention
+    shape of an STL-16f training step; at one shape of each regime the
+    mask the kernels used is also recovered through their outputs."""
     import torch.nn.functional as F
 
     from mebt_tpu_torch.ops import attention_cuda as ac
@@ -554,10 +565,10 @@ def check_k8(dev, gen):
 
     H, Dh, B, SEED = 16, 64, TRAIN_BATCH, 1234
     rows = []
-    for regime, NQ, NK in (("smallq", 256, 1280), ("largeq", 1024, 256)):
+    for case, regime, NQ, NK, head_ones, probe in K8_CASES:
         masked = regime == "smallq"
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, g, mask = k6_inputs(dev, gen, B, NK, 256, masked, dtype, NQ=NQ)
+            q, k, v, g, mask = k6_inputs(dev, gen, B, NK, head_ones, masked, dtype, NQ=NQ)
             km = mask if masked else None
 
             def fwd(v_, seed=SEED, rate=P_DROP):
@@ -589,24 +600,24 @@ def check_k8(dev, gen):
                 ferr = (out - ref).abs().max().item()
                 fover = ferr / 1e-5
             gerr, gover = grad_errors(grads, gref, dtype)
-            require(fover <= 1, f"K8 {regime} {dtype}: forward err {ferr} ({fover} of its bound)")
-            require(gover <= 1, f"K8 {regime} {dtype}: backward err {gerr} ({gover} of its bound)")
+            require(fover <= 1, f"K8 {case} {dtype}: forward err {ferr} ({fover} of its bound)")
+            require(gover <= 1, f"K8 {case} {dtype}: backward err {gerr} ({gover} of its bound)")
             # one seed: bit-equal; another seed: differs; rate 0: the no-dropout kernel
             require(bool(torch.equal(out, fwd(v))) and
                     all(bool(torch.equal(a, b)) for a, b in zip(grads, bwd())),
-                    f"K8 {regime} {dtype}: two calls with one seed differ")
+                    f"K8 {case} {dtype}: two calls with one seed differ")
             require(not torch.equal(out, fwd(v, seed=77)) and
                     not torch.equal(grads[0], bwd(seed=77)[0]),
-                    f"K8 {regime} {dtype}: another seed gave the same result")
+                    f"K8 {case} {dtype}: another seed gave the same result")
             plain_fwd = ac.fused_attention(q, k, v, km)
             require(bool(torch.equal(fwd(v, rate=0.0), plain_fwd)) and
                     bool(torch.equal(ac.fused_dropout_attention(q, k, v, km, 0.0, SEED), plain_fwd)),
-                    f"K8 {regime} {dtype}: rate 0 is not the no-dropout kernel")
-            row = dict(case=regime, dtype=str(dtype).split(".")[-1], shape=[B, H, NQ, NK, Dh],
+                    f"K8 {case} {dtype}: rate 0 is not the no-dropout kernel")
+            row = dict(case=case, regime=regime, dtype=str(dtype).split(".")[-1], shape=[B, H, NQ, NK, Dh],
                        rate=P_DROP, max_abs_err=ferr, err_over_tol=fover,
                        grad_max_abs_err=gerr, grad_err_over_tol=gover)
 
-            if dtype == torch.float32:
+            if dtype == torch.float32 and probe:
                 # the mask the kernels really used, through their outputs alone
                 pm = probe_dropped_probs(fwd, v.shape, dev)
                 probs = ac.attention_probs(q, k, km).double()
@@ -615,15 +626,15 @@ def check_k8(dev, gen):
                 kept = level > 0.5
                 two_level = ((level.abs() < 1e-3) | ((level - 1 / (1 - P_DROP)).abs() < 1e-3))
                 require(bool(two_level.all()),
-                        f"K8 {regime}: recovered mask is not two-level")
+                        f"K8 {case}: recovered mask is not two-level")
                 n = int(solid.sum())
                 frac = kept.double().mean().item()
                 sigma = (P_DROP * (1 - P_DROP) / n) ** 0.5
                 require(abs(frac - (1 - P_DROP)) <= 3 * sigma,
-                        f"K8 {regime}: kept fraction {frac} not within 3 sigma of {1 - P_DROP}")
+                        f"K8 {case}: kept fraction {frac} not within 3 sigma of {1 - P_DROP}")
                 want = philox_keep(SEED, probs.shape, P_DROP, dev)
                 require(bool(torch.equal(kept, want[solid])),
-                        f"K8 {regime}: kernel mask differs from the Philox mask")
+                        f"K8 {case}: kernel mask differs from the Philox mask")
                 # backward against a float64 formula built from the recovered mask
                 q64, k64, v64, g64 = (t.double() for t in (q, k, v, g))
                 dpm = torch.einsum("bhqd,bhkd->bhqk", g64, v64) * (pm / probs.clamp(min=1e-30))
@@ -634,11 +645,11 @@ def check_k8(dev, gen):
                           torch.einsum("bhqk,bhqd->bhkd", pm, g64))
                 rel = max(((a.double() - b).abs().max() / b.abs().max()).item()
                           for a, b in zip(grads, want64))
-                require(rel <= 1e-4, f"K8 {regime}: backward vs recovered-mask formula {rel}")
+                require(rel <= 1e-4, f"K8 {case}: backward vs recovered-mask formula {rel}")
                 row.update(kept_fraction=frac, kept_sigma=sigma, probed_elements=n,
                            bwd_vs_recovered_mask_rel=rel, bwd_vs_recovered_mask_tol=1e-4)
                 del pm, probs, dpm, ds, want64, want
-            else:
+            elif dtype == torch.bfloat16:
                 n_live = mask.sum().item() if masked else B * NK
                 n_bytes = (2 * n_live * H * Dh * k.element_size() + nbytes(q, out)
                            + (nbytes(mask) + 4 * B * H * NQ if masked else 0))
@@ -678,12 +689,11 @@ def wrappers():
     branch of K1, K2, K6 and K7: its count is of their launches made with
     a rate above 0."""
     from mebt_tpu_torch.ops.attention_cuda import (
-        fused_dropout_attention, largeq_attention, largeq_backward, smallq_attention,
-        smallq_backward)
+        dropout_branch, largeq_attention, largeq_backward, smallq_attention, smallq_backward)
     from mebt_tpu_torch.ops.head_sample import head_sample, head_topk_sample
 
     return (smallq_attention, largeq_attention, head_sample, head_topk_sample,
-            smallq_backward, largeq_backward, fused_dropout_attention)
+            smallq_backward, largeq_backward, dropout_branch)
 
 
 def timed(fn):
@@ -1198,7 +1208,7 @@ def main(argv=None) -> int:
               case(report["K7"], "latent_dec", "bfloat16")),
         entry(6, "K8 dropout in K1/K2/K6/K7 (row: K1 at rate 0.1)",
               "mebt_tpu/ops/attention_pallas.py:71",
-              case(report["K8"], "smallq", "bfloat16")),
+              case(report["K8"], "lt2l", "bfloat16")),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mebt_tpu_torch.ops.attention_cuda import fused_attention, fused_dropout_attention
+from mebt_tpu_torch.ops.attention_cuda import fused_dropout_attention
 
 BLOCK_MODES = ("latent_enc", "latent_self", "latent_dec", "lt2l", "maskgit")
 
@@ -150,11 +150,9 @@ class CrossAttention(nn.Module):
 
     def attend(self, query, k, v, key_mask=None, drop: DropoutState | None = None):
         q = self.query(query)
-        if drop is not None and self.attn_pdrop > 0.0:
-            y = fused_dropout_attention(q, k, v, key_mask, self.attn_pdrop,
-                                        drop.attention_seed(self.layer))
-        else:
-            y = fused_attention(q, k, v, key_mask)
+        rate = self.attn_pdrop if drop is not None else 0.0
+        seed = drop.attention_seed(self.layer) if rate > 0.0 else 0
+        y = fused_dropout_attention(q, k, v, key_mask, rate, seed)
         return dropout(self.proj(y), self.resid_pdrop, drop)
 
     def forward(self, query, key, key_mask=None, drop: DropoutState | None = None):

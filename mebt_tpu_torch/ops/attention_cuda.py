@@ -15,8 +15,8 @@ blocks, forward and backward, with dropout on the probabilities
      Philox keyed on (seed, query row, key) of the unpadded problem, so
      forward and backward regenerate the same mask whatever their tiling,
      and `ops/philox.py:philox_keep` draws the same bits in PyTorch.
-     `dropout_launches` counts the launches of any of the four kernels
-     made with p_drop > 0.
+     `dropout_branch.launches` counts the launches of any of the four
+     kernels made with p_drop > 0.
 
 `fused_attention(q, k, v, key_mask)` and `fused_dropout_attention(q, k,
 v, key_mask, rate, seed)` are what every attention call of the model
@@ -34,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import types
 
 import torch
 
@@ -208,8 +209,18 @@ def _drop_args(p_drop: float, seed: int):
         raise ValueError(f"dropout rate {p_drop} outside [0, 1)")
     if p_drop == 0.0:
         return 0, 0, 1.0
-    fused_dropout_attention.launches += 1
     return int(seed) & 0xFFFFFFFF, drop_threshold(p_drop), 1.0 / (1.0 - p_drop)
+
+
+# K8: launches of K1/K2/K6/K7 made with p_drop > 0
+dropout_branch = types.SimpleNamespace(launches=0)
+
+
+def _launched(wrapper, p_drop: float) -> None:
+    """Count one launch of `wrapper`'s kernel, made and accepted."""
+    wrapper.launches += 1
+    if p_drop > 0.0:
+        dropout_branch.launches += 1
 
 
 def _ptr(t) -> ctypes.c_void_p:
@@ -234,7 +245,7 @@ def smallq_attention(q, k, v, key_mask, *, p_drop: float = 0.0, seed: int = 0):
         int(q.dtype == torch.bfloat16), *_drop_args(p_drop, seed), _build.stream_ptr(q),
     )
     _build.check(status, "smallq_attention")
-    smallq_attention.launches += 1
+    _launched(smallq_attention, p_drop)
     return out, lse
 
 
@@ -271,7 +282,7 @@ def largeq_attention(q, k, v, *, p_drop: float = 0.0, seed: int = 0):
         *_drop_args(p_drop, seed), _build.stream_ptr(q),
     )
     _build.check(status, "largeq_attention")
-    largeq_attention.launches += 1
+    _launched(largeq_attention, p_drop)
     return out
 
 
@@ -300,7 +311,7 @@ def smallq_backward(q, k, v, key_mask, out, lse, g, *, p_drop: float = 0.0, seed
         int(q.dtype == torch.bfloat16), *_drop_args(p_drop, seed), _build.stream_ptr(q),
     )
     _build.check(status, "smallq_backward")
-    smallq_backward.launches += 1
+    _launched(smallq_backward, p_drop)
     return dq, dk, dv
 
 
@@ -327,7 +338,7 @@ def largeq_backward(q, k, v, g, *, p_drop: float = 0.0, seed: int = 0):
         int(q.dtype == torch.bfloat16), *_drop_args(p_drop, seed), _build.stream_ptr(q),
     )
     _build.check(status, "largeq_backward")
-    largeq_backward.launches += 1
+    _launched(largeq_backward, p_drop)
     return dq, dk, dv
 
 
@@ -385,8 +396,6 @@ def fused_dropout_attention(q, k, v, key_mask, rate: float, seed: int):
         return _LargeQ.apply(q, k, v, rate, int(seed))
     return _SmallQ.apply(q, k, v, key_mask, rate, int(seed))
 
-
-fused_dropout_attention.launches = 0  # K8: launches of K1/K2/K6/K7 with rate > 0
 
 
 def fused_attention(q, k, v, key_mask=None):

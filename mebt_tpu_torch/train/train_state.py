@@ -123,12 +123,7 @@ class Optimizer:
         self.opt_step, self.mini_step = int(sd["opt_step"]), int(sd["mini_step"])
 
 
-def make_optimizer(model: nn.Module, exact_lr: float, warmup_steps: int = 0,
-                   weight_decay: float = 0.01, cosine_lr: bool = False,
-                   max_steps: int = 2_000_000, accumulate_grad_batches: int = 1,
-                   grad_clip: float | None = None) -> Optimizer:
-    return Optimizer(model, exact_lr, warmup_steps, weight_decay, cosine_lr,
-                     max_steps, accumulate_grad_batches, grad_clip)
+make_optimizer = Optimizer  # the name the trainer and the JAX package use
 
 
 @dataclass

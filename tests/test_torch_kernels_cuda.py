@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from mebt_tpu_torch.ops.attention_cuda import (
+    dropout_branch,
     fused_attention,
     fused_dropout_attention,
     largeq_attention,
@@ -238,9 +239,9 @@ def test_dropout_seed_and_rate_zero(dev, masked):
     km = mask if masked else None
     base = fused_attention(q, k, v, km)
     assert torch.equal(fused_dropout_attention(q, k, v, km, 0.0, 5), base)
-    before = fused_dropout_attention.launches
+    before = dropout_branch.launches
     a = fused_dropout_attention(q, k, v, km, 0.3, 5)
-    assert fused_dropout_attention.launches == before + 1
+    assert dropout_branch.launches == before + 1
     assert torch.equal(a, fused_dropout_attention(q, k, v, km, 0.3, 5))
     assert not torch.equal(a, fused_dropout_attention(q, k, v, km, 0.3, 6))
     assert not torch.equal(a, base)
@@ -255,11 +256,11 @@ def test_autograd_runs_the_backward_kernels(dev, masked, rate):
     fwd, bwd = ((smallq_attention, smallq_backward) if masked
                 else (largeq_attention, largeq_backward))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    n_f, n_b, n_d = fwd.launches, bwd.launches, fused_dropout_attention.launches
+    n_f, n_b, n_d = fwd.launches, bwd.launches, dropout_branch.launches
     out = fused_dropout_attention(*leaves, km, rate, 11)
     out.backward(g)
     assert (fwd.launches, bwd.launches) == (n_f + 1, n_b + 1)
-    assert fused_dropout_attention.launches == n_d + (2 if rate > 0 else 0)
+    assert dropout_branch.launches == n_d + (2 if rate > 0 else 0)
     if masked:
         o, lse = smallq_attention_ref(q, k, v, mask, p_drop=rate, seed=11)
         want = smallq_backward_ref(q, k, v, mask, o, lse, g, p_drop=rate, seed=11)
