@@ -3,14 +3,15 @@
     python3 chip_smoke.py [--out results/chip_smoke]
 
 1. prints the card's name and power limit, builds the kernels (K1-K4,
-   K6-K8) from mebt_tpu_torch/csrc with nvcc for sm_90a;
+   K6-K9) from mebt_tpu_torch/csrc with nvcc for sm_90a;
 2. holds each kernel against its plain PyTorch version on the card, at
    the shapes of the STL-16f decode (batch 16) and of the STL-128f
    decode (batch 2) in bf16, the attention backward kernels K6 and K7 at
    the shapes of STL-16f training (batch 6) and STL-128f training (batch
-   5) in fp32 and bf16, and dropout (K8) in all four attention kernels;
-   times kernel, plain version and one PyTorch library call for the same
-   function;
+   5) in fp32 and bf16, dropout (K8) in all four attention kernels, and
+   the nearest-code search (K9) at the encoder's shapes of both training
+   recipes, with a ragged codebook and exact ties; times kernel, plain
+   version and one PyTorch library call for the same function;
 3. generates STL-16f videos at full width through bidirect_generate
    (24L/16H/1024d, vocab 16384, 256 latents, N 1024, 32 MaskGIT steps,
    cosine, ctemp 8.0 linear, temperature 1.0, random weights from a
@@ -34,11 +35,22 @@
    dropout, where the loss must fall;
 7. checks one fp32 training step (loss and gradients) at full width,
    kernels on the card against the plain versions on the CPU;
-8. prints the kernels' JSON line and, last, the result line.
+8. trains from raw video (`train_video`): STL-16f, batch 6 of synthetic
+   16x128x128 videos made from a seed, through the port's DataLoader, a
+   random VQGAN encoder (cuDNN, fp32), K9 once a step, then MeBT forward
+   and backward and AdamW as in 6; 5 timed steps, the trainer's own
+   torch.profiler trace, and a profile for the idle share and the
+   encoder's share;
+9. the same for STL-128f (`train_video_128`): batch 5 of 128-frame
+   videos, N 8192, t_prior gaussian2, budget 8192, 2 timed steps under
+   no remat and under each remat policy, with peak memory per run;
+10. checks one fp32 training step from video (`whole_video`): encoder
+   latent, codes (near-tie rule), loss and gradients, card against CPU;
+11. prints the kernels' JSON line and, last, the result line.
 
-`--only a,b` runs a subset of the phases (k1 k2 k3 k4 k6 k7 k8 gen16
-gen128 whole train whole_train) while developing; it then prints no
-kernels line and no result line.
+`--only a,b` runs a subset of the phases (k1 k2 k3 k4 k6 k7 k8 k9 gen16
+gen128 whole train whole_train train_video train_video_128 whole_video)
+while developing; it then prints no kernels line and no result line.
 
 Any failure exits non-zero. Without a CUDA device, or without the
 package beside it, it exits non-zero and prints no result. It imports
@@ -670,6 +682,61 @@ def check_k8(dev, gen):
     return rows
 
 
+# K9 at the train step's shapes: M = batch x latent positions (16f: 6 x
+# 4x16x16; 128f: 5 x 32x16x16) against the 16384-entry codebook of width
+# 256; a codebook (and a row count) that is no tile multiple; integer data,
+# where every sum is exact in fp32 and ties are everywhere, over a codebook
+# whose second half repeats the first.
+K9_CASES = (("16f", TRAIN_BATCH * 1024, 16384), ("128f", TRAIN_BATCH128 * 8192, 16384),
+            ("ragged", 1000, 16000), ("ties", TRAIN_BATCH * 1024, 16384))
+
+
+def check_k9(dev, gen):
+    from mebt_tpu_torch.ops.vq import code_mismatches, code_norms, nearest_code, nearest_code_ref
+
+    D = 256
+    rows = []
+    for case, M, K in K9_CASES:
+        if case == "ties":
+            x = torch.randint(-1, 2, (M, D), device=dev, generator=gen).float()
+            e = torch.randint(-1, 2, (K // 2, D), device=dev, generator=gen).float().repeat(2, 1)
+        else:
+            x = torch.randn(M, D, device=dev, generator=gen)
+            e = torch.randn(K, D, device=dev, generator=gen)
+        got = nearest_code(x, e)
+        want = nearest_code_ref(x, e)
+        torch.cuda.synchronize()
+        require(bool(((got >= 0) & (got < K)).all()), f"K9 {case}: code out of range")
+        n_differ, gap, over = code_mismatches(x, e, got, want)
+        row = dict(case=case, shape=[M, K, D], codes_differing=n_differ,
+                   max_score_gap_f64=gap, gap_over_bound=over,
+                   tol="codes equal except where the float64 scores differ by less than "
+                       "the sum of the two codes' fp32 error bounds")
+        if case == "ties":
+            # exact arithmetic: every version sees the same ties and must keep
+            # the lowest index, never a code of the repeated half
+            require(n_differ == 0, f"K9 ties: {n_differ} codes differ from the plain version")
+            require(bool((got < K // 2).all()), "K9 ties: a repeated code won a tie")
+            scores = code_norms(e)[None, :] - 2.0 * (x @ e.t())
+            best = scores.min(dim=1, keepdim=True).values
+            n_tied = int((scores == best).sum(dim=1).gt(2).sum())
+            row.update(rows_with_distinct_tied_codes=n_tied)
+            del scores
+        require(over <= 1, f"K9 {case}: {n_differ} codes differ, worst score gap {gap} "
+                           f"is {over} of its bound")
+        bnd, by = bound_ms(nbytes(x, e, got), 2.0 * M * K * D, torch.float32)
+        row.update(max_abs_err=gap, ms=cuda_ms(lambda: nearest_code(x, e)),
+                   bound_ms=bnd, bound_by=by)
+        if case in ("16f", "128f"):
+            e2 = code_norms(e)
+            row["plain_ms"] = cuda_ms(lambda: nearest_code_ref(x, e), reps=3)
+            row["library_ms"] = cuda_ms(lambda: torch.argmin(e2 - 2.0 * torch.matmul(x, e.t()), dim=1),
+                                        reps=3)
+        rows.append(row)
+        del x, e, got, want
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # main path and whole-path check
 
@@ -681,7 +748,7 @@ def attention_launches_per_step() -> tuple[int, int]:
             STL16_MODES.count("latent_self") + STL16_MODES.count("latent_dec"))
 
 
-KERNELS = ("K1", "K2", "K3", "K4", "K6", "K7", "K8")
+KERNELS = ("K1", "K2", "K3", "K4", "K6", "K7", "K8", "K9")
 
 
 def wrappers():
@@ -691,9 +758,10 @@ def wrappers():
     from mebt_tpu_torch.ops.attention_cuda import (
         dropout_branch, largeq_attention, largeq_backward, smallq_attention, smallq_backward)
     from mebt_tpu_torch.ops.head_sample import head_sample, head_topk_sample
+    from mebt_tpu_torch.ops.vq import nearest_code
 
     return (smallq_attention, largeq_attention, head_sample, head_topk_sample,
-            smallq_backward, largeq_backward, dropout_branch)
+            smallq_backward, largeq_backward, dropout_branch, nearest_code)
 
 
 def timed(fn):
@@ -748,7 +816,7 @@ def run_slice(dev, B, out_dir):
     plan = maskgit_plan(1024, RECIPE["vid_n_steps"], "cosine", "linear")
     live = int(plan.do_step.sum())
     k1_step, k2_step = attention_launches_per_step()
-    expect = [live * k1_step, live * k2_step, live, 0, 0, 0, 0]
+    expect = [live * k1_step, live * k2_step, live, 0, 0, 0, 0, 0]
     require(launches == expect, f"16f launches {launches} != expected {expect}")
     shapes = check_generation(res, B, 16, (4, 16, 16), "16f")
 
@@ -791,7 +859,7 @@ def run_slice_128(dev, B, out_dir):
     plan = maskgit_plan(N, RECIPE128["vid_n_steps"], "cosine", "linear", n_ctx_init=n_boot)
     live_boot, live = int(bplan.do_step.sum()), int(plan.do_step.sum())
     k1_step, k2_step = attention_launches_per_step()
-    expect = [(live_boot + live) * k1_step, (live_boot + live) * k2_step, 0, live, 0, 0, 0]
+    expect = [(live_boot + live) * k1_step, (live_boot + live) * k2_step, 0, live, 0, 0, 0, 0]
     require(live_boot == n_boot and live > 0, f"128f plans: {live_boot} + {live} live steps")
     require(launches == expect, f"128f launches {launches} != expected {expect}")
     shapes = check_generation(res, B, 128, (32, 16, 16), "128f")
@@ -865,7 +933,8 @@ def profile_decode(fn, out_dir, name) -> dict:
         json.dump([dict(name=n, ms=ms, calls=c) for n, ms, c in table], f, indent=1)
     groups = {"K1": "smallq_kernel", "K2": "largeq_kernel", "K3": "head_sample_kernel",
               "K4": "head_topk_sample_kernel", "K6_dq": "smallq_bwd_dq_kernel",
-              "K7_dq": "largeq_bwd_dq_kernel", "K6_K7_dkdv": "attn_bwd_dkdv_kernel"}
+              "K7_dq": "largeq_bwd_dq_kernel", "K6_K7_dkdv": "attn_bwd_dkdv_kernel",
+              "K9": "nearest_code_kernel"}
     out = {g: sum(ms for n, ms, _ in table if key in n) for g, key in groups.items()}
     busy = sum(ms for _, ms, _ in table)
     out["other"] = busy - sum(out.values())
@@ -987,7 +1056,7 @@ def run_train_slice(dev, out_dir):
         lambda: trainer.fit(loader, max_steps=warm + timed_steps, state=state, log_every=1))
     peak = torch.cuda.max_memory_allocated()
     per_step = [n // timed_steps for n in launches]
-    expect = [k1_step, k2_step, 0, 0, k1_step, k2_step, 2 * (k1_step + k2_step)]
+    expect = [k1_step, k2_step, 0, 0, k1_step, k2_step, 2 * (k1_step + k2_step), 0]
     require(launches == [n * timed_steps for n in expect],
             f"train launches {launches} over {timed_steps} steps != {expect} a step")
     logs = read_metrics(logdir)
@@ -1086,7 +1155,7 @@ def whole_step_check(dev):
     want_loss, want = step(cpu, torch.device("cpu"))
     cpu_s = time.perf_counter() - t0
     k1_step, k2_step = attention_launches_per_step()
-    require(launches == [k1_step, k2_step, 0, 0, k1_step, k2_step, 0],
+    require(launches == [k1_step, k2_step, 0, 0, k1_step, k2_step, 0, 0],
             f"whole step: launches {launches}")
     loss_rel = abs(got_loss - want_loss) / abs(want_loss)
     require(loss_rel <= 1e-4, f"whole step: loss {got_loss} vs {want_loss}")
@@ -1096,6 +1165,228 @@ def whole_step_check(dev):
     require(all(r <= 1e-3 for r in grad_rel.values()), f"whole step: gradients {grad_rel}")
     return dict(phase="whole_step", config="stl_16f_train", dtype="float32", batch=1,
                 contexts=masks.n_contexts, targets=masks.n_targets, loss=got_loss,
+                loss_plain_cpu=want_loss, loss_rel_diff=loss_rel, loss_tol=1e-4,
+                grad_rel_diff=grad_rel, grad_tol=1e-3, plain_cpu_s=cpu_s)
+
+
+class VideoSet:
+    """In-memory dataset of synthetic videos, item i made from (seed, i):
+    'video' (T, 128, 128, 3) float32 in [-0.5, 0.5] and 'indices' a
+    permutation of the N latent positions, the items of the port's
+    datasets. The card's machine has no image libraries, so no frame
+    files are decoded here."""
+
+    def __init__(self, n, frames, N, seed):
+        self.n, self.frames, self.N, self.seed = n, frames, N, seed
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        rng = np.random.default_rng((self.seed, i))
+        video = rng.random((self.frames, 128, 128, 3), dtype=np.float32) - 0.5
+        return dict(video=video, indices=rng.permutation(self.N))
+
+
+def video_config(dims, modes_shape, batch_budget, exact_lr, **exp):
+    """The training config of an STL recipe from raw video: vtokens off,
+    the VQGAN encodes every batch."""
+    cfg = json.loads(json.dumps(TRAIN_CONFIG))
+    cfg["model"]["params"].update(block_size=dims["block_size"], vtokens=False)
+    cfg["model"]["mask"]["params"].update(shape=list(modes_shape), budget=batch_budget,
+                                          max_token=batch_budget)
+    cfg["exp"].update(exact_lr=exact_lr, **exp)
+    return cfg
+
+
+def train_video(dev, out_dir, name, cfg, frames, B, N, steps, warm=1, profile=False):
+    """MeBTTrainer.fit from synthetic videos through the port's DataLoader
+    and a random VQGAN (n_codes 16384, downsample (4, 8, 8)); `warm`
+    steps, then `steps` timed and counted, then (with `profile`) the
+    trainer's own trace of 2 steps and a profile of 2 more."""
+    import shutil
+
+    from mebt_tpu_torch.cli.common import random_vqgan
+    from mebt_tpu_torch.data.loader import DataLoader
+    from mebt_tpu_torch.models.vqgan import VQGANConfig
+    from mebt_tpu_torch.train.train_state import _encode_codes
+    from mebt_tpu_torch.train.trainer import MeBTTrainer
+
+    V = STL16["vocab_size"]
+    logdir = os.path.join(out_dir, name)
+    shutil.rmtree(logdir, ignore_errors=True)
+    vqgan = random_vqgan(VQGANConfig(n_codes=V, downsample=(4, 8, 8)), 1, dev)
+    trainer = MeBTTrainer(cfg, logdir, vqgan=vqgan, seed=0, device=dev)
+    loader = DataLoader(VideoSet(4 * B, frames, N, seed=7), batch_size=B, num_workers=4, seed=0)
+    state = trainer.init_state()
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = timed(lambda: trainer.fit(loader, max_steps=warm, state=state, log_every=1))
+    state, launches, wall = counted(
+        lambda: trainer.fit(loader, max_steps=warm + steps, state=state, log_every=1))
+    peak = torch.cuda.max_memory_allocated()
+    logs = read_metrics(logdir)
+    losses = [m["train/loss"] for m in logs]
+    norms = [m["train/grad_norm"] for m in logs]
+    require(len(losses) == warm + steps, f"{name}: {len(losses)} logged steps")
+    init_loss = float(np.log(V)) + 0.5 * 0.02**2 * STL16["n_embd"]
+    require(bool(np.all(np.isfinite(losses))) and bool(np.all(np.isfinite(norms))),
+            f"{name}: losses {losses} / gradient norms {norms} not finite")
+    require(all(abs(x - init_loss) <= 0.1 for x in losses),
+            f"{name}: losses {losses} not within 0.1 of {init_loss}")
+    step_s = wall / steps
+    res = dict(phase="slice", config=name, batch=B, frames=frames, N=N, dtype="bfloat16",
+               params="float32", dropout=P_DROP, remat=cfg["exp"].get("remat", False),
+               remat_policy=cfg["exp"].get("remat_policy") if cfg["exp"].get("remat") else None,
+               steps_timed=steps, wall_s=wall, step_s=step_s, tokens_per_s=B * N / step_s,
+               peak_mem_gb=peak / 2**30, losses=losses, expected_loss=init_loss,
+               grad_norms=norms, launches=dict(zip(KERNELS, launches)))
+    if profile:
+        # exp.profile_step = warm + steps: the trainer traces the next two steps
+        state = trainer.fit(loader, max_steps=warm + steps + 2, state=state, log_every=1000)
+        traces = os.listdir(os.path.join(logdir, "profile"))
+        require(any(t.endswith(".json") for t in traces), f"{name}: no trace in profile/: {traces}")
+        res["trainer_trace"] = sorted(traces)
+        prof = profile_decode(
+            lambda: trainer.fit(loader, max_steps=warm + steps + 4, state=state, log_every=1000),
+            out_dir, f"{name}_profile.json")
+        prof["steps"] = 2
+        video = torch.from_numpy(np.stack([loader.dataset[i]["video"] for i in range(B)])).to(dev)
+        enc_ms = cuda_ms(lambda: _encode_codes(vqgan, video), reps=5)
+        res.update(profile=prof, encode_plus_k9_ms=enc_ms,
+                   encode_plus_k9_share=2 * enc_ms / prof["device_busy_ms"])
+    trainer.logger.close()
+    del state, trainer, vqgan
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def run_train_video(dev, out_dir):
+    """STL-16f from raw video, batch 6: 5 timed steps, K9 once a step."""
+    B, N, steps, warm = TRAIN_BATCH, 1024, 5, 1
+    cfg = video_config(STL16, (4, 16, 16), 1024, 1.08e-5,
+                       profile_step=warm + steps, profile_n_steps=2)
+    res, launches = train_video(dev, out_dir, "train_video_16f", cfg, 16, B, N, steps, warm,
+                                profile=True)
+    k1, k2 = attention_launches_per_step()
+    expect = [k1, k2, 0, 0, k1, k2, 2 * (k1 + k2), 1]
+    require(launches == [n * steps for n in expect],
+            f"train_video 16f launches {launches} over {steps} steps != {expect} a step")
+    res.update(launches_per_step=dict(zip(KERNELS, expect)))
+    return res, launches
+
+
+# (name, exp settings) of the STL-128f runs: no remat, then each policy
+REMAT_RUNS = (("none", dict(remat=False)), ("full", dict(remat=True, remat_policy="full")),
+              ("dots", dict(remat=True, remat_policy="dots")),
+              ("saved", dict(remat=True, remat_policy="saved")),
+              ("saved_mlp", dict(remat=True, remat_policy="saved_mlp")))
+MAIN_POLICY_128 = "saved"
+
+
+def run_train_video_128(dev, out_dir):
+    """STL-128f from raw video, batch 5, N 8192, t_prior gaussian2, budget
+    8192, under each remat policy (and none): 2 timed steps each, peak
+    memory per run. A remat policy recomputes each block's forward in
+    the backward, so K1, K2 and the forward half of K8 launch twice."""
+    B, N, steps = TRAIN_BATCH128, 8192, 2
+    k1, k2 = attention_launches_per_step()
+    runs, main_launches = {}, None
+    for policy, exp in REMAT_RUNS:
+        cfg = video_config(STL128, (32, 16, 16), 8192, 1.8e-5, **exp)
+        cfg["model"]["params"]["t_prior"] = "gaussian2"
+        res, launches = train_video(dev, out_dir, f"train_video_128f_{policy}", cfg, 128, B, N,
+                                    steps)
+        fwd = 2 if exp["remat"] else 1
+        expect = [fwd * k1, fwd * k2, 0, 0, k1, k2, (fwd + 1) * (k1 + k2), 1]
+        require(launches == [n * steps for n in expect],
+                f"train_video 128f {policy}: launches {launches} over {steps} steps != {expect}")
+        runs[policy] = dict(step_s=res["step_s"], tokens_per_s=res["tokens_per_s"],
+                            peak_mem_gb=res["peak_mem_gb"], losses=res["losses"],
+                            launches_per_step=dict(zip(KERNELS, expect)))
+        if policy == MAIN_POLICY_128:
+            main_launches = launches
+        emit(dict(phase="train_video_128f_run", policy=policy, **runs[policy]))
+    return dict(phase="slice", config="stl_128f_train_video", batch=B, N=N, steps_timed=steps,
+                main_policy=MAIN_POLICY_128, runs=runs), main_launches
+
+
+def whole_step_video_check(dev):
+    """One training step from video in fp32 at full width, batch 1, no
+    dropout: cuDNN, K9 and the kernels on the card against the plain
+    path on the CPU, same VQGAN and MeBT weights, video and masks."""
+    from mebt_tpu_torch.cli.common import random_mebt, random_vqgan
+    from mebt_tpu_torch.models.mebt import MeBT, MeBTConfig, mlm_loss
+    from mebt_tpu_torch.models.vqgan import VQGAN, VQGANConfig
+    from mebt_tpu_torch.ops.vq import code_mismatches, nearest_code, nearest_code_ref
+    from mebt_tpu_torch.sampler.mask_schedule import MaskGen
+
+    rng = np.random.default_rng(5)
+    N, V = 1024, STL16["vocab_size"]
+    vq_cfg = VQGANConfig(n_codes=V, downsample=(4, 8, 8))
+    gpu_vq = random_vqgan(vq_cfg, 6, dev)
+    with torch.device("meta"):
+        cpu_vq = VQGAN(vq_cfg).eval()
+    cpu_vq.load_state_dict({k: v.cpu() for k, v in gpu_vq.state_dict().items()}, assign=True)
+    cfg = MeBTConfig(dtype=torch.float32, avg_loss=1.0, **STL16)
+    gpu = random_mebt(cfg, 4, dev)
+    with torch.device("meta"):
+        cpu = MeBT(cfg)
+    cpu.load_state_dict({k: v.cpu().clone() for k, v in gpu.state_dict().items()}, assign=True)
+    for p in cpu.parameters():
+        p.requires_grad_(True)
+    video = torch.from_numpy(rng.random((1, 16, 128, 128, 3), dtype=np.float32) - 0.5)
+    masks = MaskGen(schedule="linear", max_token=1024, shape=(4, 16, 16), budget=1024).train_masks(
+        rng.permutation(N)[None], 0.4, 0, 4)
+    names = ("sos_emb", "transformer.blocks.0.attn.query.weight",
+             "transformer.blocks.23.attn.query.weight", "transformer.head.weight")
+    emb = gpu_vq.codebook.embeddings.cpu()
+
+    def encode(vq, d):
+        """train_state._encode_codes, keeping the latent"""
+        with torch.no_grad():
+            z = vq.encode_latent(video.to(d))
+            return z, nearest_code(z.reshape(-1, z.shape[-1]), vq.codebook.embeddings)
+
+    def step(model, codes, d):
+        c = codes.reshape(1, -1).to(d)
+        ctx, tgt = (torch.from_numpy(m).to(d) for m in (masks.ctx_mask, masks.tgt_mask))
+        loss, _ = mlm_loss(model(c, ctx, tgt), c, tgt, masks.seq_len, masks.masked_weight,
+                           avg_loss=cfg.avg_loss)
+        loss.backward()
+        params = dict(model.named_parameters())
+        return loss.item(), {n: params[n].grad.detach().cpu() for n in names}
+
+    def card():
+        z, codes = encode(gpu_vq, dev)
+        return z.cpu(), codes.cpu(), step(gpu, codes, dev)
+
+    (z_gpu, c_gpu, (got_loss, got)), launches, _ = counted(card)
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    z_cpu, c_cpu = encode(cpu_vq, torch.device("cpu"))
+    flat_gpu, flat_cpu = z_gpu.reshape(-1, 256), z_cpu.reshape(-1, 256)
+    n_diff_k9, _, over_k9 = code_mismatches(flat_gpu, emb, c_gpu.reshape(-1),
+                                            nearest_code_ref(flat_gpu, emb))
+    n_diff, gap, over = code_mismatches(flat_cpu, emb, c_gpu.reshape(-1), c_cpu.reshape(-1))
+    # the step compares like with like: a row whose code differs at a
+    # near-tie takes the card's code on both sides
+    want_loss, want = step(cpu, c_gpu, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    k1, k2 = attention_launches_per_step()
+    require(launches == [k1, k2, 0, 0, k1, k2, 0, 1], f"whole step video: launches {launches}")
+    z_err = (z_gpu - z_cpu).abs().max().item() / z_cpu.abs().max().item()
+    require(z_err <= 1e-4, f"whole step video: encoder latent rel err {z_err}")
+    require(over_k9 <= 1 and over <= 1,
+            f"whole step video: codes differ beyond near-ties ({n_diff_k9}: {over_k9}, "
+            f"{n_diff}: {over})")
+    loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+    require(loss_rel <= 1e-4, f"whole step video: loss {got_loss} vs {want_loss}")
+    grad_rel = {n: ((got[n] - want[n]).abs().max() / want[n].abs().max()).item() for n in names}
+    require(all(r <= 1e-3 for r in grad_rel.values()), f"whole step video: gradients {grad_rel}")
+    return dict(phase="whole_step_video", config="stl_16f_train_video", dtype="float32",
+                batch=1, latent_rel_err=z_err, latent_tol=1e-4,
+                codes_differing_k9_vs_plain=n_diff_k9, codes_differing_card_vs_cpu=n_diff,
+                max_score_gap_f64=gap, gap_over_bound=over, loss=got_loss,
                 loss_plain_cpu=want_loss, loss_rel_diff=loss_rel, loss_tol=1e-4,
                 grad_rel_diff=grad_rel, grad_tol=1e-3, plain_cpu_s=cpu_s)
 
@@ -1138,7 +1429,7 @@ def main(argv=None) -> int:
     try:
         for name, check in (("K1", check_k1), ("K2", check_k2), ("K3", check_k3),
                             ("K4", check_k4), ("K6", check_k6), ("K7", check_k7),
-                            ("K8", check_k8)):
+                            ("K8", check_k8), ("K9", check_k9)):
             if not on(name.lower()):
                 continue
             report[name] = check(dev, gen)
@@ -1164,6 +1455,17 @@ def main(argv=None) -> int:
         if on("whole_train"):
             report["whole_step"] = whole_step_check(dev)
             emit(report["whole_step"])
+        if on("train_video"):
+            report["slice_16f_train_video"], launches["stl_16f_train_video"] = run_train_video(
+                dev, args.out)
+            emit(report["slice_16f_train_video"])
+        if on("train_video_128"):
+            report["slice_128f_train_video"], launches["stl_128f_train_video"] = (
+                run_train_video_128(dev, args.out))
+            emit(report["slice_128f_train_video"])
+        if on("whole_video"):
+            report["whole_step_video"] = whole_step_video_check(dev)
+            emit(report["whole_step_video"])
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -1175,11 +1477,12 @@ def main(argv=None) -> int:
 
     def entry(i, name, replaces, row, src="mebt_tpu_torch/csrc/attention.cu"):
         """`launches` is the count on the newest path that runs the
-        kernel: training (5 optimizer steps) for the attention kernels,
-        128f generation for K4, 16f generation for K3."""
+        kernel: 128f training from video (2 optimizer steps under the
+        main remat policy) for the attention kernels and K9, 128f
+        generation for K4, 16f generation for K3."""
         by_path = {path: counts[i] for path, counts in launches.items()}
-        newest = [n for n in (by_path["stl_16f_train"], by_path["stl_128f"],
-                              by_path["stl_16f"]) if n]
+        newest = [by_path[p] for p in ("stl_128f_train_video", "stl_16f_train_video",
+                                       "stl_16f_train", "stl_128f", "stl_16f") if by_path[p]]
         return dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=newest[0], launches_by_path=by_path,
@@ -1209,6 +1512,8 @@ def main(argv=None) -> int:
         entry(6, "K8 dropout in K1/K2/K6/K7 (row: K1 at rate 0.1)",
               "mebt_tpu/ops/attention_pallas.py:71",
               case(report["K8"], "lt2l", "bfloat16")),
+        entry(7, "K9 nearest_code", "mebt_tpu/ops/vq_pallas.py:82",
+              case(report["K9"], "128f"), "mebt_tpu_torch/csrc/vq.cu"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

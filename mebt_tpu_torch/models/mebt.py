@@ -54,6 +54,8 @@ class MeBTConfig:
     avg_loss: float = 0.0
     label_smoothing: float = 0.0
     t_prior: str = "longest"
+    remat: bool = False
+    remat_policy: str = "full"  # models/transformer.py:REMAT_POLICIES
     latent_shape: tuple[int, int, int] = (4, 16, 16)
     dtype: torch.dtype = torch.float32
 
@@ -93,7 +95,8 @@ class MeBT(nn.Module):
         self.transformer = LatentTransformer(
             config.vocab_size, config.n_layer, config.n_head, D, config.mode,
             embd_pdrop=config.embd_pdrop, attn_pdrop=config.attn_pdrop,
-            resid_pdrop=config.resid_pdrop,
+            resid_pdrop=config.resid_pdrop, remat=config.remat,
+            remat_policy=config.remat_policy,
         )
 
     @torch.no_grad()

@@ -1,11 +1,19 @@
-"""3-D VQGAN, decode half (mebt_tpu/models/vqgan.py:63,194-305,348-498).
+"""3-D VQGAN (mebt_tpu/models/vqgan.py:38-93, 194-498): the frozen
+tokenizer of MeBT training and generation.
 
-`VQGAN.decode` takes (B, T, H, W) codes and returns (B, C, T, H, W)
-pixels: codebook lookup -> post_vq_conv -> Decoder (GroupNorm + SiLU,
-then per stage a transposed conv and two ResBlocks, then conv_last).
-Submodule names follow the reference's torch modules
-(decoder.conv_blocks.i.up.convt, ...res1.norm1, codebook.embeddings).
-The encoder, quantizer and training parts are not ported yet.
+`VQGAN.encode` takes (B, C, T, H, W) pixels and returns (B, t, h, w)
+codes: Encoder (conv_first, per stage a strided conv and a ResBlock,
+GroupNorm + SiLU) -> pre_vq_conv -> `codebook_quantize`, whose nearest
+entry search is kernel K9 (ops/vq.py). `VQGAN.decode` takes (B, T, H, W)
+codes and returns (B, C, T, H, W) pixels: codebook lookup ->
+post_vq_conv -> Decoder (GroupNorm + SiLU, then per stage a transposed
+conv and two ResBlocks, then conv_last). The convolutions run
+channels-first; `encode_latent` and `codebook_quantize` keep the JAX
+package's channels-last layout at their boundary. Submodule and buffer
+names follow the reference's torch modules (encoder.conv_blocks.i.down,
+decoder.conv_blocks.i.up.convt, ...res1.norm1, codebook.embeddings /
+N / z_avg). Not ported: the codebook's data init and EMA update, which
+only VQGAN training uses.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mebt_tpu_torch.ops.conv3d import same_pad_conv3d, same_pad_conv_transpose3d
+from mebt_tpu_torch.ops.vq import nearest_code
 
 
 def _triple(v) -> tuple[int, int, int]:
@@ -91,6 +100,35 @@ def _stage_strides(downsample: Sequence[int]) -> list[tuple[int, int, int]]:
     return strides
 
 
+class EncoderStage(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, stride):
+        super().__init__()
+        self.down = SamePadConv3d(in_channels, out_channels, 4, stride=stride)
+        self.res = ResBlock(out_channels)
+
+    def forward(self, x):
+        return self.res(self.down(x))
+
+
+class Encoder(nn.Module):
+    def __init__(self, n_hiddens: int, downsample: Sequence[int], image_channels: int = 3):
+        super().__init__()
+        self.conv_first = SamePadConv3d(image_channels, n_hiddens, 3)
+        stages, ch = [], n_hiddens
+        for i, st in enumerate(_stage_strides(downsample)):
+            out_ch = n_hiddens * 2 ** (i + 1)
+            stages.append(EncoderStage(ch, out_ch, st))
+            ch = out_ch
+        self.conv_blocks = nn.ModuleList(stages)
+        self.final_block = nn.Sequential(Normalize(ch), nn.SiLU())
+
+    def forward(self, x):
+        h = self.conv_first(x)
+        for stage in self.conv_blocks:
+            h = stage(h)
+        return self.final_block(h)
+
+
 class DecoderStage(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, stride):
         super().__init__()
@@ -126,26 +164,49 @@ class Decoder(nn.Module):
 
 @dataclass(frozen=True)
 class VQGANConfig:
-    """The decode half of the reference hparams (vqgan.py:229-251): a
-    GroupNorm decoder with replicate padding, as in every MeBT config."""
+    """The architecture part of the reference hparams (vqgan.py:229-251):
+    GroupNorm and replicate padding, as in every MeBT config."""
 
     embedding_dim: int = 256
     n_codes: int = 16384
     n_hiddens: int = 32
     downsample: tuple[int, int, int] = (4, 8, 8)
+    image_channels: int = 3
 
 
 class Codebook(nn.Module):
-    """The codebook's embedding buffer (the EMA statistics are training
-    state and not ported yet)."""
+    """The codebook's buffers (reference codebook.py:15-17): `embeddings`
+    (n_codes, D), and the EMA statistics `N` (n_codes,) and `z_avg`
+    (n_codes, D), carried for the checkpoint layout."""
 
     def __init__(self, n_codes: int, embedding_dim: int):
         super().__init__()
         self.register_buffer("embeddings", torch.zeros(n_codes, embedding_dim))
+        self.register_buffer("N", torch.zeros(n_codes))
+        self.register_buffer("z_avg", torch.zeros(n_codes, embedding_dim))
 
 
 def codebook_lookup(embeddings: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return F.embedding(codes, embeddings)
+
+
+def codebook_quantize(codebook: Codebook, z: torch.Tensor):
+    """z (..., D) continuous latents, channels-last -> (codes (...) int64,
+    straight-through embeddings (..., D), aux) as in
+    mebt_tpu/models/vqgan.py:codebook_quantize: aux holds the commitment
+    loss 0.25 * mean((z - sg(q))^2), the perplexity of the code usage and
+    the per-code counts. The nearest-entry search is K9 on the card."""
+    emb = codebook.embeddings
+    flat = z.reshape(-1, z.shape[-1])
+    codes = nearest_code(flat, emb).reshape(z.shape[:-1])
+    quantized = codebook_lookup(emb, codes)
+    commitment_loss = 0.25 * torch.mean((z - quantized.detach()) ** 2)
+    embeddings_st = z + (quantized - z).detach()
+    counts = torch.bincount(codes.reshape(-1), minlength=emb.shape[0]).float()
+    avg_probs = counts / flat.shape[0]
+    perplexity = torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + 1e-10)))
+    aux = {"commitment_loss": commitment_loss, "perplexity": perplexity, "counts": counts}
+    return codes, embeddings_st, aux
 
 
 class VQGAN(nn.Module):
@@ -153,16 +214,17 @@ class VQGAN(nn.Module):
         super().__init__()
         self.config = config
         n_stages = max(int(math.log2(d)) for d in config.downsample)
+        latent_ch = config.n_hiddens * 2**n_stages
+        self.encoder = Encoder(config.n_hiddens, config.downsample, config.image_channels)
         self.decoder = Decoder(config.n_hiddens, config.downsample)
-        self.post_vq_conv = SamePadConv3d(
-            config.embedding_dim, config.n_hiddens * 2**n_stages, 1
-        )
+        self.pre_vq_conv = SamePadConv3d(latent_ch, config.embedding_dim, 1)
+        self.post_vq_conv = SamePadConv3d(config.embedding_dim, latent_ch, 1)
         self.codebook = Codebook(config.n_codes, config.embedding_dim)
 
     @torch.no_grad()
     def init_random_(self, generator: torch.Generator) -> "VQGAN":
         """Convolution weights N(0, 1/fan_in), zero biases, unit
-        GroupNorm scales, N(0, 1) codebook."""
+        GroupNorm scales, N(0, 1) codebook (z_avg a copy, N zero)."""
         for m in self.modules():
             if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
                 w = m.weight
@@ -173,11 +235,35 @@ class VQGAN(nn.Module):
             elif isinstance(m, nn.GroupNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-        self.codebook.embeddings.normal_(0.0, 1.0, generator=generator)
+        cb = self.codebook
+        cb.embeddings.normal_(0.0, 1.0, generator=generator)
+        cb.z_avg.copy_(cb.embeddings)
+        cb.N.zero_()
         return self
+
+    def encode_latent(self, video_bthwc: torch.Tensor) -> torch.Tensor:
+        """(B, T, H, W, C) pixels -> (B, t, h, w, embedding_dim) latents,
+        channels-last as VQGANCore.encode_latent returns them."""
+        x = video_bthwc.permute(0, 4, 1, 2, 3).contiguous()
+        z = self.pre_vq_conv(self.encoder(x.to(self.pre_vq_conv.conv.weight.dtype)))
+        return z.permute(0, 2, 3, 4, 1)
+
+    def encode(self, video_bcthw: torch.Tensor, include_embeddings: bool = False):
+        """(B, C, T, H, W) pixels -> (B, t, h, w) codes; with
+        `include_embeddings`, ((B, D, t, h, w) straight-through
+        embeddings, codes)."""
+        z = self.encode_latent(video_bcthw.permute(0, 2, 3, 4, 1))
+        codes, emb_st, _ = codebook_quantize(self.codebook, z)
+        if include_embeddings:
+            return emb_st.permute(0, 4, 1, 2, 3), codes
+        return codes
 
     def decode(self, codes_bthw: torch.Tensor) -> torch.Tensor:
         """(B, T, H, W) codes -> (B, C, T, H, W) pixels."""
         z = codebook_lookup(self.codebook.embeddings, codes_bthw)
         z = z.permute(0, 4, 1, 2, 3).to(self.post_vq_conv.conv.weight.dtype)
         return self.decoder(self.post_vq_conv(z))
+
+    def latent_shape(self, sequence_length: int, resolution: int) -> tuple[int, int, int]:
+        d = self.config.downsample
+        return (sequence_length // d[0], resolution // d[1], resolution // d[2])

@@ -1,0 +1,112 @@
+"""K9: nearest codebook entry in one CUDA kernel (csrc/vq.cu), replacing
+mebt_tpu/ops/vq_pallas.py:nearest_code_pallas.
+
+`nearest_code(flat, codebook)` returns, for each row x of flat (M, D),
+argmin_k -2 x·e_k + |e_k|^2 over the codebook (K, D) as (M,) int64,
+scored in fp32; |x|^2 is dropped (it cannot change the argmin) and the
+lowest index wins an exact tie. |e_k|^2 is computed here, once per call,
+as the JAX wrapper computes it outside its pallas_call.
+
+`nearest_code_ref` is the plain version, chunked over the codebook with
+a running (min, argmin) like `nearest_code_xla`, so the (M, K) scores
+are never held whole. The wrapper runs it only for tensors on the CPU;
+a CUDA tensor launches the kernel or the call raises.
+`nearest_code.launches` counts launches.
+
+Kernel, plain version and the JAX package sum the D products in
+different orders, so two codes whose scores lie within fp32 rounding of
+each other may swap between them; exact ties may not.
+`code_mismatches` states the rule the checks hold them to.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mebt_tpu_torch.ops import _build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {"mebt_nearest_code": (ctypes.c_int, [_P] * 4 + [_I] * 3 + [_P])}
+MAX_DIM = 512  # the kernel keeps a (D, 64) fp32 tile of x in shared memory
+
+
+def code_norms(codebook: torch.Tensor) -> torch.Tensor:
+    """|e_k|^2 in fp32, (K,)."""
+    e = codebook.float()
+    return (e * e).sum(dim=1)
+
+
+def nearest_code_ref(flat: torch.Tensor, codebook: torch.Tensor,
+                     chunk: int = 4096) -> torch.Tensor:
+    """Plain K9: codebook chunks of `chunk` entries, a running (min,
+    argmin) with a strict '<', so the earlier chunk keeps a tie."""
+    x = flat.float()
+    e = codebook.float()
+    e2 = code_norms(e)
+    best = torch.full((x.shape[0],), float("inf"), device=x.device)
+    idx = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+    for k0 in range(0, e.shape[0], chunk):
+        scores = -2.0 * (x @ e[k0:k0 + chunk].t()) + e2[None, k0:k0 + chunk]
+        lmin, larg = scores.min(dim=1)
+        better = lmin < best
+        best = torch.where(better, lmin, best)
+        idx = torch.where(better, larg + k0, idx)
+    return idx
+
+
+def code_mismatches(flat: torch.Tensor, codebook: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor) -> tuple[int, float, float]:
+    """Two answers a, b (M,) to the same search, held to the near-tie
+    rule: where they differ, the float64 scores of the two codes must
+    lie within the sum of their fp32 error bounds, (D + 2) 2^-24
+    (|e_k|^2 + 2 sum_d |x_d e_kd|) each, the worst case of an fp32 sum
+    of D terms. Returns (rows that differ, largest float64 score gap,
+    largest gap over its bound); the last must be <= 1."""
+    diff = (a != b).nonzero()[:, 0]
+    if diff.numel() == 0:
+        return 0, 0.0, 0.0
+    x = flat[diff].double()
+    eps = (flat.shape[1] + 2) * 2.0**-24
+
+    def score_and_bound(codes):
+        e = codebook[codes[diff]].double()
+        e2 = (e * e).sum(1)
+        return e2 - 2.0 * (x * e).sum(1), eps * (e2 + 2.0 * (x * e).abs().sum(1))
+
+    sa, ba = score_and_bound(a)
+    sb, bb = score_and_bound(b)
+    gap = (sa - sb).abs()
+    return int(diff.numel()), gap.max().item(), (gap / (ba + bb)).max().item()
+
+
+def nearest_code(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """(M, D), (K, D) -> (M,) int64 nearest-entry indices; no gradient."""
+    flat, codebook = flat.detach(), codebook.detach()
+    if not flat.is_cuda:
+        return nearest_code_ref(flat, codebook)
+    if flat.dim() != 2 or codebook.dim() != 2 or flat.shape[1] != codebook.shape[1]:
+        raise ValueError(f"x {tuple(flat.shape)} and codebook {tuple(codebook.shape)} do not chain")
+    if codebook.device != flat.device:
+        raise ValueError("x and the codebook must be on one device")
+    M, D = flat.shape
+    if not (1 <= D <= MAX_DIM) or M < 1 or codebook.shape[0] < 1:
+        raise ValueError(f"shape (M {M}, K {codebook.shape[0]}, D {D}) not taken by the kernel")
+    x = flat.float().contiguous()
+    e = codebook.float().contiguous()
+    e2 = code_norms(e)
+    out = torch.empty(M, dtype=torch.int64, device=x.device)
+    lib = _build.load("vq", _SIGNATURES)
+    status = lib.mebt_nearest_code(
+        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(e.data_ptr()),
+        ctypes.c_void_p(e2.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        M, e.shape[0], D, _build.stream_ptr(x),
+    )
+    _build.check(status, "nearest_code")
+    nearest_code.launches += 1
+    return out
+
+
+nearest_code.launches = 0

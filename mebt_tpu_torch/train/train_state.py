@@ -8,7 +8,8 @@
     optimizer steps taken so far (0 for the first update);
   * optional global-norm clipping, and gradient accumulation that
     averages k micro-batches and updates on the k-th (optax.MultiSteps);
-  * the step: masked MLM forward with dropout -> loss -> backward ->
+  * the step: (for a video batch) frozen VQGAN encode and nearest-code
+    search (K9) -> masked MLM forward with dropout -> loss -> backward ->
     update. Every attention forward and backward is a kernel of
     ops/attention_cuda.py.
 
@@ -16,9 +17,9 @@ Unlike the JAX step, which returns a new immutable state, this one
 updates the model's parameters and the optimizer's moments in place and
 returns the same `TrainState` object with its step advanced.
 
-Only the pre-tokenized branch is ported: a batch carries `codes`. A
-batch with `video` needs the VQGAN encoder and the nearest-code kernel
-(K9), which are not ported yet; it raises.
+A batch carries either pre-tokenized `codes` or a `video`, which the
+step encodes with the VQGAN it was built with; the VQGAN takes no part
+in the optimizer or the checkpoint.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ from torch import nn
 
 from mebt_tpu_torch.models.mebt import MeBT, mlm_loss
 from mebt_tpu_torch.models.transformer import DropoutState, fold_seed
+from mebt_tpu_torch.models.vqgan import VQGAN
+from mebt_tpu_torch.ops.vq import nearest_code
 
 
 def lr_schedule(exact_lr: float, warmup_steps: int = 0, cosine_lr: bool = False,
@@ -152,30 +155,57 @@ def _on(device, x, dtype=None):
 
 
 def batch_to_device(batch: dict, device) -> dict:
-    """codes / ctx_mask / tgt_mask as tensors on `device`; the two
+    """codes or video, ctx_mask, tgt_mask as tensors on `device`; the two
     scalars stay host floats."""
-    if "codes" not in batch:
-        raise NotImplementedError(
-            "a batch without 'codes' needs the VQGAN encoder and the nearest-code "
-            "kernel (K9), which are not ported yet; train from pre-tokenized codes"
-        )
-    return {
-        "codes": _on(device, batch["codes"], torch.int64),
+    out = {
         "ctx_mask": _on(device, batch["ctx_mask"], torch.bool),
         "tgt_mask": _on(device, batch["tgt_mask"], torch.bool),
         "seq_len": float(batch["seq_len"]),
         "masked_weight": float(batch["masked_weight"]),
     }
+    if "codes" in batch:
+        out["codes"] = _on(device, batch["codes"], torch.int64)
+    else:
+        out["video"] = _on(device, batch["video"], torch.float32)
+    return out
 
 
-def make_train_step(model: MeBT, avg_loss: float | None = None,
-                    label_smoothing: float | None = None):
+@torch.no_grad()
+def _encode_codes(vqgan: VQGAN, video_bthwc: torch.Tensor,
+                  sample_every_n_latent_frames: int = 0) -> torch.Tensor:
+    """Frozen stage-1 encode to flat (B, N) codes, channels-last input
+    (mebt_tpu/train/train_state.py:_encode_codes): encoder latents, then
+    the nearest codebook entry of each (K9), optionally every n-th latent
+    frame. The codes are what `codebook_quantize` returns; its other
+    outputs are not needed here."""
+    vqgan.eval()
+    z = vqgan.encode_latent(video_bthwc)
+    codes = nearest_code(z.reshape(-1, z.shape[-1]), vqgan.codebook.embeddings)
+    codes = codes.view(z.shape[:-1])
+    if sample_every_n_latent_frames > 0:
+        codes = codes[:, ::sample_every_n_latent_frames]
+    return codes.reshape(codes.shape[0], -1)
+
+
+def batch_codes(b: dict, vqgan: VQGAN | None, sample_every_n_latent_frames: int = 0):
+    """The batch's codes: its own, or its video's through `vqgan`."""
+    if "codes" in b:
+        return b["codes"]
+    if vqgan is None:
+        raise ValueError("a batch without 'codes' needs a VQGAN to encode its 'video'")
+    return _encode_codes(vqgan, b["video"], sample_every_n_latent_frames)
+
+
+def make_train_step(model: MeBT, vqgan: VQGAN | None = None, avg_loss: float | None = None,
+                    label_smoothing: float | None = None,
+                    sample_every_n_latent_frames: int = 0):
     """step_fn(state, batch) -> (state, metrics).
 
-    Batch dict: 'codes' (B, N) int, 'ctx_mask', 'tgt_mask' (B, N) bool,
-    'seq_len', 'masked_weight' scalars computed on the host by the mask
-    sampler. Metrics are 0-d tensors on the device (nothing is read back
-    here): loss, ce_sum, acc1, acc5, ratio, and grad_norm on the
+    Batch dict: 'codes' (B, N) int, or 'video' (B, T, H, W, 3) float in
+    [-0.5, 0.5] when `vqgan` is given; 'ctx_mask', 'tgt_mask' (B, N)
+    bool, 'seq_len', 'masked_weight' scalars computed on the host by the
+    mask sampler. Metrics are 0-d tensors on the device (nothing is read
+    back here): loss, ce_sum, acc1, acc5, ratio, and grad_norm on the
     micro-steps that update."""
     cfg = model.config
     a_loss = cfg.avg_loss if avg_loss is None else avg_loss
@@ -184,10 +214,11 @@ def make_train_step(model: MeBT, avg_loss: float | None = None,
     def step_fn(state: TrainState, batch: dict):
         model = state.model
         b = batch_to_device(batch, next(model.parameters()).device)
+        codes = batch_codes(b, vqgan, sample_every_n_latent_frames)
         drop = DropoutState(state.generator, fold_seed(state.seed, state.step))
-        logits = model(b["codes"], b["ctx_mask"], b["tgt_mask"], drop=drop)
+        logits = model(codes, b["ctx_mask"], b["tgt_mask"], drop=drop)
         loss, metrics = mlm_loss(
-            logits, b["codes"], b["tgt_mask"], b["seq_len"], b["masked_weight"],
+            logits, codes, b["tgt_mask"], b["seq_len"], b["masked_weight"],
             avg_loss=a_loss, label_smoothing=l_smooth,
         )
         loss.backward()

@@ -3,18 +3,20 @@
 
   host:   sample the (t, window) curriculum -> build boolean masks from
           the loader's per-sample permutations -> copy the batch over
-  device: MeBT forward / backward through the attention kernels + AdamW
+  device: frozen VQGAN encode + nearest-code search (K9) for a video
+          batch -> MeBT forward / backward through the attention kernels
+          (with the `exp.remat` policy) + AdamW
 
 Checkpoints are `torch.save` files `checkpoints/<micro-step>.pt` holding
 the model, the optimizer, the step and the dropout generator's state,
 written every `exp.ckpt_every` optimizer steps and kept all; `fit`
 resumes from the newest. `exp.ckpt_every: 0` writes none, the one at the
-end of `fit` included.
+end of `fit` included. `exp.vis_every` samples and logs a video grid
+(`log_samples`); `exp.profile_step` traces `exp.profile_n_steps` steps
+with torch.profiler into `logdir/profile/`.
 
-Only training from pre-tokenized codes is ported. Not ported yet, and
-refused where a config asks for them: the video branch (VQGAN encoder,
-nearest-code kernel), the mesh / ZeRO-1 sharding, the remat policies,
-`log_samples` and `profile_step`.
+Not ported yet, and refused where a config asks for them: the mesh and
+ZeRO-1 sharding (`exp.model_parallel`, `exp.zero1`).
 """
 
 from __future__ import annotations
@@ -27,10 +29,12 @@ import numpy as np
 import torch
 
 from mebt_tpu_torch.models.mebt import MeBT, MeBTConfig, mlm_loss
+from mebt_tpu_torch.models.vqgan import VQGAN
 from mebt_tpu_torch.runtime import resolve_device
 from mebt_tpu_torch.sampler.mask_schedule import T_PRIORS, MaskGen
 from mebt_tpu_torch.train.train_state import (
     TrainState,
+    batch_codes,
     batch_to_device,
     lr_schedule,
     make_optimizer,
@@ -38,26 +42,18 @@ from mebt_tpu_torch.train.train_state import (
 )
 from mebt_tpu_torch.utils.metrics import MetricsLogger
 
-_NOT_PORTED = {
-    "remat": "the remat policies",
-    "zero1": "ZeRO-1 sharding",
-    "vis_every": "log_samples",
-    "profile_step": "profile_step",
-}
-
 
 class MeBTTrainer:
-    def __init__(self, config: Mapping, logdir: str, seed: int = 42,
-                 compute_dtype: torch.dtype = torch.bfloat16, device=None):
+    def __init__(self, config: Mapping, logdir: str, vqgan: VQGAN | None = None,
+                 seed: int = 42, compute_dtype: torch.dtype = torch.bfloat16, device=None):
         self.config = config
         self.logdir = logdir
         self.device = resolve_device(device)
         mp = config["model"]["params"]
         mask_cfg = config["model"]["mask"]["params"]
         exp = config.get("exp", {})
-        for key, what in _NOT_PORTED.items():
-            if exp.get(key):
-                raise NotImplementedError(f"exp.{key}: {what} is not ported yet")
+        if exp.get("zero1"):
+            raise NotImplementedError("exp.zero1: ZeRO-1 sharding is not ported yet (A13)")
         if int(exp.get("model_parallel", 1)) != 1:
             raise NotImplementedError("exp.model_parallel: the mesh is not ported yet")
 
@@ -70,9 +66,13 @@ class MeBTTrainer:
             budget=mask_cfg.get("budget", 1024),
         )
         self.model_cfg = MeBTConfig.from_config(
-            mp, mask_shape=self.mask_gen.shape, dtype=compute_dtype
+            mp, mask_shape=self.mask_gen.shape, dtype=compute_dtype,
+            remat=bool(exp.get("remat", False)),
+            remat_policy=str(exp.get("remat_policy", "dots")),
         )
+        self.vqgan = None if vqgan is None else vqgan.to(self.device).eval()
         self.vtokens = bool(mp.get("vtokens", False))
+        self.sample_every_n_latent_frames = int(mp.get("sample_every_n_latent_frames", 0) or 0)
 
         # t-sampling config (reference transformer.py:113-124, 227-241)
         self.t_range = tuple(mask_cfg.get("t_range", (0.0, 1.0)))
@@ -81,6 +81,9 @@ class MeBTTrainer:
         self.t_prior = T_PRIORS[mp.get("t_prior", "longest")]
         self.t_lengths = np.arange(1, self.mask_gen.shape[0] + 1)
 
+        self.vis_every = int(exp.get("vis_every", 0) or 0)
+        self.profile_step = int(exp.get("profile_step", 0) or 0)
+        self.profile_n_steps = int(exp.get("profile_n_steps", 5))
         self.max_steps = int(exp.get("max_steps", 2_000_000))
         # Optimizer-step accounting: with accumulate_grad_batches = k the
         # reference's global_step advances once per k micro-batches.
@@ -115,8 +118,12 @@ class MeBTTrainer:
         with torch.device(self.device):
             model = MeBT(self.model_cfg)
         model.init_random_(torch.Generator(self.device).manual_seed(self.seed))
-        self.step_fn = make_train_step(model)
+        self.step_fn = self._make_step(model)
         return TrainState.create(model, make_optimizer(model, **self._opt_kw), self.seed + 1)
+
+    def _make_step(self, model: MeBT):
+        return make_train_step(model, vqgan=self.vqgan,
+                               sample_every_n_latent_frames=self.sample_every_n_latent_frames)
 
     def load_pretrained(self, state: TrainState, state_dict) -> TrainState:
         state.model.load_state_dict(state_dict, strict=True)
@@ -205,10 +212,11 @@ class MeBTTrainer:
         steps = self._ckpt_steps()
         if not steps:
             return state
-        ckpt = torch.load(
-            os.path.join(self._ckpt_dir(), f"{steps[-1]}.pt"),
-            map_location=self.device, weights_only=True,
-        )
+        return self.restore(state, os.path.join(self._ckpt_dir(), f"{steps[-1]}.pt"))
+
+    def restore(self, state: TrainState, path: str) -> TrainState:
+        """Load the checkpoint file `path` (written by `save`) into state."""
+        ckpt = torch.load(path, map_location=self.device, weights_only=True)
         state.model.load_state_dict(ckpt["model"], strict=True)
         state.optimizer.load_state_dict(ckpt["optimizer"])
         state.generator.set_state(ckpt["generator"].cpu())
@@ -227,7 +235,7 @@ class MeBTTrainer:
         if state is None:
             state = self.try_restore(self.init_state())
         if self.step_fn is None:
-            self.step_fn = make_train_step(state.model)
+            self.step_fn = self._make_step(state.model)
 
         step = state.step
         try:
@@ -238,13 +246,13 @@ class MeBTTrainer:
         skip = step % steps_per_epoch if steps_per_epoch else 0
         t_last = time.time()
         k = self.accum_k
+        prof = None
 
         def put(batch, s):
             """Host mask construction + copy to the device, done while
             the device still runs step s - 1. The curriculum sees
             OPTIMIZER steps."""
-            db = self.prepare_batch(batch, s // k)
-            return batch_to_device(db, self.device) if "codes" in db else db
+            return batch_to_device(self.prepare_batch(batch, s // k), self.device)
 
         while step < max_steps:
             train_loader.set_epoch(epoch)
@@ -260,6 +268,8 @@ class MeBTTrainer:
                     except StopIteration:
                         break
                 dev_batch = next_dev
+                if self.profile_step and step == self.profile_step * k:
+                    prof = self._start_profile()
                 state, metrics = self.step_fn(state, dev_batch)
                 # prepare the following batch while this step executes
                 try:
@@ -267,6 +277,9 @@ class MeBTTrainer:
                 except StopIteration:
                     next_dev = None
                 step += 1
+                if prof is not None and step == (self.profile_step + self.profile_n_steps) * k:
+                    self._stop_profile(prof, step // k)
+                    prof = None
                 if step % (log_every * k) == 0:
                     m = {f"train/{key}": float(v) for key, v in metrics.items()}
                     now = time.time()
@@ -278,10 +291,58 @@ class MeBTTrainer:
                     self.save(state)
                 if val_every and val_loader is not None and step % (val_every * k) == 0:
                     self.validate(state, val_loader, step // k, val_batches)
+                if self.vis_every and step % (self.vis_every * k) == 0:
+                    self.log_samples(state, step // k)
             epoch += 1
+        if prof is not None:  # the run ended inside the traced window
+            self._stop_profile(prof, step // k)
         if self._ckpt_every:
             self.save(state)
         return state
+
+    def _start_profile(self):
+        """torch.profiler over the next `profile_n_steps` optimizer steps
+        (the JAX trainer's jax.profiler trace)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, step: int) -> str:
+        """Stop the trace and write it as a Chrome trace
+        `logdir/profile/trace_step_<step>.json`."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        path = os.path.join(self.logdir, "profile")
+        os.makedirs(path, exist_ok=True)
+        path = os.path.join(path, f"trace_step_{step}.json")
+        prof.export_chrome_trace(path)
+        return path
+
+    @torch.no_grad()
+    def log_samples(self, state: TrainState, step: int, n: int = 4) -> None:
+        """Sample a small video grid and log it (mebt_tpu/train/trainer.py:
+        log_samples): a 32-step cosine MaskGIT decode at ctemp 6.0, the
+        frozen VQGAN's decode, `samples/step_<step>.gif` and the logger's
+        video."""
+        if self.vqgan is None:
+            return
+        from mebt_tpu_torch.sampler.decode import maskgit_sample
+        from mebt_tpu_torch.sampler.mask_schedule import maskgit_plan
+        from mebt_tpu_torch.utils.video import save_video_grid, to_uint8_frames
+
+        cfg = self.model_cfg
+        plan = maskgit_plan(cfg.seq_len, 32, "cosine", "linear")
+        out = maskgit_sample(state.model, step, n, plan, context_temperature=6.0)
+        pix = self.vqgan.decode(out.codes.view(n, *cfg.latent_shape)).float()
+        pix = (torch.clamp(pix, -0.5, 0.5) + 0.5).permute(0, 2, 3, 4, 1).cpu().numpy()
+        save_video_grid(pix, os.path.join(self.logdir, f"samples/step_{step}.gif"))
+        self.logger.log_video(step, "sample", to_uint8_frames(pix))
 
     def validate(self, state: TrainState, val_loader, step: int, max_batches: int = 8):
         """val/loss and accuracies under eval-mode masks, no dropout."""
@@ -301,9 +362,10 @@ class MeBTTrainer:
     def _eval_step(self, state: TrainState, batch: dict) -> dict:
         cfg = self.model_cfg
         b = batch_to_device(batch, self.device)
-        logits = state.model(b["codes"], b["ctx_mask"], b["tgt_mask"])
+        codes = batch_codes(b, self.vqgan)
+        logits = state.model(codes, b["ctx_mask"], b["tgt_mask"])
         loss, metrics = mlm_loss(
-            logits, b["codes"], b["tgt_mask"], b["seq_len"], b["masked_weight"],
+            logits, codes, b["tgt_mask"], b["seq_len"], b["masked_weight"],
             avg_loss=cfg.avg_loss, label_smoothing=cfg.label_smoothing,
         )
         return dict(metrics, loss=loss)

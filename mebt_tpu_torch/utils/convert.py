@@ -89,13 +89,21 @@ def _resblock(p: Mapping, key: str) -> dict:
     return out
 
 
-def vqgan_state_dict(params: Mapping, embeddings) -> dict[str, torch.Tensor]:
-    """State dict for models/vqgan.py:VQGAN (decoder, post_vq_conv and
-    codebook embeddings) from mebt_tpu VQGAN params and its codebook's
-    embeddings (n_codes, D)."""
-    dec = params["decoder"]
-    sd = _group_norm(dec["final_norm"], "decoder.final_block.0")
-    n_stages = sum(1 for k in dec if k.startswith("up_"))
+def vqgan_state_dict(params: Mapping, codebook) -> dict[str, torch.Tensor]:
+    """State dict for models/vqgan.py:VQGAN (encoder, pre_vq_conv,
+    decoder, post_vq_conv and the codebook's three buffers) from mebt_tpu
+    VQGAN params and its `CodebookState` (anything with `embeddings`,
+    `cluster_size` and `z_avg`)."""
+    enc, dec = params["encoder"], params["decoder"]
+    sd = _conv(enc["conv_first"], "encoder.conv_first")
+    n_stages = sum(1 for k in enc if k.startswith("down_"))
+    for i in range(n_stages):
+        key = f"encoder.conv_blocks.{i}"
+        sd.update(_conv(enc[f"down_{i}"], f"{key}.down"))
+        sd.update(_resblock(enc[f"res_{i}"], f"{key}.res"))
+    sd.update(_group_norm(enc["final_norm"], "encoder.final_block.0"))
+    sd.update(_conv(params["pre_vq_conv"], "pre_vq_conv"))
+    sd.update(_group_norm(dec["final_norm"], "decoder.final_block.0"))
     for i in range(n_stages):
         key = f"decoder.conv_blocks.{i}"
         sd.update(_convt(dec[f"up_{i}"], f"{key}.up"))
@@ -103,5 +111,7 @@ def vqgan_state_dict(params: Mapping, embeddings) -> dict[str, torch.Tensor]:
         sd.update(_resblock(dec[f"res_{i}_2"], f"{key}.res2"))
     sd.update(_conv(dec["conv_last"], "decoder.conv_last"))
     sd.update(_conv(params["post_vq_conv"], "post_vq_conv"))
-    sd["codebook.embeddings"] = _t(embeddings)
+    sd["codebook.embeddings"] = _t(codebook.embeddings)
+    sd["codebook.N"] = _t(codebook.cluster_size)
+    sd["codebook.z_avg"] = _t(codebook.z_avg)
     return sd

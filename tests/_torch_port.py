@@ -47,7 +47,5 @@ def build_vqgan_pair(seed=0, **kw):
     jv = JaxVQGAN(config=jcfg, params=params, codebook=codebook)
     params = jax.tree.map(np.asarray, params)
     tv = VQGAN(VQGANConfig(**cfg))
-    tv.load_state_dict(
-        vqgan_state_dict(params, np.asarray(jv.codebook.embeddings)), strict=True
-    )
+    tv.load_state_dict(vqgan_state_dict(params, jv.codebook), strict=True)
     return jv, tv.eval()
