@@ -43,7 +43,8 @@
    encoder's share;
 9. the same for STL-128f (`train_video_128`): batch 5 of 128-frame
    videos, N 8192, t_prior gaussian2, budget 8192, 2 timed steps under
-   no remat and under each remat policy, with peak memory per run;
+   no remat and under each remat policy, with peak memory per run; the
+   `dots` run (the trainer's default policy) is also traced and profiled;
 10. checks one fp32 training step from video (`whole_video`): encoder
    latent, codes (near-tie rule), loss and gradients, card against CPU;
 11. prints the kernels' JSON line and, last, the result line.
@@ -100,6 +101,10 @@ RECIPE128 = dict(total_length=128, step_size=128, context_size=12,
 # STL-128f training recipe, for the kernel shapes only
 TRAIN_BATCH, TRAIN_BATCH128 = 6, 5
 P_DROP = 0.1
+# training from raw video: 128x128 RGB frames (data.resolution) through a
+# random VQGAN that maps 4 frames x 8 x 8 pixels to one code of 16384
+RES = 128
+VIDEO_VQGAN = dict(n_codes=STL16["vocab_size"], downsample=(4, 8, 8))
 TRAIN_CONFIG = dict(
     model=dict(
         params=dict(STL16, mode=list(STL16_MODES), embd_pdrop=P_DROP, resid_pdrop=P_DROP,
@@ -1171,7 +1176,7 @@ def whole_step_check(dev):
 
 class VideoSet:
     """In-memory dataset of synthetic videos, item i made from (seed, i):
-    'video' (T, 128, 128, 3) float32 in [-0.5, 0.5] and 'indices' a
+    'video' (T, RES, RES, 3) float32 in [-0.5, 0.5] and 'indices' a
     permutation of the N latent positions, the items of the port's
     datasets. The card's machine has no image libraries, so no frame
     files are decoded here."""
@@ -1184,7 +1189,7 @@ class VideoSet:
 
     def __getitem__(self, i):
         rng = np.random.default_rng((self.seed, i))
-        video = rng.random((self.frames, 128, 128, 3), dtype=np.float32) - 0.5
+        video = rng.random((self.frames, RES, RES, 3), dtype=np.float32) - 0.5
         return dict(video=video, indices=rng.permutation(self.N))
 
 
@@ -1215,7 +1220,7 @@ def train_video(dev, out_dir, name, cfg, frames, B, N, steps, warm=1, profile=Fa
     V = STL16["vocab_size"]
     logdir = os.path.join(out_dir, name)
     shutil.rmtree(logdir, ignore_errors=True)
-    vqgan = random_vqgan(VQGANConfig(n_codes=V, downsample=(4, 8, 8)), 1, dev)
+    vqgan = random_vqgan(VQGANConfig(**VIDEO_VQGAN), 1, dev)
     trainer = MeBTTrainer(cfg, logdir, vqgan=vqgan, seed=0, device=dev)
     loader = DataLoader(VideoSet(4 * B, frames, N, seed=7), batch_size=B, num_workers=4, seed=0)
     state = trainer.init_state()
@@ -1231,8 +1236,11 @@ def train_video(dev, out_dir, name, cfg, frames, B, N, steps, warm=1, profile=Fa
     init_loss = float(np.log(V)) + 0.5 * 0.02**2 * STL16["n_embd"]
     require(bool(np.all(np.isfinite(losses))) and bool(np.all(np.isfinite(norms))),
             f"{name}: losses {losses} / gradient norms {norms} not finite")
-    require(all(abs(x - init_loss) <= 0.1 for x in losses),
-            f"{name}: losses {losses} not within 0.1 of {init_loss}")
+    # the first loss is the init loss (see run_train_slice); later ones fall
+    # fast: a random VQGAN maps noise to a few hundred of the 16384 codes,
+    # a marginal the model learns within a few steps
+    require(abs(losses[0] - init_loss) <= 0.1,
+            f"{name}: first loss {losses[0]} not within 0.1 of {init_loss}")
     step_s = wall / steps
     res = dict(phase="slice", config=name, batch=B, frames=frames, N=N, dtype="bfloat16",
                params="float32", dropout=P_DROP, remat=cfg["exp"].get("remat", False),
@@ -1280,7 +1288,7 @@ REMAT_RUNS = (("none", dict(remat=False)), ("full", dict(remat=True, remat_polic
               ("dots", dict(remat=True, remat_policy="dots")),
               ("saved", dict(remat=True, remat_policy="saved")),
               ("saved_mlp", dict(remat=True, remat_policy="saved_mlp")))
-MAIN_POLICY_128 = "saved"
+MAIN_POLICY_128 = "dots"  # the trainer's default policy; profiled, and its launches reported
 
 
 def run_train_video_128(dev, out_dir):
@@ -1292,10 +1300,13 @@ def run_train_video_128(dev, out_dir):
     k1, k2 = attention_launches_per_step()
     runs, main_launches = {}, None
     for policy, exp in REMAT_RUNS:
+        main = policy == MAIN_POLICY_128
+        if main:
+            exp = dict(exp, profile_step=1 + steps, profile_n_steps=2)
         cfg = video_config(STL128, (32, 16, 16), 8192, 1.8e-5, **exp)
         cfg["model"]["params"]["t_prior"] = "gaussian2"
         res, launches = train_video(dev, out_dir, f"train_video_128f_{policy}", cfg, 128, B, N,
-                                    steps)
+                                    steps, profile=main)
         fwd = 2 if exp["remat"] else 1
         expect = [fwd * k1, fwd * k2, 0, 0, k1, k2, (fwd + 1) * (k1 + k2), 1]
         require(launches == [n * steps for n in expect],
@@ -1303,8 +1314,10 @@ def run_train_video_128(dev, out_dir):
         runs[policy] = dict(step_s=res["step_s"], tokens_per_s=res["tokens_per_s"],
                             peak_mem_gb=res["peak_mem_gb"], losses=res["losses"],
                             launches_per_step=dict(zip(KERNELS, expect)))
-        if policy == MAIN_POLICY_128:
+        if main:
             main_launches = launches
+            runs[policy].update({k: res[k] for k in ("profile", "encode_plus_k9_ms",
+                                                     "encode_plus_k9_share", "trainer_trace")})
         emit(dict(phase="train_video_128f_run", policy=policy, **runs[policy]))
     return dict(phase="slice", config="stl_128f_train_video", batch=B, N=N, steps_timed=steps,
                 main_policy=MAIN_POLICY_128, runs=runs), main_launches
@@ -1322,7 +1335,7 @@ def whole_step_video_check(dev):
 
     rng = np.random.default_rng(5)
     N, V = 1024, STL16["vocab_size"]
-    vq_cfg = VQGANConfig(n_codes=V, downsample=(4, 8, 8))
+    vq_cfg = VQGANConfig(**VIDEO_VQGAN)
     gpu_vq = random_vqgan(vq_cfg, 6, dev)
     with torch.device("meta"):
         cpu_vq = VQGAN(vq_cfg).eval()
@@ -1334,7 +1347,7 @@ def whole_step_video_check(dev):
     cpu.load_state_dict({k: v.cpu().clone() for k, v in gpu.state_dict().items()}, assign=True)
     for p in cpu.parameters():
         p.requires_grad_(True)
-    video = torch.from_numpy(rng.random((1, 16, 128, 128, 3), dtype=np.float32) - 0.5)
+    video = torch.from_numpy(rng.random((1, 16, RES, RES, 3), dtype=np.float32) - 0.5)
     masks = MaskGen(schedule="linear", max_token=1024, shape=(4, 16, 16), budget=1024).train_masks(
         rng.permutation(N)[None], 0.4, 0, 4)
     names = ("sos_emb", "transformer.blocks.0.attn.query.weight",
@@ -1364,7 +1377,7 @@ def whole_step_video_check(dev):
     torch.set_num_threads(os.cpu_count() or 1)
     t0 = time.perf_counter()
     z_cpu, c_cpu = encode(cpu_vq, torch.device("cpu"))
-    flat_gpu, flat_cpu = z_gpu.reshape(-1, 256), z_cpu.reshape(-1, 256)
+    flat_gpu, flat_cpu = z_gpu.reshape(-1, z_gpu.shape[-1]), z_cpu.reshape(-1, z_cpu.shape[-1])
     n_diff_k9, _, over_k9 = code_mismatches(flat_gpu, emb, c_gpu.reshape(-1),
                                             nearest_code_ref(flat_gpu, emb))
     n_diff, gap, over = code_mismatches(flat_cpu, emb, c_gpu.reshape(-1), c_cpu.reshape(-1))

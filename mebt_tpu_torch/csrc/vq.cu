@@ -45,7 +45,7 @@ constexpr int THREADS = 256;  // 16x16 threads of 4x4
 constexpr int P = TM + 4;     // pitch keeps float4 alignment
 constexpr int MAX_D = 512;    // resident x tile: 512 x 68 x 4 B = 136 KB
 
-inline int padded_depth(int D) { return (D + DT - 1) / DT * DT; }
+__host__ __device__ inline int padded_depth(int D) { return (D + DT - 1) / DT * DT; }
 
 __global__ void __launch_bounds__(THREADS)
 nearest_code_kernel(const float* __restrict__ x, const float* __restrict__ e,

@@ -55,7 +55,7 @@ class MeBTTrainer:
         if exp.get("zero1"):
             raise NotImplementedError("exp.zero1: ZeRO-1 sharding is not ported yet (A13)")
         if int(exp.get("model_parallel", 1)) != 1:
-            raise NotImplementedError("exp.model_parallel: the mesh is not ported yet")
+            raise NotImplementedError("exp.model_parallel: the mesh is not ported yet (A13)")
 
         self.mask_gen = MaskGen(
             schedule=mask_cfg.get("schedule", "cosine"),

@@ -30,6 +30,9 @@ def test_the_training_slices_modules_are_covered():
     covered = {str(p.relative_to(ROOT / "mebt_tpu_torch")) for p in PORT_FILES[:-1]}
     assert {"train/trainer.py", "train/train_state.py", "utils/metrics.py",
             "ops/philox.py", "sampler/mask_schedule.py"} <= covered
+    # training from video
+    assert {"ops/vq.py", "data/loader.py", "data/datasets.py", "data/native.py",
+            "utils/video.py", "cli/train.py"} <= covered
 
 
 def test_import_pulls_in_no_jax_and_no_jax_package():

@@ -1,11 +1,13 @@
-"""K1-K4 and K6-K8 against their plain versions on a CUDA card, at small
+"""K1-K4 and K6-K9 against their plain versions on a CUDA card, at small
 shapes with ragged edges, in fp32 (tolerance 1e-5: fp32 sums in another
 order) and bf16 (both sides round one fp32 result to bf16, so an element
 may differ by one bf16 ulp, at most 2^-7 of its value: the tolerance is
 two such ulps of each element plus 1e-5). The backward kernels K6/K7 and
 the dropout branches K8 use the same two tolerances, with rtol 1e-5
-added in fp32 for gradients that are sums of a thousand terms. Skipped
-where there is no card.
+added in fp32 for gradients that are sums of a thousand terms. K9's
+codes follow the near-tie rule of ops/vq.py:code_mismatches, and on
+integer data (exact fp32 sums) equal the plain version's, lowest index
+first among ties. Skipped where there is no card.
 On the GPU machine, which has no JAX (the repo's conftest imports it):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
@@ -33,6 +35,8 @@ from mebt_tpu_torch.ops.head_sample import (
     head_topk_sample,
     head_topk_sample_ref,
 )
+
+from mebt_tpu_torch.ops.vq import code_mismatches, nearest_code, nearest_code_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -272,3 +276,36 @@ def test_autograd_runs_the_backward_kernels(dev, masked, rate):
     with torch.no_grad():
         fused_attention(q, k, v, km)
     assert (fwd.launches, bwd.launches) == (n_f + 1, n_b)
+
+
+# (M, K, D): tile edges in every dimension, a width no multiple of the
+# 32-deep stage, the widest width the kernel keeps resident
+@pytest.mark.parametrize("M,K,D", [(100, 1000, 256), (64, 64, 40), (7, 130, 512)])
+def test_nearest_code_matches_plain(dev, M, K, D):
+    gen = torch.Generator(dev).manual_seed(M)
+    x = torch.randn(M, D, generator=gen, device=dev)
+    e = torch.randn(K, D, generator=gen, device=dev)
+    before = nearest_code.launches
+    got = nearest_code(x, e)
+    assert nearest_code.launches == before + 1
+    assert got.dtype == torch.int64 and got.shape == (M,)
+    want = nearest_code_ref(x, e)
+    n, gap, over = code_mismatches(x, e, got, want)
+    assert over <= 1.0, (n, gap, over)
+
+
+def test_nearest_code_ties_pick_the_lowest_index(dev):
+    gen = torch.Generator(dev).manual_seed(9)
+    x = torch.randint(-1, 2, (300, 64), generator=gen, device=dev).float()
+    half = torch.randint(-1, 2, (200, 64), generator=gen, device=dev).float()
+    e = torch.cat([half, half])
+    got = nearest_code(x, e)
+    assert torch.equal(got, nearest_code_ref(x, e))
+    assert int(got.max()) < 200
+
+
+def test_nearest_code_refuses_what_it_cannot_take(dev):
+    with pytest.raises(ValueError, match="not taken"):
+        nearest_code(torch.zeros(4, 513, device=dev), torch.zeros(8, 513, device=dev))
+    with pytest.raises(ValueError, match="do not chain"):
+        nearest_code(torch.zeros(4, 8, device=dev), torch.zeros(8, 16, device=dev))

@@ -158,12 +158,13 @@ def test_accumulating_micro_step_leaves_the_parameters_alone():
 
 
 def test_video_batch_is_refused():
+    """A video batch needs the VQGAN the step was built with."""
     _, _, model = build_pair(MODES, 4)
     state = ts.TrainState.create(model, ts.make_optimizer(model, LR), seed=0)
     batch = dict(video=np.zeros((2, 4, 8, 8, 3), np.float32),
                  ctx_mask=np.zeros((2, 32), bool), tgt_mask=np.ones((2, 32), bool),
                  seq_len=np.float32(32), masked_weight=np.float32(32))
-    with pytest.raises(NotImplementedError, match="K9"):
+    with pytest.raises(ValueError, match="VQGAN"):
         ts.make_train_step(model)(state, batch)
 
 

@@ -1,10 +1,11 @@
-"""MeBTTrainer of the port on a fake loader of pre-tokenized batches, as
-tests/test_train_e2e.py drives the JAX trainer: the same seed gives the
-same t / window draws and, with every dropout at 0 and the JAX weights
-carried over, the same losses as the JAX trainer (fp32, 1e-4 relative:
-four AdamW steps apart in rounding); the loss falls on a repeated batch;
+"""MeBTTrainer of the port on fake loaders of pre-tokenized and of video
+batches, as tests/test_train_e2e.py drives the JAX trainer: the same
+seed gives the same t / window draws and, with every dropout at 0 and
+the JAX weights carried over, the same losses as the JAX trainer (fp32,
+1e-4 relative: four AdamW steps apart in rounding), from codes and from
+video through the frozen VQGAN; the loss falls on a repeated batch;
 save -> resume re-enters the epoch and skips the batches already
-trained on."""
+trained on; remat, log_samples and the profiler trace run."""
 
 import json
 
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import build_vqgan_pair
 from mebt_tpu.train.trainer import MeBTTrainer as JaxTrainer
 from mebt_tpu_torch.train import trainer as trainer_mod
 from mebt_tpu_torch.train.trainer import MeBTTrainer
@@ -178,15 +180,73 @@ def test_validate_uses_eval_masks_and_no_dropout(tmp_path):
 
 
 def test_video_batches_and_unported_options_are_refused(tmp_path):
+    """A video batch needs a VQGAN; the mesh and ZeRO-1 are not ported."""
     tr = _trainer(tmp_path / "video", ckpt_every=0)
     tr.vtokens = False
-    batch = dict(video=np.zeros((2, 4, 8, 8, 3), np.float32),
+    batch = dict(video=np.zeros((2, 4, 16, 16, 3), np.float32),
                  indices=np.stack([np.arange(32)] * 2))
-    with pytest.raises(NotImplementedError, match="K9"):
+    with pytest.raises(ValueError, match="VQGAN"):
         tr.fit(FakeLoader([batch]), max_steps=1)
-    for key in ("remat", "zero1", "vis_every", "profile_step"):
+    for key, value in (("zero1", True), ("model_parallel", 2)):
         with pytest.raises(NotImplementedError, match=key):
-            _trainer(tmp_path / key, **{key: 1})
+            _trainer(tmp_path / key, **{key: value})
+
+
+def _video_batches(n, B=2, seed=0):
+    rng = np.random.default_rng(seed)
+    return [dict(video=rng.uniform(-0.5, 0.5, size=(B, 4, 16, 16, 3)).astype(np.float32),
+                 indices=np.stack([rng.permutation(32) for _ in range(B)]))
+            for _ in range(n)]
+
+
+def _video_config(**exp):
+    cfg = _config(**exp)
+    cfg["model"]["params"]["vtokens"] = False
+    return cfg
+
+
+def test_fit_from_video_reproduces_the_jax_trainers_losses(tmp_path):
+    """The frozen VQGAN encodes each batch inside the step (tiny VQGAN:
+    downsample (2, 4, 4), 64 codes); losses as the codes test, 1e-4."""
+    jv, tv = build_vqgan_pair(seed=3)
+    jtr = JaxTrainer(_video_config(), str(tmp_path / "jax"), vqgan=jv, seed=0,
+                     compute_dtype=jnp.float32)
+    jstate = jtr.init_state()
+    params = jax.tree.map(np.asarray, jstate.params)
+    jtr.fit(FakeLoader(_video_batches(3)), max_steps=4, state=jstate, log_every=1)
+
+    tr = MeBTTrainer(_video_config(), str(tmp_path / "port"), vqgan=tv, seed=0,
+                     compute_dtype=torch.float32, device="cpu")
+    state = tr.load_pretrained(tr.init_state(), mebt_state_dict(params))
+    tr.fit(FakeLoader(_video_batches(3)), max_steps=4, state=state, log_every=1)
+    want_losses, got_losses = _losses(tmp_path / "jax"), _losses(tmp_path / "port")
+    assert len(got_losses) == len(want_losses) == 4
+    np.testing.assert_allclose(got_losses, want_losses, rtol=1e-4)
+
+
+def test_video_training_with_remat_samples_and_profile(tmp_path):
+    """exp.remat, exp.vis_every and exp.profile_step, once refused, now
+    run: a GIF of sampled videos every 2 steps, a Chrome trace of step 1,
+    validation on video batches."""
+    _, tv = build_vqgan_pair(seed=4)
+    logdir = tmp_path / "run"
+    tr = MeBTTrainer(_video_config(ckpt_every=0, remat=True, remat_policy="saved", vis_every=2,
+                                   profile_step=1, profile_n_steps=1),
+                     str(logdir), vqgan=tv, seed=0, compute_dtype=torch.float32, device="cpu")
+    assert tr.model_cfg.remat and tr.model_cfg.remat_policy == "saved"
+    state = tr.fit(FakeLoader(_video_batches(4)), max_steps=4, log_every=1)
+    assert state.step == 4 and all(np.isfinite(_losses(logdir)))
+    assert sorted(p.name for p in (logdir / "samples").iterdir()) == ["step_2.gif", "step_4.gif"]
+    from PIL import Image
+
+    gif = Image.open(logdir / "samples" / "step_2.gif")
+    assert gif.n_frames == 4  # the sampled videos' 4 frames, tiled 2 x 2
+    assert [p.name for p in (logdir / "profile").iterdir()] == ["trace_step_2.json"]
+    trace = json.loads((logdir / "profile" / "trace_step_2.json").read_text())
+    assert trace["traceEvents"]
+    val = tr.validate(state, FakeLoader(_video_batches(2, seed=5)), step=4, max_batches=2)
+    assert np.isfinite(val["val/loss"])
+    tr.logger.close()
 
 
 def test_trainer_defaults_to_cuda_and_never_falls_back(tmp_path):
