@@ -1178,8 +1178,8 @@ class VideoSet:
     """In-memory dataset of synthetic videos, item i made from (seed, i):
     'video' (T, RES, RES, 3) float32 in [-0.5, 0.5] and 'indices' a
     permutation of the N latent positions, the items of the port's
-    datasets. The card's machine has no image libraries, so no frame
-    files are decoded here."""
+    datasets. Made in memory, they need no image library (PIL,
+    libjpeg), which a GPU host may lack."""
 
     def __init__(self, n, frames, N, seed):
         self.n, self.frames, self.N, self.seed = n, frames, N, seed
@@ -1193,13 +1193,13 @@ class VideoSet:
         return dict(video=video, indices=rng.permutation(self.N))
 
 
-def video_config(dims, modes_shape, batch_budget, exact_lr, **exp):
+def video_config(dims, mask_shape, budget, exact_lr, **exp):
     """The training config of an STL recipe from raw video: vtokens off,
     the VQGAN encodes every batch."""
     cfg = json.loads(json.dumps(TRAIN_CONFIG))
     cfg["model"]["params"].update(block_size=dims["block_size"], vtokens=False)
-    cfg["model"]["mask"]["params"].update(shape=list(modes_shape), budget=batch_budget,
-                                          max_token=batch_budget)
+    cfg["model"]["mask"]["params"].update(shape=list(mask_shape), budget=budget,
+                                          max_token=budget)
     cfg["exp"].update(exact_lr=exact_lr, **exp)
     return cfg
 
@@ -1237,8 +1237,8 @@ def train_video(dev, out_dir, name, cfg, frames, B, N, steps, warm=1, profile=Fa
     require(bool(np.all(np.isfinite(losses))) and bool(np.all(np.isfinite(norms))),
             f"{name}: losses {losses} / gradient norms {norms} not finite")
     # the first loss is the init loss (see run_train_slice); later ones fall
-    # fast: a random VQGAN maps noise to a few hundred of the 16384 codes,
-    # a marginal the model learns within a few steps
+    # fast: a random VQGAN maps noise to a small, skewed set of the 16384
+    # codes, a marginal the model learns within a few steps
     require(abs(losses[0] - init_loss) <= 0.1,
             f"{name}: first loss {losses[0]} not within 0.1 of {init_loss}")
     step_s = wall / steps

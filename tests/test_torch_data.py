@@ -47,8 +47,19 @@ def _assert_items_equal(a, b):
         np.testing.assert_array_equal(np.asarray(a[key]), np.asarray(b[key]), err_msg=key)
 
 
-def test_frame_list_dataset_matches_jax(frame_folder):
-    assert tnative.available() == jnative.available()
+@pytest.mark.parametrize("native", [False, True], ids=["pil", "native"])
+def test_frame_list_dataset_matches_jax(frame_folder, monkeypatch, native):
+    """Both sides decode with PIL, or both with their native decoder (the
+    same C++ source and flags); the JAX side's library is built by make
+    in the shared csrc/ and may be missing where a build failed, and then
+    its decode is the port's to compare against."""
+    if not native:
+        monkeypatch.setattr(jnative, "decode_clip", lambda *a, **k: None)
+        monkeypatch.setattr(tnative, "decode_clip", lambda *a, **k: None)
+    else:
+        assert tnative.available()
+        if not jnative.available():
+            monkeypatch.setattr(jnative, "decode_clip", tnative.decode_clip)
     kw = dict(sequence_length=4, resolution=16, latent_shape=LATENT, seed=11)
     want = jds.FrameListDataset(str(frame_folder), **kw)
     got = tds.FrameListDataset(str(frame_folder), **kw)
@@ -60,6 +71,23 @@ def test_frame_list_dataset_matches_jax(frame_folder):
             item = got[i]
             assert item["video"].shape == (4, 16, 16, 3) and item["video"].dtype == np.float32
             _assert_items_equal(item, want[i])
+
+
+def test_native_decoder_matches_pil(frame_folder):
+    """The port's own build of the frame decoder against PIL's decode,
+    with the JAX package's tolerance (tests/test_native_loader.py): the
+    triangle filter approximates PIL's bilinear resize."""
+    from PIL import Image
+
+    paths = sorted(str(p) for p in frame_folder.glob("v0_*.png"))[:4]
+    got = tnative.decode_clip(paths, resolution=16)
+    assert got is not None and got.shape == (4, 16, 16, 3)
+    for i, path in enumerate(paths):
+        img = Image.open(path)
+        half = (img.width - img.height) // 2  # 24 x 32: a centre crop of the width
+        img = img.crop((half, 0, half + img.height, img.height)).resize((16, 16), Image.BILINEAR)
+        want = np.asarray(img.convert("RGB"), np.float32) / 255.0 - 0.5
+        assert np.abs(got[i] - want).mean() < 0.02
 
 
 def _hdf5(path, key_prefix, data, starts):
