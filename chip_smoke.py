@@ -40,11 +40,13 @@
    random VQGAN encoder (cuDNN, fp32), K9 once a step, then MeBT forward
    and backward and AdamW as in 6; 5 timed steps, the trainer's own
    torch.profiler trace, and a profile for the idle share and the
-   encoder's share;
+   share of the encode (its kernels and K9); each step's loss must lie
+   between the entropy of its batch's code marginal and the init loss;
 9. the same for STL-128f (`train_video_128`): batch 5 of 128-frame
    videos, N 8192, t_prior gaussian2, budget 8192, 2 timed steps under
-   no remat and under each remat policy, with peak memory per run; the
-   `dots` run (the trainer's default policy) is also traced and profiled;
+   no remat, `full` and `dots` (`saved` and `saved_mlp` run as `full`),
+   with peak memory per run; the `dots` run (the trainer's default
+   policy) is also traced and profiled;
 10. checks one fp32 training step from video (`whole_video`): encoder
    latent, codes (near-tie rule), loss and gradients, card against CPU;
 11. prints the kernels' JSON line and, last, the result line.
@@ -907,12 +909,29 @@ def run_slice_128(dev, B, out_dir):
     ), launches
 
 
-def profile_decode(fn, out_dir, name) -> dict:
+def span_kernels(prof, span: str) -> list[tuple[str, float]]:
+    """(name, ms) of every kernel launched inside the host ranges named
+    `span` (torch.profiler.record_function), from the ops' tree."""
+    from torch.autograd import DeviceType
+
+    def under(ev):
+        ks = [(k.name, k.duration / 1e3) for k in ev.kernels]
+        for ch in ev.cpu_children:
+            ks += under(ch)
+        return ks
+
+    return [k for ev in prof.events() if ev.name == span and ev.device_type == DeviceType.CPU
+            for k in under(ev)]
+
+
+def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
     """Device time of one warm decode (or of a few train steps) by
     kernel, from torch.profiler: each hand-written kernel's share (dropout
     runs inside them), everything else, and the idle share of the
     profiled wall time (the profiler's own overhead counts as idle).
-    The full table goes to <out_dir>/<name>."""
+    With `span`, also the kernels launched inside the host ranges of
+    that name, from the same profile. The full table goes to
+    <out_dir>/<name>."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -926,7 +945,7 @@ def profile_decode(fn, out_dir, name) -> dict:
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:  # kernels only, not the ops launching them
             continue
-        if e.key.startswith("Optimizer."):  # the optimizer's own span over its kernels
+        if e.key.startswith("Optimizer.") or e.key == span:  # a span over kernels, not one
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -945,6 +964,14 @@ def profile_decode(fn, out_dir, name) -> dict:
     out["other"] = busy - sum(out.values())
     out.update(device_busy_ms=busy, wall_ms=wall_ms, idle_share=1.0 - busy / wall_ms,
                top=[dict(name=n[:80], ms=ms, calls=c) for n, ms, c in table[:8]])
+    if span:
+        # K9 counts whole: only the encode launches it, whether or not the
+        # profiler links its ctypes launch to the span
+        ks = span_kernels(prof, span)
+        enc = sum(ms for n, ms in ks if groups["K9"] not in n)
+        out["span"] = dict(name=span, kernels=len(ks), encoder_ms=enc, k9_ms=out["K9"],
+                           k9_linked_ms=sum(ms for n, ms in ks if groups["K9"] in n),
+                           share=(enc + out["K9"]) / busy)
     return out
 
 
@@ -1193,6 +1220,28 @@ class VideoSet:
         return dict(video=video, indices=rng.permutation(self.N))
 
 
+def code_marginals(vqgan, loader, steps, dev) -> list[dict]:
+    """What each of the first `steps` steps of `fit` trains on (step s
+    takes batch s % len(loader) of epoch s // len(loader)): the batch
+    encoded through codebook_quantize, its distinct codes and the
+    perplexity of its code marginal, with that marginal's entropy
+    ln(perplexity) in nats. No predictor that ignores the context has a
+    lower expected cross-entropy on the batch than that entropy."""
+    from mebt_tpu_torch.models.vqgan import codebook_quantize
+
+    L, B, out = len(loader), loader.batch_size, []
+    for s in range(steps):
+        loader.set_epoch(s // L)
+        idx = loader._epoch_indices()[(s % L) * B:(s % L + 1) * B]
+        video = torch.from_numpy(np.stack([loader.dataset[int(i)]["video"] for i in idx]))
+        with torch.no_grad():
+            codes, _, aux = codebook_quantize(vqgan.codebook, vqgan.encode_latent(video.to(dev)))
+        ppl = aux["perplexity"].item()
+        out.append(dict(distinct_codes=int(torch.unique(codes).numel()), perplexity=ppl,
+                        entropy=float(np.log(ppl))))
+    return out
+
+
 def video_config(dims, mask_shape, budget, exact_lr, **exp):
     """The training config of an STL recipe from raw video: vtokens off,
     the VQGAN encodes every batch."""
@@ -1214,7 +1263,7 @@ def train_video(dev, out_dir, name, cfg, frames, B, N, steps, warm=1, profile=Fa
     from mebt_tpu_torch.cli.common import random_vqgan
     from mebt_tpu_torch.data.loader import DataLoader
     from mebt_tpu_torch.models.vqgan import VQGANConfig
-    from mebt_tpu_torch.train.train_state import _encode_codes
+    from mebt_tpu_torch.train.train_state import ENCODE_SPAN, _encode_codes
     from mebt_tpu_torch.train.trainer import MeBTTrainer
 
     V = STL16["vocab_size"]
@@ -1236,18 +1285,24 @@ def train_video(dev, out_dir, name, cfg, frames, B, N, steps, warm=1, profile=Fa
     init_loss = float(np.log(V)) + 0.5 * 0.02**2 * STL16["n_embd"]
     require(bool(np.all(np.isfinite(losses))) and bool(np.all(np.isfinite(norms))),
             f"{name}: losses {losses} / gradient norms {norms} not finite")
-    # the first loss is the init loss (see run_train_slice); later ones fall
-    # fast: a random VQGAN maps noise to a small, skewed set of the 16384
-    # codes, a marginal the model learns within a few steps
+    # the first loss is the init loss (see run_train_slice). Later ones fall
+    # as the model learns the marginal of the codes, but a few steps at
+    # this rate cannot take it below the marginal's entropy: a loss there
+    # would mean the targets leak into the inputs
     require(abs(losses[0] - init_loss) <= 0.1,
             f"{name}: first loss {losses[0]} not within 0.1 of {init_loss}")
+    marg = code_marginals(vqgan, loader, warm + steps, dev)
+    entropies = [m["entropy"] for m in marg]
+    require(all(h <= l <= init_loss + 0.1 for h, l in zip(entropies, losses)),
+            f"{name}: losses {losses} not between the code marginals' entropies {entropies} "
+            f"and the init loss {init_loss}")
     step_s = wall / steps
     res = dict(phase="slice", config=name, batch=B, frames=frames, N=N, dtype="bfloat16",
                params="float32", dropout=P_DROP, remat=cfg["exp"].get("remat", False),
                remat_policy=cfg["exp"].get("remat_policy") if cfg["exp"].get("remat") else None,
                steps_timed=steps, wall_s=wall, step_s=step_s, tokens_per_s=B * N / step_s,
                peak_mem_gb=peak / 2**30, losses=losses, expected_loss=init_loss,
-               grad_norms=norms, launches=dict(zip(KERNELS, launches)))
+               code_marginals=marg, grad_norms=norms, launches=dict(zip(KERNELS, launches)))
     if profile:
         # exp.profile_step = warm + steps: the trainer traces the next two steps
         state = trainer.fit(loader, max_steps=warm + steps + 2, state=state, log_every=1000)
@@ -1256,12 +1311,14 @@ def train_video(dev, out_dir, name, cfg, frames, B, N, steps, warm=1, profile=Fa
         res["trainer_trace"] = sorted(traces)
         prof = profile_decode(
             lambda: trainer.fit(loader, max_steps=warm + steps + 4, state=state, log_every=1000),
-            out_dir, f"{name}_profile.json")
+            out_dir, f"{name}_profile.json", span=ENCODE_SPAN)
         prof["steps"] = 2
+        require(prof["span"]["kernels"] > 0, f"{name}: no kernel inside {ENCODE_SPAN}")
+        # the encode timed alone with CUDA events, a per-layer number beside the profile's
         video = torch.from_numpy(np.stack([loader.dataset[i]["video"] for i in range(B)])).to(dev)
         enc_ms = cuda_ms(lambda: _encode_codes(vqgan, video), reps=5)
-        res.update(profile=prof, encode_plus_k9_ms=enc_ms,
-                   encode_plus_k9_share=2 * enc_ms / prof["device_busy_ms"])
+        res.update(profile=prof, encode_plus_k9_ms_alone=enc_ms,
+                   encode_plus_k9_share=prof["span"]["share"])
     trainer.logger.close()
     del state, trainer, vqgan
     torch.cuda.empty_cache()
@@ -1284,16 +1341,15 @@ def run_train_video(dev, out_dir):
 
 
 # (name, exp settings) of the STL-128f runs: no remat, then each policy
+# (`saved` and `saved_mlp` run as `full`, models/transformer.py)
 REMAT_RUNS = (("none", dict(remat=False)), ("full", dict(remat=True, remat_policy="full")),
-              ("dots", dict(remat=True, remat_policy="dots")),
-              ("saved", dict(remat=True, remat_policy="saved")),
-              ("saved_mlp", dict(remat=True, remat_policy="saved_mlp")))
+              ("dots", dict(remat=True, remat_policy="dots")))
 MAIN_POLICY_128 = "dots"  # the trainer's default policy; profiled, and its launches reported
 
 
 def run_train_video_128(dev, out_dir):
     """STL-128f from raw video, batch 5, N 8192, t_prior gaussian2, budget
-    8192, under each remat policy (and none): 2 timed steps each, peak
+    8192, under each policy of REMAT_RUNS: 2 timed steps each, peak
     memory per run. A remat policy recomputes each block's forward in
     the backward, so K1, K2 and the forward half of K8 launch twice."""
     B, N, steps = TRAIN_BATCH128, 8192, 2
@@ -1313,10 +1369,11 @@ def run_train_video_128(dev, out_dir):
                 f"train_video 128f {policy}: launches {launches} over {steps} steps != {expect}")
         runs[policy] = dict(step_s=res["step_s"], tokens_per_s=res["tokens_per_s"],
                             peak_mem_gb=res["peak_mem_gb"], losses=res["losses"],
+                            code_marginals=res["code_marginals"],
                             launches_per_step=dict(zip(KERNELS, expect)))
         if main:
             main_launches = launches
-            runs[policy].update({k: res[k] for k in ("profile", "encode_plus_k9_ms",
+            runs[policy].update({k: res[k] for k in ("profile", "encode_plus_k9_ms_alone",
                                                      "encode_plus_k9_share", "trainer_trace")})
         emit(dict(phase="train_video_128f_run", policy=policy, **runs[policy]))
     return dict(phase="slice", config="stl_128f_train_video", batch=B, N=N, steps_timed=steps,

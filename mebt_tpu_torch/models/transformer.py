@@ -27,18 +27,17 @@ Remat (mebt_tpu/models/transformer.py:396-436): with `remat` each block
 of a forward that records gradients runs under torch.utils.checkpoint
 (non-reentrant), and its backward recomputes what the policy did not
 keep: `full` keeps only the block's inputs; `dots` also keeps the
-Linear layers' matmul outputs; `saved` keeps the tensors named
-`attn_q`, `attn_kv_small` (the latent-sized K/V) and `attn_y`;
-`saved_mlp` adds `mlp_fc`. The named policies go through a selective
-checkpoint policy that keeps the outputs of `checkpoint_name`, an
-identity registered as a custom op. Eager recompute runs the block again
-up to its last needed tensor, so a named policy saves memory for the
-backward but, unlike XLA's, still recomputes the matmuls that produce
-the kept tensors. The residual and embedding dropouts draw from an
-explicit generator that torch's RNG preservation does not cover: a
-checkpointed block rewinds it to where its forward started before a
-recompute, and puts it back after, so the recompute draws the forward's
-masks and later draws are untouched.
+Linear layers' matmul outputs, through a selective-checkpoint policy.
+`saved` and `saved_mlp` run as `full`. The JAX package keeps named
+tensors under them (`attn_q`, the latent-sized K/V, `attn_y`, and
+`mlp_fc`) so that XLA need not recompute their matmuls; eager recompute
+runs a block again up to its last needed tensor all the same, so keeping
+them here cost memory and saved no time (H100 runs, PERF.md). The names
+are accepted so the JAX package's configs run unchanged. The residual
+and embedding dropouts draw from an explicit generator that torch's RNG
+preservation does not cover: a checkpointed block rewinds it to where
+its forward started before a recompute, and puts it back after, so the
+recompute draws the forward's masks and later draws are untouched.
 """
 
 from __future__ import annotations
@@ -61,48 +60,14 @@ from mebt_tpu_torch.ops.attention_cuda import fused_dropout_attention
 
 BLOCK_MODES = ("latent_enc", "latent_self", "latent_dec", "lt2l", "maskgit")
 REMAT_POLICIES = ("full", "dots", "saved", "saved_mlp")
-_SAVED_NAMES = {
-    "saved": frozenset({"attn_q", "attn_kv_small", "attn_y"}),
-    "saved_mlp": frozenset({"attn_q", "attn_kv_small", "attn_y", "mlp_fc"}),
-}
 # the Linear layers' products (jax.checkpoint_policies.dots_with_no_batch_dims_saveable)
 _DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
 
 
-@torch.library.custom_op("mebt::checkpoint_name", mutates_args=())
-def _named(x: torch.Tensor, name: str) -> torch.Tensor:
-    return x.clone()
-
-
-@_named.register_fake
-def _(x, name):
-    return torch.empty_like(x)
-
-
-_named.register_autograd(lambda ctx, g: (g, None))
-
-_naming = False  # set while a block runs under a named remat policy
-
-
-def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
-    """jax.ad_checkpoint.checkpoint_name: the identity, except inside a
-    block checkpointed under a named policy, where it is a copy that the
-    policy can keep by name."""
-    return _named(x, name) if _naming else x
-
-
-def _remat_policy(names):
-    """Selective-checkpoint policy: keep the `checkpoint_name` outputs of
-    `names`, or (names None) the matmul outputs; recompute the rest."""
-
-    def policy(ctx, op, *args, **kwargs):
-        if names is None:
-            keep = op in _DOT_OPS
-        else:
-            keep = op is torch.ops.mebt.checkpoint_name.default and args[1] in names
-        return CheckpointPolicy.MUST_SAVE if keep else CheckpointPolicy.PREFER_RECOMPUTE
-
-    return policy
+def _keep_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of `dots`: keep the matmul outputs,
+    recompute the rest."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def default_mode_list(n_layer: int, mode: Sequence[str]) -> list[str]:
@@ -215,21 +180,16 @@ class CrossAttention(nn.Module):
     def project_kv(self, key):
         return self.key(key), self.value(key)
 
-    def attend(self, query, k, v, key_mask=None, drop: DropoutState | None = None,
-               tag_kv: bool = False):
-        """`tag_kv`: K/V are latent-sized, and `saved` may keep them."""
-        q = checkpoint_name(self.query(query), "attn_q")
-        if tag_kv:
-            k, v = checkpoint_name(k, "attn_kv_small"), checkpoint_name(v, "attn_kv_small")
+    def attend(self, query, k, v, key_mask=None, drop: DropoutState | None = None):
+        q = self.query(query)
         rate = self.attn_pdrop if drop is not None else 0.0
         seed = drop.attention_seed(self.layer) if rate > 0.0 else 0
         y = fused_dropout_attention(q, k, v, key_mask, rate, seed)
-        return dropout(self.proj(checkpoint_name(y, "attn_y")), self.resid_pdrop, drop)
+        return dropout(self.proj(y), self.resid_pdrop, drop)
 
-    def forward(self, query, key, key_mask=None, drop: DropoutState | None = None,
-                tag_kv: bool = False):
+    def forward(self, query, key, key_mask=None, drop: DropoutState | None = None):
         k, v = self.project_kv(key)
-        return self.attend(query, k, v, key_mask, drop, tag_kv)
+        return self.attend(query, k, v, key_mask, drop)
 
 
 class Mlp(nn.Sequential):
@@ -245,8 +205,7 @@ class Mlp(nn.Sequential):
         self.resid_pdrop = resid_pdrop
 
     def forward(self, x, drop: DropoutState | None = None):
-        h = checkpoint_name(self[0](x), "mlp_fc")  # pre-GELU, for `saved_mlp`
-        return dropout(self[2](self[1](h)), self.resid_pdrop, drop)
+        return dropout(super().forward(x), self.resid_pdrop, drop)
 
 
 class Block(nn.Module):
@@ -286,7 +245,7 @@ class Block(nn.Module):
 
         qn = self.ln1(query)
         kn = qn if key is query else self.ln1(key)
-        x = qn + self.attn(qn, kn, key_mask, drop, tag_kv=mode in ("latent_self", "latent_dec"))
+        x = qn + self.attn(qn, kn, key_mask, drop)
         x = x + self.mlp(self.ln2(x), drop)
         if mode in ("latent_enc", "latent_self", "lt2l"):
             return x, tokens
@@ -344,21 +303,18 @@ def remat_block(block: Block, policy: str, latents, tokens, ctx_mask, tgt_mask,
     calls = [0]
 
     def run(latents, tokens):
-        global _naming
         outer = None
         if drop is not None and calls[0]:  # a recompute: replay the forward's draws
             outer = drop.generator.get_state()
             drop.generator.set_state(start)
         calls[0] += 1
-        prev, _naming = _naming, policy in _SAVED_NAMES
         try:
             return block(latents, tokens, ctx_mask, tgt_mask, drop)
         finally:  # also when the recompute stops early, past its last needed tensor
-            _naming = prev
             if outer is not None:
                 drop.generator.set_state(outer)
 
-    context_fn = noop_context_fn if policy == "full" else functools.partial(
-        create_selective_checkpoint_contexts, _remat_policy(_SAVED_NAMES.get(policy)))
+    context_fn = noop_context_fn if policy != "dots" else functools.partial(
+        create_selective_checkpoint_contexts, _keep_dots)
     return checkpoint(run, latents, tokens, use_reentrant=False, preserve_rng_state=False,
                       context_fn=context_fn)

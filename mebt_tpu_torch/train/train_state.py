@@ -170,6 +170,9 @@ def batch_to_device(batch: dict, device) -> dict:
     return out
 
 
+ENCODE_SPAN = "mebt::encode_codes"  # the profiler range of the frozen encode
+
+
 @torch.no_grad()
 def _encode_codes(vqgan: VQGAN, video_bthwc: torch.Tensor,
                   sample_every_n_latent_frames: int = 0) -> torch.Tensor:
@@ -177,10 +180,12 @@ def _encode_codes(vqgan: VQGAN, video_bthwc: torch.Tensor,
     (mebt_tpu/train/train_state.py:_encode_codes): encoder latents, then
     the nearest codebook entry of each (K9), optionally every n-th latent
     frame. The codes are what `codebook_quantize` returns; its other
-    outputs are not needed here."""
+    outputs are not needed here. A profile names the encode's work
+    `ENCODE_SPAN`."""
     vqgan.eval()
-    z = vqgan.encode_latent(video_bthwc)
-    codes = nearest_code(z.reshape(-1, z.shape[-1]), vqgan.codebook.embeddings)
+    with torch.profiler.record_function(ENCODE_SPAN):
+        z = vqgan.encode_latent(video_bthwc)
+        codes = nearest_code(z.reshape(-1, z.shape[-1]), vqgan.codebook.embeddings)
     codes = codes.view(z.shape[:-1])
     if sample_every_n_latent_frames > 0:
         codes = codes[:, ::sample_every_n_latent_frames]

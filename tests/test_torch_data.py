@@ -50,16 +50,17 @@ def _assert_items_equal(a, b):
 @pytest.mark.parametrize("native", [False, True], ids=["pil", "native"])
 def test_frame_list_dataset_matches_jax(frame_folder, monkeypatch, native):
     """Both sides decode with PIL, or both with their native decoder (the
-    same C++ source and flags); the JAX side's library is built by make
-    in the shared csrc/ and may be missing where a build failed, and then
-    its decode is the port's to compare against."""
+    same C++ source and flags). The JAX side's library is built by make
+    in the shared csrc/; where that build failed there is no reference
+    native decode, and the native case is skipped."""
     if not native:
         monkeypatch.setattr(jnative, "decode_clip", lambda *a, **k: None)
         monkeypatch.setattr(tnative, "decode_clip", lambda *a, **k: None)
     else:
         assert tnative.available()
         if not jnative.available():
-            monkeypatch.setattr(jnative, "decode_clip", tnative.decode_clip)
+            pytest.skip("the JAX package's native frame decoder (csrc/libmebt_io.so) "
+                        "is not built")
     kw = dict(sequence_length=4, resolution=16, latent_shape=LATENT, seed=11)
     want = jds.FrameListDataset(str(frame_folder), **kw)
     got = tds.FrameListDataset(str(frame_folder), **kw)
