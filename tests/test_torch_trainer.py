@@ -230,10 +230,10 @@ def test_video_training_with_remat_samples_and_profile(tmp_path):
     validation on video batches."""
     _, tv = build_vqgan_pair(seed=4)
     logdir = tmp_path / "run"
-    tr = MeBTTrainer(_video_config(ckpt_every=0, remat=True, remat_policy="saved", vis_every=2,
+    tr = MeBTTrainer(_video_config(ckpt_every=0, remat=True, remat_policy="dots", vis_every=2,
                                    profile_step=1, profile_n_steps=1),
                      str(logdir), vqgan=tv, seed=0, compute_dtype=torch.float32, device="cpu")
-    assert tr.model_cfg.remat and tr.model_cfg.remat_policy == "saved"
+    assert tr.model_cfg.remat and tr.model_cfg.remat_policy == "dots"
     state = tr.fit(FakeLoader(_video_batches(4)), max_steps=4, log_every=1)
     assert state.step == 4 and all(np.isfinite(_losses(logdir)))
     assert sorted(p.name for p in (logdir / "samples").iterdir()) == ["step_2.gif", "step_4.gif"]
