@@ -933,14 +933,20 @@ def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
     that name, from the same profile. The full table goes to
     <out_dir>/<name>."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # an empty warm-up step before the recorded one: a trace that starts
+    # cold loses the first kernels of `fn` (seen as a train step's first
+    # encoder convolutions missing from the table)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
     table = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:  # kernels only, not the ops launching them
