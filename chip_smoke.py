@@ -909,9 +909,9 @@ def run_slice_128(dev, B, out_dir):
     ), launches
 
 
-def span_kernels(prof, span: str) -> list[tuple[str, float]]:
-    """(name, ms) of every kernel launched inside the host ranges named
-    `span` (torch.profiler.record_function), from the ops' tree."""
+def span_kernels(prof, span: str) -> list[list[tuple[str, float]]]:
+    """For each host range named `span` (torch.profiler.record_function),
+    the (name, ms) of every kernel launched inside it, from the ops' tree."""
     from torch.autograd import DeviceType
 
     def under(ev):
@@ -920,8 +920,8 @@ def span_kernels(prof, span: str) -> list[tuple[str, float]]:
             ks += under(ch)
         return ks
 
-    return [k for ev in prof.events() if ev.name == span and ev.device_type == DeviceType.CPU
-            for k in under(ev)]
+    return [under(ev) for ev in prof.events()
+            if ev.name == span and ev.device_type == DeviceType.CPU]
 
 
 def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
@@ -933,20 +933,18 @@ def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
     that name, from the same profile. The full table goes to
     <out_dir>/<name>."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    # an empty warm-up step before the recorded one: a trace that starts
-    # cold loses the first kernels of `fn` (seen as a train step's first
-    # encoder convolutions missing from the table)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        prof.step()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # kernels launched in the first milliseconds of a trace may get no
+        # record (up to 12 launches within 6 ms of the start, seen as the
+        # first step's encoder convolutions missing): start after them
+        time.sleep(0.2)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        prof.step()
     table = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:  # kernels only, not the ops launching them
@@ -971,13 +969,13 @@ def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
     out.update(device_busy_ms=busy, wall_ms=wall_ms, idle_share=1.0 - busy / wall_ms,
                top=[dict(name=n[:80], ms=ms, calls=c) for n, ms, c in table[:8]])
     if span:
-        # K9 counts whole: only the encode launches it, whether or not the
-        # profiler links its ctypes launch to the span
-        ks = span_kernels(prof, span)
+        # K9 counts whole: only the encode launches it, and the profiler
+        # does not link its ctypes launch to the span
+        per = span_kernels(prof, span)
+        ks = [k for kernels in per for k in kernels]
         enc = sum(ms for n, ms in ks if groups["K9"] not in n)
-        out["span"] = dict(name=span, kernels=len(ks), encoder_ms=enc, k9_ms=out["K9"],
-                           k9_linked_ms=sum(ms for n, ms in ks if groups["K9"] in n),
-                           share=(enc + out["K9"]) / busy)
+        out["span"] = dict(name=span, kernels_per_range=[len(k) for k in per], encoder_ms=enc,
+                           k9_ms=out["K9"], share=(enc + out["K9"]) / busy)
     return out
 
 
@@ -1319,7 +1317,9 @@ def train_video(dev, out_dir, name, cfg, frames, B, N, steps, warm=1, profile=Fa
             lambda: trainer.fit(loader, max_steps=warm + steps + 4, state=state, log_every=1000),
             out_dir, f"{name}_profile.json", span=ENCODE_SPAN)
         prof["steps"] = 2
-        require(prof["span"]["kernels"] > 0, f"{name}: no kernel inside {ENCODE_SPAN}")
+        n = prof["span"]["kernels_per_range"]
+        require(len(n) == 2 and n[0] == n[1] > 0,
+                f"{name}: kernels under each {ENCODE_SPAN} of the 2 profiled steps: {n}")
         # the encode timed alone with CUDA events, a per-layer number beside the profile's
         video = torch.from_numpy(np.stack([loader.dataset[i]["video"] for i in range(B)])).to(dev)
         enc_ms = cuda_ms(lambda: _encode_codes(vqgan, video), reps=5)
