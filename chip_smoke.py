@@ -937,10 +937,14 @@ def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # kernels launched in the first milliseconds of a trace may get no
-        # record (up to 12 launches within 6 ms of the start, seen as the
-        # first step's encoder convolutions missing): start after them
-        time.sleep(0.2)
+        # the kernels that run in the first milliseconds after a trace's
+        # first launch get no record (up to 12, seen as the first step's
+        # encoder convolutions missing), so spin kernels, left out of the
+        # table, take those milliseconds before the measured work
+        for _ in range(20):
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.005)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -950,6 +954,8 @@ def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
         if e.device_type != DeviceType.CUDA:  # kernels only, not the ops launching them
             continue
         if e.key.startswith("Optimizer.") or e.key == span:  # a span over kernels, not one
+            continue
+        if "spin_kernel" in e.key:  # the warm-up above
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
