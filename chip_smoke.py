@@ -933,29 +933,23 @@ def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
     that name, from the same profile. The full table goes to
     <out_dir>/<name>."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from mebt_tpu_torch.train.trainer import start_profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # the kernels that run in the first milliseconds after a trace's
-        # first launch get no record (up to 12, seen as the first step's
-        # encoder convolutions missing), so spin kernels, left out of the
-        # table, take those milliseconds before the measured work
-        for _ in range(20):
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-            time.sleep(0.005)
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = start_profile(torch.device("cuda"))  # its spin kernels stay out of the table
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.stop()
     table = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:  # kernels only, not the ops launching them
             continue
         if e.key.startswith("Optimizer.") or e.key == span:  # a span over kernels, not one
             continue
-        if "spin_kernel" in e.key:  # the warm-up above
+        if "spin_kernel" in e.key:  # start_profile's warm-up
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:

@@ -43,6 +43,27 @@ from mebt_tpu_torch.train.train_state import (
 from mebt_tpu_torch.utils.metrics import MetricsLogger
 
 
+def start_profile(device: torch.device):
+    """A started torch.profiler over the host and, on a GPU, the device.
+    On a GPU the kernels that run in the first milliseconds after a
+    trace's first launch get no record (up to 12 on an H100), so 20
+    synchronized spin kernels (`spin_kernel`), 5 ms apart, take them
+    before the traced work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    if device.type == "cuda":
+        for _ in range(20):
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize(device)
+            time.sleep(0.005)
+    return prof
+
+
 class MeBTTrainer:
     def __init__(self, config: Mapping, logdir: str, vqgan: VQGAN | None = None,
                  seed: int = 42, compute_dtype: torch.dtype = torch.bfloat16, device=None):
@@ -303,14 +324,7 @@ class MeBTTrainer:
     def _start_profile(self):
         """torch.profiler over the next `profile_n_steps` optimizer steps
         (the JAX trainer's jax.profiler trace)."""
-        from torch.profiler import ProfilerActivity, profile
-
-        acts = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
-        prof.start()
-        return prof
+        return start_profile(self.device)
 
     def _stop_profile(self, prof, step: int) -> str:
         """Stop the trace and write it as a Chrome trace

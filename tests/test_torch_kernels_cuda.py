@@ -309,3 +309,24 @@ def test_nearest_code_refuses_what_it_cannot_take(dev):
         nearest_code(torch.zeros(4, 513, device=dev), torch.zeros(8, 513, device=dev))
     with pytest.raises(ValueError, match="do not chain"):
         nearest_code(torch.zeros(4, 8, device=dev), torch.zeros(8, 16, device=dev))
+
+
+def test_start_profile_records_the_first_kernels(dev):
+    """A trace from train/trainer.py:start_profile holds every kernel of
+    the work it traces, the first ones included, in each of a process's
+    traces: a plain torch.profiler trace loses the kernels that run in
+    the first milliseconds after its first launch."""
+    from mebt_tpu_torch.train.trainer import start_profile
+
+    x = torch.zeros(1 << 20, device=dev)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        prof = start_profile(dev)
+        for _ in range(40):
+            x.mul_(0.5)  # one kernel each
+        torch.cuda.synchronize()
+        prof.stop()
+        calls = sum(e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA and "MulFunctor" in e.key)
+        assert calls == 40
+
