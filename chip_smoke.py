@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py [--out results/chip_smoke]
 
-1. prints the card's name and power limit, builds the kernels (K1-K4,
-   K6-K9) from mebt_tpu_torch/csrc with nvcc for sm_90a;
+1. prints the card's name and power limit, builds the kernels (K1-K9)
+   from mebt_tpu_torch/csrc with nvcc for sm_90a;
 2. holds each kernel against its plain PyTorch version on the card, at
    the shapes of the STL-16f decode (batch 16) and of the STL-128f
-   decode (batch 2) in bf16, the attention backward kernels K6 and K7 at
+   decode (batch 2) in bf16 (K5, which no path runs, at K4's shapes,
+   also against K4's ids), the attention backward kernels K6 and K7 at
    the shapes of STL-16f training (batch 6) and STL-128f training (batch
    5) in fp32 and bf16, dropout (K8) in all four attention kernels, and
    the nearest-code search (K9) at the encoder's shapes of both training
@@ -24,35 +25,43 @@
    K1/K2, every head sample of the MaskGIT phase through K4, none
    through K3; then times bootstrap, MaskGIT phase and VQGAN decode
    each alone;
-5. checks one staged step in fp32 at full width for each of the two
-   configurations, kernels on the card against the plain versions on
-   the CPU;
-6. trains STL-16f at full width through MeBTTrainer.fit (batch 6, bf16
+5. revises each recipe's MaskGIT codes as its draft-and-revise does
+   (`dnr16`, `dnr128`: dnr_generate with the draft, M 2, n_revise 2,
+   revise_t 0.7, then VQGAN decode): every attention call through
+   K1/K2, every head sample through K3 (M * n_revise launches), every
+   position sampled once a revise sweep; 16f also drafts from scratch
+   (n_draft 8, n_revise 8) and extrapolates the batch to 32 frames;
+   times the D&R pass and the VQGAN decode alone, with a profile;
+6. checks one staged step in fp32 at full width for each of the two
+   configurations (`whole`), and one staged revise sweep (`whole_dnr`),
+   kernels on the card against the plain versions on the CPU;
+7. trains STL-16f at full width through MeBTTrainer.fit (batch 6, bf16
    compute, fp32 parameters and AdamW state, dropouts 0.1, codes and
    permutations from a seed): 1 warm-up and 5 timed optimizer steps,
    every attention forward and backward through K1/K2/K6/K7 with
    dropout in the kernels; then 20 steps on one repeated batch without
    dropout, where the loss must fall;
-7. checks one fp32 training step (loss and gradients) at full width,
+8. checks one fp32 training step (loss and gradients) at full width,
    kernels on the card against the plain versions on the CPU;
-8. trains from raw video (`train_video`): STL-16f, batch 6 of synthetic
+9. trains from raw video (`train_video`): STL-16f, batch 6 of synthetic
    16x128x128 videos made from a seed, through the port's DataLoader, a
    random VQGAN encoder (cuDNN, fp32), K9 once a step, then MeBT forward
    and backward and AdamW as in 6; 5 timed steps, the trainer's own
    torch.profiler trace, and a profile for the idle share and the
    share of the encode (its kernels and K9); each step's loss must lie
    between the entropy of its batch's code marginal and the init loss;
-9. the same for STL-128f (`train_video_128`): batch 5 of 128-frame
+10. the same for STL-128f (`train_video_128`): batch 5 of 128-frame
    videos, N 8192, t_prior gaussian2, budget 8192, 2 timed steps under
    no remat, `full` and `dots` (`saved` and `saved_mlp` run as `full`),
    with peak memory per run; the `dots` run (the trainer's default
    policy) is also traced and profiled;
-10. checks one fp32 training step from video (`whole_video`): encoder
+11. checks one fp32 training step from video (`whole_video`): encoder
    latent, codes (near-tie rule), loss and gradients, card against CPU;
-11. prints the kernels' JSON line and, last, the result line.
+12. prints the kernels' JSON line and, last, the result line.
 
-`--only a,b` runs a subset of the phases (k1 k2 k3 k4 k6 k7 k8 k9 gen16
-gen128 whole train whole_train train_video train_video_128 whole_video)
+`--only a,b` runs a subset of the phases (k1 k2 k3 k4 k5 k6 k7 k8 k9
+gen16 gen128 dnr16 dnr128 whole whole_dnr train whole_train train_video
+train_video_128 whole_video)
 while developing; it then prints no kernels line and no result line.
 
 Any failure exits non-zero. Without a CUDA device, or without the
@@ -97,6 +106,16 @@ BATCH128 = 2
 RECIPE128 = dict(total_length=128, step_size=128, context_size=12,
                  temperature=1.0, top_k=32, vid_n_steps=32, vid_c_temp=4.0,
                  ctemp_schedule="linear", schedule="cosine", bootstrap=64)
+
+# the revise-only draft-and-revise of both recipes
+# (scripts/valid_dnr_config_ckpt_exp_stl_{16f,128f}.sh: M, N_REVISE,
+# REVISE_T); the draft is the MaskGIT code map, so draft_t is 0 and there
+# is no top-k
+DNR = dict(n_revise=2, revise_t=0.7, M=2)
+# cli.dnr without --np_draft: draft from scratch
+DNR_SCRATCH = dict(n_draft=8, draft_t=1.0, n_revise=8, revise_t=1.0, M=2)
+# extrapolation of the 16f batch to 32 frames: window 16, context 12
+EXTRAPOLATE = dict(RECIPE, total_length=32)
 
 # STL-16f training (configs/stl/mebt_16f.yaml: data.batch_size, the three
 # dropouts, avg_loss, the mask block, exp.exact_lr) and the batch of the
@@ -342,17 +361,24 @@ def check_k3(dev, gen):
     return rows
 
 
-def check_k4(dev, gen):
-    from mebt_tpu_torch.ops.head_sample import head_topk_sample, head_topk_sample_ref
+TOPK_CASES = (("step1_128f", BATCH128 * 8192, 16384), ("ragged", 1000, 16100),
+              ("k_ge_V", 1000, 24))
+
+
+def check_topk(dev, gen, name: str):
+    """K4 (`head_topk_sample`) or K5 (`head_topk_sample_v1`), the same
+    function, against the plain version. R = 2 * 8192: the 128f decode's
+    largest bucket at batch 2; then rows and a vocab that are no multiple
+    of the 64-row tile and the 64-column chunk; a vocab smaller than k,
+    where k becomes V. K5 must also give K4's ids at the same seed."""
+    from mebt_tpu_torch.ops.head_sample import (
+        head_topk_sample, head_topk_sample_ref, head_topk_sample_v1)
     from mebt_tpu_torch.ops.sampling import sample_topk_tokens
 
+    kernel = head_topk_sample if name == "K4" else head_topk_sample_v1
     D, K = 1024, 32
     rows = []
-    # R = 2 * 8192: the 128f decode's largest bucket at batch 2; rows and
-    # a vocab that are no multiple of the 64-row tile and the 64-column
-    # chunk; a vocab smaller than k, where k becomes V
-    for case, R, V in (("step1_128f", BATCH128 * 8192, 16384), ("ragged", 1000, 16100),
-                       ("k_ge_V", 1000, 24)):
+    for case, R, V in TOPK_CASES:
         x = torch.randn(R, D, device=dev, generator=gen).to(torch.bfloat16)
         w = (0.02 * torch.randn(V, D, device=dev, generator=gen)).to(torch.bfloat16)
         logits = x.float() @ w.float().t()
@@ -365,37 +391,53 @@ def check_k4(dev, gen):
         # temperature 1: the same Philox draws at the survivors' columns on
         # both sides -> the same ids but at near-ties; every id inside the
         # top-k set; chosen_prob = the top-k softmax at the sampled id
-        ids, probs = head_topk_sample(x, w, 1234, K, 1.0)
+        ids, probs = kernel(x, w, 1234, K, 1.0)
         rids, _ = head_topk_sample_ref(x, w, K, 1.0, seed=1234)
         below_kth = (top[:, -1] - at(ids)).clamp(min=0).max().item()
         p_plain = torch.exp(at(ids) - lse_k)
         err = (probs - p_plain).abs().max().item()
         rel = ((probs - p_plain).abs() / p_plain).max().item()
         differ = (ids != rids).sum().item()
+        allow = max(2, R // 10000)
         # temperature 0: greedy; a mismatch must be a near-tie of the logits
-        g_ids, _ = head_topk_sample(x, w, 99, K, 0.0)
+        g_ids, _ = kernel(x, w, 99, K, 0.0)
         g_miss = g_ids.long() != logits.argmax(dim=-1)
         gap = top[:, 0] - at(g_ids)
         g_gap = gap[g_miss].abs().max().item() if g_miss.any() else 0.0
         torch.cuda.synchronize()
-        require(bool(((ids >= 0) & (ids < V)).all()), f"K4 {case}: id out of range")
-        require(below_kth <= 1e-4, f"K4 {case}: an id lies {below_kth} below the k-th logit")
-        require(rel <= 1e-3, f"K4 {case}: chosen_prob rel err {rel}")
-        require(differ <= max(2, R // 10000), f"K4 {case}: {differ} ids differ from plain")
-        require(g_gap <= 1e-4, f"K4 {case}: greedy mismatch with logit gap {g_gap}")
+        require(bool(((ids >= 0) & (ids < V)).all()), f"{name} {case}: id out of range")
+        require(below_kth <= 1e-4, f"{name} {case}: an id lies {below_kth} below the k-th logit")
+        require(rel <= 1e-3, f"{name} {case}: chosen_prob rel err {rel}")
+        require(differ <= allow, f"{name} {case}: {differ} ids differ from plain")
+        require(g_gap <= 1e-4, f"{name} {case}: greedy mismatch with logit gap {g_gap}")
         bnd, by = bound_ms(nbytes(x, w, ids, probs), 2.0 * R * D * V, torch.bfloat16)
         row = dict(
             case=case, shape=[R, D, V], k=min(K, V), max_abs_err=err,
             tol=1e-3 * p_plain.max().item(), rel_err=rel, ids_differing_from_plain=differ,
             max_gap_below_kth=below_kth, greedy_near_ties=int(g_miss.sum()),
-            ms=cuda_ms(lambda: head_topk_sample(x, w, 7, K, 1.0)), bound_ms=bnd, bound_by=by,
+            bound_ms=bnd, bound_by=by,
         )
+        if name == "K5":
+            k4_ids, _ = head_topk_sample(x, w, 1234, K, 1.0)
+            k4_g_ids, _ = head_topk_sample(x, w, 99, K, 0.0)
+            vs_k4 = (ids != k4_ids).sum().item() + (g_ids != k4_g_ids).sum().item()
+            require(vs_k4 <= allow, f"K5 {case}: {vs_k4} ids differ from K4's at one seed")
+            row["ids_differing_from_k4"] = vs_k4
         if case == "step1_128f":
             del top, lse_k, p_plain, gap
+            # in turns on one card: K4, K5, K5, K4 when both are timed
+            if name == "K5":
+                k4_a = cuda_ms(lambda: head_topk_sample(x, w, 7, K, 1.0))
+            row["ms"] = cuda_ms(lambda: kernel(x, w, 7, K, 1.0))
+            if name == "K5":
+                row["ms_again"] = cuda_ms(lambda: kernel(x, w, 7, K, 1.0))
+                row["k4_ms"] = [k4_a, cuda_ms(lambda: head_topk_sample(x, w, 7, K, 1.0))]
             row["plain_ms"] = cuda_ms(lambda: head_topk_sample_ref(x, w, K, 1.0, seed=7), reps=3)
             row["library_ms"] = cuda_ms(
                 lambda: sample_topk_tokens(torch.matmul(x, w.t()), K, 1.0, generator=gen), reps=5
             )
+        else:
+            row["ms"] = cuda_ms(lambda: kernel(x, w, 7, K, 1.0))
         rows.append(row)
         del logits
 
@@ -404,17 +446,25 @@ def check_k4(dev, gen):
     Vs, Ks, Rs = 64, 16, 1 << 16
     x1 = torch.randn(1, D, device=dev, generator=gen).to(torch.bfloat16)
     ws = (0.05 * torch.randn(Vs, D, device=dev, generator=gen)).to(torch.bfloat16)
-    ids, _ = head_topk_sample(x1.expand(Rs, D).contiguous(), ws, 4321, Ks, 1.0)
+    ids, _ = kernel(x1.expand(Rs, D).contiguous(), ws, 4321, Ks, 1.0)
     vals, cols = torch.topk((x1.float() @ ws.float().t())[0], Ks)
     counts = torch.bincount(ids.long(), minlength=Vs).double()
     outside = int(counts.sum().item() - counts[cols].sum().item())
     expect = torch.softmax(vals.double(), dim=0) * Rs
     chi2 = ((counts[cols] - expect) ** 2 / expect).sum().item()
-    require(outside == 0, f"K4 sample frequencies: {outside} draws outside the top-k")
-    require(chi2 < CHI2_15_DOF_P1E4, f"K4 sample frequencies: chi2 {chi2}")
+    require(outside == 0, f"{name} sample frequencies: {outside} draws outside the top-k")
+    require(chi2 < CHI2_15_DOF_P1E4, f"{name} sample frequencies: chi2 {chi2}")
     rows.append(dict(case="chi2", shape=[Rs, D, Vs], k=Ks, chi2=chi2,
                      limit=CHI2_15_DOF_P1E4, dof=Ks - 1, draws_outside_top_k=outside))
     return rows
+
+
+def check_k4(dev, gen):
+    return check_topk(dev, gen, "K4")
+
+
+def check_k5(dev, gen):
+    return check_topk(dev, gen, "K5")
 
 
 def grad_errors(outs, refs, dtype) -> tuple[float, float]:
@@ -755,7 +805,7 @@ def attention_launches_per_step() -> tuple[int, int]:
             STL16_MODES.count("latent_self") + STL16_MODES.count("latent_dec"))
 
 
-KERNELS = ("K1", "K2", "K3", "K4", "K6", "K7", "K8", "K9")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")
 
 
 def wrappers():
@@ -764,11 +814,12 @@ def wrappers():
     a rate above 0."""
     from mebt_tpu_torch.ops.attention_cuda import (
         dropout_branch, largeq_attention, largeq_backward, smallq_attention, smallq_backward)
-    from mebt_tpu_torch.ops.head_sample import head_sample, head_topk_sample
+    from mebt_tpu_torch.ops.head_sample import head_sample, head_topk_sample, head_topk_sample_v1
     from mebt_tpu_torch.ops.vq import nearest_code
 
     return (smallq_attention, largeq_attention, head_sample, head_topk_sample,
-            smallq_backward, largeq_backward, dropout_branch, nearest_code)
+            head_topk_sample_v1, smallq_backward, largeq_backward, dropout_branch,
+            nearest_code)
 
 
 def timed(fn):
@@ -823,7 +874,7 @@ def run_slice(dev, B, out_dir):
     plan = maskgit_plan(1024, RECIPE["vid_n_steps"], "cosine", "linear")
     live = int(plan.do_step.sum())
     k1_step, k2_step = attention_launches_per_step()
-    expect = [live * k1_step, live * k2_step, live, 0, 0, 0, 0, 0]
+    expect = [live * k1_step, live * k2_step, live, 0, 0, 0, 0, 0, 0]
     require(launches == expect, f"16f launches {launches} != expected {expect}")
     shapes = check_generation(res, B, 16, (4, 16, 16), "16f")
 
@@ -839,7 +890,7 @@ def run_slice(dev, B, out_dir):
         vqgan_decode_s_warm=t_vqgan, peak_mem_gb=peak / 2**30, decode_profile=profile,
         launches=dict(zip(KERNELS, launches)), expected_launches=dict(zip(KERNELS, expect)),
         **shapes,
-    ), launches
+    ), launches, res.code_maps
 
 
 def run_slice_128(dev, B, out_dir):
@@ -866,7 +917,7 @@ def run_slice_128(dev, B, out_dir):
     plan = maskgit_plan(N, RECIPE128["vid_n_steps"], "cosine", "linear", n_ctx_init=n_boot)
     live_boot, live = int(bplan.do_step.sum()), int(plan.do_step.sum())
     k1_step, k2_step = attention_launches_per_step()
-    expect = [(live_boot + live) * k1_step, (live_boot + live) * k2_step, 0, live, 0, 0, 0, 0]
+    expect = [(live_boot + live) * k1_step, (live_boot + live) * k2_step, 0, live, 0, 0, 0, 0, 0]
     require(live_boot == n_boot and live > 0, f"128f plans: {live_boot} + {live} live steps")
     require(launches == expect, f"128f launches {launches} != expected {expect}")
     shapes = check_generation(res, B, 128, (32, 16, 16), "128f")
@@ -906,7 +957,194 @@ def run_slice_128(dev, B, out_dir):
         bootstrap_profile=boot_profile, decode_profile=main_profile,
         launches=dict(zip(KERNELS, launches)), expected_launches=dict(zip(KERNELS, expect)),
         **shapes,
-    ), launches
+    ), launches, res.code_maps
+
+
+def zeros_but(**counts) -> list[int]:
+    """A launch count list in the order of KERNELS: 0 but where named."""
+    return [counts.get(k, 0) for k in KERNELS]
+
+
+def gibbs_visits_ok(visits, sweeps) -> bool:
+    """Each sweep's count of how often it sampled each position: a draft
+    sweep of n chunks samples chunk c at steps 0..c, so the counts 1..n
+    each cover N / n positions of every row; a revise sweep samples every
+    position once."""
+    if len(visits) != len(sweeps):
+        return False
+    for v, (mode, n) in zip(visits, sweeps):
+        if mode == "revise":
+            if not bool((v == 1).all()):
+                return False
+            continue
+        if not bool((v >= 1).all()):
+            return False
+        want = torch.full((n,), v.shape[1] // n, device=v.device)
+        for row in v:
+            if not torch.equal(torch.bincount(row.long() - 1, minlength=n), want):
+                return False
+    return True
+
+
+def run_dnr(dev, out_dir, config: str, draft):
+    """Revise-only draft-and-revise of a recipe's MaskGIT code maps
+    (`draft`, from the gen phase, or a fresh such run), through
+    dnr_generate: M sweeps of n_revise steps, each the dense enc phase and
+    K3 on the chunk; then VQGAN decode. 16f also drafts from scratch and
+    extrapolates the batch to 32 frames. Each run is counted alone."""
+    from mebt_tpu_torch.cli.common import random_mebt, random_vqgan
+    from mebt_tpu_torch.models.mebt import MeBTConfig
+    from mebt_tpu_torch.models.vqgan import VQGANConfig
+    from mebt_tpu_torch.sampler.decode import draft_and_revise
+    from mebt_tpu_torch.sampler.generation import (
+        _decode_pixels, bidirect_generate, dnr_generate, extrapolate_generate)
+    from mebt_tpu_torch.sampler.mask_schedule import maskgit_plan
+
+    is16 = config == "stl_16f"
+    dims, B, recipe = (STL16, BATCH, RECIPE) if is16 else (STL128, BATCH128, RECIPE128)
+    # the gen phase's weights: the same seeds
+    model = random_mebt(MeBTConfig(dtype=torch.bfloat16, **dims), 0, dev)
+    vqgan = random_vqgan(VQGANConfig(n_codes=dims["vocab_size"], downsample=(4, 8, 8)), 1, dev)
+    T, h, w = dims["latent_shape"]
+    N, frames = T * h * w, recipe["total_length"]
+    fresh_draft = draft is None
+    if fresh_draft:
+        draft = bidirect_generate(model, vqgan, 0, B, **recipe).code_maps
+    k1, k2 = attention_launches_per_step()
+    steps = DNR["M"] * DNR["n_revise"]
+
+    visits = []
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, wall = counted(lambda: dnr_generate(
+        model, vqgan, 0, B, total_length=frames, draft=draft, visits=visits, **DNR))
+    peak = torch.cuda.max_memory_allocated()
+    expect = zeros_but(K1=steps * k1, K2=steps * k2, K3=steps)
+    require(launches == expect, f"{config} dnr launches {launches} != expected {expect}")
+    require(gibbs_visits_ok(visits, [("revise", DNR["n_revise"])] * DNR["M"]),
+            f"{config} dnr: a revise sweep did not sample every position once")
+    shapes = check_generation(res, B, frames, (T, h, w), f"{config} dnr")
+    paths = {f"{config}_dnr": launches}
+
+    # each phase alone, warm; then one profile of the D&R pass
+    codes = torch.from_numpy(draft.reshape(B, N)).to(dev)
+    out, t_dnr = timed(lambda: draft_and_revise(model, 1, codes, skip_draft=True, **DNR))
+    _, t_vqgan = timed(lambda: _decode_pixels(vqgan, out.view(B, T, h, w)))
+    profile = profile_decode(
+        lambda: draft_and_revise(model, 2, codes, skip_draft=True, **DNR), out_dir,
+        f"dnr_profile_{config}.json",
+    )
+    report = dict(
+        phase="slice", config=f"{config}_dnr", batch=B, recipe=DNR, fresh_draft=fresh_draft,
+        wall_s=wall, dnr_s_warm=t_dnr, vqgan_decode_s_warm=t_vqgan, peak_mem_gb=peak / 2**30,
+        codes_changed=float(np.mean(res.code_maps != draft)), dnr_profile=profile,
+        launches=dict(zip(KERNELS, launches)), expected_launches=dict(zip(KERNELS, expect)),
+        **shapes,
+    )
+    if not is16:
+        return report, paths
+
+    n_steps = DNR_SCRATCH["n_draft"] + DNR_SCRATCH["M"] * DNR_SCRATCH["n_revise"]
+    visits = []
+    res, launches, wall = counted(lambda: dnr_generate(
+        model, vqgan, 3, B, total_length=frames, visits=visits, **DNR_SCRATCH))
+    expect = zeros_but(K1=n_steps * k1, K2=n_steps * k2, K3=n_steps)
+    require(launches == expect, f"{config} dnr from scratch: launches {launches} != {expect}")
+    require(gibbs_visits_ok(visits, [("draft", DNR_SCRATCH["n_draft"])]
+                            + [("revise", DNR_SCRATCH["n_revise"])] * DNR_SCRATCH["M"]),
+            f"{config} dnr from scratch: a sweep sampled the wrong positions")
+    report["from_scratch"] = dict(recipe=DNR_SCRATCH, wall_s=wall,
+                                  launches=dict(zip(KERNELS, launches)),
+                                  **check_generation(res, B, frames, (T, h, w), "dnr scratch"))
+    paths[f"{config}_dnr_scratch"] = launches
+
+    ctx_lat = EXTRAPOLATE["context_size"] // 4
+    total_lat = EXTRAPOLATE["total_length"] // 4
+    plan = maskgit_plan(N, EXTRAPOLATE["vid_n_steps"], "cosine", "linear",
+                        n_ctx_init=ctx_lat * h * w, edit_N=(T - ctx_lat) * h * w)
+    jumps, live = total_lat - T, int(plan.do_step.sum())
+    res, launches, wall = counted(lambda: extrapolate_generate(model, vqgan, 4, draft,
+                                                               **EXTRAPOLATE))
+    expect = zeros_but(K1=jumps * live * k1, K2=jumps * live * k2, K3=jumps * live)
+    require(launches == expect, f"{config} extrapolate: launches {launches} != {expect}")
+    require(bool(np.array_equal(res.code_maps[:, :T], draft)),
+            f"{config} extrapolate: the seed codes changed")
+    report["extrapolate"] = dict(total_length=EXTRAPOLATE["total_length"], jumps=jumps,
+                                 live_steps_per_jump=live, wall_s=wall,
+                                 launches=dict(zip(KERNELS, launches)),
+                                 **check_generation(res, B, EXTRAPOLATE["total_length"],
+                                                    (total_lat, h, w), "extrapolate"))
+    paths[f"{config}_extrapolate"] = launches
+    return report, paths
+
+
+def whole_dnr_check(dev):
+    """One staged revise sweep (n_revise 2, greedy) in fp32 at full width,
+    STL-16f, batch 2: kernels on the card against the plain versions on
+    the CPU, same weights, codes and chunk uniforms. Step by step, each
+    side from the card's codes: the enc phase's latents within 1e-4 of
+    their largest, and the sampled codes equal but at near-ties of the
+    CPU's logits (gap <= 1e-4, K3's rule). Then draft_and_revise on the
+    card, with the same uniforms, must give the card's codes of the
+    sweep."""
+    from mebt_tpu_torch.cli.common import random_mebt
+    from mebt_tpu_torch.models.mebt import MeBT, MeBTConfig
+    from mebt_tpu_torch.sampler import decode
+
+    rng = np.random.default_rng(1)
+    B, N, n = 2, 1024, DNR["n_revise"]
+    cfg = MeBTConfig(dtype=torch.float32, **STL16)
+    gpu = random_mebt(cfg, 2, dev)
+    with torch.device("meta"):
+        cpu = MeBT(cfg).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, assign=True)
+    torch.set_num_threads(os.cpu_count() or 1)
+    codes = torch.from_numpy(rng.integers(0, STL16["vocab_size"], size=(B, N)))
+    uniforms = torch.from_numpy(rng.random((1, B, N), dtype=np.float32))
+    tgt_all = torch.ones(B, N, dtype=torch.bool)
+    chunk_ids = decode._random_chunk_ids(tgt_all, n, uniforms[0])
+    bucket = decode._round_bucket(int(decode._gibbs_chunk_counts(np.full(B, N), n).max()), N)
+    base = torch.zeros(B, N, dtype=torch.bool)
+    state = decode.DecodeState.create(B, N, dev, codes)
+    lat_err, n_differ, worst_gap, cpu_s = 0.0, 0, 0.0, 0.0
+    with torch.no_grad():
+        for i in range(n):
+            ctx, tgt = decode._gibbs_masks(chunk_ids, base, i, "revise")
+            host = decode.DecodeState(state.codes.cpu(), state.ctx_mask.cpu(),
+                                      state.chosen_prob.cpu())
+            lat_g = gpu.stage_a(state.codes, ctx.to(dev)).cpu()
+            t0 = time.perf_counter()
+            lat_c = cpu.stage_a(host.codes, ctx)
+            lat_err = max(lat_err, ((lat_g - lat_c).abs().max() / lat_c.abs().max()).item())
+            step = dict(mode="revise", bucket=bucket, temperature=0.0, top_k=None, top_p=None)
+            want = decode._gibbs_scan_compact(cpu, host, chunk_ids, base, [i],
+                                              rng=decode._Rng(0, torch.device("cpu")), **step)
+            state = decode._gibbs_scan_compact(gpu, state, chunk_ids.to(dev), base.to(dev), [i],
+                                               rng=decode._Rng(0, dev), **step)
+            got = state.codes.cpu()
+            miss = got != want.codes
+            if miss.any():  # only targets can differ: their bucket slots
+                idx = decode.compact_indices(tgt, bucket)
+                logits = cpu.stage_b_compact(lat_c, idx, idx < N)  # (B, bucket, V)
+                b, pos = miss.nonzero(as_tuple=True)
+                lg = logits[b, (torch.cumsum(tgt, dim=-1) - 1)[b, pos]]
+                gap = (lg.max(dim=-1).values - lg.gather(1, got[b, pos][:, None])[:, 0]).max()
+                worst_gap = max(worst_gap, gap.item())
+                n_differ += int(miss.sum())
+            cpu_s += time.perf_counter() - t0
+    final, launches, _ = counted(lambda: decode.draft_and_revise(
+        gpu, 0, codes, n_revise=n, revise_t=0.0, M=1, skip_draft=True, chunk_noise=uniforms))
+    k1, k2 = attention_launches_per_step()
+    require(launches == zeros_but(K1=n * k1, K2=n * k2, K3=n),
+            f"whole dnr: launches {launches}")
+    require(lat_err <= 1e-4, f"whole dnr: latent rel err {lat_err}")
+    require(worst_gap <= 1e-4, f"whole dnr: {n_differ} codes differ, worst logit gap {worst_gap}")
+    require(bool(torch.equal(final, state.codes)),
+            "whole dnr: draft_and_revise differs from its steps on the card")
+    return dict(phase="whole_dnr", config="stl_16f_revise", dtype="float32", batch=B,
+                n_revise=n, bucket=bucket, latent_rel_err=lat_err, latent_tol=1e-4,
+                codes_differing=n_differ, max_logit_gap=worst_gap, gap_tol=1e-4,
+                codes_changed=float((state.codes.cpu() != codes).float().mean()),
+                plain_cpu_s=cpu_s)
 
 
 def span_kernels(prof, span: str) -> list[list[tuple[str, float]]]:
@@ -960,7 +1198,8 @@ def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
     with open(os.path.join(out_dir, name), "w") as f:
         json.dump([dict(name=n, ms=ms, calls=c) for n, ms, c in table], f, indent=1)
     groups = {"K1": "smallq_kernel", "K2": "largeq_kernel", "K3": "head_sample_kernel",
-              "K4": "head_topk_sample_kernel", "K6_dq": "smallq_bwd_dq_kernel",
+              "K4": "head_topk_sample_kernel", "K5": "head_topk_sample_v1_kernel",
+              "K6_dq": "smallq_bwd_dq_kernel",
               "K7_dq": "largeq_bwd_dq_kernel", "K6_K7_dkdv": "attn_bwd_dkdv_kernel",
               "K9": "nearest_code_kernel"}
     out = {g: sum(ms for n, ms, _ in table if key in n) for g, key in groups.items()}
@@ -1092,7 +1331,7 @@ def run_train_slice(dev, out_dir):
         lambda: trainer.fit(loader, max_steps=warm + timed_steps, state=state, log_every=1))
     peak = torch.cuda.max_memory_allocated()
     per_step = [n // timed_steps for n in launches]
-    expect = [k1_step, k2_step, 0, 0, k1_step, k2_step, 2 * (k1_step + k2_step), 0]
+    expect = [k1_step, k2_step, 0, 0, 0, k1_step, k2_step, 2 * (k1_step + k2_step), 0]
     require(launches == [n * timed_steps for n in expect],
             f"train launches {launches} over {timed_steps} steps != {expect} a step")
     logs = read_metrics(logdir)
@@ -1137,7 +1376,7 @@ def run_train_slice(dev, out_dir):
             f"train: repeated batch losses {fit_losses}")
     require(fit_losses[-1] < fit_losses[0],
             f"train: loss did not fall on a repeated batch: {fit_losses}")
-    require(fit_launches[6] == 0, "train: dropout launches with every rate at 0")
+    require(fit_launches[KERNELS.index("K8")] == 0, "train: dropout launches with every rate at 0")
     torch.cuda.empty_cache()
     step_s = wall / timed_steps
     return dict(
@@ -1191,7 +1430,7 @@ def whole_step_check(dev):
     want_loss, want = step(cpu, torch.device("cpu"))
     cpu_s = time.perf_counter() - t0
     k1_step, k2_step = attention_launches_per_step()
-    require(launches == [k1_step, k2_step, 0, 0, k1_step, k2_step, 0, 0],
+    require(launches == [k1_step, k2_step, 0, 0, 0, k1_step, k2_step, 0, 0],
             f"whole step: launches {launches}")
     loss_rel = abs(got_loss - want_loss) / abs(want_loss)
     require(loss_rel <= 1e-4, f"whole step: loss {got_loss} vs {want_loss}")
@@ -1339,7 +1578,7 @@ def run_train_video(dev, out_dir):
     res, launches = train_video(dev, out_dir, "train_video_16f", cfg, 16, B, N, steps, warm,
                                 profile=True)
     k1, k2 = attention_launches_per_step()
-    expect = [k1, k2, 0, 0, k1, k2, 2 * (k1 + k2), 1]
+    expect = [k1, k2, 0, 0, 0, k1, k2, 2 * (k1 + k2), 1]
     require(launches == [n * steps for n in expect],
             f"train_video 16f launches {launches} over {steps} steps != {expect} a step")
     res.update(launches_per_step=dict(zip(KERNELS, expect)))
@@ -1370,7 +1609,7 @@ def run_train_video_128(dev, out_dir):
         res, launches = train_video(dev, out_dir, f"train_video_128f_{policy}", cfg, 128, B, N,
                                     steps, profile=main)
         fwd = 2 if exp["remat"] else 1
-        expect = [fwd * k1, fwd * k2, 0, 0, k1, k2, (fwd + 1) * (k1 + k2), 1]
+        expect = [fwd * k1, fwd * k2, 0, 0, 0, k1, k2, (fwd + 1) * (k1 + k2), 1]
         require(launches == [n * steps for n in expect],
                 f"train_video 128f {policy}: launches {launches} over {steps} steps != {expect}")
         runs[policy] = dict(step_s=res["step_s"], tokens_per_s=res["tokens_per_s"],
@@ -1449,7 +1688,7 @@ def whole_step_video_check(dev):
     want_loss, want = step(cpu, c_gpu, torch.device("cpu"))
     cpu_s = time.perf_counter() - t0
     k1, k2 = attention_launches_per_step()
-    require(launches == [k1, k2, 0, 0, k1, k2, 0, 1], f"whole step video: launches {launches}")
+    require(launches == [k1, k2, 0, 0, 0, k1, k2, 0, 1], f"whole step video: launches {launches}")
     z_err = (z_gpu - z_cpu).abs().max().item() / z_cpu.abs().max().item()
     require(z_err <= 1e-4, f"whole step video: encoder latent rel err {z_err}")
     require(over_k9 <= 1 and over <= 1,
@@ -1504,27 +1743,40 @@ def main(argv=None) -> int:
     launches = {}
     try:
         for name, check in (("K1", check_k1), ("K2", check_k2), ("K3", check_k3),
-                            ("K4", check_k4), ("K6", check_k6), ("K7", check_k7),
-                            ("K8", check_k8), ("K9", check_k9)):
+                            ("K4", check_k4), ("K5", check_k5), ("K6", check_k6),
+                            ("K7", check_k7), ("K8", check_k8), ("K9", check_k9)):
             if not on(name.lower()):
                 continue
             report[name] = check(dev, gen)
             for r in report[name]:
                 emit(dict(kernel=name, **r))
             torch.cuda.empty_cache()
+        drafts = {}
         if on("gen16"):
-            report["slice_16f"], launches["stl_16f"] = run_slice(dev, BATCH, args.out)
+            report["slice_16f"], launches["stl_16f"], drafts["stl_16f"] = run_slice(
+                dev, BATCH, args.out)
             emit(report["slice_16f"])
             torch.cuda.empty_cache()
         if on("gen128"):
-            report["slice_128f"], launches["stl_128f"] = run_slice_128(dev, BATCH128, args.out)
+            report["slice_128f"], launches["stl_128f"], drafts["stl_128f"] = run_slice_128(
+                dev, BATCH128, args.out)
             emit(report["slice_128f"])
             torch.cuda.empty_cache()
+        for phase, config in (("dnr16", "stl_16f"), ("dnr128", "stl_128f")):
+            if on(phase):
+                report[f"slice_{config}_dnr"], paths = run_dnr(
+                    dev, args.out, config, drafts.get(config))
+                launches.update(paths)
+                emit(report[f"slice_{config}_dnr"])
+                torch.cuda.empty_cache()
         if on("whole"):
             report["whole_path"] = [whole_path_check(dev, "stl_16f"),
                                     whole_path_check(dev, "stl_128f")]
             for r in report["whole_path"]:
                 emit(r)
+        if on("whole_dnr"):
+            report["whole_dnr"] = whole_dnr_check(dev)
+            emit(report["whole_dnr"])
         if on("train"):
             report["slice_16f_train"], launches["stl_16f_train"] = run_train_slice(dev, args.out)
             emit(report["slice_16f_train"])
@@ -1551,17 +1803,20 @@ def main(argv=None) -> int:
         print(f"chip_smoke: ran only {sorted(only)}; no result line", flush=True)
         return 0
 
-    def entry(i, name, replaces, row, src="mebt_tpu_torch/csrc/attention.cu"):
+    def entry(i, name, replaces, row, src="mebt_tpu_torch/csrc/attention.cu", **extra):
         """`launches` is the count on the newest path that runs the
-        kernel: 128f training from video (2 optimizer steps under the
-        main remat policy) for the attention kernels and K9, 128f
-        generation for K4, 16f generation for K3."""
+        kernel: 128f revise-only draft-and-revise for K1, K2 and K3,
+        128f training from video (2 optimizer steps under the main remat
+        policy) for the backward kernels, K8 and K9, 128f generation for
+        K4; 0 for K5, which no path runs."""
         by_path = {path: counts[i] for path, counts in launches.items()}
-        newest = [by_path[p] for p in ("stl_128f_train_video", "stl_16f_train_video",
-                                       "stl_16f_train", "stl_128f", "stl_16f") if by_path[p]]
+        newest = [by_path[p] for p in (
+            "stl_128f_dnr", "stl_16f_dnr", "stl_16f_dnr_scratch", "stl_16f_extrapolate",
+            "stl_128f_train_video", "stl_16f_train_video", "stl_16f_train", "stl_128f",
+            "stl_16f") if by_path[p]]
         return dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=newest[0], launches_by_path=by_path,
+            launches=newest[0] if newest else 0, launches_by_path=by_path, **extra,
             case=row["case"], shape=row["shape"],
             max_abs_err=row["max_abs_err"], tol=row["tol"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
@@ -1581,14 +1836,17 @@ def main(argv=None) -> int:
               case(report["K3"], "step1"), head_src),
         entry(3, "K4 head_topk_sample", "mebt_tpu/ops/head_sample_pallas.py:428",
               case(report["K4"], "step1_128f"), head_src),
-        entry(4, "K6 smallq_backward", "mebt_tpu/ops/attention_pallas.py:437",
+        entry(4, "K5 head_topk_sample_v1", "mebt_tpu/ops/head_sample_pallas.py:535",
+              case(report["K5"], "step1_128f"), head_src,
+              launched_in="the k5 phase only: no generation or training path runs it"),
+        entry(5, "K6 smallq_backward", "mebt_tpu/ops/attention_pallas.py:437",
               case(report["K6"], "lt2l", "bfloat16")),
-        entry(5, "K7 largeq_backward", "mebt_tpu/ops/attention_pallas.py:589",
+        entry(6, "K7 largeq_backward", "mebt_tpu/ops/attention_pallas.py:589",
               case(report["K7"], "latent_dec", "bfloat16")),
-        entry(6, "K8 dropout in K1/K2/K6/K7 (row: K1 at rate 0.1)",
+        entry(7, "K8 dropout in K1/K2/K6/K7 (row: K1 at rate 0.1)",
               "mebt_tpu/ops/attention_pallas.py:71",
               case(report["K8"], "lt2l", "bfloat16")),
-        entry(7, "K9 nearest_code", "mebt_tpu/ops/vq_pallas.py:82",
+        entry(8, "K9 nearest_code", "mebt_tpu/ops/vq_pallas.py:82",
               case(report["K9"], "128f"), "mebt_tpu_torch/csrc/vq.cu"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

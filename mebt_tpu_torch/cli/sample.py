@@ -7,7 +7,8 @@ mebt_tpu/cli/sample.py).
 
 Runs on the GPU unless --device cpu is given. Writes the uint8 videos
 (N, T, H, W, C), the per-sample scores and, with --save_codemap, the
-code maps as .npy files.
+code maps as .npy files; with --save_videos also video grids. With
+--base_np it extends the given code maps (extrapolation) instead.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ def build_argparser():
 
     p = argparse.ArgumentParser(description=__doc__)
     add_common_args(p)
+    p.add_argument("--base_np", type=str, default="",
+                   help="seed code maps (.npy) -> extrapolate mode")
     p.add_argument("--top_k", type=int, default=None)
     p.add_argument("--top_p", type=float, default=None)
     p.add_argument("--temp", type=float, default=1.0)
@@ -34,9 +37,15 @@ def build_argparser():
     p.add_argument("--schedule", type=str, default="cosine")
     p.add_argument("--bootstrap", type=int, default=0)
     p.add_argument(
+        "--decoding_strategy", type=str, default="maskgit",
+        choices=["maskgit", "random", "entp", "ar"],
+    )
+    p.add_argument(
         "--ctemp_schedule", type=str, default="linear",
         choices=["linear", "constant", "cosine"],
     )
+    # the reference's output names carry it (scripts/valid_dnr.sh passes it)
+    p.add_argument("--no_phase", action="store_true")
     return p
 
 
@@ -48,41 +57,49 @@ def save_tag(args) -> str:
         tag += f"_p{args.top_p}"
     tag += (
         f"_temp{args.temp}_ctemp{args.vid_c_temp}{args.ctemp_schedule}"
-        f"_maskgit_{args.schedule}"
+        f"_{args.decoding_strategy}_{args.schedule}"
     )
+    if args.no_phase:
+        tag += "_no_phase"
     return tag + f"_run{args.run}"
 
 
 def main(argv=None):
     import torch
 
-    from mebt_tpu_torch.cli.common import load_model_bundle, parse_config
+    from mebt_tpu_torch.cli.common import (
+        load_model_bundle, n_batches, parse_config, save_grid)
     from mebt_tpu_torch.runtime import resolve_device
-    from mebt_tpu_torch.sampler.generation import bidirect_generate
+    from mebt_tpu_torch.sampler.generation import bidirect_generate, extrapolate_generate
 
     args, unknown = build_argparser().parse_known_args(argv)
     device = resolve_device(args.device)
     config = parse_config(args, unknown)
     model, vqgan = load_model_bundle(args, config, device)
 
-    save_np = os.path.join(
-        args.save, f"numpy_files_{args.total_length}", args.dataset, save_tag(args)
-    )
+    tag = save_tag(args)
+    save_dir = os.path.join(args.save, f"videos_{args.total_length}", args.dataset, tag)
+    save_np = os.path.join(args.save, f"numpy_files_{args.total_length}", args.dataset, tag)
     os.makedirs(os.path.dirname(save_np), exist_ok=True)
 
     seeds = torch.Generator().manual_seed(args.seed if args.seed is not None else args.run)
-    n_batch = -(-args.n_sample // args.batch_size)
+    base_np = np.load(args.base_np) if args.base_np else None
+    n_batch = n_batches(args)
+    kw = dict(total_length=args.total_length, step_size=args.step_size,
+              context_size=args.context_size, temperature=args.temp, top_k=args.top_k,
+              top_p=args.top_p, vid_n_steps=args.vid_n_steps, vid_c_temp=args.vid_c_temp,
+              ctemp_schedule=args.ctemp_schedule, schedule=args.schedule)
     all_pix, all_code, all_score = [], [], []
     for i in range(n_batch):
-        res = bidirect_generate(
-            model, vqgan, int(torch.randint(2**62, (1,), generator=seeds)),
-            args.batch_size,
-            total_length=args.total_length, step_size=args.step_size,
-            context_size=args.context_size, temperature=args.temp,
-            top_k=args.top_k, top_p=args.top_p, vid_n_steps=args.vid_n_steps,
-            vid_c_temp=args.vid_c_temp, ctemp_schedule=args.ctemp_schedule,
-            schedule=args.schedule, bootstrap=args.bootstrap,
-        )
+        seed = int(torch.randint(2**62, (1,), generator=seeds))
+        if base_np is None:
+            res = bidirect_generate(model, vqgan, seed, args.batch_size,
+                                    strategy=args.decoding_strategy,
+                                    bootstrap=args.bootstrap, **kw)
+        else:
+            seed_codes = base_np[i * args.batch_size : (i + 1) * args.batch_size]
+            res = extrapolate_generate(model, vqgan, seed, seed_codes, **kw)
+        save_grid(args, save_dir, i, res.samples, min(int(np.sqrt(args.batch_size)), 4))
         all_pix.append(res.samples)
         all_code.append(res.code_maps)
         all_score.append(res.score)

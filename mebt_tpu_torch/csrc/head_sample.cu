@@ -1,4 +1,4 @@
-// K3 and K4: vocab head + Gumbel-max sample in one pass, for sm_90a.
+// K3, K4 and K5: vocab head + Gumbel-max sample in one pass, for sm_90a.
 //
 // K3 (mebt_head_sample) replaces the TPU kernel
 //   mebt_tpu/ops/head_sample_pallas.py:fused_head_sample
@@ -58,7 +58,27 @@
 // last two segments (buckets 512 and 256: R = 8192 and 4096) run 128
 // and 64 CTAs. Not fixed here.
 //
-// Both take fp32 or bf16 x and W (is_bf16); temperature 0 is passed as
+// K5 (mebt_head_topk_sample_v1) replaces
+//   mebt_tpu/ops/head_sample_pallas.py:fused_head_topk_sample (v1,
+//   _head_topk_sample_kernel).
+// K4's function by the TPU kernel's other selection design: per chunk a
+// data-dependent extraction loop. One warp takes one row of the chunk's
+// logits tile at a time, each lane holding two of its 64 logits in
+// registers. While the chunk's largest remaining logit (a warp max
+// reduction under the same order, value descending, column ascending)
+// comes before the row's k-th pair, it is sort-inserted into the row's
+// buffer (the warp counts the pairs ahead of it, shifts the rest down a
+// slot, and the last falls out) and masked out of the chunk. So the loop
+// runs once per logit that enters the buffer plus once to stop: k ln(V/k)
+// + V/64 turns per row, some 450 at k = 32, V = 16384, each a few warp
+// shuffles and a shift of k/32 slots a lane. The buffer at the end is the
+// same exact top k as K4's, from the same logits tile, and the draw and
+// epilogue are K4's (a warp per row instead of four threads): K5 gives
+// K4's ids at one seed. The TPU kernel drew its noise per chunk inside
+// the loop; here, as in K4, only the k survivors draw Philox noise at
+// their columns, so a draw depends on (seed, row, column) alone.
+//
+// All take fp32 or bf16 x and W (is_bf16); temperature 0 is passed as
 // inv_temp = 1/(0 + 1e-8) and gives the greedy argmax. Rows beyond R and
 // columns beyond V are computed on zeros and never sampled, stored or
 // summed.
@@ -351,6 +371,159 @@ cudaError_t launch_topk(const void* x, const void* w, void* ids, void* probs,
   return cudaGetLastError();
 }
 
+constexpr int WARPS = THREADS / 32;
+constexpr int V1_MAX_K = 256;  // the shift keeps k / 32 pairs a lane in registers
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+head_topk_sample_v1_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                           int* __restrict__ ids, float* __restrict__ probs,
+                           int R, int D, int V, int k, float inv_temp,
+                           uint32_t seed) {
+  __shared__ __align__(16) float As[KT][AP];
+  __shared__ __align__(16) float Bs[KT][AP];
+  __shared__ float Ls[TR][LP];
+  extern __shared__ float topk_smem[];
+
+  const int r0 = blockIdx.x * TR;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* buf_v = topk_smem;                                 // (TR, k) values
+  int* buf_i = reinterpret_cast<int*>(topk_smem + TR * k);  // (TR, k) columns
+
+  for (int i = threadIdx.x; i < TR * k; i += THREADS) {  // empty slots rank last
+    buf_v[i] = -CUDART_INF_F;
+    buf_i[i] = 0x7fffffff;
+  }
+  // the first logits_tile's barriers order these stores before any read
+
+  for (int v0 = 0; v0 < V; v0 += VC) {
+    logits_tile(x, w, R, D, V, r0, v0, inv_temp, As, Bs, Ls);
+    for (int er = warp; er < TR && r0 + er < R; er += WARPS) {
+      float* bv = buf_v + er * k;
+      int* bi = buf_i + er * k;
+      // the lane's two logits of the chunk; a column past V is never live
+      float lv[2];
+      int lc[2];
+      bool live[2];
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        lc[t] = v0 + lane + 32 * t;
+        live[t] = lc[t] < V;
+        lv[t] = Ls[er][lane + 32 * t];
+      }
+      float kth_v = bv[k - 1];
+      int kth_i = bi[k - 1];
+      while (true) {
+        // the chunk's largest live logit, (value desc, column asc)
+        float mv = -CUDART_INF_F;
+        int mc = 0x7fffffff;
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+          if (live[t] && ahead(lv[t], lc[t], mv, mc)) {
+            mv = lv[t];
+            mc = lc[t];
+          }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          const float ov = __shfl_xor_sync(FULL, mv, off);
+          const int oc = __shfl_xor_sync(FULL, mc, off);
+          if (ahead(ov, oc, mv, mc)) {
+            mv = ov;
+            mc = oc;
+          }
+        }
+        if (mc == 0x7fffffff || !ahead(mv, mc, kth_v, kth_i)) break;  // warp-uniform
+        // its slot: the number of buffered pairs that come before it
+        int pos = 0;
+        for (int s = lane; s < k; s += 32) pos += ahead(bv[s], bi[s], mv, mc);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) pos += __shfl_xor_sync(FULL, pos, off);
+        // shift slots pos..k-2 down by one: all reads, then all writes
+        float sv[V1_MAX_K / 32];
+        int si[V1_MAX_K / 32];
+#pragma unroll
+        for (int t = 0; t < V1_MAX_K / 32; ++t) {
+          const int s = lane + 32 * t;
+          if (s < k && s > pos) {
+            sv[t] = bv[s - 1];
+            si[t] = bi[s - 1];
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int t = 0; t < V1_MAX_K / 32; ++t) {
+          const int s = lane + 32 * t;
+          if (s < k && s > pos) {
+            bv[s] = sv[t];
+            bi[s] = si[t];
+          }
+        }
+        if (lane == 0) {
+          bv[pos] = mv;
+          bi[pos] = mc;
+        }
+        __syncwarp();
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+          if (lc[t] == mc) live[t] = false;
+        kth_v = bv[k - 1];
+        kth_i = bi[k - 1];
+      }
+    }
+    __syncthreads();  // Ls is rewritten by the next chunk
+  }
+
+  // Gumbel-max among the k survivors, softmax over their values (K4's)
+  for (int er = warp; er < TR && r0 + er < R; er += WARPS) {
+    const int row = r0 + er;
+    const float* bv = buf_v + er * k;
+    const int* bi = buf_i + er * k;
+    const float m = bv[0];
+    float best = -CUDART_INF_F, sum = 0.f;
+    int slot = 0x7fffffff;
+    for (int s = lane; s < k; s += 32) {
+      const float l = bv[s];
+      sum += expf(l - m);
+      const float pert = l - logf(exp_noise(seed, (uint32_t)row, (uint32_t)bi[s]));
+      if (pert > best) {
+        best = pert;
+        slot = s;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ob = __shfl_xor_sync(FULL, best, off);
+      const int os = __shfl_xor_sync(FULL, slot, off);
+      if (ob > best || (ob == best && os < slot)) {
+        best = ob;
+        slot = os;
+      }
+      sum += __shfl_xor_sync(FULL, sum, off);
+    }
+    if (lane == 0) {
+      ids[row] = bi[slot];
+      probs[row] = expf(bv[slot] - (m + logf(sum)));
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_topk_v1(const void* x, const void* w, void* ids, void* probs,
+                           int R, int D, int V, int k, float inv_temp,
+                           uint32_t seed, cudaStream_t stream) {
+  const size_t smem = (size_t)TR * k * (sizeof(float) + sizeof(int));
+  auto kern = head_topk_sample_v1_kernel<T>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((R + TR - 1) / TR);
+  kern<<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<int*>(ids), static_cast<float*>(probs), R, D, V, k,
+      inv_temp, seed);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -376,6 +549,19 @@ int mebt_head_topk_sample(const void* x, const void* w, void* ids, void* probs,
                                                    inv_temp, seed, s)
                  : (int)launch_topk<float>(x, w, ids, probs, R, D, V, k,
                                            inv_temp, seed, s);
+}
+
+// K5: K4's function by the extraction loop, 1 <= k <= min(V, 256).
+int mebt_head_topk_sample_v1(const void* x, const void* w, void* ids,
+                             void* probs, int R, int D, int V, int k,
+                             float inv_temp, unsigned int seed, int is_bf16,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k < 1 || k > V || k > V1_MAX_K) return (int)cudaErrorInvalidValue;
+  return is_bf16 ? (int)launch_topk_v1<__nv_bfloat16>(x, w, ids, probs, R, D,
+                                                      V, k, inv_temp, seed, s)
+                 : (int)launch_topk_v1<float>(x, w, ids, probs, R, D, V, k,
+                                              inv_temp, seed, s);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-"""K3 and K4: vocab head + Gumbel-max sampling in one CUDA kernel each
-(csrc/head_sample.cu).
+"""K3, K4 and K5: vocab head + Gumbel-max sampling in one CUDA kernel
+each (csrc/head_sample.cu).
 
   K3 `head_sample(x, w, seed, temperature)` samples one id per row of x
      from softmax(x @ w.T / T) (replaces
@@ -9,8 +9,13 @@
      order (value descending, index ascending) (replaces
      head_sample_pallas.py:fused_head_topk_sample_v2; it has no overflow
      flag because the kernel's top-k is exact).
+  K5 `head_topk_sample_v1(x, w, seed, k, temperature)` is K4's function
+     by the other selection design, a data-dependent extraction loop per
+     vocabulary chunk (replaces head_sample_pallas.py:
+     fused_head_topk_sample, v1). It gives K4's ids at one seed. No
+     decode path calls it, as none in the JAX package calls v1.
 
-Both return (ids int32, prob of the id fp32); the (R, V) logits never
+Each returns (ids int32, prob of the id fp32); the (R, V) logits never
 reach device memory. `w` is the head's nn.Linear weight, (V, D). The
 noise is Philox4x32-10 keyed on (seed, row, vocabulary column);
 `philox_exponential` (ops/philox.py) computes the same draws in plain
@@ -46,8 +51,14 @@ _SIGNATURES = {
         ctypes.c_int,
         [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, ctypes.c_uint, _I, _P],
     ),
+    "mebt_head_topk_sample_v1": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, ctypes.c_uint, _I, _P],
+    ),
 }
-MAX_TOPK = 256  # K4's (64, k) buffers of values and indices live in shared memory
+# K4's and K5's (64, k) buffers of values and indices live in shared
+# memory; K5's shift also keeps k / 32 pairs a lane in registers
+MAX_TOPK = 256
 
 
 def head_sample_ref(x, w, temperature: float, noise=None, *, seed: int = 0):
@@ -65,7 +76,7 @@ def head_sample_ref(x, w, temperature: float, noise=None, *, seed: int = 0):
 
 def head_topk_sample_ref(x, w, k: int, temperature: float, noise=None, *,
                          seed: int = 0):
-    """Plain K4: the k largest logits per row by a stable descending
+    """Plain K4 and K5: the k largest logits per row by a stable descending
     sort (so the lower index comes first among equal values),
     Gumbel-max among them, probability under the softmax of the k.
     `noise` (R, k) Exp(1) draws in sorted order; None = the Philox draws
@@ -135,3 +146,18 @@ def head_topk_sample(x, w, seed: int, k: int, temperature: float = 1.0):
 
 
 head_topk_sample.launches = 0
+
+
+def head_topk_sample_v1(x, w, seed: int, k: int, temperature: float = 1.0):
+    """K5 on CUDA tensors: as `head_topk_sample`, by the extraction loop."""
+    if not x.is_cuda:
+        return head_topk_sample_ref(x, w, k, temperature, seed=seed)
+    k = min(int(k), w.shape[0])
+    if not 1 <= k <= MAX_TOPK:
+        raise ValueError(f"top-k {k} not taken by the kernel (1..{MAX_TOPK})")
+    out = _launch("mebt_head_topk_sample_v1", x, w, seed, temperature, k)
+    head_topk_sample_v1.launches += 1
+    return out
+
+
+head_topk_sample_v1.launches = 0

@@ -1,5 +1,5 @@
-"""MaskGIT decoding (mebt_tpu/sampler/decode.py:58-810 and :946-968;
-strategies maskgit, random and bootstrap).
+"""MaskGIT decoding and draft-and-revise (mebt_tpu/sampler/decode.py;
+strategies maskgit, random, bootstrap, entp and ar).
 
 The per-step counts come from a host-side `DecodePlan`. Two paths:
 
@@ -18,6 +18,17 @@ The per-step counts come from a host-side `DecodePlan`. Two paths:
     ranked once fixes the whole promotion order, each step compacts the
     positions it promotes BEFORE the forward, and logits are computed
     at those few slots only (`stage_b_compact` + `sample_tokens`).
+  - entp scores a target by the entropy of its whole distribution, so
+    it materializes the bucket's logits (`stage_b_compact` +
+    `sample_tokens`), as the JAX package does; ar runs dense only.
+
+Draft-and-revise (Gibbs refinement) splits the targets into random
+chunks and re-predicts them chunk by chunk: a draft sweep reveals the
+chunks one by one, a revise sweep re-samples each chunk given all the
+others. Staged, each step runs the dense enc phase (`stage_a` over the
+canvas, the other chunks as context) and samples the re-predicted chunk,
+compacted into a bucket, through K3 (K4 with top-k). The buckets come
+from per-row chunk counts known on the host before the first sweep.
 
 `lax.scan` becomes a Python loop. Inside a loop nothing waits for the
 device: counts, offsets and skipped steps are known on the host, the
@@ -41,7 +52,11 @@ from mebt_tpu_torch.ops.sampling import (
     promote_targets,
     sample_tokens,
 )
-from mebt_tpu_torch.sampler.mask_schedule import DecodePlan, plan_segments_joint
+from mebt_tpu_torch.sampler.mask_schedule import (
+    DecodePlan,
+    plan_segments_joint,
+    segment_counts,
+)
 
 
 def _ctx_weight(cfg) -> float:
@@ -118,9 +133,31 @@ def _ctemp(context_temperature: float, scale) -> float:
     return float(np.float32(context_temperature) * np.float32(scale))
 
 
+def _scores(score_mode: str, chosen_p, probs, live, context_temperature, scale):
+    """(promotion scores, context temperature) of one step. prob: the
+    sampled token's probability under the step's ctemp schedule.
+    entropy (entp, reference transformer.py:503-504): s = sum(p -
+    log(p + 1e-8)), score = max over live targets of s, minus s, at
+    ctemp 0. The sum runs in float64, exact for these fp32 terms, so two
+    targets with the same distribution up to order get the same score
+    and tie by position (in fp32 a greedy one-hot row's sum depends on
+    where its 1 sits). position (ar): targets in position order, scores
+    kept positive so that promote_targets' normalization keeps the
+    order."""
+    if score_mode == "entropy":
+        s = (probs - torch.log(probs + 1e-8)).sum(dim=-1, dtype=torch.float64).float()
+        s_max = torch.where(live, s, torch.full_like(s, float("-inf")))
+        return s_max.amax(dim=-1, keepdim=True) - s, 0.0
+    if score_mode == "position":
+        n = chosen_p.shape[1]
+        pos = torch.arange(n, 0, -1, dtype=torch.float32, device=chosen_p.device) / n
+        return pos.expand_as(chosen_p), 0.0
+    return chosen_p, _ctemp(context_temperature, scale)
+
+
 def _maskgit_scan(model, state: DecodeState, plan: DecodePlan, *,
                   temperature, top_k, top_p, context_temperature,
-                  random_scores, rng: _Rng, sample_noise=None,
+                  random_scores, score_mode, rng: _Rng, sample_noise=None,
                   promote_noise=None) -> DecodeState:
     """Dense decode: full-canvas forward and sampling at every step."""
     for i in range(len(plan.do_step)):
@@ -128,14 +165,16 @@ def _maskgit_scan(model, state: DecodeState, plan: DecodePlan, *,
             continue
         tgt_mask = ~state.ctx_mask
         logits = model(state.codes, state.ctx_mask, tgt_mask)
-        sampled, chosen_p, _ = sample_tokens(
+        sampled, chosen_p, probs = sample_tokens(
             logits, temperature, top_k, top_p,
+            need_probs=score_mode == "entropy",
             noise=None if sample_noise is None else sample_noise[i],
             generator=rng.dev,
         )
+        scores, ctemp = _scores(score_mode, chosen_p, probs, tgt_mask,
+                                context_temperature, plan.ctemp_scale[i])
         promote = promote_targets(
-            chosen_p, tgt_mask, int(plan.n_new[i]),
-            _ctemp(context_temperature, plan.ctemp_scale[i]),
+            scores, tgt_mask, int(plan.n_new[i]), ctemp,
             random_scores=random_scores,
             noise=None if promote_noise is None else promote_noise[i],
             generator=rng.dev,
@@ -155,12 +194,12 @@ def _stage_a_latents(model, state: DecodeState, ctx_bucket: int):
 
 
 def _sample_compact_bucket(model, latents, idx, cvalid, temperature, top_k,
-                           top_p, rng: _Rng):
-    """Dec phase + head + sampling on a compact target bucket. Without
-    top-p this is K3, or K4 when top-k is set (the logits never reach
-    device memory); with top-p the logits are materialized and sampled
-    plainly."""
-    if top_p is None:
+                           top_p, rng: _Rng, score_mode: str = "prob"):
+    """Dec phase + head + sampling on a compact target bucket; returns
+    (sampled, chosen_p, probs or None). Without top-p this is K3, or K4
+    when top-k is set (the logits never reach device memory); top-p and
+    the entropy scores materialize the logits and sample plainly."""
+    if top_p is None and score_mode == "prob":
         tokens = model.stage_b_tokens(latents, idx, cvalid)
         B, M, D = tokens.shape
         x, w = tokens.reshape(B * M, D), model.transformer.head.weight
@@ -169,18 +208,19 @@ def _sample_compact_bucket(model, latents, idx, cvalid, temperature, top_k,
             ids, probs = head_sample(x, w, seed, temperature)
         else:
             ids, probs = head_topk_sample(x, w, seed, int(top_k), temperature)
-        return ids.view(B, M), probs.view(B, M)
+        return ids.view(B, M), probs.view(B, M), None
     logits = model.stage_b_compact(latents, idx, cvalid)
-    sampled, chosen_p, _ = sample_tokens(
-        logits, temperature, top_k, top_p, generator=rng.dev
+    return sample_tokens(
+        logits, temperature, top_k, top_p,
+        need_probs=score_mode == "entropy", generator=rng.dev,
     )
-    return sampled, chosen_p
 
 
 def _staged_confidence_scan(model, state: DecodeState, plan: DecodePlan,
                             n_tgt, start: int, stop: int, *, bucket: int,
                             ctx_bucket: int, temperature, top_k, top_p,
-                            context_temperature, rng: _Rng) -> DecodeState:
+                            context_temperature, score_mode,
+                            rng: _Rng) -> DecodeState:
     """One segment of the staged confidence decode at static shapes."""
     B = state.codes.shape[0]
     slots = torch.arange(bucket, device=state.codes.device)
@@ -190,13 +230,14 @@ def _staged_confidence_scan(model, state: DecodeState, plan: DecodePlan,
         idx = compact_indices(~state.ctx_mask, bucket)
         cvalid = (slots < int(n_tgt[i])).expand(B, bucket)
         latents = _stage_a_latents(model, state, ctx_bucket)
-        sampled, chosen_p = _sample_compact_bucket(
-            model, latents, idx, cvalid, temperature, top_k, top_p, rng
+        sampled, chosen_p, probs = _sample_compact_bucket(
+            model, latents, idx, cvalid, temperature, top_k, top_p, rng,
+            score_mode,
         )
+        scores, ctemp = _scores(score_mode, chosen_p, probs, cvalid,
+                                context_temperature, plan.ctemp_scale[i])
         promote_c = promote_targets(
-            chosen_p, cvalid, int(plan.n_new[i]),
-            _ctemp(context_temperature, plan.ctemp_scale[i]),
-            generator=rng.dev,
+            scores, cvalid, int(plan.n_new[i]), ctemp, generator=rng.dev,
         )
         state = DecodeState(
             codes=_scatter_drop(state.codes, idx, sampled),
@@ -207,6 +248,10 @@ def _staged_confidence_scan(model, state: DecodeState, plan: DecodePlan,
     return state
 
 
+def _round_bucket(v: int, N: int, align: int = 128) -> int:
+    return int(min(N, -(-int(v) // align) * align))
+
+
 def random_path_buckets(plan: DecodePlan, N: int, n_ctx0: int) -> tuple[int, int]:
     """(target_bucket, ctx_bucket) of the staged random/bootstrap scan:
     one 8-aligned target bucket from the largest per-step promotion
@@ -215,8 +260,7 @@ def random_path_buckets(plan: DecodePlan, N: int, n_ctx0: int) -> tuple[int, int
     being the largest initial one."""
     bucket = max(8, int(np.max(plan.n_new, initial=0)))
     bucket = -(-bucket // 8) * 8
-    n_ctx = max(1, n_ctx0 + int(np.sum(plan.n_new, initial=0)))
-    return bucket, int(min(N, -(-n_ctx // 128) * 128))
+    return bucket, _round_bucket(max(1, n_ctx0 + int(np.sum(plan.n_new, initial=0))), N)
 
 
 def _staged_random_scan(model, state: DecodeState, plan: DecodePlan, *,
@@ -263,8 +307,8 @@ def _staged_random_scan(model, state: DecodeState, plan: DecodePlan, *,
 
 def _staged_sample(model, state: DecodeState, plan: DecodePlan, *,
                    temperature, top_k, top_p, context_temperature,
-                   random_scores: bool, n_ctx0: int, rng: _Rng,
-                   perm_noise=None) -> DecodeState:
+                   random_scores: bool, score_mode: str, n_ctx0: int,
+                   rng: _Rng, perm_noise=None) -> DecodeState:
     """`n_ctx0`: the largest initial context count of a row, known on
     the host; it sizes the random path's context bucket."""
     N = state.codes.shape[1]
@@ -282,7 +326,8 @@ def _staged_sample(model, state: DecodeState, plan: DecodePlan, *,
             model, state, plan, n_tgt, start, stop,
             bucket=bucket, ctx_bucket=ctx_bucket, temperature=temperature,
             top_k=top_k, top_p=top_p,
-            context_temperature=context_temperature, rng=rng,
+            context_temperature=context_temperature, score_mode=score_mode,
+            rng=rng,
         )
     return state
 
@@ -307,26 +352,29 @@ def maskgit_sample(
     promote_noise: torch.Tensor | None = None,
     perm_noise: torch.Tensor | None = None,
 ) -> DecodeState:
-    """One MaskGIT/bootstrap/random decode pass (reference sample(),
-    transformer.py:353-447) on the device of `model`.
+    """One MaskGIT/bootstrap/random/entp/ar decode pass (reference
+    sample() and entp_sample(), transformer.py:353-542) on the device of
+    `model`.
 
     `staged=True` uses the compacted two-stage forward when the mode
-    list allows it and no noise is injected; `staged=False` forces the
-    dense scan. Test hooks: `sample_noise` (S, B, N, V) and
+    list allows it, no noise is injected and the strategy is not `ar`;
+    `staged=False` forces the dense scan. Test hooks: `sample_noise` (S, B, N, V) and
     `promote_noise` (S, B, N) replace the random draws per plan step and
     force the dense scan; `perm_noise` (B, N) replaces the one draw that
     fixes the promotion order of the staged `random`/`bootstrap` decode
     (larger = promoted earlier)."""
-    if strategy not in ("maskgit", "random", "bootstrap"):
-        raise NotImplementedError(f"strategy {strategy!r} is not ported yet")
+    if strategy not in ("maskgit", "random", "bootstrap", "entp", "ar"):
+        raise ValueError(f"unknown decoding strategy {strategy!r}")
     device = next(model.parameters()).device
     N = model.config.seq_len
     state = DecodeState.create(B, N, device, codes, ctx_mask, chosen_prob)
     rng = _Rng(seed, device)
     random_scores = strategy in ("random", "bootstrap")
+    score_mode = {"entp": "entropy", "ar": "position"}.get(strategy, "prob")
     with_noise = sample_noise is not None or promote_noise is not None
     use_staged = (
         staged and transformer_split(model.config) is not None and not with_noise
+        and strategy != "ar"
     )
     if perm_noise is not None and not (use_staged and random_scores):
         raise ValueError(
@@ -348,8 +396,8 @@ def maskgit_sample(
         return _staged_sample(
             model, state, plan, temperature=float(temperature), top_k=top_k,
             top_p=top_p, context_temperature=float(context_temperature),
-            random_scores=random_scores, n_ctx0=int(n_ctx.max()), rng=rng,
-            perm_noise=perm_noise,
+            random_scores=random_scores, score_mode=score_mode,
+            n_ctx0=int(n_ctx.max()), rng=rng, perm_noise=perm_noise,
         )
     if with_noise and (sample_noise is None or promote_noise is None):
         raise ValueError("sample_noise and promote_noise must be passed together")
@@ -357,7 +405,193 @@ def maskgit_sample(
         model, state, plan,
         temperature=float(temperature), top_k=top_k, top_p=top_p,
         context_temperature=float(context_temperature),
-        random_scores=random_scores, rng=rng,
+        random_scores=random_scores, score_mode=score_mode, rng=rng,
         sample_noise=None if sample_noise is None else sample_noise.to(device),
         promote_noise=None if promote_noise is None else promote_noise.to(device),
     )
+
+
+def entp_sample(model, seed: int, B: int, plan: DecodePlan, **kwargs) -> DecodeState:
+    """Entropy-confidence MaskGIT (reference entp_sample,
+    transformer.py:449-542)."""
+    return maskgit_sample(model, seed, B, plan, **dict(kwargs, strategy="entp"))
+
+
+# -----------------------------------------------------------------------------
+# Draft-and-revise (Gibbs refinement), reference transformer.py:544-663
+
+
+def _random_chunk_ids(tgt_mask: torch.Tensor, n_chunks: int,
+                      noise: torch.Tensor) -> torch.Tensor:
+    """Each target position's chunk in [0, n_chunks) from a random
+    permutation, the ascending order of the uniforms `noise` (B, N)
+    (reference create_gibbs_*_mask, mask_sampler.py:318-356); other
+    positions get -1. Chunks hold n_tgt // n_chunks targets (at least
+    one) and the last takes the spill."""
+    noise = torch.where(tgt_mask, noise, torch.full_like(noise, float("inf")))
+    rank = exact_rank_desc(-noise)  # ascending noise, targets first
+    chunk = (tgt_mask.sum(dim=-1, keepdim=True) // n_chunks).clamp(min=1)
+    ids = (rank // chunk).clamp(max=n_chunks - 1)
+    return torch.where(tgt_mask, ids, torch.full_like(ids, -1))
+
+
+def _gibbs_chunk_counts(n_tgt_rows: np.ndarray, n_chunks: int) -> np.ndarray:
+    """Per-row, per-chunk target counts under `_random_chunk_ids`:
+    chunks 0..n-2 hold `chunk` targets (fewer near the tail when a row
+    has fewer than n) and the last takes the spill, which is not
+    monotonic in the row's count (79 targets over 8 chunks spill 16, 80
+    spill 10): buckets come from the maximum over rows. (B, n) int64."""
+    rows = np.asarray(n_tgt_rows, dtype=np.int64).reshape(-1, 1)
+    chunk = np.maximum(rows // n_chunks, 1)
+    i = np.arange(n_chunks).reshape(1, -1)
+    counts = np.clip(np.minimum(chunk, rows - i * chunk), 0, None)
+    counts[:, -1] = np.clip(rows[:, 0] - (n_chunks - 1) * chunk[:, 0], 0, None)
+    return counts
+
+
+def _gibbs_masks(chunk_ids, base_ctx, i: int, mode: str):
+    """(context, targets) of step i. A draft step re-predicts chunks
+    >= i with the earlier ones as context (reference draft:544-586); a
+    revise step re-predicts chunk i given all the others
+    (revise:588-630)."""
+    chunked = chunk_ids >= 0
+    if mode == "draft":
+        return base_ctx | (chunked & (chunk_ids < i)), chunk_ids >= i
+    return base_ctx | (chunked & (chunk_ids != i)), chunk_ids == i
+
+
+def _gibbs_scan(model, state: DecodeState, chunk_ids, base_ctx, steps, *,
+                mode: str, temperature, top_k, top_p, rng: _Rng,
+                sample_noise=None, visits=None) -> DecodeState:
+    """Dense Gibbs sweep: full-canvas forward, every position sampled,
+    the step's targets kept. `sample_noise` (len(steps), B, N, V)
+    replaces the draws; `visits` (B, N) counts the sampled positions."""
+    for j, i in enumerate(steps):
+        ctx, tgt = _gibbs_masks(chunk_ids, base_ctx, i, mode)
+        logits = model(state.codes, ctx, tgt)
+        sampled, chosen_p, _ = sample_tokens(
+            logits, temperature, top_k, top_p,
+            noise=None if sample_noise is None else sample_noise[j],
+            generator=rng.dev,
+        )
+        state = DecodeState(
+            codes=torch.where(tgt, sampled.long(), state.codes),
+            ctx_mask=state.ctx_mask,
+            chosen_prob=torch.where(tgt, chosen_p, state.chosen_prob),
+        )
+        if visits is not None:
+            visits += tgt
+    return state
+
+
+def _gibbs_scan_compact(model, state: DecodeState, chunk_ids, base_ctx, steps,
+                        *, mode: str, bucket: int, temperature, top_k, top_p,
+                        rng: _Rng, visits=None) -> DecodeState:
+    """Staged Gibbs sweep: the dense enc phase over the canvas, then the
+    re-predicted chunk compacted into (B, bucket) for the dec phase and
+    the head kernel, so those cost O(bucket) a step instead of O(N).
+    `bucket` covers the largest target count of the steps."""
+    N = state.codes.shape[1]
+    for i in steps:
+        ctx, tgt = _gibbs_masks(chunk_ids, base_ctx, i, mode)
+        idx = compact_indices(tgt, bucket)
+        cvalid = idx < N
+        latents = model.stage_a(state.codes, ctx)
+        sampled, chosen_p, _ = _sample_compact_bucket(
+            model, latents, idx, cvalid, temperature, top_k, top_p, rng
+        )
+        state = DecodeState(
+            codes=_scatter_drop(state.codes, idx, sampled),
+            ctx_mask=state.ctx_mask,
+            chosen_prob=_scatter_drop(state.chosen_prob, idx, chosen_p),
+        )
+        if visits is not None:
+            visits += _scatter_drop(torch.zeros_like(visits), idx, cvalid)
+    return state
+
+
+@torch.no_grad()
+def draft_and_revise(
+    model,
+    seed: int,
+    codes: torch.Tensor,
+    *,
+    ctx_mask: torch.Tensor | None = None,
+    n_draft: int = 8,
+    draft_t: float = 1.0,
+    draft_k: int | None = None,
+    draft_p: float | None = None,
+    n_revise: int = 8,
+    revise_t: float = 1.0,
+    revise_k: int | None = None,
+    revise_p: float | None = None,
+    M: int = 2,
+    skip_draft: bool = False,
+    staged: bool = True,
+    chunk_noise: torch.Tensor | None = None,
+    sample_noise: torch.Tensor | None = None,
+    visits: list | None = None,
+) -> torch.Tensor:
+    """Draft once (unless `skip_draft`), then M Gibbs revise sweeps
+    (reference transformer.py:632-663), on the device of `model`;
+    returns the codes (B, N). `ctx_mask` marks positions that stay
+    fixed (None: everything is re-generated).
+
+    Staged unless `staged=False`, the mode list is not stageable, or
+    `sample_noise` is given. Hooks: `chunk_noise` (sweeps, B, N) are the
+    uniforms that assign each sweep's chunks; `sample_noise` (steps, B,
+    N, V) the Exp(1) draws of every step of every sweep, dense only;
+    `visits`, a list, gets one (B, N) int32 count a sweep of how often
+    each position was sampled."""
+    device = next(model.parameters()).device
+    B, N = codes.shape
+    state = DecodeState.create(B, N, device, codes, ctx_mask)
+    base_ctx = state.ctx_mask
+    tgt_all = ~base_ctx
+    rng = _Rng(seed, device)
+    use_staged = (
+        staged and transformer_split(model.config) is not None and sample_noise is None
+    )
+    # per-row target counts, one host fetch before the first sweep: a
+    # row-dependent context makes chunk and spill sizes row-dependent
+    n_tgt_rows = (
+        np.full(B, N, np.int64) if ctx_mask is None
+        else tgt_all.sum(dim=-1).cpu().numpy()
+    )
+    sweeps = ([] if skip_draft else [("draft", n_draft, draft_t, draft_k, draft_p)]) + [
+        ("revise", n_revise, revise_t, revise_k, revise_p)
+    ] * M
+    step0 = 0
+    for j, (mode, n, temperature, top_k, top_p) in enumerate(sweeps):
+        noise = (
+            torch.rand((B, N), device=device, generator=rng.dev)
+            if chunk_noise is None else chunk_noise[j].to(device, torch.float32)
+        )
+        chunk_ids = _random_chunk_ids(tgt_all, n, noise)
+        count = None
+        if visits is not None:
+            count = torch.zeros((B, N), dtype=torch.int32, device=device)
+            visits.append(count)
+        kw = dict(mode=mode, temperature=float(temperature), top_k=top_k,
+                  top_p=top_p, rng=rng, visits=count)
+        if not use_staged:
+            state = _gibbs_scan(
+                model, state, chunk_ids, base_ctx, range(n),
+                sample_noise=None if sample_noise is None
+                else sample_noise[step0:step0 + n].to(device), **kw,
+            )
+        elif mode == "draft":
+            counts = _gibbs_chunk_counts(n_tgt_rows, n)
+            # draft step i re-predicts chunks >= i: suffix sums of the counts
+            nt = np.maximum(counts[:, ::-1].cumsum(axis=1)[:, ::-1].max(axis=0), 1)
+            for s, e, b in segment_counts(nt, N):
+                state = _gibbs_scan_compact(
+                    model, state, chunk_ids, base_ctx, range(s, e), bucket=b, **kw
+                )
+        else:
+            bucket = _round_bucket(max(1, int(_gibbs_chunk_counts(n_tgt_rows, n).max())), N)
+            state = _gibbs_scan_compact(
+                model, state, chunk_ids, base_ctx, range(n), bucket=bucket, **kw
+            )
+        step0 += n
+    return state.codes

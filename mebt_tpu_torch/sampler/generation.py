@@ -1,6 +1,8 @@
-"""Batch video generation (mebt_tpu/sampler/generation.py:35-200):
-`bidirect_generate`, the first window plus the sliding-window shift,
-then the VQGAN pixel decode.
+"""Batch video generation (mebt_tpu/sampler/generation.py):
+`bidirect_generate`, the first window plus the sliding-window shift;
+`extrapolate_generate`, which extends given code maps window by window;
+`dnr_generate`, draft-and-revise; each followed by the VQGAN pixel
+decode.
 
 Sizes arrive in pixel frames and are converted to latent frames by the
 VQGAN's temporal downsample. Results come back as numpy, as in the JAX
@@ -14,7 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from mebt_tpu_torch.sampler.decode import maskgit_sample
+from mebt_tpu_torch.sampler.decode import draft_and_revise, maskgit_sample
 from mebt_tpu_torch.sampler.mask_schedule import bootstrap_plan, maskgit_plan
 
 
@@ -138,4 +140,115 @@ def bidirect_generate(
     samples = _decode_pixels(vqgan, torch.from_numpy(codes).to(device))
     return GenerationResult(
         samples=samples[:, :total_length], code_maps=codes, score=score
+    )
+
+
+def extrapolate_generate(
+    model,
+    vqgan,
+    seed: int,
+    vq_input: np.ndarray,
+    *,
+    total_length: int,
+    step_size: int,
+    context_size: int,
+    temperature: float = 1.0,
+    top_k: int | None = None,
+    top_p: float | None = None,
+    vid_n_steps: int = 8,
+    vid_c_temp: float = 4.5,
+    ctemp_schedule: str = "linear",
+    schedule: str = "cosine",
+    _noise_hook=None,
+) -> GenerationResult:
+    """Extend the code maps `vq_input` (B, T_lat, h, w), one model window
+    each, by repeated window shifts (reference extrapolate:95-157, the
+    `edit=True` path: the schedule counts the editable region only).
+    `_noise_hook` as in bidirect_generate; its call index counts the
+    shift windows."""
+    T, h, w = model.config.latent_shape
+    device = next(model.parameters()).device
+    ratio = 1.0 / vqgan.config.downsample[0]
+    step_lat = int(step_size * ratio)
+    ctx_lat = int(context_size * ratio)
+    total_lat = int(total_length * ratio)
+    if not vq_input.shape[1] == step_lat == T:
+        raise ValueError(
+            f"seed codes of {vq_input.shape[1]} latent frames and step_size "
+            f"{step_size} must both map to the model window ({T} latent frames)"
+        )
+    B = vq_input.shape[0]
+    num_pos = h * w
+    N = T * num_pos
+    n_jumps = int(np.ceil((total_lat - step_lat) / (step_lat - ctx_lat)))
+    plan = maskgit_plan(
+        N, vid_n_steps, schedule, ctemp_schedule,
+        n_ctx_init=ctx_lat * num_pos, edit_N=(T - ctx_lat) * num_pos,
+    )
+    ctx_mask = torch.zeros((B, N), dtype=torch.bool, device=device)
+    ctx_mask[:, : ctx_lat * num_pos] = True
+    seeds = torch.Generator().manual_seed(int(seed))
+
+    chunks = [np.asarray(vq_input, np.int64)]
+    last = chunks[0]
+    for j in range(n_jumps):
+        window = np.zeros((B, T, h, w), np.int64)
+        window[:, :ctx_lat] = last[:, -ctx_lat:]
+        noise = {} if _noise_hook is None else _noise_hook(j, plan)
+        state = maskgit_sample(
+            model, _split(seeds), B, plan,
+            codes=torch.from_numpy(window.reshape(B, N)), ctx_mask=ctx_mask,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            context_temperature=vid_c_temp, **noise,
+        )
+        last = state.codes.cpu().numpy().reshape(B, T, h, w)
+        chunks.append(last[:, ctx_lat:])
+    codes = np.concatenate(chunks, axis=1)[:, :total_lat]
+    samples = _decode_pixels(vqgan, torch.from_numpy(codes).to(device))
+    return GenerationResult(
+        samples=samples[:, :total_length], code_maps=codes, score=np.zeros(B)
+    )
+
+
+def dnr_generate(
+    model,
+    vqgan,
+    seed: int,
+    batch_size: int,
+    *,
+    total_length: int,
+    n_draft: int = 8,
+    draft_t: float = 1.0,
+    draft_k: int | None = None,
+    draft_p: float | None = None,
+    n_revise: int = 8,
+    revise_t: float = 1.0,
+    revise_k: int | None = None,
+    revise_p: float | None = None,
+    M: int = 2,
+    draft: np.ndarray | None = None,
+    **hooks,
+) -> GenerationResult:
+    """Draft-and-revise generation of one model window (reference dnr
+    script sample:22-61). The recipe passes a MaskGIT code map (B, T_lat,
+    h, w) as `draft` and revises only. `hooks` (chunk_noise=,
+    sample_noise=, visits=) go to draft_and_revise."""
+    T, h, w = model.config.latent_shape
+    device = next(model.parameters()).device
+    N = T * h * w
+    B = batch_size
+    codes = (
+        torch.zeros((B, N), dtype=torch.int64) if draft is None
+        else torch.from_numpy(np.asarray(draft, np.int64).reshape(B, N))
+    )
+    out = draft_and_revise(
+        model, seed, codes,
+        n_draft=n_draft, draft_t=draft_t, draft_k=draft_k, draft_p=draft_p,
+        n_revise=n_revise, revise_t=revise_t, revise_k=revise_k,
+        revise_p=revise_p, M=M, skip_draft=draft is not None, **hooks,
+    )
+    codes = out.cpu().numpy().reshape(B, T, h, w)
+    samples = _decode_pixels(vqgan, out.view(B, T, h, w))
+    return GenerationResult(
+        samples=samples[:, :total_length], code_maps=codes, score=np.zeros(B)
     )

@@ -97,8 +97,11 @@ def test_bidirect_generate_staged_bootstrap_on_the_port():
     np.testing.assert_array_equal(a.score, b.score)
     c = bidirect_generate(model, tv, 4, 2, **kw)
     assert not np.array_equal(a.code_maps, c.code_maps)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        bidirect_generate(model, tv, 3, 2, strategy="entp", **kw)
+    # every strategy of the JAX package runs after a bootstrap phase
+    e = bidirect_generate(model, tv, 3, 2, strategy="entp", **kw)
+    assert e.code_maps.shape == (2, 2, 4, 4) and np.all(np.isfinite(e.score))
+    with pytest.raises(ValueError, match="unknown decoding strategy"):
+        bidirect_generate(model, tv, 3, 2, strategy="greedy", **kw)
 
 
 TINY_YAML = """

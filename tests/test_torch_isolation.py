@@ -33,6 +33,8 @@ def test_the_training_slices_modules_are_covered():
     # training from video
     assert {"ops/vq.py", "data/loader.py", "data/datasets.py", "data/native.py",
             "utils/video.py", "cli/train.py"} <= covered
+    # draft-and-revise and extrapolation
+    assert {"sampler/decode.py", "sampler/generation.py", "cli/dnr.py"} <= covered
 
 
 def test_import_pulls_in_no_jax_and_no_jax_package():

@@ -1,4 +1,4 @@
-"""K1-K4 and K6-K9 against their plain versions on a CUDA card, at small
+"""K1-K9 against their plain versions on a CUDA card, at small
 shapes with ragged edges, in fp32 (tolerance 1e-5: fp32 sums in another
 order) and bf16 (both sides round one fp32 result to bf16, so an element
 may differ by one bf16 ulp, at most 2^-7 of its value: the tolerance is
@@ -34,6 +34,7 @@ from mebt_tpu_torch.ops.head_sample import (
     head_sample_ref,
     head_topk_sample,
     head_topk_sample_ref,
+    head_topk_sample_v1,
 )
 
 from mebt_tpu_torch.ops.vq import code_mismatches, nearest_code, nearest_code_ref
@@ -167,6 +168,54 @@ def test_head_topk_sample_refuses_large_k(dev):
     w = torch.zeros(1000, 8, device=dev)
     with pytest.raises(ValueError, match="top-k"):
         head_topk_sample(x, w, 0, 257)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "R,V,k", [(256, 1024, 32), (300, 1000, 32), (300, 1000, 1), (70, 20, 32), (130, 700, 256)]
+)  # small; ragged rows and vocabulary; k = 1; k >= V (k = V); the largest k
+def test_head_topk_sample_v1_matches_plain_and_k4(dev, dtype, R, V, k):
+    """K5 computes K4's function: at one seed its ids equal K4's (same
+    logits tile, same exact top-k, same Philox draws) and the plain
+    version's but for a near-tie."""
+    gen = torch.Generator(dev).manual_seed(R + V + k)
+    D = 96
+    x = _randn(gen, R, D, dtype=dtype, dev=dev)
+    w = (0.1 * torch.randn(V, D, generator=gen, device=dev)).to(dtype)
+    logits = x.float() @ w.float().t()
+    kk = min(k, V)
+    before = head_topk_sample_v1.launches
+    for temp in (1.0, 0.7, 0.0):
+        ids, probs = head_topk_sample_v1(x, w, 5, k, temp)
+        ids4, probs4 = head_topk_sample(x, w, 5, k, temp)
+        rids, rprobs = head_topk_sample_ref(x, w, k, temp, seed=5)
+        assert torch.equal(ids, ids4)
+        torch.testing.assert_close(probs, probs4, rtol=1e-5, atol=1e-7)
+        assert (ids != rids).sum().item() <= 1  # a near-tie may flip
+        same = ids == rids
+        torch.testing.assert_close(probs[same], rprobs[same], rtol=1e-4, atol=1e-7)
+        kth = torch.topk(logits, kk, dim=-1).values[:, -1]
+        assert (logits.gather(1, ids.long()[:, None])[:, 0] >= kth - 1e-4).all()
+    assert head_topk_sample_v1.launches == before + 3
+
+
+def test_head_topk_sample_v1_frequencies_and_large_k(dev):
+    """The draws follow the top-k-filtered softmax and never leave the
+    top-k (chi-square, 7 dof, upper 1e-4 quantile); k past the shared
+    memory buffer is refused."""
+    gen = torch.Generator(dev).manual_seed(1)
+    D, V, k, R = 32, 64, 8, 1 << 15
+    x1 = torch.randn(1, D, generator=gen, device=dev)
+    w = 0.3 * torch.randn(V, D, generator=gen, device=dev)
+    ids, _ = head_topk_sample_v1(x1.expand(R, D).contiguous(), w, 9, k, 1.0)
+    vals, cols = torch.topk((x1 @ w.t())[0], k)
+    counts = torch.bincount(ids.long(), minlength=V).double()
+    assert counts.sum() == counts[cols].sum()
+    expect = torch.softmax(vals.double(), 0) * R
+    chi2 = ((counts[cols] - expect) ** 2 / expect).sum().item()
+    assert chi2 < 29.878
+    with pytest.raises(ValueError, match="top-k"):
+        head_topk_sample_v1(torch.zeros(4, 8, device=dev), torch.zeros(1000, 8, device=dev), 0, 257)
 
 
 def _masked_case(gen, dev, dtype, B=3, H=2, NQ=70, NK=200, Dh=64):
