@@ -21,10 +21,8 @@ def add_common_args(p):
         "--dataset", type=str, default="mshapes",
         choices=["ucf101", "stl", "taichi", "mshapes"],
     )
-    p.add_argument("--format", type=str, default="gif",
-                   choices=["webp", "mp4", "gif", "avi"])
     p.add_argument("--save_videos", action="store_true",
-                   help="also write the first --save_n batches as video grids")
+                   help="also write the first --save_n batches as GIF grids")
     p.add_argument("--save_n", type=int, default=5)
     p.add_argument("--save_codemap", action="store_true")
     p.add_argument("--seed", type=int, default=None)
@@ -86,14 +84,10 @@ def parse_config(args, unknown) -> Config:
     return load_configs(args.base, unknown)
 
 
-def n_batches(args) -> int:
-    return -(-args.n_sample // args.batch_size)
-
-
 def save_grid(args, save_dir: str, i: int, samples, nrow: int) -> None:
     """Write batch i's videos as one grid under save_dir when
     --save_videos asks for it (the first --save_n batches)."""
     if args.save_videos and i < args.save_n:
         from mebt_tpu_torch.utils.video import save_video_grid
 
-        save_video_grid(samples, f"{save_dir}/generation_{i}.{args.format}", nrow)
+        save_video_grid(samples, f"{save_dir}/generation_{i}.gif", nrow)

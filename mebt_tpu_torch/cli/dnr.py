@@ -74,8 +74,7 @@ def parse_draft_name(np_draft: str) -> tuple[int, str]:
 def main(argv=None):
     import torch
 
-    from mebt_tpu_torch.cli.common import (
-        load_model_bundle, n_batches, parse_config, save_grid)
+    from mebt_tpu_torch.cli.common import load_model_bundle, parse_config, save_grid
     from mebt_tpu_torch.runtime import resolve_device
     from mebt_tpu_torch.sampler.generation import dnr_generate
 
@@ -97,7 +96,7 @@ def main(argv=None):
     os.makedirs(os.path.dirname(save_np), exist_ok=True)
 
     seeds = torch.Generator().manual_seed(1000 + (args.seed if args.seed is not None else args.run))
-    n_batch = n_batches(args)
+    n_batch = -(-args.n_sample // args.batch_size)
     all_pix, all_code = [], []
     for i in range(n_batch):
         batch = None if draft is None else draft[i * args.batch_size : (i + 1) * args.batch_size]

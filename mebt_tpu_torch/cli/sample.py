@@ -67,8 +67,7 @@ def save_tag(args) -> str:
 def main(argv=None):
     import torch
 
-    from mebt_tpu_torch.cli.common import (
-        load_model_bundle, n_batches, parse_config, save_grid)
+    from mebt_tpu_torch.cli.common import load_model_bundle, parse_config, save_grid
     from mebt_tpu_torch.runtime import resolve_device
     from mebt_tpu_torch.sampler.generation import bidirect_generate, extrapolate_generate
 
@@ -84,7 +83,7 @@ def main(argv=None):
 
     seeds = torch.Generator().manual_seed(args.seed if args.seed is not None else args.run)
     base_np = np.load(args.base_np) if args.base_np else None
-    n_batch = n_batches(args)
+    n_batch = -(-args.n_sample // args.batch_size)
     kw = dict(total_length=args.total_length, step_size=args.step_size,
               context_size=args.context_size, temperature=args.temp, top_k=args.top_k,
               top_p=args.top_p, vid_n_steps=args.vid_n_steps, vid_c_temp=args.vid_c_temp,

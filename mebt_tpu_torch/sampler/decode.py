@@ -134,9 +134,9 @@ def _ctemp(context_temperature: float, scale) -> float:
 
 
 def _scores(score_mode: str, chosen_p, probs, live, context_temperature, scale):
-    """(promotion scores, context temperature) of one step. prob: the
-    sampled token's probability under the step's ctemp schedule.
-    entropy (entp, reference transformer.py:503-504): s = sum(p -
+    """(promotion scores, context temperature) of one step. prob
+    (maskgit): the sampled token's probability, at the step's context
+    temperature. entropy (entp, reference transformer.py:503-504): s = sum(p -
     log(p + 1e-8)), score = max over live targets of s, minus s, at
     ctemp 0. The sum runs in float64, exact for these fp32 terms, so two
     targets with the same distribution up to order get the same score

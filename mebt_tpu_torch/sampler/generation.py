@@ -159,13 +159,10 @@ def extrapolate_generate(
     vid_c_temp: float = 4.5,
     ctemp_schedule: str = "linear",
     schedule: str = "cosine",
-    _noise_hook=None,
 ) -> GenerationResult:
     """Extend the code maps `vq_input` (B, T_lat, h, w), one model window
     each, by repeated window shifts (reference extrapolate:95-157, the
-    `edit=True` path: the schedule counts the editable region only).
-    `_noise_hook` as in bidirect_generate; its call index counts the
-    shift windows."""
+    `edit=True` path: the schedule counts the editable region only)."""
     T, h, w = model.config.latent_shape
     device = next(model.parameters()).device
     ratio = 1.0 / vqgan.config.downsample[0]
@@ -191,15 +188,14 @@ def extrapolate_generate(
 
     chunks = [np.asarray(vq_input, np.int64)]
     last = chunks[0]
-    for j in range(n_jumps):
+    for _ in range(n_jumps):
         window = np.zeros((B, T, h, w), np.int64)
         window[:, :ctx_lat] = last[:, -ctx_lat:]
-        noise = {} if _noise_hook is None else _noise_hook(j, plan)
         state = maskgit_sample(
             model, _split(seeds), B, plan,
             codes=torch.from_numpy(window.reshape(B, N)), ctx_mask=ctx_mask,
             temperature=temperature, top_k=top_k, top_p=top_p,
-            context_temperature=vid_c_temp, **noise,
+            context_temperature=vid_c_temp,
         )
         last = state.codes.cpu().numpy().reshape(B, T, h, w)
         chunks.append(last[:, ctx_lat:])
