@@ -3,7 +3,10 @@
     python3 chip_smoke.py [--out results/chip_smoke]
 
 1. prints the card's name and power limit, builds the kernels (K1-K9)
-   from mebt_tpu_torch/csrc with nvcc for sm_90a;
+   from mebt_tpu_torch/csrc with nvcc for sm_90a, and counts the
+   tensor-core instructions (HMMA, HGMMA) of every attention kernel in
+   `cuobjdump -sass` of the built library: each bf16 K2 / K7 kernel must
+   have some, and no bf16 FMA K2 / K7 kernel may be built;
 2. holds each kernel against its plain PyTorch version on the card, at
    the shapes of the STL-16f decode (batch 16) and of the STL-128f
    decode (batch 2) in bf16 (K5, which no path runs, at K4's shapes,
@@ -12,7 +15,8 @@
    5) in fp32 and bf16, dropout (K8) in all four attention kernels, and
    the nearest-code search (K9) at the encoder's shapes of both training
    recipes, with a ragged codebook and exact ties; times kernel, plain
-   version and one PyTorch library call for the same function;
+   version and one PyTorch library call for the same function, and K7's
+   dq pass and dk/dv pass apart from one profiled call;
 3. generates STL-16f videos at full width through bidirect_generate
    (24L/16H/1024d, vocab 16384, 256 latents, N 1024, 32 MaskGIT steps,
    cosine, ctemp 8.0 linear, temperature 1.0, random weights from a
@@ -145,7 +149,9 @@ CHI2_15_DOF_P1E4 = 44.263  # upper 1e-4 quantile of chi-square, 15 dof
 # K1/K2 in bf16: kernel and plain version both compute in fp32 and round
 # the result to bf16 once, so an element may differ by one bf16 ulp, at
 # most 2^-7 of its value. The bound is two such ulps of each element,
-# plus 1e-5 for fp32 sums taken in another order near zero.
+# plus 1e-5 for fp32 sums taken in another order near zero. (The bf16
+# K2 and K7 multiply on the tensor cores with p and ds as two or three
+# bf16 parts, fp32 to 2^-18 and 2^-27 of them: csrc/attention.cu.)
 BF16_RTOL, BF16_ATOL = 2.0**-6, 1e-5
 LSE_TOL = 1e-5  # fp32 lse of about 10: some ten fp32 ulps
 # K6/K7 gradients, (rtol, atol). fp32: kernel and plain version sum the
@@ -570,6 +576,11 @@ def check_k6(dev, gen):
     return rows
 
 
+# K7's dq pass and dk/dv pass, by kernel name
+K7_PASSES_BF16 = ("largeq_bwd_dq_mma_kernel", "largeq_bwd_dkdv_mma_kernel")
+K7_PASSES_FP32 = ("largeq_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
+
+
 def check_k7(dev, gen):
     from mebt_tpu_torch.ops.attention_cuda import largeq_backward, largeq_backward_ref
 
@@ -591,6 +602,12 @@ def check_k7(dev, gen):
                 err_over_tol=over, tol=dict(zip(("rtol", "atol"), GRAD_TOL[dtype])),
                 ms=cuda_ms(lambda: largeq_backward(q, k, v, g)), bound_ms=bnd, bound_by=by,
             )
+            # the two passes apart, from one profiled call
+            passes = (K7_PASSES_BF16 if dtype == torch.bfloat16 else K7_PASSES_FP32)
+            pass_ms = kernel_ms(lambda: largeq_backward(q, k, v, g), passes)
+            require(all(ms > 0 for ms in pass_ms.values()),
+                    f"K7 {case} {dtype}: a pass of {passes} did not run: {pass_ms}")
+            row.update(dq_pass_ms=pass_ms[passes[0]], dkdv_pass_ms=pass_ms[passes[1]])
             if dtype == torch.bfloat16:
                 row["plain_ms"] = cuda_ms(lambda: largeq_backward_ref(q, k, v, g), reps=3)
                 row["library_ms"] = cuda_ms(sdpa_fwd_bwd(q, k, v, g), reps=5)
@@ -1162,6 +1179,115 @@ def span_kernels(prof, span: str) -> list[list[tuple[str, float]]]:
             if ev.name == span and ev.device_type == DeviceType.CPU]
 
 
+# The profile's kernel groups, by substrings of the kernels' names: the
+# bf16 K2 and K7 run the tensor-core kernels (`*_mma_kernel`), fp32 the
+# FMA ones; K6's dk/dv pass is `attn_bwd_dkdv_kernel`, which fp32 K7 also
+# runs (in the parity checks only, which no profile covers).
+PROFILE_GROUPS = {
+    "K1": ("smallq_kernel",), "K2": ("largeq_kernel", "largeq_fwd_mma_kernel"),
+    "K3": ("head_sample_kernel",), "K4": ("head_topk_sample_kernel",),
+    "K5": ("head_topk_sample_v1_kernel",), "K6_dq": ("smallq_bwd_dq_kernel",),
+    "K6_dkdv": ("attn_bwd_dkdv_kernel",),
+    "K7_dq": ("largeq_bwd_dq_kernel", "largeq_bwd_dq_mma_kernel"),
+    "K7_dkdv": ("largeq_bwd_dkdv_mma_kernel",), "K9": ("nearest_code_kernel",),
+}
+# the FMA K2 / K7 kernels, which only fp32 calls (the parity checks) launch
+FMA_LARGEQ = ("largeq_kernel<", "largeq_bwd_dq_kernel<")
+# the bf16 K2 and K7 kernels: their SASS must hold tensor-core instructions
+TENSOR_CORE_KERNELS = ("largeq_fwd_mma_kernel", "largeq_bwd_dq_mma_kernel",
+                       "largeq_bwd_dkdv_mma_kernel")
+
+
+def kernel_table(prof, span: str | None = None) -> list[tuple[str, float, int]]:
+    """(kernel name, device ms, calls) of a stopped torch.profiler, most
+    time first: kernels only, not the ops launching them, nor a `span`
+    range over kernels, nor `start_profile`'s spin kernels."""
+    from torch.autograd import DeviceType
+
+    table = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.key.startswith("Optimizer.") or e.key == span or "spin_kernel" in e.key:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            table.append((e.key, us / 1e3, e.count))
+    return sorted(table, key=lambda r: -r[1])
+
+
+def kernel_ms(fn, keys) -> dict:
+    """Device ms of the kernels whose names hold each of `keys`, from one
+    profiled call of fn."""
+    from mebt_tpu_torch.train.trainer import start_profile
+
+    torch.cuda.synchronize()
+    prof = start_profile(torch.device("cuda"))
+    fn()
+    torch.cuda.synchronize()
+    prof.stop()
+    table = kernel_table(prof)
+    return {key: sum(ms for n, ms, _ in table if key in n) for key in keys}
+
+
+def sass_tensor_core_counts(lib_path) -> dict:
+    """HMMA and HGMMA instructions in each kernel of a built library, from
+    `cuobjdump -sass`, by kernel name (demangled and cut to the template
+    arguments where cu++filt is at hand)."""
+    from mebt_tpu_torch.ops import _build
+
+    bin_dir = os.path.dirname(_build.nvcc())
+    sass = subprocess.run([os.path.join(bin_dir, "cuobjdump"), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    filt = os.path.join(bin_dir, "cu++filt")
+    if counts and os.path.exists(filt):
+        names = subprocess.run([filt, *counts], capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        if len(names) == len(counts):
+            counts = dict(zip(map(_kernel_label, names), counts.values()))
+    return counts
+
+
+def _kernel_label(name: str) -> str:
+    """A demangled kernel name without its return type, namespace and
+    parameter list: `largeq_fwd_mma_kernel<(bool)1>`."""
+    name = name.removeprefix("void ")
+    for ns in ("(anonymous namespace)::", "<unnamed>::"):
+        name = name.replace(ns, "")
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            return name[:i]
+    return name
+
+
+def check_sass():
+    """The tensor-core instructions of every attention kernel; each
+    instantiation of the bf16 K2 / K7 kernels must have some, and no bf16
+    instantiation of the FMA K2 / K7 kernels may exist."""
+    from mebt_tpu_torch.ops import _build
+
+    counts = sass_tensor_core_counts(_build.library_path("attention"))
+    for name in TENSOR_CORE_KERNELS:
+        inst = {n: c for n, c in counts.items() if name in n}
+        require(len(inst) == 2 and all(c > 0 for c in inst.values()),
+                f"SASS: {name} instantiations {inst} (need 2, each with HMMA/HGMMA)")
+    fma_bf16 = [n for n in counts if ("largeq_kernel" in n or "largeq_bwd_dq_kernel" in n)
+                and ("bfloat16" in n or "13__nv_bfloat16" in n)]
+    require(not fma_bf16, f"SASS: bf16 FMA K2/K7 kernels still built: {fma_bf16}")
+    return dict(phase="sass", library="attention", tensor_core_instructions=counts)
+
+
 def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
     """Device time of one warm decode (or of a few train steps) by
     kernel, from torch.profiler: each hand-written kernel's share (dropout
@@ -1170,8 +1296,6 @@ def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
     With `span`, also the kernels launched inside the host ranges of
     that name, from the same profile. The full table goes to
     <out_dir>/<name>."""
-    from torch.autograd import DeviceType
-
     from mebt_tpu_torch.train.trainer import start_profile
 
     torch.cuda.synchronize()
@@ -1181,28 +1305,14 @@ def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     prof.stop()
-    table = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:  # kernels only, not the ops launching them
-            continue
-        if e.key.startswith("Optimizer.") or e.key == span:  # a span over kernels, not one
-            continue
-        if "spin_kernel" in e.key:  # start_profile's warm-up
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            table.append((e.key, us / 1e3, e.count))
-    table.sort(key=lambda r: -r[1])
+    table = kernel_table(prof, span)
     with open(os.path.join(out_dir, name), "w") as f:
         json.dump([dict(name=n, ms=ms, calls=c) for n, ms, c in table], f, indent=1)
-    groups = {"K1": "smallq_kernel", "K2": "largeq_kernel", "K3": "head_sample_kernel",
-              "K4": "head_topk_sample_kernel", "K5": "head_topk_sample_v1_kernel",
-              "K6_dq": "smallq_bwd_dq_kernel",
-              "K7_dq": "largeq_bwd_dq_kernel", "K6_K7_dkdv": "attn_bwd_dkdv_kernel",
-              "K9": "nearest_code_kernel"}
-    out = {g: sum(ms for n, ms, _ in table if key in n) for g, key in groups.items()}
+    out = {g: sum(ms for n, ms, _ in table if any(key in n for key in keys))
+           for g, keys in PROFILE_GROUPS.items()}
+    # every profiled path runs in bf16: no FMA K2 / K7 kernel may show
+    fma = [n for n, _, _ in table if any(key in n for key in FMA_LARGEQ)]
+    require(not fma, f"{name}: bf16 K2/K7 ran the FMA kernels: {fma}")
     busy = sum(ms for _, ms, _ in table)
     out["other"] = busy - sum(out.values())
     out.update(device_busy_ms=busy, wall_ms=wall_ms, idle_share=1.0 - busy / wall_ms,
@@ -1212,7 +1322,7 @@ def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
         # does not link its ctypes launch to the span
         per = span_kernels(prof, span)
         ks = [k for kernels in per for k in kernels]
-        enc = sum(ms for n, ms in ks if groups["K9"] not in n)
+        enc = sum(ms for n, ms in ks if PROFILE_GROUPS["K9"][0] not in n)
         out["span"] = dict(name=span, kernels_per_range=[len(k) for k in per], encoder_ms=enc,
                            k9_ms=out["K9"], share=(enc + out["K9"]) / busy)
     return out
@@ -1732,9 +1842,15 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "nvcc.log"), "w") as f:
         f.write("\n".join(f"== {k}\n{v}" for k, v in logs.items()))
+    try:
+        report_sass = check_sass()
+    except Failed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
+        return 1
+    emit(report_sass)
 
     gen = torch.Generator(dev).manual_seed(0)
-    report = {"card": smi}
+    report = {"card": smi, "sass": report_sass}
     only = set(filter(None, args.only.split(",")))
 
     def on(phase):
@@ -1842,7 +1958,9 @@ def main(argv=None) -> int:
         entry(5, "K6 smallq_backward", "mebt_tpu/ops/attention_pallas.py:437",
               case(report["K6"], "lt2l", "bfloat16")),
         entry(6, "K7 largeq_backward", "mebt_tpu/ops/attention_pallas.py:589",
-              case(report["K7"], "latent_dec", "bfloat16")),
+              case(report["K7"], "latent_dec_128f", "bfloat16"),
+              **{k: case(report["K7"], "latent_dec_128f", "bfloat16")[k]
+                 for k in ("dq_pass_ms", "dkdv_pass_ms")}),
         entry(7, "K8 dropout in K1/K2/K6/K7 (row: K1 at rate 0.1)",
               "mebt_tpu/ops/attention_pallas.py:71",
               case(report["K8"], "lt2l", "bfloat16")),

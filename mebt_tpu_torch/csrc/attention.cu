@@ -25,10 +25,25 @@
 //   mebt_tpu/ops/attention_pallas.py:_largeq_attention (_largeq_kernel):
 //   many queries over <= 512 UNMASKED keys (latent_self: 256 x 256;
 //   latent_dec: M tokens x 256 latents). K and V of one (b, h) stay
-//   resident in shared memory in the input type; each CTA takes 32
-//   queries and does one softmax pass (scores for all keys, row max,
-//   exp, sum, then P @ V). Bound: bytes at these shapes (~84 MB in
-//   latent_dec at M = 1024); the design reads K/V once per CTA from L2.
+//   resident in shared memory in the input type.
+//   bf16, largeq_fwd_mma_kernel: bound by bytes on the card (67 MB
+//   against 17.2 GFLOP at 16f latent_dec, 25.8 with the split below:
+//   0.020 ms of HBM against 0.026 ms of bf16 tensor-core time, so the
+//   products must run on the tensor cores to come near it). K/V are
+//   copied in once per CTA with 16-byte cp.async and each CTA walks many
+//   16-row query blocks of its (b, h), one warp a block, so 64 KB of K/V
+//   serve up to 1024 queries. Both products are mma.sync m16n8k16 bf16
+//   with fp32 sums, operands from ldmatrix (.trans for V) on rows padded
+//   to 72 elements (conflict-free). The softmax is online over 64-key
+//   chunks in fp32 registers on scores pre-scaled by log2(e), with
+//   exp2f. The probabilities go to P V as two bf16 operands, hi =
+//   bf16(e) and lo = bf16(e - hi), summed in one fp32 accumulator: e to
+//   about 2^-18, where one bf16 rounding of e (the TPU kernel's choice)
+//   would miss the plain version's fp32 result by some 2^-9 and break
+//   the two-ulp gate by 36x. e = 2^(s c - m) takes s c - m in one fmaf.
+//   The output is normalized and rounded once.
+//   fp32, largeq_kernel: each CTA takes 32 queries and does one softmax
+//   pass as fp32 FMA loops from shared memory (the parity checks only).
 //
 // K6 (mebt_smallq_backward) replaces
 //   mebt_tpu/ops/attention_pallas.py:_smallq_backward (_smallq_bwd_kernel):
@@ -50,14 +65,28 @@
 //
 // K7 (mebt_largeq_backward) replaces
 //   mebt_tpu/ops/attention_pallas.py:_largeq_backward (_largeq_bwd_kernel):
-//   dq, dk, dv of K2; nothing is saved by the forward. Pass 1,
-//   largeq_bwd_dq_kernel: K and V of one (b, h) resident in shared memory
-//   as in K2, one CTA per 32 queries recomputes the softmax, O and
-//   D = rowsum(g * O), writes dq, and leaves lse and D in a scratch
-//   buffer. Pass 2 is attn_bwd_dkdv_kernel again, without a mask: dk and
-//   dv are sums over ALL query tiles of one (b, h) (4 at NQ 1024, 128 at
-//   NQ 8192), taken inside one CTA per key tile, so no reduction across
-//   CTAs is needed.
+//   dq, dk, dv of K2; nothing is saved by the forward, and two passes
+//   each write their outputs once (no atomics, bit-repeatable). Pass 1
+//   recomputes, per query row, the softmax, O and D = rowsum(g * O),
+//   writes dq, and leaves lse and D in a scratch buffer; pass 2 sums dk
+//   and dv over ALL query tiles of one (b, h) inside one CTA per key
+//   tile, so no reduction across CTAs is needed.
+//   bf16: bound by operations (10 NQ NK Dh per (b, h), 0.11 ms at 128f
+//   latent_dec, against 0.03 ms of bytes); both passes run every
+//   product on the tensor cores with K2's fragments. largeq_bwd_dq_mma_
+//   kernel is K2's tile: K/V resident, a warp per 16-row block, sweep 1
+//   as K2 (lse, O, D from the fp32 O), sweep 2 p = exp2(s - lse),
+//   dp = g V^T, ds = p (dp keep - D) scale, dq += ds K.
+//   largeq_bwd_dkdv_mma_kernel has the key axis as M: a warp per 16
+//   keys, K and V fragments held in registers, Q / g / lse / D tiles of
+//   64 queries double-buffered with cp.async; S^T = K Q^T, dv += (P^T
+//   keep) g, dk += dS^T Q, each 16 queries' products summed apart and
+//   added to dk, dv in fp32 (the tensor cores' own fp32 sums drop the
+//   low bits of small products, which over 8192 queries showed). Every
+//   split operand (p, ds) is in three bf16 parts here (K7_PARTS below):
+//   16 tile products where the fp32 kernels have 7.
+//   fp32: largeq_bwd_dq_kernel (32 queries a CTA, FMA loops) and
+//   attn_bwd_dkdv_kernel without a mask (the parity checks only).
 //
 // K8, dropout on the probabilities (the p_drop branches of the four TPU
 //   kernels, attention_pallas.py:_drop_keep): element (b, h, query, key)
@@ -78,7 +107,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "philox.cuh"
 
@@ -252,7 +284,708 @@ cudaError_t launch_smallq(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// K2: unmasked large-Q, K/V resident
+// K2 / K7 in bf16: tensor-core tiles (mma.sync m16n8k16, ldmatrix)
+//
+// Fragments follow the PTX layouts of mma.m16n8k16 with lane = 4 g + t:
+// an A fragment (16 x 16) holds rows g and g + 8 at columns 2t, 2t + 1
+// and 2t + 8, 2t + 9; a C fragment (16 x 8, fp32) holds rows g and g + 8
+// at columns 2t, 2t + 1. Two neighbouring C fragments of S are thus the
+// A fragment of P for the next product, with no data movement.
+
+constexpr int TC_DH = 64;       // head width of every MeBT config
+constexpr int TC_PITCH = 72;    // bf16 per shared row: 144 B, so the 8 rows
+                                // an ldmatrix reads fall in distinct banks
+constexpr int TC_WARPS = 8;     // K2 / K7 dq: warps a CTA, 16 query rows each
+constexpr int TC_KPAD = 64;     // resident keys are padded to this multiple
+constexpr int K2_KC = 64;       // keys per online-softmax chunk, K2
+constexpr int K7_KC = 32;       // keys per chunk, K7's dq pass sweep 1
+constexpr int K7_KC2 = 16;      // keys per chunk, its sweep 2 (registers)
+constexpr int DKDV_WARPS = 4;   // K7 dk/dv: 16 keys a warp, 64 keys a CTA
+constexpr int DKDV_QT = 64;     // queries per tile of the dk/dv walk
+constexpr int DKDV_QC = 16;     // queries per product chunk inside a tile
+// bf16 parts of a left operand. K2's P in two, to 2^-18 of it: P >= 0,
+// so P V loses nothing to cancellation. K7's p and ds in three, to
+// 2^-27: dv = sum_q p g and dk = sum_q ds q cancel, and D takes O; with
+// two parts and q eight times larger, some dk and dv elements missed
+// the gate by up to 30% (an emulation over seeds, and the card).
+constexpr int K2_PARTS = 2;
+constexpr int K7_PARTS = 3;
+static_assert(TC_KPAD % (DKDV_WARPS * 16) == 0, "pass 2's key tiles cover the padded keys");
+constexpr float LOG2E = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; zeros where !in
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(in ? 8 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a b, 16 x 8 x 16, bf16 operands, fp32 sums
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) as NP bf16 pairs (x0 in the low half): part i rounds what the
+// parts before it left, so x is their sum to about 2^-(9 NP) of it.
+template <int NP>
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t (&out)[NP]) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    out[i] = bits(h);
+    x0 -= __low2float(h);  // exact: h is x's nearest bf16
+    x1 -= __high2float(h);
+  }
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
+
+// A fragments of 16 rows x TC_DH of a row-major shared tile: a[kc] holds
+// columns 16 kc .. 16 kc + 15.
+__device__ __forceinline__ void load_a(uint32_t (&a)[TC_DH / 16][4], const bf16* rows,
+                                       int lane) {
+  const bf16* p = rows + (lane & 15) * TC_PITCH + (lane >> 4) * 8;
+#pragma unroll
+  for (int kc = 0; kc < TC_DH / 16; ++kc) ldsm_x4(a[kc], p + kc * 16);
+}
+
+// c[j] += A B^T for the 8 NT rows of B at `rows` (a row-major shared
+// tile, TC_DH wide): S = Q K^T over keys, or S^T = K Q^T over queries.
+template <int NT>
+__device__ __forceinline__ void mma_abt(float (&c)[NT][4], const uint32_t (&a)[TC_DH / 16][4],
+                                        const bf16* rows, int lane) {
+  const bf16* p = rows + ((lane & 7) + (lane >> 4) * 8) * TC_PITCH + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np)
+#pragma unroll
+    for (int kc = 0; kc < TC_DH / 16; ++kc) {
+      uint32_t b[4];
+      ldsm_x4(b, p + np * 16 * TC_PITCH + kc * 16);
+      mma16816(c[2 * np], a[kc], b[0], b[1]);
+      mma16816(c[2 * np + 1], a[kc], b[2], b[3]);
+    }
+}
+
+// c (16 x TC_DH) += A B for the 16 KS rows of B at `rows`, A given as NP
+// bf16 parts (a[i][ks]) whose products go into one fp32 sum.
+template <int NP, int KS>
+__device__ __forceinline__ void mma_ab_parts(float (&c)[TC_DH / 8][4],
+                                             const uint32_t (&a)[NP][KS][4], const bf16* rows,
+                                             int lane) {
+  const bf16* p = rows + ((lane & 7) + ((lane >> 3) & 1) * 8) * TC_PITCH + (lane >> 4) * 8;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int dp = 0; dp < TC_DH / 16; ++dp) {
+      uint32_t b[4];
+      ldsm_x4_t(b, p + ks * 16 * TC_PITCH + dp * 16);
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        mma16816(c[2 * dp], a[i][ks], b[0], b[1]);
+        mma16816(c[2 * dp + 1], a[i][ks], b[2], b[3]);
+      }
+    }
+}
+
+__device__ __forceinline__ void zero(float (&c)[TC_DH / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < TC_DH / 8; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+}
+
+__device__ __forceinline__ void add_to(float (&acc)[TC_DH / 8][4], const float (&c)[TC_DH / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < TC_DH / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += c[j][e];
+}
+
+// The C tile c (16 x 8 NT, fp32) as A fragments of its NT / 2 16-column
+// blocks, in NP bf16 parts.
+template <int NP, int NT>
+__device__ __forceinline__ void to_a_parts(const float (&c)[NT][4], uint32_t (&a)[NP][NT / 2][4]) {
+#pragma unroll
+  for (int ks = 0; ks < NT / 2; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {  // a0..a3: (C tile, row half) = (2ks, 0), (2ks, 1), (2ks+1, 0), (2ks+1, 1)
+      uint32_t t[NP];
+      split_pair<NP>(c[2 * ks + (r >> 1)][2 * (r & 1)], c[2 * ks + (r >> 1)][2 * (r & 1) + 1], t);
+#pragma unroll
+      for (int i = 0; i < NP; ++i) a[i][ks][r] = t[i];
+    }
+}
+
+// Rows r0 .. r0 + n - 1 of an (N, TC_DH) bf16 matrix into a padded
+// shared tile as 16-byte cp.async copies (zeros past row N), shared by
+// `nthreads` threads of which this is `tid`.
+__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src, int r0, int n, int N,
+                                          int tid, int nthreads) {
+  for (int i = tid; i < n * (TC_DH / 8); i += nthreads) {
+    const int r = i / (TC_DH / 8), c = (i % (TC_DH / 8)) * 8;
+    const bool in = r0 + r < N;
+    cp_async16(dst + r * TC_PITCH + c, src + (size_t)(in ? r0 + r : 0) * TC_DH + c, in);
+  }
+}
+
+__host__ __device__ constexpr int pad_keys(int NK) {
+  return (NK + TC_KPAD - 1) / TC_KPAD * TC_KPAD;
+}
+
+// K and V resident, then per warp `qrows` rows of each query-side input
+inline size_t tc_smem_bytes(int NK, int qrows) {
+  return sizeof(bf16) * TC_PITCH * ((size_t)2 * pad_keys(NK) + (size_t)TC_WARPS * qrows);
+}
+inline size_t k2_tc_smem_bytes(int NK) { return tc_smem_bytes(NK, 16); }
+inline size_t k7_dq_tc_smem_bytes(int NK) { return tc_smem_bytes(NK, 32); }
+constexpr size_t k7_dkdv_tc_smem_bytes() {
+  return sizeof(bf16) * TC_PITCH * (2 * DKDV_WARPS * 16 + 2 * 2 * DKDV_QT) +
+         (sizeof(float2) + sizeof(float) + sizeof(uint32_t) * DKDV_WARPS * 16 / 32) * 2 *
+             DKDV_QT;
+}
+
+// K and V of one (b, h) into shared memory, zero rows up to pad_keys(NK)
+__device__ __forceinline__ void load_kv(bf16* Ks, bf16* Vs, const bf16* kg, const bf16* vg,
+                                        int NK) {
+  const int n = pad_keys(NK);
+  copy_rows(Ks, kg, 0, n, NK, threadIdx.x, blockDim.x);
+  copy_rows(Vs, vg, 0, n, NK, threadIdx.x, blockDim.x);
+}
+
+// -inf at keys >= NK of the 16 x 8 NT score tile of keys k0..; returns
+// its row maxima (rows g, g + 8) over the quad.
+template <int NT>
+__device__ __forceinline__ void mask_max(float (&s)[NT][4], int k0, int NK, int lane,
+                                         float& mx0, float& mx1) {
+  mx0 = mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + j * 8 + 2 * (lane & 3) + (e & 1);
+      const float x = key < NK ? s[j][e] : -INFINITY;
+      s[j][e] = x;
+      if (e < 2) mx0 = fmaxf(mx0, x);
+      else mx1 = fmaxf(mx1, x);
+    }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(FULL, x, 1);
+  return x + __shfl_xor_sync(FULL, x, 2);
+}
+
+// Sweep 1 of K2 and of K7's dq pass for one warp's 16 query rows (A
+// fragments qa): online softmax over all keys, o = sum of (e keep) V
+// unnormalized, with e = 2^(s c - m) for c = scale log2(e) taken by one
+// fmaf (so e carries no rounding of s c, which reaches some 2^-18 of 1
+// at |s c| ~ 50), the reference m = max s c (rounded; a common factor
+// of the row's e), and l = the sum of the undropped e, rows g and g + 8.
+// row0 = (b * H + h) * NQ + the block's first row. P goes to P V in
+// NP bf16 parts. With KEEP_OUT, the keep bits drawn for the block's
+// rows go to keep_rows (row r at keep_rows + r * nkw, one word per 32
+// keys, bit = key % 32) for the rows below nrows.
+template <int KC, int NP, bool DROP, bool KEEP_OUT = false>
+__device__ __forceinline__ void attend_rows(float (&o)[TC_DH / 8][4], float (&m)[2], float (&l)[2],
+                                            const uint32_t (&qa)[TC_DH / 16][4], const bf16* Ks,
+                                            const bf16* Vs, int NK, float scale_log2,
+                                            uint32_t row0, const Dropout& drop, int lane,
+                                            uint32_t* keep_rows = nullptr, int nkw = 0,
+                                            int nrows = 0) {
+  constexpr int NT = KC / 8;
+  static_assert(!KEEP_OUT || (DROP && KC == 32), "one keep word per chunk");
+  zero(o);
+  m[0] = m[1] = -INFINITY;
+  l[0] = l[1] = 0.f;
+  const uint32_t r0 = row0 + (lane >> 2);
+  for (int k0 = 0; k0 < NK; k0 += KC) {
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    mma_abt<NT>(s, qa, Ks + k0 * TC_PITCH, lane);
+    float mx[2];
+    mask_max<NT>(s, k0, NK, lane, mx[0], mx[1]);
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mn = fmaxf(m[h], mx[h] * scale_log2);  // finite: key k0 < NK is live
+      alpha[h] = exp2f(m[h] - mn);          // 0 on the first chunk
+      m[h] = mn;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < TC_DH / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+    uint32_t kbits[2] = {0u, 0u};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = exp2f(fmaf(s[j][e], scale_log2, -m[e >> 1]));
+        l[e >> 1] += x;  // the denominator takes the undropped e
+        if (DROP) {
+          const int c = j * 8 + 2 * (lane & 3) + (e & 1);
+          const float kp = drop.keep(r0 + (e >> 1) * 8, (uint32_t)(k0 + c));
+          if (KEEP_OUT && kp != 0.f) kbits[e >> 1] |= 1u << c;
+          x *= kp;
+        }
+        s[j][e] = x;
+      }
+    if (KEEP_OUT) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t w = kbits[h];
+        w |= __shfl_xor_sync(FULL, w, 1);
+        w |= __shfl_xor_sync(FULL, w, 2);
+        const int r = (lane >> 2) + 8 * h;
+        if ((lane & 3) == h && r < nrows) keep_rows[(size_t)r * nkw + k0 / 32] = w;
+      }
+    }
+    uint32_t pa[NP][NT / 2][4];
+    to_a_parts<NP, NT>(s, pa);
+    mma_ab_parts<NP, NT / 2>(o, pa, Vs + k0 * TC_PITCH, lane);
+  }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+}
+
+// rows g, g + 8 of a 16-row block at `base` (row-major, TC_DH wide) from
+// the C fragments c (times inv[h]), skipping rows >= nrows
+__device__ __forceinline__ void store_rows(bf16* base, const float (&c)[TC_DH / 8][4],
+                                           const float (&inv)[2], int nrows, int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = (lane >> 2) + 8 * h;
+    if (r >= nrows) continue;
+    bf16* dst = base + (size_t)r * TC_DH + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < TC_DH / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
+          __floats2bfloat162_rn(c[j][2 * h] * inv[h], c[j][2 * h + 1] * inv[h]);
+  }
+}
+
+// Grid of K2 and K7's dq pass: (splits, B * H). Each CTA takes `bpc`
+// consecutive 16-row blocks of its (b, h), warp w the blocks w, w +
+// TC_WARPS, ...; splits is the most that one wave holds, at most one per
+// TC_WARPS blocks, so that a CTA's copy of K/V serves as many queries as
+// the card's width allows.
+template <typename Kern>
+cudaError_t tc_grid(Kern kern, size_t smem, int BH, int NQ, dim3& grid, int& bpc) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, TC_WARPS * 32, smem);
+  if (e != cudaSuccess) return e;
+  const int nb = (NQ + 15) / 16;
+  int splits = (sms * (per_sm > 0 ? per_sm : 1)) / BH;
+  splits = splits < 1 ? 1 : splits;
+  const int most = (nb + TC_WARPS - 1) / TC_WARPS;
+  splits = splits > most ? most : splits;
+  bpc = (nb + splits - 1) / splits;
+  grid = dim3((nb + bpc - 1) / bpc, BH);
+  return cudaSuccess;
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(TC_WARPS * 32, 2)
+largeq_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ out, int NQ, int NK,
+                      int bpc, float scale_log2, Dropout drop) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int NKP = pad_keys(NK);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [NKP][PITCH]
+  bf16* Vs = Ks + (size_t)NKP * TC_PITCH;        // [NKP][PITCH]
+  bf16* Qw = Vs + (size_t)NKP * TC_PITCH + warp * 16 * TC_PITCH;  // [16][PITCH]
+
+  const int bh = blockIdx.y;
+  const int nb = (NQ + 15) / 16;
+  const int b_end = min(nb, (int)(blockIdx.x + 1) * bpc);
+  const bf16* qg = q + (size_t)bh * NQ * TC_DH;
+  bf16* og = out + (size_t)bh * NQ * TC_DH;
+
+  load_kv(Ks, Vs, k + (size_t)bh * NK * TC_DH, v + (size_t)bh * NK * TC_DH, NK);
+  int blk = blockIdx.x * bpc + warp;
+  if (blk < b_end) copy_rows(Qw, qg, blk * 16, 16, NQ, lane, 32);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (; blk < b_end; blk += TC_WARPS) {
+    uint32_t qa[TC_DH / 16][4];
+    load_a(qa, Qw, lane);
+    __syncwarp();  // every lane's fragments are read before the next copy lands
+    if (blk + TC_WARPS < b_end) copy_rows(Qw, qg, (blk + TC_WARPS) * 16, 16, NQ, lane, 32);
+    cp_async_commit();
+
+    float o[TC_DH / 8][4], m[2], l[2];
+    attend_rows<K2_KC, K2_PARTS, DROP>(o, m, l, qa, Ks, Vs, NK, scale_log2,
+                             (uint32_t)bh * (uint32_t)NQ + (uint32_t)(blk * 16), drop, lane);
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+    store_rows(og + (size_t)blk * 16 * TC_DH, o, inv, NQ - blk * 16, lane);
+    cp_async_wait_all();
+    __syncwarp();
+  }
+}
+
+template <bool DROP>
+cudaError_t launch_largeq_mma(const void* q, const void* k, const void* v, void* out, int B,
+                              int H, int NQ, int NK, float scale, Dropout drop,
+                              cudaStream_t stream) {
+  if (NQ == 0) return cudaSuccess;
+  const size_t smem = k2_tc_smem_bytes(NK);
+  auto kern = largeq_fwd_mma_kernel<DROP>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  dim3 grid;
+  int bpc = 0;
+  if (e == cudaSuccess) e = tc_grid(kern, smem, B * H, NQ, grid, bpc);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, TC_WARPS * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), NQ, NK, bpc, scale * LOG2E, drop);
+  return cudaGetLastError();
+}
+
+// K7 pass 1 (bf16): writes dq, and for pass 2 each row's softmax as the
+// pair (m, log2 l) of sweep 1 (lse = (m + log2 l) ln 2, kept apart: their
+// fp32 sum rounds at the size of m), D, and with dropout the keep bits
+// of every (row, key) as (B, H, NQ, nkw) words: the Philox draw of an
+// element is made once in K7, by sweep 1, and read back by sweep 2 and
+// by pass 2.
+template <bool DROP>
+__global__ void __launch_bounds__(TC_WARPS * 32, 2)
+largeq_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ g,
+                         bf16* __restrict__ dq, float2* __restrict__ lse2,
+                         float* __restrict__ dvec, uint32_t* __restrict__ keep, int NQ,
+                         int NK, int bpc, float scale, float scale_log2, Dropout drop) {
+  constexpr int NT = K7_KC2 / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int NKP = pad_keys(NK);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + (size_t)NKP * TC_PITCH;
+  bf16* Qw = Vs + (size_t)NKP * TC_PITCH + warp * 32 * TC_PITCH;  // [16][PITCH] q
+  bf16* Gw = Qw + 16 * TC_PITCH;                                   // [16][PITCH] g
+
+  const int bh = blockIdx.y;
+  const int nb = (NQ + 15) / 16;
+  const int b_end = min(nb, (int)(blockIdx.x + 1) * bpc);
+  const size_t qoff = (size_t)bh * NQ * TC_DH;
+
+  load_kv(Ks, Vs, k + (size_t)bh * NK * TC_DH, v + (size_t)bh * NK * TC_DH, NK);
+  int blk = blockIdx.x * bpc + warp;
+  if (blk < b_end) {
+    copy_rows(Qw, q + qoff, blk * 16, 16, NQ, lane, 32);
+    copy_rows(Gw, g + qoff, blk * 16, 16, NQ, lane, 32);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (; blk < b_end; blk += TC_WARPS) {
+    uint32_t qa[TC_DH / 16][4], ga[TC_DH / 16][4];
+    load_a(qa, Qw, lane);
+    load_a(ga, Gw, lane);
+    __syncwarp();
+    if (blk + TC_WARPS < b_end) {  // the next block lands while this one computes
+      copy_rows(Qw, q + qoff, (blk + TC_WARPS) * 16, 16, NQ, lane, 32);
+      copy_rows(Gw, g + qoff, (blk + TC_WARPS) * 16, 16, NQ, lane, 32);
+    }
+    cp_async_commit();
+    const uint32_t row0 = (uint32_t)bh * (uint32_t)NQ + (uint32_t)(blk * 16);
+    const int nrows = NQ - blk * 16;
+    const int nkw = (NK + 31) / 32;
+    uint32_t* keep_rows = DROP ? keep + (size_t)row0 * nkw : nullptr;
+
+    // sweep 1: lse, O = (p o keep) V in fp32, D = rowsum(g o O)
+    float acc[TC_DH / 8][4], m[2], l[2];
+    attend_rows<K7_KC, K7_PARTS, DROP, DROP>(acc, m, l, qa, Ks, Vs, NK, scale_log2, row0, drop,
+                                             lane, keep_rows, nkw, nrows);
+    float lg2[2], dr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float inv = 1.f / l[h];
+      float d = 0.f;
+#pragma unroll
+      for (int j = 0; j < TC_DH / 8; ++j) {
+        const uint32_t gg = ga[j >> 1][(j & 1) * 2 + h];  // g at row g + 8h, cols 8j + 2t, +1
+        d = fmaf(bf_lo(gg), acc[j][2 * h] * inv, d);
+        d = fmaf(bf_hi(gg), acc[j][2 * h + 1] * inv, d);
+      }
+      dr[h] = quad_sum(d);
+      lg2[h] = log2f(l[h]);
+    }
+
+    // sweep 2: p = 2^(s c - m - log2 l), dp = g V^T, ds = p (dp keep - D) scale,
+    // dq += ds K
+    zero(acc);
+    if (DROP) __syncwarp();  // the block's keep words are written
+    for (int k0 = 0; k0 < NK; k0 += K7_KC2) {
+      uint32_t kw[2] = {0u, 0u};
+      if (DROP) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = (lane >> 2) + 8 * h;
+          if (r < nrows) kw[h] = keep_rows[(size_t)r * nkw + k0 / 32] >> (k0 % 32);
+        }
+      }
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      mma_abt<NT>(s, qa, Ks + k0 * TC_PITCH, lane);
+      mma_abt<NT>(dp, ga, Vs + k0 * TC_PITCH, lane);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + j * 8 + 2 * (lane & 3) + (e & 1);
+          const int h = e >> 1;
+          const float p = key < NK ? exp2f(fmaf(s[j][e], scale_log2, -m[h]) - lg2[h]) : 0.f;
+          float x = dp[j][e];
+          if (DROP) x = (kw[h] >> (key - k0)) & 1u ? x * drop.keep_scale : 0.f;
+          dp[j][e] = p * (x - dr[h]) * scale;
+        }
+      uint32_t da[K7_PARTS][NT / 2][4];
+      to_a_parts<K7_PARTS, NT>(dp, da);
+      mma_ab_parts<K7_PARTS, NT / 2>(acc, da, Ks + k0 * TC_PITCH, lane);
+    }
+    const float one[2] = {1.f, 1.f};
+    store_rows(dq + qoff + (size_t)blk * 16 * TC_DH, acc, one, nrows, lane);
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (lane >> 2) + 8 * h;
+        if (r < nrows) {
+          lse2[(size_t)bh * NQ + blk * 16 + r] = make_float2(m[h], lg2[h]);
+          dvec[(size_t)bh * NQ + blk * 16 + r] = dr[h];
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncwarp();
+  }
+}
+
+// K7 pass 2 (bf16): one CTA per (b, h, 64 keys), a warp per 16 keys,
+// walking every 64-query tile; (m, log2 l), D and the keep bits of each
+// row from pass 1.
+template <bool DROP>
+__global__ void __launch_bounds__(DKDV_WARPS * 32, 3)
+largeq_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ g,
+                           const float2* __restrict__ lse2, const float* __restrict__ dvec,
+                           const uint32_t* __restrict__ keep, bf16* __restrict__ dk,
+                           bf16* __restrict__ dv, int NQ, int NK, float scale,
+                           float scale_log2, Dropout drop) {
+  constexpr int NT = DKDV_QC / 8;
+  constexpr int TILE = DKDV_QT * TC_PITCH;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tid = threadIdx.x;
+  constexpr int NTHR = DKDV_WARPS * 32;
+  bf16* Kt = reinterpret_cast<bf16*>(smem_raw);  // [64][PITCH] this CTA's keys
+  bf16* Vt = Kt + DKDV_WARPS * 16 * TC_PITCH;
+  bf16* Qs = Vt + DKDV_WARPS * 16 * TC_PITCH;  // [2][64][PITCH]
+  bf16* Gs = Qs + 2 * TILE;                    // [2][64][PITCH]
+  float2* Ls = reinterpret_cast<float2*>(Gs + 2 * TILE);  // [2][64] (m, log2 l)
+  float* Ds = reinterpret_cast<float*>(Ls + 2 * DKDV_QT);  // [2][64]
+  // [2][64][KW]: the keep words of the tile's queries at this CTA's keys
+  uint32_t* Ms = reinterpret_cast<uint32_t*>(Ds + 2 * DKDV_QT);
+  constexpr int KW = DKDV_WARPS * 16 / 32;
+  const int nkw = (NK + 31) / 32;
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * DKDV_WARPS * 16;
+  const size_t qoff = (size_t)bh * NQ * TC_DH, koff = (size_t)bh * NK * TC_DH;
+  const float2* lg = lse2 + (size_t)bh * NQ;
+  const float* dg = dvec + (size_t)bh * NQ;
+
+  auto load_tile = [&](int t, int buf) {
+    const int q0 = t * DKDV_QT;
+    copy_rows(Qs + buf * TILE, q + qoff, q0, DKDV_QT, NQ, tid, NTHR);
+    copy_rows(Gs + buf * TILE, g + qoff, q0, DKDV_QT, NQ, tid, NTHR);
+    for (int i = tid; i < DKDV_QT; i += NTHR) {
+      const bool in = q0 + i < NQ;  // zeros past NQ: with q = g = 0 the row adds nothing
+      cp_async8(Ls + buf * DKDV_QT + i, lg + (in ? q0 + i : 0), in);
+      cp_async4(Ds + buf * DKDV_QT + i, dg + (in ? q0 + i : 0), in);
+    }
+    if (DROP) {
+      const int w0 = k0 / 32;
+      for (int i = tid; i < DKDV_QT * KW; i += NTHR) {
+        const int qq = i / KW, w = w0 + i % KW;
+        const bool in = q0 + qq < NQ && w < nkw;
+        const size_t row = (size_t)bh * NQ + (in ? q0 + qq : 0);
+        cp_async4(Ms + buf * DKDV_QT * KW + i, keep + row * nkw + (in ? w : 0), in);
+      }
+    }
+  };
+
+  copy_rows(Kt, k + koff, k0, DKDV_WARPS * 16, NK, tid, NTHR);
+  copy_rows(Vt, v + koff, k0, DKDV_WARPS * 16, NK, tid, NTHR);
+  load_tile(0, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  uint32_t ka[TC_DH / 16][4], va[TC_DH / 16][4];
+  load_a(ka, Kt + warp * 16 * TC_PITCH, lane);
+  load_a(va, Vt + warp * 16 * TC_PITCH, lane);
+  float dka[TC_DH / 8][4], dva[TC_DH / 8][4];
+  zero(dka);
+  zero(dva);
+  const int key_r = k0 + warp * 16 + (lane >> 2);  // +8 for e >= 2
+
+  const int ntiles = (NQ + DKDV_QT - 1) / DKDV_QT;
+  for (int t = 0; t < ntiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < ntiles) load_tile(t + 1, buf ^ 1);
+    cp_async_commit();
+    const bf16* Qt = Qs + buf * TILE;
+    const bf16* Gt = Gs + buf * TILE;
+#pragma unroll
+    for (int c0 = 0; c0 < DKDV_QT; c0 += DKDV_QC) {
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      mma_abt<NT>(s, ka, Qt + c0 * TC_PITCH, lane);  // S^T: keys x queries
+      mma_abt<NT>(dp, va, Gt + c0 * TC_PITCH, lane);  // dP^T = V g^T
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + j * 8 + 2 * (lane & 3) + (e & 1);
+          const float2 L = Ls[buf * DKDV_QT + col];
+          const float p = exp2f(fmaf(s[j][e], scale_log2, -L.x) - L.y);
+          float keep = 1.f;
+          if (DROP) {
+            const uint32_t w = Ms[(buf * DKDV_QT + col) * KW + warp * 16 / 32];
+            keep = (w >> ((key_r + 8 * (e >> 1)) % 32)) & 1u ? drop.keep_scale : 0.f;
+          }
+          s[j][e] = p * keep;
+          dp[j][e] = p * (dp[j][e] * keep - Ds[buf * DKDV_QT + col]) * scale;
+        }
+      // Each chunk's products go to a zeroed fragment that is then added
+      // to dk / dv by an fp32 add: the tensor cores' fp32 sums drop the
+      // bits of a small product below the accumulator's last place, which
+      // over 8192 queries cost elements near zero 2-3x their bound.
+      float part[TC_DH / 8][4];
+      {
+        uint32_t pa[K7_PARTS][NT / 2][4];
+        to_a_parts<K7_PARTS, NT>(s, pa);
+        zero(part);
+        mma_ab_parts<K7_PARTS, NT / 2>(part, pa, Gt + c0 * TC_PITCH, lane);  // P^T g
+        add_to(dva, part);
+      }
+      uint32_t da[K7_PARTS][NT / 2][4];
+      to_a_parts<K7_PARTS, NT>(dp, da);
+      zero(part);
+      mma_ab_parts<K7_PARTS, NT / 2>(part, da, Qt + c0 * TC_PITCH, lane);  // dS^T q
+      add_to(dka, part);
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the next tile is in; every warp is done with this one
+  }
+
+  const float one[2] = {1.f, 1.f};
+  const int nrows = NK - (k0 + warp * 16);
+  store_rows(dk + koff + (size_t)(k0 + warp * 16) * TC_DH, dka, one, nrows, lane);
+  store_rows(dv + koff + (size_t)(k0 + warp * 16) * TC_DH, dva, one, nrows, lane);
+}
+
+template <bool DROP>
+cudaError_t launch_largeq_bwd_mma(const void* q, const void* k, const void* v, const void* g,
+                                  void* dq, void* dk, void* dv, void* lse2, void* dvec,
+                                  void* keep, int B, int H, int NQ, int NK, float scale,
+                                  Dropout drop, cudaStream_t stream) {
+  size_t smem = k7_dq_tc_smem_bytes(NK);
+  auto kern = largeq_bwd_dq_mma_kernel<DROP>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  if (NQ > 0) {  // with no query, dk = dv = 0 from pass 2 alone
+    dim3 grid;
+    int bpc = 0;
+    e = tc_grid(kern, smem, B * H, NQ, grid, bpc);
+    if (e != cudaSuccess) return e;
+    kern<<<grid, TC_WARPS * 32, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(g), static_cast<bf16*>(dq), static_cast<float2*>(lse2),
+        static_cast<float*>(dvec), static_cast<uint32_t*>(keep), NQ, NK, bpc, scale,
+        scale * LOG2E, drop);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+
+  smem = k7_dkdv_tc_smem_bytes();
+  auto kern2 = largeq_bwd_dkdv_mma_kernel<DROP>;
+  e = cudaFuncSetAttribute(kern2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid2(pad_keys(NK) / (DKDV_WARPS * 16), B * H);
+  kern2<<<grid2, DKDV_WARPS * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), static_cast<const float2*>(lse2),
+      static_cast<const float*>(dvec), static_cast<const uint32_t*>(keep),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), NQ, NK, scale, scale * LOG2E, drop);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K2: unmasked large-Q, K/V resident (fp32: FMA loops)
 
 constexpr int K2_BQ = 32;        // query rows per CTA
 constexpr int K2_THREADS = 256;  // 8 threads per query row
@@ -353,18 +1086,22 @@ template <typename T, int DH, bool DROP>
 cudaError_t launch_largeq(const void* q, const void* k, const void* v,
                           void* out, int B, int H, int NQ, int NK, float scale,
                           Dropout drop, cudaStream_t stream) {
-  const size_t smem = k2_smem_bytes<T, DH>(NK);
-  auto kern = largeq_kernel<T, DH, DROP>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((NQ + K2_BQ - 1) / K2_BQ, B * H);
-  kern<<<grid, K2_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), NQ, NK, scale, drop);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {
+    static_assert(DH == TC_DH, "the tensor-core K2 takes Dh 64");
+    return launch_largeq_mma<DROP>(q, k, v, out, B, H, NQ, NK, scale, drop, stream);
+  } else {
+    const size_t smem = k2_smem_bytes<T, DH>(NK);
+    auto kern = largeq_kernel<T, DH, DROP>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((NQ + K2_BQ - 1) / K2_BQ, B * H);
+    kern<<<grid, K2_THREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), NQ, NK, scale, drop);
+    return cudaGetLastError();
+  }
 }
-
 
 
 // ---------------------------------------------------------------------------
@@ -791,23 +1528,29 @@ largeq_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DH, bool DROP>
 cudaError_t launch_largeq_bwd(const void* q, const void* k, const void* v,
                               const void* g, void* dq, void* dk, void* dv,
-                              void* lse, void* dvec, int B, int H, int NQ,
-                              int NK, float scale, Dropout drop,
+                              void* lse, void* dvec, void* keep, int B, int H,
+                              int NQ, int NK, float scale, Dropout drop,
                               cudaStream_t stream) {
-  const size_t smem = k7_smem_bytes<T, DH>(NK);
-  auto kern = largeq_bwd_dq_kernel<T, DH, DROP>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((NQ + K2_BQ - 1) / K2_BQ, B * H);
-  kern<<<grid, K2_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g), static_cast<T*>(dq),
-      static_cast<float*>(lse), static_cast<float*>(dvec), NQ, NK, scale, drop);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return launch_dkdv<T, DH, DROP>(q, k, v, g, nullptr, lse, dvec, dk, dv, B, H,
-                                  NQ, NK, scale, drop, stream);
+  if constexpr (std::is_same<T, bf16>::value) {
+    static_assert(DH == TC_DH, "the tensor-core K7 takes Dh 64");
+    return launch_largeq_bwd_mma<DROP>(q, k, v, g, dq, dk, dv, lse, dvec, keep, B, H, NQ,
+                                       NK, scale, drop, stream);
+  } else {
+    const size_t smem = k7_smem_bytes<T, DH>(NK);
+    auto kern = largeq_bwd_dq_kernel<T, DH, DROP>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((NQ + K2_BQ - 1) / K2_BQ, B * H);
+    kern<<<grid, K2_THREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(g), static_cast<T*>(dq),
+        static_cast<float*>(lse), static_cast<float*>(dvec), NQ, NK, scale, drop);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    return launch_dkdv<T, DH, DROP>(q, k, v, g, nullptr, lse, dvec, dk, dv, B, H,
+                                    NQ, NK, scale, drop, stream);
+  }
 }
 
 // Pick the instantiation: input type, and dropout on iff thresh > 0.
@@ -842,7 +1585,7 @@ int mebt_smallq_attention(const void* q, const void* k, const void* v,
 // Dynamic shared memory K2 needs for NK keys, in bytes. The caller
 // refuses shapes above the card's per-block limit.
 size_t mebt_largeq_smem_bytes(int NK, int is_bf16) {
-  return is_bf16 ? k2_smem_bytes<__nv_bfloat16, 64>(NK) : k2_smem_bytes<float, 64>(NK);
+  return is_bf16 ? k2_tc_smem_bytes(NK) : k2_smem_bytes<float, 64>(NK);
 }
 
 // q (B,H,NQ,Dh), k/v (B,H,NK,Dh) -> out (B,H,NQ,Dh) in the input type.
@@ -872,23 +1615,28 @@ int mebt_smallq_backward(const void* q, const void* k, const void* v,
                        dvec, g, dq, dk, dv, B, H, NQ, NK, scale, drop, s);
 }
 
-// Dynamic shared memory of K7's dq pass for NK keys, in bytes.
+// Dynamic shared memory of K7's passes for NK keys (the larger), in bytes.
 size_t mebt_largeq_bwd_smem_bytes(int NK, int is_bf16) {
-  return is_bf16 ? k7_smem_bytes<__nv_bfloat16, 64>(NK) : k7_smem_bytes<float, 64>(NK);
+  if (!is_bf16) return k7_smem_bytes<float, 64>(NK);
+  const size_t dq = k7_dq_tc_smem_bytes(NK), dkdv = k7_dkdv_tc_smem_bytes();
+  return dq > dkdv ? dq : dkdv;
 }
 
-// K7. lse and dvec are (B,H,NQ) fp32 scratch that the dq pass fills for
-// the dk/dv pass -> dq (B,H,NQ,Dh), dk/dv (B,H,NK,Dh) in the input type.
+// K7. lse, dvec and keep are scratch that the dq pass fills for the
+// dk/dv pass: dvec (B,H,NQ) fp32; lse (B,H,NQ) fp32 in fp32, (B,H,NQ,2)
+// pairs (m, log2 l) in bf16; keep, bf16 with dropout only (else unused),
+// (B,H,NQ,ceil(NK/32)) 32-bit words of keep bits -> dq (B,H,NQ,Dh),
+// dk/dv (B,H,NK,Dh) in the input type.
 int mebt_largeq_backward(const void* q, const void* k, const void* v,
                          const void* g, void* dq, void* dk, void* dv, void* lse,
-                         void* dvec, int B, int H, int NQ, int NK, int Dh,
+                         void* dvec, void* keep, int B, int H, int NQ, int NK, int Dh,
                          float scale, int is_bf16, unsigned seed,
                          unsigned thresh, float keep_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dh != 64) return (int)cudaErrorInvalidValue;
   const Dropout drop{seed, thresh, keep_scale};
   return MEBT_DISPATCH(launch_largeq_bwd, is_bf16, drop, q, k, v, g, dq, dk, dv,
-                       lse, dvec, B, H, NQ, NK, scale, drop, s);
+                       lse, dvec, keep, B, H, NQ, NK, scale, drop, s);
 }
 
 }  // extern "C"

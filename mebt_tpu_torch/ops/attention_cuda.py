@@ -5,11 +5,13 @@ blocks, forward and backward, with dropout on the probabilities
   K1 `smallq_attention`: masked keys, flash forward with lse
      (replaces attention_pallas.py:_smallq_attention).
   K2 `largeq_attention`: unmasked keys resident in shared memory
-     (replaces attention_pallas.py:_largeq_attention).
+     (replaces attention_pallas.py:_largeq_attention); in bf16 on the
+     tensor cores, the probabilities split into two bf16 halves.
   K6 `smallq_backward`: dq, dk, dv of K1 from the saved lse
      (replaces attention_pallas.py:_smallq_backward).
   K7 `largeq_backward`: dq, dk, dv of K2, softmax recomputed
-     (replaces attention_pallas.py:_largeq_backward).
+     (replaces attention_pallas.py:_largeq_backward); in bf16 on the
+     tensor cores as K2, with p and ds in three bf16 parts.
   K8 the `p_drop > 0` branch of all four (replaces the dropout variants,
      attention_pallas.py:_drop_keep / _fused_dropout_op): the keep mask is
      Philox keyed on (seed, query row, key) of the unpadded problem, so
@@ -61,7 +63,7 @@ _SIGNATURES = {
         ctypes.c_int, [_P] * 10 + [_I] * 5 + [_F, _I] + _DROP + [_P],
     ),
     "mebt_largeq_backward": (
-        ctypes.c_int, [_P] * 9 + [_I] * 5 + [_F, _I] + _DROP + [_P],
+        ctypes.c_int, [_P] * 10 + [_I] * 5 + [_F, _I] + _DROP + [_P],
     ),
     "mebt_largeq_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "mebt_largeq_bwd_smem_bytes": (ctypes.c_size_t, [_I, _I]),
@@ -252,6 +254,13 @@ def smallq_attention(q, k, v, key_mask, *, p_drop: float = 0.0, seed: int = 0):
 smallq_attention.launches = 0
 
 
+def _aligned(t):
+    """t contiguous, its data at a 16-byte boundary: the bf16 kernels copy
+    rows with 16-byte cp.async (a view into storage may start between)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _largeq_lib(q, k, entry: str, what: str):
     """The library, after checking that `entry` (K/V resident) has room
     for these keys in one block's shared memory."""
@@ -274,7 +283,7 @@ def largeq_attention(q, k, v, *, p_drop: float = 0.0, seed: int = 0):
     B, H, NQ, Dh = q.shape
     NK = k.shape[2]
     lib = _largeq_lib(q, k, "mebt_largeq_smem_bytes", "largeq_attention")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     status = lib.mebt_largeq_attention(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), B, H, NQ, NK, Dh,
@@ -328,13 +337,20 @@ def largeq_backward(q, k, v, g, *, p_drop: float = 0.0, seed: int = 0):
     B, H, NQ, Dh = q.shape
     NK = k.shape[2]
     lib = _largeq_lib(q, k, "mebt_largeq_bwd_smem_bytes", "largeq_backward")
-    q, k, v, g = (t.contiguous() for t in (q, k, v, g))
+    q, k, v, g = (_aligned(t) for t in (q, k, v, g))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # lse and D of every query row: the dq pass leaves them for the dk/dv pass
-    scratch = torch.empty((2, B, H, NQ), device=q.device, dtype=torch.float32)
+    # each query row's softmax (fp32: lse; bf16: the pair (m, log2 l)), D
+    # and, in bf16 with dropout, its keep bits (one 32-bit word per 32
+    # keys): the dq pass leaves them for the dk/dv pass
+    rows = B * H * NQ
+    scratch = torch.empty(3 * rows, device=q.device, dtype=torch.float32)
+    keep = None
+    if p_drop > 0.0 and q.dtype == torch.bfloat16:
+        keep = torch.empty(rows * ((NK + 31) // 32), device=q.device, dtype=torch.int32)
     status = lib.mebt_largeq_backward(
         _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(dq), _ptr(dk), _ptr(dv),
-        _ptr(scratch[0]), _ptr(scratch[1]), B, H, NQ, NK, Dh, 1.0 / math.sqrt(Dh),
+        _ptr(scratch), _ptr(scratch[2 * rows:]), None if keep is None else _ptr(keep),
+        B, H, NQ, NK, Dh, 1.0 / math.sqrt(Dh),
         int(q.dtype == torch.bfloat16), *_drop_args(p_drop, seed), _build.stream_ptr(q),
     )
     _build.check(status, "largeq_backward")

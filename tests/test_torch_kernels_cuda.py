@@ -37,6 +37,7 @@ from mebt_tpu_torch.ops.head_sample import (
     head_topk_sample_v1,
 )
 
+from mebt_tpu_torch.ops.philox import philox_keep
 from mebt_tpu_torch.ops.vq import code_mismatches, nearest_code, nearest_code_ref
 
 pytestmark = pytest.mark.cuda
@@ -79,21 +80,41 @@ def test_smallq_matches_plain(dev, dtype):
     assert torch.all(out[1] == 0) and torch.all(lse[1] == 1e30)
 
 
-# fp32 K/V of 512 keys exceed shared memory (test_unsupported_shapes_raise)
-@pytest.mark.parametrize(
-    "dtype,NK",
-    [(torch.float32, 8), (torch.float32, 256), (torch.bfloat16, 8),
-     (torch.bfloat16, 256), (torch.bfloat16, 512)],
-)
-def test_largeq_matches_plain(dev, dtype, NK):
-    gen = torch.Generator(dev).manual_seed(NK)
-    B, H, NQ, Dh = 2, 2, 100, 64
-    q = _randn(gen, B, H, NQ, Dh, dtype=dtype, dev=dev)
+# (dtype, B, NQ, NK, scale of q). fp32 K/V of 512 keys exceed shared
+# memory (test_unsupported_shapes_raise). The bf16 cases after the first
+# five exercise the tensor-core K2 and K7: query counts around their
+# 16-row blocks, one (b, h) of the 128f decode, 16 keys, and scores eight
+# times larger, whose row maxima move from one key chunk to the next.
+LARGEQ_CASES = [
+    (torch.float32, 2, 100, 8, 1.0), (torch.float32, 2, 100, 256, 1.0),
+    (torch.bfloat16, 2, 100, 8, 1.0), (torch.bfloat16, 2, 100, 256, 1.0),
+    (torch.bfloat16, 2, 100, 512, 1.0),
+    (torch.bfloat16, 2, 1, 256, 1.0), (torch.bfloat16, 2, 8, 256, 1.0),
+    (torch.bfloat16, 2, 63, 256, 1.0), (torch.bfloat16, 2, 65, 256, 1.0),
+    (torch.bfloat16, 1, 8192, 256, 1.0), (torch.bfloat16, 2, 100, 16, 1.0),
+    (torch.bfloat16, 2, 100, 256, 8.0), (torch.bfloat16, 2, 1000, 200, 8.0),
+]
+
+
+def _largeq_case(dev, dtype, B, NQ, NK, q_scale, H=2, Dh=64):
+    gen = torch.Generator(dev).manual_seed(NK + NQ)
+    q, g = ((q_scale * torch.randn(B, H, NQ, Dh, generator=gen, device=dev)).to(dtype),
+            _randn(gen, B, H, NQ, Dh, dtype=dtype, dev=dev))
     k, v = (_randn(gen, B, H, NK, Dh, dtype=dtype, dev=dev) for _ in range(2))
-    out = largeq_attention(q, k, v)
+    return q, k, v, g
+
+
+@pytest.mark.parametrize("dtype,B,NQ,NK,q_scale", LARGEQ_CASES)
+@pytest.mark.parametrize("p_drop", [0.0, 0.2])
+def test_largeq_matches_plain(dev, dtype, B, NQ, NK, q_scale, p_drop):
+    q, k, v, _ = _largeq_case(dev, dtype, B, NQ, NK, q_scale)
+    before = largeq_attention.launches
+    out = largeq_attention(q, k, v, p_drop=p_drop, seed=4)
+    assert largeq_attention.launches == before + 1
     torch.testing.assert_close(
-        out.float(), largeq_attention_ref(q, k, v).float(), **TOL[dtype]
+        out.float(), largeq_attention_ref(q, k, v, p_drop=p_drop, seed=4).float(), **TOL[dtype]
     )
+    assert torch.equal(out, largeq_attention(q, k, v, p_drop=p_drop, seed=4))
 
 
 def test_unsupported_shapes_raise(dev):
@@ -251,18 +272,18 @@ def test_smallq_backward_matches_plain(dev, dtype, p_drop):
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: bit-equal
 
 
-# fp32 K/V of 512 keys exceed shared memory (test_unsupported_backward_shapes_raise)
+# fp32 K/V of 512 keys exceed shared memory (test_unsupported_backward_shapes_raise).
+# NQ 1000 with scores eight times larger is held to the float64 value in
+# test_largeq_backward_scaled_matches_float64 instead.
 @pytest.mark.parametrize(
-    "dtype,NK",
-    [(torch.float32, 8), (torch.float32, 256), (torch.bfloat16, 8),
-     (torch.bfloat16, 200), (torch.bfloat16, 512)],
+    "dtype,B,NQ,NK,q_scale",
+    [(torch.bfloat16, 2, 100, 200, 1.0)]
+    + [c for c in LARGEQ_CASES
+       if c not in ((torch.bfloat16, 2, 100, 256, 1.0), (torch.bfloat16, 2, 1000, 200, 8.0))],
 )
 @pytest.mark.parametrize("p_drop", [0.0, 0.2])
-def test_largeq_backward_matches_plain(dev, dtype, NK, p_drop):
-    gen = torch.Generator(dev).manual_seed(NK)
-    B, H, NQ, Dh = 2, 2, 100, 64
-    q, g = (_randn(gen, B, H, NQ, Dh, dtype=dtype, dev=dev) for _ in range(2))
-    k, v = (_randn(gen, B, H, NK, Dh, dtype=dtype, dev=dev) for _ in range(2))
+def test_largeq_backward_matches_plain(dev, dtype, B, NQ, NK, q_scale, p_drop):
+    q, k, v, g = _largeq_case(dev, dtype, B, NQ, NK, q_scale)
     out = largeq_attention(q, k, v, p_drop=p_drop, seed=4)
     torch.testing.assert_close(
         out.float(), largeq_attention_ref(q, k, v, p_drop=p_drop, seed=4).float(), **TOL[dtype])
@@ -272,6 +293,31 @@ def test_largeq_backward_matches_plain(dev, dtype, NK, p_drop):
     _assert_all_close(got, largeq_backward_ref(q, k, v, g, p_drop=p_drop, seed=4), GRAD_TOL[dtype])
     again = largeq_backward(q, k, v, g, p_drop=p_drop, seed=4)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("p_drop", [0.0, 0.2])
+def test_largeq_backward_scaled_matches_float64(dev, p_drop):
+    """Scores eight times larger over 1000 queries: some dk elements lie
+    near zero as sums of terms some 20 in size, where an fp32 sum in any
+    order is a few 1e-6 off: on the H100 the plain version itself lies
+    most of the bf16 gate's bound from the float64 value at such an
+    element, and the kernel as far on the other side. Both are held to
+    the float64 value of the same function, under the same bound."""
+    q, k, v, g = _largeq_case(dev, torch.bfloat16, 2, 1000, 200, 8.0)
+    got = largeq_backward(q, k, v, g, p_drop=p_drop, seed=4)
+    plain = largeq_backward_ref(q, k, v, g, p_drop=p_drop, seed=4)
+    q6, k6, v6, g6 = (t.double() for t in (q, k, v, g))
+    p = torch.softmax(q6 @ k6.transpose(-1, -2) / 8.0, dim=-1)
+    dp = g6 @ v6.transpose(-1, -2)
+    if p_drop > 0:
+        keep = philox_keep(4, p.shape, p_drop, dev).double() / (1.0 - p_drop)
+        p_v, dp = p * keep, dp * keep
+    else:
+        p_v = p
+    ds = p * (dp - (g6 * (p_v @ v6)).sum(-1, keepdim=True)) / 8.0
+    exact = (ds @ k6, ds.transpose(-1, -2) @ q6, p_v.transpose(-1, -2) @ g6)
+    for t in (got, plain):
+        _assert_all_close(t, [e.to(torch.bfloat16) for e in exact], GRAD_TOL[torch.bfloat16])
 
 
 def test_unsupported_backward_shapes_raise(dev):
