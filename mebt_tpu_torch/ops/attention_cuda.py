@@ -6,7 +6,7 @@ blocks, forward and backward, with dropout on the probabilities
      (replaces attention_pallas.py:_smallq_attention).
   K2 `largeq_attention`: unmasked keys resident in shared memory
      (replaces attention_pallas.py:_largeq_attention); in bf16 on the
-     tensor cores, the probabilities split into two bf16 halves.
+     tensor cores, the probabilities split into two bf16 parts.
   K6 `smallq_backward`: dq, dk, dv of K1 from the saved lse
      (replaces attention_pallas.py:_smallq_backward).
   K7 `largeq_backward`: dq, dk, dv of K2, softmax recomputed
