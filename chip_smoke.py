@@ -213,23 +213,30 @@ def bf16_errors(out, ref) -> tuple[float, float]:
 
 
 # (case, batch, keys, leading keys always live, first batch row fully
-# masked). 16f, batch 16: latent_enc over the largest context bucket,
-# lt2l over [256 latents; target bucket 1024], a key count that is no
-# tile multiple. 128f, batch 2: latent_enc over a full context bucket,
-# lt2l over [256 latents; target bucket 8192], and the bootstrap's lt2l
-# over [256 latents; target bucket 8]. Half of the other keys are live.
+# masked, scale of q). 16f, batch 16: latent_enc over the largest context
+# bucket, lt2l over [256 latents; target bucket 1024], a key count that
+# is no tile multiple. 128f, batch 2: latent_enc over a full context
+# bucket, lt2l over [256 latents; target bucket 8192] (the bf16 kernel
+# splits its live keys over 4 CTAs), the same with scores eight times
+# larger (lse about 35), and the bootstrap's lt2l over [256 latents;
+# target bucket 8]. Half of the other keys are live.
 K1_CASES = (
-    ("latent_enc", BATCH, 1024, 0, True), ("lt2l", BATCH, 1280, 256, True),
-    ("ragged", BATCH, 1000, 0, True),
-    ("latent_enc_128f", BATCH128, 8192, 0, False),
-    ("lt2l_128f", BATCH128, 8448, 256, False),
-    ("lt2l_bootstrap_128f", BATCH128, 264, 256, False),
+    ("latent_enc", BATCH, 1024, 0, True, 1.0), ("lt2l", BATCH, 1280, 256, True, 1.0),
+    ("ragged", BATCH, 1000, 0, True, 1.0),
+    ("latent_enc_128f", BATCH128, 8192, 0, False, 1.0),
+    ("lt2l_128f", BATCH128, 8448, 256, False, 1.0),
+    ("lt2l_128f_scaled", BATCH128, 8448, 256, False, 8.0),
+    ("lt2l_bootstrap_128f", BATCH128, 264, 256, False, 1.0),
 )
 # (case, batch, queries): latent_self, latent_dec over the target bucket
 K2_CASES = (
     ("latent_self", BATCH, 256), ("latent_dec", BATCH, 1024), ("ragged", BATCH, 1000),
     ("latent_dec_128f", BATCH128, 8192), ("latent_dec_bootstrap_128f", BATCH128, 8),
 )
+
+
+# the bf16 K1's kernels: the forward and the merge of its splits
+K1_KERNELS_BF16 = ("smallq_fwd_mma_kernel", "smallq_merge_kernel")
 
 
 def check_k1(dev, gen):
@@ -239,9 +246,10 @@ def check_k1(dev, gen):
 
     H, NQ, Dh = 16, 256, 64
     rows = []
-    for case, B, NK, head_ones, empty_row in K1_CASES:
+    for case, B, NK, head_ones, empty_row, q_scale in K1_CASES:
         q, k, v = (torch.randn(B, H, n, Dh, device=dev, generator=gen, dtype=torch.bfloat16)
                    for n in (NQ, NK, NK))
+        q = q * q_scale  # a power of two: exact in bf16
         mask = torch.rand(B, NK, device=dev, generator=gen) < 0.5
         mask[:, :head_ones] = True
         if empty_row:
@@ -252,6 +260,16 @@ def check_k1(dev, gen):
         err, err_over_tol = bf16_errors(out, ref)
         live = mask.any(dim=1)
         lse_err = (lse[live] - ref_lse[live]).abs().max().item()
+        extra = {}
+        if q_scale != 1.0:
+            # scores x8, lse about 35: the plain fp32 lse itself lies up to
+            # 1e-5 from the float64 value, so the kernel's is held to that
+            s64 = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) / Dh**0.5
+            lse64 = torch.logsumexp(s64.masked_fill(~mask[:, None, None, :], float("-inf")), -1)
+            del s64
+            lse_err = (lse[live].double() - lse64[live]).abs().max().item()
+            extra = dict(lse_err_vs="float64", plain_lse_err_vs_float64=(
+                ref_lse[live].double() - lse64[live]).abs().max().item())
         if empty_row:
             require(bool(torch.all(out[0] == 0)) and bool(torch.all(lse[0] == 1e30)),
                     f"K1 {case}: fully masked row must give out 0, lse 1e30")
@@ -266,14 +284,18 @@ def check_k1(dev, gen):
         bnd, by = bound_ms(n_bytes, 4.0 * H * NQ * Dh * n_live, torch.bfloat16)
         am = mask[:, None, None, :]
         rows.append(dict(
-            case=case, shape=[B, H, NQ, NK, Dh], live_keys=n_live,
+            case=case, shape=[B, H, NQ, NK, Dh], q_scale=q_scale, live_keys=n_live,
             max_abs_err=err, max_abs_ref=ref.float().abs().max().item(),
             err_over_tol=err_over_tol, tol=dict(rtol=BF16_RTOL, atol=BF16_ATOL),
-            lse_err=lse_err, lse_tol=LSE_TOL,
+            lse_err=lse_err, lse_tol=LSE_TOL, **extra,
             ms=cuda_ms(lambda: smallq_attention(q, k, v, mask)),
             plain_ms=cuda_ms(lambda: smallq_attention_ref(q, k, v, mask), reps=3),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am)),
             bound_ms=bnd, bound_by=by,
+            # the kernels' own device time from one profiled call (ms above
+            # holds the wrapper's host work where that is the longer)
+            device_ms=sum(kernel_ms(lambda: smallq_attention(q, k, v, mask),
+                                    K1_KERNELS_BF16).values()),
         ))
     return rows
 
@@ -530,6 +552,11 @@ def k6_inputs(dev, gen, B, NK, head_ones, empty_row, dtype, H=16, NQ=256, Dh=64)
     return q, k, v, g, mask
 
 
+# K6's dq pass and dk/dv pass, by kernel name
+K6_PASSES_BF16 = ("smallq_bwd_dq_mma_kernel", "smallq_bwd_dkdv_mma_kernel")
+K6_PASSES_FP32 = ("smallq_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
+
+
 def check_k6(dev, gen):
     from mebt_tpu_torch.ops.attention_cuda import (
         smallq_attention, smallq_backward, smallq_backward_ref)
@@ -566,6 +593,12 @@ def check_k6(dev, gen):
                 ms=cuda_ms(lambda: smallq_backward(q, k, v, mask, out, lse, g)),
                 bound_ms=bnd, bound_by=by,
             )
+            # the two passes apart, from one profiled call
+            passes = K6_PASSES_BF16 if dtype == torch.bfloat16 else K6_PASSES_FP32
+            pass_ms = kernel_ms(lambda: smallq_backward(q, k, v, mask, out, lse, g), passes)
+            require(all(ms > 0 for ms in pass_ms.values()),
+                    f"K6 {case} {dtype}: a pass of {passes} did not run: {pass_ms}")
+            row.update(dq_pass_ms=pass_ms[passes[0]], dkdv_pass_ms=pass_ms[passes[1]])
             if dtype == torch.bfloat16:
                 row["plain_ms"] = cuda_ms(
                     lambda: smallq_backward_ref(q, k, v, mask, out, lse, g), reps=3)
@@ -1180,22 +1213,26 @@ def span_kernels(prof, span: str) -> list[list[tuple[str, float]]]:
 
 
 # The profile's kernel groups, by substrings of the kernels' names: the
-# bf16 K2 and K7 run the tensor-core kernels (`*_mma_kernel`), fp32 the
-# FMA ones; K6's dk/dv pass is `attn_bwd_dkdv_kernel`, which fp32 K7 also
-# runs (in the parity checks only, which no profile covers).
+# bf16 K1, K2, K6 and K7 run the tensor-core kernels (`*_mma_kernel`, and
+# K1's split merge), fp32 the FMA ones (in the parity checks only, which
+# no profile covers; fp32 K7's dk/dv pass is K6's `attn_bwd_dkdv_kernel`).
 PROFILE_GROUPS = {
-    "K1": ("smallq_kernel",), "K2": ("largeq_kernel", "largeq_fwd_mma_kernel"),
+    "K1": ("smallq_kernel", "smallq_fwd_mma_kernel", "smallq_merge_kernel"),
+    "K2": ("largeq_kernel", "largeq_fwd_mma_kernel"),
     "K3": ("head_sample_kernel",), "K4": ("head_topk_sample_kernel",),
-    "K5": ("head_topk_sample_v1_kernel",), "K6_dq": ("smallq_bwd_dq_kernel",),
-    "K6_dkdv": ("attn_bwd_dkdv_kernel",),
+    "K5": ("head_topk_sample_v1_kernel",),
+    "K6_dq": ("smallq_bwd_dq_kernel", "smallq_bwd_dq_mma_kernel"),
+    "K6_dkdv": ("attn_bwd_dkdv_kernel", "smallq_bwd_dkdv_mma_kernel"),
     "K7_dq": ("largeq_bwd_dq_kernel", "largeq_bwd_dq_mma_kernel"),
     "K7_dkdv": ("largeq_bwd_dkdv_mma_kernel",), "K9": ("nearest_code_kernel",),
 }
-# the FMA K2 / K7 kernels, which only fp32 calls (the parity checks) launch
-FMA_LARGEQ = ("largeq_kernel<", "largeq_bwd_dq_kernel<")
-# the bf16 K2 and K7 kernels: their SASS must hold tensor-core instructions
+# the FMA attention kernels, which only fp32 calls (the parity checks) launch
+FMA_ATTENTION = ("largeq_kernel", "largeq_bwd_dq_kernel", "smallq_kernel",
+                 "smallq_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
+# the bf16 K1, K2, K6 and K7 kernels: their SASS must hold tensor-core instructions
 TENSOR_CORE_KERNELS = ("largeq_fwd_mma_kernel", "largeq_bwd_dq_mma_kernel",
-                       "largeq_bwd_dkdv_mma_kernel")
+                       "largeq_bwd_dkdv_mma_kernel", "smallq_fwd_mma_kernel",
+                       "smallq_bwd_dq_mma_kernel", "smallq_bwd_dkdv_mma_kernel")
 
 
 def kernel_table(prof, span: str | None = None) -> list[tuple[str, float, int]]:
@@ -1273,8 +1310,8 @@ def _kernel_label(name: str) -> str:
 
 def check_sass():
     """The tensor-core instructions of every attention kernel; each
-    instantiation of the bf16 K2 / K7 kernels must have some, and no bf16
-    instantiation of the FMA K2 / K7 kernels may exist."""
+    instantiation of the bf16 K1 / K2 / K6 / K7 kernels must have some,
+    and no bf16 instantiation of the FMA attention kernels may exist."""
     from mebt_tpu_torch.ops import _build
 
     counts = sass_tensor_core_counts(_build.library_path("attention"))
@@ -1282,9 +1319,9 @@ def check_sass():
         inst = {n: c for n, c in counts.items() if name in n}
         require(len(inst) == 2 and all(c > 0 for c in inst.values()),
                 f"SASS: {name} instantiations {inst} (need 2, each with HMMA/HGMMA)")
-    fma_bf16 = [n for n in counts if ("largeq_kernel" in n or "largeq_bwd_dq_kernel" in n)
+    fma_bf16 = [n for n in counts if any(f in n for f in FMA_ATTENTION)
                 and ("bfloat16" in n or "13__nv_bfloat16" in n)]
-    require(not fma_bf16, f"SASS: bf16 FMA K2/K7 kernels still built: {fma_bf16}")
+    require(not fma_bf16, f"SASS: bf16 FMA attention kernels still built: {fma_bf16}")
     return dict(phase="sass", library="attention", tensor_core_instructions=counts)
 
 
@@ -1310,9 +1347,9 @@ def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
         json.dump([dict(name=n, ms=ms, calls=c) for n, ms, c in table], f, indent=1)
     out = {g: sum(ms for n, ms, _ in table if any(key in n for key in keys))
            for g, keys in PROFILE_GROUPS.items()}
-    # every profiled path runs in bf16: no FMA K2 / K7 kernel may show
-    fma = [n for n, _, _ in table if any(key in n for key in FMA_LARGEQ)]
-    require(not fma, f"{name}: bf16 K2/K7 ran the FMA kernels: {fma}")
+    # every profiled path runs in bf16: no FMA attention kernel may show
+    fma = [n for n, _, _ in table if any(key in n for key in FMA_ATTENTION)]
+    require(not fma, f"{name}: bf16 attention ran the FMA kernels: {fma}")
     busy = sum(ms for _, ms, _ in table)
     out["other"] = busy - sum(out.values())
     out.update(device_busy_ms=busy, wall_ms=wall_ms, idle_share=1.0 - busy / wall_ms,
@@ -1956,7 +1993,9 @@ def main(argv=None) -> int:
               case(report["K5"], "step1_128f"), head_src,
               launched_in="the k5 phase only: no generation or training path runs it"),
         entry(5, "K6 smallq_backward", "mebt_tpu/ops/attention_pallas.py:437",
-              case(report["K6"], "lt2l", "bfloat16")),
+              case(report["K6"], "lt2l", "bfloat16"),
+              **{k: case(report["K6"], "lt2l", "bfloat16")[k]
+                 for k in ("dq_pass_ms", "dkdv_pass_ms")}),
         entry(6, "K7 largeq_backward", "mebt_tpu/ops/attention_pallas.py:589",
               case(report["K7"], "latent_dec_128f", "bfloat16"),
               **{k: case(report["K7"], "latent_dec_128f", "bfloat16")[k]

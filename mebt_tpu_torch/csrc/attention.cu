@@ -6,20 +6,24 @@
 // K1 (mebt_smallq_attention) replaces the TPU kernel
 //   mebt_tpu/ops/attention_pallas.py:_smallq_attention (_smallq_kernel):
 //   few queries (256 latents) over many MASKED keys (latent_enc: the
-//   context bucket; lt2l: [latents; target bucket]). Flash forward: one
-//   CTA per (b, h, 64-query tile); a loop over 64-key tiles inside the
-//   CTA takes the place of the TPU's sequential grid axis and carries the
-//   running (max, denominator, accumulator) in fp32 registers. A key tile
-//   with no live key is skipped as a whole. A fully masked row writes 0
-//   and lse = +1e30 (the first MaskGIT step has no context at all).
-//   Emits lse (B, H, NQ) fp32 for the later backward.
-//   Bound on the card: at the 16f shapes the work is O(NQ*NK*Dh) with
-//   NQ = 256, so bytes set the floor: Q/out plus K/V of the LIVE keys
-//   only (~64 MB in lt2l at M = 1024 with half the targets live, where
-//   all of K/V would be ~100 MB); this first version runs both products
-//   as fp32 FMA loops from
-//   shared memory, so it is bounded by FMA throughput, not by
-//   memory. Tensor-core tiles (mma.sync / wgmma) are later work.
+//   context bucket; lt2l: [latents; target bucket]). Flash forward that
+//   emits lse (B, H, NQ) fp32 for the backward; a fully masked row writes
+//   0 and lse = +1e30 (the first MaskGIT step has no context at all).
+//   Bound on the card: bytes (Q/out plus K/V of the LIVE keys only; 4
+//   NQ Dh operations a live key are far below the tensor cores' rate).
+//   bf16, smallq_fwd_mma_kernel (+ smallq_merge_kernel): each CTA lists
+//   its batch row's live keys (a ballot scan of the mask row) and gathers
+//   their K/V rows into 64-key tiles with 16-byte cp.async, double-
+//   buffered and shared by 8 warps of 16 query rows: dead keys cost
+//   nothing (training masks are random over positions, so whole dead
+//   tiles are rare). The tile is K2's (mma.sync, two-part P, exp2-domain
+//   online softmax); S sums each 16-deep product apart in fp32 so that
+//   lse keeps its fp32 accuracy at large scores. Too few (b, h) pairs to
+//   fill the card (128f, batch 2) split the live list over up to 8 CTAs
+//   (split-K); each leaves fp32 (o, m, l) and a merge adds them in split
+//   order, so two calls give the same bits. lse is summed in double.
+//   fp32, smallq_kernel: one CTA per (b, h, 64 queries), FMA loops over
+//   64-key tiles, dead tiles skipped (the parity checks only).
 //
 // K2 (mebt_largeq_attention) replaces
 //   mebt_tpu/ops/attention_pallas.py:_largeq_attention (_largeq_kernel):
@@ -51,17 +55,22 @@
 //   kernel owns a key block per grid step and carries dq in scratch
 //   across a SEQUENTIAL key axis; blocks run in no order here, so the
 //   work is split into two passes that each write their outputs once and
-//   need no atomics: smallq_bwd_dq_kernel, one CTA per (b, h, 64-query
-//   tile) walking the key tiles like K1 (dq), and attn_bwd_dkdv_kernel,
-//   one CTA per (b, h, 64-key tile) walking the query tiles (dk, dv).
-//   Both recompute p = exp(s * scale - lse) and dp = g v^T, 7 tile
-//   products in all against the 5 of one fused pass; in exchange the
-//   result does not depend on the order blocks run in. A key tile with
-//   no live key is skipped (its dk, dv are zero); a fully masked row has
-//   lse = +1e30, so p and every gradient are exactly zero.
-//   Bound: 10 * NQ * live keys * Dh operations per (b, h) against the
-//   bytes of q, g, dq and the live K/V/dk/dv rows: bytes at NQ = 256.
-//   Both passes are fp32 FMA loops from shared memory, far above it.
+//   need no atomics (bit-repeatable). Bound: 10 * NQ * live keys * Dh
+//   operations per (b, h) against the bytes of q, g, dq and the live
+//   K/V/dk/dv rows: bytes at NQ = 256.
+//   bf16: smallq_bwd_dq_mma_kernel walks the live-key tiles as K1 does,
+//   a warp per 16 query rows: D from g and out, p = 2^(s c - L) with L =
+//   lse log2(e) as an fp32 pair from a double product, dp = g V^T, ds
+//   in three bf16 parts, each tile's ds K added to dq in fp32; it draws
+//   each keep bit once and hands (L, D, the live list, the keep bits) to
+//   smallq_bwd_dkdv_mma_kernel, K7's key-major tile over 64 live keys
+//   (three-part p and ds, each 16 queries' products added in fp32), which
+//   scatters its rows back to their keys and zeroes the dead keys' rows.
+//   fp32: smallq_bwd_dq_kernel (one CTA per (b, h, 64 queries) over the
+//   key tiles) and attn_bwd_dkdv_kernel (one CTA per (b, h, 64 keys)
+//   over the query tiles), FMA loops, 7 tile products; a key tile with no
+//   live key is skipped, and a fully masked row (lse = +1e30) gives p = 0
+//   (the parity checks only).
 //
 // K7 (mebt_largeq_backward) replaces
 //   mebt_tpu/ops/attention_pallas.py:_largeq_backward (_largeq_bwd_kernel):
@@ -100,7 +109,7 @@
 //
 // All take fp32 or bf16 inputs (is_bf16), accumulate in fp32, and
 // write the output in the input type. Inputs must be contiguous
-// (B, H, N, Dh) tensors with Dh = 64, the head width of every MeBT
+// (B, H, N, Dh) tensors at 16-byte boundaries with Dh = 64, the head width of every MeBT
 // config (1024 / 16); the kernels are templated on Dh so another width
 // is one more instantiation. Each entry point returns cudaGetLastError()
 // after its launch.
@@ -265,22 +274,35 @@ smallq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// bf16 goes to the tensor-core K1 (smallq_fwd_mma_kernel, defined
+// below), which takes `part` (the split partials) as scratch.
+template <bool DROP>
+cudaError_t launch_smallq_mma(const void* q, const void* k, const void* v, const void* mask,
+                              void* out, void* lse, void* part, int B, int H, int NQ, int NK,
+                              float scale, Dropout drop, cudaStream_t stream);
+
 template <typename T, int DH, bool DROP>
 cudaError_t launch_smallq(const void* q, const void* k, const void* v,
-                          const void* mask, void* out, void* lse, int B, int H,
+                          const void* mask, void* out, void* lse, void* part, int B, int H,
                           int NQ, int NK, float scale, Dropout drop,
                           cudaStream_t stream) {
-  const size_t smem = k1_smem_bytes<DH>();
-  auto kern = smallq_kernel<T, DH, DROP>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((NQ + K1_BQ - 1) / K1_BQ, B * H);
-  kern<<<grid, K1_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<T*>(out), static_cast<float*>(lse), H, NQ, NK, scale, drop);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    static_assert(DH == 64, "the tensor-core K1 takes Dh 64");
+    return launch_smallq_mma<DROP>(q, k, v, mask, out, lse, part, B, H, NQ, NK, scale, drop,
+                                   stream);
+  } else {
+    const size_t smem = k1_smem_bytes<DH>();
+    auto kern = smallq_kernel<T, DH, DROP>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((NQ + K1_BQ - 1) / K1_BQ, B * H);
+    kern<<<grid, K1_THREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const uint8_t*>(mask),
+        static_cast<T*>(out), static_cast<float*>(lse), H, NQ, NK, scale, drop);
+    return cudaGetLastError();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -410,6 +432,31 @@ __device__ __forceinline__ void mma_abt(float (&c)[NT][4], const uint32_t (&a)[T
     }
 }
 
+// mma_abt with each 16-deep product summed apart and added to c in fp32:
+// the tensor cores' own fp32 sums truncate, which moved K1's lse at
+// scores eight times larger (about 35) by up to 1e-5 from its float64
+// value; this keeps it within 7.5e-6 on the card.
+template <int NT>
+__device__ __forceinline__ void mma_abt_fine(float (&c)[NT][4], const uint32_t (&a)[TC_DH / 16][4],
+                                             const bf16* rows, int lane) {
+  const bf16* p = rows + ((lane & 7) + (lane >> 4) * 8) * TC_PITCH + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np)
+#pragma unroll
+    for (int kc = 0; kc < TC_DH / 16; ++kc) {
+      uint32_t b[4];
+      ldsm_x4(b, p + np * 16 * TC_PITCH + kc * 16);
+      float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+      mma16816(t0, a[kc], b[0], b[1]);
+      mma16816(t1, a[kc], b[2], b[3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        c[2 * np][e] += t0[e];
+        c[2 * np + 1][e] += t1[e];
+      }
+    }
+}
+
 // c (16 x TC_DH) += A B for the 16 KS rows of B at `rows`, A given as NP
 // bf16 parts (a[i][ks]) whose products go into one fp32 sum.
 template <int NP, int KS>
@@ -521,16 +568,70 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(FULL, x, 2);
 }
 
-// Sweep 1 of K2 and of K7's dq pass for one warp's 16 query rows (A
-// fragments qa): online softmax over all keys, o = sum of (e keep) V
-// unnormalized, with e = 2^(s c - m) for c = scale log2(e) taken by one
-// fmaf (so e carries no rounding of s c, which reaches some 2^-18 of 1
-// at |s c| ~ 50), the reference m = max s c (rounded; a common factor
-// of the row's e), and l = the sum of the undropped e, rows g and g + 8.
-// row0 = (b * H + h) * NQ + the block's first row. P goes to P V in
-// NP bf16 parts. With KEEP_OUT, the keep bits drawn for the block's
-// rows go to keep_rows (row r at keep_rows + r * nkw, one word per 32
-// keys, bit = key % 32) for the rows below nrows.
+// One KC-key chunk of the online softmax for one warp's 16 query rows
+// (A fragments qa) over the keys at Kc / Vc, of which the first n are
+// live (the rest are -inf): o = o alpha + (e keep) V unnormalized, with
+// e = 2^(s c - m) for c = scale log2(e) taken by one fmaf (so e carries
+// no rounding of s c, which reaches some 2^-18 of 1 at |s c| ~ 50), the
+// reference m = max s c (rounded; a common factor of the row's e), and
+// l = the sum of the undropped e, rows g and g + 8. P goes to P V in NP
+// bf16 parts. r0 is the dropout row of row g; key_of(c) the dropout key
+// of column c. kbits gets the chunk's keep bits of rows g and g + 8 at
+// this lane's columns (bit = column). FINE_S takes S by mma_abt_fine.
+template <int KC, int NP, bool DROP, bool FINE_S = false, typename KeyOf>
+__device__ __forceinline__ void softmax_chunk(float (&o)[TC_DH / 8][4], float (&m)[2],
+                                              float (&l)[2], const uint32_t (&qa)[TC_DH / 16][4],
+                                              const bf16* Kc, const bf16* Vc, int n,
+                                              float scale_log2, uint32_t r0, const Dropout& drop,
+                                              int lane, KeyOf key_of, uint32_t (&kbits)[2]) {
+  constexpr int NT = KC / 8;
+  float s[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  if (FINE_S) mma_abt_fine<NT>(s, qa, Kc, lane);
+  else mma_abt<NT>(s, qa, Kc, lane);
+  float mx[2];
+  mask_max<NT>(s, 0, n, lane, mx[0], mx[1]);
+  float alpha[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mn = fmaxf(m[h], mx[h] * scale_log2);  // finite: column 0 is live
+    alpha[h] = exp2f(m[h] - mn);                        // 0 on the first chunk
+    m[h] = mn;
+    l[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int j = 0; j < TC_DH / 8; ++j) {
+    o[j][0] *= alpha[0];
+    o[j][1] *= alpha[0];
+    o[j][2] *= alpha[1];
+    o[j][3] *= alpha[1];
+  }
+  kbits[0] = kbits[1] = 0u;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = exp2f(fmaf(s[j][e], scale_log2, -m[e >> 1]));
+      l[e >> 1] += x;  // the denominator takes the undropped e
+      if (DROP) {
+        const int c = j * 8 + 2 * (lane & 3) + (e & 1);
+        const float kp = drop.keep(r0 + (e >> 1) * 8, key_of(c));
+        if (kp != 0.f) kbits[e >> 1] |= 1u << c;
+        x *= kp;
+      }
+      s[j][e] = x;
+    }
+  uint32_t pa[NP][NT / 2][4];
+  to_a_parts<NP, NT>(s, pa);
+  mma_ab_parts<NP, NT / 2>(o, pa, Vc, lane);
+}
+
+// Sweep 1 of K2 and of K7's dq pass for one warp's 16 query rows:
+// softmax_chunk over all NK resident keys in chunks of KC. row0 = (b * H
+// + h) * NQ + the block's first row. With KEEP_OUT, the keep bits drawn
+// for the block's rows go to keep_rows (row r at keep_rows + r * nkw,
+// one word per 32 keys, bit = key % 32) for the rows below nrows.
 template <int KC, int NP, bool DROP, bool KEEP_OUT = false>
 __device__ __forceinline__ void attend_rows(float (&o)[TC_DH / 8][4], float (&m)[2], float (&l)[2],
                                             const uint32_t (&qa)[TC_DH / 16][4], const bf16* Ks,
@@ -538,49 +639,16 @@ __device__ __forceinline__ void attend_rows(float (&o)[TC_DH / 8][4], float (&m)
                                             uint32_t row0, const Dropout& drop, int lane,
                                             uint32_t* keep_rows = nullptr, int nkw = 0,
                                             int nrows = 0) {
-  constexpr int NT = KC / 8;
   static_assert(!KEEP_OUT || (DROP && KC == 32), "one keep word per chunk");
   zero(o);
   m[0] = m[1] = -INFINITY;
   l[0] = l[1] = 0.f;
   const uint32_t r0 = row0 + (lane >> 2);
   for (int k0 = 0; k0 < NK; k0 += KC) {
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    mma_abt<NT>(s, qa, Ks + k0 * TC_PITCH, lane);
-    float mx[2];
-    mask_max<NT>(s, k0, NK, lane, mx[0], mx[1]);
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float mn = fmaxf(m[h], mx[h] * scale_log2);  // finite: key k0 < NK is live
-      alpha[h] = exp2f(m[h] - mn);          // 0 on the first chunk
-      m[h] = mn;
-      l[h] *= alpha[h];
-    }
-#pragma unroll
-    for (int j = 0; j < TC_DH / 8; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-    uint32_t kbits[2] = {0u, 0u};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = exp2f(fmaf(s[j][e], scale_log2, -m[e >> 1]));
-        l[e >> 1] += x;  // the denominator takes the undropped e
-        if (DROP) {
-          const int c = j * 8 + 2 * (lane & 3) + (e & 1);
-          const float kp = drop.keep(r0 + (e >> 1) * 8, (uint32_t)(k0 + c));
-          if (KEEP_OUT && kp != 0.f) kbits[e >> 1] |= 1u << c;
-          x *= kp;
-        }
-        s[j][e] = x;
-      }
+    uint32_t kbits[2];
+    softmax_chunk<KC, NP, DROP>(o, m, l, qa, Ks + k0 * TC_PITCH, Vs + k0 * TC_PITCH, NK - k0,
+                                scale_log2, r0, drop, lane,
+                                [k0](int c) { return (uint32_t)(k0 + c); }, kbits);
     if (KEEP_OUT) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -591,9 +659,6 @@ __device__ __forceinline__ void attend_rows(float (&o)[TC_DH / 8][4], float (&m)
         if ((lane & 3) == h && r < nrows) keep_rows[(size_t)r * nkw + k0 / 32] = w;
       }
     }
-    uint32_t pa[NP][NT / 2][4];
-    to_a_parts<NP, NT>(s, pa);
-    mma_ab_parts<NP, NT / 2>(o, pa, Vs + k0 * TC_PITCH, lane);
   }
   l[0] = quad_sum(l[0]);
   l[1] = quad_sum(l[1]);
@@ -985,6 +1050,722 @@ cudaError_t launch_largeq_bwd_mma(const void* q, const void* k, const void* v, c
 }
 
 // ---------------------------------------------------------------------------
+// K1 / K6 in bf16: tensor-core tiles over streamed tiles of LIVE keys
+//
+// Each CTA lists the live keys of its batch row in key order (a ballot
+// scan of the mask row, in shared memory) and gathers their K/V rows
+// into 64-key tiles with 16-byte cp.async, so dead keys cost nothing and
+// a tile is dead only past the last live key. Dropout keys stay the
+// original key indices.
+
+constexpr int SQ_WARPS = 8;        // K1, K6 dq: warps a CTA, 16 query rows each
+constexpr int SQ_KT = 64;          // live keys per streamed K/V tile
+constexpr int SQ_MAX_SPLITS = 8;   // K1: most CTAs sharing one (b, h, query block)
+constexpr double LN2_D = 0.6931471805599453;
+constexpr double LOG2E_D = 1.4426950408889634;
+
+__host__ __device__ constexpr int round_up(int x, int to) { return (x + to - 1) / to * to; }
+
+// The live keys of one batch row (mask row mrow of NK bytes), in key
+// order. The row is read as 4-byte words (from the word holding key 0;
+// bytes outside the row count as dead): each warp counts a segment of
+// words, the CTA adds up the counts (wcnt: a word per warp), and the key
+// at live position p goes to Is[p - beg] for p in [beg, end), where
+// range(total, beg, end) picks them from the total live count; a warp
+// whose positions miss [beg, end) writes nothing. Every thread of the
+// CTA calls it; it ends on a barrier.
+template <typename Range>
+__device__ __forceinline__ void list_live(const uint8_t* mrow, int NK, int* Is, int* wcnt,
+                                          Range range, int& beg, int& end) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const int off = (int)(reinterpret_cast<uintptr_t>(mrow) & 3u);
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(mrow - off);
+  const int nwords = (NK + off + 3) / 4;
+  const int seg = round_up(nwords, nw * 32) / nw;  // words a warp, a multiple of 32
+  const int lo = warp * seg, hi = min(nwords, lo + seg);
+  auto live_bytes = [&](int i) {  // 0x01 in each byte of word i that holds a live key
+    if (i >= hi) return 0u;
+    uint32_t w = __vcmpne4(words[i], 0u) & 0x01010101u;
+    const int k0 = 4 * i - off;  // the key of byte 0
+    if (k0 < 0) w &= 0xffffffffu << (-8 * k0);
+    if (k0 + 4 > NK) w &= 0xffffffffu >> (8 * (k0 + 4 - NK));
+    return w;
+  };
+  int c = 0;
+#pragma unroll 4
+  for (int i = lo + lane; i - lane < hi; i += 32) c += __popc(live_bytes(i));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(FULL, c, o);
+  if (lane == 0) wcnt[warp] = c;
+  __syncthreads();
+  int pos = 0, total = 0;
+  for (int w = 0; w < nw; ++w) {
+    const int x = wcnt[w];
+    pos += w < warp ? x : 0;
+    total += x;
+  }
+  range(total, beg, end);
+  if (pos < end && pos + c > beg) {
+    for (int i = lo + lane; i - lane < hi; i += 32) {  // the same trip count in every lane
+      uint32_t w = live_bytes(i);
+      const int n = __popc(w);
+      int x = n;  // inclusive prefix of the lanes' counts
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(FULL, x, o);
+        if (lane >= o) x += y;
+      }
+      int p = pos + x - n;
+      for (int key = 4 * i - off; w != 0u; w >>= 8, ++key) {
+        if (w & 1u) {
+          if (p >= beg && p < end) Is[p - beg] = key;
+          ++p;
+        }
+      }
+      pos += __shfl_sync(FULL, x, 31);
+    }
+  }
+  __syncthreads();
+}
+
+// The rows of the n live keys keys[0 .. n) of an (NK, TC_DH) bf16 matrix
+// into a padded shared tile of SQ_KT rows as 16-byte cp.async copies;
+// zeros from row n on (a zero V row times a zero probability stays 0).
+__device__ __forceinline__ void copy_live_rows(bf16* dst, const bf16* src, const int* keys, int n,
+                                               int tid, int nthreads) {
+  for (int i = tid; i < SQ_KT * (TC_DH / 8); i += nthreads) {
+    const int r = i / (TC_DH / 8), c = (i % (TC_DH / 8)) * 8;
+    const bool in = r < n;
+    cp_async16(dst + r * TC_PITCH + c, src + (size_t)(in ? keys[r] : 0) * TC_DH + c, in);
+  }
+}
+
+// ln(sum_k e^(s_k)) of a row from its log2-domain pair (m, l), the sum
+// in double: the fp32 sum of m and log2 l rounds at the size of m. A row
+// without a live key (l = 0) gives +1e30.
+__device__ __forceinline__ float lse_of(float m, float l) {
+  return l == 0.f ? -NEG_BIG : (float)(LN2_D * ((double)m + log2((double)l)));
+}
+
+// K1: queries, K/V tiles (double-buffered), the warps' key counts and
+// the live keys of the split (at most ceil(NK / splits) rounded to tiles)
+inline size_t k1_tc_smem_bytes(int NK, int splits) {
+  return sizeof(bf16) * TC_PITCH * ((size_t)SQ_WARPS * 16 + 4 * SQ_KT) +
+         sizeof(int) * (SQ_WARPS + (size_t)round_up((NK + splits - 1) / splits, SQ_KT));
+}
+
+// K1 (bf16). Grid (splits, query blocks of SQ_WARPS * 16 rows, B * H). A
+// CTA walks the live keys of one split of its batch row's live list,
+// every warp 16 query rows against each shared K/V tile (softmax_chunk:
+// two-part P as K2, S by mma_abt_fine for lse's sake). With one split it
+// writes out and lse; with more,
+// each CTA leaves its rows' unnormalized o and (m, l) in fp32 for
+// smallq_merge_kernel.
+template <bool DROP>
+__global__ void __launch_bounds__(SQ_WARPS * 32, 2)
+smallq_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                      bf16* __restrict__ out, float* __restrict__ lse, float* __restrict__ part_o,
+                      float2* __restrict__ part_ml, int H, int NQ, int NK, int splits,
+                      float scale_log2, Dropout drop) {
+  constexpr int TILE = SQ_KT * TC_PITCH;
+  constexpr int NTHR = SQ_WARPS * 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tid = threadIdx.x;
+  bf16* Qw = reinterpret_cast<bf16*>(smem_raw) + warp * 16 * TC_PITCH;  // [16][PITCH]
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw) + SQ_WARPS * 16 * TC_PITCH;  // [2][KT][PITCH]
+  bf16* Vs = Ks + 2 * TILE;                                               // [2][KT][PITCH]
+  int* wcnt = reinterpret_cast<int*>(Vs + 2 * TILE);
+  int* Is = wcnt + SQ_WARPS;
+
+  const int split = blockIdx.x, bh = blockIdx.z, b = bh / H;
+  const int blk = blockIdx.y * SQ_WARPS + warp;
+  const bool rows_in = blk < (NQ + 15) / 16;
+  const size_t qoff = (size_t)bh * NQ * TC_DH, koff = (size_t)bh * NK * TC_DH;
+  if (rows_in) copy_rows(Qw, q + qoff, blk * 16, 16, NQ, lane, 32);
+  cp_async_commit();  // the queries land while the mask row is read
+
+  int beg, end;
+  list_live(mask + (size_t)b * NK, NK, Is, wcnt,
+            [&](int total, int& b0, int& e0) {
+              const int chunk = round_up((total + splits - 1) / splits, SQ_KT);
+              b0 = min(total, split * chunk);
+              e0 = min(total, b0 + chunk);
+            },
+            beg, end);
+  const int n = end - beg, ntiles = (n + SQ_KT - 1) / SQ_KT;
+  if (ntiles > 0) {
+    copy_live_rows(Ks, k + koff, Is, n, tid, NTHR);
+    copy_live_rows(Vs, v + koff, Is, n, tid, NTHR);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qa[TC_DH / 16][4];
+  load_a(qa, Qw, lane);
+
+  float o[TC_DH / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  zero(o);
+  const uint32_t r0 = (uint32_t)bh * (uint32_t)NQ + (uint32_t)(blk * 16 + (lane >> 2));
+  for (int t = 0; t < ntiles; ++t) {
+    if (t > 0) {
+      cp_async_wait_all();
+      __syncthreads();  // tile t is in; every warp is done with tile t - 1's buffer
+    }
+    if (t + 1 < ntiles) {
+      const int nb = (t + 1) & 1;
+      copy_live_rows(Ks + nb * TILE, k + koff, Is + (t + 1) * SQ_KT, n - (t + 1) * SQ_KT, tid, NTHR);
+      copy_live_rows(Vs + nb * TILE, v + koff, Is + (t + 1) * SQ_KT, n - (t + 1) * SQ_KT, tid, NTHR);
+    }
+    cp_async_commit();
+    if (rows_in) {
+      const int* keys = Is + t * SQ_KT;
+      uint32_t kbits[2];
+      softmax_chunk<SQ_KT, K2_PARTS, DROP, true>(o, m, l, qa, Ks + (t & 1) * TILE, Vs + (t & 1) * TILE,
+                                           n - t * SQ_KT, scale_log2, r0, drop, lane,
+                                           [keys](int c) { return (uint32_t)keys[c]; }, kbits);
+    }
+  }
+  if (!rows_in) return;
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+  const int nrows = NQ - blk * 16;
+  if (splits == 1) {
+    const float inv[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f, l[1] > 0.f ? 1.f / l[1] : 0.f};
+    store_rows(out + qoff + (size_t)blk * 16 * TC_DH, o, inv, nrows, lane);
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (lane >> 2) + 8 * h;
+        if (r < nrows) lse[(size_t)bh * NQ + blk * 16 + r] = lse_of(m[h], l[h]);
+      }
+    }
+    return;
+  }
+  const size_t prow = ((size_t)bh * splits + split) * NQ + blk * 16;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = (lane >> 2) + 8 * h;
+    if (r >= nrows) continue;
+    float* dst = part_o + (prow + r) * TC_DH + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < TC_DH / 8; ++j)
+      *reinterpret_cast<float2*>(dst + j * 8) = make_float2(o[j][2 * h], o[j][2 * h + 1]);
+    if ((lane & 3) == 0) part_ml[prow + r] = make_float2(m[h], l[h]);
+  }
+}
+
+// K1's merge of the splits, a warp per query row, in split order (so two
+// calls give the same bits): M = max m_s, l = sum l_s 2^(m_s - M),
+// out = sum o_s 2^(m_s - M) / l, lse from (M, l).
+__global__ void __launch_bounds__(256)
+smallq_merge_kernel(const float* __restrict__ part_o, const float2* __restrict__ part_ml,
+                    bf16* __restrict__ out, float* __restrict__ lse, int rows, int NQ,
+                    int splits) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const size_t p0 = (size_t)(row / NQ) * splits * NQ + row % NQ;  // split s at p0 + s NQ
+  float mx = -INFINITY;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, part_ml[p0 + (size_t)s * NQ].x);
+  float l = 0.f, o0 = 0.f, o1 = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float2 ml = part_ml[p0 + (size_t)s * NQ];
+    if (ml.y == 0.f) continue;  // a split without a live key
+    const float w = exp2f(ml.x - mx);
+    const float2 o = *reinterpret_cast<const float2*>(part_o + (p0 + (size_t)s * NQ) * TC_DH +
+                                                      2 * lane);
+    l = fmaf(ml.y, w, l);
+    o0 = fmaf(o.x, w, o0);
+    o1 = fmaf(o.y, w, o1);
+  }
+  const float inv = l > 0.f ? 1.f / l : 0.f;
+  *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * TC_DH + 2 * lane) =
+      __floats2bfloat162_rn(o0 * inv, o1 * inv);
+  if (lane == 0) lse[row] = lse_of(mx, l);
+}
+
+// K1's splits: the S (at most SQ_MAX_SPLITS) whose launch ends soonest
+// when the card runs `slots` CTAs at a time, each split walking ceil(tiles
+// / S) tiles (tiles over all NK keys: the live count is on the device
+// only), with the merge costed as two tiles. One split when the CTAs
+// already fill the card.
+inline int k1_splits(int ctas, int NK, int slots) {
+  const int tiles = (NK + SQ_KT - 1) / SQ_KT;
+  int best = 1;
+  long best_cost = -1;
+  for (int s = 1; s <= SQ_MAX_SPLITS && s <= tiles; ++s) {
+    const long waves = ((long)ctas * s + slots - 1) / slots;
+    const long cost = waves * ((tiles + s - 1) / s) + (s > 1 ? 2 : 0);
+    if (best_cost < 0 || cost < best_cost) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// The current card's SM count and shared memory an SM, read once a card
+// (the plan runs twice a K1 call, and the driver's queries cost host time
+// next to a kernel of some 0.02-0.1 ms).
+inline cudaError_t card_shape(int& sms, int& smem_per_sm) {
+  constexpr int CARDS = 64;
+  static int cached_sms[CARDS], cached_smem[CARDS];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < CARDS && cached_sms[dev] > 0) {
+    sms = cached_sms[dev];
+    smem_per_sm = cached_smem[dev];
+    return cudaSuccess;
+  }
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&smem_per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess && dev < CARDS) {
+    cached_smem[dev] = smem_per_sm;
+    cached_sms[dev] = sms;
+  }
+  return e;
+}
+
+// K1's grid and splits for these shapes, on the current card: CTAs an SM
+// are what __launch_bounds__ allows (2) and what shared memory holds
+// (1 KB of it reserved a CTA).
+inline cudaError_t k1_plan(int B, int H, int NQ, int NK, dim3& grid, int& splits) {
+  int sms = 0, smem_per_sm = 0;
+  const cudaError_t e = card_shape(sms, smem_per_sm);
+  if (e != cudaSuccess) return e;
+  const int per_sm = min(2, smem_per_sm / (int)(k1_tc_smem_bytes(NK, 1) + 1024));
+  const int qblocks = ((NQ + 15) / 16 + SQ_WARPS - 1) / SQ_WARPS;
+  splits = k1_splits(qblocks * B * H, NK, sms * (per_sm > 0 ? per_sm : 1));
+  grid = dim3(splits, qblocks, B * H);
+  return cudaSuccess;
+}
+
+// Bytes of K1's split partials: o (fp32, TC_DH a row) and (m, l) per
+// split and query row; 0 with one split.
+inline size_t k1_part_bytes(int B, int H, int NQ, int splits) {
+  if (splits == 1) return 0;
+  return (size_t)B * H * splits * NQ * (TC_DH * sizeof(float) + sizeof(float2));
+}
+
+template <bool DROP>
+cudaError_t launch_smallq_mma(const void* q, const void* k, const void* v, const void* mask,
+                              void* out, void* lse, void* part, int B, int H, int NQ, int NK,
+                              float scale, Dropout drop, cudaStream_t stream) {
+  if (NQ == 0 || B * H == 0) return cudaSuccess;
+  dim3 grid;
+  int splits = 1;
+  cudaError_t e = k1_plan(B, H, NQ, NK, grid, splits);
+  if (e != cudaSuccess) return e;
+  const size_t smem = k1_tc_smem_bytes(NK, splits);
+  auto kern = smallq_fwd_mma_kernel<DROP>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  float* part_o = splits > 1 ? static_cast<float*>(part) : nullptr;
+  float2* part_ml =
+      splits > 1 ? reinterpret_cast<float2*>(part_o + (size_t)B * H * splits * NQ * TC_DH) : nullptr;
+  kern<<<grid, SQ_WARPS * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), static_cast<float*>(lse),
+      part_o, part_ml, H, NQ, NK, splits, scale * LOG2E, drop);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  const int rows = B * H * NQ;
+  smallq_merge_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(
+      part_o, part_ml, static_cast<bf16*>(out), static_cast<float*>(lse), rows, NQ, splits);
+  return cudaGetLastError();
+}
+
+// K6 dq pass: the warps' query and g rows, K/V tiles (double-buffered),
+// the warps' key counts and the row's live keys
+inline size_t k6_dq_tc_smem_bytes(int NK) {
+  return sizeof(bf16) * TC_PITCH * ((size_t)SQ_WARPS * 32 + 4 * SQ_KT) +
+         sizeof(int) * (SQ_WARPS + (size_t)round_up(NK, SQ_KT));
+}
+
+// K6 pass 1 (bf16). Grid (query blocks of SQ_WARPS * 16 rows, B * H): a
+// warp per 16 query rows takes D = rowsum(g out) in fp32 and walks every
+// live-key tile of its batch row: p = 2^(s c - L) with L = lse log2(e)
+// kept as an fp32 pair (hi, lo) from a double product, dp = g V^T,
+// ds = p (dp keep - D) scale, dq +=
+// ds K with ds in three bf16 parts and each tile's products summed apart
+// and added to dq in fp32 (over thousands of keys the tensor cores' own
+// fp32 sums would drop small products' low bits). Leaves (hi, lo) and D
+// per row, the batch row's live keys (count, then keys: NK + 1 words a
+// batch row) and, with dropout, the keep bits of every (row, live
+// position), one word per 32 positions, for pass 2: each element is drawn
+// once.
+template <bool DROP>
+__global__ void __launch_bounds__(SQ_WARPS * 32, 2)
+smallq_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ g,
+                         const uint8_t* __restrict__ mask, const float* __restrict__ lse,
+                         const bf16* __restrict__ out, bf16* __restrict__ dq,
+                         float2* __restrict__ lse2, float* __restrict__ dvec,
+                         int* __restrict__ live_keys,
+                         uint32_t* __restrict__ keep, int H, int NQ, int NK, float scale,
+                         float scale_log2, Dropout drop) {
+  constexpr int TILE = SQ_KT * TC_PITCH;
+  constexpr int NTHR = SQ_WARPS * 32;
+  constexpr int NT = 2;  // 16 keys a product chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tid = threadIdx.x;
+  bf16* Qw = reinterpret_cast<bf16*>(smem_raw) + warp * 32 * TC_PITCH;  // [16][PITCH] q
+  bf16* Gw = Qw + 16 * TC_PITCH;                                         // [16][PITCH] g
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw) + SQ_WARPS * 32 * TC_PITCH;  // [2][KT][PITCH]
+  bf16* Vs = Ks + 2 * TILE;
+  int* wcnt = reinterpret_cast<int*>(Vs + 2 * TILE);
+  int* Is = wcnt + SQ_WARPS;
+
+  const int bh = blockIdx.y, b = bh / H;
+  const int blk = blockIdx.x * SQ_WARPS + warp;
+  const bool rows_in = blk < (NQ + 15) / 16;
+  const size_t qoff = (size_t)bh * NQ * TC_DH, koff = (size_t)bh * NK * TC_DH;
+  if (rows_in) {
+    copy_rows(Qw, q + qoff, blk * 16, 16, NQ, lane, 32);
+    copy_rows(Gw, g + qoff, blk * 16, 16, NQ, lane, 32);
+  }
+  cp_async_commit();
+
+  int beg, n;
+  list_live(mask + (size_t)b * NK, NK, Is, wcnt,
+            [](int total, int& b0, int& e0) { b0 = 0; e0 = total; }, beg, n);
+  const int ntiles = (n + SQ_KT - 1) / SQ_KT;
+  if (ntiles > 0) {
+    copy_live_rows(Ks, k + koff, Is, n, tid, NTHR);
+    copy_live_rows(Vs, v + koff, Is, n, tid, NTHR);
+  }
+  cp_async_commit();
+  if (blockIdx.x == 0 && bh % H == 0) {  // one CTA of the batch row hands its list on
+    int* lg = live_keys + (size_t)b * (NK + 1);
+    if (tid == 0) lg[0] = n;
+    for (int i = tid; i < n; i += NTHR) lg[1 + i] = Is[i];
+  }
+
+  const int nrows = NQ - blk * 16;
+  cp_async_wait_all();
+  __syncthreads();
+  float dsum = 0.f;  // D of row lane / 2 over columns 32 (lane % 2) ..., from g in shared memory
+  if (rows_in && lane / 2 < nrows) {
+    const int r = lane >> 1, c0 = (lane & 1) * 32;
+    const uint4* og = reinterpret_cast<const uint4*>(out + qoff + (size_t)(blk * 16 + r) * TC_DH + c0);
+    const uint4* gs = reinterpret_cast<const uint4*>(Gw + r * TC_PITCH + c0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint4 a = og[i], b = gs[i];
+      const uint32_t av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        dsum = fmaf(bf_lo(av[j]), bf_lo(bv[j]), dsum);
+        dsum = fmaf(bf_hi(av[j]), bf_hi(bv[j]), dsum);
+      }
+    }
+  }
+  dsum += __shfl_xor_sync(FULL, dsum, 1);
+  float lh[2], ll[2], dr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = (lane >> 2) + 8 * h;
+    dr[h] = __shfl_sync(FULL, dsum, 2 * r);
+    lh[h] = INFINITY;  // rows past NQ: p = 0
+    ll[h] = 0.f;
+    if (rows_in && r < nrows) {
+      const size_t row = (size_t)bh * NQ + blk * 16 + r;
+      const double L = (double)lse[row] * LOG2E_D;
+      lh[h] = (float)L;
+      ll[h] = (float)(L - (double)lh[h]);
+      if ((lane & 3) == 0) {
+        lse2[row] = make_float2(lh[h], ll[h]);
+        dvec[row] = dr[h];
+      }
+    }
+  }
+  const int nkw = (NK + 31) / 32;
+  uint32_t* keep_rows = DROP ? keep + ((size_t)bh * NQ + blk * 16) * nkw : nullptr;
+  const uint32_t r0 = (uint32_t)bh * (uint32_t)NQ + (uint32_t)(blk * 16 + (lane >> 2));
+  float acc[TC_DH / 8][4];
+  zero(acc);
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t > 0) {
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    if (t + 1 < ntiles) {
+      const int nb = (t + 1) & 1;
+      copy_live_rows(Ks + nb * TILE, k + koff, Is + (t + 1) * SQ_KT, n - (t + 1) * SQ_KT, tid, NTHR);
+      copy_live_rows(Vs + nb * TILE, v + koff, Is + (t + 1) * SQ_KT, n - (t + 1) * SQ_KT, tid, NTHR);
+    }
+    cp_async_commit();
+    if (!rows_in) continue;
+    const bf16* Kt = Ks + (t & 1) * TILE;
+    const bf16* Vt = Vs + (t & 1) * TILE;
+    float part[TC_DH / 8][4];
+    zero(part);
+    uint32_t kw[2] = {0u, 0u};
+#pragma unroll
+    for (int c0 = 0; c0 < SQ_KT; c0 += NT * 8) {
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      {  // q and g fragments from shared memory each chunk: registers go to part and acc
+        uint32_t fa[TC_DH / 16][4];
+        load_a(fa, Qw, lane);
+        mma_abt<NT>(s, fa, Kt + c0 * TC_PITCH, lane);
+        load_a(fa, Gw, lane);
+        mma_abt<NT>(dp, fa, Vt + c0 * TC_PITCH, lane);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + j * 8 + 2 * (lane & 3) + (e & 1);  // column in the tile
+          const int pos = t * SQ_KT + c;
+          const int h = e >> 1;
+          const bool live = pos < n;
+          const float p = live ? exp2f(fmaf(s[j][e], scale_log2, -lh[h]) - ll[h]) : 0.f;
+          float x = dp[j][e];
+          if (DROP) {
+            const bool kept = live && drop.keep(r0 + 8 * h, (uint32_t)Is[pos]) != 0.f;
+            if (kept) kw[h] |= 1u << (c % 32);
+            x = kept ? x * drop.keep_scale : 0.f;
+          }
+          dp[j][e] = p * (x - dr[h]) * scale;
+        }
+      uint32_t da[K7_PARTS][NT / 2][4];
+      to_a_parts<K7_PARTS, NT>(dp, da);
+      mma_ab_parts<K7_PARTS, NT / 2>(part, da, Kt + c0 * TC_PITCH, lane);
+      if (DROP && (c0 + NT * 8) % 32 == 0) {  // a word of 32 positions is drawn
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t w = kw[h];
+          w |= __shfl_xor_sync(FULL, w, 1);
+          w |= __shfl_xor_sync(FULL, w, 2);
+          const int r = (lane >> 2) + 8 * h;
+          if ((lane & 3) == h && r < nrows)
+            keep_rows[(size_t)r * nkw + (t * SQ_KT + c0) / 32] = w;
+          kw[h] = 0u;
+        }
+      }
+    }
+    add_to(acc, part);
+  }
+  if (!rows_in) return;
+  const float one[2] = {1.f, 1.f};
+  store_rows(dq + qoff + (size_t)blk * 16 * TC_DH, acc, one, nrows, lane);
+}
+
+// K6 pass 2: K7's dk/dv tiles and the CTA's live keys
+constexpr size_t k6_dkdv_tc_smem_bytes() {
+  return k7_dkdv_tc_smem_bytes() + sizeof(int) * DKDV_WARPS * 16;
+}
+
+// K6 pass 2 (bf16): K7's dk/dv tile on one tile of 64 live positions of
+// a batch row (grid (ceil(NK / 64), B * H); the live keys from pass 1):
+// the K/V rows gathered, each
+// 64-query tile of q, g, (hi, lo), D and keep words double-buffered, p
+// and ds in three bf16 parts, each 16 queries' products added to dk, dv
+// in fp32; the rows go back to their keys. The CTA also writes zero dk,
+// dv rows for the dead keys among keys [64 x, 64 x + 64), so every row
+// is written once; past the live count it writes nothing else.
+template <bool DROP>
+__global__ void __launch_bounds__(DKDV_WARPS * 32, 3)
+smallq_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ g,
+                           const uint8_t* __restrict__ mask, const float2* __restrict__ lse2,
+                           const float* __restrict__ dvec, const int* __restrict__ live_keys,
+                           const uint32_t* __restrict__ keep, bf16* __restrict__ dk,
+                           bf16* __restrict__ dv, int H, int NQ, int NK, float scale,
+                           float scale_log2, Dropout drop) {
+  constexpr int NT = DKDV_QC / 8;
+  constexpr int TILE = DKDV_QT * TC_PITCH;
+  constexpr int NTHR = DKDV_WARPS * 32;
+  constexpr int KT = DKDV_WARPS * 16;  // live positions a CTA
+  constexpr int KW = KT / 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tid = threadIdx.x;
+  bf16* Kt = reinterpret_cast<bf16*>(smem_raw);  // [64][PITCH] this CTA's keys
+  bf16* Vt = Kt + KT * TC_PITCH;
+  bf16* Qs = Vt + KT * TC_PITCH;  // [2][64][PITCH]
+  bf16* Gs = Qs + 2 * TILE;       // [2][64][PITCH]
+  float2* Ls = reinterpret_cast<float2*>(Gs + 2 * TILE);  // [2][64] (hi, lo)
+  float* Ds = reinterpret_cast<float*>(Ls + 2 * DKDV_QT);  // [2][64]
+  uint32_t* Ms = reinterpret_cast<uint32_t*>(Ds + 2 * DKDV_QT);  // [2][64][KW]
+  int* Is = reinterpret_cast<int*>(Ms + 2 * DKDV_QT * KW);      // [64]
+  const int nkw = (NK + 31) / 32;
+
+  const int bh = blockIdx.y, b = bh / H;
+  const int p0 = blockIdx.x * KT;
+  const size_t qoff = (size_t)bh * NQ * TC_DH, koff = (size_t)bh * NK * TC_DH;
+  const uint8_t* mrow = mask + (size_t)b * NK;
+
+  for (int i = tid; i < KT * (TC_DH / 8); i += NTHR) {  // zero rows of dead keys
+    const int key = p0 + i / (TC_DH / 8), c = (i % (TC_DH / 8)) * 8;
+    if (key < NK && mrow[key] == 0) {
+      *reinterpret_cast<uint4*>(dk + koff + (size_t)key * TC_DH + c) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(dv + koff + (size_t)key * TC_DH + c) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  const int* lg_keys = live_keys + (size_t)b * (NK + 1);
+  const int n = min(KT, lg_keys[0] - p0);
+  if (n <= 0) return;
+  for (int i = tid; i < n; i += NTHR) Is[i] = lg_keys[1 + p0 + i];
+  __syncthreads();
+
+  const float2* lg = lse2 + (size_t)bh * NQ;
+  const float* dg = dvec + (size_t)bh * NQ;
+  auto load_tile = [&](int t, int buf) {
+    const int q0 = t * DKDV_QT;
+    copy_rows(Qs + buf * TILE, q + qoff, q0, DKDV_QT, NQ, tid, NTHR);
+    copy_rows(Gs + buf * TILE, g + qoff, q0, DKDV_QT, NQ, tid, NTHR);
+    for (int i = tid; i < DKDV_QT; i += NTHR) {
+      const bool in = q0 + i < NQ;  // zeros past NQ: with q = g = 0 the row adds nothing
+      cp_async8(Ls + buf * DKDV_QT + i, lg + (in ? q0 + i : 0), in);
+      cp_async4(Ds + buf * DKDV_QT + i, dg + (in ? q0 + i : 0), in);
+    }
+    if (DROP) {
+      for (int i = tid; i < DKDV_QT * KW; i += NTHR) {
+        const int qq = i / KW, w = p0 / 32 + i % KW;
+        const bool in = q0 + qq < NQ && w < nkw;
+        const size_t row = (size_t)bh * NQ + (in ? q0 + qq : 0);
+        cp_async4(Ms + buf * DKDV_QT * KW + i, keep + row * nkw + (in ? w : 0), in);
+      }
+    }
+  };
+
+  copy_live_rows(Kt, k + koff, Is, n, tid, NTHR);
+  copy_live_rows(Vt, v + koff, Is, n, tid, NTHR);
+  load_tile(0, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  uint32_t ka[TC_DH / 16][4], va[TC_DH / 16][4];
+  load_a(ka, Kt + warp * 16 * TC_PITCH, lane);
+  load_a(va, Vt + warp * 16 * TC_PITCH, lane);
+  float dka[TC_DH / 8][4], dva[TC_DH / 8][4];
+  zero(dka);
+  zero(dva);
+  const int key_r = warp * 16 + (lane >> 2);  // this lane's position in the tile, +8 for e >= 2
+
+  const int ntiles = (NQ + DKDV_QT - 1) / DKDV_QT;
+  for (int t = 0; t < ntiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < ntiles) load_tile(t + 1, buf ^ 1);
+    cp_async_commit();
+    const bf16* Qt = Qs + buf * TILE;
+    const bf16* Gt = Gs + buf * TILE;
+#pragma unroll
+    for (int c0 = 0; c0 < DKDV_QT; c0 += DKDV_QC) {
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      mma_abt<NT>(s, ka, Qt + c0 * TC_PITCH, lane);  // S^T: keys x queries
+      mma_abt<NT>(dp, va, Gt + c0 * TC_PITCH, lane);  // dP^T = V g^T
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + j * 8 + 2 * (lane & 3) + (e & 1);
+          const float2 L = Ls[buf * DKDV_QT + col];
+          const float p = exp2f(fmaf(s[j][e], scale_log2, -L.x) - L.y);
+          float kp = 1.f;
+          if (DROP) {
+            const uint32_t w = Ms[(buf * DKDV_QT + col) * KW + warp * 16 / 32];
+            kp = (w >> ((key_r + 8 * (e >> 1)) % 32)) & 1u ? drop.keep_scale : 0.f;
+          }
+          s[j][e] = p * kp;
+          dp[j][e] = p * (dp[j][e] * kp - Ds[buf * DKDV_QT + col]) * scale;
+        }
+      float part[TC_DH / 8][4];
+      {
+        uint32_t pa[K7_PARTS][NT / 2][4];
+        to_a_parts<K7_PARTS, NT>(s, pa);
+        zero(part);
+        mma_ab_parts<K7_PARTS, NT / 2>(part, pa, Gt + c0 * TC_PITCH, lane);  // P^T g
+        add_to(dva, part);
+      }
+      uint32_t da[K7_PARTS][NT / 2][4];
+      to_a_parts<K7_PARTS, NT>(dp, da);
+      zero(part);
+      mma_ab_parts<K7_PARTS, NT / 2>(part, da, Qt + c0 * TC_PITCH, lane);  // dS^T q
+      add_to(dka, part);
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the next tile is in; every warp is done with this one
+  }
+
+  // rows go back to their keys; positions past n (a zero K/V row) are dropped
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = key_r + 8 * h;
+    if (r >= n) continue;
+    const size_t off = koff + (size_t)Is[r] * TC_DH + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < TC_DH / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + j * 8) =
+          __floats2bfloat162_rn(dka[j][2 * h], dka[j][2 * h + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + j * 8) =
+          __floats2bfloat162_rn(dva[j][2 * h], dva[j][2 * h + 1]);
+    }
+  }
+}
+
+// K6's bf16 scratch, laid out in this order: each row's (hi, lo) and D,
+// each batch row's live keys (NK + 1 words), with dropout the keep words.
+inline size_t k6_scratch_bytes(int B, int H, int NQ, int NK, bool dropout) {
+  const size_t rows = (size_t)B * H * NQ;
+  return rows * (sizeof(float2) + sizeof(float)) + (size_t)B * (NK + 1) * sizeof(int) +
+         (dropout ? rows * ((NK + 31) / 32) * sizeof(uint32_t) : 0);
+}
+
+template <bool DROP>
+cudaError_t launch_smallq_bwd_mma(const void* q, const void* k, const void* v, const void* mask,
+                                  const void* lse, const void* out, const void* g, void* dq,
+                                  void* dk, void* dv, void* scratch, int B, int H, int NQ,
+                                  int NK, float scale, Dropout drop, cudaStream_t stream) {
+  if (B * H == 0) return cudaSuccess;
+  const size_t kv_bytes = (size_t)B * H * NK * TC_DH * sizeof(bf16);
+  if (NQ == 0) {  // no query: every gradient of K and V is 0
+    cudaError_t e = cudaMemsetAsync(dk, 0, kv_bytes, stream);
+    return e == cudaSuccess ? cudaMemsetAsync(dv, 0, kv_bytes, stream) : e;
+  }
+  float2* lse2 = static_cast<float2*>(scratch);
+  float* dvec = reinterpret_cast<float*>(lse2 + (size_t)B * H * NQ);
+  int* live_keys = reinterpret_cast<int*>(dvec + (size_t)B * H * NQ);
+  uint32_t* keep =
+      DROP ? reinterpret_cast<uint32_t*>(live_keys + (size_t)B * (NK + 1)) : nullptr;
+  size_t smem = k6_dq_tc_smem_bytes(NK);
+  auto kern = smallq_bwd_dq_mma_kernel<DROP>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(((NQ + 15) / 16 + SQ_WARPS - 1) / SQ_WARPS, B * H);
+  kern<<<grid, SQ_WARPS * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), static_cast<const uint8_t*>(mask),
+      static_cast<const float*>(lse), static_cast<const bf16*>(out), static_cast<bf16*>(dq),
+      lse2, dvec, live_keys, keep, H, NQ, NK, scale, scale * LOG2E, drop);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  smem = k6_dkdv_tc_smem_bytes();
+  auto kern2 = smallq_bwd_dkdv_mma_kernel<DROP>;
+  e = cudaFuncSetAttribute(kern2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid2((NK + DKDV_WARPS * 16 - 1) / (DKDV_WARPS * 16), B * H);
+  kern2<<<grid2, DKDV_WARPS * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), static_cast<const uint8_t*>(mask), lse2, dvec, live_keys,
+      keep, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, NQ, NK, scale, scale * LOG2E, drop);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // K2: unmasked large-Q, K/V resident (fp32: FMA loops)
 
 constexpr int K2_BQ = 32;        // query rows per CTA
@@ -1365,26 +2146,32 @@ smallq_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DH, bool DROP>
 cudaError_t launch_smallq_bwd(const void* q, const void* k, const void* v,
-                              const void* mask, const void* lse,
+                              const void* mask, const void* lse, const void* out,
                               const void* dvec, const void* g, void* dq,
-                              void* dk, void* dv, int B, int H, int NQ, int NK,
-                              float scale, Dropout drop, cudaStream_t stream) {
-  const size_t smem = k6_dq_smem_bytes<DH>();
-  auto kern = smallq_bwd_dq_kernel<T, DH, DROP>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((NQ + BW_T - 1) / BW_T, B * H);
-  kern<<<grid, BW_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g),
-      static_cast<const uint8_t*>(mask), static_cast<const float*>(lse),
-      static_cast<const float*>(dvec), static_cast<T*>(dq), H, NQ, NK, scale,
-      drop);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return launch_dkdv<T, DH, DROP>(q, k, v, g, mask, lse, dvec, dk, dv, B, H, NQ,
-                                  NK, scale, drop, stream);
+                              void* dk, void* dv, void* scratch, int B, int H,
+                              int NQ, int NK, float scale, Dropout drop, cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    static_assert(DH == TC_DH, "the tensor-core K6 takes Dh 64");
+    return launch_smallq_bwd_mma<DROP>(q, k, v, mask, lse, out, g, dq, dk, dv, scratch, B, H,
+                                       NQ, NK, scale, drop, stream);
+  } else {
+    const size_t smem = k6_dq_smem_bytes<DH>();
+    auto kern = smallq_bwd_dq_kernel<T, DH, DROP>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((NQ + BW_T - 1) / BW_T, B * H);
+    kern<<<grid, BW_THREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(g),
+        static_cast<const uint8_t*>(mask), static_cast<const float*>(lse),
+        static_cast<const float*>(dvec), static_cast<T*>(dq), H, NQ, NK, scale,
+        drop);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    return launch_dkdv<T, DH, DROP>(q, k, v, g, mask, lse, dvec, dk, dv, B, H, NQ,
+                                    NK, scale, drop, stream);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1568,17 +2355,31 @@ extern "C" {
 // thresh = min(int(p * 2^32), 2^32 - 1), keep_scale = 1 / (1 - p);
 // thresh 0 means no dropout.
 
+// Bytes of the scratch K1 needs for these shapes on the current card
+// (the bf16 kernel's split partials; 0 for one split and in fp32), or
+// 0 with *status set on an error.
+size_t mebt_smallq_scratch_bytes(int B, int H, int NQ, int NK, int is_bf16, int* status) {
+  *status = 0;
+  if (!is_bf16 || NQ == 0 || B * H == 0) return 0;
+  dim3 grid;
+  int splits = 1;
+  const cudaError_t e = k1_plan(B, H, NQ, NK, grid, splits);
+  *status = (int)e;
+  return e == cudaSuccess ? k1_part_bytes(B, H, NQ, splits) : 0;
+}
+
 // q (B,H,NQ,Dh), k/v (B,H,NK,Dh), mask (B,NK) uint8 -> out (B,H,NQ,Dh)
-// in the input type, lse (B,H,NQ) fp32.
+// in the input type, lse (B,H,NQ) fp32. part: mebt_smallq_scratch_bytes
+// of scratch (unused where that is 0).
 int mebt_smallq_attention(const void* q, const void* k, const void* v,
-                          const void* mask, void* out, void* lse, int B, int H,
+                          const void* mask, void* out, void* lse, void* part, int B, int H,
                           int NQ, int NK, int Dh, float scale, int is_bf16,
                           unsigned seed, unsigned thresh, float keep_scale,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dh != 64) return (int)cudaErrorInvalidValue;
   const Dropout drop{seed, thresh, keep_scale};
-  return MEBT_DISPATCH(launch_smallq, is_bf16, drop, q, k, v, mask, out, lse, B,
+  return MEBT_DISPATCH(launch_smallq, is_bf16, drop, q, k, v, mask, out, lse, part, B,
                        H, NQ, NK, scale, drop, s);
 }
 
@@ -1600,19 +2401,30 @@ int mebt_largeq_attention(const void* q, const void* k, const void* v,
                        scale, drop, s);
 }
 
-// K6. g (B,H,NQ,Dh) in the input type; lse and dvec = rowsum(g * out)
+// K6. out (the forward's) and g (B,H,NQ,Dh) in the input type, lse
 // (B,H,NQ) fp32 -> dq (B,H,NQ,Dh), dk/dv (B,H,NK,Dh) in the input type.
+// fp32 takes dvec = rowsum(g * out) (B,H,NQ) fp32 from the caller; bf16
+// computes it (dvec unused). scratch: mebt_smallq_bwd_scratch_bytes of
+// it, which the bf16 dq pass fills for the dk/dv pass (unused in fp32):
+// each row's lse log2(e) as an fp32 pair (hi, lo) and D, each batch
+// row's live keys and, with dropout, the keep bits by (row, live
+// position).
 int mebt_smallq_backward(const void* q, const void* k, const void* v,
-                         const void* mask, const void* lse, const void* dvec,
-                         const void* g, void* dq, void* dk, void* dv, int B,
-                         int H, int NQ, int NK, int Dh, float scale,
+                         const void* mask, const void* lse, const void* out, const void* dvec,
+                         const void* g, void* dq, void* dk, void* dv, void* scratch,
+                         int B, int H, int NQ, int NK, int Dh, float scale,
                          int is_bf16, unsigned seed, unsigned thresh,
                          float keep_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dh != 64) return (int)cudaErrorInvalidValue;
   const Dropout drop{seed, thresh, keep_scale};
-  return MEBT_DISPATCH(launch_smallq_bwd, is_bf16, drop, q, k, v, mask, lse,
-                       dvec, g, dq, dk, dv, B, H, NQ, NK, scale, drop, s);
+  return MEBT_DISPATCH(launch_smallq_bwd, is_bf16, drop, q, k, v, mask, lse, out,
+                       dvec, g, dq, dk, dv, scratch, B, H, NQ, NK, scale, drop, s);
+}
+
+// Bytes of the scratch K6 needs (0 in fp32).
+size_t mebt_smallq_bwd_scratch_bytes(int B, int H, int NQ, int NK, int is_bf16, int dropout) {
+  return is_bf16 ? k6_scratch_bytes(B, H, NQ, NK, dropout != 0) : 0;
 }
 
 // Dynamic shared memory of K7's passes for NK keys (the larger), in bytes.

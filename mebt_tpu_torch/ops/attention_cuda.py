@@ -3,12 +3,15 @@ blocks, forward and backward, with dropout on the probabilities
 (csrc/attention.cu).
 
   K1 `smallq_attention`: masked keys, flash forward with lse
-     (replaces attention_pallas.py:_smallq_attention).
+     (replaces attention_pallas.py:_smallq_attention); in bf16 on the
+     tensor cores over the live keys only, split over CTAs when the
+     (b, h) pairs do not fill the card.
   K2 `largeq_attention`: unmasked keys resident in shared memory
      (replaces attention_pallas.py:_largeq_attention); in bf16 on the
      tensor cores, the probabilities split into two bf16 parts.
   K6 `smallq_backward`: dq, dk, dv of K1 from the saved lse
-     (replaces attention_pallas.py:_smallq_backward).
+     (replaces attention_pallas.py:_smallq_backward); in bf16 on the
+     tensor cores over the live keys, with p and ds in three bf16 parts.
   K7 `largeq_backward`: dq, dk, dv of K2, softmax recomputed
      (replaces attention_pallas.py:_largeq_backward); in bf16 on the
      tensor cores as K2, with p and ds in three bf16 parts.
@@ -54,17 +57,19 @@ _U = ctypes.c_uint
 _DROP = [_U, _U, _F]  # seed, thresh, keep_scale
 _SIGNATURES = {
     "mebt_smallq_attention": (
-        ctypes.c_int, [_P] * 6 + [_I] * 5 + [_F, _I] + _DROP + [_P],
+        ctypes.c_int, [_P] * 7 + [_I] * 5 + [_F, _I] + _DROP + [_P],
     ),
     "mebt_largeq_attention": (
         ctypes.c_int, [_P] * 4 + [_I] * 5 + [_F, _I] + _DROP + [_P],
     ),
     "mebt_smallq_backward": (
-        ctypes.c_int, [_P] * 10 + [_I] * 5 + [_F, _I] + _DROP + [_P],
+        ctypes.c_int, [_P] * 12 + [_I] * 5 + [_F, _I] + _DROP + [_P],
     ),
+    "mebt_smallq_bwd_scratch_bytes": (ctypes.c_size_t, [_I] * 6),
     "mebt_largeq_backward": (
         ctypes.c_int, [_P] * 10 + [_I] * 5 + [_F, _I] + _DROP + [_P],
     ),
+    "mebt_smallq_scratch_bytes": (ctypes.c_size_t, [_I] * 5 + [ctypes.POINTER(_I)]),
     "mebt_largeq_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "mebt_largeq_bwd_smem_bytes": (ctypes.c_size_t, [_I, _I]),
 }
@@ -238,13 +243,19 @@ def smallq_attention(q, k, v, key_mask, *, p_drop: float = 0.0, seed: int = 0):
     B, H, NQ, Dh = q.shape
     NK = k.shape[2]
     mask = _check_mask(key_mask, B, NK, q.device)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, NQ), device=q.device, dtype=torch.float32)
-    status = _lib().mebt_smallq_attention(
+    lib, bf16 = _lib(), int(q.dtype == torch.bfloat16)
+    # the bf16 kernel's split partials, sized for this card's split count
+    err = ctypes.c_int(0)
+    n_part = lib.mebt_smallq_scratch_bytes(B, H, NQ, NK, bf16, ctypes.byref(err))
+    _build.check(err.value, "smallq_attention (plan)")
+    part = torch.empty(n_part, device=q.device, dtype=torch.uint8) if n_part else None
+    status = lib.mebt_smallq_attention(
         _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(out), _ptr(lse),
-        B, H, NQ, NK, Dh, 1.0 / math.sqrt(Dh),
-        int(q.dtype == torch.bfloat16), *_drop_args(p_drop, seed), _build.stream_ptr(q),
+        None if part is None else _ptr(part), B, H, NQ, NK, Dh, 1.0 / math.sqrt(Dh),
+        bf16, *_drop_args(p_drop, seed), _build.stream_ptr(q),
     )
     _build.check(status, "smallq_attention")
     _launched(smallq_attention, p_drop)
@@ -300,8 +311,8 @@ largeq_attention.launches = 0
 
 def smallq_backward(q, k, v, key_mask, out, lse, g, *, p_drop: float = 0.0, seed: int = 0):
     """K6: (dq, dk, dv) of K1 in the input dtype, from the out and lse the
-    forward returned and the seed it used. D = rowsum(g * out) is a
-    PyTorch reduction here, outside the kernel."""
+    forward returned and the seed it used. D = rowsum(g * out) is taken in
+    the kernel in bf16, by a PyTorch reduction in fp32."""
     if not q.is_cuda:
         return smallq_backward_ref(q, k, v, key_mask, out, lse, g, p_drop=p_drop, seed=seed)
     _check(q, k, v)
@@ -309,15 +320,26 @@ def smallq_backward(q, k, v, key_mask, out, lse, g, *, p_drop: float = 0.0, seed
     B, H, NQ, Dh = q.shape
     NK = k.shape[2]
     mask = _check_mask(key_mask, B, NK, q.device)
-    if lse.shape != (B, H, NQ) or lse.dtype != torch.float32 or out.shape != q.shape:
+    if (lse.shape != (B, H, NQ) or lse.dtype != torch.float32 or out.shape != q.shape
+            or out.dtype != q.dtype or out.device != q.device):
         raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype} / out {tuple(out.shape)} do not fit q")
-    q, k, v, g, lse = (t.contiguous() for t in (q, k, v, g, lse))
-    dvec = (g.float() * out.float()).sum(-1).contiguous()
+    q, k, v, g, out = (_aligned(t) for t in (q, k, v, g, out))
+    lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    status = _lib().mebt_smallq_backward(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(lse), _ptr(dvec), _ptr(g),
-        _ptr(dq), _ptr(dk), _ptr(dv), B, H, NQ, NK, Dh, 1.0 / math.sqrt(Dh),
-        int(q.dtype == torch.bfloat16), *_drop_args(p_drop, seed), _build.stream_ptr(q),
+    lib, bf16 = _lib(), int(q.dtype == torch.bfloat16)
+    # fp32: D = rowsum(g * out) here; bf16: the dq pass takes D itself and
+    # leaves it, with each row's lse log2(e) as an fp32 pair, the live keys
+    # of each batch row and, with dropout, the keep bits (a 32-bit word per
+    # 32 live keys), in scratch for the dk/dv pass
+    dvec = None if bf16 else (g.float() * out.float()).sum(-1).contiguous()
+    n_scratch = lib.mebt_smallq_bwd_scratch_bytes(B, H, NQ, NK, bf16, int(p_drop > 0.0))
+    scratch = torch.empty(n_scratch, device=q.device, dtype=torch.uint8) if n_scratch else None
+    status = lib.mebt_smallq_backward(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(lse), _ptr(out),
+        None if dvec is None else _ptr(dvec), _ptr(g),
+        _ptr(dq), _ptr(dk), _ptr(dv), None if scratch is None else _ptr(scratch),
+        B, H, NQ, NK, Dh, 1.0 / math.sqrt(Dh), bf16, *_drop_args(p_drop, seed),
+        _build.stream_ptr(q),
     )
     _build.check(status, "smallq_backward")
     _launched(smallq_backward, p_drop)

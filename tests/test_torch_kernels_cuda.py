@@ -331,6 +331,93 @@ def test_unsupported_backward_shapes_raise(dev):
         largeq_attention(q, k[:, :, :8], k[:, :, :8], p_drop=1.0)
 
 
+# The bf16 K1 / K6 walk the live keys of a batch row only and split them
+# over CTAs when the (b, h) pairs are too few to fill the card. (B, H,
+# NQ, NK, mask, scale of q): the 128f lt2l key count at B 1-2 (splits),
+# masks with runs of dead tiles, a batch row without a live key, query
+# and key counts around the tiles, and a mask with one live key.
+SMALLQ_TC_CASES = [
+    (1, 2, 256, 8448, "half", 1.0), (2, 2, 256, 8448, "dead_tiles", 1.0),
+    (2, 3, 70, 1000, "empty_row", 1.0), (3, 2, 17, 130, "dead_tiles", 1.0),
+    (2, 2, 256, 1280, "one_live", 1.0), (2, 2, 256, 8448, "half", 8.0),
+]
+
+
+def _smallq_tc_case(dev, B, H, NQ, NK, kind, q_scale, Dh=64):
+    gen = torch.Generator(dev).manual_seed(B * 1000 + NK + NQ)
+    q = (q_scale * torch.randn(B, H, NQ, Dh, generator=gen, device=dev)).to(torch.bfloat16)
+    k, v = (_randn(gen, B, H, NK, Dh, dtype=torch.bfloat16, dev=dev) for _ in range(2))
+    g = _randn(gen, B, H, NQ, Dh, dtype=torch.bfloat16, dev=dev)
+    mask = torch.rand(B, NK, generator=gen, device=dev) < 0.5
+    if kind == "dead_tiles":
+        mask[:, 64:320] = False  # four whole 64-key tiles
+        mask[-1, NK // 2:] = False
+    elif kind == "empty_row":
+        mask[0] = False
+        mask[1, :512] = False
+    elif kind == "one_live":
+        mask[:] = False
+        mask[:, NK - 1] = True
+    return q, k, v, g, mask
+
+
+@pytest.mark.parametrize("B,H,NQ,NK,kind,q_scale", SMALLQ_TC_CASES)
+@pytest.mark.parametrize("p_drop", [0.0, 0.2])
+def test_smallq_tensor_core_matches_plain(dev, B, H, NQ, NK, kind, q_scale, p_drop):
+    """bf16 K1 and K6 against their plain versions: out within the bf16
+    gate, lse within 1e-5, gradients within the bf16 gate; a row without
+    a live key gives out 0, lse 1e30 and zero gradients, a dead key zero
+    dk and dv; two calls give the same bits."""
+    q, k, v, g, mask = _smallq_tc_case(dev, B, H, NQ, NK, kind, q_scale)
+    out, lse = smallq_attention(q, k, v, mask, p_drop=p_drop, seed=21)
+    ref, ref_lse = smallq_attention_ref(q, k, v, mask, p_drop=p_drop, seed=21)
+    live = mask.any(dim=1)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
+    got_lse = lse
+    if q_scale != 1.0:  # lse about 35: the plain fp32 lse strays up to 1e-5 from float64
+        s64 = (q.double() @ k.double().transpose(-1, -2)) / 8.0
+        ref_lse = torch.logsumexp(s64.masked_fill(~mask[:, None, None, :], float("-inf")), -1)
+        got_lse = lse.double()
+    torch.testing.assert_close(got_lse[live], ref_lse[live], atol=1e-5, rtol=0)
+    assert torch.all(out[~live] == 0) and torch.all(lse[~live] == 1e30)
+    again = smallq_attention(q, k, v, mask, p_drop=p_drop, seed=21)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    got = smallq_backward(q, k, v, mask, out, lse, g, p_drop=p_drop, seed=21)
+    if q_scale == 1.0:  # x8: held to float64 below
+        want = smallq_backward_ref(q, k, v, mask, out, lse, g, p_drop=p_drop, seed=21)
+        _assert_all_close(got, want, GRAD_TOL[torch.bfloat16])
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert all(bool(torch.all(t[~live] == 0)) for t in got)
+    assert all(bool(torch.all(t.transpose(1, 2)[~mask] == 0)) for t in got[1:])
+    again = smallq_backward(q, k, v, mask, out, lse, g, p_drop=p_drop, seed=21)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: bit-equal
+
+
+@pytest.mark.parametrize("p_drop", [0.0, 0.2])
+def test_smallq_backward_scaled_matches_float64(dev, p_drop):
+    """Scores eight times larger over 8448 masked keys, B 2: as for K7,
+    kernel and plain version are both held to the float64 value of the
+    same function (the softmax over the live keys, D from the kernel's
+    out), under the bf16 gate."""
+    q, k, v, g, mask = _smallq_tc_case(dev, 2, 2, 256, 8448, "half", 8.0)
+    out, lse = smallq_attention(q, k, v, mask, p_drop=p_drop, seed=21)
+    got = smallq_backward(q, k, v, mask, out, lse, g, p_drop=p_drop, seed=21)
+    plain = smallq_backward_ref(q, k, v, mask, out, lse, g, p_drop=p_drop, seed=21)
+    q6, k6, v6, g6 = (t.double() for t in (q, k, v, g))
+    s = (q6 @ k6.transpose(-1, -2) / 8.0).masked_fill(~mask[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    dp = g6 @ v6.transpose(-1, -2)
+    if p_drop > 0:
+        keep = philox_keep(21, p.shape, p_drop, dev).double() / (1.0 - p_drop)
+        p_v, dp = p * keep, dp * keep
+    else:
+        p_v = p
+    ds = p * (dp - (g6 * out.double()).sum(-1, keepdim=True)) / 8.0
+    exact = (ds @ k6, ds.transpose(-1, -2) @ q6, p_v.transpose(-1, -2) @ g6)
+    for t in (got, plain):
+        _assert_all_close(t, [e.to(torch.bfloat16) for e in exact], GRAD_TOL[torch.bfloat16])
+
+
 @pytest.mark.parametrize("masked", [True, False])
 def test_dropout_seed_and_rate_zero(dev, masked):
     gen = torch.Generator(dev).manual_seed(2)
