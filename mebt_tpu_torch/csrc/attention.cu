@@ -1305,7 +1305,7 @@ inline int k1_splits(int ctas, int NK, int slots) {
 }
 
 // The current card's SM count and shared memory an SM, read once a card
-// (the plan runs twice a K1 call, and the driver's queries cost host time
+// (the plan runs twice a K1 call, and the CUDA runtime's queries cost host time
 // next to a kernel of some 0.02-0.1 ms).
 inline cudaError_t card_shape(int& sms, int& smem_per_sm) {
   constexpr int CARDS = 64;
