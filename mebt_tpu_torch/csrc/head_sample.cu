@@ -4,59 +4,93 @@
 //   mebt_tpu/ops/head_sample_pallas.py:fused_head_sample
 //   (_head_sample_kernel).
 // For each row of x (R, D) it computes the logits l = (x @ W^T) / T over
-// the vocabulary in 64-wide chunks and keeps, per row, a running max and
-// sum of exponentials (the logsumexp) and a running argmax of the
-// perturbed logit l - log(q), q ~ Exp(1) (Gumbel-max). It returns the
-// sampled id and its probability under softmax(l); the (R, V) logits
-// never reach device memory.
+// the vocabulary and keeps, per row, a running max and sum of
+// exponentials (the logsumexp) and a running argmax of the perturbed
+// logit l - log(q), q ~ Exp(1) (Gumbel-max). It returns the sampled id
+// and its probability under softmax(l); the (R, V) logits never reach
+// device memory.
 //
 // K4 (mebt_head_topk_sample) replaces
 //   mebt_tpu/ops/head_sample_pallas.py:fused_head_topk_sample_v2
 //   (_head_topk_sample_v2_kernel).
-// Same product and tiling; per row it keeps the k largest logits seen so
-// far as a sorted buffer of (value, column) pairs in shared memory. A
-// logit is compared with the row's current k-th pair and inserted only
-// when it comes before it. The order is total: value descending, column
+// Same product; per row it keeps the k largest logits seen so far as a
+// sorted buffer of (value, column) pairs in shared memory. A logit is
+// compared with the row's current k-th pair and inserted only when it
+// comes before it. The order is total: value descending, column
 // ascending, so of two equal logits the lower column ranks first and the
 // buffer's content does not depend on the order in which columns arrive.
 // Every logit of the row is held against the buffer, and an insertion
-// pushes out exactly the last pair, so after the last chunk the buffer
+// pushes out exactly the last pair, so after the last column the buffer
 // IS the row's top k: there is no per-chunk candidate limit that could
 // overflow, hence no overflow flag and no fallback (the TPU kernel's
 // top-m extraction per slice and its flag work around a compiler that
 // cannot pipeline a data-dependent loop; a GPU thread can just branch).
 // After warm-up insertions are rare: about k ln(V/k) per row, some 200
 // of 16384 logits at k = 32. Noise is then drawn for the k survivors
-// only; the winner is argmax(l - log q), the lowest buffer slot on a
-// tie, and its probability is taken under the softmax of the k values.
+// only; the winner is argmax(l - log q), the lowest slot on a tie, and
+// its probability is taken under the softmax of the k values.
 //
-// Layout: W is the head's nn.Linear weight (V, D), row-major, so x and W
-// are both read along D. One CTA takes 64 rows and loops over all vocab
+// Bound on the card, K3 and K4: 2 R D V operations, 5.5e11 at R = 16384,
+// D = 1024, V = 16384 (0.556 ms at 989 TFLOP/s bf16), against 64 MB of x
+// and W: operations. K3 also draws one Philox word and takes two logf per
+// logit (268 M of each at R = 16384); Philox alone ran 0.084 ms per 25.2
+// M draws on an H100 (PR 6, K8), so K3's floor there is nearer 1.2-1.5
+// ms. K4 draws only for its k survivors.
+//
+// bf16 (head_sample_mma_kernel, head_topk_mma_kernel; the product of the
+// TPU kernels, bf16 operands with fp32 sums): a CTA takes 128 rows, 4
+// warps of 32, and walks 128-column chunks of ITS SLICE of the
+// vocabulary. x and W tiles stream along D 64 deep at a time with 16-byte
+// cp.async into a ring of stages (K3 three, K4 two, to leave room for the
+// top-k buffers) on rows padded to 72 elements, read by ldmatrix; the
+// product is mma.sync m16n8k16 (bf16 -> fp32), a warp's 32 x 128 tile in
+// 128 fp32 registers a thread. The loads of the next chunk are in flight
+// while the epilogue reads the finished chunk straight from the
+// accumulator fragments: in the m16n8 layout a thread holds 4 rows of its
+// warp (g, g + 8, g + 16, g + 24) and 32 columns of each, and the four
+// threads of a quad share a row. There is no logits tile in shared memory
+// and no barrier per chunk beyond the ring's one per 64-deep stage.
+// W (32 MB in bf16) fits the 50 MB L2, so the row blocks' re-reads of it
+// come from L2.
+// K3's epilogue: per thread and row an online max and sum of exp and a
+// running Gumbel argmax over its own columns, which it visits in column
+// order (strict '>': the lowest column wins a tie); the quad's four
+// states are merged once per slice by shuffles (a tie to the lower
+// column). K4's epilogue: per thread and row the pre-filter against the
+// row's k-th pair as it stood when the chunk began (the k-th pair only
+// moves ahead, so nothing that can still enter is dropped); only when a
+// quad holds a candidate do its four threads take turns at the row's
+// buffer, with __syncwarp() between turns.
+// The grid is (row blocks) x (S vocabulary slices of whole chunks); the
+// host picks S from the card's SM count (read once) so that the CTAs
+// fill the card at every R the decode runs (R from 3328 to 16384). Each
+// slice leaves its state in a scratch buffer the wrapper allocates, and a
+// merge kernel folds the slices IN SLICE ORDER, so two calls give the
+// same bits: K3 (head_sample_merge_kernel) from (m, s, best perturbed
+// logit, its logit, its column) takes m = max m_i, s = sum s_i e^(m_i - m)
+// and the best by a strict '>', so the lowest column wins a tie over the
+// whole vocabulary; K4 (head_topk_merge_kernel, a warp per row) takes the
+// top k of the S k pairs under the same total order, so the merged set is
+// the one-CTA set, then draws the noise at the survivors' columns. S = 1
+// launches the merge as well, a trivial one (one slice's state passes
+// through the same formulas).
+//
+// fp32 (head_sample_kernel<float>, head_topk_sample_kernel<float>: the
+// parity checks only): one CTA takes 64 rows and loops over all vocab
 // chunks; a chunk's 64x64 logits tile is a register-tiled fp32 FMA
 // product (each thread 4x4) staged through shared memory, then the four
 // threads that own a row fold the tile into that row's running state.
 // K3: within a chunk the first maximum wins; across chunks the merge
-// uses a strict '>', so over the whole vocabulary the lowest index wins
-// a tie. K4: the four threads of a row sit in one warp; each first holds
-// its 16 logits of the chunk against the k-th pair, and only when one of
-// them has a candidate do the four take turns at the row's buffer, with
-// __syncwarp() between turns. Taking turns at every chunk, candidate or
-// not, cost 20 ms of 50 at R = V = 16384 (NVIDIA H100 80GB HBM3, 700 W).
+// uses a strict '>'. K4: the four threads of a row first hold their 16
+// logits of the chunk against the k-th pair, and only when one of them
+// has a candidate do the four take turns at the row's buffer.
 //
 // Noise: Philox4x32-10 keyed on (seed, 0) with counter (column, row, 0,
 // 0), so a draw depends on (seed, row, vocabulary column) only, never on
-// the tiling or on a survivor's buffer slot. u = mantissa(bits >> 9) - 1
-// + 2^-25, q = -log(u), the same conversion as the TPU kernel. The
-// caller passes a fresh 32-bit seed per step, drawn from a host
+// the tiling, the slices or a survivor's buffer slot. u = mantissa(bits
+// >> 9) - 1 + 2^-25, q = -log(u), the same conversion as the TPU kernel.
+// The caller passes a fresh 32-bit seed per step, drawn from a host
 // generator (no device sync).
-//
-// Bound on the card: 2*R*D*V operations (5.5e11 at R = 16384, D = 1024,
-// V = 16384), i.e. operations, not bytes. This first version runs the
-// product on the FP32 pipes, not the tensor cores, so it sits far above
-// that bound; wgmma tiles are later work. Below 132 row tiles
-// (R < 8448) the grid under-fills the 132 SMs: at 16f, batch 16, the
-// last two segments (buckets 512 and 256: R = 8192 and 4096) run 128
-// and 64 CTAs. Not fixed here.
 //
 // K5 (mebt_head_topk_sample_v1) replaces
 //   mebt_tpu/ops/head_sample_pallas.py:fused_head_topk_sample (v1,
@@ -72,22 +106,23 @@
 // runs once per logit that enters the buffer plus once to stop: k ln(V/k)
 // + V/64 turns per row, some 450 at k = 32, V = 16384, each a few warp
 // shuffles and a shift of k/32 slots a lane. The buffer at the end is the
-// same exact top k as K4's, from the same logits tile, and the draw and
-// epilogue are K4's (a warp per row instead of four threads): K5 gives
-// K4's ids at one seed. The TPU kernel drew its noise per chunk inside
-// the loop; here, as in K4, only the k survivors draw Philox noise at
-// their columns, so a draw depends on (seed, row, column) alone.
+// same exact top k as K4's, and the draw and epilogue are K4's (a warp
+// per row): K5 gives K4's ids at one seed, up to near-ties of the two
+// tiles' logits. K5 keeps the fp32 FMA tile in both types (no path runs
+// it); only the k survivors draw Philox noise at their columns.
 //
 // All take fp32 or bf16 x and W (is_bf16); temperature 0 is passed as
 // inv_temp = 1/(0 + 1e-8) and gives the greedy argmax. Rows beyond R and
 // columns beyond V are computed on zeros and never sampled, stored or
-// summed.
+// summed. The bf16 kernels need D % 8 == 0 and x, W at 16-byte
+// boundaries (the wrapper pads and copies where they are not).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "mma.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -234,10 +269,11 @@ head_sample_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* w, void* ids, void* probs, int R,
-                   int D, int V, float inv_temp, uint32_t seed,
-                   cudaStream_t stream) {
+// fp32 only: bf16 goes to the tensor-core K3 below
+cudaError_t launch_fma(const void* x, const void* w, void* ids, void* probs, int R,
+                       int D, int V, float inv_temp, uint32_t seed,
+                       cudaStream_t stream) {
+  using T = float;
   const dim3 grid((R + TR - 1) / TR);
   head_sample_kernel<T><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
@@ -354,10 +390,11 @@ head_topk_sample_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T>
-cudaError_t launch_topk(const void* x, const void* w, void* ids, void* probs,
-                        int R, int D, int V, int k, float inv_temp,
-                        uint32_t seed, cudaStream_t stream) {
+// fp32 only: bf16 goes to the tensor-core K4 below
+cudaError_t launch_topk_fma(const void* x, const void* w, void* ids, void* probs,
+                            int R, int D, int V, int k, float inv_temp,
+                            uint32_t seed, cudaStream_t stream) {
+  using T = float;
   const size_t smem = topk_smem_bytes(k);
   auto kern = head_topk_sample_kernel<T>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -524,31 +561,587 @@ cudaError_t launch_topk_v1(const void* x, const void* w, void* ids, void* probs,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 K3 and K4: tensor-core logits tiles over a slice of the vocabulary
+
+using bf16 = __nv_bfloat16;
+
+constexpr int HT_WARPS = 4;        // warps a CTA at most, 32 rows each
+constexpr int HT_WM = 32;          // rows a warp: two m16 tiles
+constexpr int HT_BN = 128;         // vocabulary columns a chunk: sixteen n8 tiles
+constexpr int HT_NT = HT_BN / 8;
+constexpr int HT_BK = 64;          // depth a stage
+constexpr int HT_PITCH = 72;       // bf16 a shared row: 144 B, so the 8 rows an
+                                   // ldmatrix reads fall in distinct banks
+constexpr int HT_MAX_SPLITS = 32;  // K4's merge holds one slice a lane
+constexpr int K3_STAGES = 3;
+constexpr int K4_STAGES = 2;       // leaves room for the top-k buffers
+constexpr int MERGE_WARPS = 8;
+
+using Acc = float[2][HT_NT][4];
+
+// One ring stage: the CTA's x rows, then the chunk's 128 W rows, 64 deep.
+__host__ __device__ inline size_t ht_stage_bytes(int nw) {
+  return sizeof(bf16) * (size_t)(nw * HT_WM + HT_BN) * HT_PITCH;
+}
+
+// Dynamic shared memory of the bf16 K3 (k = 0) or K4: the ring, and K4's
+// buffers of k (value, column) pairs a row, pitch k + 1 so that the
+// eight rows a warp's quads own fall in different banks.
+inline size_t ht_smem_bytes(int nw, int k) {
+  if (k == 0) return K3_STAGES * ht_stage_bytes(nw);
+  return K4_STAGES * ht_stage_bytes(nw) +
+         (size_t)nw * HT_WM * (k + 1) * (sizeof(float) + sizeof(int));
+}
+
+// A thread's accumulator at row slot j = 2 mt + h (row g + 8 h + 16 mt of
+// its warp), column 8 nt + 2 t + e of the chunk. j is a runtime index and
+// nt, e are unrolled, so the fragment stays in registers.
+__device__ __forceinline__ float pick(const Acc& acc, int j, int nt, int e) {
+  const float a = acc[0][nt][e], b = acc[0][nt][2 + e];
+  const float c = acc[1][nt][e], d = acc[1][nt][2 + e];
+  return j == 0 ? a : j == 1 ? b : j == 2 ? c : d;
+}
+
+// x W^T for rows r0.. of x and the chunks [chunk0, chunk1) of W, one
+// 128-column chunk at a time: epi.chunk(acc, c0) reads each finished
+// chunk from the accumulator fragments while the next chunk's first
+// stages load. Every thread of the CTA calls it.
+template <int STAGES, typename Epi>
+__device__ __forceinline__ void walk_slice(const bf16* __restrict__ x,
+                                           const bf16* __restrict__ w, int R, int D, int V,
+                                           int r0, int chunk0, int chunk1, bf16* ring,
+                                           Epi& epi) {
+  const int tid = threadIdx.x, nthr = blockDim.x, warp = tid >> 5, lane = tid & 31;
+  const int rows = (nthr >> 5) * HT_WM;
+  const int ksteps = (D + HT_BK - 1) / HT_BK;
+  const int n_iter = (chunk1 - chunk0) * ksteps;
+  const size_t stage = (size_t)(rows + HT_BN) * HT_PITCH;
+
+  // 16-byte granules of stage `it`: the x rows, then the W rows; zeros
+  // beyond R, V and D
+  auto load = [&](int it) {
+    const int c0 = (chunk0 + it / ksteps) * HT_BN, k0 = (it % ksteps) * HT_BK;
+    bf16* st = ring + (size_t)(it % STAGES) * stage;
+    for (int i = tid; i < (rows + HT_BN) * (HT_BK / 8); i += nthr) {
+      const int r = i >> 3, kk = k0 + (i & 7) * 8;
+      const bool is_x = r < rows;
+      const int gr = is_x ? r0 + r : c0 + r - rows;
+      const bool in = (is_x ? gr < R : gr < V) && kk < D;
+      const bf16* src = (is_x ? x : w) + (in ? (size_t)gr * D + kk : 0);
+      cp_async16(st + r * HT_PITCH + (i & 7) * 8, src, in);
+    }
+  };
+
+  float acc[2][HT_NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < HT_NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+#pragma unroll
+  for (int p = 0; p < STAGES - 1; ++p) {
+    if (p < n_iter) load(p);
+    cp_async_commit();
+  }
+  const int a_off = (warp * HT_WM + (lane & 15)) * HT_PITCH + (lane >> 4) * 8;
+  const int b_off = (rows + (lane & 7) + (lane >> 4) * 8) * HT_PITCH + ((lane >> 3) & 1) * 8;
+  for (int it = 0; it < n_iter; ++it) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage `it` has landed for all; the slot of it - 1 is free
+    if (it + STAGES - 1 < n_iter) load(it + STAGES - 1);
+    cp_async_commit();
+    const bf16* st = ring + (size_t)(it % STAGES) * stage;
+#pragma unroll
+    for (int kc = 0; kc < HT_BK / 16; ++kc) {
+      uint32_t a0[4], a1[4];
+      ldsm_x4(a0, st + a_off + kc * 16);
+      ldsm_x4(a1, st + a_off + 16 * HT_PITCH + kc * 16);
+#pragma unroll
+      for (int np = 0; np < HT_NT / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, st + b_off + np * 16 * HT_PITCH + kc * 16);
+        mma16816(acc[0][2 * np], a0, b[0], b[1]);
+        mma16816(acc[0][2 * np + 1], a0, b[2], b[3]);
+        mma16816(acc[1][2 * np], a1, b[0], b[1]);
+        mma16816(acc[1][2 * np + 1], a1, b[2], b[3]);
+      }
+    }
+    if (it % ksteps == ksteps - 1) {
+      epi.chunk(acc, (chunk0 + it / ksteps) * HT_BN);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < HT_NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    }
+  }
+}
+
+// K3's epilogue: per thread and row slot an online max m and sum s of
+// e^(l - m), and the best perturbed logit of its own columns (visited in
+// column order, strict '>') with its logit and column.
+struct SampleEpi {
+  float m[4], s[4], best[4], bl[4];
+  int bi[4];
+  int row0, t, R, V;
+  float inv_temp;
+  uint32_t seed;
+
+  __device__ __forceinline__ void chunk(const Acc& acc, int c0) {
+#pragma unroll 1
+    for (int j = 0; j < 4; ++j) {
+      const int row = row0 + (j >> 1) * 16 + (j & 1) * 8;
+      float l[2 * HT_NT];
+      float cm = -1e30f;
+#pragma unroll
+      for (int c = 0; c < 2 * HT_NT; ++c) {
+        const int col = c0 + (c >> 1) * 8 + 2 * t + (c & 1);
+        l[c] = col < V ? pick(acc, j, c >> 1, c & 1) * inv_temp : -CUDART_INF_F;
+        cm = fmaxf(cm, l[c]);
+      }
+      const float mj = m[j], mn = fmaxf(mj, cm);
+      float cs = 0.f;
+#pragma unroll
+      for (int c = 0; c < 2 * HT_NT; ++c) cs += __expf(l[c] - mn);
+      s[j] = s[j] * __expf(mj - mn) + cs;
+      m[j] = mn;
+      if (row < R) {
+        float b = best[j], bv = bl[j];
+        int bc = bi[j];
+#pragma unroll
+        for (int c = 0; c < 2 * HT_NT; ++c) {
+          const int col = c0 + (c >> 1) * 8 + 2 * t + (c & 1);
+          if (col < V) {
+            const float pert = l[c] - logf(exp_noise(seed, (uint32_t)row, (uint32_t)col));
+            if (pert > b) {
+              b = pert;
+              bc = col;
+              bv = l[c];
+            }
+          }
+        }
+        best[j] = b;
+        bl[j] = bv;
+        bi[j] = bc;
+      }
+    }
+  }
+
+  // the quad's four states folded by shuffles, once a slice (a tie of the
+  // perturbed logits to the lower column); thread t = 0 stores the row's
+  // slice state
+  __device__ __forceinline__ void finish(float4* part, int* part_col, int slice) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float mj = m[j], sj = s[j], bj = best[j], lj = bl[j];
+      int ij = bi[j];
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float om = __shfl_xor_sync(FULL, mj, off), os = __shfl_xor_sync(FULL, sj, off);
+        const float ob = __shfl_xor_sync(FULL, bj, off), ol = __shfl_xor_sync(FULL, lj, off);
+        const int oi = __shfl_xor_sync(FULL, ij, off);
+        const float mn = fmaxf(mj, om);
+        sj = sj * expf(mj - mn) + os * expf(om - mn);
+        mj = mn;
+        if (ob > bj || (ob == bj && oi < ij)) {
+          bj = ob;
+          ij = oi;
+          lj = ol;
+        }
+      }
+      const int row = row0 + (j >> 1) * 16 + (j & 1) * 8;
+      if (t == 0 && row < R) {
+        part[(size_t)slice * R + row] = make_float4(mj, sj, bj, lj);
+        part_col[(size_t)slice * R + row] = ij;
+      }
+    }
+  }
+};
+
+// K3 (bf16). Grid (row blocks of 32 nw rows, slices of cps chunks).
+__global__ void __launch_bounds__(HT_WARPS * 32, 2)
+head_sample_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                       float4* __restrict__ part, int* __restrict__ part_col, int R, int D,
+                       int V, int cps, float inv_temp, uint32_t seed) {
+  extern __shared__ __align__(16) unsigned char ht_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * (blockDim.x >> 5) * HT_WM, slice = blockIdx.y;
+  const int chunk0 = slice * cps;
+  const int chunk1 = min((V + HT_BN - 1) / HT_BN, chunk0 + cps);
+  SampleEpi epi;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    epi.m[j] = -1e30f;
+    epi.s[j] = 0.f;
+    epi.best[j] = -CUDART_INF_F;
+    epi.bl[j] = 0.f;
+    epi.bi[j] = 0x7fffffff;
+  }
+  epi.row0 = r0 + warp * HT_WM + (lane >> 2);
+  epi.t = lane & 3;
+  epi.R = R;
+  epi.V = V;
+  epi.inv_temp = inv_temp;
+  epi.seed = seed;
+  walk_slice<K3_STAGES>(x, w, R, D, V, r0, chunk0, chunk1, reinterpret_cast<bf16*>(ht_smem),
+                        epi);
+  epi.finish(part, part_col, slice);
+}
+
+// K3's merge, a thread per row, over the slices in order: m = max m_i,
+// s = sum s_i e^(m_i - m), the best perturbed logit by a strict '>' (the
+// slices ascend in column, so the lowest column wins a tie).
+__global__ void __launch_bounds__(256)
+head_sample_merge_kernel(const float4* __restrict__ part, const int* __restrict__ part_col,
+                         int* __restrict__ ids, float* __restrict__ probs, int R, int S) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= R) return;
+  float m = -1e30f;
+  for (int s = 0; s < S; ++s) m = fmaxf(m, part[(size_t)s * R + row].x);
+  float sum = 0.f, best = -CUDART_INF_F, bl = 0.f;
+  int bi = 0;
+  for (int s = 0; s < S; ++s) {
+    const float4 p = part[(size_t)s * R + row];
+    sum += p.y * expf(p.x - m);
+    if (p.z > best) {
+      best = p.z;
+      bl = p.w;
+      bi = part_col[(size_t)s * R + row];
+    }
+  }
+  ids[row] = bi;
+  probs[row] = expf(bl - (m + logf(sum)));
+}
+
+// K4's epilogue: the pre-filter of the thread's 32 logits of a row slot
+// against the row's k-th pair as it stood when the chunk began, and turns
+// of the quad at the row's buffer only when one of its threads has a
+// candidate.
+struct TopkEpi {
+  float* bv;  // the CTA's rows' values, pitch k + 1
+  int* bi;    // their columns
+  int k, rl0, row0, t, R, V;
+  float inv_temp;
+
+  __device__ __forceinline__ void chunk(const Acc& acc, int c0) {
+#pragma unroll 1
+    for (int j = 0; j < 4; ++j) {
+      const int dr = (j >> 1) * 16 + (j & 1) * 8;
+      const int row = row0 + dr;
+      float* rv = bv + (rl0 + dr) * (k + 1);
+      int* ri = bi + (rl0 + dr) * (k + 1);
+      const float kth_v = rv[k - 1];
+      const int kth_i = ri[k - 1];
+      float l[2 * HT_NT];
+      unsigned cand = 0;
+#pragma unroll
+      for (int c = 0; c < 2 * HT_NT; ++c) {
+        const int col = c0 + (c >> 1) * 8 + 2 * t + (c & 1);
+        l[c] = pick(acc, j, c >> 1, c & 1) * inv_temp;
+        if (row < R && col < V && ahead(l[c], col, kth_v, kth_i)) cand |= 1u << c;
+      }
+      unsigned any = cand | __shfl_xor_sync(FULL, cand, 1);
+      any |= __shfl_xor_sync(FULL, any, 2);
+      if (__any_sync(FULL, any != 0)) {
+        for (int turn = 0; turn < 4; ++turn) {
+          if (t == turn && cand) {
+#pragma unroll
+            for (int c = 0; c < 2 * HT_NT; ++c) {
+              if (!((cand >> c) & 1u)) continue;
+              const int col = c0 + (c >> 1) * 8 + 2 * t + (c & 1);
+              const float v = l[c];
+              if (!ahead(v, col, rv[k - 1], ri[k - 1])) continue;
+              int q = k - 1;  // shift the pairs it comes before; the last falls out
+              while (q > 0 && ahead(v, col, rv[q - 1], ri[q - 1])) {
+                rv[q] = rv[q - 1];
+                ri[q] = ri[q - 1];
+                --q;
+              }
+              rv[q] = v;
+              ri[q] = col;
+            }
+          }
+          __syncwarp();
+        }
+      }
+    }
+  }
+};
+
+// K4 (bf16). Grid (row blocks of 32 nw rows, slices of cps chunks); each
+// CTA leaves its rows' top k of the slice, sorted, for the merge.
+__global__ void __launch_bounds__(HT_WARPS * 32, 2)
+head_topk_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                     float* __restrict__ part_v, int* __restrict__ part_i, int R, int D, int V,
+                     int k, int cps, float inv_temp) {
+  extern __shared__ __align__(16) unsigned char ht_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int r0 = blockIdx.x * nw * HT_WM, slice = blockIdx.y;
+  const int chunk0 = slice * cps;
+  const int chunk1 = min((V + HT_BN - 1) / HT_BN, chunk0 + cps);
+  const int BP = k + 1;
+  float* bv = reinterpret_cast<float*>(ht_smem + K4_STAGES * ht_stage_bytes(nw));
+  int* bi = reinterpret_cast<int*>(bv + nw * HT_WM * BP);
+  // a warp's 32 rows are its own: empty slots rank behind every logit
+  for (int i = lane; i < HT_WM * BP; i += 32) {
+    bv[warp * HT_WM * BP + i] = -CUDART_INF_F;
+    bi[warp * HT_WM * BP + i] = 0x7fffffff;
+  }
+  __syncwarp();
+  TopkEpi epi{bv, bi, k, warp * HT_WM + (lane >> 2), r0 + warp * HT_WM + (lane >> 2),
+              lane & 3, R, V, inv_temp};
+  walk_slice<K4_STAGES>(x, w, R, D, V, r0, chunk0, chunk1, reinterpret_cast<bf16*>(ht_smem),
+                        epi);
+  __syncwarp();
+  for (int r = 0; r < HT_WM; ++r) {
+    const int rl = warp * HT_WM + r, row = r0 + rl;
+    if (row >= R) break;
+    const size_t o = ((size_t)slice * R + row) * k;
+    for (int q = lane; q < k; q += 32) {
+      part_v[o + q] = bv[rl * BP + q];
+      part_i[o + q] = bi[rl * BP + q];
+    }
+  }
+}
+
+// K4's merge, a warp per row: lane s holds the head of slice s's sorted
+// list; k times the warp takes the head that comes first (value
+// descending, column ascending) and that lane moves on. Then K4's draw:
+// Philox noise at the k survivors' columns, Gumbel-max with the lowest
+// slot winning a tie, and the probability under the softmax of the k.
+__global__ void __launch_bounds__(MERGE_WARPS * 32)
+head_topk_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part_i,
+                       int* __restrict__ ids, float* __restrict__ probs, int R, int k, int S,
+                       uint32_t seed) {
+  extern __shared__ float merge_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * MERGE_WARPS + warp;
+  if (row >= R) return;  // the whole warp
+  float* mv = merge_smem + warp * 2 * k;
+  int* mi = reinterpret_cast<int*>(mv + k);
+  const size_t base = ((size_t)lane * R + row) * k;
+  int h = 0;
+  float hv = -CUDART_INF_F;
+  int hc = 0x7fffffff;
+  if (lane < S) {
+    hv = part_v[base];
+    hc = part_i[base];
+  }
+  for (int j = 0; j < k; ++j) {
+    float bv = hv;
+    int bc = hc;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(FULL, bv, off);
+      const int oc = __shfl_xor_sync(FULL, bc, off);
+      if (ahead(ov, oc, bv, bc)) {
+        bv = ov;
+        bc = oc;
+      }
+    }
+    if (lane == 0) {
+      mv[j] = bv;
+      mi[j] = bc;
+    }
+    if (lane < S && hc == bc && hv == bv) {  // columns are unique across slices
+      ++h;
+      hv = h < k ? part_v[base + h] : -CUDART_INF_F;
+      hc = h < k ? part_i[base + h] : 0x7fffffff;
+    }
+  }
+  __syncwarp();
+  const float m = mv[0];
+  float best = -CUDART_INF_F, sum = 0.f;
+  int slot = 0x7fffffff;
+  for (int s = lane; s < k; s += 32) {
+    const float l = mv[s];
+    sum += expf(l - m);
+    const float pert = l - logf(exp_noise(seed, (uint32_t)row, (uint32_t)mi[s]));
+    if (pert > best) {
+      best = pert;
+      slot = s;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ob = __shfl_xor_sync(FULL, best, off);
+    const int os = __shfl_xor_sync(FULL, slot, off);
+    if (ob > best || (ob == best && os < slot)) {
+      best = ob;
+      slot = os;
+    }
+    sum += __shfl_xor_sync(FULL, sum, off);
+  }
+  if (lane == 0) {
+    ids[row] = mi[slot];
+    probs[row] = expf(mv[slot] - (m + logf(sum)));
+  }
+}
+
+// The card's SM count, shared memory an SM and the opt-in limit a block,
+// read once a card (host queries cost time next to a short kernel).
+inline cudaError_t card_shape(int& sms, int& smem_per_sm, int& smem_optin) {
+  constexpr int CARDS = 64;
+  static int cached[CARDS][3];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < CARDS && cached[dev][0] > 0) {
+    sms = cached[dev][0];
+    smem_per_sm = cached[dev][1];
+    smem_optin = cached[dev][2];
+    return cudaSuccess;
+  }
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&smem_per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess && dev < CARDS) {
+    cached[dev][1] = smem_per_sm;
+    cached[dev][2] = smem_optin;
+    cached[dev][0] = sms;
+  }
+  return e;
+}
+
+struct HeadPlan {
+  int nw = HT_WARPS, blocks = 0, splits = 1, cps = 1;
+  size_t smem = 0;
+};
+
+// The grid of the bf16 K3 (k = 0) or K4 on the current card: the most
+// warps a CTA whose buffers fit (K4 with a large k takes fewer rows a
+// CTA), then the S slices whose launch ends soonest when the card runs
+// its CTAs in waves (CTAs an SM: 2 by __launch_bounds__, fewer where
+// shared memory says so), each slice walking ceil(chunks / S) chunks;
+// the fewer slices on a tie. S is then cut so that no slice is empty.
+inline cudaError_t head_plan(int R, int V, int k, HeadPlan& p) {
+  int sms = 0, smem_sm = 0, optin = 0;
+  const cudaError_t e = card_shape(sms, smem_sm, optin);
+  if (e != cudaSuccess) return e;
+  p.nw = HT_WARPS;
+  while (p.nw > 1 && ht_smem_bytes(p.nw, k) > (size_t)optin) p.nw >>= 1;
+  p.smem = ht_smem_bytes(p.nw, k);
+  if (p.smem > (size_t)optin) return cudaErrorInvalidValue;
+  const int per_sm = max(1, min(2, smem_sm / (int)(p.smem + 1024)));
+  const long slots = (long)sms * per_sm;
+  p.blocks = (R + p.nw * HT_WM - 1) / (p.nw * HT_WM);
+  const int chunks = (V + HT_BN - 1) / HT_BN;
+  long best_cost = -1;
+  for (int s = 1; s <= HT_MAX_SPLITS && s <= chunks; ++s) {
+    const long waves = ((long)p.blocks * s + slots - 1) / slots;
+    const long cost = waves * ((chunks + s - 1) / s);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      p.splits = s;
+    }
+  }
+  p.cps = (chunks + p.splits - 1) / p.splits;
+  p.splits = (chunks + p.cps - 1) / p.cps;
+  return cudaSuccess;
+}
+
+// Bytes of the slices' states: K3 (m, s, best, its logit) and the
+// column per slice and row; K4 k (value, column) pairs per slice and row.
+inline size_t head_scratch_bytes(int R, int k, const HeadPlan& p) {
+  if (k == 0) return (size_t)p.splits * R * (sizeof(float4) + sizeof(int));
+  return (size_t)p.splits * R * k * (sizeof(float) + sizeof(int));
+}
+
+cudaError_t launch_sample_mma(const void* x, const void* w, void* ids, void* probs,
+                              void* scratch, int R, int D, int V, float inv_temp, uint32_t seed,
+                              cudaStream_t stream) {
+  if (D % 8 != 0) return cudaErrorInvalidValue;
+  if (R == 0) return cudaSuccess;
+  HeadPlan p;
+  cudaError_t e = head_plan(R, V, 0, p);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(head_sample_mma_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (e != cudaSuccess) return e;
+  float4* part = static_cast<float4*>(scratch);
+  int* part_col = reinterpret_cast<int*>(part + (size_t)p.splits * R);
+  head_sample_mma_kernel<<<dim3(p.blocks, p.splits), p.nw * 32, p.smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), part, part_col, R, D, V, p.cps,
+      inv_temp, seed);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  head_sample_merge_kernel<<<(R + 255) / 256, 256, 0, stream>>>(
+      part, part_col, static_cast<int*>(ids), static_cast<float*>(probs), R, p.splits);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_topk_mma(const void* x, const void* w, void* ids, void* probs,
+                            void* scratch, int R, int D, int V, int k, float inv_temp,
+                            uint32_t seed, cudaStream_t stream) {
+  if (D % 8 != 0) return cudaErrorInvalidValue;
+  if (R == 0) return cudaSuccess;
+  HeadPlan p;
+  cudaError_t e = head_plan(R, V, k, p);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(head_topk_mma_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (e != cudaSuccess) return e;
+  float* part_v = static_cast<float*>(scratch);
+  int* part_i = reinterpret_cast<int*>(part_v + (size_t)p.splits * R * k);
+  head_topk_mma_kernel<<<dim3(p.blocks, p.splits), p.nw * 32, p.smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), part_v, part_i, R, D, V, k,
+      p.cps, inv_temp);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  head_topk_merge_kernel<<<(R + MERGE_WARPS - 1) / MERGE_WARPS, MERGE_WARPS * 32,
+                           MERGE_WARPS * 2 * k * sizeof(float), stream>>>(
+      part_v, part_i, static_cast<int*>(ids), static_cast<float*>(probs), R, k, p.splits, seed);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// x (R,D), w (V,D) -> ids (R,) int32, probs (R,) fp32.
-int mebt_head_sample(const void* x, const void* w, void* ids, void* probs,
-                     int R, int D, int V, float inv_temp, unsigned int seed,
-                     int is_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? (int)launch<__nv_bfloat16>(x, w, ids, probs, R, D, V,
-                                              inv_temp, seed, s)
-                 : (int)launch<float>(x, w, ids, probs, R, D, V, inv_temp,
-                                      seed, s);
+// Bytes of scratch the bf16 K3 (k = 0) or K4 takes for R rows of a V
+// vocabulary on the current card: the slices' states; 0 in fp32. *err
+// gets the CUDA status of the plan.
+size_t mebt_head_scratch_bytes(int R, int V, int k, int is_bf16, int* err) {
+  *err = 0;
+  if (!is_bf16 || R == 0) return 0;
+  HeadPlan p;
+  const cudaError_t e = head_plan(R, V, k, p);
+  if (e != cudaSuccess) {
+    *err = (int)e;
+    return 0;
+  }
+  return head_scratch_bytes(R, k, p);
 }
 
-// As above with an exact top-k, 1 <= k <= min(V, 256), before the sample.
+// x (R,D), w (V,D) -> ids (R,) int32, probs (R,) fp32; scratch of
+// mebt_head_scratch_bytes(R, V, 0, is_bf16) bytes.
+int mebt_head_sample(const void* x, const void* w, void* ids, void* probs,
+                     void* scratch, int R, int D, int V, float inv_temp,
+                     unsigned int seed, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? (int)launch_sample_mma(x, w, ids, probs, scratch, R, D, V,
+                                          inv_temp, seed, s)
+                 : (int)launch_fma(x, w, ids, probs, R, D, V, inv_temp, seed, s);
+}
+
+// As above with an exact top-k, 1 <= k <= min(V, 256), before the sample;
+// scratch of mebt_head_scratch_bytes(R, V, k, is_bf16) bytes.
 int mebt_head_topk_sample(const void* x, const void* w, void* ids, void* probs,
-                          int R, int D, int V, int k, float inv_temp,
-                          unsigned int seed, int is_bf16, void* stream) {
+                          void* scratch, int R, int D, int V, int k,
+                          float inv_temp, unsigned int seed, int is_bf16,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k < 1 || k > V || k > 256) return (int)cudaErrorInvalidValue;
-  return is_bf16 ? (int)launch_topk<__nv_bfloat16>(x, w, ids, probs, R, D, V, k,
-                                                   inv_temp, seed, s)
-                 : (int)launch_topk<float>(x, w, ids, probs, R, D, V, k,
-                                           inv_temp, seed, s);
+  return is_bf16 ? (int)launch_topk_mma(x, w, ids, probs, scratch, R, D, V, k,
+                                        inv_temp, seed, s)
+                 : (int)launch_topk_fma(x, w, ids, probs, R, D, V, k, inv_temp,
+                                        seed, s);
 }
 
 // K5: K4's function by the extraction loop, 1 <= k <= min(V, 256).

@@ -1,0 +1,47 @@
+// Tensor-core building blocks shared by attention.cu (K1, K2, K6, K7) and
+// head_sample.cu (K3, K4): 16-byte cp.async into shared memory, ldmatrix
+// and mma.sync m16n8k16 with bf16 operands and fp32 sums, for sm_90a.
+//
+// Fragments follow the PTX layouts of mma.m16n8k16 with lane = 4 g + t:
+// an A fragment (16 x 16) holds rows g and g + 8 at columns 2t, 2t + 1
+// and 2t + 8, 2t + 9; a C fragment (16 x 8, fp32) holds rows g and g + 8
+// at columns 2t, 2t + 1.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; zeros where !in
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a b, 16 x 8 x 16, bf16 operands, fp32 sums
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}

@@ -22,6 +22,13 @@ noise is Philox4x32-10 keyed on (seed, row, vocabulary column);
 PyTorch, so each kernel and its plain version (`*_ref`) agree on the samples for one
 seed, up to near-ties of the logits.
 
+In bf16, K3 and K4 multiply on the tensor cores (mma.sync, fp32 sums)
+over S slices of the vocabulary, S picked from the card's SM count so
+that the CTAs fill it; each slice leaves its state in scratch that the
+wrapper allocates and a merge kernel folds the slices in order (one
+launch of the pair counts once). fp32 keeps the FMA kernels, for the
+parity checks; K5 keeps them in both types.
+
 A wrapper runs its plain version only for tensors on the CPU; a CUDA
 tensor launches the kernel or the call raises. `<wrapper>.launches`
 counts launches.
@@ -43,21 +50,23 @@ from mebt_tpu_torch.ops.philox import (  # noqa: F401  (re-exported)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
+    "mebt_head_scratch_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, ctypes.POINTER(_I)]),
     "mebt_head_sample": (
         ctypes.c_int,
-        [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, ctypes.c_uint, _I, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, ctypes.c_uint, _I, _P],
     ),
     "mebt_head_topk_sample": (
         ctypes.c_int,
-        [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, ctypes.c_uint, _I, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, ctypes.c_uint, _I, _P],
     ),
     "mebt_head_topk_sample_v1": (
         ctypes.c_int,
         [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, ctypes.c_uint, _I, _P],
     ),
 }
-# K4's and K5's (64, k) buffers of values and indices live in shared
-# memory; K5's shift also keeps k / 32 pairs a lane in registers
+# K4's buffers of k (value, column) pairs a row live in shared memory (the
+# bf16 kernel takes fewer rows a CTA for a large k); K5's shift also keeps
+# k / 32 pairs a lane in registers
 MAX_TOPK = 256
 
 
@@ -94,27 +103,51 @@ def head_topk_sample_ref(x, w, k: int, temperature: float, noise=None, *,
     return cols.gather(-1, j)[:, 0].to(torch.int32), probs
 
 
-def _launch(entry: str, x, w, seed: int, temperature: float, *extra: int):
+def _aligned(t):
+    """t contiguous, its data at a 16-byte boundary (a view into storage
+    may start between)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(entry: str, x, w, seed: int, temperature: float, *extra: int,
+            sliced: bool = True):
     """Check x (R, D) and w (V, D), allocate the outputs and call one of
-    the library's entry points; `extra` are its integers after V."""
+    the library's entry points; `extra` are its integers after V. The
+    `sliced` ones (K3, K4) take scratch for the slices' states in bf16,
+    whose tensor-core kernels copy 16-byte granules: D is zero-padded to
+    a multiple of 8 there, which leaves every logit as it was."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1]:
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do not chain")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dtype {x.dtype} not taken by the kernel")
     if w.device != x.device:
         raise ValueError("x and w must be on one device")
-    R, D = x.shape
-    V = w.shape[0]
+    R, V = x.shape[0], w.shape[0]
+    bf16 = int(x.dtype == torch.bfloat16)
     x = x.contiguous()
     w = w.to(x.dtype).contiguous()
+    lib = _build.load("head_sample", _SIGNATURES)
+    args = []
+    if sliced:
+        if bf16:
+            pad = -x.shape[1] % 8
+            if pad:
+                x = torch.nn.functional.pad(x, (0, pad))
+                w = torch.nn.functional.pad(w, (0, pad))
+            x, w = _aligned(x), _aligned(w)
+        err = ctypes.c_int(0)
+        n = lib.mebt_head_scratch_bytes(R, V, extra[0] if extra else 0, bf16, ctypes.byref(err))
+        _build.check(err.value, f"{entry} (plan)")
+        scratch = torch.empty(n, device=x.device, dtype=torch.uint8) if n else None
+        args.append(None if scratch is None else ctypes.c_void_p(scratch.data_ptr()))
     ids = torch.empty(R, device=x.device, dtype=torch.int32)
     probs = torch.empty(R, device=x.device, dtype=torch.float32)
-    lib = _build.load("head_sample", _SIGNATURES)
     status = getattr(lib, entry)(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
-        ctypes.c_void_p(ids.data_ptr()), ctypes.c_void_p(probs.data_ptr()),
-        R, D, V, *extra, 1.0 / (float(temperature) + 1e-8), int(seed) & 0xFFFFFFFF,
-        int(x.dtype == torch.bfloat16), _build.stream_ptr(x),
+        ctypes.c_void_p(ids.data_ptr()), ctypes.c_void_p(probs.data_ptr()), *args,
+        R, x.shape[1], V, *extra, 1.0 / (float(temperature) + 1e-8), int(seed) & 0xFFFFFFFF,
+        bf16, _build.stream_ptr(x),
     )
     _build.check(status, entry)
     return ids, probs
@@ -155,7 +188,7 @@ def head_topk_sample_v1(x, w, seed: int, k: int, temperature: float = 1.0):
     k = min(int(k), w.shape[0])
     if not 1 <= k <= MAX_TOPK:
         raise ValueError(f"top-k {k} not taken by the kernel (1..{MAX_TOPK})")
-    out = _launch("mebt_head_topk_sample_v1", x, w, seed, temperature, k)
+    out = _launch("mebt_head_topk_sample_v1", x, w, seed, temperature, k, sliced=False)
     head_topk_sample_v1.launches += 1
     return out
 
