@@ -4,13 +4,16 @@
 
 1. prints the card's name and power limit, builds the kernels (K1-K9)
    from mebt_tpu_torch/csrc with nvcc for sm_90a, and counts the
-   tensor-core instructions (HMMA, HGMMA) of every attention kernel in
-   `cuobjdump -sass` of the built library: each bf16 K2 / K7 kernel must
-   have some, and no bf16 FMA K2 / K7 kernel may be built;
+   tensor-core instructions (HMMA, HGMMA) of every attention and head
+   kernel in `cuobjdump -sass` of the built libraries: each bf16 K1 / K2
+   / K3 / K4 / K6 / K7 kernel must have some, and no bf16 FMA K1 / K2 /
+   K3 / K4 / K6 / K7 kernel may be built;
 2. holds each kernel against its plain PyTorch version on the card, at
    the shapes of the STL-16f decode (batch 16) and of the STL-128f
-   decode (batch 2) in bf16 (K5, which no path runs, at K4's shapes,
-   also against K4's ids), the attention backward kernels K6 and K7 at
+   decode (batch 2) in bf16 (K3 and K4 also at the smaller segments'
+   rows, at 256 rows split over the most vocabulary slices, and on exact
+   ties; K5, which no path runs, at K4's shapes, also against K4's ids),
+   the attention backward kernels K6 and K7 at
    the shapes of STL-16f training (batch 6) and STL-128f training (batch
    5) in fp32 and bf16, dropout (K8) in all four attention kernels, and
    the nearest-code search (K9) at the encoder's shapes of both training
@@ -28,7 +31,8 @@
    linear), 128x128x128 pixels each: every attention call through
    K1/K2, every head sample of the MaskGIT phase through K4, none
    through K3; then times bootstrap, MaskGIT phase and VQGAN decode
-   each alone;
+   each alone (every decode profile must show no FMA attention or head
+   kernel);
 5. revises each recipe's MaskGIT codes as its draft-and-revise does
    (`dnr16`, `dnr128`: dnr_generate with the draft, M 2, n_revise 2,
    revise_t 0.7, then VQGAN decode): every attention call through
@@ -329,17 +333,51 @@ def check_k2(dev, gen):
     return rows
 
 
+def head_inputs(dev, gen, R, V, D, ties):
+    """bf16 x (R, D) and w (V, D). ties: entries in {-1, 0, 1} / 4 and W
+    made of 40 distinct rows, so every fp32 sum is exact on both sides
+    and equal logits are everywhere (across slices too): the kernels'
+    ids must be the plain version's, the lowest column first in order."""
+    if ties:
+        x = (torch.randint(-1, 2, (R, D), device=dev, generator=gen) / 4).to(torch.bfloat16)
+        base = (torch.randint(-1, 2, (40, D), device=dev, generator=gen) / 4).to(torch.bfloat16)
+        return x, base[torch.randint(0, 40, (V,), device=dev, generator=gen)]
+    x = torch.randn(R, D, device=dev, generator=gen).to(torch.bfloat16)
+    return x, (0.02 * torch.randn(V, D, device=dev, generator=gen)).to(torch.bfloat16)
+
+
+def head_slices(R, V, k=0) -> int:
+    """The vocabulary slices the bf16 K3 (k = 0) or K4 takes on this card."""
+    from mebt_tpu_torch.ops import _build
+    from mebt_tpu_torch.ops.head_sample import _SIGNATURES
+
+    import ctypes
+
+    err = ctypes.c_int(0)
+    n = _build.load("head_sample", _SIGNATURES).mebt_head_scratch_bytes(R, V, k, 1,
+                                                                       ctypes.byref(err))
+    return n // (R * (k * 8 if k else 20))
+
+
+# (case, rows, vocabulary, exact ties, timed against plain and library).
+# R = 16 x bucket of the 16f decode: 16384 (its first segment), 4096 (its
+# last); 8192, the D&R passes' K3; 256 rows, which the card splits into
+# the most slices; rows and a vocab that are no multiple of the 128-row
+# block and the 128-column chunk; exact ties.
+K3_CASES = (("step1", 16384, 16384, False, True), ("dnr_r8192", 8192, 16384, False, True),
+            ("last_seg_r4096", 4096, 16384, False, True),
+            ("many_slices", 256, 16384, False, False), ("ragged", 1000, 16100, False, False),
+            ("ties", 2048, 16384, True, False))
+
+
 def check_k3(dev, gen):
     from mebt_tpu_torch.ops.head_sample import head_sample, head_sample_ref
     from mebt_tpu_torch.ops.sampling import sample_tokens
 
-    B, D, V = BATCH, 1024, 16384
+    D = 1024
     rows = []
-    # R = B * 1024: the first segment's bucket; then rows and a vocab
-    # that are no multiple of the 64-row tile and the 64-column chunk
-    for case, R, Vc in (("step1", B * 1024, V), ("ragged", 1000, 16100)):
-        x = torch.randn(R, D, device=dev, generator=gen).to(torch.bfloat16)
-        w = (0.02 * torch.randn(Vc, D, device=dev, generator=gen)).to(torch.bfloat16)
+    for case, R, Vc, ties, timed_all in K3_CASES:
+        x, w = head_inputs(dev, gen, R, Vc, D, ties)
         logits = x.float() @ w.float().t()
         # temperature 1: same Philox draws on both sides -> same ids but
         # at near-ties; chosen_prob = plain softmax at the sampled id
@@ -358,21 +396,29 @@ def check_k3(dev, gen):
         torch.cuda.synchronize()
         require(bool(((ids >= 0) & (ids < Vc)).all()), f"K3 {case}: id out of range")
         require(rel <= 1e-3, f"K3 {case}: chosen_prob rel err {rel}")
-        require(differ <= max(2, R // 10000), f"K3 {case}: {differ} ids differ from plain")
-        require(g_gap <= 1e-4, f"K3 {case}: greedy mismatch with logit gap {g_gap}")
+        if ties:  # exact sums: the plain version's ids at both temperatures
+            differ += (g_ids != head_sample_ref(x, w, 0.0, seed=99)[0]).sum().item()
+            require(differ == 0, f"K3 {case}: {differ} ids differ from plain on exact ties")
+        else:
+            require(differ <= max(2, R // 10000), f"K3 {case}: {differ} ids differ from plain")
+            require(g_gap <= 1e-4, f"K3 {case}: greedy mismatch with logit gap {g_gap}")
         bnd, by = bound_ms(nbytes(x, w, ids, probs), 2.0 * R * D * Vc, torch.bfloat16)
         row = dict(
-            case=case, shape=[R, D, Vc], max_abs_err=err, tol=1e-3 * p_plain.max().item(),
-            rel_err=rel, ids_differing_from_plain=differ, greedy_near_ties=int(g_miss.sum()),
+            case=case, shape=[R, D, Vc], slices=head_slices(R, Vc), max_abs_err=err,
+            tol=1e-3 * p_plain.max().item(), rel_err=rel, ids_differing_from_plain=differ,
+            greedy_near_ties=int(g_miss.sum()),
             ms=cuda_ms(lambda: head_sample(x, w, 7, 1.0)), bound_ms=bnd, bound_by=by,
         )
-        if case == "step1":
+        row["ms_per_1k_rows"] = row["ms"] / R * 1000
+        if timed_all:
+            del logits, p_plain, gap
             row["plain_ms"] = cuda_ms(lambda: head_sample_ref(x, w, 1.0, seed=7), reps=3)
             row["library_ms"] = cuda_ms(
                 lambda: sample_tokens(torch.matmul(x, w.t()), 1.0, generator=gen), reps=5
             )
+        else:
+            del logits
         rows.append(row)
-        del logits
 
     # distribution: one row repeated, small vocab, temperature 1
     Vs, Rs = 16, 1 << 16
@@ -389,16 +435,25 @@ def check_k3(dev, gen):
     return rows
 
 
-TOPK_CASES = (("step1_128f", BATCH128 * 8192, 16384), ("ragged", 1000, 16100),
-              ("k_ge_V", 1000, 24))
+# (case, rows, vocabulary, exact ties, timed against plain and library).
+# R = 2 x bucket of the 128f decode: 16384 (its first segment), 6400 and
+# 3328 (its last two); 256 rows (the most slices); rows and a vocab that
+# are no multiple of the 128-row block and the 128-column chunk; a vocab
+# smaller than k, where k becomes V; exact ties, where the k-th value is
+# shared by columns in several slices.
+TOPK_CASES = (("step1_128f", BATCH128 * 8192, 16384, False, True),
+              ("seg_r6400", BATCH128 * 3200, 16384, False, True),
+              ("last_seg_r3328", BATCH128 * 1664, 16384, False, True),
+              ("many_slices", 256, 16384, False, False), ("ragged", 1000, 16100, False, False),
+              ("k_ge_V", 1000, 24, False, False), ("ties", 2048, 16384, True, False))
 
 
 def check_topk(dev, gen, name: str):
     """K4 (`head_topk_sample`) or K5 (`head_topk_sample_v1`), the same
-    function, against the plain version. R = 2 * 8192: the 128f decode's
-    largest bucket at batch 2; then rows and a vocab that are no multiple
-    of the 64-row tile and the 64-column chunk; a vocab smaller than k,
-    where k becomes V. K5 must also give K4's ids at the same seed."""
+    function, against the plain version at TOPK_CASES. K5 must also give
+    K4's ids at the same seed (up to near-ties: K4 multiplies on the
+    tensor cores, K5 in fp32 FMA); K5, which no path runs, is held to
+    its plain and library times at R 16384 only, in turns with K4."""
     from mebt_tpu_torch.ops.head_sample import (
         head_topk_sample, head_topk_sample_ref, head_topk_sample_v1)
     from mebt_tpu_torch.ops.sampling import sample_topk_tokens
@@ -406,9 +461,8 @@ def check_topk(dev, gen, name: str):
     kernel = head_topk_sample if name == "K4" else head_topk_sample_v1
     D, K = 1024, 32
     rows = []
-    for case, R, V in TOPK_CASES:
-        x = torch.randn(R, D, device=dev, generator=gen).to(torch.bfloat16)
-        w = (0.02 * torch.randn(V, D, device=dev, generator=gen)).to(torch.bfloat16)
+    for case, R, V, ties, timed_all in TOPK_CASES:
+        x, w = head_inputs(dev, gen, R, V, D, ties)
         logits = x.float() @ w.float().t()
         top = torch.topk(logits, min(K, V), dim=-1).values  # the exact top-k, fp32
         lse_k = torch.logsumexp(top, dim=-1)
@@ -436,8 +490,12 @@ def check_topk(dev, gen, name: str):
         require(bool(((ids >= 0) & (ids < V)).all()), f"{name} {case}: id out of range")
         require(below_kth <= 1e-4, f"{name} {case}: an id lies {below_kth} below the k-th logit")
         require(rel <= 1e-3, f"{name} {case}: chosen_prob rel err {rel}")
-        require(differ <= allow, f"{name} {case}: {differ} ids differ from plain")
-        require(g_gap <= 1e-4, f"{name} {case}: greedy mismatch with logit gap {g_gap}")
+        if ties:  # exact sums: the plain version's ids, so its top-k sets
+            differ += (g_ids != head_topk_sample_ref(x, w, K, 0.0, seed=99)[0]).sum().item()
+            require(differ == 0, f"{name} {case}: {differ} ids differ from plain on exact ties")
+        else:
+            require(differ <= allow, f"{name} {case}: {differ} ids differ from plain")
+            require(g_gap <= 1e-4, f"{name} {case}: greedy mismatch with logit gap {g_gap}")
         bnd, by = bound_ms(nbytes(x, w, ids, probs), 2.0 * R * D * V, torch.bfloat16)
         row = dict(
             case=case, shape=[R, D, V], k=min(K, V), max_abs_err=err,
@@ -445,29 +503,30 @@ def check_topk(dev, gen, name: str):
             max_gap_below_kth=below_kth, greedy_near_ties=int(g_miss.sum()),
             bound_ms=bnd, bound_by=by,
         )
-        if name == "K5":
+        if name == "K4":
+            row["slices"] = head_slices(R, V, min(K, V))
+        else:
             k4_ids, _ = head_topk_sample(x, w, 1234, K, 1.0)
             k4_g_ids, _ = head_topk_sample(x, w, 99, K, 0.0)
             vs_k4 = (ids != k4_ids).sum().item() + (g_ids != k4_g_ids).sum().item()
             require(vs_k4 <= allow, f"K5 {case}: {vs_k4} ids differ from K4's at one seed")
             row["ids_differing_from_k4"] = vs_k4
-        if case == "step1_128f":
-            del top, lse_k, p_plain, gap
-            # in turns on one card: K4, K5, K5, K4 when both are timed
-            if name == "K5":
-                k4_a = cuda_ms(lambda: head_topk_sample(x, w, 7, K, 1.0))
+        del top, lse_k, p_plain, gap, logits
+        if name == "K5" and case == "step1_128f":
+            # in turns on one card: K4, K5, K5, K4
+            k4_a = cuda_ms(lambda: head_topk_sample(x, w, 7, K, 1.0))
             row["ms"] = cuda_ms(lambda: kernel(x, w, 7, K, 1.0))
-            if name == "K5":
-                row["ms_again"] = cuda_ms(lambda: kernel(x, w, 7, K, 1.0))
-                row["k4_ms"] = [k4_a, cuda_ms(lambda: head_topk_sample(x, w, 7, K, 1.0))]
+            row["ms_again"] = cuda_ms(lambda: kernel(x, w, 7, K, 1.0))
+            row["k4_ms"] = [k4_a, cuda_ms(lambda: head_topk_sample(x, w, 7, K, 1.0))]
+        else:
+            row["ms"] = cuda_ms(lambda: kernel(x, w, 7, K, 1.0))
+        row["ms_per_1k_rows"] = row["ms"] / R * 1000
+        if timed_all and (name == "K4" or case == "step1_128f"):
             row["plain_ms"] = cuda_ms(lambda: head_topk_sample_ref(x, w, K, 1.0, seed=7), reps=3)
             row["library_ms"] = cuda_ms(
                 lambda: sample_topk_tokens(torch.matmul(x, w.t()), K, 1.0, generator=gen), reps=5
             )
-        else:
-            row["ms"] = cuda_ms(lambda: kernel(x, w, 7, K, 1.0))
         rows.append(row)
-        del logits
 
     # distribution: one row repeated, small vocab, temperature 1; the
     # frequencies follow the softmax over the top 16 and never leave it
@@ -1213,13 +1272,15 @@ def span_kernels(prof, span: str) -> list[list[tuple[str, float]]]:
 
 
 # The profile's kernel groups, by substrings of the kernels' names: the
-# bf16 K1, K2, K6 and K7 run the tensor-core kernels (`*_mma_kernel`, and
-# K1's split merge), fp32 the FMA ones (in the parity checks only, which
+# bf16 K1, K2, K3, K4, K6 and K7 run the tensor-core kernels
+# (`*_mma_kernel`, and the merges of K1's splits and of K3's and K4's
+# vocabulary slices), fp32 the FMA ones (in the parity checks only, which
 # no profile covers; fp32 K7's dk/dv pass is K6's `attn_bwd_dkdv_kernel`).
 PROFILE_GROUPS = {
     "K1": ("smallq_kernel", "smallq_fwd_mma_kernel", "smallq_merge_kernel"),
     "K2": ("largeq_kernel", "largeq_fwd_mma_kernel"),
-    "K3": ("head_sample_kernel",), "K4": ("head_topk_sample_kernel",),
+    "K3": ("head_sample_kernel", "head_sample_mma_kernel", "head_sample_merge_kernel"),
+    "K4": ("head_topk_sample_kernel", "head_topk_mma_kernel", "head_topk_merge_kernel"),
     "K5": ("head_topk_sample_v1_kernel",),
     "K6_dq": ("smallq_bwd_dq_kernel", "smallq_bwd_dq_mma_kernel"),
     "K6_dkdv": ("attn_bwd_dkdv_kernel", "smallq_bwd_dkdv_mma_kernel"),
@@ -1233,6 +1294,10 @@ FMA_ATTENTION = ("largeq_kernel", "largeq_bwd_dq_kernel", "smallq_kernel",
 TENSOR_CORE_KERNELS = ("largeq_fwd_mma_kernel", "largeq_bwd_dq_mma_kernel",
                        "largeq_bwd_dkdv_mma_kernel", "smallq_fwd_mma_kernel",
                        "smallq_bwd_dq_mma_kernel", "smallq_bwd_dkdv_mma_kernel")
+# the FMA K3 / K4 kernels, which only fp32 calls (the parity checks) may
+# launch, and the bf16 K3 / K4 kernels, whose SASS must hold HMMA or HGMMA
+FMA_HEAD = ("head_sample_kernel", "head_topk_sample_kernel")
+TENSOR_CORE_HEAD = ("head_sample_mma_kernel", "head_topk_mma_kernel")
 
 
 def kernel_table(prof, span: str | None = None) -> list[tuple[str, float, int]]:
@@ -1308,10 +1373,17 @@ def _kernel_label(name: str) -> str:
     return name
 
 
+def _bf16_instances(counts, names) -> list[str]:
+    return [n for n in counts if any(f in n for f in names)
+            and ("bfloat16" in n or "13__nv_bfloat16" in n)]
+
+
 def check_sass():
-    """The tensor-core instructions of every attention kernel; each
-    instantiation of the bf16 K1 / K2 / K6 / K7 kernels must have some,
-    and no bf16 instantiation of the FMA attention kernels may exist."""
+    """The tensor-core instructions of every attention and head kernel;
+    each instantiation of the bf16 K1 / K2 / K6 / K7 kernels (two each:
+    with and without dropout) and of the bf16 K3 / K4 kernels must have
+    some, and no bf16 instantiation of an FMA attention, K3 or K4 kernel
+    may exist (K5 keeps its FMA tile in both types)."""
     from mebt_tpu_torch.ops import _build
 
     counts = sass_tensor_core_counts(_build.library_path("attention"))
@@ -1319,10 +1391,17 @@ def check_sass():
         inst = {n: c for n, c in counts.items() if name in n}
         require(len(inst) == 2 and all(c > 0 for c in inst.values()),
                 f"SASS: {name} instantiations {inst} (need 2, each with HMMA/HGMMA)")
-    fma_bf16 = [n for n in counts if any(f in n for f in FMA_ATTENTION)
-                and ("bfloat16" in n or "13__nv_bfloat16" in n)]
+    fma_bf16 = _bf16_instances(counts, FMA_ATTENTION)
     require(not fma_bf16, f"SASS: bf16 FMA attention kernels still built: {fma_bf16}")
-    return dict(phase="sass", library="attention", tensor_core_instructions=counts)
+    head = sass_tensor_core_counts(_build.library_path("head_sample"))
+    for name in TENSOR_CORE_HEAD:
+        inst = {n: c for n, c in head.items() if name in n}
+        require(len(inst) >= 1 and all(c > 0 for c in inst.values()),
+                f"SASS: {name} instantiations {inst} (each needs HMMA/HGMMA)")
+    fma_bf16 = _bf16_instances(head, FMA_HEAD)
+    require(not fma_bf16, f"SASS: bf16 FMA K3 / K4 kernels still built: {fma_bf16}")
+    return dict(phase="sass", library="attention", tensor_core_instructions=counts,
+                head_sample_tensor_core_instructions=head)
 
 
 def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
@@ -1347,9 +1426,9 @@ def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
         json.dump([dict(name=n, ms=ms, calls=c) for n, ms, c in table], f, indent=1)
     out = {g: sum(ms for n, ms, _ in table if any(key in n for key in keys))
            for g, keys in PROFILE_GROUPS.items()}
-    # every profiled path runs in bf16: no FMA attention kernel may show
-    fma = [n for n, _, _ in table if any(key in n for key in FMA_ATTENTION)]
-    require(not fma, f"{name}: bf16 attention ran the FMA kernels: {fma}")
+    # every profiled path runs in bf16: no FMA attention or head kernel may show
+    fma = [n for n, _, _ in table if any(key in n for key in FMA_ATTENTION + FMA_HEAD)]
+    require(not fma, f"{name}: bf16 attention or head sample ran the FMA kernels: {fma}")
     busy = sum(ms for _, ms, _ in table)
     out["other"] = busy - sum(out.values())
     out.update(device_busy_ms=busy, wall_ms=wall_ms, idle_share=1.0 - busy / wall_ms,

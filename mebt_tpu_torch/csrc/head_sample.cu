@@ -14,14 +14,15 @@
 //   mebt_tpu/ops/head_sample_pallas.py:fused_head_topk_sample_v2
 //   (_head_topk_sample_v2_kernel).
 // Same product; per row it keeps the k largest logits seen so far as a
-// sorted buffer of (value, column) pairs in shared memory. A logit is
-// compared with the row's current k-th pair and inserted only when it
-// comes before it. The order is total: value descending, column
-// ascending, so of two equal logits the lower column ranks first and the
-// buffer's content does not depend on the order in which columns arrive.
-// Every logit of the row is held against the buffer, and an insertion
-// pushes out exactly the last pair, so after the last column the buffer
-// IS the row's top k: there is no per-chunk candidate limit that could
+// buffer of (value, column) pairs in shared memory. A logit is compared
+// with the row's current k-th pair and enters only when it comes before
+// it. The order is total: value descending, column ascending, so of two
+// equal logits the lower column ranks first and the buffer's content
+// does not depend on the order in which columns arrive. Every logit of
+// the row is held against the buffer, and an entry pushes out exactly the
+// k-th pair, so after the last column the buffer IS the row's top k
+// (fp32: kept sorted by insertion; bf16: unsorted, the k-th pair tracked,
+// sorted once at the end): there is no per-chunk candidate limit that could
 // overflow, hence no overflow flag and no fallback (the TPU kernel's
 // top-m extraction per slice and its flag work around a compiler that
 // cannot pipeline a data-dependent loop; a GPU thread can just branch).
@@ -59,8 +60,10 @@
 // column). K4's epilogue: per thread and row the pre-filter against the
 // row's k-th pair as it stood when the chunk began (the k-th pair only
 // moves ahead, so nothing that can still enter is dropped); only when a
-// quad holds a candidate do its four threads take turns at the row's
-// buffer, with __syncwarp() between turns.
+// quad holds a candidate does the warp, converged, walk the candidates:
+// one that still comes before the k-th fills an empty slot or replaces
+// the k-th, and the quad finds the new k-th pair (k / 4 slots a thread,
+// two shuffles); at the slice's end each pair's rank gives its place.
 // The grid is (row blocks) x (S vocabulary slices of whole chunks); the
 // host picks S from the card's SM count (read once) so that the CTAs
 // fill the card at every R the decode runs (R from 3328 to 16384). Each
@@ -574,8 +577,9 @@ constexpr int HT_BK = 64;          // depth a stage
 constexpr int HT_PITCH = 72;       // bf16 a shared row: 144 B, so the 8 rows an
                                    // ldmatrix reads fall in distinct banks
 constexpr int HT_MAX_SPLITS = 32;  // K4's merge holds one slice a lane
-constexpr int K3_STAGES = 3;
-constexpr int K4_STAGES = 2;       // leaves room for the top-k buffers
+constexpr int HT_STAGES = 2;       // ring depth: three stages left L1 too small for the
+                                   // epilogues' local arrays (K3 4% slower, H100)
+constexpr int K4_WARMUP = 3;       // chunks a K4 slice's start costs (head_plan)
 constexpr int MERGE_WARPS = 8;
 
 using Acc = float[2][HT_NT][4];
@@ -589,9 +593,8 @@ __host__ __device__ inline size_t ht_stage_bytes(int nw) {
 // buffers of k (value, column) pairs a row, pitch k + 1 so that the
 // eight rows a warp's quads own fall in different banks.
 inline size_t ht_smem_bytes(int nw, int k) {
-  if (k == 0) return K3_STAGES * ht_stage_bytes(nw);
-  return K4_STAGES * ht_stage_bytes(nw) +
-         (size_t)nw * HT_WM * (k + 1) * (sizeof(float) + sizeof(int));
+  return HT_STAGES * ht_stage_bytes(nw) +
+         (size_t)nw * HT_WM * (k ? k + 1 : 0) * (sizeof(float) + sizeof(int));
 }
 
 // A thread's accumulator at row slot j = 2 mt + h (row g + 8 h + 16 mt of
@@ -607,7 +610,7 @@ __device__ __forceinline__ float pick(const Acc& acc, int j, int nt, int e) {
 // 128-column chunk at a time: epi.chunk(acc, c0) reads each finished
 // chunk from the accumulator fragments while the next chunk's first
 // stages load. Every thread of the CTA calls it.
-template <int STAGES, typename Epi>
+template <typename Epi>
 __device__ __forceinline__ void walk_slice(const bf16* __restrict__ x,
                                            const bf16* __restrict__ w, int R, int D, int V,
                                            int r0, int chunk0, int chunk1, bf16* ring,
@@ -622,7 +625,7 @@ __device__ __forceinline__ void walk_slice(const bf16* __restrict__ x,
   // beyond R, V and D
   auto load = [&](int it) {
     const int c0 = (chunk0 + it / ksteps) * HT_BN, k0 = (it % ksteps) * HT_BK;
-    bf16* st = ring + (size_t)(it % STAGES) * stage;
+    bf16* st = ring + (size_t)(it % HT_STAGES) * stage;
     for (int i = tid; i < (rows + HT_BN) * (HT_BK / 8); i += nthr) {
       const int r = i >> 3, kk = k0 + (i & 7) * 8;
       const bool is_x = r < rows;
@@ -642,18 +645,18 @@ __device__ __forceinline__ void walk_slice(const bf16* __restrict__ x,
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
 #pragma unroll
-  for (int p = 0; p < STAGES - 1; ++p) {
+  for (int p = 0; p < HT_STAGES - 1; ++p) {
     if (p < n_iter) load(p);
     cp_async_commit();
   }
   const int a_off = (warp * HT_WM + (lane & 15)) * HT_PITCH + (lane >> 4) * 8;
   const int b_off = (rows + (lane & 7) + (lane >> 4) * 8) * HT_PITCH + ((lane >> 3) & 1) * 8;
   for (int it = 0; it < n_iter; ++it) {
-    cp_async_wait<STAGES - 2>();
+    cp_async_wait<HT_STAGES - 2>();
     __syncthreads();  // stage `it` has landed for all; the slot of it - 1 is free
-    if (it + STAGES - 1 < n_iter) load(it + STAGES - 1);
+    if (it + HT_STAGES - 1 < n_iter) load(it + HT_STAGES - 1);
     cp_async_commit();
-    const bf16* st = ring + (size_t)(it % STAGES) * stage;
+    const bf16* st = ring + (size_t)(it % HT_STAGES) * stage;
 #pragma unroll
     for (int kc = 0; kc < HT_BK / 16; ++kc) {
       uint32_t a0[4], a1[4];
@@ -712,7 +715,9 @@ struct SampleEpi {
       if (row < R) {
         float b = best[j], bv = bl[j];
         int bc = bi[j];
-#pragma unroll
+        // two columns a turn: the loop unrolled 32 times with Philox inline
+        // ran 4% slower (instruction fetch; scripts/head_sample_variants.py)
+#pragma unroll 2
         for (int c = 0; c < 2 * HT_NT; ++c) {
           const int col = c0 + (c >> 1) * 8 + 2 * t + (c & 1);
           if (col < V) {
@@ -787,7 +792,7 @@ head_sample_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   epi.V = V;
   epi.inv_temp = inv_temp;
   epi.seed = seed;
-  walk_slice<K3_STAGES>(x, w, R, D, V, r0, chunk0, chunk1, reinterpret_cast<bf16*>(ht_smem),
+  walk_slice(x, w, R, D, V, r0, chunk0, chunk1, reinterpret_cast<bf16*>(ht_smem),
                         epi);
   epi.finish(part, part_col, slice);
 }
@@ -817,15 +822,26 @@ head_sample_merge_kernel(const float4* __restrict__ part, const int* __restrict_
   probs[row] = expf(bl - (m + logf(sum)));
 }
 
-// K4's epilogue: the pre-filter of the thread's 32 logits of a row slot
-// against the row's k-th pair as it stood when the chunk began, and turns
-// of the quad at the row's buffer only when one of its threads has a
-// candidate.
+// K4's epilogue. A row's buffer holds its k best (value, column) pairs of
+// the slice so far, unsorted; its four quad threads keep, in registers,
+// the count of filled slots and the worst pair (the k-th, and its slot).
+// Per chunk a thread holds its 32 logits of a row against that k-th pair
+// as it stood when the chunk began (it only moves ahead, so nothing that
+// can still enter is dropped). Only when a quad has a candidate does the
+// warp walk the candidates, each broadcast from its thread to the quad:
+// one that still comes before the k-th fills the next empty slot or
+// replaces the k-th, and then the quad finds the new worst pair (k / 4
+// slots a thread, two shuffles). Every warp-wide step runs converged: a
+// full-warp shuffle inside one quad's branch made the first version of
+// this loop ten times slower than the tile. After the slice each row's k
+// pairs are ranked under the total order and stored sorted for the merge.
 struct TopkEpi {
   float* bv;  // the CTA's rows' values, pitch k + 1
   int* bi;    // their columns
-  int k, rl0, row0, t, R, V;
+  int k, rl0, row0, t, qbase, R, V;
   float inv_temp;
+  float kv[4];  // per row slot: the k-th pair, its slot, the filled slots
+  int ki[4], ks[4], cnt[4];
 
   __device__ __forceinline__ void chunk(const Acc& acc, int c0) {
 #pragma unroll 1
@@ -834,8 +850,8 @@ struct TopkEpi {
       const int row = row0 + dr;
       float* rv = bv + (rl0 + dr) * (k + 1);
       int* ri = bi + (rl0 + dr) * (k + 1);
-      const float kth_v = rv[k - 1];
-      const int kth_i = ri[k - 1];
+      float kth_v = kv[j];
+      int kth_i = ki[j];
       float l[2 * HT_NT];
       unsigned cand = 0;
 #pragma unroll
@@ -844,29 +860,89 @@ struct TopkEpi {
         l[c] = pick(acc, j, c >> 1, c & 1) * inv_temp;
         if (row < R && col < V && ahead(l[c], col, kth_v, kth_i)) cand |= 1u << c;
       }
-      unsigned any = cand | __shfl_xor_sync(FULL, cand, 1);
-      any |= __shfl_xor_sync(FULL, any, 2);
-      if (__any_sync(FULL, any != 0)) {
-        for (int turn = 0; turn < 4; ++turn) {
-          if (t == turn && cand) {
-#pragma unroll
-            for (int c = 0; c < 2 * HT_NT; ++c) {
-              if (!((cand >> c) & 1u)) continue;
-              const int col = c0 + (c >> 1) * 8 + 2 * t + (c & 1);
-              const float v = l[c];
-              if (!ahead(v, col, rv[k - 1], ri[k - 1])) continue;
-              int q = k - 1;  // shift the pairs it comes before; the last falls out
-              while (q > 0 && ahead(v, col, rv[q - 1], ri[q - 1])) {
-                rv[q] = rv[q - 1];
-                ri[q] = ri[q - 1];
-                --q;
-              }
-              rv[q] = v;
-              ri[q] = col;
+      if (!__any_sync(FULL, cand != 0)) continue;  // warp-uniform
+      int kth_s = ks[j], n = cnt[j];
+      // a rolled walk over the columns that some quad holds (l[] goes to
+      // local memory): unrolled 32 times with the rescan inside, the code
+      // outgrew the instruction cache and an event took some 8700 cycles
+#pragma unroll 1
+      for (int turn = 0; turn < 4; ++turn) {
+        const unsigned tc = __shfl_sync(FULL, cand, qbase | turn);  // the quad's thread `turn`
+#pragma unroll 1
+        for (unsigned wc = __reduce_or_sync(FULL, tc); wc; wc &= wc - 1) {  // warp-uniform
+          const int c = __ffs(wc) - 1;
+          const float v = __shfl_sync(FULL, l[c], qbase | turn);
+          const int col = c0 + (c >> 1) * 8 + 2 * turn + (c & 1);
+          const bool ins = ((tc >> c) & 1u) && ahead(v, col, kth_v, kth_i);  // quad-uniform
+          if (ins) {
+            const int slot = n < k ? n++ : kth_s;
+            if (t == 0) {
+              rv[slot] = v;
+              ri[slot] = col;
             }
           }
+          // a full buffer's new k-th pair: its worst, k / 4 slots a thread,
+          // the whole warp in step (no quad waits on another's branch)
+          const bool rescan = ins && n == k;
+          if (!__any_sync(FULL, rescan)) continue;
           __syncwarp();
+          float wv = CUDART_INF_F;  // ahead of every pair
+          int wi = -1, ws = -1;
+#pragma unroll 4
+          for (int s = t; s < k; s += 4) {
+            const float sv = rv[s];
+            const int si = ri[s];
+            if (ahead(wv, wi, sv, si)) {
+              wv = sv;
+              wi = si;
+              ws = s;
+            }
+          }
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {
+            const float ov = __shfl_xor_sync(FULL, wv, off);
+            const int oi = __shfl_xor_sync(FULL, wi, off);
+            const int os = __shfl_xor_sync(FULL, ws, off);
+            if (ahead(wv, wi, ov, oi)) {
+              wv = ov;
+              wi = oi;
+              ws = os;
+            }
+          }
+          if (rescan) {
+            kth_v = wv;
+            kth_i = wi;
+            kth_s = ws;
+          }
         }
+      }
+      kv[j] = kth_v;
+      ki[j] = kth_i;
+      ks[j] = kth_s;
+      cnt[j] = n;
+    }
+  }
+
+  // each row's k pairs stored in order: a pair's place is the number of
+  // pairs ahead of it (equal pairs, the empty slots, by slot)
+  __device__ __forceinline__ void finish(float* part_v, int* part_i, int slice) {
+    __syncwarp();
+#pragma unroll 1
+    for (int j = 0; j < 4; ++j) {
+      const int dr = (j >> 1) * 16 + (j & 1) * 8;
+      const int row = row0 + dr;
+      if (row >= R) continue;
+      const float* rv = bv + (rl0 + dr) * (k + 1);
+      const int* ri = bi + (rl0 + dr) * (k + 1);
+      const size_t o = ((size_t)slice * R + row) * k;
+      for (int s = t; s < k; s += 4) {
+        const float v = rv[s];
+        const int c = ri[s];
+        int rank = 0;
+        for (int q = 0; q < k; ++q)
+          rank += ahead(rv[q], ri[q], v, c) || (q < s && rv[q] == v && ri[q] == c);
+        part_v[o + rank] = v;
+        part_i[o + rank] = c;
       }
     }
   }
@@ -884,7 +960,7 @@ head_topk_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int chunk0 = slice * cps;
   const int chunk1 = min((V + HT_BN - 1) / HT_BN, chunk0 + cps);
   const int BP = k + 1;
-  float* bv = reinterpret_cast<float*>(ht_smem + K4_STAGES * ht_stage_bytes(nw));
+  float* bv = reinterpret_cast<float*>(ht_smem + HT_STAGES * ht_stage_bytes(nw));
   int* bi = reinterpret_cast<int*>(bv + nw * HT_WM * BP);
   // a warp's 32 rows are its own: empty slots rank behind every logit
   for (int i = lane; i < HT_WM * BP; i += 32) {
@@ -892,20 +968,27 @@ head_topk_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     bi[warp * HT_WM * BP + i] = 0x7fffffff;
   }
   __syncwarp();
-  TopkEpi epi{bv, bi, k, warp * HT_WM + (lane >> 2), r0 + warp * HT_WM + (lane >> 2),
-              lane & 3, R, V, inv_temp};
-  walk_slice<K4_STAGES>(x, w, R, D, V, r0, chunk0, chunk1, reinterpret_cast<bf16*>(ht_smem),
-                        epi);
-  __syncwarp();
-  for (int r = 0; r < HT_WM; ++r) {
-    const int rl = warp * HT_WM + r, row = r0 + rl;
-    if (row >= R) break;
-    const size_t o = ((size_t)slice * R + row) * k;
-    for (int q = lane; q < k; q += 32) {
-      part_v[o + q] = bv[rl * BP + q];
-      part_i[o + q] = bi[rl * BP + q];
-    }
+  TopkEpi epi;
+  epi.bv = bv;
+  epi.bi = bi;
+  epi.k = k;
+  epi.rl0 = warp * HT_WM + (lane >> 2);
+  epi.row0 = r0 + epi.rl0;
+  epi.t = lane & 3;
+  epi.qbase = lane & ~3;
+  epi.R = R;
+  epi.V = V;
+  epi.inv_temp = inv_temp;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    epi.kv[j] = -CUDART_INF_F;
+    epi.ki[j] = 0x7fffffff;
+    epi.ks[j] = 0;
+    epi.cnt[j] = 0;
   }
+  walk_slice(x, w, R, D, V, r0, chunk0, chunk1, reinterpret_cast<bf16*>(ht_smem),
+                        epi);
+  epi.finish(part_v, part_i, slice);
 }
 
 // K4's merge, a warp per row: lane s holds the head of slice s's sorted
@@ -1018,7 +1101,9 @@ struct HeadPlan {
 // warps a CTA whose buffers fit (K4 with a large k takes fewer rows a
 // CTA), then the S slices whose launch ends soonest when the card runs
 // its CTAs in waves (CTAs an SM: 2 by __launch_bounds__, fewer where
-// shared memory says so), each slice walking ceil(chunks / S) chunks;
+// shared memory says so), each slice walking ceil(chunks / S) chunks
+// plus, for K4, a warm-up costed as K4_WARMUP chunks (its buffers start
+// empty in every slice, so the first chunks insert most of the pairs);
 // the fewer slices on a tie. S is then cut so that no slice is empty.
 inline cudaError_t head_plan(int R, int V, int k, HeadPlan& p) {
   int sms = 0, smem_sm = 0, optin = 0;
@@ -1035,7 +1120,7 @@ inline cudaError_t head_plan(int R, int V, int k, HeadPlan& p) {
   long best_cost = -1;
   for (int s = 1; s <= HT_MAX_SPLITS && s <= chunks; ++s) {
     const long waves = ((long)p.blocks * s + slots - 1) / slots;
-    const long cost = waves * ((chunks + s - 1) / s);
+    const long cost = waves * ((chunks + s - 1) / s + (k ? K4_WARMUP : 0));
     if (best_cost < 0 || cost < best_cost) {
       best_cost = cost;
       p.splits = s;

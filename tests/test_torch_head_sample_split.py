@@ -1,0 +1,237 @@
+"""The split-over-the-vocabulary arithmetic of the bf16 tensor-core K3
+and K4 (csrc/head_sample.cu: head_sample_mma_kernel +
+head_sample_merge_kernel, head_topk_mma_kernel + head_topk_merge_kernel),
+emulated in plain PyTorch on the CPU, against the plain versions
+head_sample_ref / head_topk_sample_ref at the same Philox seed.
+
+The kernels cut the vocabulary into S slices of whole 128-column chunks
+(no slice empty). K3: in each slice the four threads of a row's quad keep
+an online max m and sum s of e^(l - m) over their own columns (column c
+of a chunk belongs to thread (c % 8) // 2) chunk by chunk, and a running
+Gumbel argmax (strict '>' in column order); the quad folds its states
+(xor 1, then xor 2), and the merge takes the slices in order: m = max m_i,
+s = sum s_i e^(m_i - m), the best by a strict '>'. K4: each slice keeps
+its exact top k under (value descending, column ascending), padded with
+(-inf, no column) where the slice is narrower than k; the merge takes
+the top k of the S k pairs head by head, then draws the noise at the
+survivors' columns. Both sides get the same fp32 logits here, so the ids
+must be equal; the probabilities are held to 1e-5 relative (the same
+exponentials summed in another order in fp32; the card gate is 1e-3).
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from mebt_tpu_torch.ops.head_sample import (
+    head_sample_ref,
+    head_topk_sample_ref,
+    philox_exponential,
+    philox_exponential_at,
+)
+
+torch.set_num_threads(1)
+
+CHUNK = 128  # csrc/head_sample.cu HT_BN: vocabulary columns a chunk
+NO_COL = 0x7FFFFFFF
+PROB_RTOL = 1e-5
+
+
+def slices(V: int, S: int):
+    """The kernels' slices: ceil(chunks / S) chunks each, then S cut so
+    that none is empty (head_plan)."""
+    chunks = -(-V // CHUNK)
+    cps = -(-chunks // min(S, chunks))
+    return [(c * CHUNK, min(V, (c + cps) * CHUNK)) for c in range(0, chunks, cps)]
+
+
+def _logits(x, w, temperature):
+    return (x.float() @ w.float().t()) * (1.0 / (float(temperature) + 1e-8))
+
+
+def _fold(a, b):
+    """State a folded with b (a thread's own state first): logsumexp parts
+    and the best perturbed logit, a tie to the lower column."""
+    m = torch.maximum(a["m"], b["m"])
+    s = a["s"] * torch.exp(a["m"] - m) + b["s"] * torch.exp(b["m"] - m)
+    take = (b["best"] > a["best"]) | ((b["best"] == a["best"]) & (b["col"] < a["col"]))
+    return dict(m=m, s=s, **{k: torch.where(take, b[k], a[k]) for k in ("best", "l", "col")})
+
+
+def emulate_k3(x, w, temperature, S, noise=None, seed=0):
+    """(ids, probs) as the sliced K3 computes them."""
+    logits = _logits(x, w, temperature)
+    R, V = logits.shape
+    if noise is None:
+        noise = philox_exponential(seed, R, V, x.device)
+    pert = logits - torch.log(noise)
+    states = []
+    for c0, c1 in slices(V, S):
+        quad = []
+        for t in range(4):
+            st = dict(m=torch.full((R,), -1e30), s=torch.zeros(R),
+                      best=torch.full((R,), -math.inf), l=torch.zeros(R),
+                      col=torch.full((R,), NO_COL, dtype=torch.int64))
+            for ch in range(c0, c1, CHUNK):
+                cols = torch.tensor([c for c in range(ch, min(ch + CHUNK, V)) if c % 8 // 2 == t],
+                                    dtype=torch.int64)
+                if cols.numel() == 0:
+                    continue
+                lv = logits[:, cols]
+                mn = torch.maximum(st["m"], lv.max(dim=1).values)
+                st["s"] = st["s"] * torch.exp(st["m"] - mn) + torch.exp(lv - mn[:, None]).sum(1)
+                st["m"] = mn
+                j = torch.argmax(pert[:, cols], dim=1)  # the first maximum: lowest column
+                pb = pert[:, cols].gather(1, j[:, None])[:, 0]
+                take = pb > st["best"]
+                st["best"] = torch.where(take, pb, st["best"])
+                st["l"] = torch.where(take, lv.gather(1, j[:, None])[:, 0], st["l"])
+                st["col"] = torch.where(take, cols[j], st["col"])
+            quad.append(st)
+        states.append(_fold(_fold(quad[0], quad[1]), _fold(quad[2], quad[3])))
+    m = torch.stack([st["m"] for st in states]).max(dim=0).values
+    total = torch.zeros(R)
+    best, bl = torch.full((R,), -math.inf), torch.zeros(R)
+    col = torch.zeros(R, dtype=torch.int64)
+    for st in states:  # in slice order
+        total = total + st["s"] * torch.exp(st["m"] - m)
+        take = st["best"] > best
+        best = torch.where(take, st["best"], best)
+        bl = torch.where(take, st["l"], bl)
+        col = torch.where(take, st["col"], col)
+    return col.to(torch.int32), torch.exp(bl - (m + torch.log(total)))
+
+
+def _slice_topk(logits, c0, c1, k):
+    """A slice's sorted top k (value descending, column ascending), padded
+    with (-inf, NO_COL) to k pairs."""
+    R = logits.shape[0]
+    vals, idx = torch.sort(logits[:, c0:c1], dim=1, descending=True, stable=True)
+    vals, cols = vals[:, :k], idx[:, :k] + c0
+    pad = k - vals.shape[1]
+    if pad:
+        vals = torch.cat([vals, torch.full((R, pad), -math.inf)], dim=1)
+        cols = torch.cat([cols, torch.full((R, pad), NO_COL, dtype=torch.int64)], dim=1)
+    return vals, cols
+
+
+def emulate_k4(x, w, k, temperature, S, seed=0):
+    """(ids, probs) as the sliced K4 computes them."""
+    logits = _logits(x, w, temperature)
+    R, V = logits.shape
+    k = min(int(k), V)
+    lists = [_slice_topk(logits, c0, c1, k) for c0, c1 in slices(V, S)]
+    lv = torch.stack([v for v, _ in lists], dim=1)  # (R, S, k)
+    lc = torch.stack([c for _, c in lists], dim=1)
+    heads = torch.zeros(R, len(lists), dtype=torch.int64)
+    rows = torch.arange(R)
+    mv = torch.empty(R, k)
+    mc = torch.empty(R, k, dtype=torch.int64)
+    for j in range(k):  # the merge: the head that comes first moves on
+        hv = torch.where(heads < k, lv.gather(2, heads.clamp(max=k - 1)[..., None])[..., 0],
+                         torch.tensor(-math.inf))
+        hc = torch.where(heads < k, lc.gather(2, heads.clamp(max=k - 1)[..., None])[..., 0],
+                         torch.tensor(NO_COL))
+        top = hv.max(dim=1).values
+        bc = torch.where(hv == top[:, None], hc, torch.tensor(NO_COL)).min(dim=1).values
+        win = torch.argmax(((hv == top[:, None]) & (hc == bc[:, None])).to(torch.int8), dim=1)
+        mv[:, j], mc[:, j] = top, bc
+        heads[rows, win] += 1
+    assert int(mc.max()) < V  # no padding pair survives: V >= k real columns
+    pert = mv - torch.log(philox_exponential_at(seed, mc))
+    slot = torch.argmax(pert, dim=1, keepdim=True)  # the lowest slot on a tie
+    m = mv[:, :1]
+    lse = m[:, 0] + torch.log(torch.exp(mv - m).sum(dim=1))
+    return mc.gather(1, slot)[:, 0].to(torch.int32), torch.exp(mv.gather(1, slot)[:, 0] - lse)
+
+
+def _inputs(seed, R, V, D, ties=False):
+    """bf16 x (R, D), w (V, D) from numpy. ties: entries in {-1, 0, 1} / 4
+    (every fp32 sum exact) and W built from 40 distinct rows, so equal
+    logits are everywhere, across slices too."""
+    rng = np.random.default_rng(seed)
+    if ties:
+        x = rng.integers(-1, 2, size=(R, D)).astype(np.float32) / 4
+        base = rng.integers(-1, 2, size=(40, D)).astype(np.float32) / 4
+        w = base[rng.integers(0, 40, size=V)]
+    else:
+        x = rng.standard_normal((R, D)).astype(np.float32)
+        w = (0.1 * rng.standard_normal((V, D))).astype(np.float32)
+    return (torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(w).to(torch.bfloat16))
+
+
+def _assert_same(ids, probs, rids, rprobs):
+    assert torch.equal(ids, rids)
+    torch.testing.assert_close(probs, rprobs, rtol=PROB_RTOL, atol=0.0)
+
+
+def test_slices_cover_the_vocabulary_in_whole_chunks():
+    for V in (1, 20, 1000, 16100, 16384):
+        for S in (1, 2, 3, 5, 7, 8, 12, 32, 200):
+            sl = slices(V, S)
+            assert sl[0][0] == 0 and sl[-1][1] == V and 1 <= len(sl) <= S
+            assert all(a < b for a, b in sl)
+            assert all(b == c for (_, b), (c, _) in zip(sl, sl[1:]))
+            assert all(a % CHUNK == 0 for a, _ in sl)
+
+
+@pytest.mark.parametrize(
+    "V,S", [(16100, 1), (16100, 3), (16100, 7), (1000, 1), (1000, 2), (1000, 5), (1000, 8),
+            (1000, 12)],
+)  # a ragged V whose last slice is short; S from 1 to more than the 8 chunks of V 1000
+@pytest.mark.parametrize("temperature", [1.0, 0.0])
+def test_k3_split_matches_plain(V, S, temperature):
+    x, w = _inputs(V + S, 6, V, 32)
+    ids, probs = emulate_k3(x, w, temperature, S, seed=11)
+    rids, rprobs = head_sample_ref(x, w, temperature, seed=11)
+    _assert_same(ids, probs, rids, rprobs)
+
+
+@pytest.mark.parametrize("S", [1, 4, 9])
+def test_k3_split_ties_go_to_the_lowest_column(S):
+    """Duplicated W rows and exact sums give equal logits in many slices;
+    with noise all 1 (log q = 0) the perturbed logits tie as well, and the
+    lowest column must win over the whole vocabulary."""
+    V = 1100
+    x, w = _inputs(3, 8, V, 16, ties=True)
+    ones = torch.ones(8, V)
+    ids, probs = emulate_k3(x, w, 1.0, S, noise=ones)
+    rids, rprobs = head_sample_ref(x, w, 1.0, noise=ones)
+    logits = _logits(x, w, 1.0)
+    first = torch.argmax((logits == logits.max(1, keepdim=True).values).to(torch.int8), dim=1)
+    assert torch.equal(ids.long(), first)
+    assert (logits == logits.max(1, keepdim=True).values).sum(1).min() >= 2  # real ties
+    _assert_same(ids, probs, rids, rprobs)
+    for temperature in (1.0, 0.0):  # Philox noise at the same seed
+        _assert_same(*emulate_k3(x, w, temperature, S, seed=5),
+                     *head_sample_ref(x, w, temperature, seed=5))
+
+
+@pytest.mark.parametrize(
+    "V,S,k", [(16100, 1, 32), (16100, 4, 32), (16100, 7, 32), (1000, 12, 32), (1000, 8, 200),
+              (1000, 3, 256), (300, 3, 256), (20, 2, 32), (1000, 5, 1)],
+)  # ragged V; S past the chunk count; k >= a slice's width (128); k >= V; k = 1
+@pytest.mark.parametrize("temperature", [1.0, 0.0])
+def test_k4_split_matches_plain(V, S, k, temperature):
+    x, w = _inputs(V + S + k, 5, V, 32)
+    ids, probs = emulate_k4(x, w, k, temperature, S, seed=13)
+    rids, rprobs = head_topk_sample_ref(x, w, k, temperature, seed=13)
+    _assert_same(ids, probs, rids, rprobs)
+
+
+@pytest.mark.parametrize("S", [1, 3, 9])
+@pytest.mark.parametrize("k", [7, 32, 150])
+def test_k4_split_ties_keep_the_lowest_columns(S, k):
+    """With 40 distinct W rows over 1100 columns, the row's k-th value is
+    shared by columns in several slices: the merged set must hold the
+    lowest of them, as the plain stable sort does."""
+    V = 1100
+    x, w = _inputs(7, 8, V, 16, ties=True)
+    logits = _logits(x, w, 1.0)
+    kth = torch.sort(logits, dim=1, descending=True, stable=True).values[:, k - 1]
+    assert ((logits == kth[:, None]).sum(1) >= 2).all()  # the cut falls inside a tie
+    for temperature in (1.0, 0.0):
+        _assert_same(*emulate_k4(x, w, k, temperature, S, seed=3),
+                     *head_topk_sample_ref(x, w, k, temperature, seed=3))

@@ -168,6 +168,83 @@ def test_head_topk_sample_matches_plain(dev, dtype, V, k):
     assert (probs0 > 0.5).float().mean().item() >= 0.99
 
 
+def _head_case(gen, dev, R, V, D=1024, ties=False):
+    """bf16 x (R, D), w (V, D). ties: entries in {-1, 0, 1} / 4 (exact fp32
+    sums on both sides) and 40 distinct W rows, so equal logits fall in
+    many vocabulary slices."""
+    if ties:
+        x = (torch.randint(-1, 2, (R, D), generator=gen, device=dev) / 4).to(torch.bfloat16)
+        base = (torch.randint(-1, 2, (40, D), generator=gen, device=dev) / 4).to(torch.bfloat16)
+        return x, base[torch.randint(0, 40, (V,), generator=gen, device=dev)]
+    x = torch.randn(R, D, generator=gen, device=dev).to(torch.bfloat16)
+    return x, (0.02 * torch.randn(V, D, generator=gen, device=dev)).to(torch.bfloat16)
+
+
+def _greedy_gap(logits, ids):
+    """The largest logit gap at a row whose greedy id is not the argmax."""
+    top = logits.argmax(-1)
+    miss = ids.long() != top
+    if not miss.any():
+        return 0.0
+    gap = logits.gather(1, top[:, None])[:, 0] - logits.gather(1, ids.long()[:, None])[:, 0]
+    return gap[miss].max().item()
+
+
+@pytest.mark.parametrize("R", [256, 4096, 8192])  # the most slices; 16f last segment; D&R
+def test_head_sample_slices_match_plain(dev, R):
+    """The bf16 K3 split over the vocabulary and merged, at the decode's
+    small-R shapes: chip_smoke.py's gates (ids but at near-ties, chosen
+    prob 1e-3, greedy misses only at gaps <= 1e-4)."""
+    gen = torch.Generator(dev).manual_seed(R)
+    x, w = _head_case(gen, dev, R, 16384)
+    logits = x.float() @ w.float().t()
+    ids, probs = head_sample(x, w, 5, 1.0)
+    rids, _ = head_sample_ref(x, w, 1.0, seed=5)
+    assert (ids != rids).sum().item() <= max(2, R // 10000)
+    p = torch.softmax(logits, -1).gather(1, ids.long()[:, None])[:, 0]
+    torch.testing.assert_close(probs, p, rtol=1e-3, atol=0.0)
+    assert _greedy_gap(logits, head_sample(x, w, 5, 0.0)[0]) <= 1e-4
+
+
+@pytest.mark.parametrize("R,V", [(256, 16384), (300, 1100)])
+def test_head_sample_ties_match_plain(dev, R, V):
+    """Exact ties across slices: the plain version's ids, bit for bit."""
+    gen = torch.Generator(dev).manual_seed(V)
+    x, w = _head_case(gen, dev, R, V, ties=True)
+    for temp in (1.0, 0.0):
+        ids, _ = head_sample(x, w, 3, temp)
+        assert torch.equal(ids, head_sample_ref(x, w, temp, seed=3)[0])
+
+
+@pytest.mark.parametrize("R", [256, 3328, 6400])  # the most slices; 128f last two segments
+def test_head_topk_sample_slices_match_plain(dev, R):
+    gen = torch.Generator(dev).manual_seed(R)
+    x, w = _head_case(gen, dev, R, 16384)
+    logits = x.float() @ w.float().t()
+    top = torch.topk(logits, 32, dim=-1).values
+    ids, probs = head_topk_sample(x, w, 5, 32, 1.0)
+    rids, _ = head_topk_sample_ref(x, w, 32, 1.0, seed=5)
+    assert (ids != rids).sum().item() <= max(2, R // 10000)
+    at = logits.gather(1, ids.long()[:, None])[:, 0]
+    assert (at >= top[:, -1] - 1e-4).all()
+    torch.testing.assert_close(probs, torch.exp(at - torch.logsumexp(top, -1)), rtol=1e-3,
+                               atol=0.0)
+    assert _greedy_gap(logits, head_topk_sample(x, w, 5, 32, 0.0)[0]) <= 1e-4
+
+
+@pytest.mark.parametrize("R,V", [(256, 16384), (300, 1100)])
+@pytest.mark.parametrize("k", [7, 32, 200])
+def test_head_topk_sample_ties_keep_the_lowest_columns(dev, R, V, k):
+    """The k-th value is shared by columns in several slices: the merged
+    set holds the lowest of them (the plain stable sort's), so the ids are
+    the plain version's, bit for bit."""
+    gen = torch.Generator(dev).manual_seed(V + k)
+    x, w = _head_case(gen, dev, R, V, ties=True)
+    for temp in (1.0, 0.0):
+        ids, _ = head_topk_sample(x, w, 3, k, temp)
+        assert torch.equal(ids, head_topk_sample_ref(x, w, k, temp, seed=3)[0])
+
+
 def test_head_topk_sample_frequencies(dev):
     """One row repeated: the draws follow the top-k-filtered softmax and
     never leave the top-k (chi-square, 7 dof, upper 1e-4 quantile)."""
