@@ -121,6 +121,7 @@
 
 #include <type_traits>
 
+#include "card.cuh"
 #include "mma.cuh"
 #include "philox.cuh"
 
@@ -1273,36 +1274,12 @@ inline int k1_splits(int ctas, int NK, int slots) {
   return best;
 }
 
-// The current card's SM count and shared memory an SM, read once a card
-// (the plan runs twice a K1 call, and the CUDA runtime's queries cost host time
-// next to a kernel of some 0.02-0.1 ms).
-inline cudaError_t card_shape(int& sms, int& smem_per_sm) {
-  constexpr int CARDS = 64;
-  static int cached_sms[CARDS], cached_smem[CARDS];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < CARDS && cached_sms[dev] > 0) {
-    sms = cached_sms[dev];
-    smem_per_sm = cached_smem[dev];
-    return cudaSuccess;
-  }
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&smem_per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  if (e == cudaSuccess && dev < CARDS) {
-    cached_smem[dev] = smem_per_sm;
-    cached_sms[dev] = sms;
-  }
-  return e;
-}
-
 // K1's grid and splits for these shapes, on the current card: CTAs an SM
 // are what __launch_bounds__ allows (2) and what shared memory holds
 // (1 KB of it reserved a CTA).
 inline cudaError_t k1_plan(int B, int H, int NQ, int NK, dim3& grid, int& splits) {
-  int sms = 0, smem_per_sm = 0;
-  const cudaError_t e = card_shape(sms, smem_per_sm);
+  int sms = 0, smem_per_sm = 0, smem_optin = 0;
+  const cudaError_t e = card_shape(sms, smem_per_sm, smem_optin);
   if (e != cudaSuccess) return e;
   const int per_sm = min(2, smem_per_sm / (int)(k1_tc_smem_bytes(NK, 1) + 1024));
   const int qblocks = ((NQ + 15) / 16 + SQ_WARPS - 1) / SQ_WARPS;

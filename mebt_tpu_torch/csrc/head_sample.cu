@@ -34,16 +34,23 @@
 // Bound on the card, K3 and K4: 2 R D V operations, 5.5e11 at R = 16384,
 // D = 1024, V = 16384 (0.556 ms at 989 TFLOP/s bf16), against 64 MB of x
 // and W: operations. K3 also draws one Philox word and takes two logf per
-// logit (268 M of each at R = 16384); Philox alone ran 0.084 ms per 25.2
-// M draws on an H100 (PR 6, K8), so K3's floor there is nearer 1.2-1.5
-// ms. K4 draws only for its k survivors.
+// logit (268 M of each at R = 16384), so its floor on the card is nearer
+// 1.8-2 ms than the bound. K4 draws only for its k survivors.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W, R 16384
+// (scripts/head_sample_variants.py): the tiles alone run at 237 (K3) and
+// 207 (K4) TFLOP/s, a quarter of peak (mma.sync, x and W re-read from L2
+// for each 128 x 128 tile, 8 warps an SM); K3's epilogue adds 2.4 ms
+// (1.7 of it the noise), K4's 2.2 ms (some 15 dependent rescans per warp,
+// row slot and chunk). The epilogue overlaps the next chunk's loads, not
+// the products: 4.7 and 4.9 ms in all.
 //
 // bf16 (head_sample_mma_kernel, head_topk_mma_kernel; the product of the
 // TPU kernels, bf16 operands with fp32 sums): a CTA takes 128 rows, 4
 // warps of 32, and walks 128-column chunks of ITS SLICE of the
 // vocabulary. x and W tiles stream along D 64 deep at a time with 16-byte
-// cp.async into a ring of stages (K3 three, K4 two, to leave room for the
-// top-k buffers) on rows padded to 72 elements, read by ldmatrix; the
+// cp.async into a two-stage ring on rows padded to 72 elements, read by
+// ldmatrix (a third stage left L1 too small for the epilogues' local
+// arrays and K4's buffers room for one CTA an SM); the
 // product is mma.sync m16n8k16 (bf16 -> fp32), a warp's 32 x 128 tile in
 // 128 fp32 registers a thread. The loads of the next chunk are in flight
 // while the epilogue reads the finished chunk straight from the
@@ -64,6 +71,10 @@
 // one that still comes before the k-th fills an empty slot or replaces
 // the k-th, and the quad finds the new k-th pair (k / 4 slots a thread,
 // two shuffles); at the slice's end each pair's rank gives its place.
+// Both epilogues loop over a thread's columns rolled where the body is
+// long (K3's noise two columns a turn, K4's walk over the set bits of the
+// warp's candidate mask): unrolled 32 times the code outgrew the
+// instruction cache (K4's walk ran 23 ms against 4.9).
 // The grid is (row blocks) x (S vocabulary slices of whole chunks); the
 // host picks S from the card's SM count (read once) so that the CTAs
 // fill the card at every R the decode runs (R from 3328 to 16384). Each
@@ -125,6 +136,7 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "card.cuh"
 #include "mma.cuh"
 #include "philox.cuh"
 
@@ -716,7 +728,7 @@ struct SampleEpi {
         float b = best[j], bv = bl[j];
         int bc = bi[j];
         // two columns a turn: the loop unrolled 32 times with Philox inline
-        // ran 4% slower (instruction fetch; scripts/head_sample_variants.py)
+        // ran 4% slower on an H100 (instruction fetch)
 #pragma unroll 2
         for (int c = 0; c < 2 * HT_NT; ++c) {
           const int col = c0 + (c >> 1) * 8 + 2 * t + (c & 1);
@@ -1063,33 +1075,6 @@ head_topk_merge_kernel(const float* __restrict__ part_v, const int* __restrict__
     ids[row] = mi[slot];
     probs[row] = expf(mv[slot] - (m + logf(sum)));
   }
-}
-
-// The card's SM count, shared memory an SM and the opt-in limit a block,
-// read once a card (host queries cost time next to a short kernel).
-inline cudaError_t card_shape(int& sms, int& smem_per_sm, int& smem_optin) {
-  constexpr int CARDS = 64;
-  static int cached[CARDS][3];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < CARDS && cached[dev][0] > 0) {
-    sms = cached[dev][0];
-    smem_per_sm = cached[dev][1];
-    smem_optin = cached[dev][2];
-    return cudaSuccess;
-  }
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&smem_per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess && dev < CARDS) {
-    cached[dev][1] = smem_per_sm;
-    cached[dev][2] = smem_optin;
-    cached[dev][0] = sms;
-  }
-  return e;
 }
 
 struct HeadPlan {

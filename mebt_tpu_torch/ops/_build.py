@@ -109,3 +109,10 @@ def stream_ptr(t) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def aligned(t):
+    """t contiguous, its data at a 16-byte boundary: the bf16 kernels copy
+    rows with 16-byte cp.async (a view into storage may start between)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -243,7 +243,7 @@ def smallq_attention(q, k, v, key_mask, *, p_drop: float = 0.0, seed: int = 0):
     B, H, NQ, Dh = q.shape
     NK = k.shape[2]
     mask = _check_mask(key_mask, B, NK, q.device)
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, NQ), device=q.device, dtype=torch.float32)
     lib, bf16 = _lib(), int(q.dtype == torch.bfloat16)
@@ -263,13 +263,6 @@ def smallq_attention(q, k, v, key_mask, *, p_drop: float = 0.0, seed: int = 0):
 
 
 smallq_attention.launches = 0
-
-
-def _aligned(t):
-    """t contiguous, its data at a 16-byte boundary: the bf16 kernels copy
-    rows with 16-byte cp.async (a view into storage may start between)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _largeq_lib(q, k, entry: str, what: str):
@@ -294,7 +287,7 @@ def largeq_attention(q, k, v, *, p_drop: float = 0.0, seed: int = 0):
     B, H, NQ, Dh = q.shape
     NK = k.shape[2]
     lib = _largeq_lib(q, k, "mebt_largeq_smem_bytes", "largeq_attention")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)
     out = torch.empty_like(q)
     status = lib.mebt_largeq_attention(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), B, H, NQ, NK, Dh,
@@ -323,7 +316,7 @@ def smallq_backward(q, k, v, key_mask, out, lse, g, *, p_drop: float = 0.0, seed
     if (lse.shape != (B, H, NQ) or lse.dtype != torch.float32 or out.shape != q.shape
             or out.dtype != q.dtype or out.device != q.device):
         raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype} / out {tuple(out.shape)} do not fit q")
-    q, k, v, g, out = (_aligned(t) for t in (q, k, v, g, out))
+    q, k, v, g, out = (_build.aligned(t) for t in (q, k, v, g, out))
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib, bf16 = _lib(), int(q.dtype == torch.bfloat16)
@@ -359,7 +352,7 @@ def largeq_backward(q, k, v, g, *, p_drop: float = 0.0, seed: int = 0):
     B, H, NQ, Dh = q.shape
     NK = k.shape[2]
     lib = _largeq_lib(q, k, "mebt_largeq_bwd_smem_bytes", "largeq_backward")
-    q, k, v, g = (_aligned(t) for t in (q, k, v, g))
+    q, k, v, g = (_build.aligned(t) for t in (q, k, v, g))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # each query row's softmax (fp32: lse; bf16: the pair (m, log2 l)), D
     # and, in bf16 with dropout, its keep bits (one 32-bit word per 32

@@ -103,13 +103,6 @@ def head_topk_sample_ref(x, w, k: int, temperature: float, noise=None, *,
     return cols.gather(-1, j)[:, 0].to(torch.int32), probs
 
 
-def _aligned(t):
-    """t contiguous, its data at a 16-byte boundary (a view into storage
-    may start between)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _launch(entry: str, x, w, seed: int, temperature: float, *extra: int,
             sliced: bool = True):
     """Check x (R, D) and w (V, D), allocate the outputs and call one of
@@ -135,7 +128,7 @@ def _launch(entry: str, x, w, seed: int, temperature: float, *extra: int,
             if pad:
                 x = torch.nn.functional.pad(x, (0, pad))
                 w = torch.nn.functional.pad(w, (0, pad))
-            x, w = _aligned(x), _aligned(w)
+            x, w = _build.aligned(x), _build.aligned(w)
         err = ctypes.c_int(0)
         n = lib.mebt_head_scratch_bytes(R, V, extra[0] if extra else 0, bf16, ctypes.byref(err))
         _build.check(err.value, f"{entry} (plan)")
