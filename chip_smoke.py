@@ -6,8 +6,8 @@
    from mebt_tpu_torch/csrc with nvcc for sm_90a, and counts the
    tensor-core instructions (HMMA, HGMMA) of every attention and head
    kernel in `cuobjdump -sass` of the built libraries: each bf16 K1 / K2
-   / K3 / K4 / K6 / K7 kernel must have some, and no bf16 FMA K1 / K2 /
-   K3 / K4 / K6 / K7 kernel may be built;
+   / K3 / K4 / K6 / K7 kernel and K9's search must have some, and no
+   bf16 FMA K1 / K2 / K3 / K4 / K6 / K7 kernel nor the FMA K9 may be built;
 2. holds each kernel against its plain PyTorch version on the card, at
    the shapes of the STL-16f decode (batch 16) and of the STL-128f
    decode (batch 2) in bf16 (K3 and K4 also at the smaller segments'
@@ -17,9 +17,12 @@
    the shapes of STL-16f training (batch 6) and STL-128f training (batch
    5) in fp32 and bf16, dropout (K8) in all four attention kernels, and
    the nearest-code search (K9) at the encoder's shapes of both training
-   recipes, with a ragged codebook and exact ties; times kernel, plain
-   version and one PyTorch library call for the same function, and K7's
-   dq pass and dk/dv pass apart from one profiled call;
+   recipes, with a ragged codebook and exact ties (its codes on two
+   calls and at one codebook slice equal); times kernel, plain version
+   and one PyTorch library call for the same function, K7's dq pass,
+   dk/dv pass and merge and K9's search and merge apart from one
+   profiled call, and K9's bound both at the fp32 rate and as three
+   TF32 tensor-core products;
 3. generates STL-16f videos at full width through bidirect_generate
    (24L/16H/1024d, vocab 16384, 256 latents, N 1024, 32 MaskGIT steps,
    cosine, ctemp 8.0 linear, temperature 1.0, random weights from a
@@ -147,6 +150,7 @@ TRAIN_CONFIG = dict(
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 non-tensor, HBM
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+PEAK_TF32 = 495e12  # tensor cores, TF32 operands: K9's three products
 
 CHI2_15_DOF_P1E4 = 44.263  # upper 1e-4 quantile of chi-square, 15 dof
 
@@ -668,13 +672,15 @@ def check_k6(dev, gen):
     return rows
 
 
-# K7's dq pass and dk/dv pass, by kernel name
-K7_PASSES_BF16 = ("largeq_bwd_dq_mma_kernel", "largeq_bwd_dkdv_mma_kernel")
+# K7's dq pass, dk/dv pass and (bf16, when the dk/dv pass splits its
+# query walk) the merge of the splits, by kernel name
+K7_PASSES_BF16 = ("largeq_bwd_dq_mma_kernel", "largeq_bwd_dkdv_mma_kernel",
+                  "largeq_bwd_dkdv_merge_kernel")
 K7_PASSES_FP32 = ("largeq_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
 
 
 def check_k7(dev, gen):
-    from mebt_tpu_torch.ops.attention_cuda import largeq_backward, largeq_backward_ref
+    from mebt_tpu_torch.ops.attention_cuda import dkdv_splits, largeq_backward, largeq_backward_ref
 
     H, NK, Dh = 16, 256, 64
     rows = []
@@ -687,24 +693,33 @@ def check_k7(dev, gen):
             torch.cuda.synchronize()
             err, over = grad_errors(got, ref, dtype)
             require(over <= 1, f"K7 {case} {dtype}: err {err} ({over} of its bound)")
+            again = largeq_backward(q, k, v, g)
+            require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+                    f"K7 {case} {dtype}: two calls differ")
             bnd, by = bound_ms(nbytes(q, k, v, g, *got), 10.0 * B * H * NQ * NK * Dh, dtype)
+            splits = dkdv_splits(q, k)
             row = dict(
                 case=case, dtype=str(dtype).split(".")[-1], shape=[B, H, NQ, NK, Dh],
                 max_abs_err=err, max_abs_ref=max(r.float().abs().max().item() for r in ref),
                 err_over_tol=over, tol=dict(zip(("rtol", "atol"), GRAD_TOL[dtype])),
+                dkdv_query_splits=splits,
                 ms=cuda_ms(lambda: largeq_backward(q, k, v, g)), bound_ms=bnd, bound_by=by,
             )
-            # the two passes apart, from one profiled call
+            # the passes apart, from one profiled call; the merge runs only
+            # when the dk/dv pass splits
             passes = (K7_PASSES_BF16 if dtype == torch.bfloat16 else K7_PASSES_FP32)
             pass_ms = kernel_ms(lambda: largeq_backward(q, k, v, g), passes)
-            require(all(ms > 0 for ms in pass_ms.values()),
-                    f"K7 {case} {dtype}: a pass of {passes} did not run: {pass_ms}")
+            need = passes if splits > 1 else passes[:2]
+            require(all(pass_ms[p] > 0 for p in need) and (splits > 1 or len(passes) < 3
+                                                          or pass_ms[passes[2]] == 0),
+                    f"K7 {case} {dtype}: passes {pass_ms} at {splits} splits")
             row.update(dq_pass_ms=pass_ms[passes[0]], dkdv_pass_ms=pass_ms[passes[1]])
             if dtype == torch.bfloat16:
+                row["merge_ms"] = pass_ms[passes[2]]
                 row["plain_ms"] = cuda_ms(lambda: largeq_backward_ref(q, k, v, g), reps=3)
                 row["library_ms"] = cuda_ms(sdpa_fwd_bwd(q, k, v, g), reps=5)
             rows.append(row)
-            del got, ref
+            del got, ref, again
     return rows
 
 
@@ -857,8 +872,13 @@ K9_CASES = (("16f", TRAIN_BATCH * 1024, 16384), ("128f", TRAIN_BATCH128 * 8192, 
             ("ragged", 1000, 16000), ("ties", TRAIN_BATCH * 1024, 16384))
 
 
+# K9's search and the merge of its codebook slices, by kernel name
+K9_KERNELS = ("nearest_code_tf32_kernel", "nearest_code_merge_kernel")
+
+
 def check_k9(dev, gen):
-    from mebt_tpu_torch.ops.vq import code_mismatches, code_norms, nearest_code, nearest_code_ref
+    from mebt_tpu_torch.ops.vq import (
+        code_mismatches, code_norms, codebook_slices, nearest_code, nearest_code_ref)
 
     D = 256
     rows = []
@@ -873,9 +893,12 @@ def check_k9(dev, gen):
         want = nearest_code_ref(x, e)
         torch.cuda.synchronize()
         require(bool(((got >= 0) & (got < K)).all()), f"K9 {case}: code out of range")
+        require(bool(torch.equal(got, nearest_code(x, e))), f"K9 {case}: two calls differ")
+        require(bool(torch.equal(got, nearest_code(x, e, splits=1))),
+                f"K9 {case}: the codebook slices' merge differs from one slice")
         n_differ, gap, over = code_mismatches(x, e, got, want)
-        row = dict(case=case, shape=[M, K, D], codes_differing=n_differ,
-                   max_score_gap_f64=gap, gap_over_bound=over,
+        row = dict(case=case, shape=[M, K, D], codebook_slices=codebook_slices(M, K),
+                   codes_differing=n_differ, max_score_gap_f64=gap, gap_over_bound=over,
                    tol="codes equal except where the float64 scores differ by less than "
                        "the sum of the two codes' fp32 error bounds")
         if case == "ties":
@@ -890,9 +913,16 @@ def check_k9(dev, gen):
             del scores
         require(over <= 1, f"K9 {case}: {n_differ} codes differ, worst score gap {gap} "
                            f"is {over} of its bound")
+        # the fp32 function's bound (fp32 rate), and the same work done as
+        # the kernel does it: three TF32 products on the tensor cores
         bnd, by = bound_ms(nbytes(x, e, got), 2.0 * M * K * D, torch.float32)
+        dev_ms = kernel_ms(lambda: nearest_code(x, e), K9_KERNELS)
+        require(all(ms > 0 for ms in dev_ms.values()), f"K9 {case}: a kernel did not run: {dev_ms}")
         row.update(max_abs_err=gap, ms=cuda_ms(lambda: nearest_code(x, e)),
-                   bound_ms=bnd, bound_by=by)
+                   bound_ms=bnd, bound_by=by,
+                   bound_ms_3xtf32=max(3 * 2.0 * M * K * D / PEAK_TF32 * 1e3,
+                                       nbytes(x, e, got) / PEAK_BYTES * 1e3),
+                   search_ms=dev_ms[K9_KERNELS[0]], merge_ms=dev_ms[K9_KERNELS[1]])
         if case in ("16f", "128f"):
             e2 = code_norms(e)
             row["plain_ms"] = cuda_ms(lambda: nearest_code_ref(x, e), reps=3)
@@ -1285,7 +1315,8 @@ PROFILE_GROUPS = {
     "K6_dq": ("smallq_bwd_dq_kernel", "smallq_bwd_dq_mma_kernel"),
     "K6_dkdv": ("attn_bwd_dkdv_kernel", "smallq_bwd_dkdv_mma_kernel"),
     "K7_dq": ("largeq_bwd_dq_kernel", "largeq_bwd_dq_mma_kernel"),
-    "K7_dkdv": ("largeq_bwd_dkdv_mma_kernel",), "K9": ("nearest_code_kernel",),
+    "K7_dkdv": ("largeq_bwd_dkdv_mma_kernel", "largeq_bwd_dkdv_merge_kernel"),
+    "K9": K9_KERNELS,
 }
 # the FMA attention kernels, which only fp32 calls (the parity checks) launch
 FMA_ATTENTION = ("largeq_kernel", "largeq_bwd_dq_kernel", "smallq_kernel",
@@ -1383,7 +1414,8 @@ def check_sass():
     each instantiation of the bf16 K1 / K2 / K6 / K7 kernels (two each:
     with and without dropout) and of the bf16 K3 / K4 kernels must have
     some, and no bf16 instantiation of an FMA attention, K3 or K4 kernel
-    may exist (K5 keeps its FMA tile in both types)."""
+    may exist (K5 keeps its FMA tile in both types); K9's search must
+    have them and its FMA kernel must be gone."""
     from mebt_tpu_torch.ops import _build
 
     counts = sass_tensor_core_counts(_build.library_path("attention"))
@@ -1400,8 +1432,15 @@ def check_sass():
                 f"SASS: {name} instantiations {inst} (each needs HMMA/HGMMA)")
     fma_bf16 = _bf16_instances(head, FMA_HEAD)
     require(not fma_bf16, f"SASS: bf16 FMA K3 / K4 kernels still built: {fma_bf16}")
+    # K9: the 3xTF32 search on the tensor cores, and no FMA search left
+    vq = sass_tensor_core_counts(_build.library_path("vq"))
+    inst = {n: c for n, c in vq.items() if K9_KERNELS[0] in n}
+    require(len(inst) == 1 and all(c > 0 for c in inst.values()),
+            f"SASS: {K9_KERNELS[0]} {inst} (needs HMMA/HGMMA)")
+    fma_k9 = [n for n in vq if "nearest_code_kernel" in n]
+    require(not fma_k9, f"SASS: the FMA K9 kernel is still built: {fma_k9}")
     return dict(phase="sass", library="attention", tensor_core_instructions=counts,
-                head_sample_tensor_core_instructions=head)
+                head_sample_tensor_core_instructions=head, vq_tensor_core_instructions=vq)
 
 
 def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
@@ -1438,7 +1477,7 @@ def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
         # does not link its ctypes launch to the span
         per = span_kernels(prof, span)
         ks = [k for kernels in per for k in kernels]
-        enc = sum(ms for n, ms in ks if PROFILE_GROUPS["K9"][0] not in n)
+        enc = sum(ms for n, ms in ks if not any(key in n for key in K9_KERNELS))
         out["span"] = dict(name=span, kernels_per_range=[len(k) for k in per], encoder_ms=enc,
                            k9_ms=out["K9"], share=(enc + out["K9"]) / busy)
     return out
@@ -2078,12 +2117,14 @@ def main(argv=None) -> int:
         entry(6, "K7 largeq_backward", "mebt_tpu/ops/attention_pallas.py:589",
               case(report["K7"], "latent_dec_128f", "bfloat16"),
               **{k: case(report["K7"], "latent_dec_128f", "bfloat16")[k]
-                 for k in ("dq_pass_ms", "dkdv_pass_ms")}),
+                 for k in ("dq_pass_ms", "dkdv_pass_ms", "merge_ms", "dkdv_query_splits")}),
         entry(7, "K8 dropout in K1/K2/K6/K7 (row: K1 at rate 0.1)",
               "mebt_tpu/ops/attention_pallas.py:71",
               case(report["K8"], "lt2l", "bfloat16")),
         entry(8, "K9 nearest_code", "mebt_tpu/ops/vq_pallas.py:82",
-              case(report["K9"], "128f"), "mebt_tpu_torch/csrc/vq.cu"),
+              case(report["K9"], "128f"), "mebt_tpu_torch/csrc/vq.cu",
+              **{k: case(report["K9"], "128f")[k]
+                 for k in ("codebook_slices", "bound_ms_3xtf32", "search_ms", "merge_ms")}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -74,26 +74,32 @@
 //
 // K7 (mebt_largeq_backward) replaces
 //   mebt_tpu/ops/attention_pallas.py:_largeq_backward (_largeq_bwd_kernel):
-//   dq, dk, dv of K2; nothing is saved by the forward, and two passes
-//   each write their outputs once (no atomics, bit-repeatable). Pass 1
-//   recomputes, per query row, the softmax, O and D = rowsum(g * O),
-//   writes dq, and leaves lse and D in a scratch buffer; pass 2 sums dk
-//   and dv over ALL query tiles of one (b, h) inside one CTA per key
-//   tile, so no reduction across CTAs is needed.
+//   dq, dk, dv of K2; nothing is saved by the forward, and the passes
+//   write their outputs once (no atomics, bit-repeatable). Pass 1
+//   recomputes, per query row, the softmax and D = rowsum(g * O), writes
+//   dq, and leaves lse and D in a scratch buffer; pass 2 sums dk and dv
+//   over the query tiles of one (b, h) per key tile.
 //   bf16: bound by operations (10 NQ NK Dh per (b, h), 0.11 ms at 128f
 //   latent_dec, against 0.03 ms of bytes); both passes run every
 //   product on the tensor cores with K2's fragments. largeq_bwd_dq_mma_
-//   kernel is K2's tile: K/V resident, a warp per 16-row block, sweep 1
-//   as K2 (lse, O, D from the fp32 O), sweep 2 p = exp2(s - lse),
-//   dp = g V^T, ds = p (dp keep - D) scale, dq += ds K.
-//   largeq_bwd_dkdv_mma_kernel has the key axis as M: a warp per 16
-//   keys, K and V fragments held in registers, Q / g / lse / D tiles of
-//   64 queries double-buffered with cp.async; S^T = K Q^T, dv += (P^T
-//   keep) g, dk += dS^T Q, each 16 queries' products summed apart and
-//   added to dk, dv in fp32 (the tensor cores' own fp32 sums drop the
-//   low bits of small products, which over 8192 queries showed). Every
-//   split operand (p, ds) is in three bf16 parts here (K7_PARTS below):
-//   16 tile products where the fp32 kernels have 7.
+//   kernel is K2's tile: K/V resident, a warp per 16-row block. Sweep 1
+//   takes S = Q K^T and dP = g V^T a 32-key chunk and keeps, beside the
+//   online softmax's (m, l), d = sum_k e_k keep_k dp_k rescaled by the
+//   same 2^(m_old - m_new): D = d / l is rowsum(g * O) without forming
+//   O (two products where P V in three bf16 parts took four). Sweep 2:
+//   p = exp2(s - lse), dp = g V^T, ds = p (dp keep - D) scale, dq += ds
+//   K: 7 products in all. largeq_bwd_dkdv_mma_kernel has the key axis as
+//   M: a warp per 16 keys, K and V fragments held in registers, Q / g /
+//   lse / D tiles of 64 queries double-buffered with cp.async; S^T =
+//   K Q^T, dv += (P^T keep) g, dk += dS^T Q, each 16 queries' products
+//   summed apart and added to dk, dv in fp32 (the tensor cores' own fp32
+//   sums drop the low bits of small products, which over 8192 queries
+//   showed): 8 products. Its (b, h, key tile) CTAs fill 0.8 of a wave at
+//   128f (320 of 396 slots), so the host splits the query walk over up
+//   to 16 CTAs when that ends the launch sooner (k7_dkdv_plan); each
+//   split leaves fp32 dk, dv in scratch and largeq_bwd_dkdv_merge_kernel
+//   adds them in split order. Every split operand (p, ds) is in three
+//   bf16 parts (K7_PARTS below).
 //   fp32: largeq_bwd_dq_kernel (32 queries a CTA, FMA loops) and
 //   attn_bwd_dkdv_kernel without a mask (the parity checks only).
 //
@@ -324,9 +330,10 @@ constexpr int K7_KC2 = 16;      // keys per chunk, its sweep 2 (registers)
 constexpr int DKDV_WARPS = 4;   // K7 dk/dv: 16 keys a warp, 64 keys a CTA
 constexpr int DKDV_QT = 64;     // queries per tile of the dk/dv walk
 constexpr int DKDV_QC = 16;     // queries per product chunk inside a tile
+constexpr int K7_MAX_SPLITS = 16;  // K7 dk/dv: most CTAs sharing one key tile's query walk
 // bf16 parts of a left operand. K2's P in two, to 2^-18 of it: P >= 0,
 // so P V loses nothing to cancellation. K7's p and ds in three, to
-// 2^-27: dv = sum_q p g and dk = sum_q ds q cancel, and D takes O; with
+// 2^-27: dv = sum_q p g and dk = sum_q ds q cancel; with
 // two parts and q eight times larger, some dk and dv elements missed
 // the gate by up to 30% (an emulation over seeds, and the card).
 constexpr int K2_PARTS = 2;
@@ -597,19 +604,14 @@ __device__ __forceinline__ void softmax_chunk(float (&o)[TC_DH / 8][4], float (&
   mma_ab_parts<NP, NT / 2>(o, pa, Vc, lane);
 }
 
-// Sweep 1 of K2 and of K7's dq pass for one warp's 16 query rows:
-// softmax_chunk over all NK resident keys in chunks of KC. row0 = (b * H
-// + h) * NQ + the block's first row. With KEEP_OUT, the keep bits drawn
-// for the block's rows go to keep_rows (row r at keep_rows + r * nkw,
-// one word per 32 keys, bit = key % 32) for the rows below nrows.
-template <int KC, int NP, bool DROP, bool KEEP_OUT = false>
+// K2's online softmax for one warp's 16 query rows: softmax_chunk over
+// all NK resident keys in chunks of KC. row0 = (b * H + h) * NQ + the
+// block's first row.
+template <int KC, int NP, bool DROP>
 __device__ __forceinline__ void attend_rows(float (&o)[TC_DH / 8][4], float (&m)[2], float (&l)[2],
                                             const uint32_t (&qa)[TC_DH / 16][4], const bf16* Ks,
                                             const bf16* Vs, int NK, float scale_log2,
-                                            uint32_t row0, const Dropout& drop, int lane,
-                                            uint32_t* keep_rows = nullptr, int nkw = 0,
-                                            int nrows = 0) {
-  static_assert(!KEEP_OUT || (DROP && KC == 32), "one keep word per chunk");
+                                            uint32_t row0, const Dropout& drop, int lane) {
   zero(o);
   m[0] = m[1] = -INFINITY;
   l[0] = l[1] = 0.f;
@@ -619,7 +621,68 @@ __device__ __forceinline__ void attend_rows(float (&o)[TC_DH / 8][4], float (&m)
     softmax_chunk<KC, NP, DROP>(o, m, l, qa, Ks + k0 * TC_PITCH, Vs + k0 * TC_PITCH, NK - k0,
                                 scale_log2, r0, drop, lane,
                                 [k0](int c) { return (uint32_t)(k0 + c); }, kbits);
-    if (KEEP_OUT) {
+  }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+}
+
+// Sweep 1 of K7's dq pass for one warp's 16 query rows (A fragments qa
+// of q, ga of g): the online softmax (m, l) of K2 and beside l the
+// unnormalized d = sum_k e_k keep_k dp_k with dp = g V^T, rescaled by the
+// same 2^(m_old - m_new), so that D = d / l = rowsum(g o O) (the
+// sum(dp * p) form of attention_pallas.py:_xla_bwd). Two products a
+// 32-key chunk, S and dP, neither with a split operand: O is never
+// formed. Rows g and g + 8, summed over the quad. With dropout the keep
+// bits drawn go to keep_rows (row r at keep_rows + r * nkw, one word per
+// 32 keys, bit = key % 32) for the rows below nrows.
+template <bool DROP>
+__device__ __forceinline__ void softmax_rows_d(float (&m)[2], float (&l)[2], float (&d)[2],
+                                               const uint32_t (&qa)[TC_DH / 16][4],
+                                               const uint32_t (&ga)[TC_DH / 16][4],
+                                               const bf16* Ks, const bf16* Vs, int NK,
+                                               float scale_log2, uint32_t row0,
+                                               const Dropout& drop, int lane, uint32_t* keep_rows,
+                                               int nkw, int nrows) {
+  constexpr int KC = K7_KC, NT = KC / 8;
+  static_assert(KC == 32, "one keep word per chunk");
+  m[0] = m[1] = -INFINITY;
+  l[0] = l[1] = d[0] = d[1] = 0.f;
+  const uint32_t r0 = row0 + (lane >> 2);
+  for (int k0 = 0; k0 < NK; k0 += KC) {
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    mma_abt<NT>(s, qa, Ks + k0 * TC_PITCH, lane);
+    mma_abt<NT>(dp, ga, Vs + k0 * TC_PITCH, lane);  // zero rows past NK
+    float mx[2];
+    mask_max<NT>(s, 0, NK - k0, lane, mx[0], mx[1]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mn = fmaxf(m[h], mx[h] * scale_log2);  // finite: column 0 is live
+      const float alpha = exp2f(m[h] - mn);              // 0 on the first chunk
+      m[h] = mn;
+      l[h] *= alpha;
+      d[h] *= alpha;
+    }
+    uint32_t kbits[2] = {0u, 0u};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        float x = exp2f(fmaf(s[j][e], scale_log2, -m[h]));
+        l[h] += x;  // the denominator takes the undropped e
+        if (DROP) {
+          const int c = j * 8 + 2 * (lane & 3) + (e & 1);
+          const float kp = drop.keep(r0 + h * 8, (uint32_t)(k0 + c));
+          if (kp != 0.f) kbits[h] |= 1u << c;
+          x *= kp;
+        }
+        d[h] = fmaf(x, dp[j][e], d[h]);
+      }
+    if (DROP) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         uint32_t w = kbits[h];
@@ -630,8 +693,11 @@ __device__ __forceinline__ void attend_rows(float (&o)[TC_DH / 8][4], float (&m)
       }
     }
   }
-  l[0] = quad_sum(l[0]);
-  l[1] = quad_sum(l[1]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = quad_sum(l[h]);
+    d[h] = quad_sum(d[h]);
+  }
 }
 
 // rows g, g + 8 of a 16-row block at `base` (row-major, TC_DH wide) from
@@ -647,6 +713,21 @@ __device__ __forceinline__ void store_rows(bf16* base, const float (&c)[TC_DH / 
     for (int j = 0; j < TC_DH / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
           __floats2bfloat162_rn(c[j][2 * h] * inv[h], c[j][2 * h + 1] * inv[h]);
+  }
+}
+
+// rows g, g + 8 of a 16-row block at `base` (row-major fp32, TC_DH wide)
+// from the C fragments c, skipping rows >= nrows
+__device__ __forceinline__ void store_rows_f32(float* base, const float (&c)[TC_DH / 8][4],
+                                               int nrows, int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = (lane >> 2) + 8 * h;
+    if (r >= nrows) continue;
+    float* dst = base + (size_t)r * TC_DH + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < TC_DH / 8; ++j)
+      *reinterpret_cast<float2*>(dst + j * 8) = make_float2(c[j][2 * h], c[j][2 * h + 1]);
   }
 }
 
@@ -785,27 +866,19 @@ largeq_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int nkw = (NK + 31) / 32;
     uint32_t* keep_rows = DROP ? keep + (size_t)row0 * nkw : nullptr;
 
-    // sweep 1: lse, O = (p o keep) V in fp32, D = rowsum(g o O)
-    float acc[TC_DH / 8][4], m[2], l[2];
-    attend_rows<K7_KC, K7_PARTS, DROP, DROP>(acc, m, l, qa, Ks, Vs, NK, scale_log2, row0, drop,
-                                             lane, keep_rows, nkw, nrows);
-    float lg2[2], dr[2];
+    // sweep 1: (m, l) and D = d / l, the online form of rowsum(g o O)
+    float m[2], l[2], lg2[2], dr[2];
+    softmax_rows_d<DROP>(m, l, dr, qa, ga, Ks, Vs, NK, scale_log2, row0, drop, lane, keep_rows,
+                         nkw, nrows);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float inv = 1.f / l[h];
-      float d = 0.f;
-#pragma unroll
-      for (int j = 0; j < TC_DH / 8; ++j) {
-        const uint32_t gg = ga[j >> 1][(j & 1) * 2 + h];  // g at row g + 8h, cols 8j + 2t, +1
-        d = fmaf(bf_lo(gg), acc[j][2 * h] * inv, d);
-        d = fmaf(bf_hi(gg), acc[j][2 * h + 1] * inv, d);
-      }
-      dr[h] = quad_sum(d);
+      dr[h] /= l[h];
       lg2[h] = log2f(l[h]);
     }
 
     // sweep 2: p = 2^(s c - m - log2 l), dp = g V^T, ds = p (dp keep - D) scale,
     // dq += ds K
+    float acc[TC_DH / 8][4];
     zero(acc);
     if (DROP) __syncwarp();  // the block's keep words are written
     for (int k0 = 0; k0 < NK; k0 += K7_KC2) {
@@ -856,17 +929,20 @@ largeq_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// K7 pass 2 (bf16): one CTA per (b, h, 64 keys), a warp per 16 keys,
-// walking every 64-query tile; (m, log2 l), D and the keep bits of each
-// row from pass 1.
+// K7 pass 2 (bf16): one CTA per (b, h, 64 keys, query split), a warp
+// per 16 keys, walking the split's 64-query tiles (tiles tps z .. of
+// split z = blockIdx.z); (m, log2 l), D and the keep bits of each row
+// from pass 1. One split writes dk, dv in bf16; with more, each leaves
+// its fp32 sums in part (dk of split z at part + z n, dv at part +
+// (splits + z) n, n = B H NK Dh) for largeq_bwd_dkdv_merge_kernel.
 template <bool DROP>
 __global__ void __launch_bounds__(DKDV_WARPS * 32, 3)
 largeq_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, const bf16* __restrict__ g,
                            const float2* __restrict__ lse2, const float* __restrict__ dvec,
                            const uint32_t* __restrict__ keep, bf16* __restrict__ dk,
-                           bf16* __restrict__ dv, int NQ, int NK, float scale,
-                           float scale_log2, Dropout drop) {
+                           bf16* __restrict__ dv, float* __restrict__ part, int NQ, int NK,
+                           int tps, float scale, float scale_log2, Dropout drop) {
   constexpr int NT = DKDV_QC / 8;
   constexpr int TILE = DKDV_QT * TC_PITCH;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -909,9 +985,11 @@ largeq_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     }
   };
 
+  const int ntiles = (NQ + DKDV_QT - 1) / DKDV_QT;
+  const int t0 = blockIdx.z * tps, t1 = min(ntiles, t0 + tps);
   copy_rows(Kt, k + koff, k0, DKDV_WARPS * 16, NK, tid, NTHR);
   copy_rows(Vt, v + koff, k0, DKDV_WARPS * 16, NK, tid, NTHR);
-  load_tile(0, 0);
+  load_tile(t0, 0);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
@@ -924,10 +1002,9 @@ largeq_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   zero(dva);
   const int key_r = k0 + warp * 16 + (lane >> 2);  // +8 for e >= 2
 
-  const int ntiles = (NQ + DKDV_QT - 1) / DKDV_QT;
-  for (int t = 0; t < ntiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < ntiles) load_tile(t + 1, buf ^ 1);
+  for (int t = t0; t < t1; ++t) {
+    const int buf = (t - t0) & 1;
+    if (t + 1 < t1) load_tile(t + 1, buf ^ 1);
     cp_async_commit();
     const bf16* Qt = Qs + buf * TILE;
     const bf16* Gt = Gs + buf * TILE;
@@ -977,17 +1054,81 @@ largeq_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     __syncthreads();  // the next tile is in; every warp is done with this one
   }
 
-  const float one[2] = {1.f, 1.f};
   const int nrows = NK - (k0 + warp * 16);
-  store_rows(dk + koff + (size_t)(k0 + warp * 16) * TC_DH, dka, one, nrows, lane);
-  store_rows(dv + koff + (size_t)(k0 + warp * 16) * TC_DH, dva, one, nrows, lane);
+  const size_t row0 = koff + (size_t)(k0 + warp * 16) * TC_DH;
+  if (part == nullptr) {
+    const float one[2] = {1.f, 1.f};
+    store_rows(dk + row0, dka, one, nrows, lane);
+    store_rows(dv + row0, dva, one, nrows, lane);
+  } else {
+    const size_t n = (size_t)gridDim.y * NK * TC_DH;
+    store_rows_f32(part + blockIdx.z * n + row0, dka, nrows, lane);
+    store_rows_f32(part + (gridDim.z + blockIdx.z) * n + row0, dva, nrows, lane);
+  }
+}
+
+// dk, dv (n elements each) = the sums of the splits' fp32 partials, added
+// in split order (bit-repeatable), rounded to bf16 once; four a thread
+__global__ void __launch_bounds__(256)
+largeq_bwd_dkdv_merge_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
+                             bf16* __restrict__ dv, size_t n, int splits) {
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= 2 * n) return;
+  const int which = i >= n;
+  const size_t j = i - which * n;
+  const float* src = part + (size_t)which * splits * n + j;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int z = 1; z < splits; ++z) {
+    const float4 x = *reinterpret_cast<const float4*>(src + (size_t)z * n);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>((which ? dv : dk) + j);
+  dst[0] = __floats2bfloat162_rn(acc.x, acc.y);
+  dst[1] = __floats2bfloat162_rn(acc.z, acc.w);
+}
+
+// The query splits of K7's dk/dv pass on the current card: with the key
+// tiles x (b, h) CTAs short of a few waves, the walk over the ceil(NQ /
+// 64) query tiles is cut into the count whose launch ends soonest when
+// the CTAs run in waves (slots = SMs x CTAs an SM), each CTA costing its
+// tiles plus one for its K/V, first tile and store; the fewer splits on a
+// tie. tps = tiles a split; no split is empty.
+template <bool DROP>
+cudaError_t k7_dkdv_plan(int BH, int NQ, int NK, int& splits, int& tps) {
+  const size_t smem = k7_dkdv_tc_smem_bytes();
+  auto kern = largeq_bwd_dkdv_mma_kernel<DROP>;
+  int sms = 0, smem_sm = 0, optin = 0, per_sm = 0;
+  cudaError_t e = card_shape(sms, smem_sm, optin);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, DKDV_WARPS * 32, smem);
+  if (e != cudaSuccess) return e;
+  const long slots = (long)sms * (per_sm > 0 ? per_sm : 1);
+  const long ctas = (long)(pad_keys(NK) / (DKDV_WARPS * 16)) * BH;
+  const int ntiles = (NQ + DKDV_QT - 1) / DKDV_QT;
+  splits = 1;
+  long best_cost = -1;
+  for (int s = 1; s <= K7_MAX_SPLITS && s <= ntiles; ++s) {
+    const long cost = (ctas * s + slots - 1) / slots * ((ntiles + s - 1) / s + 1);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      splits = s;
+    }
+  }
+  tps = ntiles > 0 ? (ntiles + splits - 1) / splits : 1;
+  splits = ntiles > 0 ? (ntiles + tps - 1) / tps : 1;
+  return cudaSuccess;
 }
 
 template <bool DROP>
 cudaError_t launch_largeq_bwd_mma(const void* q, const void* k, const void* v, const void* g,
                                   void* dq, void* dk, void* dv, void* lse2, void* dvec,
-                                  void* keep, int B, int H, int NQ, int NK, float scale,
-                                  Dropout drop, cudaStream_t stream) {
+                                  void* keep, void* part, int B, int H, int NQ, int NK,
+                                  float scale, Dropout drop, cudaStream_t stream) {
   size_t smem = k7_dq_tc_smem_bytes(NK);
   auto kern = largeq_bwd_dq_mma_kernel<DROP>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1006,16 +1147,22 @@ cudaError_t launch_largeq_bwd_mma(const void* q, const void* k, const void* v, c
     if (e != cudaSuccess) return e;
   }
 
-  smem = k7_dkdv_tc_smem_bytes();
-  auto kern2 = largeq_bwd_dkdv_mma_kernel<DROP>;
-  e = cudaFuncSetAttribute(kern2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int splits = 1, tps = 1;
+  e = k7_dkdv_plan<DROP>(B * H, NQ, NK, splits, tps);
   if (e != cudaSuccess) return e;
-  const dim3 grid2(pad_keys(NK) / (DKDV_WARPS * 16), B * H);
-  kern2<<<grid2, DKDV_WARPS * 32, smem, stream>>>(
+  float* partf = splits > 1 ? static_cast<float*>(part) : nullptr;
+  const dim3 grid2(pad_keys(NK) / (DKDV_WARPS * 16), B * H, splits);
+  largeq_bwd_dkdv_mma_kernel<DROP><<<grid2, DKDV_WARPS * 32, k7_dkdv_tc_smem_bytes(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(g), static_cast<const float2*>(lse2),
       static_cast<const float*>(dvec), static_cast<const uint32_t*>(keep),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), NQ, NK, scale, scale * LOG2E, drop);
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), partf, NQ, NK, tps, scale, scale * LOG2E,
+      drop);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  const size_t n = (size_t)B * H * NK * TC_DH;
+  largeq_bwd_dkdv_merge_kernel<<<(unsigned)((2 * n / 4 + 255) / 256), 256, 0, stream>>>(
+      partf, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, splits);
   return cudaGetLastError();
 }
 
@@ -2261,13 +2408,13 @@ largeq_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DH, bool DROP>
 cudaError_t launch_largeq_bwd(const void* q, const void* k, const void* v,
                               const void* g, void* dq, void* dk, void* dv,
-                              void* lse, void* dvec, void* keep, int B, int H,
-                              int NQ, int NK, float scale, Dropout drop,
+                              void* lse, void* dvec, void* keep, void* part, int B,
+                              int H, int NQ, int NK, float scale, Dropout drop,
                               cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
     static_assert(DH == TC_DH, "the tensor-core K7 takes Dh 64");
-    return launch_largeq_bwd_mma<DROP>(q, k, v, g, dq, dk, dv, lse, dvec, keep, B, H, NQ,
-                                       NK, scale, drop, stream);
+    return launch_largeq_bwd_mma<DROP>(q, k, v, g, dq, dk, dv, lse, dvec, keep, part, B, H,
+                                       NQ, NK, scale, drop, stream);
   } else {
     const size_t smem = k7_smem_bytes<T, DH>(NK);
     auto kern = largeq_bwd_dq_kernel<T, DH, DROP>;
@@ -2380,21 +2527,36 @@ size_t mebt_largeq_bwd_smem_bytes(int NK, int is_bf16) {
   return dq > dkdv ? dq : dkdv;
 }
 
+// The query splits of the bf16 K7's dk/dv pass for these shapes on the
+// current card (1 in fp32), or -1 with *status set. With more than one,
+// the pass needs 2 * splits * B * H * NK * Dh fp32 of scratch (part).
+int mebt_largeq_bwd_splits(int B, int H, int NQ, int NK, int is_bf16, int dropout,
+                           int* status) {
+  *status = 0;
+  if (!is_bf16) return 1;
+  int splits = 1, tps = 1;
+  const cudaError_t e = dropout ? k7_dkdv_plan<true>(B * H, NQ, NK, splits, tps)
+                                : k7_dkdv_plan<false>(B * H, NQ, NK, splits, tps);
+  *status = (int)e;
+  return e == cudaSuccess ? splits : -1;
+}
+
 // K7. lse, dvec and keep are scratch that the dq pass fills for the
 // dk/dv pass: dvec (B,H,NQ) fp32; lse (B,H,NQ) fp32 in fp32, (B,H,NQ,2)
 // pairs (m, log2 l) in bf16; keep, bf16 with dropout only (else unused),
-// (B,H,NQ,ceil(NK/32)) 32-bit words of keep bits -> dq (B,H,NQ,Dh),
-// dk/dv (B,H,NK,Dh) in the input type.
+// (B,H,NQ,ceil(NK/32)) 32-bit words of keep bits; part, the dk/dv
+// pass's split sums (see mebt_largeq_bwd_splits; unused at one split) ->
+// dq (B,H,NQ,Dh), dk/dv (B,H,NK,Dh) in the input type.
 int mebt_largeq_backward(const void* q, const void* k, const void* v,
                          const void* g, void* dq, void* dk, void* dv, void* lse,
-                         void* dvec, void* keep, int B, int H, int NQ, int NK, int Dh,
-                         float scale, int is_bf16, unsigned seed,
+                         void* dvec, void* keep, void* part, int B, int H, int NQ, int NK,
+                         int Dh, float scale, int is_bf16, unsigned seed,
                          unsigned thresh, float keep_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dh != 64) return (int)cudaErrorInvalidValue;
   const Dropout drop{seed, thresh, keep_scale};
   return MEBT_DISPATCH(launch_largeq_bwd, is_bf16, drop, q, k, v, g, dq, dk, dv,
-                       lse, dvec, keep, B, H, NQ, NK, scale, drop, s);
+                       lse, dvec, keep, part, B, H, NQ, NK, scale, drop, s);
 }
 
 }  // extern "C"

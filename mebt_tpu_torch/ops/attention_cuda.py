@@ -14,7 +14,10 @@ blocks, forward and backward, with dropout on the probabilities
      tensor cores over the live keys, with p and ds in three bf16 parts.
   K7 `largeq_backward`: dq, dk, dv of K2, softmax recomputed
      (replaces attention_pallas.py:_largeq_backward); in bf16 on the
-     tensor cores as K2, with p and ds in three bf16 parts.
+     tensor cores as K2, with p and ds in three bf16 parts, D = rowsum(g
+     out) taken online beside the softmax, and the dk/dv pass's query walk
+     split over CTAs when its key tiles do not fill the card (fp32 partial
+     sums in scratch, added in split order by a merge kernel).
   K8 the `p_drop > 0` branch of all four (replaces the dropout variants,
      attention_pallas.py:_drop_keep / _fused_dropout_op): the keep mask is
      Philox keyed on (seed, query row, key) of the unpadded problem, so
@@ -67,8 +70,9 @@ _SIGNATURES = {
     ),
     "mebt_smallq_bwd_scratch_bytes": (ctypes.c_size_t, [_I] * 6),
     "mebt_largeq_backward": (
-        ctypes.c_int, [_P] * 10 + [_I] * 5 + [_F, _I] + _DROP + [_P],
+        ctypes.c_int, [_P] * 11 + [_I] * 5 + [_F, _I] + _DROP + [_P],
     ),
+    "mebt_largeq_bwd_splits": (ctypes.c_int, [_I] * 6 + [ctypes.POINTER(_I)]),
     "mebt_smallq_scratch_bytes": (ctypes.c_size_t, [_I] * 5 + [ctypes.POINTER(_I)]),
     "mebt_largeq_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "mebt_largeq_bwd_smem_bytes": (ctypes.c_size_t, [_I, _I]),
@@ -342,6 +346,17 @@ def smallq_backward(q, k, v, key_mask, out, lse, g, *, p_drop: float = 0.0, seed
 smallq_backward.launches = 0
 
 
+def dkdv_splits(q, k, p_drop: float = 0.0) -> int:
+    """The query splits K7's dk/dv pass takes for these CUDA tensors on
+    their card (1 in fp32)."""
+    B, H, NQ, _ = q.shape
+    err = ctypes.c_int(0)
+    n = _lib().mebt_largeq_bwd_splits(B, H, NQ, k.shape[2], int(q.dtype == torch.bfloat16),
+                                      int(p_drop > 0.0), ctypes.byref(err))
+    _build.check(err.value, "largeq_backward (plan)")
+    return n
+
+
 def largeq_backward(q, k, v, g, *, p_drop: float = 0.0, seed: int = 0):
     """K7: (dq, dk, dv) of K2 in the input dtype; the softmax, O and D
     are recomputed in the kernel."""
@@ -362,10 +377,14 @@ def largeq_backward(q, k, v, g, *, p_drop: float = 0.0, seed: int = 0):
     keep = None
     if p_drop > 0.0 and q.dtype == torch.bfloat16:
         keep = torch.empty(rows * ((NK + 31) // 32), device=q.device, dtype=torch.int32)
+    # the bf16 dk/dv pass's fp32 sums of each query split, when it splits
+    n_splits = dkdv_splits(q, k, p_drop)
+    part = (torch.empty(2 * n_splits * B * H * NK * Dh, device=q.device, dtype=torch.float32)
+            if n_splits > 1 else None)
     status = lib.mebt_largeq_backward(
         _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(dq), _ptr(dk), _ptr(dv),
         _ptr(scratch), _ptr(scratch[2 * rows:]), None if keep is None else _ptr(keep),
-        B, H, NQ, NK, Dh, 1.0 / math.sqrt(Dh),
+        None if part is None else _ptr(part), B, H, NQ, NK, Dh, 1.0 / math.sqrt(Dh),
         int(q.dtype == torch.bfloat16), *_drop_args(p_drop, seed), _build.stream_ptr(q),
     )
     _build.check(status, "largeq_backward")

@@ -1,11 +1,15 @@
-"""K9: nearest codebook entry in one CUDA kernel (csrc/vq.cu), replacing
+"""K9: nearest codebook entry on the tensor cores (csrc/vq.cu), replacing
 mebt_tpu/ops/vq_pallas.py:nearest_code_pallas.
 
 `nearest_code(flat, codebook)` returns, for each row x of flat (M, D),
 argmin_k -2 x·e_k + |e_k|^2 over the codebook (K, D) as (M,) int64,
 scored in fp32; |x|^2 is dropped (it cannot change the argmin) and the
 lowest index wins an exact tie. |e_k|^2 is computed here, once per call,
-as the JAX wrapper computes it outside its pallas_call.
+as the JAX wrapper computes it outside its pallas_call. The kernel
+multiplies in 3xTF32 (each operand split into two TF32 parts, three
+products) over S slices of the codebook, S from the card's SM count, and
+a merge kernel folds the slices in order; the wrapper allocates the
+slices' scratch (one launch of the pair counts once).
 
 `nearest_code_ref` is the plain version, chunked over the codebook with
 a running (min, argmin) like `nearest_code_xla`, so the (M, K) scores
@@ -29,8 +33,11 @@ from mebt_tpu_torch.ops import _build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"mebt_nearest_code": (ctypes.c_int, [_P] * 4 + [_I] * 3 + [_P])}
-MAX_DIM = 512  # the kernel keeps a (D, 64) fp32 tile of x in shared memory
+_SIGNATURES = {
+    "mebt_nearest_code": (ctypes.c_int, [_P] * 5 + [_I] * 4 + [_P]),
+    "mebt_nearest_code_splits": (ctypes.c_int, [_I] * 3 + [ctypes.POINTER(_I)]),
+}
+MAX_DIM = 512  # the widths the kernel's checks cover
 
 
 def code_norms(codebook: torch.Tensor) -> torch.Tensor:
@@ -82,8 +89,23 @@ def code_mismatches(flat: torch.Tensor, codebook: torch.Tensor, a: torch.Tensor,
     return int(diff.numel()), gap.max().item(), (gap / (ba + bb)).max().item()
 
 
-def nearest_code(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
-    """(M, D), (K, D) -> (M,) int64 nearest-entry indices; no gradient."""
+def _lib():
+    return _build.load("vq", _SIGNATURES)
+
+
+def codebook_slices(M: int, K: int, splits: int = 0) -> int:
+    """The codebook slices S the kernel takes for (M, K) on the current
+    card; `splits` > 0 asks for that many (cut to the 128-code chunks)."""
+    err = ctypes.c_int(0)
+    n = _lib().mebt_nearest_code_splits(M, K, splits, ctypes.byref(err))
+    _build.check(err.value, "nearest_code (plan)")
+    return n
+
+
+def nearest_code(flat: torch.Tensor, codebook: torch.Tensor, *, splits: int = 0) -> torch.Tensor:
+    """(M, D), (K, D) -> (M,) int64 nearest-entry indices; no gradient.
+    `splits` > 0 forces the kernel's codebook slices (tests); 0 lets the
+    card's plan choose."""
     flat, codebook = flat.detach(), codebook.detach()
     if not flat.is_cuda:
         return nearest_code_ref(flat, codebook)
@@ -92,17 +114,21 @@ def nearest_code(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     if codebook.device != flat.device:
         raise ValueError("x and the codebook must be on one device")
     M, D = flat.shape
-    if not (1 <= D <= MAX_DIM) or M < 1 or codebook.shape[0] < 1:
-        raise ValueError(f"shape (M {M}, K {codebook.shape[0]}, D {D}) not taken by the kernel")
-    x = flat.float().contiguous()
-    e = codebook.float().contiguous()
+    K = codebook.shape[0]
+    if not (1 <= D <= MAX_DIM) or M < 1 or K < 1:
+        raise ValueError(f"shape (M {M}, K {K}, D {D}) not taken by the kernel")
+    x, e = flat.float(), codebook.float()
     e2 = code_norms(e)
+    if D % 4:  # the kernel copies rows 16 bytes at a time; zeros add nothing
+        x, e = (torch.nn.functional.pad(t, (0, 4 - D % 4)) for t in (x, e))
+    x, e = _build.aligned(x), _build.aligned(e)
+    n_slices = codebook_slices(M, K, splits)
+    scratch = torch.empty(2 * n_slices * M, dtype=torch.int32, device=x.device)
     out = torch.empty(M, dtype=torch.int64, device=x.device)
-    lib = _build.load("vq", _SIGNATURES)
-    status = lib.mebt_nearest_code(
+    status = _lib().mebt_nearest_code(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(e.data_ptr()),
         ctypes.c_void_p(e2.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        M, e.shape[0], D, _build.stream_ptr(x),
+        ctypes.c_void_p(scratch.data_ptr()), M, K, x.shape[1], splits, _build.stream_ptr(x),
     )
     _build.check(status, "nearest_code")
     nearest_code.launches += 1

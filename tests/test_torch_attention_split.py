@@ -10,14 +10,16 @@ cores multiply bf16 operands only, so a fp32 left operand enters its
 product as bf16 parts, each rounding what the ones before it left
 (hi = bf16(x), lo = bf16(x - hi), ...), whose products are summed in
 fp32. K2 splits P in two parts (P >= 0: nothing cancels in P V); K7
-splits p and ds in three, for O (which D takes), dv, dq and dk: two
-parts miss the gate on some dk and dv elements when q is eight times
-larger. The emulation follows the kernels: an online softmax over
-64-key chunks (32 in K7's dq pass) of e = 2^(s c - m) with c = scale
-log2(e) and s c - m rounded once (an fmaf), the undropped e in the
-denominator, D from the fp32 O, p = 2^(s c - m - log2 l) in the second
-sweep. With one bf16 rounding of p and ds instead (the TPU kernel's
-choice) the same emulation misses the gate by far.
+splits p and ds in three, for dv, dq and dk: two parts miss the gate on
+some dk and dv elements when q is eight times larger. The emulation
+follows the kernels: an online softmax over 64-key chunks (32 in K7's
+dq pass) of e = 2^(s c - m) with c = scale log2(e) and s c - m rounded
+once (an fmaf), the undropped e in the denominator; K7's D = d / l with
+d = sum e keep dp carried beside l (no O), p = 2^(s c - m - log2 l) in
+the second sweep; dk and dv summed 16 queries at a time in fp32 over
+the query walk, cut into splits whose sums are added in split order.
+With one bf16 rounding of p and ds instead (the TPU kernel's choice)
+the same emulation misses the gate by far.
 """
 
 import math
@@ -83,13 +85,53 @@ def emulate_forward(q, k, v, keep, split: bool):
     return (o / l).to(q.dtype)
 
 
-def emulate_backward(q, k, v, g, keep, split: bool):
-    """(dq, dk, dv) as the dq pass and the dk/dv pass compute them."""
+def _sweep1_d(q, k, v, g, keep, kc: int = 32):
+    """K7's sweep 1: the online softmax (m, l) and beside l the
+    unnormalized d = sum_k e_k keep_k dp_k, dp = g V^T, rescaled with it;
+    D = d / l. Two products a chunk, neither with a split operand."""
+    c = torch.tensor(LOG2E / math.sqrt(q.shape[-1]), dtype=torch.float32)
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    m = torch.full(qf.shape[:-1] + (1,), -math.inf)
+    l = torch.zeros(m.shape)
+    d = torch.zeros(m.shape)
+    for k0 in range(0, kf.shape[2], kc):
+        s = torch.matmul(qf, kf[:, :, k0:k0 + kc].transpose(-1, -2))
+        dp = torch.matmul(gf, vf[:, :, k0:k0 + kc].transpose(-1, -2))
+        mn = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+        alpha = torch.exp2(m - mn)
+        e = torch.exp2(_fma(s, c, mn))
+        l = l * alpha + e.sum(-1, keepdim=True)
+        if keep is not None:
+            e = e * keep[..., k0:k0 + kc]
+        d = d * alpha + (e * dp).sum(-1, keepdim=True)
+        m = mn
+    return m, l, d / l, c
+
+
+def _key_major(x, y, parts: int, splits: int, qt: int = 64, qc: int = 16):
+    """x^T @ y summed over the query axis as the dk/dv pass sums it: each
+    qc queries' product (x in bf16 parts) apart in fp32 and added to the
+    split's sum, the query walk of qt-query tiles cut into `splits`
+    ranges of whole tiles, the splits' sums added in split order."""
+    nq = x.shape[2]
+    tiles = -(-nq // qt)
+    tps = -(-tiles // splits)
+    total = None
+    for q0 in range(0, nq, tps * qt):
+        part = torch.zeros(x.shape[:2] + (x.shape[3], y.shape[3]))
+        for c0 in range(q0, min(nq, q0 + tps * qt), qc):
+            part = part + _product(x[:, :, c0:c0 + qc].transpose(-1, -2), y[:, :, c0:c0 + qc], parts)
+        total = part if total is None else total + part
+    return total
+
+
+def emulate_backward(q, k, v, g, keep, split: bool, dkdv_splits: int = 1):
+    """(dq, dk, dv) as the dq pass and the dk/dv pass compute them, the
+    dk/dv pass's query walk cut into `dkdv_splits` ranges."""
     parts = K7_PARTS if split else 1
     scale = 1.0 / math.sqrt(q.shape[-1])
-    o, m, l, c = _sweep1(q, k, v, keep, parts, kc=32)
+    m, l, dvec, c = _sweep1_d(q, k, v, g, keep)
     qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
-    dvec = (gf * (o / l)).sum(-1, keepdim=True)
     p = torch.exp2(_fma(torch.matmul(qf, kf.transpose(-1, -2)), c, m) - torch.log2(l))
     dp = torch.matmul(gf, vf.transpose(-1, -2))
     p_v = p
@@ -97,8 +139,8 @@ def emulate_backward(q, k, v, g, keep, split: bool):
         p_v, dp = p * keep, dp * keep
     ds = p * (dp - dvec) * scale
     dq = _product(ds, kf, parts)
-    dk = _product(ds.transpose(-1, -2), qf, parts)
-    dv = _product(p_v.transpose(-1, -2), gf, parts)
+    dk = _key_major(ds, qf, parts, dkdv_splits)
+    dv = _key_major(p_v, gf, parts, dkdv_splits)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -122,9 +164,7 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("split", [True, False], ids=["split", "single_rounding"])
-@pytest.mark.parametrize("case,B,H,NQ,NK,drop,q_scale", CASES, ids=[c[0] for c in CASES])
-def test_split_products_keep_the_card_gate(case, B, H, NQ, NK, drop, q_scale, split):
+def _inputs(B, H, NQ, NK, drop, q_scale):
     rng = np.random.default_rng(NQ + NK + H)
     q, g = (torch.from_numpy(rng.standard_normal((B, H, NQ, 64), dtype=np.float32))
             .to(torch.bfloat16) for _ in range(2))
@@ -132,8 +172,15 @@ def test_split_products_keep_the_card_gate(case, B, H, NQ, NK, drop, q_scale, sp
     k, v = (torch.from_numpy(rng.standard_normal((B, H, NK, 64), dtype=np.float32))
             .to(torch.bfloat16) for _ in range(2))
     keep = torch.from_numpy(rng.random((B, H, NQ, NK)) >= P_DROP) if drop else None
-    p_drop = P_DROP if drop else 0.0
     scale_keep = None if keep is None else keep.float() / (1.0 - P_DROP)
+    return q, k, v, g, keep, scale_keep
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split", "single_rounding"])
+@pytest.mark.parametrize("case,B,H,NQ,NK,drop,q_scale", CASES, ids=[c[0] for c in CASES])
+def test_split_products_keep_the_card_gate(case, B, H, NQ, NK, drop, q_scale, split):
+    q, k, v, g, keep, scale_keep = _inputs(B, H, NQ, NK, drop, q_scale)
+    p_drop = P_DROP if drop else 0.0
 
     out = emulate_forward(q, k, v, scale_keep, split)
     want = largeq_attention_ref(q, k, v, p_drop=p_drop, keep=keep)
@@ -145,3 +192,35 @@ def test_split_products_keep_the_card_gate(case, B, H, NQ, NK, drop, q_scale, sp
     else:
         # one bf16 rounding of p and ds: far past the bound in every output
         assert min(over) > 4.0, f"{case}: out, dq, dk, dv at {over} of the bound"
+
+
+@pytest.mark.parametrize("case,B,H,NQ,NK,drop,q_scale", CASES, ids=[c[0] for c in CASES])
+def test_split_dkdv_walk_keeps_the_card_gate(case, B, H, NQ, NK, drop, q_scale):
+    """The dk/dv pass's query walk cut into splits (128f: 6 of its 128
+    tiles a split, as the H100's plan cuts it; the smaller cases into
+    3), each split's fp32 sums added in split order: within the gate, and
+    within a few fp32 roundings of the one-split result."""
+    q, k, v, g, keep, scale_keep = _inputs(B, H, NQ, NK, drop, q_scale)
+    splits = 6 if NQ >= 8192 else 3
+    got = emulate_backward(q, k, v, g, scale_keep, True, dkdv_splits=splits)
+    want = largeq_backward_ref(q, k, v, g, p_drop=P_DROP if drop else 0.0, keep=keep)
+    over = [_over(a, b) for a, b in zip(got, want)]
+    assert max(over) <= 1.0, f"{case}: dq, dk, dv at {over} of the bound"
+    one = emulate_backward(q, k, v, g, scale_keep, True)
+    assert torch.equal(got[0], one[0])  # dq does not depend on the dk/dv split
+    for a, b in zip(got[1:], one[1:]):  # one bf16 rounding of sums a few fp32 ulps apart
+        assert ((a.float() - b.float()).abs() <= 2.0**-7 * b.float().abs() + 1e-6).all()
+
+
+@pytest.mark.parametrize("drop", [False, True], ids=["plain", "dropout"])
+def test_online_d_matches_rowsum_of_g_and_out(drop):
+    """D = d / l from sweep 1 against rowsum(g * O) in float64."""
+    q, k, v, g, _, scale_keep = _inputs(2, 2, 1000, 200, drop, 1.0)
+    _, _, dvec, _ = _sweep1_d(q, k, v, g, scale_keep)
+    q6, k6, v6, g6 = (t.double() for t in (q, k, v, g))
+    p = torch.softmax(q6 @ k6.transpose(-1, -2) / 8.0, dim=-1)
+    if scale_keep is not None:
+        p = p * scale_keep.double()
+    want = (g6 * (p @ v6)).sum(-1, keepdim=True)
+    scale = (g6.abs() * (p @ v6.abs())).sum(-1, keepdim=True)
+    assert ((dvec.double() - want).abs() <= 1e-6 * scale).all()

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from mebt_tpu_torch.ops.attention_cuda import (
+    dkdv_splits,
     dropout_branch,
     fused_attention,
     fused_dropout_attention,
@@ -38,7 +39,12 @@ from mebt_tpu_torch.ops.head_sample import (
 )
 
 from mebt_tpu_torch.ops.philox import philox_keep
-from mebt_tpu_torch.ops.vq import code_mismatches, nearest_code, nearest_code_ref
+from mebt_tpu_torch.ops.vq import (
+    code_mismatches,
+    codebook_slices,
+    nearest_code,
+    nearest_code_ref,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -397,6 +403,20 @@ def test_largeq_backward_scaled_matches_float64(dev, p_drop):
         _assert_all_close(t, [e.to(torch.bfloat16) for e in exact], GRAD_TOL[torch.bfloat16])
 
 
+def test_largeq_backward_split_walk_with_dropout(dev):
+    """The 128f latent_dec shape (5 x 16 x 8192 queries over 256 keys),
+    where the dk/dv pass splits its query walk and merges the splits:
+    against the plain version under the bf16 gate with dropout, and the
+    same bits on two calls."""
+    q, k, v, g = _largeq_case(dev, torch.bfloat16, 5, 8192, 256, 1.0, H=16)
+    assert dkdv_splits(q, k, 0.1) > 1
+    got = largeq_backward(q, k, v, g, p_drop=0.1, seed=4)
+    _assert_all_close(got, largeq_backward_ref(q, k, v, g, p_drop=0.1, seed=4),
+                      GRAD_TOL[torch.bfloat16])
+    again = largeq_backward(q, k, v, g, p_drop=0.1, seed=4)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def test_unsupported_backward_shapes_raise(dev):
     q = torch.zeros(1, 1, 4, 64, device=dev)
     k = torch.zeros(1, 1, 512, 64, device=dev)
@@ -553,14 +573,32 @@ def test_nearest_code_matches_plain(dev, M, K, D):
     assert over <= 1.0, (n, gap, over)
 
 
-def test_nearest_code_ties_pick_the_lowest_index(dev):
+@pytest.mark.parametrize("splits", [0, 1, 3])
+def test_nearest_code_ties_pick_the_lowest_index(dev, splits):
     gen = torch.Generator(dev).manual_seed(9)
     x = torch.randint(-1, 2, (300, 64), generator=gen, device=dev).float()
     half = torch.randint(-1, 2, (200, 64), generator=gen, device=dev).float()
     e = torch.cat([half, half])
-    got = nearest_code(x, e)
+    got = nearest_code(x, e, splits=splits)
     assert torch.equal(got, nearest_code_ref(x, e))
     assert int(got.max()) < 200
+
+
+# (M, K): the 16f encoder's shape, and a ragged codebook under few row tiles
+@pytest.mark.parametrize("M,K", [(6144, 16384), (1000, 16000)])
+def test_nearest_code_slices_give_the_same_codes(dev, M, K):
+    """S codebook slices merged in order give the codes of one slice, bit
+    for bit, and two calls the same codes."""
+    gen = torch.Generator(dev).manual_seed(K)
+    x = torch.randn(M, 256, generator=gen, device=dev)
+    e = torch.randn(K, 256, generator=gen, device=dev)
+    assert codebook_slices(M, K) > 1 and codebook_slices(M, K, 1) == 1
+    got = nearest_code(x, e)
+    assert torch.equal(got, nearest_code(x, e))
+    assert torch.equal(got, nearest_code(x, e, splits=1))
+    assert torch.equal(got, nearest_code(x, e, splits=7))
+    n, gap, over = code_mismatches(x, e, got, nearest_code_ref(x, e))
+    assert over <= 1.0, (n, gap, over)
 
 
 def test_nearest_code_refuses_what_it_cannot_take(dev):
