@@ -88,7 +88,8 @@
 //   same 2^(m_old - m_new): D = d / l is rowsum(g * O) without forming
 //   O (two products where P V in three bf16 parts took four). Sweep 2:
 //   p = exp2(s - lse), dp = g V^T, ds = p (dp keep - D) scale, dq += ds
-//   K: 7 products in all. largeq_bwd_dkdv_mma_kernel has the key axis as
+//   K with ds in two bf16 parts (a sum over the NK keys only): 6
+//   products in all, where PR 6's dq pass took 9. largeq_bwd_dkdv_mma_kernel has the key axis as
 //   M: a warp per 16 keys, K and V fragments held in registers, Q / g /
 //   lse / D tiles of 64 queries double-buffered with cp.async; S^T =
 //   K Q^T, dv += (P^T keep) g, dk += dS^T Q, each 16 queries' products
@@ -98,7 +99,7 @@
 //   128f (320 of 396 slots), so the host splits the query walk over up
 //   to 16 CTAs when that ends the launch sooner (k7_dkdv_plan); each
 //   split leaves fp32 dk, dv in scratch and largeq_bwd_dkdv_merge_kernel
-//   adds them in split order. Every split operand (p, ds) is in three
+//   adds them in split order. p and ds enter the dk/dv products in three
 //   bf16 parts (K7_PARTS below).
 //   fp32: largeq_bwd_dq_kernel (32 queries a CTA, FMA loops) and
 //   attn_bwd_dkdv_kernel without a mask (the parity checks only).
@@ -336,8 +337,12 @@ constexpr int K7_MAX_SPLITS = 16;  // K7 dk/dv: most CTAs sharing one key tile's
 // 2^-27: dv = sum_q p g and dk = sum_q ds q cancel; with
 // two parts and q eight times larger, some dk and dv elements missed
 // the gate by up to 30% (an emulation over seeds, and the card).
+// K7's dq pass adds ds K over only the NK <= 512 resident keys: ds in
+// two parts kept every dq element within the gate in the emulation over
+// seeds (tests/test_torch_attention_split.py) and on the card.
 constexpr int K2_PARTS = 2;
 constexpr int K7_PARTS = 3;
+constexpr int K7_DQ_PARTS = 2;
 static_assert(TC_KPAD % (DKDV_WARPS * 16) == 0, "pass 2's key tiles cover the padded keys");
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -733,23 +738,32 @@ __device__ __forceinline__ void store_rows_f32(float* base, const float (&c)[TC_
 
 // Grid of K2 and K7's dq pass: (splits, B * H). Each CTA takes `bpc`
 // consecutive 16-row blocks of its (b, h), warp w the blocks w, w +
-// TC_WARPS, ...; splits is the most that one wave holds, at most one per
-// TC_WARPS blocks, so that a CTA's copy of K/V serves as many queries as
-// the card's width allows.
+// TC_WARPS, ...; the split count is the one whose launch ends soonest
+// when the CTAs run in waves (slots = SMs x CTAs an SM), each CTA costing
+// the most blocks one of its warps takes; the fewer splits on a tie, so
+// that a CTA's copy of K/V serves as many queries as that allows. At the
+// 16f training shape (96 (b, h), 64 blocks) that is 8 splits, three
+// waves of one block a warp, where one wave of two splits would give each
+// warp four; at 128f batch 5, 13 splits (4 waves of 5 blocks a warp)
+// against one wave of up to 22.
 template <typename Kern>
 cudaError_t tc_grid(Kern kern, size_t smem, int BH, int NQ, dim3& grid, int& bpc) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, TC_WARPS * 32, smem);
+  int sms = 0, smem_sm = 0, optin = 0, per_sm = 0;
+  cudaError_t e = card_shape(sms, smem_sm, optin);
+  if (e == cudaSuccess) e = blocks_per_sm(kern, TC_WARPS * 32, smem, per_sm);
   if (e != cudaSuccess) return e;
+  const long slots = (long)sms * (per_sm > 0 ? per_sm : 1);
   const int nb = (NQ + 15) / 16;
-  int splits = (sms * (per_sm > 0 ? per_sm : 1)) / BH;
-  splits = splits < 1 ? 1 : splits;
-  const int most = (nb + TC_WARPS - 1) / TC_WARPS;
-  splits = splits > most ? most : splits;
-  bpc = (nb + splits - 1) / splits;
+  long best_cost = -1;
+  for (int s = 1; s <= nb; ++s) {
+    const int b = (nb + s - 1) / s;
+    if ((nb + b - 1) / b != s) continue;  // the same grid as a smaller s
+    const long cost = ((long)BH * s + slots - 1) / slots * ((b + TC_WARPS - 1) / TC_WARPS);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      bpc = b;
+    }
+  }
   grid = dim3((nb + bpc - 1) / bpc, BH);
   return cudaSuccess;
 }
@@ -908,9 +922,9 @@ largeq_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           if (DROP) x = (kw[h] >> (key - k0)) & 1u ? x * drop.keep_scale : 0.f;
           dp[j][e] = p * (x - dr[h]) * scale;
         }
-      uint32_t da[K7_PARTS][NT / 2][4];
-      to_a_parts<K7_PARTS, NT>(dp, da);
-      mma_ab_parts<K7_PARTS, NT / 2>(acc, da, Ks + k0 * TC_PITCH, lane);
+      uint32_t da[K7_DQ_PARTS][NT / 2][4];
+      to_a_parts<K7_DQ_PARTS, NT>(dp, da);
+      mma_ab_parts<K7_DQ_PARTS, NT / 2>(acc, da, Ks + k0 * TC_PITCH, lane);
     }
     const float one[2] = {1.f, 1.f};
     store_rows(dq + qoff + (size_t)blk * 16 * TC_DH, acc, one, nrows, lane);
@@ -1104,8 +1118,7 @@ cudaError_t k7_dkdv_plan(int BH, int NQ, int NK, int& splits, int& tps) {
   cudaError_t e = card_shape(sms, smem_sm, optin);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, DKDV_WARPS * 32, smem);
+  if (e == cudaSuccess) e = blocks_per_sm(kern, DKDV_WARPS * 32, smem, per_sm);
   if (e != cudaSuccess) return e;
   const long slots = (long)sms * (per_sm > 0 ? per_sm : 1);
   const long ctas = (long)(pad_keys(NK) / (DKDV_WARPS * 16)) * BH;

@@ -31,3 +31,29 @@ inline cudaError_t card_shape(int& sms, int& smem_per_sm, int& smem_optin) {
   }
   return e;
 }
+
+// CTAs of `kern` an SM at this block size and dynamic shared memory,
+// queried once per (kernel, block size, shared memory): the occupancy
+// query costs more host time than the launch plans can spare on every
+// call. The plans run on one card model at a time.
+template <typename Kern>
+inline cudaError_t blocks_per_sm(Kern kern, int threads, size_t smem, int& n) {
+  constexpr int N = 64;
+  static const void* keys[N];
+  static int thr[N], val[N], used = 0;
+  static size_t bytes[N];
+  const void* key = reinterpret_cast<const void*>(kern);
+  for (int i = 0; i < used; ++i)
+    if (keys[i] == key && thr[i] == threads && bytes[i] == smem) {
+      n = val[i];
+      return cudaSuccess;
+    }
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, threads, smem);
+  if (e == cudaSuccess && used < N) {
+    keys[used] = key;
+    thr[used] = threads;
+    bytes[used] = smem;
+    val[used++] = n;
+  }
+  return e;
+}

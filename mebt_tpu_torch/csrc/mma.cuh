@@ -1,6 +1,7 @@
-// Tensor-core building blocks shared by attention.cu (K1, K2, K6, K7) and
-// head_sample.cu (K3, K4): 16-byte cp.async into shared memory, ldmatrix
-// and mma.sync m16n8k16 with bf16 operands and fp32 sums, for sm_90a.
+// Tensor-core building blocks shared by attention.cu (K1, K2, K6, K7),
+// head_sample.cu (K3, K4) and vq.cu (K9): 16-byte cp.async into shared
+// memory, ldmatrix and mma.sync m16n8k16 with bf16 operands and fp32
+// sums, for sm_90a.
 //
 // Fragments follow the PTX layouts of mma.m16n8k16 with lane = 4 g + t:
 // an A fragment (16 x 16) holds rows g and g + 8 at columns 2t, 2t + 1

@@ -17,7 +17,8 @@
 //
 // Products on the tensor cores in 3xTF32 (nearest_code_tf32_kernel):
 // each fp32 operand v is split as it leaves shared memory into hi =
-// tf32(v) and lo = tf32(v - hi) (cvt.rna, round to nearest), and
+// tf32(v) and lo = tf32(v - hi) (cvt.rna's rounding to nearest, by
+// integer operations), and
 //   x . e = hi_x hi_e + (hi_x lo_e + lo_x hi_e)
 // by mma.sync m16n8k8 tf32 with fp32 sums (lo_x lo_e, some 2^-22 of a
 // term, is dropped). The two small products go to an accumulator of
@@ -32,11 +33,13 @@
 // Tiling: a CTA of 8 warps takes 128 rows of x and walks 128-code chunks
 // of ITS SLICE of the codebook; warp (wm, wn) owns rows 32 wm.. and codes
 // 64 wn.. of a chunk, 2 x 8 m16n8 fragments a thread in each of the two
-// accumulators. x and E stream row-major, 32 deep at a time, with 16-byte
-// cp.async into a three-stage ring (rows padded to 36 floats, so the
-// fragments' 32-bit shared loads hit 32 distinct banks); there is no
-// transpose. After a chunk's full depth the epilogue reads the
-// fragments: s = |e_k|^2 - 2 (big + small) into a running (min, argmin)
+// accumulators. x and E stream row-major, 64 deep at a time, with 16-byte
+// cp.async into a three-stage ring (rows padded to 68 floats, so the
+// eight rows an ldmatrix phase reads fall in distinct banks); ldmatrix
+// of 8 x 8 b16 tiles delivers 8 x 4 fp32 tiles in the tf32 fragment
+// layout, so there is no transpose. After a chunk's full depth the
+// epilogue reads the fragments: s = |e_k|^2 - 2 (big + small) into a
+// running (min, argmin)
 // per thread and row over the codes in ascending order with a strict
 // '<'; at the slice's end the quad folds by shuffles and the two code
 // warps through shared memory, the lower index winning equal scores.
@@ -51,6 +54,13 @@
 // SLICE ORDER with a strict '<': the lowest index wins equal scores over
 // the whole codebook and two calls give the same bits. S = 1 launches
 // the merge too, a trivial one.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (scripts/
+// k9_k7_variants.py): 154 TFLOP/s of TF32 products at M 40960, a third
+// of the tensor cores' rate. The issue slots bound it: a warp splits 24
+// operand values (five operations each) for every 48 mma.sync, with 200
+// registers a thread and one CTA an SM; the cvt.rna instruction in
+// place of the integer rounding costs some 10%, 32-deep stages 5%.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -64,7 +74,7 @@ namespace {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int BM = 128;          // rows of x per CTA
 constexpr int BN = 128;          // codes per chunk
-constexpr int KS = 32;           // depth per stage
+constexpr int KS = 64;           // depth per stage
 constexpr int STAGES = 3;
 constexpr int PITCH = KS + 4;    // floats per shared row
 constexpr int WARPS = 8;         // 4 along the rows x 2 along the codes
@@ -73,16 +83,28 @@ constexpr int MAX_SPLITS = 64;
 constexpr int MAX_D = 512;       // the widths the checks cover
 constexpr size_t SMEM = sizeof(float) * STAGES * (BM + BN) * PITCH;
 
+// cvt.rna.tf32.f32 (round to nearest, ties away from zero, to 10
+// mantissa bits) by two integer operations on the bits: the conversion
+// instruction runs at a fraction of the integer rate, and every operand
+// element is split as it leaves shared memory
 __device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
 }
 
 // v as hi + lo, both tf32 (their bit patterns)
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
   hi = to_tf32(v);
   lo = to_tf32(v - __uint_as_float(hi));
+}
+
+// four 8 x 4 fp32 tiles from shared memory (ldmatrix's 8 x 8 b16 tiles):
+// lanes 8 i .. 8 i + 7 give the rows of tile i, and lane 4 g + t gets
+// element (g, t) of each tile, the tf32 fragment layout of mma.m16n8k8
+__device__ __forceinline__ void ldsm_x4_f32(float (&r)[4], const float* p) {
+  uint32_t u[4];
+  ldsm_x4(u, p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r[i] = __uint_as_float(u[i]);
 }
 
 // c += a b, 16 x 8 x 8, tf32 operands, fp32 sums
@@ -170,24 +192,29 @@ nearest_code_tf32_kernel(const float* __restrict__ x, const float* __restrict__ 
       if (kk >= kdepth) break;
       uint32_t ah[2][4], al[2][4];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const float* p = xs + (wm * 32 + mt * 16 + g) * PITCH + kk + t;
-        split_tf32(p[0], ah[mt][0], al[mt][0]);
-        split_tf32(p[8 * PITCH], ah[mt][1], al[mt][1]);
-        split_tf32(p[4], ah[mt][2], al[mt][2]);
-        split_tf32(p[8 * PITCH + 4], ah[mt][3], al[mt][3]);
+      for (int mt = 0; mt < 2; ++mt) {  // tiles: rows 0-7 / 8-15 x depths 0-3 / 4-7
+        float a[4];
+        ldsm_x4_f32(a, xs + (wm * 32 + mt * 16 + (lane & 15)) * PITCH + kk + (lane >> 4) * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[mt][i], al[mt][i]);
       }
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float* p = es + (wn * 64 + nt * 8 + g) * PITCH + kk + t;
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(p[0], bh0, bl0);
-        split_tf32(p[4], bh1, bl1);
+      for (int np = 0; np < 4; ++np) {  // tiles: codes of nt = 2 np, 2 np + 1 x depths 0-3 / 4-7
+        float b[4];
+        ldsm_x4_f32(b, es + (wn * 64 + np * 16 + (lane >> 4) * 8 + (lane & 7)) * PITCH + kk +
+                           ((lane >> 3) & 1) * 4);
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma1688(small[mt][nt], ah[mt], bl0, bl1);
-          mma1688(small[mt][nt], al[mt], bh0, bh1);
-          mma1688(big[mt][nt], ah[mt], bh0, bh1);
+        for (int h = 0; h < 2; ++h) {
+          const int nt = 2 * np + h;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(b[2 * h], bh0, bl0);
+          split_tf32(b[2 * h + 1], bh1, bl1);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma1688(small[mt][nt], ah[mt], bl0, bl1);
+            mma1688(small[mt][nt], al[mt], bh0, bh1);
+            mma1688(big[mt][nt], ah[mt], bh0, bh1);
+          }
         }
       }
     }
@@ -290,9 +317,7 @@ inline cudaError_t nc_plan(int M, int K, int force, int& splits, int& cps) {
   int per_sm = 0;
   e = cudaFuncSetAttribute(nearest_code_tf32_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, nearest_code_tf32_kernel,
-                                                      THREADS, SMEM);
+  if (e == cudaSuccess) e = blocks_per_sm(nearest_code_tf32_kernel, THREADS, SMEM, per_sm);
   if (e != cudaSuccess) return e;
   const long slots = (long)sms * (per_sm > 0 ? per_sm : 1);
   const long blocks = (M + BM - 1) / BM;

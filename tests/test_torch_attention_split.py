@@ -10,8 +10,9 @@ cores multiply bf16 operands only, so a fp32 left operand enters its
 product as bf16 parts, each rounding what the ones before it left
 (hi = bf16(x), lo = bf16(x - hi), ...), whose products are summed in
 fp32. K2 splits P in two parts (P >= 0: nothing cancels in P V); K7
-splits p and ds in three, for dv, dq and dk: two parts miss the gate on
-some dk and dv elements when q is eight times larger. The emulation
+splits p and ds in three for dv and dk (sums over all queries: two
+parts miss the gate on some elements when q is eight times larger), ds
+in two for dq (a sum over the keys only). The emulation
 follows the kernels: an online softmax over 64-key chunks (32 in K7's
 dq pass) of e = 2^(s c - m) with c = scale log2(e) and s c - m rounded
 once (an fmaf), the undropped e in the denominator; K7's D = d / l with
@@ -37,7 +38,7 @@ LOG2E = 1.4426950408889634
 P_DROP = 0.1
 
 
-K2_PARTS, K7_PARTS = 2, 3  # csrc/attention.cu
+K2_PARTS, K7_PARTS, K7_DQ_PARTS = 2, 3, 2  # csrc/attention.cu
 
 
 def _operand(x, parts: int):
@@ -138,7 +139,7 @@ def emulate_backward(q, k, v, g, keep, split: bool, dkdv_splits: int = 1):
     if keep is not None:
         p_v, dp = p * keep, dp * keep
     ds = p * (dp - dvec) * scale
-    dq = _product(ds, kf, parts)
+    dq = _product(ds, kf, K7_DQ_PARTS if split else 1)
     dk = _key_major(ds, qf, parts, dkdv_splits)
     dv = _key_major(p_v, gf, parts, dkdv_splits)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -210,6 +211,25 @@ def test_split_dkdv_walk_keeps_the_card_gate(case, B, H, NQ, NK, drop, q_scale):
     assert torch.equal(got[0], one[0])  # dq does not depend on the dk/dv split
     for a, b in zip(got[1:], one[1:]):  # one bf16 rounding of sums a few fp32 ulps apart
         assert ((a.float() - b.float()).abs() <= 2.0**-7 * b.float().abs() + 1e-6).all()
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+@pytest.mark.parametrize("case,B,H,NQ,NK,drop,q_scale",
+                         [c for c in CASES if c[1] * c[2] * c[3] <= 4096],
+                         ids=[c[0] for c in CASES if c[1] * c[2] * c[3] <= 4096])
+def test_two_part_dq_keeps_the_card_gate_over_seeds(case, B, H, NQ, NK, drop, q_scale, seed):
+    """dq with ds in two bf16 parts, over more seeds than the other cases."""
+    rng = np.random.default_rng(seed)
+    q, g = (torch.from_numpy(rng.standard_normal((B, H, NQ, 64), dtype=np.float32))
+            .to(torch.bfloat16) for _ in range(2))
+    q = q * q_scale
+    k, v = (torch.from_numpy(rng.standard_normal((B, H, NK, 64), dtype=np.float32))
+            .to(torch.bfloat16) for _ in range(2))
+    keep = torch.from_numpy(rng.random((B, H, NQ, NK)) >= P_DROP) if drop else None
+    scale_keep = None if keep is None else keep.float() / (1.0 - P_DROP)
+    got = emulate_backward(q, k, v, g, scale_keep, True)[0]
+    want = largeq_backward_ref(q, k, v, g, p_drop=P_DROP if drop else 0.0, keep=keep)[0]
+    assert _over(got, want) <= 1.0
 
 
 @pytest.mark.parametrize("drop", [False, True], ids=["plain", "dropout"])
