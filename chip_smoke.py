@@ -709,9 +709,8 @@ def check_k7(dev, gen):
             # when the dk/dv pass splits
             passes = (K7_PASSES_BF16 if dtype == torch.bfloat16 else K7_PASSES_FP32)
             pass_ms = kernel_ms(lambda: largeq_backward(q, k, v, g), passes)
-            need = passes if splits > 1 else passes[:2]
-            require(all(pass_ms[p] > 0 for p in need) and (splits > 1 or len(passes) < 3
-                                                          or pass_ms[passes[2]] == 0),
+            ran = tuple(p for p in passes if pass_ms[p] > 0)
+            require(ran == (passes if splits > 1 else passes[:2]),
                     f"K7 {case} {dtype}: passes {pass_ms} at {splits} splits")
             row.update(dq_pass_ms=pass_ms[passes[0]], dkdv_pass_ms=pass_ms[passes[1]])
             if dtype == torch.bfloat16:

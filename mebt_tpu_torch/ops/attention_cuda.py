@@ -358,8 +358,8 @@ def dkdv_splits(q, k, p_drop: float = 0.0) -> int:
 
 
 def largeq_backward(q, k, v, g, *, p_drop: float = 0.0, seed: int = 0):
-    """K7: (dq, dk, dv) of K2 in the input dtype; the softmax, O and D
-    are recomputed in the kernel."""
+    """K7: (dq, dk, dv) of K2 in the input dtype; the softmax and D are
+    recomputed in the kernel."""
     if not q.is_cuda:
         return largeq_backward_ref(q, k, v, g, p_drop=p_drop, seed=seed)
     _check(q, k, v)

@@ -165,8 +165,8 @@ CASES = [
 ]
 
 
-def _inputs(B, H, NQ, NK, drop, q_scale):
-    rng = np.random.default_rng(NQ + NK + H)
+def _inputs(B, H, NQ, NK, drop, q_scale, seed=None):
+    rng = np.random.default_rng(NQ + NK + H if seed is None else seed)
     q, g = (torch.from_numpy(rng.standard_normal((B, H, NQ, 64), dtype=np.float32))
             .to(torch.bfloat16) for _ in range(2))
     q = q * q_scale  # a power of two: exact in bf16
@@ -219,14 +219,7 @@ def test_split_dkdv_walk_keeps_the_card_gate(case, B, H, NQ, NK, drop, q_scale):
                          ids=[c[0] for c in CASES if c[1] * c[2] * c[3] <= 4096])
 def test_two_part_dq_keeps_the_card_gate_over_seeds(case, B, H, NQ, NK, drop, q_scale, seed):
     """dq with ds in two bf16 parts, over more seeds than the other cases."""
-    rng = np.random.default_rng(seed)
-    q, g = (torch.from_numpy(rng.standard_normal((B, H, NQ, 64), dtype=np.float32))
-            .to(torch.bfloat16) for _ in range(2))
-    q = q * q_scale
-    k, v = (torch.from_numpy(rng.standard_normal((B, H, NK, 64), dtype=np.float32))
-            .to(torch.bfloat16) for _ in range(2))
-    keep = torch.from_numpy(rng.random((B, H, NQ, NK)) >= P_DROP) if drop else None
-    scale_keep = None if keep is None else keep.float() / (1.0 - P_DROP)
+    q, k, v, g, keep, scale_keep = _inputs(B, H, NQ, NK, drop, q_scale, seed)
     got = emulate_backward(q, k, v, g, scale_keep, True)[0]
     want = largeq_backward_ref(q, k, v, g, p_drop=P_DROP if drop else 0.0, keep=keep)[0]
     assert _over(got, want) <= 1.0
