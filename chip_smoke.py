@@ -5,14 +5,15 @@
 1. prints the card's name and power limit, builds the kernels (K1-K9)
    from mebt_tpu_torch/csrc with nvcc for sm_90a, and counts the
    tensor-core instructions (HMMA, HGMMA) of every attention and head
-   kernel in `cuobjdump -sass` of the built libraries: each bf16 K1 / K2
-   / K3 / K4 / K6 / K7 kernel and K9's search must have some, and no
-   bf16 FMA K1 / K2 / K3 / K4 / K6 / K7 kernel nor the FMA K9 may be built;
+   kernel in `cuobjdump -sass` of the built libraries: each bf16 K1-K7
+   kernel and K9's search must have some, and no bf16 FMA K1-K7 kernel
+   nor the FMA K9 may be built;
 2. holds each kernel against its plain PyTorch version on the card, at
    the shapes of the STL-16f decode (batch 16) and of the STL-128f
    decode (batch 2) in bf16 (K3 and K4 also at the smaller segments'
    rows, at 256 rows split over the most vocabulary slices, and on exact
-   ties; K5, which no path runs, at K4's shapes, also against K4's ids),
+   ties; K5, which no path runs, at K4's shapes, its ids and
+   probabilities equal to K4's bit for bit, timed in turns with K4),
    the attention backward kernels K6 and K7 at
    the shapes of STL-16f training (batch 6) and STL-128f training (batch
    5) in fp32 and bf16, dropout (K8) in all four attention kernels, and
@@ -351,7 +352,8 @@ def head_inputs(dev, gen, R, V, D, ties):
 
 
 def head_slices(R, V, k=0) -> int:
-    """The vocabulary slices the bf16 K3 (k = 0) or K4 takes on this card."""
+    """The vocabulary slices the bf16 K3 (k = 0), or K4 and K5, take on
+    this card."""
     from mebt_tpu_torch.ops import _build
     from mebt_tpu_torch.ops.head_sample import _SIGNATURES
 
@@ -445,6 +447,7 @@ def check_k3(dev, gen):
 # are no multiple of the 128-row block and the 128-column chunk; a vocab
 # smaller than k, where k becomes V; exact ties, where the k-th value is
 # shared by columns in several slices.
+HEAD_CHUNK = 128  # csrc/head_sample.cu HT_BN: vocabulary columns a chunk
 TOPK_CASES = (("step1_128f", BATCH128 * 8192, 16384, False, True),
               ("seg_r6400", BATCH128 * 3200, 16384, False, True),
               ("last_seg_r3328", BATCH128 * 1664, 16384, False, True),
@@ -452,12 +455,37 @@ TOPK_CASES = (("step1_128f", BATCH128 * 8192, 16384, False, True),
               ("k_ge_V", 1000, 24, False, False), ("ties", 2048, 16384, True, False))
 
 
+def v1_turns(logits, k: int, n_slices: int) -> tuple[float, float]:
+    """K5's extraction turns and insertions a row (means over the rows,
+    summed over the slices) that these fp32 logits need: a chunk inserts
+    its columns among the top k of its slice's columns so far, and its
+    loop turns once more to stop where it inserted any (a chunk where it
+    inserts none is skipped by the ballot)."""
+    R, V = logits.shape
+    chunks = -(-V // HEAD_CHUNK)
+    cps = -(-chunks // n_slices)
+    turns = torch.zeros(R, device=logits.device)
+    inserts = torch.zeros(R, device=logits.device)
+    for s0 in range(0, chunks, cps):
+        buf = logits[:, :0]
+        for c in range(s0, min(chunks, s0 + cps)):
+            both = torch.cat([buf, logits[:, c * HEAD_CHUNK:(c + 1) * HEAD_CHUNK]], dim=1)
+            top = torch.topk(both, min(k, both.shape[1]), dim=1)
+            n = (top.indices >= buf.shape[1]).sum(dim=1).float()
+            buf = top.values
+            inserts += n
+            turns += n + (n > 0).float()
+    return turns.mean().item(), inserts.mean().item()
+
+
 def check_topk(dev, gen, name: str):
     """K4 (`head_topk_sample`) or K5 (`head_topk_sample_v1`), the same
-    function, against the plain version at TOPK_CASES. K5 must also give
-    K4's ids at the same seed (up to near-ties: K4 multiplies on the
-    tensor cores, K5 in fp32 FMA); K5, which no path runs, is held to
-    its plain and library times at R 16384 only, in turns with K4."""
+    function, against the plain version at TOPK_CASES. In bf16 K5 must
+    give K4's ids and probabilities bit for bit at one seed, greedy and
+    at temperature 1 (the same tile sums, the same exact top-k set, K4's
+    merge and draw); K5, which no path runs, is timed in turns with K4
+    and the library call (K4, K5, library, library, K5, K4) at the
+    decode's shapes."""
     from mebt_tpu_torch.ops.head_sample import (
         head_topk_sample, head_topk_sample_ref, head_topk_sample_v1)
     from mebt_tpu_torch.ops.sampling import sample_topk_tokens
@@ -486,7 +514,7 @@ def check_topk(dev, gen, name: str):
         differ = (ids != rids).sum().item()
         allow = max(2, R // 10000)
         # temperature 0: greedy; a mismatch must be a near-tie of the logits
-        g_ids, _ = kernel(x, w, 99, K, 0.0)
+        g_ids, g_probs = kernel(x, w, 99, K, 0.0)
         g_miss = g_ids.long() != logits.argmax(dim=-1)
         gap = top[:, 0] - at(g_ids)
         g_gap = gap[g_miss].abs().max().item() if g_miss.any() else 0.0
@@ -507,29 +535,37 @@ def check_topk(dev, gen, name: str):
             max_gap_below_kth=below_kth, greedy_near_ties=int(g_miss.sum()),
             bound_ms=bnd, bound_by=by,
         )
-        if name == "K4":
-            row["slices"] = head_slices(R, V, min(K, V))
-        else:
-            k4_ids, _ = head_topk_sample(x, w, 1234, K, 1.0)
-            k4_g_ids, _ = head_topk_sample(x, w, 99, K, 0.0)
-            vs_k4 = (ids != k4_ids).sum().item() + (g_ids != k4_g_ids).sum().item()
-            require(vs_k4 <= allow, f"K5 {case}: {vs_k4} ids differ from K4's at one seed")
-            row["ids_differing_from_k4"] = vs_k4
+        row["slices"] = head_slices(R, V, min(K, V))
+        if name == "K5":
+            k4 = head_topk_sample(x, w, 1234, K, 1.0)
+            k4_g = head_topk_sample(x, w, 99, K, 0.0)
+            vs_k4 = [(a != b).sum().item() for a, b in
+                     ((ids, k4[0]), (probs, k4[1]), (g_ids, k4_g[0]), (g_probs, k4_g[1]))]
+            require(not any(vs_k4), f"K5 {case}: (ids, probs, greedy ids, greedy probs) "
+                                    f"differing from K4's at one seed: {vs_k4}")
+            row["differing_from_k4"] = sum(vs_k4)
+            row["extraction_turns_a_row"], row["insertions_a_row"] = v1_turns(
+                logits, min(K, V), row["slices"])
         del top, lse_k, p_plain, gap, logits
-        if name == "K5" and case == "step1_128f":
-            # in turns on one card: K4, K5, K5, K4
+
+        def library():
+            return sample_topk_tokens(torch.matmul(x, w.t()), K, 1.0, generator=gen)
+
+        if name == "K5" and timed_all:
+            # in turns on one card: K4, K5, library, library, K5, K4
             k4_a = cuda_ms(lambda: head_topk_sample(x, w, 7, K, 1.0))
             row["ms"] = cuda_ms(lambda: kernel(x, w, 7, K, 1.0))
+            row["library_ms"] = cuda_ms(library, reps=5)
+            row["library_ms_again"] = cuda_ms(library, reps=5)
             row["ms_again"] = cuda_ms(lambda: kernel(x, w, 7, K, 1.0))
             row["k4_ms"] = [k4_a, cuda_ms(lambda: head_topk_sample(x, w, 7, K, 1.0))]
         else:
             row["ms"] = cuda_ms(lambda: kernel(x, w, 7, K, 1.0))
+            if timed_all:
+                row["library_ms"] = cuda_ms(library, reps=5)
         row["ms_per_1k_rows"] = row["ms"] / R * 1000
-        if timed_all and (name == "K4" or case == "step1_128f"):
+        if timed_all:
             row["plain_ms"] = cuda_ms(lambda: head_topk_sample_ref(x, w, K, 1.0, seed=7), reps=3)
-            row["library_ms"] = cuda_ms(
-                lambda: sample_topk_tokens(torch.matmul(x, w.t()), K, 1.0, generator=gen), reps=5
-            )
         rows.append(row)
 
     # distribution: one row repeated, small vocab, temperature 1; the
@@ -1301,16 +1337,17 @@ def span_kernels(prof, span: str) -> list[list[tuple[str, float]]]:
 
 
 # The profile's kernel groups, by substrings of the kernels' names: the
-# bf16 K1, K2, K3, K4, K6 and K7 run the tensor-core kernels
-# (`*_mma_kernel`, and the merges of K1's splits and of K3's and K4's
-# vocabulary slices), fp32 the FMA ones (in the parity checks only, which
-# no profile covers; fp32 K7's dk/dv pass is K6's `attn_bwd_dkdv_kernel`).
+# bf16 K1-K7 run the tensor-core kernels (`*_mma_kernel`, and the merges
+# of K1's splits and of K3's and K4's vocabulary slices; K5 takes K4's
+# merge, counted under K4), fp32 the FMA ones (in the parity checks only,
+# which no profile covers; fp32 K7's dk/dv pass is K6's
+# `attn_bwd_dkdv_kernel`).
 PROFILE_GROUPS = {
     "K1": ("smallq_kernel", "smallq_fwd_mma_kernel", "smallq_merge_kernel"),
     "K2": ("largeq_kernel", "largeq_fwd_mma_kernel"),
     "K3": ("head_sample_kernel", "head_sample_mma_kernel", "head_sample_merge_kernel"),
     "K4": ("head_topk_sample_kernel", "head_topk_mma_kernel", "head_topk_merge_kernel"),
-    "K5": ("head_topk_sample_v1_kernel",),
+    "K5": ("head_topk_sample_v1_kernel", "head_topk_v1_mma_kernel"),
     "K6_dq": ("smallq_bwd_dq_kernel", "smallq_bwd_dq_mma_kernel"),
     "K6_dkdv": ("attn_bwd_dkdv_kernel", "smallq_bwd_dkdv_mma_kernel"),
     "K7_dq": ("largeq_bwd_dq_kernel", "largeq_bwd_dq_mma_kernel"),
@@ -1324,10 +1361,11 @@ FMA_ATTENTION = ("largeq_kernel", "largeq_bwd_dq_kernel", "smallq_kernel",
 TENSOR_CORE_KERNELS = ("largeq_fwd_mma_kernel", "largeq_bwd_dq_mma_kernel",
                        "largeq_bwd_dkdv_mma_kernel", "smallq_fwd_mma_kernel",
                        "smallq_bwd_dq_mma_kernel", "smallq_bwd_dkdv_mma_kernel")
-# the FMA K3 / K4 kernels, which only fp32 calls (the parity checks) may
-# launch, and the bf16 K3 / K4 kernels, whose SASS must hold HMMA or HGMMA
-FMA_HEAD = ("head_sample_kernel", "head_topk_sample_kernel")
-TENSOR_CORE_HEAD = ("head_sample_mma_kernel", "head_topk_mma_kernel")
+# the FMA K3 / K4 / K5 kernels, which only fp32 calls (the parity checks)
+# may launch, and the bf16 K3 / K4 / K5 kernels, whose SASS must hold HMMA
+# or HGMMA
+FMA_HEAD = ("head_sample_kernel", "head_topk_sample_kernel", "head_topk_sample_v1_kernel")
+TENSOR_CORE_HEAD = ("head_sample_mma_kernel", "head_topk_mma_kernel", "head_topk_v1_mma_kernel")
 
 
 def kernel_table(prof, span: str | None = None) -> list[tuple[str, float, int]]:
@@ -1411,10 +1449,10 @@ def _bf16_instances(counts, names) -> list[str]:
 def check_sass():
     """The tensor-core instructions of every attention and head kernel;
     each instantiation of the bf16 K1 / K2 / K6 / K7 kernels (two each:
-    with and without dropout) and of the bf16 K3 / K4 kernels must have
-    some, and no bf16 instantiation of an FMA attention, K3 or K4 kernel
-    may exist (K5 keeps its FMA tile in both types); K9's search must
-    have them and its FMA kernel must be gone."""
+    with and without dropout) and of the bf16 K3 / K4 / K5 kernels must
+    have some, and no bf16 instantiation of an FMA attention, K3, K4 or
+    K5 kernel may exist; K9's search must have them and its FMA kernel
+    must be gone."""
     from mebt_tpu_torch.ops import _build
 
     counts = sass_tensor_core_counts(_build.library_path("attention"))
@@ -1430,7 +1468,7 @@ def check_sass():
         require(len(inst) >= 1 and all(c > 0 for c in inst.values()),
                 f"SASS: {name} instantiations {inst} (each needs HMMA/HGMMA)")
     fma_bf16 = _bf16_instances(head, FMA_HEAD)
-    require(not fma_bf16, f"SASS: bf16 FMA K3 / K4 kernels still built: {fma_bf16}")
+    require(not fma_bf16, f"SASS: bf16 FMA K3 / K4 / K5 kernels still built: {fma_bf16}")
     # K9: the 3xTF32 search on the tensor cores, and no FMA search left
     vq = sass_tensor_core_counts(_build.library_path("vq"))
     inst = {n: c for n, c in vq.items() if K9_KERNELS[0] in n}
@@ -2108,7 +2146,9 @@ def main(argv=None) -> int:
               case(report["K4"], "step1_128f"), head_src),
         entry(4, "K5 head_topk_sample_v1", "mebt_tpu/ops/head_sample_pallas.py:535",
               case(report["K5"], "step1_128f"), head_src,
-              launched_in="the k5 phase only: no generation or training path runs it"),
+              launched_in="the k5 phase only: no generation or training path runs it",
+              **{k: case(report["K5"], "step1_128f")[k]
+                 for k in ("slices", "extraction_turns_a_row", "k4_ms", "ms_again")}),
         entry(5, "K6 smallq_backward", "mebt_tpu/ops/attention_pallas.py:437",
               case(report["K6"], "lt2l", "bfloat16"),
               **{k: case(report["K6"], "lt2l", "bfloat16")[k]

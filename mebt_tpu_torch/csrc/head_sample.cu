@@ -31,11 +31,12 @@
 // only; the winner is argmax(l - log q), the lowest slot on a tie, and
 // its probability is taken under the softmax of the k values.
 //
-// Bound on the card, K3 and K4: 2 R D V operations, 5.5e11 at R = 16384,
-// D = 1024, V = 16384 (0.556 ms at 989 TFLOP/s bf16), against 64 MB of x
-// and W: operations. K3 also draws one Philox word and takes two logf per
-// logit (268 M of each at R = 16384), so its floor on the card is nearer
-// 1.8-2 ms than the bound. K4 draws only for its k survivors.
+// Bound on the card, K3, K4 and K5: 2 R D V operations, 5.5e11 at R =
+// 16384, D = 1024, V = 16384 (0.556 ms at 989 TFLOP/s bf16), against 64 MB
+// of x and W: operations. K3 also draws one Philox word and takes two logf
+// per logit (268 M of each at R = 16384), so its floor on the card is
+// nearer 1.8-2 ms than the bound. K4 and K5 draw only for their k
+// survivors.
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W, R 16384
 // (scripts/head_sample_variants.py): the tiles alone run at 237 (K3) and
 // 207 (K4) TFLOP/s, a quarter of peak (mma.sync, x and W re-read from L2
@@ -44,8 +45,9 @@
 // row slot and chunk). The epilogue overlaps the next chunk's loads, not
 // the products: 4.7 and 4.9 ms in all.
 //
-// bf16 (head_sample_mma_kernel, head_topk_mma_kernel; the product of the
-// TPU kernels, bf16 operands with fp32 sums): a CTA takes 128 rows, 4
+// bf16 (head_sample_mma_kernel, head_topk_mma_kernel and K5's
+// head_topk_v1_mma_kernel; the product of the TPU kernels, bf16 operands
+// with fp32 sums): a CTA takes 128 rows, 4
 // warps of 32, and walks 128-column chunks of ITS SLICE of the
 // vocabulary. x and W tiles stream along D 64 deep at a time with 16-byte
 // cp.async into a two-stage ring on rows padded to 72 elements, read by
@@ -110,20 +112,32 @@
 //   mebt_tpu/ops/head_sample_pallas.py:fused_head_topk_sample (v1,
 //   _head_topk_sample_kernel).
 // K4's function by the TPU kernel's other selection design: per chunk a
-// data-dependent extraction loop. One warp takes one row of the chunk's
-// logits tile at a time, each lane holding two of its 64 logits in
-// registers. While the chunk's largest remaining logit (a warp max
-// reduction under the same order, value descending, column ascending)
-// comes before the row's k-th pair, it is sort-inserted into the row's
-// buffer (the warp counts the pairs ahead of it, shifts the rest down a
-// slot, and the last falls out) and masked out of the chunk. So the loop
-// runs once per logit that enters the buffer plus once to stop: k ln(V/k)
-// + V/64 turns per row, some 450 at k = 32, V = 16384, each a few warp
-// shuffles and a shift of k/32 slots a lane. The buffer at the end is the
-// same exact top k as K4's, and the draw and epilogue are K4's (a warp
-// per row): K5 gives K4's ids at one seed, up to near-ties of the two
-// tiles' logits. K5 keeps the fp32 FMA tile in both types (no path runs
-// it); only the k survivors draw Philox noise at their columns.
+// data-dependent extraction loop. While the chunk's largest remaining
+// logit (value descending, column ascending) comes before the row's k-th
+// pair, it is sort-inserted into the row's buffer, which stays sorted
+// (the pairs behind it move down a slot and the last falls out), and
+// masked out of the chunk. So the loop runs once per logit that enters
+// the buffer (k in a slice's first chunk, about k / c in its c-th), plus
+// once to stop in each chunk where one entered. No decode path runs K5,
+// as none in the JAX package runs v1.
+//
+// bf16 (head_topk_v1_mma_kernel + head_topk_merge_kernel): K4's tile,
+// slices, plan, scratch and merge, with SortedEpi for TopkEpi. The loop
+// reads the accumulator fragments: the quad that owns a row extracts for
+// it (each thread's best remaining candidate, the quad's best by two
+// shuffles), so a warp's eight quads run eight rows' loops side by side
+// (K4 walks its candidates one at a time a warp). The insertion compares
+// each slot with the new pair and with the slot before it, 8 slots a
+// thread in blocks of 32 from the end, no count of the pairs ahead
+// first. A slice leaves its k pairs already sorted, which is exactly K4's
+// state, so K4's merge and draw follow: K5's ids and probabilities equal
+// K4's bit for bit (the same tile sums, the same exact top-k set).
+// Only the k survivors draw Philox noise, at their columns.
+//
+// fp32 (head_topk_sample_v1_kernel<float>, the parity checks only): the
+// FMA tile; one warp takes one row of the chunk's 64-column logits tile
+// at a time, each lane two logits, a warp max per turn and a shift of
+// k / 32 slots a lane, then K4's draw a warp per row.
 //
 // All take fp32 or bf16 x and W (is_bf16); temperature 0 is passed as
 // inv_temp = 1/(0 + 1e-8) and gives the greedy argmax. Rows beyond R and
@@ -424,7 +438,7 @@ cudaError_t launch_topk_fma(const void* x, const void* w, void* ids, void* probs
 }
 
 constexpr int WARPS = THREADS / 32;
-constexpr int V1_MAX_K = 256;  // the shift keeps k / 32 pairs a lane in registers
+constexpr int V1_MAX_K = 256;  // fp32 K5's shift keeps k / 32 pairs a lane in registers
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -559,10 +573,11 @@ head_topk_sample_v1_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T>
-cudaError_t launch_topk_v1(const void* x, const void* w, void* ids, void* probs,
-                           int R, int D, int V, int k, float inv_temp,
-                           uint32_t seed, cudaStream_t stream) {
+// fp32 only: bf16 goes to the tensor-core K5 below
+cudaError_t launch_topk_v1_fma(const void* x, const void* w, void* ids, void* probs,
+                               int R, int D, int V, int k, float inv_temp,
+                               uint32_t seed, cudaStream_t stream) {
+  using T = float;
   const size_t smem = (size_t)TR * k * (sizeof(float) + sizeof(int));
   auto kern = head_topk_sample_v1_kernel<T>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -577,7 +592,7 @@ cudaError_t launch_topk_v1(const void* x, const void* w, void* ids, void* probs,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 K3 and K4: tensor-core logits tiles over a slice of the vocabulary
+// bf16 K3, K4 and K5: tensor-core logits tiles over a slice of the vocabulary
 
 using bf16 = __nv_bfloat16;
 
@@ -591,7 +606,7 @@ constexpr int HT_PITCH = 72;       // bf16 a shared row: 144 B, so the 8 rows an
 constexpr int HT_MAX_SPLITS = 32;  // K4's merge holds one slice a lane
 constexpr int HT_STAGES = 2;       // ring depth: three stages left L1 too small for the
                                    // epilogues' local arrays (K3 4% slower, H100)
-constexpr int K4_WARMUP = 3;       // chunks a K4 slice's start costs (head_plan)
+constexpr int TOPK_WARMUP = 3;     // chunks a K4 / K5 slice's start costs (head_plan)
 constexpr int MERGE_WARPS = 8;
 
 using Acc = float[2][HT_NT][4];
@@ -601,9 +616,9 @@ __host__ __device__ inline size_t ht_stage_bytes(int nw) {
   return sizeof(bf16) * (size_t)(nw * HT_WM + HT_BN) * HT_PITCH;
 }
 
-// Dynamic shared memory of the bf16 K3 (k = 0) or K4: the ring, and K4's
-// buffers of k (value, column) pairs a row, pitch k + 1 so that the
-// eight rows a warp's quads own fall in different banks.
+// Dynamic shared memory of the bf16 K3 (k = 0), K4 or K5: the ring, and
+// K4's or K5's buffers of k (value, column) pairs a row, pitch k + 1 so
+// that the eight rows a warp's quads own fall in different banks.
 inline size_t ht_smem_bytes(int nw, int k) {
   return HT_STAGES * ht_stage_bytes(nw) +
          (size_t)nw * HT_WM * (k ? k + 1 : 0) * (sizeof(float) + sizeof(int));
@@ -834,6 +849,18 @@ head_sample_merge_kernel(const float4* __restrict__ part, const int* __restrict_
   probs[row] = expf(bl - (m + logf(sum)));
 }
 
+// What K4's and K5's epilogues share: the CTA's rows' buffers of k
+// (value, column) pairs, pitch k + 1 so that the eight rows a warp's quads
+// own fall in different banks; the thread's CTA row rl0 (row0 of x) and
+// quad place t: its row slot j is CTA row rl0 + 8 (j & 1) + 16 (j >> 1),
+// its columns of a chunk 8 nt + 2 t + e.
+struct TopkRows {
+  float* bv;  // the CTA's rows' values, pitch k + 1
+  int* bi;    // their columns
+  int k, rl0, row0, t, R, V;
+  float inv_temp;
+};
+
 // K4's epilogue. A row's buffer holds its k best (value, column) pairs of
 // the slice so far, unsorted; its four quad threads keep, in registers,
 // the count of filled slots and the worst pair (the k-th, and its slot).
@@ -847,13 +874,21 @@ head_sample_merge_kernel(const float4* __restrict__ part, const int* __restrict_
 // full-warp shuffle inside one quad's branch made the first version of
 // this loop ten times slower than the tile. After the slice each row's k
 // pairs are ranked under the total order and stored sorted for the merge.
-struct TopkEpi {
-  float* bv;  // the CTA's rows' values, pitch k + 1
-  int* bi;    // their columns
-  int k, rl0, row0, t, qbase, R, V;
-  float inv_temp;
+struct TopkEpi : TopkRows {
+  int qbase;
   float kv[4];  // per row slot: the k-th pair, its slot, the filled slots
   int ki[4], ks[4], cnt[4];
+
+  __device__ __forceinline__ void start() {
+    qbase = (threadIdx.x & 31) & ~3;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      kv[j] = -CUDART_INF_F;
+      ki[j] = 0x7fffffff;
+      ks[j] = 0;
+      cnt[j] = 0;
+    }
+  }
 
   __device__ __forceinline__ void chunk(const Acc& acc, int c0) {
 #pragma unroll 1
@@ -960,19 +995,180 @@ struct TopkEpi {
   }
 };
 
-// K4 (bf16). Grid (row blocks of 32 nw rows, slices of cps chunks); each
-// CTA leaves its rows' top k of the slice, sorted, for the merge.
-__global__ void __launch_bounds__(HT_WARPS * 32, 2)
-head_topk_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                     float* __restrict__ part_v, int* __restrict__ part_i, int R, int D, int V,
-                     int k, int cps, float inv_temp) {
-  extern __shared__ __align__(16) unsigned char ht_smem[];
+// K5's epilogue: v1's extraction loop, read from the accumulator
+// fragments. A row's buffer stays sorted under `ahead`, so its k-th pair
+// is slot k - 1. Per chunk a thread first holds its 32 logits of each of
+// its 4 rows against the row's k-th VALUE as the chunk began, unrolled
+// and straight from the fragments (a superset of the logits that can
+// still enter: one equal to it with a higher column stops the loop at its
+// turn), and keeps only those in a local array. Then, for each row slot
+// where some quad of the warp holds one (a ballot: after a slice's first
+// chunks most quads hold none), the warp's eight quads run v1's loop for
+// their eight rows side by side: each thread offers its best remaining
+// logit, the quad takes the best of the four (two shuffles), and while
+// that comes before the row's k-th pair it is inserted, sorted, and the
+// thread that offered it offers its next. Every warp-wide step is taken
+// converged; a quad whose loop has ended idles until the warp's last.
+struct SortedEpi : TopkRows {
+  __device__ __forceinline__ void start() {}
+
+  __device__ __forceinline__ void chunk(const Acc& acc, int c0) {
+    const int BP = k + 1;
+    unsigned live = FULL;  // the thread's columns before V
+    if (c0 + HT_BN > V) {  // the vocabulary's last chunk
+      live = 0;
+#pragma unroll
+      for (int c = 0; c < 2 * HT_NT; ++c)
+        if (c0 + (c >> 1) * 8 + 2 * t + (c & 1) < V) live |= 1u << c;
+    }
+    float lv[4][2 * HT_NT];  // the candidates' logits (local memory)
+    unsigned cand[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int dr = (j >> 1) * 16 + (j & 1) * 8;
+      const float kv = row0 + dr < R ? bv[(rl0 + dr) * BP + k - 1] : CUDART_INF_F;
+      unsigned m = 0;
+#pragma unroll
+      for (int c = 0; c < 2 * HT_NT; ++c) {
+        const float l = acc[j >> 1][c >> 1][(j & 1) * 2 + (c & 1)] * inv_temp;
+        if (l >= kv) {
+          m |= 1u << c;
+          lv[j][c] = l;
+        }
+      }
+      cand[j] = m & live;
+    }
+#pragma unroll 1
+    for (int j = 0; j < 4; ++j) {
+      unsigned left = j == 0 ? cand[0] : j == 1 ? cand[1] : j == 2 ? cand[2] : cand[3];
+      if (!__any_sync(FULL, left != 0)) continue;  // the ballot
+      const int dr = (j >> 1) * 16 + (j & 1) * 8;
+      float* rv = bv + (rl0 + dr) * BP;
+      int* ri = bi + (rl0 + dr) * BP;
+      float kth_v = rv[k - 1];
+      int kth_i = ri[k - 1];
+      float mv;
+      int mc, mbit;
+      best(lv[j], left, c0, mv, mc, mbit);
+#pragma unroll 1
+      while (true) {
+        float qv = mv;
+        int qc = mc;
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          const float ov = __shfl_xor_sync(FULL, qv, off);
+          const int oc = __shfl_xor_sync(FULL, qc, off);
+          if (ahead(ov, oc, qv, qc)) {
+            qv = ov;
+            qc = oc;
+          }
+        }
+        const bool ins = ahead(qv, qc, kth_v, kth_i);  // quad-uniform
+        if (!__any_sync(FULL, ins)) break;              // warp-uniform
+        insert(rv, ri, qv, qc, ins);
+        if (ins) {
+          kth_v = rv[k - 1];
+          kth_i = ri[k - 1];
+          if (mc == qc) {  // the thread offered it: its next
+            left &= ~(1u << mbit);
+            best(lv[j], left, c0, mv, mc, mbit);
+          }
+        }
+      }
+    }
+  }
+
+  // The best of the thread's logits `left` of one row: value, column and
+  // bit; (-inf, no column) when none is left. Its columns ascend with the
+  // bit, so a strict '>' keeps the lowest column of equal values.
+  __device__ __forceinline__ void best(const float* l, unsigned left, int c0, float& mv,
+                                       int& mc, int& mbit) const {
+    mv = -CUDART_INF_F;
+    mc = 0x7fffffff;
+    mbit = 0;
+#pragma unroll 1
+    for (; left; left &= left - 1) {
+      const int c = __ffs(left) - 1;
+      if (l[c] > mv) {
+        mv = l[c];
+        mc = c0 + (c >> 1) * 8 + 2 * t + (c & 1);
+        mbit = c;
+      }
+    }
+  }
+
+  // (v, c) into the row's sorted buffer where `ins` (quad-uniform): slot s
+  // keeps its pair if that comes before (v, c), else takes the pair of
+  // slot s - 1, or (v, c) where the pair of s - 1 comes before it (the
+  // last pair falls out). No count of the pairs ahead first: each slot
+  // compares for itself. 8 slots a thread, in blocks of 32 from the end
+  // while some quad's pairs still move (one block at k <= 32); a block
+  // reads all it needs before it writes, and the block below writes none
+  // of what this one reads.
+  __device__ __forceinline__ void insert(float* rv, int* ri, float v, int c, bool ins) const {
+#pragma unroll 1
+    for (int hi = k;; hi -= 32) {
+      const int lo = max(hi - 32, 0);
+      float nv[8];
+      int ni[8];
+      unsigned wr = 0;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int s = lo + 4 * q + t;
+        if (ins && s < hi && !ahead(rv[s], ri[s], v, c)) {
+          const bool prev = s > 0 && !ahead(rv[s - 1], ri[s - 1], v, c);
+          nv[q] = prev ? rv[s - 1] : v;
+          ni[q] = prev ? ri[s - 1] : c;
+          wr |= 1u << q;
+        }
+      }
+      const bool more = ins && lo > 0 && !ahead(rv[lo - 1], ri[lo - 1], v, c);
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if ((wr >> q) & 1u) {
+          rv[lo + 4 * q + t] = nv[q];
+          ri[lo + 4 * q + t] = ni[q];
+        }
+      __syncwarp();
+      if (!__any_sync(FULL, more)) break;
+    }
+  }
+
+  // each row's k pairs, already in order, to the slice's scratch
+  __device__ __forceinline__ void finish(float* part_v, int* part_i, int slice) {
+    __syncwarp();
+#pragma unroll 1
+    for (int j = 0; j < 4; ++j) {
+      const int dr = (j >> 1) * 16 + (j & 1) * 8;
+      const int row = row0 + dr;
+      if (row >= R) continue;
+      const float* rv = bv + (rl0 + dr) * (k + 1);
+      const int* ri = bi + (rl0 + dr) * (k + 1);
+      const size_t o = ((size_t)slice * R + row) * k;
+      for (int s = t; s < k; s += 4) {
+        part_v[o + s] = rv[s];
+        part_i[o + s] = ri[s];
+      }
+    }
+  }
+};
+
+// One CTA of the bf16 K4 or K5: rows r0.. (32 a warp) over the chunks of
+// slice blockIdx.y; each row's top k of the slice is left sorted for the
+// merge.
+template <typename Epi>
+__device__ __forceinline__ void topk_slice(unsigned char* smem, const bf16* __restrict__ x,
+                                           const bf16* __restrict__ w,
+                                           float* __restrict__ part_v, int* __restrict__ part_i,
+                                           int R, int D, int V, int k, int cps,
+                                           float inv_temp) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
   const int r0 = blockIdx.x * nw * HT_WM, slice = blockIdx.y;
   const int chunk0 = slice * cps;
   const int chunk1 = min((V + HT_BN - 1) / HT_BN, chunk0 + cps);
   const int BP = k + 1;
-  float* bv = reinterpret_cast<float*>(ht_smem + HT_STAGES * ht_stage_bytes(nw));
+  float* bv = reinterpret_cast<float*>(smem + HT_STAGES * ht_stage_bytes(nw));
   int* bi = reinterpret_cast<int*>(bv + nw * HT_WM * BP);
   // a warp's 32 rows are its own: empty slots rank behind every logit
   for (int i = lane; i < HT_WM * BP; i += 32) {
@@ -980,27 +1176,37 @@ head_topk_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     bi[warp * HT_WM * BP + i] = 0x7fffffff;
   }
   __syncwarp();
-  TopkEpi epi;
+  Epi epi;
   epi.bv = bv;
   epi.bi = bi;
   epi.k = k;
   epi.rl0 = warp * HT_WM + (lane >> 2);
   epi.row0 = r0 + epi.rl0;
   epi.t = lane & 3;
-  epi.qbase = lane & ~3;
   epi.R = R;
   epi.V = V;
   epi.inv_temp = inv_temp;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    epi.kv[j] = -CUDART_INF_F;
-    epi.ki[j] = 0x7fffffff;
-    epi.ks[j] = 0;
-    epi.cnt[j] = 0;
-  }
-  walk_slice(x, w, R, D, V, r0, chunk0, chunk1, reinterpret_cast<bf16*>(ht_smem),
-                        epi);
+  epi.start();
+  walk_slice(x, w, R, D, V, r0, chunk0, chunk1, reinterpret_cast<bf16*>(smem), epi);
   epi.finish(part_v, part_i, slice);
+}
+
+// K4 (bf16). Grid (row blocks of 32 nw rows, slices of cps chunks).
+__global__ void __launch_bounds__(HT_WARPS * 32, 2)
+head_topk_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                     float* __restrict__ part_v, int* __restrict__ part_i, int R, int D, int V,
+                     int k, int cps, float inv_temp) {
+  extern __shared__ __align__(16) unsigned char ht_smem[];
+  topk_slice<TopkEpi>(ht_smem, x, w, part_v, part_i, R, D, V, k, cps, inv_temp);
+}
+
+// K5 (bf16): K4's grid, plan and scratch, v1's sorted extraction.
+__global__ void __launch_bounds__(HT_WARPS * 32, 2)
+head_topk_v1_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                        float* __restrict__ part_v, int* __restrict__ part_i, int R, int D,
+                        int V, int k, int cps, float inv_temp) {
+  extern __shared__ __align__(16) unsigned char ht_smem[];
+  topk_slice<SortedEpi>(ht_smem, x, w, part_v, part_i, R, D, V, k, cps, inv_temp);
 }
 
 // K4's merge, a warp per row: lane s holds the head of slice s's sorted
@@ -1082,14 +1288,15 @@ struct HeadPlan {
   size_t smem = 0;
 };
 
-// The grid of the bf16 K3 (k = 0) or K4 on the current card: the most
-// warps a CTA whose buffers fit (K4 with a large k takes fewer rows a
-// CTA), then the S slices whose launch ends soonest when the card runs
-// its CTAs in waves (CTAs an SM: 2 by __launch_bounds__, fewer where
-// shared memory says so), each slice walking ceil(chunks / S) chunks
-// plus, for K4, a warm-up costed as K4_WARMUP chunks (its buffers start
-// empty in every slice, so the first chunks insert most of the pairs);
-// the fewer slices on a tie. S is then cut so that no slice is empty.
+// The grid of the bf16 K3 (k = 0), or of K4 or K5 (the same plan) on the
+// current card: the most warps a CTA whose buffers fit (a large k takes
+// fewer rows a CTA), then the S slices whose launch ends soonest when the
+// card runs its CTAs in waves (CTAs an SM: 2 by __launch_bounds__, fewer
+// where shared memory says so), each slice walking ceil(chunks / S)
+// chunks plus, for K4 and K5, a warm-up costed as TOPK_WARMUP chunks
+// (their buffers start empty in every slice, so the first chunks insert
+// most of the pairs); the fewer slices on a tie. S is then cut so that no
+// slice is empty.
 inline cudaError_t head_plan(int R, int V, int k, HeadPlan& p) {
   int sms = 0, smem_sm = 0, optin = 0;
   const cudaError_t e = card_shape(sms, smem_sm, optin);
@@ -1105,7 +1312,7 @@ inline cudaError_t head_plan(int R, int V, int k, HeadPlan& p) {
   long best_cost = -1;
   for (int s = 1; s <= HT_MAX_SPLITS && s <= chunks; ++s) {
     const long waves = ((long)p.blocks * s + slots - 1) / slots;
-    const long cost = waves * ((chunks + s - 1) / s + (k ? K4_WARMUP : 0));
+    const long cost = waves * ((chunks + s - 1) / s + (k ? TOPK_WARMUP : 0));
     if (best_cost < 0 || cost < best_cost) {
       best_cost = cost;
       p.splits = s;
@@ -1117,7 +1324,8 @@ inline cudaError_t head_plan(int R, int V, int k, HeadPlan& p) {
 }
 
 // Bytes of the slices' states: K3 (m, s, best, its logit) and the
-// column per slice and row; K4 k (value, column) pairs per slice and row.
+// column per slice and row; K4 and K5 k (value, column) pairs per slice
+// and row.
 inline size_t head_scratch_bytes(int R, int k, const HeadPlan& p) {
   if (k == 0) return (size_t)p.splits * R * (sizeof(float4) + sizeof(int));
   return (size_t)p.splits * R * k * (sizeof(float) + sizeof(int));
@@ -1146,20 +1354,23 @@ cudaError_t launch_sample_mma(const void* x, const void* w, void* ids, void* pro
   return cudaGetLastError();
 }
 
-cudaError_t launch_topk_mma(const void* x, const void* w, void* ids, void* probs,
-                            void* scratch, int R, int D, int V, int k, float inv_temp,
-                            uint32_t seed, cudaStream_t stream) {
+using TopkKernel = void (*)(const bf16*, const bf16*, float*, int*, int, int, int, int, int,
+                           float);
+
+// K4 or K5 (bf16): the slices' kernel `kern`, then the merge and draw
+cudaError_t launch_topk_mma(TopkKernel kern, const void* x, const void* w, void* ids,
+                            void* probs, void* scratch, int R, int D, int V, int k,
+                            float inv_temp, uint32_t seed, cudaStream_t stream) {
   if (D % 8 != 0) return cudaErrorInvalidValue;
   if (R == 0) return cudaSuccess;
   HeadPlan p;
   cudaError_t e = head_plan(R, V, k, p);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(head_topk_mma_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (e != cudaSuccess) return e;
   float* part_v = static_cast<float*>(scratch);
   int* part_i = reinterpret_cast<int*>(part_v + (size_t)p.splits * R * k);
-  head_topk_mma_kernel<<<dim3(p.blocks, p.splits), p.nw * 32, p.smem, stream>>>(
+  kern<<<dim3(p.blocks, p.splits), p.nw * 32, p.smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), part_v, part_i, R, D, V, k,
       p.cps, inv_temp);
   e = cudaGetLastError();
@@ -1174,7 +1385,7 @@ cudaError_t launch_topk_mma(const void* x, const void* w, void* ids, void* probs
 
 extern "C" {
 
-// Bytes of scratch the bf16 K3 (k = 0) or K4 takes for R rows of a V
+// Bytes of scratch the bf16 K3 (k = 0), K4 or K5 takes for R rows of a V
 // vocabulary on the current card: the slices' states; 0 in fp32. *err
 // gets the CUDA status of the plan.
 size_t mebt_head_scratch_bytes(int R, int V, int k, int is_bf16, int* err) {
@@ -1208,23 +1419,22 @@ int mebt_head_topk_sample(const void* x, const void* w, void* ids, void* probs,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k < 1 || k > V || k > 256) return (int)cudaErrorInvalidValue;
-  return is_bf16 ? (int)launch_topk_mma(x, w, ids, probs, scratch, R, D, V, k,
-                                        inv_temp, seed, s)
+  return is_bf16 ? (int)launch_topk_mma(head_topk_mma_kernel, x, w, ids, probs, scratch, R,
+                                        D, V, k, inv_temp, seed, s)
                  : (int)launch_topk_fma(x, w, ids, probs, R, D, V, k, inv_temp,
                                         seed, s);
 }
 
-// K5: K4's function by the extraction loop, 1 <= k <= min(V, 256).
-int mebt_head_topk_sample_v1(const void* x, const void* w, void* ids,
-                             void* probs, int R, int D, int V, int k,
-                             float inv_temp, unsigned int seed, int is_bf16,
-                             void* stream) {
+// K5: K4's function by v1's extraction loop, 1 <= k <= min(V, 256);
+// scratch of mebt_head_scratch_bytes(R, V, k, is_bf16) bytes, as K4's.
+int mebt_head_topk_sample_v1(const void* x, const void* w, void* ids, void* probs,
+                             void* scratch, int R, int D, int V, int k, float inv_temp,
+                             unsigned int seed, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k < 1 || k > V || k > V1_MAX_K) return (int)cudaErrorInvalidValue;
-  return is_bf16 ? (int)launch_topk_v1<__nv_bfloat16>(x, w, ids, probs, R, D,
-                                                      V, k, inv_temp, seed, s)
-                 : (int)launch_topk_v1<float>(x, w, ids, probs, R, D, V, k,
-                                              inv_temp, seed, s);
+  return is_bf16 ? (int)launch_topk_mma(head_topk_v1_mma_kernel, x, w, ids, probs, scratch,
+                                        R, D, V, k, inv_temp, seed, s)
+                 : (int)launch_topk_v1_fma(x, w, ids, probs, R, D, V, k, inv_temp, seed, s);
 }
 
 }  // extern "C"

@@ -11,9 +11,10 @@ each (csrc/head_sample.cu).
      flag because the kernel's top-k is exact).
   K5 `head_topk_sample_v1(x, w, seed, k, temperature)` is K4's function
      by the other selection design, a data-dependent extraction loop per
-     vocabulary chunk (replaces head_sample_pallas.py:
-     fused_head_topk_sample, v1). It gives K4's ids at one seed. No
-     decode path calls it, as none in the JAX package calls v1.
+     vocabulary chunk into a sorted buffer (replaces head_sample_pallas.py:
+     fused_head_topk_sample, v1). In bf16 its ids and probabilities equal
+     K4's bit for bit at one seed. No decode path calls it, as none in
+     the JAX package calls v1.
 
 Each returns (ids int32, prob of the id fp32); the (R, V) logits never
 reach device memory. `w` is the head's nn.Linear weight, (V, D). The
@@ -22,12 +23,12 @@ noise is Philox4x32-10 keyed on (seed, row, vocabulary column);
 PyTorch, so each kernel and its plain version (`*_ref`) agree on the samples for one
 seed, up to near-ties of the logits.
 
-In bf16, K3 and K4 multiply on the tensor cores (mma.sync, fp32 sums)
-over S slices of the vocabulary, S picked from the card's SM count so
-that the CTAs fill it; each slice leaves its state in scratch that the
+In bf16, K3, K4 and K5 multiply on the tensor cores (mma.sync, fp32
+sums) over S slices of the vocabulary, S picked from the card's SM count
+so that the CTAs fill it; each slice leaves its state in scratch that the
 wrapper allocates and a merge kernel folds the slices in order (one
-launch of the pair counts once). fp32 keeps the FMA kernels, for the
-parity checks; K5 keeps them in both types.
+launch of the pair counts once; K5 takes K4's plan, scratch and merge).
+fp32 keeps the FMA kernels, for the parity checks.
 
 A wrapper runs its plain version only for tensors on the CPU; a CUDA
 tensor launches the kernel or the call raises. `<wrapper>.launches`
@@ -61,12 +62,12 @@ _SIGNATURES = {
     ),
     "mebt_head_topk_sample_v1": (
         ctypes.c_int,
-        [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, ctypes.c_uint, _I, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, ctypes.c_uint, _I, _P],
     ),
 }
-# K4's buffers of k (value, column) pairs a row live in shared memory (the
-# bf16 kernel takes fewer rows a CTA for a large k); K5's shift also keeps
-# k / 32 pairs a lane in registers
+# K4's and K5's buffers of k (value, column) pairs a row live in shared
+# memory (the bf16 kernels take fewer rows a CTA for a large k); fp32
+# K5's shift keeps k / 32 pairs a lane in registers
 MAX_TOPK = 256
 
 
@@ -103,13 +104,12 @@ def head_topk_sample_ref(x, w, k: int, temperature: float, noise=None, *,
     return cols.gather(-1, j)[:, 0].to(torch.int32), probs
 
 
-def _launch(entry: str, x, w, seed: int, temperature: float, *extra: int,
-            sliced: bool = True):
+def _launch(entry: str, x, w, seed: int, temperature: float, *extra: int):
     """Check x (R, D) and w (V, D), allocate the outputs and call one of
-    the library's entry points; `extra` are its integers after V. The
-    `sliced` ones (K3, K4) take scratch for the slices' states in bf16,
-    whose tensor-core kernels copy 16-byte granules: D is zero-padded to
-    a multiple of 8 there, which leaves every logit as it was."""
+    the library's entry points; `extra` are its integers after V (k). In
+    bf16 the entry points take scratch for the slices' states, and their
+    tensor-core kernels copy 16-byte granules: D is zero-padded to a
+    multiple of 8 there, which leaves every logit as it was."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1]:
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do not chain")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -121,24 +121,22 @@ def _launch(entry: str, x, w, seed: int, temperature: float, *extra: int,
     x = x.contiguous()
     w = w.to(x.dtype).contiguous()
     lib = _build.load("head_sample", _SIGNATURES)
-    args = []
-    if sliced:
-        if bf16:
-            pad = -x.shape[1] % 8
-            if pad:
-                x = torch.nn.functional.pad(x, (0, pad))
-                w = torch.nn.functional.pad(w, (0, pad))
-            x, w = _build.aligned(x), _build.aligned(w)
-        err = ctypes.c_int(0)
-        n = lib.mebt_head_scratch_bytes(R, V, extra[0] if extra else 0, bf16, ctypes.byref(err))
-        _build.check(err.value, f"{entry} (plan)")
-        scratch = torch.empty(n, device=x.device, dtype=torch.uint8) if n else None
-        args.append(None if scratch is None else ctypes.c_void_p(scratch.data_ptr()))
+    if bf16:
+        pad = -x.shape[1] % 8
+        if pad:
+            x = torch.nn.functional.pad(x, (0, pad))
+            w = torch.nn.functional.pad(w, (0, pad))
+        x, w = _build.aligned(x), _build.aligned(w)
+    err = ctypes.c_int(0)
+    n = lib.mebt_head_scratch_bytes(R, V, extra[0] if extra else 0, bf16, ctypes.byref(err))
+    _build.check(err.value, f"{entry} (plan)")
+    scratch = torch.empty(n, device=x.device, dtype=torch.uint8) if n else None
     ids = torch.empty(R, device=x.device, dtype=torch.int32)
     probs = torch.empty(R, device=x.device, dtype=torch.float32)
     status = getattr(lib, entry)(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
-        ctypes.c_void_p(ids.data_ptr()), ctypes.c_void_p(probs.data_ptr()), *args,
+        ctypes.c_void_p(ids.data_ptr()), ctypes.c_void_p(probs.data_ptr()),
+        None if scratch is None else ctypes.c_void_p(scratch.data_ptr()),
         R, x.shape[1], V, *extra, 1.0 / (float(temperature) + 1e-8), int(seed) & 0xFFFFFFFF,
         bf16, _build.stream_ptr(x),
     )
@@ -175,13 +173,14 @@ head_topk_sample.launches = 0
 
 
 def head_topk_sample_v1(x, w, seed: int, k: int, temperature: float = 1.0):
-    """K5 on CUDA tensors: as `head_topk_sample`, by the extraction loop."""
+    """K5 on CUDA tensors: as `head_topk_sample`, by v1's extraction
+    loop (in bf16 the same bits as K4 at one seed)."""
     if not x.is_cuda:
         return head_topk_sample_ref(x, w, k, temperature, seed=seed)
     k = min(int(k), w.shape[0])
     if not 1 <= k <= MAX_TOPK:
         raise ValueError(f"top-k {k} not taken by the kernel (1..{MAX_TOPK})")
-    out = _launch("mebt_head_topk_sample_v1", x, w, seed, temperature, k, sliced=False)
+    out = _launch("mebt_head_topk_sample_v1", x, w, seed, temperature, k)
     head_topk_sample_v1.launches += 1
     return out
 

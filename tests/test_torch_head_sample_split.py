@@ -120,9 +120,19 @@ def _slice_topk(logits, c0, c1, k):
 def emulate_k4(x, w, k, temperature, S, seed=0):
     """(ids, probs) as the sliced K4 computes them."""
     logits = _logits(x, w, temperature)
-    R, V = logits.shape
+    V = logits.shape[1]
     k = min(int(k), V)
-    lists = [_slice_topk(logits, c0, c1, k) for c0, c1 in slices(V, S)]
+    return merge_slices([_slice_topk(logits, c0, c1, k) for c0, c1 in slices(V, S)], V,
+                        seed=seed)
+
+
+def merge_slices(lists, V, seed=0, noise=None):
+    """K4's merge (head_topk_merge_kernel) of the slices' sorted (values,
+    columns) lists of k pairs a row: the top k of the S k pairs head by
+    head, then Gumbel-max among them with `noise` (R, k) Exp(1) draws in
+    merged order (None: the Philox draws of `seed` at their columns) and
+    the probability under their softmax. Returns (ids, probs)."""
+    R, k = lists[0][0].shape
     lv = torch.stack([v for v, _ in lists], dim=1)  # (R, S, k)
     lc = torch.stack([c for _, c in lists], dim=1)
     heads = torch.zeros(R, len(lists), dtype=torch.int64)
@@ -140,7 +150,9 @@ def emulate_k4(x, w, k, temperature, S, seed=0):
         mv[:, j], mc[:, j] = top, bc
         heads[rows, win] += 1
     assert int(mc.max()) < V  # no padding pair survives: V >= k real columns
-    pert = mv - torch.log(philox_exponential_at(seed, mc))
+    if noise is None:
+        noise = philox_exponential_at(seed, mc)
+    pert = mv - torch.log(noise)
     slot = torch.argmax(pert, dim=1, keepdim=True)  # the lowest slot on a tie
     m = mv[:, :1]
     lse = m[:, 0] + torch.log(torch.exp(mv - m).sum(dim=1))

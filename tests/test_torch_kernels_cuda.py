@@ -303,6 +303,38 @@ def test_head_topk_sample_v1_matches_plain_and_k4(dev, dtype, R, V, k):
     assert head_topk_sample_v1.launches == before + 3
 
 
+@pytest.mark.parametrize("R", [256, 3328, 6400])  # the most slices; 128f last two segments
+@pytest.mark.parametrize("k", [1, 32, 256])
+def test_head_topk_sample_v1_equals_k4_bitwise(dev, R, k):
+    """The bf16 K5 runs K4's tile, slices and merge with v1's sorted
+    extraction: its ids and probabilities are K4's bit for bit, greedy
+    and sampled, and two calls give the same bits."""
+    gen = torch.Generator(dev).manual_seed(R + k)
+    x, w = _head_case(gen, dev, R, 16384)
+    before = head_topk_sample_v1.launches
+    for temp in (1.0, 0.0):
+        ids, probs = head_topk_sample_v1(x, w, 5, k, temp)
+        ids4, probs4 = head_topk_sample(x, w, 5, k, temp)
+        assert torch.equal(ids, ids4) and torch.equal(probs, probs4)
+    again = head_topk_sample_v1(x, w, 5, k, 0.0)
+    assert torch.equal(again[0], ids) and torch.equal(again[1], probs)
+    assert head_topk_sample_v1.launches == before + 3
+
+
+@pytest.mark.parametrize("R,V", [(256, 16384), (300, 1100)])
+@pytest.mark.parametrize("k", [7, 32, 200])
+def test_head_topk_sample_v1_ties_keep_the_lowest_columns(dev, R, V, k):
+    """Exact ties across slices and chunks: the bf16 K5's ids are the
+    plain version's (the lowest columns of the k-th value) and K4's."""
+    gen = torch.Generator(dev).manual_seed(V + k + 1)
+    x, w = _head_case(gen, dev, R, V, ties=True)
+    for temp in (1.0, 0.0):
+        ids, probs = head_topk_sample_v1(x, w, 3, k, temp)
+        assert torch.equal(ids, head_topk_sample_ref(x, w, k, temp, seed=3)[0])
+        ids4, probs4 = head_topk_sample(x, w, 3, k, temp)
+        assert torch.equal(ids, ids4) and torch.equal(probs, probs4)
+
+
 def test_head_topk_sample_v1_frequencies_and_large_k(dev):
     """The draws follow the top-k-filtered softmax and never leave the
     top-k (chi-square, 7 dof, upper 1e-4 quantile); k past the shared
