@@ -997,18 +997,21 @@ struct TopkEpi : TopkRows {
 
 // K5's epilogue: v1's extraction loop, read from the accumulator
 // fragments. A row's buffer stays sorted under `ahead`, so its k-th pair
-// is slot k - 1. Per chunk a thread first holds its 32 logits of each of
-// its 4 rows against the row's k-th VALUE as the chunk began, unrolled
-// and straight from the fragments (a superset of the logits that can
-// still enter: one equal to it with a higher column stops the loop at its
-// turn), and keeps only those in a local array. Then, for each row slot
-// where some quad of the warp holds one (a ballot: after a slice's first
-// chunks most quads hold none), the warp's eight quads run v1's loop for
-// their eight rows side by side: each thread offers its best remaining
-// logit, the quad takes the best of the four (two shuffles), and while
-// that comes before the row's k-th pair it is inserted, sorted, and the
-// thread that offered it offers its next. Every warp-wide step is taken
-// converged; a quad whose loop has ended idles until the warp's last.
+// is slot k - 1. Per chunk and row slot a thread first holds its 32
+// logits of the row against the row's k-th VALUE as the chunk began,
+// unrolled and straight from the fragments (a superset of the logits that
+// can still enter: one equal to it with a higher column stops the loop at
+// its turn), and keeps only those in a local array of 32. Then, where
+// some quad of the warp holds one (a ballot), the warp's eight quads run
+// v1's loop for their eight rows side by side: each thread offers its
+// best remaining logit, the quad takes the best of the four (two
+// shuffles), and while that comes before the row's k-th pair it is
+// inserted, sorted, and the thread that offered it offers its next. Every
+// warp-wide step is taken converged; a quad whose loop has ended idles
+// until the warp's last. The local array holds one row slot at a time
+// (128 bytes a thread): one for all four (512) outgrew L1 beside the
+// two CTAs' shared memory, and a slice's first chunk, where a thread's
+// rescans walk some 30 candidates, then read L2.
 struct SortedEpi : TopkRows {
   __device__ __forceinline__ void start() {}
 
@@ -1021,35 +1024,27 @@ struct SortedEpi : TopkRows {
       for (int c = 0; c < 2 * HT_NT; ++c)
         if (c0 + (c >> 1) * 8 + 2 * t + (c & 1) < V) live |= 1u << c;
     }
-    float lv[4][2 * HT_NT];  // the candidates' logits (local memory)
-    unsigned cand[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int dr = (j >> 1) * 16 + (j & 1) * 8;
-      const float kv = row0 + dr < R ? bv[(rl0 + dr) * BP + k - 1] : CUDART_INF_F;
-      unsigned m = 0;
-#pragma unroll
-      for (int c = 0; c < 2 * HT_NT; ++c) {
-        const float l = acc[j >> 1][c >> 1][(j & 1) * 2 + (c & 1)] * inv_temp;
-        if (l >= kv) {
-          m |= 1u << c;
-          lv[j][c] = l;
-        }
-      }
-      cand[j] = m & live;
-    }
 #pragma unroll 1
     for (int j = 0; j < 4; ++j) {
-      unsigned left = j == 0 ? cand[0] : j == 1 ? cand[1] : j == 2 ? cand[2] : cand[3];
-      if (!__any_sync(FULL, left != 0)) continue;  // the ballot
       const int dr = (j >> 1) * 16 + (j & 1) * 8;
       float* rv = bv + (rl0 + dr) * BP;
       int* ri = bi + (rl0 + dr) * BP;
       float kth_v = rv[k - 1];
       int kth_i = ri[k - 1];
+      const float kv = row0 + dr < R ? kth_v : CUDART_INF_F;  // a row past R takes none
+      float lv[2 * HT_NT];  // the row's candidates (local memory)
+      unsigned left;
+      switch (j) {  // static fragment indices in a rolled loop
+        case 0: left = candidates<0>(acc, kv, lv); break;
+        case 1: left = candidates<1>(acc, kv, lv); break;
+        case 2: left = candidates<2>(acc, kv, lv); break;
+        default: left = candidates<3>(acc, kv, lv);
+      }
+      left &= live;
+      if (!__any_sync(FULL, left != 0)) continue;  // the ballot
       float mv;
       int mc, mbit;
-      best(lv[j], left, c0, mv, mc, mbit);
+      best(lv, left, c0, mv, mc, mbit);
 #pragma unroll 1
       while (true) {
         float qv = mv;
@@ -1071,11 +1066,27 @@ struct SortedEpi : TopkRows {
           kth_i = ri[k - 1];
           if (mc == qc) {  // the thread offered it: its next
             left &= ~(1u << mbit);
-            best(lv[j], left, c0, mv, mc, mbit);
+            best(lv, left, c0, mv, mc, mbit);
           }
         }
       }
     }
+  }
+
+  // The thread's logits of row slot J not below the k-th value kv (a
+  // superset of those that can still enter), into l; their bits.
+  template <int J>
+  __device__ __forceinline__ unsigned candidates(const Acc& acc, float kv, float* l) const {
+    unsigned m = 0;
+#pragma unroll
+    for (int c = 0; c < 2 * HT_NT; ++c) {
+      const float v = acc[J >> 1][c >> 1][(J & 1) * 2 + (c & 1)] * inv_temp;
+      if (v >= kv) {
+        m |= 1u << c;
+        l[c] = v;
+      }
+    }
+    return m;
   }
 
   // The best of the thread's logits `left` of one row: value, column and

@@ -3,9 +3,10 @@ head_sample.cu) on one CUDA card, to see what bounds them.
 
     python3 scripts/head_sample_variants.py [--out results/head_sample_variants]
 
-Each variant is the source with text substitutions, built with the
-package's nvcc flags into --out and loaded in place of the package's
-library:
+Each variant is the source with text substitutions (a pair replaces one
+exact text, a triple the text from its first marker up to its second),
+built with the package's nvcc flags into --out (ptxas's report beside
+it) and loaded in place of the package's library:
   full        the kernels as they are;
   tile_only   the logits tiles alone: the epilogue runs only if the sum
               of the accumulators hits an impossible value (so no MMA is
@@ -16,6 +17,11 @@ library:
               once a shape, not timed);
   three_stages   a three-stage ring (less L1 for the epilogues' arrays);
   stagger     one of the two CTAs on an SM starts 30 us late;
+  k5_local4   K5 with the candidates of all four row slots of a chunk in
+              one local array (512 bytes a thread, against 128), taken
+              unrolled before the slots' loops (its first draft);
+  k5_registers   K5 with the slot's 32 logits in registers and each
+              rescan an unrolled pass over them (no local memory);
   k5_tile     K5's extraction placed through a 128 x 128 fp32 shared
               tile (64 KB more a CTA, so one CTA an SM), a warp per row
               with four logits a lane, a warp max a turn and a count of
@@ -156,7 +162,159 @@ struct TileEpi : SortedEpi {
 """
 K5_BALLOT = "      if (!__any_sync(FULL, left != 0)) continue;  // the ballot\n"
 K5_TURN = "        if (!__any_sync(FULL, ins)) break;              // warp-uniform\n"
-K5_SLOT = "    for (int j = 0; j < 4; ++j) {\n      unsigned left = "
+K5_SLOT = "      left &= live;\n"
+# K5's epilogue from its chunk() up to its best(): replaced whole
+K5_CHUNK = ("  __device__ __forceinline__ void chunk(const Acc& acc, int c0) {\n"
+            "    const int BP = k + 1;\n    unsigned live = FULL;",
+            "  // The best of the thread's logits `left` of one row")
+K5_LOCAL4 = r"""  __device__ __forceinline__ void chunk(const Acc& acc, int c0) {
+    const int BP = k + 1;
+    unsigned live = FULL;  // the thread's columns before V
+    if (c0 + HT_BN > V) {  // the vocabulary's last chunk
+      live = 0;
+#pragma unroll
+      for (int c = 0; c < 2 * HT_NT; ++c)
+        if (c0 + (c >> 1) * 8 + 2 * t + (c & 1) < V) live |= 1u << c;
+    }
+    float lv[4][2 * HT_NT];  // the candidates' logits (local memory)
+    unsigned cand[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int dr = (j >> 1) * 16 + (j & 1) * 8;
+      const float kv = row0 + dr < R ? bv[(rl0 + dr) * BP + k - 1] : CUDART_INF_F;
+      unsigned m = 0;
+#pragma unroll
+      for (int c = 0; c < 2 * HT_NT; ++c) {
+        const float l = acc[j >> 1][c >> 1][(j & 1) * 2 + (c & 1)] * inv_temp;
+        if (l >= kv) {
+          m |= 1u << c;
+          lv[j][c] = l;
+        }
+      }
+      cand[j] = m & live;
+    }
+#pragma unroll 1
+    for (int j = 0; j < 4; ++j) {
+      unsigned left = j == 0 ? cand[0] : j == 1 ? cand[1] : j == 2 ? cand[2] : cand[3];
+      if (!__any_sync(FULL, left != 0)) continue;  // the ballot
+      const int dr = (j >> 1) * 16 + (j & 1) * 8;
+      float* rv = bv + (rl0 + dr) * BP;
+      int* ri = bi + (rl0 + dr) * BP;
+      float kth_v = rv[k - 1];
+      int kth_i = ri[k - 1];
+      float mv;
+      int mc, mbit;
+      best(lv[j], left, c0, mv, mc, mbit);
+#pragma unroll 1
+      while (true) {
+        float qv = mv;
+        int qc = mc;
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          const float ov = __shfl_xor_sync(FULL, qv, off);
+          const int oc = __shfl_xor_sync(FULL, qc, off);
+          if (ahead(ov, oc, qv, qc)) {
+            qv = ov;
+            qc = oc;
+          }
+        }
+        const bool ins = ahead(qv, qc, kth_v, kth_i);  // quad-uniform
+        if (!__any_sync(FULL, ins)) break;              // warp-uniform
+        insert(rv, ri, qv, qc, ins);
+        if (ins) {
+          kth_v = rv[k - 1];
+          kth_i = ri[k - 1];
+          if (mc == qc) {  // the thread offered it: its next
+            left &= ~(1u << mbit);
+            best(lv[j], left, c0, mv, mc, mbit);
+          }
+        }
+      }
+    }
+  }
+
+"""
+K5_REGISTERS = r"""  __device__ __forceinline__ void chunk(const Acc& acc, int c0) {
+    const int BP = k + 1;
+    unsigned live = FULL;
+    if (c0 + HT_BN > V) {
+      live = 0;
+#pragma unroll
+      for (int c = 0; c < 2 * HT_NT; ++c)
+        if (c0 + (c >> 1) * 8 + 2 * t + (c & 1) < V) live |= 1u << c;
+    }
+#pragma unroll 1
+    for (int j = 0; j < 4; ++j) {
+      const int dr = (j >> 1) * 16 + (j & 1) * 8;
+      float* rv = bv + (rl0 + dr) * BP;
+      int* ri = bi + (rl0 + dr) * BP;
+      float kth_v = rv[k - 1];
+      int kth_i = ri[k - 1];
+      const float kv = row0 + dr < R ? kth_v : CUDART_INF_F;
+      float l[2 * HT_NT];
+      switch (j) {
+        case 0: scaled<0>(acc, l); break;
+        case 1: scaled<1>(acc, l); break;
+        case 2: scaled<2>(acc, l); break;
+        default: scaled<3>(acc, l);
+      }
+      unsigned left = 0;
+#pragma unroll
+      for (int c = 0; c < 2 * HT_NT; ++c) left |= (l[c] >= kv ? 1u : 0u) << c;
+      left &= live;
+      if (!__any_sync(FULL, left != 0)) continue;
+      float mv;
+      int mc, mbit;
+      rbest(l, left, c0, mv, mc, mbit);
+#pragma unroll 1
+      while (true) {
+        float qv = mv;
+        int qc = mc;
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          const float ov = __shfl_xor_sync(FULL, qv, off);
+          const int oc = __shfl_xor_sync(FULL, qc, off);
+          if (ahead(ov, oc, qv, qc)) {
+            qv = ov;
+            qc = oc;
+          }
+        }
+        const bool ins = ahead(qv, qc, kth_v, kth_i);
+        if (!__any_sync(FULL, ins)) break;
+        insert(rv, ri, qv, qc, ins);
+        if (ins) {
+          kth_v = rv[k - 1];
+          kth_i = ri[k - 1];
+          if (mc == qc) {
+            left &= ~(1u << mbit);
+            rbest(l, left, c0, mv, mc, mbit);
+          }
+        }
+      }
+    }
+  }
+
+  template <int J>
+  __device__ __forceinline__ void scaled(const Acc& acc, float (&l)[2 * HT_NT]) const {
+#pragma unroll
+    for (int c = 0; c < 2 * HT_NT; ++c)
+      l[c] = acc[J >> 1][c >> 1][(J & 1) * 2 + (c & 1)] * inv_temp;
+  }
+
+  __device__ __forceinline__ void rbest(const float (&l)[2 * HT_NT], unsigned left, int c0,
+                                        float& mv, int& mc, int& mbit) const {
+    mv = -CUDART_INF_F;
+    mbit = -1;
+#pragma unroll
+    for (int c = 0; c < 2 * HT_NT; ++c)
+      if (((left >> c) & 1u) && l[c] > mv) {
+        mv = l[c];
+        mbit = c;
+      }
+    mc = mbit < 0 ? 0x7fffffff : c0 + (mbit >> 1) * 8 + 2 * t + (mbit & 1);
+  }
+
+"""
 # (text substitutions, kernels timed)
 VARIANTS = {
     "full": ([], ("K3", "K4", "K5")),
@@ -206,11 +364,12 @@ VARIANTS = {
          "(size_t)nw * HT_WM * (k ? k + 1 : 0) * (sizeof(float) + sizeof(int)) +\n"
          "         (k ? (size_t)nw * HT_WM * (HT_BN + 4) * sizeof(float) : 0);"),
     ], ("K5",)),
+    "k5_local4": ([(*K5_CHUNK, K5_LOCAL4)], ("K5",)),
+    "k5_registers": ([(*K5_CHUNK, K5_REGISTERS)], ("K5",)),
     "k5_no_skip": ([(K5_BALLOT, "")], ("K5",)),
     "k5_count": ([
         ("struct SortedEpi : TopkRows {", COUNTERS + "struct SortedEpi : TopkRows {"),
-        (K5_SLOT, K5_SLOT.replace("      unsigned left = ", "      count(0, 1);\n"
-                                                           "      unsigned left = ")),
+        (K5_SLOT, K5_SLOT + "      count(0, 1);\n"),
         (K5_BALLOT, K5_BALLOT + "      count(1, 1);\n"),
         (K5_TURN, K5_TURN + "        count(2, 1);\n"
                             "        count(3, __popc(__ballot_sync(FULL, ins)) / 4);\n"),
@@ -232,10 +391,12 @@ D, V, K = 1024, 16384, 32
 
 def build(name: str, subs, out_dir: str):
     src = (_build.CSRC / "head_sample.cu").read_text()
-    for old, new in subs:
-        if src.count(old) != 1:
+    for *old, new in subs:
+        if any(src.count(o) != 1 for o in old):
             raise RuntimeError(f"variant {name}: {old!r} not found once")
-        src = src.replace(old, new)
+        a = src.index(old[0])
+        b = src.index(old[-1]) + (len(old[0]) if len(old) == 1 else 0)
+        src = src[:a] + new + src[b:]
     cu = os.path.join(out_dir, f"head_sample_{name}.cu")
     so = os.path.join(out_dir, f"libhead_sample_{name}.so")
     with open(cu, "w") as f:
@@ -281,6 +442,8 @@ def main(argv=None) -> int:
     libs = {}
     for n, (so, proc) in procs.items():
         log = proc.communicate()[0]
+        with open(os.path.join(args.out, f"nvcc_{n}.log"), "w") as f:
+            f.write(log)
         if proc.returncode != 0:
             print(log, file=sys.stderr)
             return 1
