@@ -958,7 +958,7 @@ def check_k9(dev, gen):
                    bound_ms_3xtf32=max(3 * 2.0 * M * K * D / PEAK_TF32 * 1e3,
                                        nbytes(x, e, got) / PEAK_BYTES * 1e3),
                    search_ms=dev_ms[K9_KERNELS[0]], merge_ms=dev_ms[K9_KERNELS[1]])
-        if case in ("16f", "128f"):
+        if case != "ties":
             e2 = code_norms(e)
             row["plain_ms"] = cuda_ms(lambda: nearest_code_ref(x, e), reps=3)
             row["library_ms"] = cuda_ms(lambda: torch.argmin(e2 - 2.0 * torch.matmul(x, e.t()), dim=1),

@@ -43,7 +43,9 @@
 // for each 128 x 128 tile, 8 warps an SM); K3's epilogue adds 2.4 ms
 // (1.7 of it the noise), K4's 2.2 ms (some 15 dependent rescans per warp,
 // row slot and chunk). The epilogue overlaps the next chunk's loads, not
-// the products: 4.7 and 4.9 ms in all.
+// the products: 4.7 and 4.9 ms in all. K5 (the same script): its tile
+// alone 2.60 ms, its epilogue 0.79 (some 1050 turns a warp and slice of
+// 64 chunks), 3.39 ms in all.
 //
 // bf16 (head_sample_mma_kernel, head_topk_mma_kernel and K5's
 // head_topk_v1_mma_kernel; the product of the TPU kernels, bf16 operands
@@ -165,7 +167,6 @@ constexpr int AP = TR + 4;    // pitches keep float4 alignment
 constexpr int LP = VC + 4;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ float exp_noise(uint32_t seed, uint32_t row,
                                            uint32_t col) {
@@ -997,21 +998,18 @@ struct TopkEpi : TopkRows {
 
 // K5's epilogue: v1's extraction loop, read from the accumulator
 // fragments. A row's buffer stays sorted under `ahead`, so its k-th pair
-// is slot k - 1. Per chunk and row slot a thread first holds its 32
-// logits of the row against the row's k-th VALUE as the chunk began,
-// unrolled and straight from the fragments (a superset of the logits that
-// can still enter: one equal to it with a higher column stops the loop at
-// its turn), and keeps only those in a local array of 32. Then, where
-// some quad of the warp holds one (a ballot), the warp's eight quads run
-// v1's loop for their eight rows side by side: each thread offers its
-// best remaining logit, the quad takes the best of the four (two
-// shuffles), and while that comes before the row's k-th pair it is
-// inserted, sorted, and the thread that offered it offers its next. Every
-// warp-wide step is taken converged; a quad whose loop has ended idles
-// until the warp's last. The local array holds one row slot at a time
-// (128 bytes a thread): one for all four (512) outgrew L1 beside the
-// two CTAs' shared memory, and a slice's first chunk, where a thread's
-// rescans walk some 30 candidates, then read L2.
+// is slot k - 1. Per chunk and row slot a thread takes its 32 logits of
+// the row from the fragments into registers (static indices: a switch
+// over the rolled slot loop) and marks those not below the row's k-th
+// VALUE as the chunk began (a superset of the logits that can still
+// enter: one equal to it with a higher column stops the loop at its
+// turn). Where some quad of the warp holds one (a ballot), the warp's
+// eight quads run v1's loop for their eight rows side by side: each
+// thread offers its best remaining logit, the quad takes the best of the
+// four (two shuffles), and while that comes before the row's k-th pair
+// it is inserted, sorted, and the thread that offered it finds its next
+// (a comparison tree over its registers). Every warp-wide step is taken
+// converged; a quad whose loop has ended idles until the warp's last.
 struct SortedEpi : TopkRows {
   __device__ __forceinline__ void start() {}
 
@@ -1032,19 +1030,21 @@ struct SortedEpi : TopkRows {
       float kth_v = rv[k - 1];
       int kth_i = ri[k - 1];
       const float kv = row0 + dr < R ? kth_v : CUDART_INF_F;  // a row past R takes none
-      float lv[2 * HT_NT];  // the row's candidates (local memory)
-      unsigned left;
+      float l[2 * HT_NT];
       switch (j) {  // static fragment indices in a rolled loop
-        case 0: left = candidates<0>(acc, kv, lv); break;
-        case 1: left = candidates<1>(acc, kv, lv); break;
-        case 2: left = candidates<2>(acc, kv, lv); break;
-        default: left = candidates<3>(acc, kv, lv);
+        case 0: scaled<0>(acc, l); break;
+        case 1: scaled<1>(acc, l); break;
+        case 2: scaled<2>(acc, l); break;
+        default: scaled<3>(acc, l);
       }
+      unsigned left = 0;
+#pragma unroll
+      for (int c = 0; c < 2 * HT_NT; ++c) left |= (l[c] >= kv ? 1u : 0u) << c;
       left &= live;
       if (!__any_sync(FULL, left != 0)) continue;  // the ballot
       float mv;
       int mc, mbit;
-      best(lv, left, c0, mv, mc, mbit);
+      best(l, left, c0, mv, mc, mbit);
 #pragma unroll 1
       while (true) {
         float qv = mv;
@@ -1066,80 +1066,96 @@ struct SortedEpi : TopkRows {
           kth_i = ri[k - 1];
           if (mc == qc) {  // the thread offered it: its next
             left &= ~(1u << mbit);
-            best(lv, left, c0, mv, mc, mbit);
+            best(l, left, c0, mv, mc, mbit);
           }
         }
       }
     }
   }
 
-  // The thread's logits of row slot J not below the k-th value kv (a
-  // superset of those that can still enter), into l; their bits.
+  // the thread's 32 logits of row slot J, scaled
   template <int J>
-  __device__ __forceinline__ unsigned candidates(const Acc& acc, float kv, float* l) const {
-    unsigned m = 0;
+  __device__ __forceinline__ void scaled(const Acc& acc, float (&l)[2 * HT_NT]) const {
 #pragma unroll
-    for (int c = 0; c < 2 * HT_NT; ++c) {
-      const float v = acc[J >> 1][c >> 1][(J & 1) * 2 + (c & 1)] * inv_temp;
-      if (v >= kv) {
-        m |= 1u << c;
-        l[c] = v;
-      }
-    }
-    return m;
+    for (int c = 0; c < 2 * HT_NT; ++c)
+      l[c] = acc[J >> 1][c >> 1][(J & 1) * 2 + (c & 1)] * inv_temp;
   }
 
-  // The best of the thread's logits `left` of one row: value, column and
-  // bit; (-inf, no column) when none is left. Its columns ascend with the
-  // bit, so a strict '>' keeps the lowest column of equal values.
-  __device__ __forceinline__ void best(const float* l, unsigned left, int c0, float& mv,
-                                       int& mc, int& mbit) const {
-    mv = -CUDART_INF_F;
-    mc = 0x7fffffff;
-    mbit = 0;
-#pragma unroll 1
-    for (; left; left &= left - 1) {
-      const int c = __ffs(left) - 1;
-      if (l[c] > mv) {
-        mv = l[c];
-        mc = c0 + (c >> 1) * 8 + 2 * t + (c & 1);
-        mbit = c;
-      }
+  // The best of the logits `left` of l: value, column and bit; (-inf, no
+  // column) when none is left. A tree of 31 comparisons, five deep, over
+  // the registers; the left operand keeps a tie, so the lower bit, which
+  // is the lower column, wins.
+  __device__ __forceinline__ void best(const float (&l)[2 * HT_NT], unsigned left, int c0,
+                                       float& mv, int& mc, int& mbit) const {
+    float v[2 * HT_NT];
+    int b[2 * HT_NT];
+#pragma unroll
+    for (int c = 0; c < 2 * HT_NT; ++c) {
+      v[c] = (left >> c) & 1u ? l[c] : -CUDART_INF_F;
+      b[c] = c;
     }
+#pragma unroll
+    for (int w = 1; w < 2 * HT_NT; w <<= 1)
+#pragma unroll
+      for (int c = 0; c < 2 * HT_NT; c += 2 * w)
+        if (v[c + w] > v[c]) {
+          v[c] = v[c + w];
+          b[c] = b[c + w];
+        }
+    mv = v[0];
+    mbit = b[0];
+    mc = left ? c0 + (mbit >> 1) * 8 + 2 * t + (mbit & 1) : 0x7fffffff;
   }
 
   // (v, c) into the row's sorted buffer where `ins` (quad-uniform): slot s
   // keeps its pair if that comes before (v, c), else takes the pair of
   // slot s - 1, or (v, c) where the pair of s - 1 comes before it (the
   // last pair falls out). No count of the pairs ahead first: each slot
-  // compares for itself. 8 slots a thread, in blocks of 32 from the end
-  // while some quad's pairs still move (one block at k <= 32); a block
-  // reads all it needs before it writes, and the block below writes none
-  // of what this one reads.
+  // compares for itself. In blocks of 32 slots from the end while some
+  // quad's pairs still move (one block at k <= 32); thread t of a quad
+  // holds 8 neighbouring slots, so the warp's 8 rows x 4 threads fall in
+  // 32 distinct banks (pitch k + 1; slots 4 q + t took 4 ways), and the
+  // pair before its first slot is its left neighbour's last (a shuffle),
+  // or for the block's first slot a read. A block reads all it needs
+  // before it writes, and the block below writes none of what it reads.
   __device__ __forceinline__ void insert(float* rv, int* ri, float v, int c, bool ins) const {
 #pragma unroll 1
     for (int hi = k;; hi -= 32) {
-      const int lo = max(hi - 32, 0);
-      float nv[8];
-      int ni[8];
-      unsigned wr = 0;
+      const int lo = max(hi - 32, 0), s0 = lo + 8 * t;
+      float a[8];
+      int ai[8];
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
-        const int s = lo + 4 * q + t;
-        if (ins && s < hi && !ahead(rv[s], ri[s], v, c)) {
-          const bool prev = s > 0 && !ahead(rv[s - 1], ri[s - 1], v, c);
-          nv[q] = prev ? rv[s - 1] : v;
-          ni[q] = prev ? ri[s - 1] : c;
+        const bool in = ins && s0 + q < hi;
+        a[q] = in ? rv[s0 + q] : CUDART_INF_F;
+        ai[q] = in ? ri[s0 + q] : -1;
+      }
+      float pv = __shfl_up_sync(FULL, a[7], 1);
+      int pi = __shfl_up_sync(FULL, ai[7], 1);
+      if (t == 0) {
+        const bool in = ins && lo > 0;
+        pv = in ? rv[lo - 1] : CUDART_INF_F;
+        pi = in ? ri[lo - 1] : -1;
+      }
+      const bool more = t == 0 && ins && lo > 0 && !ahead(pv, pi, v, c);
+      unsigned wr = 0;
+#pragma unroll
+      for (int q = 7; q >= 0; --q) {  // in place: a[q - 1] is still the old pair
+        const float p = q ? a[q - 1] : pv;
+        const int pc = q ? ai[q - 1] : pi;
+        if (ins && s0 + q < hi && !ahead(a[q], ai[q], v, c)) {
+          const bool prev = !ahead(p, pc, v, c);
+          a[q] = prev ? p : v;
+          ai[q] = prev ? pc : c;
           wr |= 1u << q;
         }
       }
-      const bool more = ins && lo > 0 && !ahead(rv[lo - 1], ri[lo - 1], v, c);
       __syncwarp();
 #pragma unroll
       for (int q = 0; q < 8; ++q)
         if ((wr >> q) & 1u) {
-          rv[lo + 4 * q + t] = nv[q];
-          ri[lo + 4 * q + t] = ni[q];
+          rv[s0 + q] = a[q];
+          ri[s0 + q] = ai[q];
         }
       __syncwarp();
       if (!__any_sync(FULL, more)) break;
