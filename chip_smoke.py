@@ -456,11 +456,13 @@ TOPK_CASES = (("step1_128f", BATCH128 * 8192, 16384, False, True),
 
 
 def v1_turns(logits, k: int, n_slices: int) -> tuple[float, float]:
-    """K5's extraction turns and insertions a row (means over the rows,
-    summed over the slices) that these fp32 logits need: a chunk inserts
-    its columns among the top k of its slice's columns so far, and its
-    loop turns once more to stop where it inserted any (a chunk where it
-    inserts none is skipped by the ballot)."""
+    """The extraction turns and insertions a row (means over the rows,
+    summed over the slices) that these fp32 logits need under v1's loop:
+    a chunk inserts its columns among the top k of its slice's columns so
+    far, and its loop turns once more to stop where it inserted any (a
+    chunk where it inserts none takes no turn). A model of the data's
+    need, not a count of the kernel's work: a warp serves 8 rows a turn
+    and turns until the last of them stops."""
     R, V = logits.shape
     chunks = -(-V // HEAD_CHUNK)
     cps = -(-chunks // n_slices)
@@ -544,8 +546,8 @@ def check_topk(dev, gen, name: str):
             require(not any(vs_k4), f"K5 {case}: (ids, probs, greedy ids, greedy probs) "
                                     f"differing from K4's at one seed: {vs_k4}")
             row["differing_from_k4"] = sum(vs_k4)
-            row["extraction_turns_a_row"], row["insertions_a_row"] = v1_turns(
-                logits, min(K, V), row["slices"])
+            (row["turns_a_row_the_data_needs"],
+             row["insertions_a_row_the_data_needs"]) = v1_turns(logits, min(K, V), row["slices"])
         del top, lse_k, p_plain, gap, logits
 
         def library():
@@ -2148,7 +2150,7 @@ def main(argv=None) -> int:
               case(report["K5"], "step1_128f"), head_src,
               launched_in="the k5 phase only: no generation or training path runs it",
               **{k: case(report["K5"], "step1_128f")[k]
-                 for k in ("slices", "extraction_turns_a_row", "k4_ms", "ms_again")}),
+                 for k in ("slices", "k4_ms", "ms_again")}),
         entry(5, "K6 smallq_backward", "mebt_tpu/ops/attention_pallas.py:437",
               case(report["K6"], "lt2l", "bfloat16"),
               **{k: case(report["K6"], "lt2l", "bfloat16")[k]

@@ -43,9 +43,9 @@
 // for each 128 x 128 tile, 8 warps an SM); K3's epilogue adds 2.4 ms
 // (1.7 of it the noise), K4's 2.2 ms (some 15 dependent rescans per warp,
 // row slot and chunk). The epilogue overlaps the next chunk's loads, not
-// the products: 4.7 and 4.9 ms in all. K5 (the same script): its tile
-// alone 2.60 ms, its epilogue 0.79 (some 1050 turns a warp and slice of
-// 64 chunks), 3.39 ms in all.
+// the products: 4.7 and 4.9 ms in all. K5 (the same script, run X in
+// PERF.md section 6): its tile alone 2.64 ms, its epilogue 0.76 (some
+// 1050 turns a warp and slice of 64 chunks), 3.40 ms in all.
 //
 // bf16 (head_sample_mma_kernel, head_topk_mma_kernel and K5's
 // head_topk_v1_mma_kernel; the product of the TPU kernels, bf16 operands

@@ -3,10 +3,9 @@ head_sample.cu) on one CUDA card, to see what bounds them.
 
     python3 scripts/head_sample_variants.py [--out results/head_sample_variants]
 
-Each variant is the source with text substitutions (a pair replaces one
-exact text, a triple the text from its first marker up to its second),
-built with the package's nvcc flags into --out (ptxas's report beside
-it) and loaded in place of the package's library:
+Each variant is the source with text substitutions, built with the
+package's nvcc flags into --out (ptxas's report beside it) and loaded in
+place of the package's library:
   full        the kernels as they are;
   tile_only   the logits tiles alone: the epilogue runs only if the sum
               of the accumulators hits an impossible value (so no MMA is
@@ -17,13 +16,6 @@ it) and loaded in place of the package's library:
               once a shape, not timed);
   three_stages   a three-stage ring (less L1 for the epilogues' arrays);
   stagger     one of the two CTAs on an SM starts 30 us late;
-  k5_local    K5 with a row slot's candidates in a local array of 32 a
-              thread and each rescan a loop over their set bits (against
-              registers and a comparison tree);
-  k5_strided_insert   K5's insert with slots 4 q + t a thread (4-way bank
-              conflicts) and each slot's predecessor read from shared
-              memory (against 8 neighbouring slots a thread and a
-              shuffle);
   k5_tile     K5's extraction placed through a 128 x 128 fp32 shared
               tile (64 KB more a CTA, so one CTA an SM), a warp per row
               with four logits a lane, a warp max a turn and a count of
@@ -165,149 +157,6 @@ struct TileEpi : SortedEpi {
 K5_BALLOT = "      if (!__any_sync(FULL, left != 0)) continue;  // the ballot\n"
 K5_TURN = "        if (!__any_sync(FULL, ins)) break;              // warp-uniform\n"
 K5_SLOT = "      left &= live;\n"
-# K5's epilogue: its chunk() with its helpers, and its insert()
-K5_CHUNK = ("  __device__ __forceinline__ void chunk(const Acc& acc, int c0) {\n"
-            "    const int BP = k + 1;\n    unsigned live = FULL;",
-            "  // (v, c) into the row's sorted buffer where `ins` (quad-uniform)")
-K5_INSERT = ("  // (v, c) into the row's sorted buffer where `ins` (quad-uniform)",
-             "  // each row's k pairs, already in order, to the slice's scratch")
-# the candidates in a local array of 32 a thread, each rescan a loop over
-# the set bits (the second draft)
-K5_LOCAL = r"""  __device__ __forceinline__ void chunk(const Acc& acc, int c0) {
-    const int BP = k + 1;
-    unsigned live = FULL;  // the thread's columns before V
-    if (c0 + HT_BN > V) {  // the vocabulary's last chunk
-      live = 0;
-#pragma unroll
-      for (int c = 0; c < 2 * HT_NT; ++c)
-        if (c0 + (c >> 1) * 8 + 2 * t + (c & 1) < V) live |= 1u << c;
-    }
-#pragma unroll 1
-    for (int j = 0; j < 4; ++j) {
-      const int dr = (j >> 1) * 16 + (j & 1) * 8;
-      float* rv = bv + (rl0 + dr) * BP;
-      int* ri = bi + (rl0 + dr) * BP;
-      float kth_v = rv[k - 1];
-      int kth_i = ri[k - 1];
-      const float kv = row0 + dr < R ? kth_v : CUDART_INF_F;  // a row past R takes none
-      float lv[2 * HT_NT];  // the row's candidates (local memory)
-      unsigned left;
-      switch (j) {  // static fragment indices in a rolled loop
-        case 0: left = candidates<0>(acc, kv, lv); break;
-        case 1: left = candidates<1>(acc, kv, lv); break;
-        case 2: left = candidates<2>(acc, kv, lv); break;
-        default: left = candidates<3>(acc, kv, lv);
-      }
-      left &= live;
-      if (!__any_sync(FULL, left != 0)) continue;  // the ballot
-      float mv;
-      int mc, mbit;
-      best(lv, left, c0, mv, mc, mbit);
-#pragma unroll 1
-      while (true) {
-        float qv = mv;
-        int qc = mc;
-#pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          const float ov = __shfl_xor_sync(FULL, qv, off);
-          const int oc = __shfl_xor_sync(FULL, qc, off);
-          if (ahead(ov, oc, qv, qc)) {
-            qv = ov;
-            qc = oc;
-          }
-        }
-        const bool ins = ahead(qv, qc, kth_v, kth_i);  // quad-uniform
-        if (!__any_sync(FULL, ins)) break;              // warp-uniform
-        insert(rv, ri, qv, qc, ins);
-        if (ins) {
-          kth_v = rv[k - 1];
-          kth_i = ri[k - 1];
-          if (mc == qc) {  // the thread offered it: its next
-            left &= ~(1u << mbit);
-            best(lv, left, c0, mv, mc, mbit);
-          }
-        }
-      }
-    }
-  }
-
-  // The thread's logits of row slot J not below the k-th value kv (a
-  // superset of those that can still enter), into l; their bits.
-  template <int J>
-  __device__ __forceinline__ unsigned candidates(const Acc& acc, float kv, float* l) const {
-    unsigned m = 0;
-#pragma unroll
-    for (int c = 0; c < 2 * HT_NT; ++c) {
-      const float v = acc[J >> 1][c >> 1][(J & 1) * 2 + (c & 1)] * inv_temp;
-      if (v >= kv) {
-        m |= 1u << c;
-        l[c] = v;
-      }
-    }
-    return m;
-  }
-
-  // The best of the thread's logits `left` of one row: value, column and
-  // bit; (-inf, no column) when none is left. Its columns ascend with the
-  // bit, so a strict '>' keeps the lowest column of equal values.
-  __device__ __forceinline__ void best(const float* l, unsigned left, int c0, float& mv,
-                                       int& mc, int& mbit) const {
-    mv = -CUDART_INF_F;
-    mc = 0x7fffffff;
-    mbit = 0;
-#pragma unroll 1
-    for (; left; left &= left - 1) {
-      const int c = __ffs(left) - 1;
-      if (l[c] > mv) {
-        mv = l[c];
-        mc = c0 + (c >> 1) * 8 + 2 * t + (c & 1);
-        mbit = c;
-      }
-    }
-  }
-
-"""
-# the insert with slots 4 q + t a thread (4-way bank conflicts), the pair
-# before each slot read from shared memory (the drafts')
-K5_STRIDED_INSERT = r"""  // (v, c) into the row's sorted buffer where `ins` (quad-uniform): slot s
-  // keeps its pair if that comes before (v, c), else takes the pair of
-  // slot s - 1, or (v, c) where the pair of s - 1 comes before it (the
-  // last pair falls out). No count of the pairs ahead first: each slot
-  // compares for itself. 8 slots a thread, in blocks of 32 from the end
-  // while some quad's pairs still move (one block at k <= 32); a block
-  // reads all it needs before it writes, and the block below writes none
-  // of what this one reads.
-  __device__ __forceinline__ void insert(float* rv, int* ri, float v, int c, bool ins) const {
-#pragma unroll 1
-    for (int hi = k;; hi -= 32) {
-      const int lo = max(hi - 32, 0);
-      float nv[8];
-      int ni[8];
-      unsigned wr = 0;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int s = lo + 4 * q + t;
-        if (ins && s < hi && !ahead(rv[s], ri[s], v, c)) {
-          const bool prev = s > 0 && !ahead(rv[s - 1], ri[s - 1], v, c);
-          nv[q] = prev ? rv[s - 1] : v;
-          ni[q] = prev ? ri[s - 1] : c;
-          wr |= 1u << q;
-        }
-      }
-      const bool more = ins && lo > 0 && !ahead(rv[lo - 1], ri[lo - 1], v, c);
-      __syncwarp();
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if ((wr >> q) & 1u) {
-          rv[lo + 4 * q + t] = nv[q];
-          ri[lo + 4 * q + t] = ni[q];
-        }
-      __syncwarp();
-      if (!__any_sync(FULL, more)) break;
-    }
-  }
-
-"""
 # (text substitutions, kernels timed)
 VARIANTS = {
     "full": ([], ("K3", "K4", "K5")),
@@ -357,8 +206,6 @@ VARIANTS = {
          "(size_t)nw * HT_WM * (k ? k + 1 : 0) * (sizeof(float) + sizeof(int)) +\n"
          "         (k ? (size_t)nw * HT_WM * (HT_BN + 4) * sizeof(float) : 0);"),
     ], ("K5",)),
-    "k5_local": ([(*K5_CHUNK, K5_LOCAL)], ("K5",)),
-    "k5_strided_insert": ([(*K5_INSERT, K5_STRIDED_INSERT)], ("K5",)),
     "k5_no_skip": ([(K5_BALLOT, "")], ("K5",)),
     "k5_count": ([
         ("struct SortedEpi : TopkRows {", COUNTERS + "struct SortedEpi : TopkRows {"),
@@ -384,12 +231,10 @@ D, V, K = 1024, 16384, 32
 
 def build(name: str, subs, out_dir: str):
     src = (_build.CSRC / "head_sample.cu").read_text()
-    for *old, new in subs:
-        if any(src.count(o) != 1 for o in old):
+    for old, new in subs:
+        if src.count(old) != 1:
             raise RuntimeError(f"variant {name}: {old!r} not found once")
-        a = src.index(old[0])
-        b = src.index(old[-1]) + (len(old[0]) if len(old) == 1 else 0)
-        src = src[:a] + new + src[b:]
+        src = src.replace(old, new)
     cu = os.path.join(out_dir, f"head_sample_{name}.cu")
     so = os.path.join(out_dir, f"libhead_sample_{name}.so")
     with open(cu, "w") as f:

@@ -172,10 +172,11 @@ def test_k5_split_matches_pallas_v1_interpret(k, V, vocab_chunk, temp, S):
 
 @pytest.mark.parametrize("S", [1, 2, 5])
 def test_k5_turns_match_chip_smoke_count(S):
-    """chip_smoke.py reports K5's extraction turns and insertions a row
-    from the logits alone (a chunk inserts its columns among the top k of
-    its slice so far, and turns once more to stop): on tie-free fp32
-    logits that is the emulated loop's count."""
+    """chip_smoke.py reports the extraction turns and insertions a row
+    that the data needs under v1's loop, from the logits alone (a chunk
+    inserts its columns among the top k of its slice so far, and turns
+    once more to stop): on tie-free fp32 logits that is the emulated
+    loop's count."""
     rng = np.random.default_rng(S)
     x = torch.from_numpy(rng.standard_normal((6, 32)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((16100, 32)).astype(np.float32))
