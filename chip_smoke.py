@@ -52,7 +52,8 @@
    permutations from a seed): 1 warm-up and 5 timed optimizer steps,
    every attention forward and backward through K1/K2/K6/K7 with
    dropout in the kernels; then 20 steps on one repeated batch without
-   dropout, where the loss must fall;
+   dropout, where the loss must fall, ending in fit's final checkpoint
+   (logs/chip_smoke_stl16f, read by ckpt16 and deleted);
 8. checks one fp32 training step (loss and gradients) at full width,
    kernels on the card against the plain versions on the CPU;
 9. trains from raw video (`train_video`): STL-16f, batch 6 of synthetic
@@ -69,16 +70,31 @@
    policy) is also traced and profiled;
 11. checks one fp32 training step from video (`whole_video`): encoder
    latent, codes (near-tie rule), loss and gradients, card against CPU;
-12. prints the kernels' JSON line and, last, the result line.
+12. imports checkpoints (`ckpt16`): writes the seeded STL-16f model as a
+   Lightning checkpoint with the reference's keys and an embedded VQGAN,
+   loads it through cli/common.py:load_model_bundle (--gpt_ckpt) and
+   requires every tensor bit-equal, a batch of 16 generated with gen16's
+   seed bit-equal to gen16's codes (K1-K3) and a video batch encoded to
+   the seeded VQGAN's codes (K9); then loads the train phase's final
+   checkpoint through --exp_name (the VQGAN from a TATS checkpoint named
+   by model.vqvae.params.ckpt_path) and requires its weights and codes;
+13. scores the 16f videos (`fvd16`): an I3D written from a seed and read
+   by eval/i3d.py:load_i3d embeds them and a synthetic real set; card
+   logits against the CPU I3D, FVD of a set against itself near 0, FVD
+   and KVD finite; I3D ms per 16-video chunk, peak memory, the recipe's
+   projected seconds for 2048 + 2048 videos and the host statistics'
+   seconds at 2048 x 400;
+14. prints the kernels' JSON line and, last, the result line.
 
 `--only a,b` runs a subset of the phases (k1 k2 k3 k4 k5 k6 k7 k8 k9
 gen16 gen128 dnr16 dnr128 whole whole_dnr train whole_train train_video
-train_video_128 whole_video)
+train_video_128 whole_video ckpt16 fvd16)
 while developing; it then prints no kernels line and no result line.
 
 Any failure exits non-zero. Without a CUDA device, or without the
 package beside it, it exits non-zero and prints no result. It imports
-only mebt_tpu_torch, torch and numpy, and reads no YAML: the values of
+only mebt_tpu_torch, torch and numpy (the GPU host has no pandas, PIL,
+imageio or h5py, and no phase needs them), and reads no YAML: the values of
 configs/stl/mebt_16f.yaml and configs/stl/mebt_128f.yaml are written out
 below.
 """
@@ -1066,7 +1082,7 @@ def run_slice(dev, B, out_dir):
         vqgan_decode_s_warm=t_vqgan, peak_mem_gb=peak / 2**30, decode_profile=profile,
         launches=dict(zip(KERNELS, launches)), expected_launches=dict(zip(KERNELS, expect)),
         **shapes,
-    ), launches, res.code_maps
+    ), launches, res
 
 
 def run_slice_128(dev, B, out_dir):
@@ -1606,8 +1622,12 @@ def read_metrics(logdir):
         return [json.loads(line) for line in f]
 
 
-def run_train_slice(dev, out_dir):
-    """STL-16f training at full width through MeBTTrainer.fit."""
+def run_train_slice(dev, out_dir, keep_checkpoint=False):
+    """STL-16f training at full width through MeBTTrainer.fit. The timed
+    and profiled fits write no checkpoint (final_checkpoint=False); the
+    repeated-batch run ends with `fit`'s final one under logs/TRAIN_EXP,
+    the layout cli.sample --exp_name reads. That directory is deleted here
+    unless `keep_checkpoint` leaves it to the ckpt16 phase."""
     import copy
     import shutil
 
@@ -1630,9 +1650,11 @@ def run_train_slice(dev, out_dir):
     require(all(p.dtype == torch.float32 for p in state.model.parameters()),
             "train: parameters must be fp32")
     torch.cuda.reset_peak_memory_stats()
-    state, _ = timed(lambda: trainer.fit(loader, max_steps=warm, state=state, log_every=1))
+    state, _ = timed(lambda: trainer.fit(loader, max_steps=warm, state=state, log_every=1,
+                                         final_checkpoint=False))
     state, launches, wall = counted(
-        lambda: trainer.fit(loader, max_steps=warm + timed_steps, state=state, log_every=1))
+        lambda: trainer.fit(loader, max_steps=warm + timed_steps, state=state, log_every=1,
+                            final_checkpoint=False))
     peak = torch.cuda.max_memory_allocated()
     per_step = [n // timed_steps for n in launches]
     expect = [k1_step, k2_step, 0, 0, 0, k1_step, k2_step, 2 * (k1_step + k2_step), 0]
@@ -1658,7 +1680,7 @@ def run_train_slice(dev, out_dir):
             "train: AdamW moments must be fp32")
     profile = profile_decode(
         lambda: trainer.fit(loader, max_steps=warm + timed_steps + 2, state=state,
-                            log_every=1000),
+                            log_every=1000, final_checkpoint=False),
         out_dir, "train_profile.json")
     profile["steps"] = 2
     trainer.logger.close()
@@ -1669,13 +1691,19 @@ def run_train_slice(dev, out_dir):
     cfg = copy.deepcopy(TRAIN_CONFIG)
     cfg["model"]["params"].update(embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0)
     cfg["exp"]["exact_lr"] = 1e-4
-    logdir = fresh("train_log_repeated_batch")
+    logdir = os.path.join("logs", TRAIN_EXP)
+    shutil.rmtree(logdir, ignore_errors=True)
     trainer = MeBTTrainer(cfg, logdir, seed=0, device=dev)
     one = CodesLoader(1, B, N, V, seed=2)
     (_, fit_launches, fit_wall) = counted(lambda: trainer.fit(one, max_steps=20, log_every=1))
     trainer.logger.close()
     fit_losses = [m["train/loss"] for m in read_metrics(logdir)]
     del trainer
+    ckpts = sorted(os.listdir(os.path.join(logdir, "checkpoints")))
+    ckpt_gb = sum(os.path.getsize(os.path.join(logdir, "checkpoints", c)) for c in ckpts) / 2**30
+    if not keep_checkpoint:
+        shutil.rmtree(logdir)
+    require(ckpts == ["20.pt"], f"train: ckpt_every 0 must leave only the final 20.pt: {ckpts}")
     require(len(fit_losses) == 20 and bool(np.all(np.isfinite(fit_losses))),
             f"train: repeated batch losses {fit_losses}")
     require(fit_losses[-1] < fit_losses[0],
@@ -1692,7 +1720,8 @@ def run_train_slice(dev, out_dir):
         launches_per_step=dict(zip(KERNELS, per_step)),
         expected_launches_per_step=dict(zip(KERNELS, expect)),
         repeated_batch=dict(steps=20, exact_lr=1e-4, dropout=0.0, first_loss=fit_losses[0],
-                            last_loss=fit_losses[-1], wall_s=fit_wall),
+                            last_loss=fit_losses[-1], wall_s_with_final_checkpoint=fit_wall,
+                            final_checkpoint=ckpts, final_checkpoint_gb=ckpt_gb),
     ), launches
 
 
@@ -1821,9 +1850,11 @@ def train_video(dev, out_dir, name, cfg, frames, B, N, steps, warm=1, profile=Fa
     loader = DataLoader(VideoSet(4 * B, frames, N, seed=7), batch_size=B, num_workers=4, seed=0)
     state = trainer.init_state()
     torch.cuda.reset_peak_memory_stats()
-    state, _ = timed(lambda: trainer.fit(loader, max_steps=warm, state=state, log_every=1))
+    state, _ = timed(lambda: trainer.fit(loader, max_steps=warm, state=state, log_every=1,
+                                         final_checkpoint=False))
     state, launches, wall = counted(
-        lambda: trainer.fit(loader, max_steps=warm + steps, state=state, log_every=1))
+        lambda: trainer.fit(loader, max_steps=warm + steps, state=state, log_every=1,
+                            final_checkpoint=False))
     peak = torch.cuda.max_memory_allocated()
     logs = read_metrics(logdir)
     losses = [m["train/loss"] for m in logs]
@@ -1852,12 +1883,14 @@ def train_video(dev, out_dir, name, cfg, frames, B, N, steps, warm=1, profile=Fa
                code_marginals=marg, grad_norms=norms, launches=dict(zip(KERNELS, launches)))
     if profile:
         # exp.profile_step = warm + steps: the trainer traces the next two steps
-        state = trainer.fit(loader, max_steps=warm + steps + 2, state=state, log_every=1000)
+        state = trainer.fit(loader, max_steps=warm + steps + 2, state=state, log_every=1000,
+                            final_checkpoint=False)
         traces = os.listdir(os.path.join(logdir, "profile"))
         require(any(t.endswith(".json") for t in traces), f"{name}: no trace in profile/: {traces}")
         res["trainer_trace"] = sorted(traces)
         prof = profile_decode(
-            lambda: trainer.fit(loader, max_steps=warm + steps + 4, state=state, log_every=1000),
+            lambda: trainer.fit(loader, max_steps=warm + steps + 4, state=state, log_every=1000,
+                                final_checkpoint=False),
             out_dir, f"{name}_profile.json", span=ENCODE_SPAN)
         prof["steps"] = 2
         n = prof["span"]["kernels_per_range"]
@@ -2010,6 +2043,287 @@ def whole_step_video_check(dev):
                 grad_rel_diff=grad_rel, grad_tol=1e-3, plain_cpu_s=cpu_s)
 
 
+# ---------------------------------------------------------------------------
+# checkpoint import and FVD evaluation
+
+TRAIN_EXP = "chip_smoke_stl16f"  # logs/<TRAIN_EXP>: the train phase's final checkpoint
+STL16_MASK = dict(method="mlm", schedule="linear", shape=[4, 16, 16], budget=1024,
+                  max_token=1024, t_range=[0.0, 1.0])
+
+
+def stl16_config(vq_ckpt: str = ""):
+    """configs/stl/mebt_16f.yaml as the CLIs read it (model.params, the
+    mask block, data.sequence_length / resolution, model.vqvae.params)."""
+    from mebt_tpu_torch.config import Config
+
+    cfg = dict(model=dict(params=dict(STL16, mode=list(STL16_MODES), vtokens=False),
+                          mask=dict(params=STL16_MASK)),
+               data=dict(sequence_length=16, resolution=RES))
+    if vq_ckpt:
+        cfg["model"]["vqvae"] = dict(params=dict(ckpt_path=vq_ckpt, ignore_keys=["loss"]))
+    return Config(cfg)
+
+
+def state_dicts_equal(a: torch.nn.Module, b: torch.nn.Module) -> bool:
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(
+        sa[k].dtype == sb[k].dtype and torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def encode_batch(dev, B=TRAIN_BATCH):
+    """(B, C, 16, RES, RES) synthetic videos of VideoSet, on the card."""
+    items = VideoSet(B, 16, 1024, seed=7)
+    video = torch.from_numpy(np.stack([items[i]["video"] for i in range(B)]))
+    return video.permute(0, 4, 1, 2, 3).contiguous().to(dev)
+
+
+def run_ckpt16(dev, out_dir, card, gen16_codes, train_ran: bool):
+    """Checkpoint import at STL-16f full width. Writes the seeded STL-16f
+    MeBT (gen16's seeds) as a Lightning checkpoint with the reference's
+    keys and an embedded `first_stage_model.*` VQGAN, and the VQGAN alone
+    as a TATS checkpoint; loads the first through
+    cli/common.py:load_model_bundle(--gpt_ckpt): every tensor bit-equal
+    to the seeded model's, a batch of 16 generated with gen16's seed
+    bit-equal to gen16's codes (K1-K3), a video batch encoded by the
+    loaded VQGAN to the seeded VQGAN's codes (K9). With the train phase's
+    final checkpoint, does the same through --exp_name: the file's model
+    bit-equal in the compute dtype, its generation equal to that of the
+    file's weights loaded by hand. The directories are deleted after."""
+    import argparse
+    import dataclasses
+    import shutil
+
+    from mebt_tpu_torch.cli.common import (
+        find_exp_ckpt, load_model_bundle, random_mebt, random_vqgan)
+    from mebt_tpu_torch.cli.sample import build_argparser
+    from mebt_tpu_torch.models.mebt import MeBTConfig
+    from mebt_tpu_torch.models.vqgan import VQGANConfig
+    from mebt_tpu_torch.sampler.generation import bidirect_generate
+    from mebt_tpu_torch.sampler.mask_schedule import maskgit_plan
+
+    ckdir = os.path.join(out_dir, "ckpt16")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    os.makedirs(ckdir)
+    try:
+        seeded = random_mebt(MeBTConfig(dtype=torch.bfloat16, **STL16), 0, dev)
+        vqgan = random_vqgan(VQGANConfig(**VIDEO_VQGAN), 1, dev)
+        if gen16_codes is None:
+            gen16_codes = bidirect_generate(seeded, vqgan, 0, BATCH, **RECIPE).code_maps
+        # the seeded weights in fp32, as a published checkpoint holds them
+        sd = {k: v.cpu() for k, v in random_mebt(MeBTConfig(**STL16), 0, dev).state_dict().items()}
+        sd.update({"first_stage_model." + k: v.cpu() for k, v in vqgan.state_dict().items()})
+        hparams = dict(
+            transformer_config=dict(STL16, mode=list(STL16_MODES), vtokens=False,
+                                    unconditional=True),
+            mask_config=dict(target="mebt.mask_sampler.MaskGen", params=STL16_MASK),
+            first_stage_config=dict(params=dict(ckpt_path="", ignore_keys=["loss"])))
+        path = os.path.join(ckdir, "mebt_stl16f.ckpt")
+        t0 = time.perf_counter()
+        torch.save({"state_dict": sd, "hyper_parameters": hparams, "global_step": 0}, path)
+        write_s = time.perf_counter() - t0
+        ckpt_gb = os.path.getsize(path) / 2**30
+        vq_path = os.path.join(ckdir, "vqgan_tats.ckpt")
+        torch.save({"state_dict": {k: v.cpu() for k, v in vqgan.state_dict().items()},
+                    "hyper_parameters": {"args": argparse.Namespace(
+                        **dataclasses.asdict(vqgan.config), norm_type="group",
+                        padding_type="replicate")}}, vq_path)
+        del sd
+
+        args = build_argparser().parse_args(["--gpt_ckpt", path])
+        (model, lvq), load_s = timed(lambda: load_model_bundle(args, stl16_config(), dev))
+        require(state_dicts_equal(model, seeded), "ckpt16: loaded MeBT != the seeded one")
+        require(state_dicts_equal(lvq, vqgan), "ckpt16: embedded VQGAN != the seeded one")
+        video = encode_batch(dev)
+        with torch.no_grad():
+            want_enc = vqgan.encode(video)
+
+        def path_run():
+            with torch.no_grad():
+                return bidirect_generate(model, lvq, 0, BATCH, **RECIPE), lvq.encode(video)
+
+        (res, codes), launches, wall = counted(path_run)
+        plan = maskgit_plan(1024, RECIPE["vid_n_steps"], "cosine", "linear")
+        live = int(plan.do_step.sum())
+        k1, k2 = attention_launches_per_step()
+        expect = zeros_but(K1=live * k1, K2=live * k2, K3=live, K9=1)
+        require(launches == expect, f"ckpt16 launches {launches} != expected {expect}")
+        require(bool(np.array_equal(res.code_maps, gen16_codes)),
+                f"ckpt16: {int((res.code_maps != gen16_codes).sum())} codes differ from gen16's")
+        require(bool(torch.equal(codes, want_enc)),
+                f"ckpt16: {int((codes != want_enc).sum())} encoded codes differ")
+        report = dict(
+            phase="ckpt16", config="stl_16f", card=card, lightning_ckpt_gb=ckpt_gb,
+            write_s=write_s, load_s=load_s, tensors_bit_equal=True, codes_bit_equal=True,
+            encode_codes_equal=True, generate_and_encode_wall_s=wall,
+            launches=dict(zip(KERNELS, launches)), expected_launches=dict(zip(KERNELS, expect)),
+            **check_generation(res, BATCH, 16, (4, 16, 16), "ckpt16"))
+        paths = {"stl_16f_ckpt": launches}
+        del model, lvq, seeded
+        torch.cuda.empty_cache()
+
+        if train_ran:
+            # the train phase's repeated-batch run: logs/<TRAIN_EXP>/checkpoints/20.pt
+            file = find_exp_ckpt(TRAIN_EXP)
+            args = build_argparser().parse_args(["--exp_name", TRAIN_EXP])
+            (model, lvq), load_s = timed(
+                lambda: load_model_bundle(args, stl16_config(vq_path), dev))
+            trained = torch.load(file, map_location="cpu", weights_only=True)["model"]
+            by_hand = random_mebt(MeBTConfig(dtype=torch.bfloat16, **STL16), 0, dev)
+            by_hand.load_state_dict(trained)
+            del trained
+            require(state_dicts_equal(model, by_hand),
+                    "ckpt16 --exp_name: loaded MeBT != the file's weights")
+            require(state_dicts_equal(lvq, vqgan), "ckpt16 --exp_name: TATS VQGAN != seeded")
+            want = bidirect_generate(by_hand, vqgan, 0, BATCH, **RECIPE).code_maps
+            res, launches, wall = counted(
+                lambda: bidirect_generate(model, lvq, 0, BATCH, **RECIPE))
+            expect = zeros_but(K1=live * k1, K2=live * k2, K3=live)
+            require(launches == expect, f"ckpt16 --exp_name launches {launches} != {expect}")
+            require(bool(np.array_equal(res.code_maps, want)),
+                    "ckpt16 --exp_name: codes differ from the file's weights loaded by hand")
+            report["exp_name"] = dict(
+                checkpoint=file, checkpoint_gb=os.path.getsize(file) / 2**30, load_s=load_s,
+                tensors_bit_equal=True, codes_bit_equal=True, generate_wall_s=wall,
+                launches=dict(zip(KERNELS, launches)),
+                **check_generation(res, BATCH, 16, (4, 16, 16), "ckpt16 --exp_name"))
+            paths["stl_16f_ckpt_exp"] = launches
+            del model, lvq, by_hand
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+        shutil.rmtree(os.path.join("logs", TRAIN_EXP), ignore_errors=True)
+        torch.cuda.empty_cache()
+    return report, paths
+
+
+# the fvd16 I3D: He-normal convolutions, BatchNorm scales and variances in
+# [0.5, 1.5], small biases and means, from a seed (tests/_torch_port.py:
+# i3d_state_dict); logits reach some tens
+I3D_SEED = 0
+# card (cuDNN fp32, TF32 off) against the CPU: fp32 sums in another order,
+# within 1e-4 of the element and of the logits' scale
+I3D_RTOL = I3D_ATOL_OF_SCALE = 1e-4
+FVD_RECIPE_VIDEOS = 2048  # fake and real each (scripts/valid_dnr.sh, eval/fvd.py)
+
+
+def i3d_state_dict(seed):
+    from mebt_tpu_torch.eval.i3d import InceptionI3d
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in InceptionI3d(400).state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("num_batches_tracked"):
+            continue
+        if k.endswith("conv3d.weight"):
+            a = rng.normal(size=shape) * np.sqrt(2.0 / np.prod(shape[1:]))
+        elif k.endswith(("running_var", "bn.weight")):
+            a = rng.uniform(0.5, 1.5, size=shape)
+        else:
+            a = 0.1 * rng.normal(size=shape)
+        sd[k] = torch.tensor(a, dtype=torch.float32)
+    return sd
+
+
+def run_fvd16(dev, out_dir, card, samples16):
+    """FVD/KVD of the generated 16f videos against a synthetic real set
+    (VideoSet from a seed, through the port's DataLoader) with an I3D
+    written from a seed and read by eval/i3d.py:load_i3d: card logits vs
+    the CPU I3D on 2 videos, FVD of a set against itself near 0, FVD and
+    KVD finite; I3D ms per 16-video chunk (CUDA events), peak memory, the
+    recipe's projected seconds, and the host statistics' seconds at
+    2048 x 400."""
+    import shutil
+
+    from mebt_tpu_torch.cli.measure_fvd import (
+        fake_embeddings_from_npy, real_embeddings_from_loader)
+    from mebt_tpu_torch.data.loader import DataLoader
+    from mebt_tpu_torch.eval.fvd import (
+        MAX_BATCH, frechet_distance, get_fvd_logits, polynomial_mmd, preprocess)
+    from mebt_tpu_torch.eval.i3d import i3d_logits, load_i3d
+
+    if samples16 is None:  # gen16 did not run: its videos, from its seeds
+        from mebt_tpu_torch.cli.common import random_mebt, random_vqgan
+        from mebt_tpu_torch.models.mebt import MeBTConfig
+        from mebt_tpu_torch.models.vqgan import VQGANConfig
+        from mebt_tpu_torch.sampler.generation import bidirect_generate
+
+        model = random_mebt(MeBTConfig(dtype=torch.bfloat16, **STL16), 0, dev)
+        vqgan = random_vqgan(VQGANConfig(**VIDEO_VQGAN), 1, dev)
+        samples16 = bidirect_generate(model, vqgan, 0, BATCH, **RECIPE).samples
+        del model, vqgan
+        torch.cuda.empty_cache()
+    d = os.path.join(out_dir, "fvd16")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    try:
+        path = os.path.join(d, "i3d_pretrained_400.pt")
+        torch.save(i3d_state_dict(I3D_SEED), path)
+        i3d, cpu_i3d = load_i3d(path, device=dev), load_i3d(path, device="cpu")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    n = len(samples16)
+    require(samples16.shape == (n, 16, RES, RES, 3) and samples16.dtype == np.uint8,
+            f"fvd16: generated videos {samples16.shape} {samples16.dtype}")
+
+    x = preprocess(samples16[:2], dev)
+    got = i3d_logits(i3d, x).cpu()
+    want = i3d_logits(cpu_i3d, x.cpu())
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    require(bool(torch.isfinite(got).all()) and scale > 1.0,
+            f"fvd16: card logits not finite or degenerate (max |logit| {scale})")
+    require(bool(((got - want).abs() <= I3D_ATOL_OF_SCALE * scale + I3D_RTOL * want.abs()).all()),
+            f"fvd16: card I3D logits off the CPU's beyond rtol {I3D_RTOL}")
+
+    torch.cuda.reset_peak_memory_stats()
+    bs = min(n, MAX_BATCH)
+    loader = DataLoader(VideoSet(n, 16, 1024, seed=11), batch_size=bs, shuffle=False,
+                        num_workers=2, drop_last=False)
+    (real, fake), emb_s = timed(lambda: (
+        real_embeddings_from_loader(loader, i3d, n, bs),
+        fake_embeddings_from_npy(samples16, i3d, n, bs, 16)))
+    peak = torch.cuda.max_memory_allocated()
+    require(real.shape == fake.shape == (n, 400) and np.isfinite(real).all()
+            and np.isfinite(fake).all(), f"fvd16: embeddings {real.shape} {fake.shape}")
+    fvd_value, kvd_value = frechet_distance(fake, real), polynomial_mmd(fake, real)
+    fvd_self = frechet_distance(fake, fake.copy())
+    trace = 2.0 * float(np.trace(np.cov(fake.astype(np.float64), rowvar=False)))
+    require(np.isfinite(fvd_value) and np.isfinite(kvd_value),
+            f"fvd16: FVD {fvd_value}, KVD {kvd_value}")
+    require(abs(fvd_self) <= 1e-6 * trace < fvd_value,
+            f"fvd16: FVD of a set against itself {fvd_self} (trace {trace}, FVD {fvd_value})")
+
+    # one chunk of MAX_BATCH videos at 16 x 224 x 224: the I3D alone (CUDA
+    # events), and uint8 in -> logits on the host (host clock)
+    chunk = preprocess(samples16[:MAX_BATCH], dev)
+    i3d_ms = cuda_ms(lambda: i3d_logits(i3d, chunk), reps=5)
+    pre_ms = cuda_ms(lambda: preprocess(samples16[:MAX_BATCH], dev), reps=5)
+    walls = [timed(lambda: get_fvd_logits(samples16[:MAX_BATCH], i3d))[1] for _ in range(3)]
+    chunk_s = float(np.median(walls))
+    chunks = 2 * FVD_RECIPE_VIDEOS // MAX_BATCH
+    rng = np.random.default_rng(5)
+    e1 = rng.normal(size=(FVD_RECIPE_VIDEOS, 400)).astype(np.float32)
+    e2 = rng.normal(loc=0.1, size=(FVD_RECIPE_VIDEOS, 400)).astype(np.float32)
+    t0 = time.perf_counter()
+    frechet_distance(e1, e2)
+    fd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    polynomial_mmd(e1, e2)
+    mmd_s = time.perf_counter() - t0
+    return dict(
+        phase="fvd16", config="stl_16f", card=card, videos=n, frames=16,
+        i3d_weights=f"seeded (He-normal convolutions, seed {I3D_SEED})",
+        card_vs_cpu_max_abs_err=err, logits_scale=scale,
+        tol=dict(rtol=I3D_RTOL, atol_of_scale=I3D_ATOL_OF_SCALE),
+        fvd=fvd_value, kvd=kvd_value, fvd_self=fvd_self, embed_wall_s=emb_s,
+        peak_mem_gb=peak / 2**30, i3d_ms_per_chunk=i3d_ms, preprocess_ms_per_chunk=pre_ms,
+        chunk=[MAX_BATCH, 16, 224, 224, 3], chunk_wall_s_uint8_to_logits=chunk_s,
+        recipe_videos=2 * FVD_RECIPE_VIDEOS,
+        recipe_projected_s_i3d=chunks * i3d_ms / 1e3,
+        recipe_projected_s_uint8_to_logits=chunks * chunk_s,
+        host_frechet_s_2048x400=fd_s, host_polynomial_mmd_s_2048x400=mmd_s)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="results/chip_smoke",
@@ -2061,10 +2375,10 @@ def main(argv=None) -> int:
             for r in report[name]:
                 emit(dict(kernel=name, **r))
             torch.cuda.empty_cache()
-        drafts = {}
+        drafts, gen16 = {}, None
         if on("gen16"):
-            report["slice_16f"], launches["stl_16f"], drafts["stl_16f"] = run_slice(
-                dev, BATCH, args.out)
+            report["slice_16f"], launches["stl_16f"], gen16 = run_slice(dev, BATCH, args.out)
+            drafts["stl_16f"] = gen16.code_maps
             emit(report["slice_16f"])
             torch.cuda.empty_cache()
         if on("gen128"):
@@ -2088,7 +2402,8 @@ def main(argv=None) -> int:
             report["whole_dnr"] = whole_dnr_check(dev)
             emit(report["whole_dnr"])
         if on("train"):
-            report["slice_16f_train"], launches["stl_16f_train"] = run_train_slice(dev, args.out)
+            report["slice_16f_train"], launches["stl_16f_train"] = run_train_slice(
+                dev, args.out, keep_checkpoint=on("ckpt16"))
             emit(report["slice_16f_train"])
         if on("whole_train"):
             report["whole_step"] = whole_step_check(dev)
@@ -2104,9 +2419,22 @@ def main(argv=None) -> int:
         if on("whole_video"):
             report["whole_step_video"] = whole_step_video_check(dev)
             emit(report["whole_step_video"])
+        if on("ckpt16"):
+            report["ckpt16"], paths = run_ckpt16(dev, args.out, smi, drafts.get("stl_16f"),
+                                                 on("train"))
+            launches.update(paths)
+            emit(report["ckpt16"])
+        if on("fvd16"):
+            report["fvd16"] = run_fvd16(dev, args.out, smi,
+                                        None if gen16 is None else gen16.samples)
+            emit(report["fvd16"])
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
+    finally:
+        import shutil
+
+        shutil.rmtree(os.path.join("logs", TRAIN_EXP), ignore_errors=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     if only:
@@ -2115,15 +2443,16 @@ def main(argv=None) -> int:
 
     def entry(i, name, replaces, row, src="mebt_tpu_torch/csrc/attention.cu", **extra):
         """`launches` is the count on the newest path that runs the
-        kernel: 128f revise-only draft-and-revise for K1, K2 and K3,
-        128f training from video (2 optimizer steps under the main remat
-        policy) for the backward kernels, K8 and K9, 128f generation for
-        K4; 0 for K5, which no path runs."""
+        kernel: 16f generation and encode from an imported checkpoint
+        (ckpt16) for K1, K2, K3 and K9, 128f training from video (2
+        optimizer steps under the main remat policy) for the backward
+        kernels and K8, 128f generation for K4; 0 for K5, which no path
+        runs."""
         by_path = {path: counts[i] for path, counts in launches.items()}
-        newest = [by_path[p] for p in (
-            "stl_128f_dnr", "stl_16f_dnr", "stl_16f_dnr_scratch", "stl_16f_extrapolate",
+        newest = [by_path.get(p, 0) for p in (
+            "stl_16f_ckpt", "stl_16f_ckpt_exp", "stl_128f_dnr", "stl_16f_dnr", "stl_16f_dnr_scratch", "stl_16f_extrapolate",
             "stl_128f_train_video", "stl_16f_train_video", "stl_16f_train", "stl_128f",
-            "stl_16f") if by_path[p]]
+            "stl_16f") if by_path.get(p, 0)]
         return dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=newest[0] if newest else 0, launches_by_path=by_path, **extra,

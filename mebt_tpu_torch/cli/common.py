@@ -1,8 +1,21 @@
 """Shared CLI plumbing: config -> model and VQGAN on a device
-(mebt_tpu/cli/common.py:23-115, the --random_weights path). Loading
-published checkpoints is not ported yet."""
+(mebt_tpu/cli/common.py).
+
+Checkpoint sources:
+  * --gpt_ckpt: a published MeBT Lightning checkpoint, through
+    utils/torch_ckpt.py:load_mebt (with its embedded VQGAN, if any);
+  * --exp_name: the newest `logs/<exp>/checkpoints/<step>.pt` that this
+    package's trainer wrote (its "model" entry). The JAX package's orbax
+    checkpoint directories cannot be read without JAX;
+  * --random_weights: seeded random weights, for runs without a
+    checkpoint.
+Without an embedded VQGAN the VQGAN comes from the config's
+`model.vqvae.params.ckpt_path` (a TATS checkpoint) with its ignore_keys.
+"""
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -13,6 +26,13 @@ from mebt_tpu_torch.models.vqgan import VQGAN, VQGANConfig
 
 def add_common_args(p):
     p.add_argument("--base", nargs="*", default=[], metavar="cfg.yaml")
+    p.add_argument("--gpt_ckpt", type=str, default="",
+                   help="a MeBT Lightning checkpoint (.ckpt)")
+    p.add_argument("--exp_name", type=str, default="",
+                   help="load the newest logs/<exp_name>/checkpoints/<step>.pt and "
+                   "save under results/<exp_name>")
+    p.add_argument("--latest", action="store_true",
+                   help="with --exp_name: save under results/<exp_name>_latest")
     p.add_argument("--save", type=str, default="./results/mebt")
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--n_sample", type=int, default=2048)
@@ -25,6 +45,7 @@ def add_common_args(p):
                    help="also write the first --save_n batches as GIF grids")
     p.add_argument("--save_n", type=int, default=5)
     p.add_argument("--save_codemap", action="store_true")
+    p.add_argument("--no_np", action="store_true", help="do not write the pixel .npy")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument(
         "--random_weights", action="store_true",
@@ -67,17 +88,66 @@ def vqgan_config(config: Config) -> VQGANConfig:
 
 
 def load_model_bundle(args, config: Config, device):
-    """-> (model, vqgan) on `device`."""
-    if not args.random_weights:
+    """-> (model, vqgan) on `device`, from the checkpoint source the
+    arguments name (see the module docstring)."""
+    dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
+    mask_shape = tuple(config.model.mask.params.shape)
+    if args.random_weights:
+        cfg = MeBTConfig.from_config(config.model.params.to_dict(), mask_shape=mask_shape,
+                                     dtype=dtype)
+        return random_mebt(cfg, 0, device), random_vqgan(vqgan_config(config), 1, device)
+
+    from mebt_tpu_torch.utils.torch_ckpt import load_mebt, mebt_from_state_dict
+
+    ckpt = args.gpt_ckpt
+    if not ckpt and args.exp_name:
+        path = find_exp_ckpt(args.exp_name)
+        state = torch.load(path, map_location="cpu", weights_only=True)["model"]
+        cfg = MeBTConfig.from_config(config.model.params.to_dict(), mask_shape=mask_shape,
+                                     dtype=dtype)
+        return mebt_from_state_dict(state, cfg, device), config_vqgan(config, device)
+    if not ckpt:
+        raise SystemExit("Provide --gpt_ckpt, --exp_name, or --random_weights")
+    if os.path.isdir(ckpt):
         raise SystemExit(
-            "checkpoint loading is not ported yet; pass --random_weights"
-        )
-    cfg = MeBTConfig.from_config(
-        config.model.params.to_dict(),
-        mask_shape=tuple(config.model.mask.params.shape),
-        dtype=torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32,
-    )
-    return random_mebt(cfg, 0, device), random_vqgan(vqgan_config(config), 1, device)
+            f"{ckpt} is a directory: the JAX package's orbax checkpoints cannot be read "
+            "without JAX. Pass a Lightning .ckpt file, or --exp_name for this "
+            "package's trainer checkpoints")
+    _, model, vqgan = load_mebt(ckpt, device=device, dtype=dtype)
+    return model, vqgan if vqgan is not None else config_vqgan(config, device)
+
+
+def config_vqgan(config: Config, device) -> VQGAN:
+    """The TATS VQGAN of the config's `model.vqvae.params` (ckpt_path,
+    ignore_keys), as the JAX package's `_vqgan_from_config` loads it."""
+    from mebt_tpu_torch.utils.torch_ckpt import load_vqgan
+
+    vq = config.model.get("vqvae", Config()).get("params", Config())
+    if not vq.get("ckpt_path"):
+        raise ValueError(
+            "the config has no model.vqvae.params.ckpt_path to load the VQGAN from")
+    return load_vqgan(vq.ckpt_path, tuple(vq.get("ignore_keys", ["loss"])), device=device)
+
+
+def find_exp_ckpt(exp_name: str) -> str:
+    """The newest checkpoint under logs/<exp_name>/checkpoints (the
+    analogue of the reference's glob over lightning_logs, sample
+    script:205-213): the `<step>.pt` with the largest step."""
+    root = os.path.join("logs", exp_name, "checkpoints")
+    steps = sorted(int(f[:-3]) for f in (os.listdir(root) if os.path.isdir(root) else [])
+                   if f.endswith(".pt") and f[:-3].isdigit())
+    if not steps:
+        raise SystemExit(f"No <step>.pt checkpoints under {root}")
+    return os.path.join(root, f"{steps[-1]}.pt")
+
+
+def save_root(args) -> str:
+    """The output root: --save, or results/<exp_name> (with _latest
+    under --latest) when --exp_name names the run (reference sample
+    script:213)."""
+    if not args.exp_name:
+        return args.save
+    return f"results/{args.exp_name}" + ("_latest" if args.latest else "")
 
 
 def parse_config(args, unknown) -> Config:

@@ -1,5 +1,4 @@
-"""Draft-and-revise sampling CLI (the --random_weights path of
-mebt_tpu/cli/dnr.py). The recipe (scripts/valid_dnr_*.sh) feeds the
+"""Draft-and-revise sampling CLI (mebt_tpu/cli/dnr.py). The recipe (scripts/valid_dnr_*.sh) feeds the
 MaskGIT code maps of cli.sample --save_codemap via --np_draft and
 revises only:
 
@@ -7,9 +6,11 @@ revises only:
       --random_weights --batch_size 16 --n_sample 16 --total_length 16 \\
       --n_revise 2 --M 2 --revise_t 0.7 --np_draft <..._codemap.npy>
 
-Runs on the GPU unless --device cpu is given. Writes the uint8 videos
-under the names scripts/valid_dnr.sh reads, with --save_codemap the code
-maps, with --save_videos video grids.
+The model comes from --gpt_ckpt, --exp_name or --random_weights as in
+cli.sample. Runs on the GPU unless --device cpu is given. Writes the
+uint8 videos under the names scripts/valid_dnr.sh reads (not with
+--no_np), with --save_codemap the code maps, with --save_videos video
+grids.
 """
 
 from __future__ import annotations
@@ -74,7 +75,7 @@ def parse_draft_name(np_draft: str) -> tuple[int, str]:
 def main(argv=None):
     import torch
 
-    from mebt_tpu_torch.cli.common import load_model_bundle, parse_config, save_grid
+    from mebt_tpu_torch.cli.common import load_model_bundle, parse_config, save_grid, save_root
     from mebt_tpu_torch.runtime import resolve_device
     from mebt_tpu_torch.sampler.generation import dnr_generate
 
@@ -91,8 +92,9 @@ def main(argv=None):
         args.draft_t = 0.0
         args.draft_p = args.draft_k = None
     tag = save_tag(args).replace(f"_run{args.run}", f"{postfix}_run{args.run}")
-    save_dir = os.path.join(args.save, f"videos_{args.total_length}", args.dataset, tag)
-    save_np = os.path.join(args.save, f"numpy_files_{args.total_length}", args.dataset, tag)
+    root = save_root(args)
+    save_dir = os.path.join(root, f"videos_{args.total_length}", args.dataset, tag)
+    save_np = os.path.join(root, f"numpy_files_{args.total_length}", args.dataset, tag)
     os.makedirs(os.path.dirname(save_np), exist_ok=True)
 
     seeds = torch.Generator().manual_seed(1000 + (args.seed if args.seed is not None else args.run))
@@ -118,8 +120,9 @@ def main(argv=None):
     if args.np_draft is not None:
         with open(save_np + ".txt", "w") as f:
             f.write(args.np_draft)
-    np.save(save_np + ".npy", np.concatenate(all_pix, 0)[: args.n_sample])
-    print(f"saved {save_np}.npy", flush=True)
+    if not args.no_np:
+        np.save(save_np + ".npy", np.concatenate(all_pix, 0)[: args.n_sample])
+        print(f"saved {save_np}.npy", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,15 @@
-"""MaskGIT video sampling CLI (the --random_weights path of
-mebt_tpu/cli/sample.py).
+"""MaskGIT video sampling CLI (mebt_tpu/cli/sample.py).
 
   python -m mebt_tpu_torch.cli.sample --base configs/stl/mebt_16f.yaml \\
-      --random_weights --batch_size 16 --n_sample 16 --vid_n_steps 32 \\
-      --vid_c_temp 8.0 --total_length 16 --step_size 16
+      --gpt_ckpt CKPT --batch_size 16 --n_sample 2048 --vid_n_steps 32 \\
+      --vid_c_temp 8.0 --total_length 16 --step_size 16 --save_codemap
 
-Runs on the GPU unless --device cpu is given. Writes the uint8 videos
-(N, T, H, W, C), the per-sample scores and, with --save_codemap, the
-code maps as .npy files; with --save_videos also video grids. With
+The model comes from --gpt_ckpt (a Lightning checkpoint), --exp_name
+(this package's trainer checkpoints; outputs then go under
+results/<exp_name>[_latest]) or --random_weights (cli/common.py). Runs on
+the GPU unless --device cpu is given. Writes the uint8 videos (N, T, H,
+W, C; not with --no_np), the per-sample scores and, with --save_codemap,
+the code maps as .npy files; with --save_videos also video grids. With
 --base_np it extends the given code maps (extrapolation) instead.
 """
 
@@ -67,7 +69,7 @@ def save_tag(args) -> str:
 def main(argv=None):
     import torch
 
-    from mebt_tpu_torch.cli.common import load_model_bundle, parse_config, save_grid
+    from mebt_tpu_torch.cli.common import load_model_bundle, parse_config, save_grid, save_root
     from mebt_tpu_torch.runtime import resolve_device
     from mebt_tpu_torch.sampler.generation import bidirect_generate, extrapolate_generate
 
@@ -77,8 +79,9 @@ def main(argv=None):
     model, vqgan = load_model_bundle(args, config, device)
 
     tag = save_tag(args)
-    save_dir = os.path.join(args.save, f"videos_{args.total_length}", args.dataset, tag)
-    save_np = os.path.join(args.save, f"numpy_files_{args.total_length}", args.dataset, tag)
+    root = save_root(args)
+    save_dir = os.path.join(root, f"videos_{args.total_length}", args.dataset, tag)
+    save_np = os.path.join(root, f"numpy_files_{args.total_length}", args.dataset, tag)
     os.makedirs(os.path.dirname(save_np), exist_ok=True)
 
     seeds = torch.Generator().manual_seed(args.seed if args.seed is not None else args.run)
@@ -107,8 +110,9 @@ def main(argv=None):
     if args.save_codemap:
         np.save(save_np + "_codemap", np.concatenate(all_code, 0)[: args.n_sample])
     np.save(save_np + "_score", np.concatenate(all_score, 0)[: args.n_sample])
-    np.save(save_np + ".npy", np.concatenate(all_pix, 0)[: args.n_sample])
-    print(f"saved {save_np}.npy", flush=True)
+    if not args.no_np:
+        np.save(save_np + ".npy", np.concatenate(all_pix, 0)[: args.n_sample])
+        print(f"saved {save_np}.npy", flush=True)
 
 
 if __name__ == "__main__":

@@ -8,9 +8,9 @@ The YAML files of --base are merged in order, then the dot-list
 overrides. The trainer resumes from the newest checkpoint in --logdir;
 --ckpt_path starts from one of this package's `.pt` checkpoints instead.
 A config without `vtokens` trains from raw video through a frozen
-VQGAN: --random_vqgan makes one with seeded random weights (the loader
-of published VQGAN checkpoints is not ported yet). Runs on the GPU
-unless --device cpu is given.
+VQGAN: the TATS checkpoint of `model.vqvae.params.ckpt_path` (with its
+ignore_keys), or with --random_vqgan one with seeded random weights.
+Runs on the GPU unless --device cpu is given.
 """
 
 from __future__ import annotations
@@ -61,17 +61,17 @@ def main(argv=None):
 
     vqgan = None
     if not config.model.params.get("vtokens", False):
-        if not args.random_vqgan:
-            raise NotImplementedError(
-                "loading the VQGAN checkpoint (model.vqvae.params.ckpt_path) needs a "
-                "torch-native load_vqgan, which waits for checkpoint files; "
-                "pass --random_vqgan")
-        from mebt_tpu_torch.cli.common import random_vqgan
-        from mebt_tpu_torch.models.vqgan import VQGANConfig
+        if args.random_vqgan:
+            from mebt_tpu_torch.cli.common import random_vqgan
+            from mebt_tpu_torch.models.vqgan import VQGANConfig
 
-        vq_cfg = VQGANConfig(n_codes=int(config.model.params.vocab_size),
-                             downsample=_downsample_from_shapes(config, mask_shape))
-        vqgan = random_vqgan(vq_cfg, 0, device)
+            vq_cfg = VQGANConfig(n_codes=int(config.model.params.vocab_size),
+                                 downsample=_downsample_from_shapes(config, mask_shape))
+            vqgan = random_vqgan(vq_cfg, 0, device)
+        else:
+            from mebt_tpu_torch.cli.common import config_vqgan
+
+            vqgan = config_vqgan(config, device)
 
     trainer = MeBTTrainer(config.to_dict(), logdir=args.logdir, vqgan=vqgan,
                           seed=args.seed, device=device)

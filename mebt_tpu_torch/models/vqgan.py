@@ -19,8 +19,8 @@ only VQGAN training uses.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Sequence
+from dataclasses import dataclass, fields
+from typing import Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -172,6 +172,23 @@ class VQGANConfig:
     n_hiddens: int = 32
     downsample: tuple[int, int, int] = (4, 8, 8)
     image_channels: int = 3
+
+    @classmethod
+    def from_hparams(cls, hp: Mapping, **overrides) -> "VQGANConfig":
+        """From a TATS VQGAN's hparams (mebt_tpu/models/vqgan.py:
+        VQGANConfig.from_hparams); keys of VQGAN training (loss weights,
+        discriminator) are ignored. Only GroupNorm and replicate padding
+        are built: any other `norm_type` or `padding_type` raises."""
+        hp = dict(hp, **overrides)
+        for key, built in (("norm_type", "group"), ("padding_type", "replicate")):
+            if hp.get(key, built) != built:
+                raise ValueError(
+                    f"VQGAN {key}={hp[key]!r} is not ported: this package builds "
+                    f"only {key}={built!r}")
+        kw = {f.name: hp[f.name] for f in fields(cls) if f.name in hp}
+        if "downsample" in kw:
+            kw["downsample"] = tuple(int(d) for d in kw["downsample"])
+        return cls(**kw)
 
 
 class Codebook(nn.Module):

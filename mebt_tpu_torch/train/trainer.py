@@ -9,9 +9,9 @@
 
 Checkpoints are `torch.save` files `checkpoints/<micro-step>.pt` holding
 the model, the optimizer, the step and the dropout generator's state,
-written every `exp.ckpt_every` optimizer steps and kept all; `fit`
-resumes from the newest. `exp.ckpt_every: 0` writes none, the one at the
-end of `fit` included. `exp.vis_every` samples and logs a video grid
+written every `exp.ckpt_every` optimizer steps and at the end of `fit`
+(also with `exp.ckpt_every: 0`, as in the JAX trainer), and kept all;
+`fit` resumes from the newest. `exp.vis_every` samples and logs a video grid
 (`log_samples`); `exp.profile_step` traces `exp.profile_n_steps` steps
 with torch.profiler into `logdir/profile/`.
 
@@ -248,10 +248,12 @@ class MeBTTrainer:
 
     def fit(self, train_loader, val_loader=None, max_steps: int | None = None,
             state: TrainState | None = None, log_every: int = 50, val_every: int = 0,
-            val_batches: int = 8) -> TrainState:
-        """Train to `max_steps` OPTIMIZER steps. A restored run re-enters
-        the epoch it left off in and skips the batches of that epoch it
-        already trained on."""
+            val_batches: int = 8, final_checkpoint: bool = True) -> TrainState:
+        """Train to `max_steps` OPTIMIZER steps and save a checkpoint at
+        the end. A restored run re-enters the epoch it left off in and
+        skips the batches of that epoch it already trained on.
+        `final_checkpoint=False` leaves out the save at the end, for a
+        caller that times or profiles `fit` and never reads the file."""
         max_steps = (max_steps or self.max_steps) * self.accum_k
         if state is None:
             state = self.try_restore(self.init_state())
@@ -317,7 +319,7 @@ class MeBTTrainer:
             epoch += 1
         if prof is not None:  # the run ended inside the traced window
             self._stop_profile(prof, step // k)
-        if self._ckpt_every:
+        if final_checkpoint:
             self.save(state)
         return state
 

@@ -92,7 +92,8 @@ def test_train_writes_a_checkpoint_and_resumes(tiny):
 def test_train_refuses_what_is_not_ported(tiny):
     cfg, tmp = tiny
     base = ["--base", str(cfg), "--logdir", str(tmp / "x"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="load_vqgan"):
+    # no --random_vqgan: the VQGAN comes from model.vqvae.params.ckpt_path, which is unset
+    with pytest.raises(ValueError, match="model.vqvae.params.ckpt_path"):
         main(base)
     with pytest.raises(NotImplementedError, match="A13"):
         main(base + ["--random_vqgan", "--multihost"])

@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither jax nor any module of the
-JAX package, and its entry points do not fall back to the CPU."""
+JAX package (nor pandas, which a GPU host may lack), and its entry points
+do not fall back to the CPU."""
 
 import ast
 import pathlib
@@ -20,7 +21,8 @@ for m in pkgutil.walk_packages(mebt_tpu_torch.__path__, "mebt_tpu_torch."):
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.")
-             or n == "mebt_tpu" or n.startswith("mebt_tpu."))
+             or n == "mebt_tpu" or n.startswith("mebt_tpu.")
+             or n == "pandas" or n.startswith("pandas."))
 assert not bad, bad
 print("ok", len([n for n in sys.modules if n.startswith("mebt_tpu_torch")]))
 """
@@ -35,6 +37,10 @@ def test_the_training_slices_modules_are_covered():
             "utils/video.py", "cli/train.py"} <= covered
     # draft-and-revise and extrapolation
     assert {"sampler/decode.py", "sampler/generation.py", "cli/dnr.py"} <= covered
+    # checkpoint import and eval
+    assert {"utils/torch_ckpt.py", "utils/download.py", "eval/i3d.py", "eval/fvd.py",
+            "cli/measure_fvd.py", "cli/measure_sliding_fvd.py",
+            "cli/convert_tf_i3d.py"} <= covered
 
 
 def test_import_pulls_in_no_jax_and_no_jax_package():

@@ -110,9 +110,40 @@ def test_loss_decreases_on_a_repeated_batch(tmp_path):
     tr.fit(FakeLoader(_batches(1, seed=1)), max_steps=12, log_every=1)
     losses = _losses(tmp_path / "fall")
     assert all(np.isfinite(losses)) and min(losses[6:]) < losses[0]
-    # ckpt_every 0: no checkpoint at all
-    assert not (tmp_path / "fall" / "checkpoints").exists() or not list(
-        (tmp_path / "fall" / "checkpoints").iterdir())
+    # ckpt_every 0: only the final checkpoint, as the JAX trainer writes it
+    assert sorted(p.name for p in (tmp_path / "fall" / "checkpoints").iterdir()) == ["12.pt"]
+
+
+def test_exp_name_restores_the_final_checkpoints_weights(tmp_path, monkeypatch):
+    """`fit` with ckpt_every 0 leaves logs/<exp>/checkpoints/<step>.pt;
+    cli/common.py:load_model_bundle(--exp_name) loads exactly its model."""
+    from _torch_port import ref_vqgan_state_dict, save_lightning
+    from mebt_tpu.models.vqgan import VQGANConfig as JaxVQGANConfig
+    from mebt_tpu_torch.cli.common import load_model_bundle
+    from mebt_tpu_torch.cli.sample import build_argparser
+    from mebt_tpu_torch.config import Config
+
+    monkeypatch.chdir(tmp_path)
+    tr = _trainer(tmp_path / "logs" / "exp0", ckpt_every=0)
+    state = tr.fit(FakeLoader(_batches(2)), max_steps=3, log_every=1)
+    saved = torch.load(tmp_path / "logs" / "exp0" / "checkpoints" / "3.pt",
+                       weights_only=True)["model"]
+    vq = JaxVQGANConfig(n_codes=64, embedding_dim=8, n_hiddens=8, downsample=(2, 4, 4))
+    vq_path = save_lightning(tmp_path / "vqgan.ckpt",
+                             ref_vqgan_state_dict(vq, np.random.default_rng(0), std=0.1),
+                             {"args": dict(n_codes=64, embedding_dim=8, n_hiddens=8,
+                                           downsample=[2, 4, 4])})
+    config = Config(_config())
+    config["model"]["vqvae"] = Config(params=Config(ckpt_path=vq_path, ignore_keys=["loss"]))
+    args = build_argparser().parse_args(
+        ["--exp_name", "exp0", "--compute_dtype", "float32", "--device", "cpu"])
+    model, vqgan = load_model_bundle(args, config, torch.device("cpu"))
+    got = model.state_dict()
+    assert got.keys() == saved.keys()
+    assert all(torch.equal(got[k], saved[k]) for k in saved)
+    assert all(torch.equal(p, dict(state.model.named_parameters())[n])
+               for n, p in model.named_parameters())
+    assert vqgan.config.downsample == (2, 4, 4) and not model.training
 
 
 def test_save_resume_reenters_epoch_and_skips_trained_batches(tmp_path):
