@@ -154,12 +154,13 @@ P_DROP = 0.1
 # random VQGAN that maps 4 frames x 8 x 8 pixels to one code of 16384
 RES = 128
 VIDEO_VQGAN = dict(n_codes=STL16["vocab_size"], downsample=(4, 8, 8))
+STL16_MASK = dict(method="mlm", schedule="linear", shape=[4, 16, 16], budget=1024,
+                  max_token=1024, t_range=[0.0, 1.0])
 TRAIN_CONFIG = dict(
     model=dict(
         params=dict(STL16, mode=list(STL16_MODES), embd_pdrop=P_DROP, resid_pdrop=P_DROP,
                     attn_pdrop=P_DROP, avg_loss=True, vtokens=True),
-        mask=dict(params=dict(method="mlm", schedule="linear", shape=[4, 16, 16],
-                              budget=1024, max_token=1024, t_range=[0.0, 1.0])),
+        mask=dict(params=STL16_MASK),
     ),
     exp=dict(exact_lr=1.08e-5, ckpt_every=0),
 )
@@ -2047,8 +2048,6 @@ def whole_step_video_check(dev):
 # checkpoint import and FVD evaluation
 
 TRAIN_EXP = "chip_smoke_stl16f"  # logs/<TRAIN_EXP>: the train phase's final checkpoint
-STL16_MASK = dict(method="mlm", schedule="linear", shape=[4, 16, 16], budget=1024,
-                  max_token=1024, t_range=[0.0, 1.0])
 
 
 def stl16_config(vq_ckpt: str = ""):
@@ -2206,6 +2205,8 @@ FVD_RECIPE_VIDEOS = 2048  # fake and real each (scripts/valid_dnr.sh, eval/fvd.p
 
 
 def i3d_state_dict(seed):
+    """An `i3d_pretrained_400.pt` state dict from a numpy seed (I3D_SEED's
+    distributions), without BatchNorm's `num_batches_tracked`."""
     from mebt_tpu_torch.eval.i3d import InceptionI3d
 
     rng = np.random.default_rng(seed)

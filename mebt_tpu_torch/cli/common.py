@@ -91,10 +91,9 @@ def load_model_bundle(args, config: Config, device):
     """-> (model, vqgan) on `device`, from the checkpoint source the
     arguments name (see the module docstring)."""
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
-    mask_shape = tuple(config.model.mask.params.shape)
+    cfg = MeBTConfig.from_config(config.model.params.to_dict(),
+                                 mask_shape=tuple(config.model.mask.params.shape), dtype=dtype)
     if args.random_weights:
-        cfg = MeBTConfig.from_config(config.model.params.to_dict(), mask_shape=mask_shape,
-                                     dtype=dtype)
         return random_mebt(cfg, 0, device), random_vqgan(vqgan_config(config), 1, device)
 
     from mebt_tpu_torch.utils.torch_ckpt import load_mebt, mebt_from_state_dict
@@ -103,8 +102,6 @@ def load_model_bundle(args, config: Config, device):
     if not ckpt and args.exp_name:
         path = find_exp_ckpt(args.exp_name)
         state = torch.load(path, map_location="cpu", weights_only=True)["model"]
-        cfg = MeBTConfig.from_config(config.model.params.to_dict(), mask_shape=mask_shape,
-                                     dtype=dtype)
         return mebt_from_state_dict(state, cfg, device), config_vqgan(config, device)
     if not ckpt:
         raise SystemExit("Provide --gpt_ckpt, --exp_name, or --random_weights")

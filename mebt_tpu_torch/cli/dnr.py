@@ -1,6 +1,6 @@
-"""Draft-and-revise sampling CLI (mebt_tpu/cli/dnr.py). The recipe (scripts/valid_dnr_*.sh) feeds the
-MaskGIT code maps of cli.sample --save_codemap via --np_draft and
-revises only:
+"""Draft-and-revise sampling CLI (mebt_tpu/cli/dnr.py). The recipe
+(scripts/valid_dnr_*.sh) feeds the MaskGIT code maps of cli.sample
+--save_codemap via --np_draft and revises only:
 
   python -m mebt_tpu_torch.cli.dnr --base configs/stl/mebt_16f.yaml \\
       --random_weights --batch_size 16 --n_sample 16 --total_length 16 \\

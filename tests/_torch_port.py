@@ -143,28 +143,3 @@ def save_lightning(path, sd, hparams):
     torch.save({"state_dict": {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()},
                 "hyper_parameters": hparams, "epoch": 0, "global_step": 0}, path)
     return str(path)
-
-
-def i3d_state_dict(seed, conv_scale=1.0):
-    """An `i3d_pretrained_400.pt` state dict from a numpy seed: He-normal
-    convolutions (times conv_scale), BatchNorm scales and variances in
-    [0.5, 1.5], small biases and means."""
-    import torch
-
-    from mebt_tpu_torch.eval.i3d import InceptionI3d
-
-    rng = np.random.default_rng(seed)
-    sd = {}
-    for k, v in InceptionI3d(400).state_dict().items():
-        shape = tuple(v.shape)
-        if k.endswith("num_batches_tracked"):
-            sd[k] = torch.zeros((), dtype=torch.long)
-            continue
-        if k.endswith("conv3d.weight"):
-            a = rng.normal(size=shape) * np.sqrt(2.0 / np.prod(shape[1:])) * conv_scale
-        elif k.endswith(("running_var", "bn.weight")):
-            a = rng.uniform(0.5, 1.5, size=shape)
-        else:
-            a = 0.1 * rng.normal(size=shape)
-        sd[k] = torch.tensor(a, dtype=torch.float32)
-    return sd

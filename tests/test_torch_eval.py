@@ -2,8 +2,8 @@
 against the JAX package (mebt_tpu/eval/*.py) on the CPU.
 
 The I3D checkpoint is an `i3d_pretrained_400.pt` state dict made from a
-numpy seed (tests/_torch_port.py:i3d_state_dict) and saved into
-tmp_path; both packages' `load_i3d` read the same file. I3D tolerance:
+numpy seed (chip_smoke.py:i3d_state_dict, which the fvd16 phase writes)
+and saved into tmp_path; both packages' `load_i3d` read the same file. I3D tolerance:
 fp32 convolutions summed in another order, some 1e-6 of the activations'
 scale at each endpoint (rtol = atol = 1e-4 at full depth, where logits
 reach about 40). The statistics are the same float64 numpy in both:
@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import i3d_state_dict
+from chip_smoke import i3d_state_dict
 from mebt_tpu.eval import fvd as jfvd
 from mebt_tpu.eval import i3d as ji3d
 from mebt_tpu_torch.eval import fvd, i3d
