@@ -18,7 +18,7 @@
    the shapes of STL-16f training (batch 6) and STL-128f training (batch
    5) in fp32 and bf16, dropout (K8) in all four attention kernels, and
    the nearest-code search (K9) at the encoder's shapes of both training
-   recipes, with a ragged codebook and exact ties (its codes on two
+   recipes and of VQGAN training, with a ragged codebook and exact ties (its codes on two
    calls and at one codebook slice equal); times kernel, plain version
    and one PyTorch library call for the same function, K7's dq pass,
    dk/dv pass and merge and K9's search and merge apart from one
@@ -84,11 +84,23 @@
    and KVD finite; I3D ms per 16-video chunk, peak memory, the recipe's
    projected seconds for 2048 + 2048 videos and the host statistics'
    seconds at 2048 x 400;
-14. prints the kernels' JSON line and, last, the result line.
+14. trains the VQGAN (`vqgan_train`) at the width of the TATS VQGAN the
+   MeBT configs load (embedding_dim 256, 16384 codes, n_hiddens 32,
+   downsample 4 8 8; discriminators 64 channels, 3 layers, hinge; L1 4,
+   LPIPS 4 on a seeded VGG16, image and video GAN 1, feature matching 4
+   from the first step; random restart; fp32, lr 3e-4) on batch 2 of
+   synthetic 16x128x128 videos through the port's DataLoader: a first
+   step (the codebook's data init), 5 timed steps with K9 once a step,
+   one profiled step (idle share, kernels by the trainer's host ranges);
+   losses finite, perplexity above 1 at step 1, the GAN terms nonzero,
+   codebook and discriminators moved; then one step at batch 1, card
+   against the plain CPU path from the same weights and draws (losses
+   1e-4, gradients 1e-3 of their scale, codes under the near-tie rule);
+15. prints the kernels' JSON line and, last, the result line.
 
 `--only a,b` runs a subset of the phases (k1 k2 k3 k4 k5 k6 k7 k8 k9
 gen16 gen128 dnr16 dnr128 whole whole_dnr train whole_train train_video
-train_video_128 whole_video ckpt16 fvd16)
+train_video_128 whole_video ckpt16 fvd16 vqgan_train)
 while developing; it then prints no kernels line and no result line.
 
 Any failure exits non-zero. Without a CUDA device, or without the
@@ -149,6 +161,17 @@ EXTRAPOLATE = dict(RECIPE, total_length=32)
 # dropouts, avg_loss, the mask block, exp.exact_lr) and the batch of the
 # STL-128f training recipe, for the kernel shapes only
 TRAIN_BATCH, TRAIN_BATCH128 = 6, 5
+# VQGAN training at the width of the TATS VQGAN the MeBT configs load
+# (configs/stl/mebt_16f.yaml:29-32), 16 frames of 128x128 at batch 2,
+# GAN and feature terms from the first step, random restart on (the CLI's
+# default), LPIPS on a seeded VGG16
+VQGAN_TRAIN_BATCH = 2
+VQGAN_TRAIN = dict(embedding_dim=256, n_codes=16384, n_hiddens=32, downsample=(4, 8, 8),
+                   disc_channels=64, disc_layers=3, disc_loss_type="hinge", l1_weight=4.0,
+                   perceptual_weight=4.0, image_gan_weight=1.0, video_gan_weight=1.0,
+                   gan_feat_weight=4.0, discriminator_iter_start=0, no_random_restart=False,
+                   restart_thres=1.0)
+VQGAN_LR = 3e-4
 P_DROP = 0.1
 # training from raw video: 128x128 RGB frames (data.resolution) through a
 # random VQGAN that maps 4 frames x 8 x 8 pixels to one code of 16384
@@ -919,12 +942,13 @@ def check_k8(dev, gen):
 
 
 # K9 at the train step's shapes: M = batch x latent positions (16f: 6 x
-# 4x16x16; 128f: 5 x 32x16x16) against the 16384-entry codebook of width
-# 256; a codebook (and a row count) that is no tile multiple; integer data,
-# where every sum is exact in fp32 and ties are everywhere, over a codebook
-# whose second half repeats the first.
+# 4x16x16; 128f: 5 x 32x16x16; VQGAN training: 2 x 4x16x16) against the
+# 16384-entry codebook of width 256; a codebook (and a row count) that is
+# no tile multiple; integer data, where every sum is exact in fp32 and ties
+# are everywhere, over a codebook whose second half repeats the first.
 K9_CASES = (("16f", TRAIN_BATCH * 1024, 16384), ("128f", TRAIN_BATCH128 * 8192, 16384),
-            ("ragged", 1000, 16000), ("ties", TRAIN_BATCH * 1024, 16384))
+            ("ragged", 1000, 16000), ("ties", TRAIN_BATCH * 1024, 16384),
+            ("vqgan_train", VQGAN_TRAIN_BATCH * 4 * 16 * 16, 16384))
 
 
 # K9's search and the merge of its codebook slices, by kernel name
@@ -1516,14 +1540,16 @@ def check_sass():
                 head_sample_tensor_core_instructions=head, vq_tensor_core_instructions=vq)
 
 
-def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
+def profile_decode(fn, out_dir, name, span: str | None = None, ranges=()) -> dict:
     """Device time of one warm decode (or of a few train steps) by
     kernel, from torch.profiler: each hand-written kernel's share (dropout
     runs inside them), everything else, and the idle share of the
     profiled wall time (the profiler's own overhead counts as idle).
     With `span`, also the kernels launched inside the host ranges of
-    that name, from the same profile. The full table goes to
-    <out_dir>/<name>."""
+    that name, from the same profile; with `ranges`, each named range's
+    kernel ms and its busiest kernels (kernels launched from another
+    thread, as autograd's backward, stay outside). The full table goes
+    to <out_dir>/<name>."""
     from mebt_tpu_torch.train.trainer import start_profile
 
     torch.cuda.synchronize()
@@ -1553,6 +1579,17 @@ def profile_decode(fn, out_dir, name, span: str | None = None) -> dict:
         enc = sum(ms for n, ms in ks if not any(key in n for key in K9_KERNELS))
         out["span"] = dict(name=span, kernels_per_range=[len(k) for k in per], encoder_ms=enc,
                            k9_ms=out["K9"], share=(enc + out["K9"]) / busy)
+    if ranges:
+        out["ranges"] = {}
+        for r in ranges:
+            by_name = {}
+            for kernels in span_kernels(prof, r):
+                for n, ms in kernels:
+                    by_name[n] = by_name.get(n, 0.0) + ms
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+            out["ranges"][r] = dict(ms=sum(by_name.values()),
+                                    top=[dict(name=n[:80], ms=ms) for n, ms in top])
+        out["outside_ranges_ms"] = busy - sum(v["ms"] for v in out["ranges"].values())
     return out
 
 
@@ -2062,6 +2099,210 @@ def whole_step_video_check(dev):
 
 
 # ---------------------------------------------------------------------------
+# VQGAN training
+
+
+def seeded_lpips(seed, dev):
+    """LPIPS with a VGG16 made from a seed (He-normal convolutions, small
+    biases) and lin weights uniform in [0, 1): the published weights are
+    user inputs, not in the repository."""
+    from mebt_tpu_torch.models.lpips import LPIPS
+
+    g = torch.Generator(dev).manual_seed(seed)
+    with torch.device(dev):
+        lp = LPIPS()
+    with torch.no_grad():
+        for m in lp.features:
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.normal_(0.0, (2.0 / m.weight[0].numel()) ** 0.5, generator=g)
+                m.bias.normal_(0.0, 0.01, generator=g)
+        for lin in lp.lins:
+            lin.weight.uniform_(0.0, 1.0, generator=g)
+    return lp.eval()
+
+
+def vqgan_trainer(dev):
+    """VQGANTrainer of VQGAN_TRAIN on `dev`, its state from seed 0."""
+    from mebt_tpu_torch.models.vqgan import VQGANConfig
+    from mebt_tpu_torch.train.vqgan_train import VQGANTrainer
+
+    trainer = VQGANTrainer(VQGANConfig(**VQGAN_TRAIN), lr=VQGAN_LR, lpips=seeded_lpips(3, dev),
+                           seed=0, device=dev)
+    trainer.init_state()
+    return trainer
+
+
+def state_snapshot(trainer):
+    st = trainer.state
+    return dict(codebook=st.vqgan.codebook.embeddings.clone(),
+                disc_img=[p.detach().clone() for p in st.disc_img.parameters()],
+                disc_vid=[p.detach().clone() for p in st.disc_vid.parameters()])
+
+
+def moved(a, b) -> bool:
+    return any(not torch.equal(x, y) for x, y in zip(a, b))
+
+
+def run_vqgan_train(dev, out_dir):
+    """VQGANTrainer.step at full width (VQGAN_TRAIN, batch 2 of synthetic
+    16x128x128 videos through the port's DataLoader, fp32): a first step
+    (the codebook's data init), 5 timed and counted steps (K9 once a
+    step), then one profiled step: idle share, kernels by host range."""
+    from mebt_tpu_torch.data.loader import DataLoader
+    from mebt_tpu_torch.train.vqgan_train import METRICS, SPANS
+
+    B, frames = VQGAN_TRAIN_BATCH, 16
+    trainer = vqgan_trainer(dev)
+    loader = DataLoader(VideoSet(4 * B, frames, 1, seed=11), batch_size=B, num_workers=4, seed=0)
+
+    def batches():
+        epoch = 0
+        while True:
+            loader.set_epoch(epoch)
+            yield from loader
+            epoch += 1
+
+    it = batches()
+    history = []
+
+    def run(n):
+        for _ in range(n):
+            history.append(trainer.step(torch.from_numpy(next(it)["video"])))
+
+    before = state_snapshot(trainer)
+    torch.cuda.reset_peak_memory_stats()
+    _, first, first_wall = counted(lambda: run(1))
+    after_first = state_snapshot(trainer)
+    steps = 5
+    _, launches, wall = counted(lambda: run(steps))
+    peak = torch.cuda.max_memory_allocated()
+    # one step profiled: idle share, busiest kernels, and each host range's
+    # kernels (K9 counts whole: its ctypes launch is not linked to its range)
+    prof = profile_decode(lambda: run(1), out_dir, "vqgan_train_profile.json", ranges=SPANS)
+    traj = [{k: float(m[k]) for k in METRICS} for m in history]
+    require(all(np.isfinite(v) for m in traj for v in m.values()),
+            f"vqgan_train: a metric is not finite: {traj}")
+    require(traj[0]["perplexity"] > 1,
+            f"vqgan_train: perplexity {traj[0]['perplexity']} at step 1: no data init")
+    require(all(m[k] != 0 for m in traj for k in ("g_loss", "gan_feat_loss", "discloss")),
+            "vqgan_train: a GAN term is 0 with discriminator_iter_start 0")
+    after = state_snapshot(trainer)
+    require(not torch.equal(after["codebook"], after_first["codebook"]),
+            "vqgan_train: the EMA did not move the codebook")
+    require(moved(after["disc_img"], before["disc_img"])
+            and moved(after["disc_vid"], before["disc_vid"]),
+            "vqgan_train: a discriminator did not move")
+    expect = [0] * 8 + [1]
+    require(first == expect and launches == [n * steps for n in expect],
+            f"vqgan_train: launches {first} (first step), {launches} over {steps} steps; "
+            f"expected {expect} a step")
+    step_s = wall / steps
+    return dict(phase="slice", config="vqgan_train", batch=B, frames=frames, res=RES,
+                dtype="float32", tf32=False, lpips="seeded VGG16", steps_timed=steps,
+                first_step_s=first_wall, step_s=step_s, videos_per_s=B / step_s,
+                peak_mem_gb=peak / 2**30, metrics=traj, profile=prof,
+                launches_per_step=dict(zip(KERNELS, expect))), launches
+
+
+def vqgan_whole_step_check(dev):
+    """One VQGAN training step (step 0: data init, GAN, LPIPS, EMA) in
+    fp32 at full width, batch 1: cuDNN, K9 and the trainer on the card
+    against the plain path on the CPU, same weights, video and draws.
+    The CPU step takes the card's codes where the two differ at a
+    near-tie (held to code_mismatches), so both sides run the same
+    arithmetic after the search."""
+    import mebt_tpu_torch.models.vqgan as vqgan_mod
+    from mebt_tpu_torch.models.lpips import LPIPS
+    from mebt_tpu_torch.models.vqgan import VQGANConfig
+    from mebt_tpu_torch.ops.vq import code_mismatches, nearest_code, nearest_code_ref
+    from mebt_tpu_torch.train.vqgan_train import METRICS, VQGANTrainer
+
+    cfg = VQGANConfig(**VQGAN_TRAIN)
+    card = vqgan_trainer(dev)
+    cpu_lpips = LPIPS()
+    cpu_lpips.load_state_dict({k: v.cpu() for k, v in card.lpips.state_dict().items()})
+    cpu = VQGANTrainer(cfg, lr=VQGAN_LR, lpips=cpu_lpips, seed=0, device="cpu")
+    cpu.init_state()
+    for name in ("vqgan", "disc_img", "disc_vid"):
+        getattr(cpu.state, name).load_state_dict(
+            {k: v.cpu() for k, v in getattr(card.state, name).state_dict().items()})
+    g = torch.Generator().manual_seed(21)
+    d = cfg.downsample
+    M, D, K = 16 // d[0] * (RES // d[1]) * (RES // d[2]), cfg.embedding_dim, cfg.n_codes
+    rows = -(-K // M) * M  # the latents tiled up to the codebook
+    draws = dict(frame_idx=torch.randint(0, 16, (1,), generator=g),
+                 init_perm=torch.randperm(rows, generator=g),
+                 init_noise=torch.randn(rows, D, generator=g),
+                 restart_perm=torch.randperm(rows, generator=g)[:K],
+                 restart_noise=torch.randn(rows, D, generator=g))
+    rng = np.random.default_rng(22)
+    video = torch.from_numpy(rng.random((1, 16, RES, RES, 3), dtype=np.float32) - 0.5)
+    seen = {}
+    real_nearest = vqgan_mod.nearest_code
+
+    def card_search(flat, emb):
+        seen.update(flat=flat.cpu(), emb=emb.cpu(), codes=real_nearest(flat, emb))
+        return seen["codes"]
+
+    def cpu_search(flat, emb):
+        plain = nearest_code_ref(flat, emb)
+        card_codes = seen["codes"].cpu()
+        seen["cpu"] = code_mismatches(flat, emb, card_codes, plain)
+        seen["k9"] = code_mismatches(seen["flat"], seen["emb"], card_codes,
+                                     nearest_code_ref(seen["flat"], seen["emb"]))
+        return card_codes
+
+    def grads(t):
+        st = t.state
+        return {f"{part}.{n}": p.grad.detach().cpu()
+                for part, mod in (("gen", st.vqgan), ("disc_img", st.disc_img),
+                                  ("disc_vid", st.disc_vid))
+                for n, p in mod.named_parameters()}
+
+    try:
+        vqgan_mod.nearest_code = card_search
+        (got_m, launches, _) = counted(lambda: card.step(video, draws=dict(draws)))
+        got_m = {k: float(v) for k, v in got_m.items()}
+        got_g = grads(card)
+        vqgan_mod.nearest_code = cpu_search
+        torch.set_num_threads(os.cpu_count() or 1)
+        t0 = time.perf_counter()
+        want_m = {k: float(v) for k, v in cpu.step(video, draws=dict(draws)).items()}
+        cpu_s = time.perf_counter() - t0
+    finally:
+        vqgan_mod.nearest_code = real_nearest
+    want_g = grads(cpu)
+    require(launches == [0] * 8 + [1], f"vqgan whole step: launches {launches}")
+    for what in ("cpu", "k9"):
+        n, gap, over = seen[what]
+        require(over <= 1, f"vqgan whole step: codes card vs {what}: {n} differ beyond "
+                           f"near-ties ({gap}: {over})")
+    rel = {k: abs(got_m[k] - want_m[k]) / max(abs(want_m[k]), 1e-30) for k in METRICS}
+    require(rel["loss"] <= 1e-4 and rel["discloss"] <= 1e-4,
+            f"vqgan whole step: losses {got_m} vs {want_m}")
+    # each gradient against its own scale, or against its module's largest
+    # where it vanishes (a bias in front of a normalisation: exactly 0)
+    worst, by_part = {}, {}
+    for k, w in want_g.items():
+        part = k.split(".")[0]
+        by_part[part] = max(by_part.get(part, 0.0), w.abs().max().item())
+    for k, w in want_g.items():
+        scale = w.abs().max().item()
+        part_scale = by_part[k.split(".")[0]]
+        scale = scale if scale > 1e-3 * part_scale else part_scale
+        worst[k] = (got_g[k] - w).abs().max().item() / scale
+    top = sorted(worst.items(), key=lambda r: -r[1])[:5]
+    require(all(bool(torch.isfinite(v).all()) for v in got_g.values()),
+            "vqgan whole step: a card gradient is not finite")
+    require(top[0][1] <= 1e-3, f"vqgan whole step: gradients {top}")
+    return dict(phase="vqgan_whole_step", config="vqgan_train", dtype="float32", batch=1,
+                metrics_card=got_m, metrics_plain_cpu=want_m, metric_rel_diff=rel,
+                loss_tol=1e-4, grad_tensors=len(worst), grad_worst_rel=top, grad_tol=1e-3,
+                codes_differing_card_vs_cpu=seen["cpu"][0], gap_over_bound=seen["cpu"][2],
+                codes_differing_k9_vs_plain=seen["k9"][0], plain_cpu_s=cpu_s)
+
+
+# ---------------------------------------------------------------------------
 # checkpoint import and FVD evaluation
 
 TRAIN_EXP = "chip_smoke_stl16f"  # logs/<TRAIN_EXP>: the train phase's final checkpoint
@@ -2446,6 +2687,13 @@ def main(argv=None) -> int:
             report["fvd16"] = run_fvd16(dev, args.out, smi,
                                         None if gen16 is None else gen16.samples)
             emit(report["fvd16"])
+            torch.cuda.empty_cache()
+        if on("vqgan_train"):
+            report["vqgan_train"], launches["vqgan_train_16f"] = run_vqgan_train(dev, args.out)
+            emit(report["vqgan_train"])
+            torch.cuda.empty_cache()
+            report["vqgan_whole_step"] = vqgan_whole_step_check(dev)
+            emit(report["vqgan_whole_step"])
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -2462,14 +2710,15 @@ def main(argv=None) -> int:
 
     def entry(i, name, replaces, row, src="mebt_tpu_torch/csrc/attention.cu", **extra):
         """`launches` is the count on the newest path that runs the
-        kernel: 16f generation and encode from an imported checkpoint
-        (ckpt16) for K1, K2, K3 and K9, 128f training from video (2
+        kernel: VQGAN training (5 steps) for K9, 16f generation and
+        encode from an imported checkpoint (ckpt16) for K1, K2 and K3,
+        128f training from video (2
         optimizer steps under the main remat policy) for the backward
         kernels and K8, 128f generation for K4; 0 for K5, which no path
         runs."""
         by_path = {path: counts[i] for path, counts in launches.items()}
         newest = [by_path.get(p, 0) for p in (
-            "stl_16f_ckpt", "stl_16f_ckpt_exp", "stl_128f_dnr", "stl_16f_dnr", "stl_16f_dnr_scratch", "stl_16f_extrapolate",
+            "vqgan_train_16f", "stl_16f_ckpt", "stl_16f_ckpt_exp", "stl_128f_dnr", "stl_16f_dnr", "stl_16f_dnr_scratch", "stl_16f_extrapolate",
             "stl_128f_train_video", "stl_16f_train_video", "stl_16f_train", "stl_128f",
             "stl_16f") if by_path.get(p, 0)]
         return dict(
@@ -2511,8 +2760,8 @@ def main(argv=None) -> int:
               "mebt_tpu/ops/attention_pallas.py:71",
               case(report["K8"], "lt2l", "bfloat16")),
         entry(8, "K9 nearest_code", "mebt_tpu/ops/vq_pallas.py:82",
-              case(report["K9"], "128f"), "mebt_tpu_torch/csrc/vq.cu",
-              **{k: case(report["K9"], "128f")[k]
+              case(report["K9"], "vqgan_train"), "mebt_tpu_torch/csrc/vq.cu",
+              **{k: case(report["K9"], "vqgan_train")[k]
                  for k in ("codebook_slices", "bound_ms_3xtf32", "search_ms", "merge_ms")}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,8 +12,11 @@ channels-first; `encode_latent` and `codebook_quantize` keep the JAX
 package's channels-last layout at their boundary. Submodule and buffer
 names follow the reference's torch modules (encoder.conv_blocks.i.down,
 decoder.conv_blocks.i.up.convt, ...res1.norm1, codebook.embeddings /
-N / z_avg). Not ported: the codebook's data init and EMA update, which
-only VQGAN training uses.
+N / z_avg). The codebook's data init (`codebook_init_from_data`) and
+its EMA update with random restart (`codebook_ema_update`), which only
+VQGAN training uses (train/vqgan_train.py), update those buffers in
+place; their random draws come from a `torch.Generator` or are passed
+in.
 """
 
 from __future__ import annotations
@@ -35,15 +38,19 @@ def _triple(v) -> tuple[int, int, int]:
 
 
 class SamePadConv3d(nn.Module):
-    """Same-padded (replicate) 3-D convolution with bias."""
+    """Same-padded 3-D convolution with bias; `padding_type` is one of
+    ops/conv3d.py's modes (replicate, constant, reflect, circular)."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=1):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=1,
+                 padding_type: str = "replicate"):
         super().__init__()
         self.stride = _triple(stride)
+        self.padding_type = padding_type
         self.conv = nn.Conv3d(in_channels, out_channels, _triple(kernel_size), self.stride)
 
     def forward(self, x):
-        return same_pad_conv3d(x, self.conv.weight, self.conv.bias, self.stride)
+        return same_pad_conv3d(x, self.conv.weight, self.conv.bias, self.stride,
+                               self.padding_type)
 
 
 class SamePadConvTranspose3d(nn.Module):
@@ -61,22 +68,24 @@ class SamePadConvTranspose3d(nn.Module):
 
 
 class Normalize(nn.GroupNorm):
-    """GroupNorm with min(32, C) groups, eps 1e-6 (reference vqgan.py:255-260)."""
+    """GroupNorm with min(32, C) groups, eps 1e-6 (reference vqgan.py:255-260).
+    `norm_type="batch"` builds it too, as the JAX package's Normalize does."""
 
     def __init__(self, channels: int):
         super().__init__(min(32, channels), channels, eps=1e-6)
 
 
 class ResBlock(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int | None = None):
+    def __init__(self, in_channels: int, out_channels: int | None = None,
+                 padding_type: str = "replicate"):
         super().__init__()
         out_channels = out_channels or in_channels
         self.norm1 = Normalize(in_channels)
-        self.conv1 = SamePadConv3d(in_channels, out_channels, 3)
+        self.conv1 = SamePadConv3d(in_channels, out_channels, 3, padding_type=padding_type)
         self.norm2 = Normalize(out_channels)
-        self.conv2 = SamePadConv3d(out_channels, out_channels, 3)
+        self.conv2 = SamePadConv3d(out_channels, out_channels, 3, padding_type=padding_type)
         self.conv_shortcut = (
-            SamePadConv3d(in_channels, out_channels, 3)
+            SamePadConv3d(in_channels, out_channels, 3, padding_type=padding_type)
             if in_channels != out_channels else None
         )
 
@@ -101,23 +110,25 @@ def _stage_strides(downsample: Sequence[int]) -> list[tuple[int, int, int]]:
 
 
 class EncoderStage(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int, stride):
+    def __init__(self, in_channels: int, out_channels: int, stride, padding_type: str):
         super().__init__()
-        self.down = SamePadConv3d(in_channels, out_channels, 4, stride=stride)
-        self.res = ResBlock(out_channels)
+        self.down = SamePadConv3d(in_channels, out_channels, 4, stride=stride,
+                                  padding_type=padding_type)
+        self.res = ResBlock(out_channels, padding_type=padding_type)
 
     def forward(self, x):
         return self.res(self.down(x))
 
 
 class Encoder(nn.Module):
-    def __init__(self, n_hiddens: int, downsample: Sequence[int], image_channels: int = 3):
+    def __init__(self, n_hiddens: int, downsample: Sequence[int], image_channels: int = 3,
+                 padding_type: str = "replicate"):
         super().__init__()
-        self.conv_first = SamePadConv3d(image_channels, n_hiddens, 3)
+        self.conv_first = SamePadConv3d(image_channels, n_hiddens, 3, padding_type=padding_type)
         stages, ch = [], n_hiddens
         for i, st in enumerate(_stage_strides(downsample)):
             out_ch = n_hiddens * 2 ** (i + 1)
-            stages.append(EncoderStage(ch, out_ch, st))
+            stages.append(EncoderStage(ch, out_ch, st, padding_type))
             ch = out_ch
         self.conv_blocks = nn.ModuleList(stages)
         self.final_block = nn.Sequential(Normalize(ch), nn.SiLU())
@@ -164,27 +175,44 @@ class Decoder(nn.Module):
 
 @dataclass(frozen=True)
 class VQGANConfig:
-    """The architecture part of the reference hparams (vqgan.py:229-251):
-    GroupNorm and replicate padding, as in every MeBT config."""
+    """The reference hparams (vqgan.py:229-251), as
+    mebt_tpu/models/vqgan.py:VQGANConfig: the architecture, then the
+    fields only VQGAN training reads (codebook restarts, loss weights,
+    discriminators; train/vqgan_train.py). `padding_type` applies to the
+    encoder and pre_vq_conv; the decoder and post_vq_conv pad by
+    replicate. Every `norm_type` builds GroupNorm, as in the JAX package."""
 
     embedding_dim: int = 256
     n_codes: int = 16384
     n_hiddens: int = 32
     downsample: tuple[int, int, int] = (4, 8, 8)
     image_channels: int = 3
+    norm_type: str = "group"
+    padding_type: str = "replicate"
+    # argparse store_true default in the reference (vqgan.py:248)
+    no_random_restart: bool = False
+    restart_thres: float = 1.0
+    l1_weight: float = 4.0
+    image_gan_weight: float = 1.0
+    video_gan_weight: float = 1.0
+    perceptual_weight: float = 4.0
+    gan_feat_weight: float = 4.0
+    disc_channels: int = 64
+    disc_layers: int = 3
+    disc_loss_type: str = "hinge"
+    discriminator_iter_start: int = 50000
 
     @classmethod
     def from_hparams(cls, hp: Mapping, **overrides) -> "VQGANConfig":
         """From a TATS VQGAN's hparams (mebt_tpu/models/vqgan.py:
-        VQGANConfig.from_hparams); keys of VQGAN training (loss weights,
-        discriminator) are ignored. Only GroupNorm and replicate padding
-        are built: any other `norm_type` or `padding_type` raises."""
+        VQGANConfig.from_hparams). `norm_type` other than `group`
+        raises: such a file holds BatchNorm weights, which must not load
+        silently into the GroupNorm this package builds."""
         hp = dict(hp, **overrides)
-        for key, built in (("norm_type", "group"), ("padding_type", "replicate")):
-            if hp.get(key, built) != built:
-                raise ValueError(
-                    f"VQGAN {key}={hp[key]!r} is not ported: this package builds "
-                    f"only {key}={built!r}")
+        if hp.get("norm_type", "group") != "group":
+            raise ValueError(
+                f"VQGAN norm_type={hp['norm_type']!r} is not ported: this package builds "
+                "only norm_type='group' for a checkpoint")
         kw = {f.name: hp[f.name] for f in fields(cls) if f.name in hp}
         if "downsample" in kw:
             kw["downsample"] = tuple(int(d) for d in kw["downsample"])
@@ -226,15 +254,97 @@ def codebook_quantize(codebook: Codebook, z: torch.Tensor):
     return codes, embeddings_st, aux
 
 
+def _tile_to_codes(flat: torch.Tensor, n_codes: int, generator: torch.Generator | None = None,
+                   noise: torch.Tensor | None = None) -> torch.Tensor:
+    """Repeat the rows of flat (M, D) until there are at least n_codes,
+    adding N(0, 1) x 0.01 / sqrt(D) noise (reference codebook.py:25-32
+    `_tile`; mebt_tpu/models/vqgan.py:_tile_to_codes). Rows enough
+    already: flat itself, no draw. The noise is `noise` where given (the
+    tiled shape), else drawn from `generator`; with neither, none."""
+    d, dim = flat.shape
+    if d >= n_codes:
+        return flat
+    tiled = flat.repeat(-(-n_codes // d), 1)
+    if noise is None and generator is not None:
+        noise = torch.randn(tiled.shape, generator=generator, device=flat.device)
+    if noise is not None:
+        tiled = tiled + noise.to(tiled) * (0.01 / math.sqrt(dim))
+    return tiled
+
+
+@torch.no_grad()
+def codebook_init_from_data(codebook: Codebook, z: torch.Tensor,
+                            generator: torch.Generator | None = None,
+                            perm: torch.Tensor | None = None,
+                            noise: torch.Tensor | None = None) -> None:
+    """Data-dependent init of the codebook's buffers from the first
+    training batch (reference codebook.py:34-51;
+    mebt_tpu/models/vqgan.py:codebook_init_from_data): the latents z
+    (..., D) tiled up to n_codes rows, n_codes of them picked by a
+    random permutation as `embeddings` and `z_avg`, every `N` set to 1.
+    `perm` (a permutation of the tiled rows) and `noise` replace the
+    draws from `generator` (the tests replay the JAX key chain)."""
+    n_codes, dim = codebook.embeddings.shape
+    y = _tile_to_codes(z.reshape(-1, dim).float(), n_codes, generator, noise)
+    if perm is None:
+        perm = torch.randperm(y.shape[0], generator=generator, device=y.device)
+    k_rand = y[perm[:n_codes].to(y.device)]
+    codebook.embeddings.copy_(k_rand)
+    codebook.z_avg.copy_(k_rand)
+    codebook.N.fill_(1.0)
+
+
+@torch.no_grad()
+def codebook_ema_update(codebook: Codebook, z: torch.Tensor, codes: torch.Tensor,
+                        generator: torch.Generator | None = None, decay: float = 0.99,
+                        no_random_restart: bool = False, restart_thres: float = 1.0,
+                        perm: torch.Tensor | None = None,
+                        noise: torch.Tensor | None = None) -> None:
+    """EMA update of the codebook's buffers with Laplace smoothing and
+    random restart (reference codebook.py:66-89;
+    mebt_tpu/models/vqgan.py:codebook_ema_update), in place:
+    N <- decay N + (1 - decay) counts, z_avg <- decay z_avg + (1 - decay)
+    per-code sums of z (..., D), embeddings <- z_avg / smoothed N. With
+    restarts, a code whose new N is under `restart_thres` takes a row of
+    z tiled up to n_codes (noise only when tiling is needed) and
+    permuted. `perm` (the restart's permutation of the tiled rows) and
+    `noise` replace the draws from `generator`."""
+    n_codes, dim = codebook.embeddings.shape
+    flat = z.reshape(-1, dim).float()
+    codes = codes.reshape(-1)
+    onehot_sum = torch.bincount(codes, minlength=n_codes).float()
+    encode_sum = torch.zeros_like(codebook.z_avg).index_add_(0, codes, flat)
+
+    new_N = codebook.N * decay + onehot_sum * (1.0 - decay)
+    new_z_avg = codebook.z_avg * decay + encode_sum * (1.0 - decay)
+    n = new_N.sum()
+    weights = (new_N + 1e-7) / (n + n_codes * 1e-7) * n
+    new_emb = new_z_avg / weights[:, None]
+
+    if not no_random_restart:
+        tiled = _tile_to_codes(flat, n_codes, generator, noise)
+        if perm is None:
+            perm = torch.randperm(tiled.shape[0], generator=generator, device=tiled.device)
+        k_rand = tiled[perm[:n_codes].to(tiled.device)]
+        usage = (new_N >= restart_thres).float()[:, None]
+        new_emb = new_emb * usage + k_rand * (1.0 - usage)
+
+    codebook.embeddings.copy_(new_emb)
+    codebook.N.copy_(new_N)
+    codebook.z_avg.copy_(new_z_avg)
+
+
 class VQGAN(nn.Module):
     def __init__(self, config: VQGANConfig):
         super().__init__()
         self.config = config
         n_stages = max(int(math.log2(d)) for d in config.downsample)
         latent_ch = config.n_hiddens * 2**n_stages
-        self.encoder = Encoder(config.n_hiddens, config.downsample, config.image_channels)
+        self.encoder = Encoder(config.n_hiddens, config.downsample, config.image_channels,
+                               config.padding_type)
         self.decoder = Decoder(config.n_hiddens, config.downsample)
-        self.pre_vq_conv = SamePadConv3d(latent_ch, config.embedding_dim, 1)
+        self.pre_vq_conv = SamePadConv3d(latent_ch, config.embedding_dim, 1,
+                                         padding_type=config.padding_type)
         self.post_vq_conv = SamePadConv3d(config.embedding_dim, latent_ch, 1)
         self.codebook = Codebook(config.n_codes, config.embedding_dim)
 
@@ -275,11 +385,15 @@ class VQGAN(nn.Module):
             return emb_st.permute(0, 4, 1, 2, 3), codes
         return codes
 
+    def decode_latent(self, z_bthwd: torch.Tensor) -> torch.Tensor:
+        """(B, t, h, w, embedding_dim) latents, channels-last as
+        `encode_latent` returns them -> (B, C, T, H, W) pixels."""
+        z = z_bthwd.permute(0, 4, 1, 2, 3).to(self.post_vq_conv.conv.weight.dtype)
+        return self.decoder(self.post_vq_conv(z))
+
     def decode(self, codes_bthw: torch.Tensor) -> torch.Tensor:
         """(B, T, H, W) codes -> (B, C, T, H, W) pixels."""
-        z = codebook_lookup(self.codebook.embeddings, codes_bthw)
-        z = z.permute(0, 4, 1, 2, 3).to(self.post_vq_conv.conv.weight.dtype)
-        return self.decoder(self.post_vq_conv(z))
+        return self.decode_latent(codebook_lookup(self.codebook.embeddings, codes_bthw))
 
     def latent_shape(self, sequence_length: int, resolution: int) -> tuple[int, int, int]:
         d = self.config.downsample

@@ -6,7 +6,12 @@ Layout rules (the inverse of mebt_tpu/utils/torch_ckpt.py:9-15):
   * Conv kernel DHWIO (kd,kh,kw,in,out) -> Conv3d weight OIDHW
   * ConvTranspose kernel (kd,kh,kw,in,out), stored unflipped
                                         -> ConvTranspose3d weight (in,out,kd,kh,kw)
-  * LayerNorm / GroupNorm scale         -> weight
+  * LayerNorm / GroupNorm / BatchStatNorm scale -> weight
+  * Conv kernel HWIO (kh,kw,in,out)     -> Conv2d weight OIHW
+
+Any tree of a parameter tree's structure maps the same way: a gradient
+tree or an updated parameter tree lands on the names and layouts of the
+module's parameters (and their `.grad`).
 """
 
 from __future__ import annotations
@@ -89,11 +94,13 @@ def _resblock(p: Mapping, key: str) -> dict:
     return out
 
 
-def vqgan_state_dict(params: Mapping, codebook) -> dict[str, torch.Tensor]:
+def vqgan_state_dict(params: Mapping, codebook=None) -> dict[str, torch.Tensor]:
     """State dict for models/vqgan.py:VQGAN (encoder, pre_vq_conv,
     decoder, post_vq_conv and the codebook's three buffers) from mebt_tpu
     VQGAN params and its `CodebookState` (anything with `embeddings`,
-    `cluster_size` and `z_avg`)."""
+    `cluster_size` and `z_avg`). Without a codebook, the parameters'
+    names only: the form a gradient tree or an updated parameter tree
+    maps to."""
     enc, dec = params["encoder"], params["decoder"]
     sd = _conv(enc["conv_first"], "encoder.conv_first")
     n_stages = sum(1 for k in enc if k.startswith("down_"))
@@ -111,7 +118,40 @@ def vqgan_state_dict(params: Mapping, codebook) -> dict[str, torch.Tensor]:
         sd.update(_resblock(dec[f"res_{i}_2"], f"{key}.res2"))
     sd.update(_conv(dec["conv_last"], "decoder.conv_last"))
     sd.update(_conv(params["post_vq_conv"], "post_vq_conv"))
-    sd["codebook.embeddings"] = _t(codebook.embeddings)
-    sd["codebook.N"] = _t(codebook.cluster_size)
-    sd["codebook.z_avg"] = _t(codebook.z_avg)
+    if codebook is not None:
+        sd["codebook.embeddings"] = _t(codebook.embeddings)
+        sd["codebook.N"] = _t(codebook.cluster_size)
+        sd["codebook.z_avg"] = _t(codebook.z_avg)
+    return sd
+
+
+def _conv_nd(p: Mapping, key: str) -> dict:
+    """flax nn.Conv, 2-D (HWIO) or 3-D (DHWIO) -> Conv2d / Conv3d."""
+    k = np.asarray(p["kernel"])
+    nd = k.ndim - 2
+    out = {f"{key}.weight": _t(np.transpose(k, (nd + 1, nd, *range(nd))))}
+    if "bias" in p:
+        out[f"{key}.bias"] = _t(p["bias"])
+    return out
+
+
+def discriminator_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """State dict for models/discriminator.py:NLayerDiscriminator or
+    NLayerDiscriminator3D from the params of one mebt_tpu discriminator
+    (conv0 .. conv{n}, norm1 .. norm{n}, conv_out)."""
+    sd = {}
+    for name, p in params.items():
+        sd.update(_norm(p, name) if name.startswith("norm") else _conv_nd(p, name))
+    return sd
+
+
+def lpips_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """State dict for models/lpips.py:LPIPS from mebt_tpu LPIPS params
+    (vgg.conv{idx} HWIO kernels, lin{i} (C, 1))."""
+    sd = {}
+    for name, p in params["vgg"].items():
+        sd.update(_conv_nd(p, f"features.{name[len('conv'):]}"))
+    n_lins = sum(1 for k in params if k.startswith("lin"))
+    for i in range(n_lins):
+        sd[f"lins.{i}.weight"] = _t(np.asarray(params[f"lin{i}"]).T[:, :, None, None])
     return sd

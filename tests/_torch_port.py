@@ -143,3 +143,32 @@ def save_lightning(path, sd, hparams):
     torch.save({"state_dict": {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()},
                 "hyper_parameters": hparams, "epoch": 0, "global_step": 0}, path)
     return str(path)
+
+
+# -- LPIPS weights from a numpy seed -------------------------------------------
+
+# torchvision vgg16 `features` conv indices and their (in, out) channels
+VGG16_CONVS = {0: (3, 64), 2: (64, 64), 5: (64, 128), 7: (128, 128), 10: (128, 256),
+               12: (256, 256), 14: (256, 256), 17: (256, 512), 19: (512, 512),
+               21: (512, 512), 24: (512, 512), 26: (512, 512), 28: (512, 512)}
+
+
+def seeded_lpips_weights(seed=0, lin_prefix="lin{i}"):
+    """(vgg16 state dict in torchvision's key layout, with its classifier
+    keys as small stand-ins; the reference's lin weights) as numpy
+    arrays: He-normal convolutions, small biases, positive lin weights.
+    `lin_prefix` "lins.{i}" gives the other key layout."""
+    rng = np.random.default_rng(seed)
+    vgg = {}
+    for idx, (cin, cout) in VGG16_CONVS.items():
+        vgg[f"features.{idx}.weight"] = (
+            rng.normal(size=(cout, cin, 3, 3)) * np.sqrt(2.0 / (9 * cin))).astype(np.float32)
+        vgg[f"features.{idx}.bias"] = (0.01 * rng.normal(size=cout)).astype(np.float32)
+    for idx in (0, 3, 6):  # classifier keys, ignored by both loaders
+        vgg[f"classifier.{idx}.weight"] = np.zeros((2, 2), np.float32)
+        vgg[f"classifier.{idx}.bias"] = np.zeros(2, np.float32)
+    lin = {}
+    for i, c in enumerate((64, 128, 256, 512, 512)):
+        lin[f"{lin_prefix.format(i=i)}.model.1.weight"] = rng.uniform(
+            0.0, 1.0, size=(1, c, 1, 1)).astype(np.float32)
+    return vgg, lin

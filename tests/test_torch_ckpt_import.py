@@ -154,9 +154,22 @@ def test_a_missing_key_raises_and_extra_keys_are_ignored(tmp_path):
 
 @pytest.mark.parametrize("key,value", [("norm_type", "batch"), ("padding_type", "constant")])
 def test_unported_norm_and_padding_raise(tmp_path, key, value):
+    """A BatchNorm VQGAN is refused: its weights must not load into the
+    GroupNorm the port builds. The encoder's padding_type is built (VQGAN
+    training): a constant-padded file loads as the JAX package loads it."""
     path = _vqgan_ckpt(tmp_path / "vqgan.ckpt", **{key: value})
-    with pytest.raises(ValueError, match=f"{key}='{value}' is not ported"):
-        torch_ckpt.load_vqgan(path, device="cpu")
+    if key == "norm_type":
+        with pytest.raises(ValueError, match=f"{key}='{value}' is not ported"):
+            torch_ckpt.load_vqgan(path, device="cpu")
+        return
+    tv = torch_ckpt.load_vqgan(path, device="cpu")
+    jv = jax_ckpt.load_vqgan(path)
+    assert tv.config.padding_type == jv.config.padding_type == value
+    video = np.random.default_rng(5).uniform(-0.5, 0.5, size=(2, 3, 4, 16, 16))
+    video = video.astype(np.float32)
+    with torch.no_grad():
+        codes = tv.encode(torch.from_numpy(video))
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jv.encode(jnp.asarray(video))))
 
 
 def _stage_keys(n, prefix):

@@ -41,6 +41,9 @@ def test_the_training_slices_modules_are_covered():
     assert {"utils/torch_ckpt.py", "utils/download.py", "eval/i3d.py", "eval/fvd.py",
             "cli/measure_fvd.py", "cli/measure_sliding_fvd.py",
             "cli/convert_tf_i3d.py"} <= covered
+    # VQGAN training
+    assert {"models/discriminator.py", "models/lpips.py", "train/vqgan_train.py",
+            "cli/train_vqgan.py"} <= covered
 
 
 def test_import_pulls_in_no_jax_and_no_jax_package():
