@@ -18,12 +18,12 @@
    the shapes of STL-16f training (batch 6) and STL-128f training (batch
    5) in fp32 and bf16, dropout (K8) in all four attention kernels, and
    the nearest-code search (K9) at the encoder's shapes of both training
-   recipes and of VQGAN training, with a ragged codebook and exact ties (its codes on two
-   calls and at one codebook slice equal); times kernel, plain version
-   and one PyTorch library call for the same function, K7's dq pass,
-   dk/dv pass and merge and K9's search and merge apart from one
-   profiled call, and K9's bound both at the fp32 rate and as three
-   TF32 tensor-core products;
+   recipes and of VQGAN training, with a ragged codebook and exact ties
+   (its codes on two calls and at one codebook slice equal); times
+   kernel, plain version and one PyTorch library call for the same
+   function, K7's dq pass, dk/dv pass and merge and K9's search and
+   merge apart from one profiled call, and K9's bound both at the fp32
+   rate and as three TF32 tensor-core products;
 3. generates STL-16f videos at full width through bidirect_generate
    (24L/16H/1024d, vocab 16384, 256 latents, N 1024, 32 MaskGIT steps,
    cosine, ctemp 8.0 linear, temperature 1.0, random weights from a
@@ -94,8 +94,11 @@
    one profiled step (idle share, kernels by the trainer's host ranges);
    losses finite, perplexity above 1 at step 1, the GAN terms nonzero,
    codebook and discriminators moved; then one step at batch 1, card
-   against the plain CPU path from the same weights and draws (losses
-   1e-4, gradients 1e-3 of their scale, codes under the near-tie rule);
+   against the plain CPU path in float64 from the same weights and draws
+   (losses 1e-4, gradients 1e-3 of their scale, codes under the near-tie
+   rule, every relu / leaky-relu / abs / max-pool kink on the card's
+   branch but within 1e-4 of its input's scale), the plain fp32 step
+   reported beside it;
 15. prints the kernels' JSON line and, last, the result line.
 
 `--only a,b` runs a subset of the phases (k1 k2 k3 k4 k5 k6 k7 k8 k9
@@ -1412,17 +1415,19 @@ FMA_HEAD = ("head_sample_kernel", "head_topk_sample_kernel", "head_topk_sample_v
 TENSOR_CORE_HEAD = ("head_sample_mma_kernel", "head_topk_mma_kernel", "head_topk_v1_mma_kernel")
 
 
-def kernel_table(prof, span: str | None = None) -> list[tuple[str, float, int]]:
+def kernel_table(prof, span: str | None = None, ranges=()) -> list[tuple[str, float, int]]:
     """(kernel name, device ms, calls) of a stopped torch.profiler, most
     time first: kernels only, not the ops launching them, nor a `span`
-    range over kernels, nor `start_profile`'s spin kernels."""
+    range or one of `ranges` over kernels, nor `start_profile`'s spin
+    kernels."""
     from torch.autograd import DeviceType
 
     table = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        if e.key.startswith("Optimizer.") or e.key == span or "spin_kernel" in e.key:
+        if (e.key.startswith("Optimizer.") or e.key == span or e.key in ranges
+                or "spin_kernel" in e.key):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -1559,7 +1564,7 @@ def profile_decode(fn, out_dir, name, span: str | None = None, ranges=()) -> dic
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     prof.stop()
-    table = kernel_table(prof, span)
+    table = kernel_table(prof, span, ranges)
     with open(os.path.join(out_dir, name), "w") as f:
         json.dump([dict(name=n, ms=ms, calls=c) for n, ms, c in table], f, indent=1)
     out = {g: sum(ms for n, ms, _ in table if any(key in n for key in keys))
@@ -2204,28 +2209,128 @@ def run_vqgan_train(dev, out_dir):
                 launches_per_step=dict(zip(KERNELS, expect))), launches
 
 
+class KinkReplay:
+    """The near-tie rule of the codes, for the kinks of the step's
+    piecewise-linear functions: F.relu, F.leaky_relu (slopes 1 and 0 or
+    0.2), torch.abs (1 and -1; the L1 and feature-matching terms) and
+    F.max_pool2d (which input of a window carries the gradient; LPIPS).
+    In "record" mode (the card's run) it notes which side of 0 each input
+    lies on, or which input of each window wins, call by call; in
+    "replay" mode (a plain run of the same step) each call takes the
+    card's branch, and `over` is the largest distance from the kink (|x|,
+    or the window's max less the card's pick) where the branches differ,
+    over `band` times that input's largest |x| (must be <= 1: branches
+    may differ only within rounding of the kink). A branch that differs
+    moves the gradient by far more than rounding."""
+
+    def __init__(self, band: float = 1e-4):
+        self.band, self.masks, self.mode = band, [], "record"
+        self.flips, self.over, self.calls = 0, 0.0, 0
+
+    def _note(self, differ, gap, x):
+        if bool(differ.any()):
+            self.flips += int(differ.sum())
+            self.over = max(self.over, (gap[differ].max() / (self.band * x.abs().max())).item())
+
+    def _act(self, real_fn, slope, x, *args):
+        self.calls += 1
+        if self.mode == "record":
+            self.masks.append((x > 0).cpu())
+            return real_fn(x, *args)
+        card = self.masks[self.calls - 1].to(x.device)
+        self._note((x > 0) != card, x.detach().abs(), x.detach())
+        return torch.where(card, x, x * slope)
+
+    def _pool(self, real_fn, x, *args, return_indices=False, **kwargs):
+        self.calls += 1
+        out, idx = real_fn(x, *args, return_indices=True, **kwargs)
+        if self.mode == "record":
+            self.masks.append(idx.cpu())
+        else:
+            card = self.masks[self.calls - 1].to(x.device)
+            flat = x.flatten(2)
+            picked = flat.gather(2, card.flatten(2)).view_as(out)
+            self._note(idx != card, (out - picked).detach(), x.detach())
+            out = picked
+        return (out, idx) if return_indices else out
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        self._saved = F.relu, F.leaky_relu, torch.abs, F.max_pool2d
+        relu, leaky, absolute, pool = self._saved
+        self.calls = 0
+        F.relu = lambda x, inplace=False: self._act(relu, 0.0, x)
+        F.leaky_relu = lambda x, negative_slope=0.01, inplace=False: self._act(
+            leaky, negative_slope, x, negative_slope)
+        torch.abs = lambda x: self._act(absolute, -1.0, x)
+        F.max_pool2d = lambda x, *a, **k: self._pool(pool, x, *a, **k)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+
+        F.relu, F.leaky_relu, torch.abs, F.max_pool2d = self._saved
+        self.mode = "replay"
+
+
+def step_grad_errors(got: dict, want: dict) -> tuple[dict, dict, dict]:
+    """Each gradient's largest error over its own largest |g| (over its
+    module's largest where it vanishes, under 1e-3 of that: a bias in
+    front of a normalisation has a gradient of exactly 0), and over its
+    module's largest; and the modules' scales. Keys "<module>.<name>"."""
+    scales = {}
+    for k, w in want.items():
+        part = k.split(".")[0]
+        scales[part] = max(scales.get(part, 0.0), w.abs().max().item())
+    own, module = {}, {}
+    for k, w in want.items():
+        scale, part_scale = w.abs().max().item(), scales[k.split(".")[0]]
+        err = (got[k].double() - w.double()).abs().max().item()
+        part_scale = part_scale or 1.0  # a module whose loss weight is 0
+        own[k] = err / (scale if scale > 1e-3 * part_scale else part_scale)
+        module[k] = err / part_scale
+    return own, module, scales
+
+
+def worst(errs: dict, n: int = 8) -> list:
+    return sorted(errs.items(), key=lambda r: -r[1])[:n]
+
+
 def vqgan_whole_step_check(dev):
     """One VQGAN training step (step 0: data init, GAN, LPIPS, EMA) in
     fp32 at full width, batch 1: cuDNN, K9 and the trainer on the card
-    against the plain path on the CPU, same weights, video and draws.
-    The CPU step takes the card's codes where the two differ at a
-    near-tie (held to code_mismatches), so both sides run the same
-    arithmetic after the search."""
+    against the plain path on the CPU in float64, same weights, video
+    and draws; the plain path in fp32 too, reported beside it (how far
+    fp32 arithmetic itself holds the step's gradients). Each plain step
+    takes the card's codes where they differ at a near-tie (held to
+    code_mismatches) and the card's branch at every relu, leaky-relu,
+    abs and max-pool kink (KinkReplay: held to 1e-4 of each input's
+    scale), so all sides differentiate the same piecewise-linear
+    function."""
     import mebt_tpu_torch.models.vqgan as vqgan_mod
     from mebt_tpu_torch.models.lpips import LPIPS
     from mebt_tpu_torch.models.vqgan import VQGANConfig
-    from mebt_tpu_torch.ops.vq import code_mismatches, nearest_code, nearest_code_ref
+    from mebt_tpu_torch.ops.vq import code_mismatches, nearest_code_ref
     from mebt_tpu_torch.train.vqgan_train import METRICS, VQGANTrainer
 
     cfg = VQGANConfig(**VQGAN_TRAIN)
     card = vqgan_trainer(dev)
-    cpu_lpips = LPIPS()
-    cpu_lpips.load_state_dict({k: v.cpu() for k, v in card.lpips.state_dict().items()})
-    cpu = VQGANTrainer(cfg, lr=VQGAN_LR, lpips=cpu_lpips, seed=0, device="cpu")
-    cpu.init_state()
-    for name in ("vqgan", "disc_img", "disc_vid"):
-        getattr(cpu.state, name).load_state_dict(
-            {k: v.cpu() for k, v in getattr(card.state, name).state_dict().items()})
+
+    def plain(dtype):
+        """The CPU trainer at the card's weights, its modules in `dtype`
+        (their optimizers keep the same parameters)."""
+        lp = LPIPS()
+        lp.load_state_dict({k: v.cpu() for k, v in card.lpips.state_dict().items()})
+        t = VQGANTrainer(cfg, lr=VQGAN_LR, lpips=lp.to(dtype), seed=0, device="cpu")
+        t.init_state()
+        for name in ("vqgan", "disc_img", "disc_vid"):
+            module = getattr(t.state, name)
+            module.load_state_dict(
+                {k: v.cpu() for k, v in getattr(card.state, name).state_dict().items()})
+            module.to(dtype)
+        return t
+
     g = torch.Generator().manual_seed(21)
     d = cfg.downsample
     M, D, K = 16 // d[0] * (RES // d[1]) * (RES // d[2]), cfg.embedding_dim, cfg.n_codes
@@ -2244,12 +2349,10 @@ def vqgan_whole_step_check(dev):
         seen.update(flat=flat.cpu(), emb=emb.cpu(), codes=real_nearest(flat, emb))
         return seen["codes"]
 
-    def cpu_search(flat, emb):
-        plain = nearest_code_ref(flat, emb)
+    def plain_search(flat, emb):
         card_codes = seen["codes"].cpu()
-        seen["cpu"] = code_mismatches(flat, emb, card_codes, plain)
-        seen["k9"] = code_mismatches(seen["flat"], seen["emb"], card_codes,
-                                     nearest_code_ref(seen["flat"], seen["emb"]))
+        seen.setdefault("plain", []).append(
+            code_mismatches(flat, emb, card_codes, nearest_code_ref(flat, emb)))
         return card_codes
 
     def grads(t):
@@ -2259,47 +2362,60 @@ def vqgan_whole_step_check(dev):
                                   ("disc_vid", st.disc_vid))
                 for n, p in mod.named_parameters()}
 
+    kinks = KinkReplay()
+    runs = {}
+    plains = {dtype: plain(dtype) for dtype in (torch.float64, torch.float32)}  # pre-step weights
     try:
         vqgan_mod.nearest_code = card_search
-        (got_m, launches, _) = counted(lambda: card.step(video, draws=dict(draws)))
+        with kinks:
+            (got_m, launches, _) = counted(lambda: card.step(video, draws=dict(draws)))
         got_m = {k: float(v) for k, v in got_m.items()}
         got_g = grads(card)
-        vqgan_mod.nearest_code = cpu_search
+        vqgan_mod.nearest_code = plain_search
         torch.set_num_threads(os.cpu_count() or 1)
-        t0 = time.perf_counter()
-        want_m = {k: float(v) for k, v in cpu.step(video, draws=dict(draws)).items()}
-        cpu_s = time.perf_counter() - t0
+        for dtype, t in plains.items():
+            t0 = time.perf_counter()
+            with kinks:
+                m = {k: float(v) for k, v in t.step(video, draws=dict(draws)).items()}
+            runs[str(dtype).split(".")[1]] = (m, grads(t), time.perf_counter() - t0,
+                                              kinks.calls)
     finally:
         vqgan_mod.nearest_code = real_nearest
-    want_g = grads(cpu)
     require(launches == [0] * 8 + [1], f"vqgan whole step: launches {launches}")
-    for what in ("cpu", "k9"):
-        n, gap, over = seen[what]
-        require(over <= 1, f"vqgan whole step: codes card vs {what}: {n} differ beyond "
-                           f"near-ties ({gap}: {over})")
+    k9 = code_mismatches(seen["flat"], seen["emb"], seen["codes"].cpu(),
+                         nearest_code_ref(seen["flat"], seen["emb"]))
+    for what, (n, gap, over) in zip(("K9 vs plain", "card vs float64", "card vs fp32"),
+                                    [k9, *seen["plain"]]):
+        require(over <= 1, f"vqgan whole step: codes {what}: {n} differ beyond near-ties "
+                           f"({gap}: {over})")
+    require(all(r[3] == len(kinks.masks) for r in runs.values()) and kinks.over <= 1,
+            f"vqgan whole step: {kinks.flips} kink branches other than the card's, up to "
+            f"{kinks.over} of the band ({len(kinks.masks)} calls)")
+    want_m, want_g, cpu_s, _ = runs["float64"]
     rel = {k: abs(got_m[k] - want_m[k]) / max(abs(want_m[k]), 1e-30) for k in METRICS}
     require(rel["loss"] <= 1e-4 and rel["discloss"] <= 1e-4,
             f"vqgan whole step: losses {got_m} vs {want_m}")
-    # each gradient against its own scale, or against its module's largest
-    # where it vanishes (a bias in front of a normalisation: exactly 0)
-    worst, by_part = {}, {}
-    for k, w in want_g.items():
-        part = k.split(".")[0]
-        by_part[part] = max(by_part.get(part, 0.0), w.abs().max().item())
-    for k, w in want_g.items():
-        scale = w.abs().max().item()
-        part_scale = by_part[k.split(".")[0]]
-        scale = scale if scale > 1e-3 * part_scale else part_scale
-        worst[k] = (got_g[k] - w).abs().max().item() / scale
-    top = sorted(worst.items(), key=lambda r: -r[1])[:5]
+    own, module, scales = step_grad_errors(got_g, want_g)
+    own32, module32, _ = step_grad_errors(runs["float32"][1], want_g)
     require(all(bool(torch.isfinite(v).all()) for v in got_g.values()),
             "vqgan whole step: a card gradient is not finite")
-    require(top[0][1] <= 1e-3, f"vqgan whole step: gradients {top}")
-    return dict(phase="vqgan_whole_step", config="vqgan_train", dtype="float32", batch=1,
+    require(worst(own)[0][1] <= 1e-3,
+            f"vqgan whole step: gradients {worst(own)}; over the module's scale "
+            f"{worst(module)}; the plain fp32 step's {worst(own32, 3)}")
+    return dict(phase="vqgan_whole_step", config="vqgan_train", dtype="float32",
+                plain_dtype="float64", batch=1,
                 metrics_card=got_m, metrics_plain_cpu=want_m, metric_rel_diff=rel,
-                loss_tol=1e-4, grad_tensors=len(worst), grad_worst_rel=top, grad_tol=1e-3,
-                codes_differing_card_vs_cpu=seen["cpu"][0], gap_over_bound=seen["cpu"][2],
-                codes_differing_k9_vs_plain=seen["k9"][0], plain_cpu_s=cpu_s)
+                loss_tol=1e-4, grad_tensors=len(own), grad_worst_rel=worst(own),
+                grad_worst_over_module=worst(module), grad_module_scales=scales,
+                grad_tol=1e-3, plain_fp32_grad_worst_rel=worst(own32),
+                plain_fp32_grad_worst_over_module=worst(module32),
+                plain_fp32_loss_rel_diff=abs(runs["float32"][0]["loss"] - want_m["loss"])
+                / abs(want_m["loss"]),
+                codes_differing_k9_vs_plain=k9[0], codes_differing_card_vs_cpu=seen["plain"][0][0],
+                gap_over_bound=seen["plain"][0][2], kink_calls=len(kinks.masks),
+                kink_branches_not_the_cards=kinks.flips, kink_band=kinks.band,
+                kink_branch_gap_over_band=kinks.over, plain_cpu_s=cpu_s,
+                plain_fp32_cpu_s=runs["float32"][2])
 
 
 # ---------------------------------------------------------------------------
@@ -2382,8 +2498,7 @@ def run_ckpt16(dev, out_dir, card, gen16_codes, train_ran: bool):
         vq_path = os.path.join(ckdir, "vqgan_tats.ckpt")
         torch.save({"state_dict": {k: v.cpu() for k, v in vqgan.state_dict().items()},
                     "hyper_parameters": {"args": argparse.Namespace(
-                        **dataclasses.asdict(vqgan.config), norm_type="group",
-                        padding_type="replicate")}}, vq_path)
+                        **dataclasses.asdict(vqgan.config))}}, vq_path)
         del sd
 
         args = build_argparser().parse_args(["--gpt_ckpt", path])

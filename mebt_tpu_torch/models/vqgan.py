@@ -1,5 +1,6 @@
-"""3-D VQGAN (mebt_tpu/models/vqgan.py:38-93, 194-498): the frozen
-tokenizer of MeBT training and generation.
+"""3-D VQGAN (mebt_tpu/models/vqgan.py:38-498): the tokenizer of MeBT
+training and generation, frozen there, and the generator of VQGAN
+training (train/vqgan_train.py).
 
 `VQGAN.encode` takes (B, C, T, H, W) pixels and returns (B, t, h, w)
 codes: Encoder (conv_first, per stage a strided conv and a ResBlock,
@@ -285,7 +286,8 @@ def codebook_init_from_data(codebook: Codebook, z: torch.Tensor,
     `perm` (a permutation of the tiled rows) and `noise` replace the
     draws from `generator` (the tests replay the JAX key chain)."""
     n_codes, dim = codebook.embeddings.shape
-    y = _tile_to_codes(z.reshape(-1, dim).float(), n_codes, generator, noise)
+    y = _tile_to_codes(z.reshape(-1, dim).to(codebook.embeddings.dtype), n_codes, generator,
+                       noise)
     if perm is None:
         perm = torch.randperm(y.shape[0], generator=generator, device=y.device)
     k_rand = y[perm[:n_codes].to(y.device)]
@@ -310,9 +312,9 @@ def codebook_ema_update(codebook: Codebook, z: torch.Tensor, codes: torch.Tensor
     permuted. `perm` (the restart's permutation of the tiled rows) and
     `noise` replace the draws from `generator`."""
     n_codes, dim = codebook.embeddings.shape
-    flat = z.reshape(-1, dim).float()
+    flat = z.reshape(-1, dim).to(codebook.z_avg.dtype)
     codes = codes.reshape(-1)
-    onehot_sum = torch.bincount(codes, minlength=n_codes).float()
+    onehot_sum = torch.bincount(codes, minlength=n_codes).to(flat.dtype)
     encode_sum = torch.zeros_like(codebook.z_avg).index_add_(0, codes, flat)
 
     new_N = codebook.N * decay + onehot_sum * (1.0 - decay)

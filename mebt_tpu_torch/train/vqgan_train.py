@@ -111,12 +111,14 @@ class VQGANTrainer:
     # -- one fused step ---------------------------------------------------------
 
     def step(self, video: torch.Tensor, draws: dict | None = None) -> dict[str, torch.Tensor]:
-        """One training step on `video` (B, T, H, W, C) in [-0.5, 0.5];
-        returns the metrics as 0-d tensors on the device (no host sync).
-        `draws` may hold any of DRAWS in place of the generator's."""
+        """One training step on `video` (B, T, H, W, C) in [-0.5, 0.5],
+        in the dtype of the modules' parameters (fp32; the card check's
+        plain reference moves them to float64); returns the metrics as
+        0-d tensors on the device (no host sync). `draws` may hold any of
+        DRAWS in place of the generator's."""
         st, cfg = self.state, self.config
         vq, disc_img, disc_vid = st.vqgan, st.disc_img, st.disc_vid
-        video = video.to(self.device, torch.float32)
+        video = video.to(self.device, vq.pre_vq_conv.conv.weight.dtype)
         B, T = video.shape[:2]
         draws = dict(draws or {})
         unknown = set(draws) - set(DRAWS)
