@@ -99,11 +99,29 @@
    rule, every relu / leaky-relu / abs / max-pool kink on the card's
    branch but within 1e-4 of its input's scale), the plain fp32 step
    reported beside it;
-15. prints the kernels' JSON line and, last, the result line.
+
+15. runs the parallel decode (parallel/mesh.py, parallel/sp.py) on the
+   one card, each rank a process spawned on cuda:0 that reports its
+   launch counts to this one (summed): `tp16`, STL-16f at full width
+   under tensor parallelism (model 2, two ranks in a gloo group), the
+   sharded K3 at R 16384 bit-equal to the whole head's ids, one TP
+   forward's logits within the bf16 bound (twice the single-rank bf16
+   logits' distance from an fp32 forward), then the recipe's generation,
+   after which both ranks hold the same canvas; `tp16_nccl`, the same
+   generation on a world-size-1 nccl group, its codes bit-equal to
+   gen16's; `tp128`, STL-128f, model 2, the sharded K4 at R 16384
+   bit-equal to the whole head's, then the recipe with its MaskGIT phase
+   cut to 8 steps; `sp128`, STL-128f, N 8192 split over seq 2, one SP
+   forward within the bf16 bound and a dense sp_maskgit_sample of the
+   whole canvas (32 steps, top-k 32), every step's promotion identical on
+   both ranks. gloo copies the collectives through the host: no time of
+   these phases is a multi-GPU time;
+16. prints the kernels' JSON line and, last, the result line.
 
 `--only a,b` runs a subset of the phases (k1 k2 k3 k4 k5 k6 k7 k8 k9
 gen16 gen128 dnr16 dnr128 whole whole_dnr train whole_train train_video
-train_video_128 whole_video ckpt16 fvd16 vqgan_train)
+train_video_128 whole_video ckpt16 fvd16 tp16 tp16_nccl tp128 sp128
+vqgan_train)
 while developing; it then prints no kernels line and no result line.
 
 Any failure exits non-zero. Without a CUDA device, or without the
@@ -2698,6 +2716,411 @@ def run_fvd16(dev, out_dir, card, samples16):
         host_frechet_s_2048x400=fd_s, host_polynomial_mmd_s_2048x400=mmd_s)
 
 
+# ---------------------------------------------------------------------------
+# the parallel decode (parallel/mesh.py, parallel/sp.py) on one card: the
+# ranks are processes spawned on cuda:0, in a gloo group (its collectives
+# copy CUDA tensors through the host, so no time here is a multi-GPU time)
+# or, for tp16_nccl, a world-size-1 nccl group
+
+# STL-128f under tensor parallelism: the recipe with the MaskGIT phase cut
+# from 32 steps to 8 (the bootstrap's 64 kept); under sequence parallelism
+# the dense scan at the full N from an empty canvas, 32 steps at top-k 32
+TP128_RECIPE = dict(RECIPE128, vid_n_steps=8)
+SP128_STEPS = 32
+PARALLEL_TIMEOUT_S = 900
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _parallel_worker(rank, world, port, backend, phase, args, results):
+    """A rank of a parallel phase: joins the group, runs the phase's rank
+    body on cuda:0 and puts (rank, its report) on `results`. An error
+    ends the process with a non-zero code, which fails the phase."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S))
+    try:
+        out = PARALLEL_RANKS[phase](torch.device("cuda", 0), **args)
+        torch.cuda.synchronize()
+        results.put((rank, out))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(phase: str, world: int, backend: str = "gloo", **args) -> list[dict]:
+    """The reports of `world` ranks of `phase`, spawned and waited for; a
+    rank that fails (or a run past PARALLEL_TIMEOUT_S) fails the phase,
+    and every rank still running is stopped."""
+    import queue
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_parallel_worker,
+                         args=(r, world, port, backend, phase, args, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got, t0 = {}, time.perf_counter()
+    try:
+        while len(got) < world:
+            try:
+                rank, out = results.get(timeout=5)
+                got[rank] = out
+            except queue.Empty:
+                bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+                require(not bad, f"{phase}: rank(s) failed (rank, exit code): {bad}")
+                require(time.perf_counter() - t0 < PARALLEL_TIMEOUT_S,
+                        f"{phase}: ranks ran past {PARALLEL_TIMEOUT_S} s")
+        for p in procs:
+            p.join(120)
+        bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+        require(not bad, f"{phase}: rank(s) ended badly (rank, exit code): {bad}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    return [got[r] for r in range(world)]
+
+
+@torch.no_grad()
+def sharded_head_check(dev, model, tp, mesh, R: int, k: int | None) -> dict:
+    """The sharded K3 (k None) or K4 on this rank's vocabulary rows
+    against the whole-head kernel at one seed, temperatures 1 and 0, x
+    (R, D) from a seed (the same on every rank): ids bit for bit,
+    probabilities' relative error; CUDA-event times of both (the sharded
+    call holds the gloo gather of the slices' states)."""
+    from mebt_tpu_torch.ops.head_sample import head_sample, head_topk_sample
+
+    D = model.config.n_embd
+    x = torch.randn(R, D, device=dev, generator=torch.Generator(dev).manual_seed(5))
+    x = x.to(torch.bfloat16)
+    w, w_l = model.transformer.head.weight, tp.transformer.head.weight
+
+    def whole(seed, t):
+        return head_sample(x, w, seed, t) if k is None else head_topk_sample(x, w, seed, k, t)
+
+    def sharded(seed, t):
+        if k is None:
+            return head_sample(x, w_l, seed, t, mesh=mesh)
+        return head_topk_sample(x, w_l, seed, k, t, mesh=mesh)
+
+    out = dict(rows=R, vocab=w.shape[0], vocab_rows_here=w_l.shape[0], k=k)
+    for t in (1.0, 0.0):
+        a, b = whole(1234, t), sharded(1234, t)
+        out[f"ids_differing_t{t:g}"] = int((a[0] != b[0]).sum().item())
+        out[f"prob_rel_err_t{t:g}"] = ((a[1] - b[1]).abs() / a[1]).max().item()
+    out["whole_ms"] = cuda_ms(lambda: whole(7, 1.0))
+    out["sharded_ms"] = cuda_ms(lambda: sharded(7, 1.0))
+    return out
+
+
+def logits_errors(dev, dims, got, ref_bf16, codes, ctx, cut=slice(None)) -> dict:
+    """The bf16 bound of sharded logits `got`: the single-rank bf16 logits
+    `ref_bf16` and the sharded ones each against an fp32 forward of the
+    same seeded weights (positions `cut`); the sharded logits must stay
+    within twice the single-rank bf16 error."""
+    from mebt_tpu_torch.cli.common import random_mebt
+    from mebt_tpu_torch.models.mebt import MeBTConfig
+
+    f32 = random_mebt(MeBTConfig(dtype=torch.float32, **dims), 0, dev)
+    with torch.no_grad():
+        want = f32(codes, ctx, ~ctx)[:, cut]
+    del f32
+    e_single = (ref_bf16 - want).abs().max().item()
+    e_got = (got - want).abs().max().item()
+    return dict(max_err_vs_fp32=e_got, single_rank_max_err_vs_fp32=e_single,
+                max_diff_vs_single_rank=(got - ref_bf16).abs().max().item(),
+                bound=2 * e_single, fp32_logit_max=want.abs().max().item())
+
+
+def tp16_rank(dev) -> dict:
+    """STL-16f at full width, model 2: the sharded K3 at R 16384, one TP
+    forward against the single-rank one, then the recipe's generation
+    (bidirect_generate, batch 16) on the sharded model, counted."""
+    from mebt_tpu_torch.cli.common import random_mebt, random_vqgan
+    from mebt_tpu_torch.models.mebt import MeBTConfig, on_mesh
+    from mebt_tpu_torch.models.vqgan import VQGANConfig
+    from mebt_tpu_torch.parallel.mesh import make_mesh
+    from mebt_tpu_torch.sampler.generation import bidirect_generate
+
+    mesh = make_mesh(data=1, model=2)
+    model = random_mebt(MeBTConfig(dtype=torch.bfloat16, **STL16), 0, dev)
+    tp = on_mesh(model, mesh)
+    out = dict(coords=mesh.coords, k3=sharded_head_check(dev, model, tp, mesh, 16384, None))
+    g = torch.Generator(dev).manual_seed(3)
+    codes = torch.randint(0, STL16["vocab_size"], (BATCH, 1024), device=dev, generator=g)
+    ctx = torch.rand(BATCH, 1024, device=dev, generator=g) < 0.4
+    with torch.no_grad():
+        got = tp(codes, ctx, ~ctx)
+        ref = model(codes, ctx, ~ctx)
+    out["logits"] = logits_errors(dev, STL16, got, ref, codes, ctx)
+    del model, got, ref
+    torch.cuda.empty_cache()
+    vqgan = random_vqgan(VQGANConfig(n_codes=STL16["vocab_size"], downsample=(4, 8, 8)), 1, dev)
+    res, launches, wall = counted(lambda: bidirect_generate(tp, vqgan, 0, BATCH, **RECIPE))
+    out.update(launches=launches, wall_s=wall, code_maps=res.code_maps,
+               samples_shape=list(res.samples.shape), samples_std=float(res.samples.std()),
+               score=res.score, peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def tp16_nccl_rank(dev) -> dict:
+    """gen16's generation through the sharded modules on a world-size-1
+    nccl group (model 1): the NCCL collectives on the card. A first run
+    (NCCL's communicators start on first use) warms it; the second is
+    counted."""
+    from mebt_tpu_torch.cli.common import random_mebt, random_vqgan
+    from mebt_tpu_torch.models.mebt import MeBTConfig, on_mesh
+    from mebt_tpu_torch.models.vqgan import VQGANConfig
+    from mebt_tpu_torch.parallel.mesh import make_mesh
+    from mebt_tpu_torch.sampler.generation import bidirect_generate
+
+    mesh = make_mesh(data=1, model=1)
+    tp = on_mesh(random_mebt(MeBTConfig(dtype=torch.bfloat16, **STL16), 0, dev), mesh)
+    vqgan = random_vqgan(VQGANConfig(n_codes=STL16["vocab_size"], downsample=(4, 8, 8)), 1, dev)
+    _, first = timed(lambda: bidirect_generate(tp, vqgan, 0, BATCH, **RECIPE))
+    res, launches, wall = counted(lambda: bidirect_generate(tp, vqgan, 0, BATCH, **RECIPE))
+    return dict(launches=launches, wall_s=wall, first_wall_s=first, code_maps=res.code_maps)
+
+
+def tp128_rank(dev) -> dict:
+    """STL-128f at full width, model 2: the sharded K4 at R 16384 (the
+    first segment's rows), then the recipe's generation with the MaskGIT
+    phase cut to TP128_RECIPE's steps, counted."""
+    from mebt_tpu_torch.cli.common import random_mebt, random_vqgan
+    from mebt_tpu_torch.models.mebt import MeBTConfig, on_mesh
+    from mebt_tpu_torch.models.vqgan import VQGANConfig
+    from mebt_tpu_torch.parallel.mesh import make_mesh
+    from mebt_tpu_torch.sampler.generation import bidirect_generate
+
+    mesh = make_mesh(data=1, model=2)
+    model = random_mebt(MeBTConfig(dtype=torch.bfloat16, **STL128), 0, dev)
+    tp = on_mesh(model, mesh)
+    out = dict(coords=mesh.coords,
+               k4=sharded_head_check(dev, model, tp, mesh, BATCH128 * 8192,
+                                     RECIPE128["top_k"]))
+    del model
+    torch.cuda.empty_cache()
+    vqgan = random_vqgan(VQGANConfig(n_codes=STL128["vocab_size"], downsample=(4, 8, 8)), 1, dev)
+    res, launches, wall = counted(
+        lambda: bidirect_generate(tp, vqgan, 0, BATCH128, **TP128_RECIPE))
+    out.update(launches=launches, wall_s=wall, code_maps=res.code_maps,
+               samples_shape=list(res.samples.shape), samples_std=float(res.samples.std()),
+               score=res.score, peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def sp128_rank(dev) -> dict:
+    """STL-128f at full width, N 8192 split over seq 2: one SP forward
+    against the single-rank dense one, then a dense sp_maskgit_sample of
+    the whole canvas (SP128_STEPS steps, top-k 32, ctemp 4.0), counted;
+    reports each step's promotion over the whole canvas."""
+    from mebt_tpu_torch.cli.common import random_mebt
+    from mebt_tpu_torch.models.mebt import MeBTConfig
+    from mebt_tpu_torch.parallel.mesh import make_mesh
+    from mebt_tpu_torch.parallel.sp import (
+        canvas_block, canvas_span, sp_forward, sp_maskgit_sample, sp_model)
+    from mebt_tpu_torch.sampler.mask_schedule import maskgit_plan
+
+    mesh = make_mesh(data=1, model=1, seq=2)
+    N, B = 8192, BATCH128
+    model = random_mebt(MeBTConfig(dtype=torch.bfloat16, **STL128), 0, dev)
+    msp = sp_model(model, mesh)
+    g = torch.Generator(dev).manual_seed(3)
+    codes = torch.randint(0, STL128["vocab_size"], (B, N), device=dev, generator=g)
+    ctx = torch.rand(B, N, device=dev, generator=g) < 0.4
+    span = canvas_span(N, mesh)
+    got = sp_forward(msp, *(canvas_block(t, mesh) for t in (codes, ctx, ~ctx)), mesh)
+    with torch.no_grad():
+        ref = model(codes, ctx, ~ctx)[:, span]
+    out = dict(coords=mesh.coords,
+               logits=logits_errors(dev, STL128, got, ref, codes, ctx, span))
+    del model, got, ref
+    torch.cuda.empty_cache()
+    plan = maskgit_plan(N, SP128_STEPS, "cosine", "linear")
+    promoted = []
+    (c, m, p), launches, wall = counted(lambda: sp_maskgit_sample(
+        msp, 0, B, plan, mesh, temperature=1.0, top_k=RECIPE128["top_k"],
+        context_temperature=RECIPE128["vid_c_temp"], promoted=promoted))
+    out.update(launches=launches, wall_s=wall, codes=c.cpu().numpy(), ctx=m.cpu().numpy(),
+               chosen_finite=bool(torch.isfinite(p).all()),
+               promoted=torch.stack(promoted).cpu().numpy(), n_new=plan.n_new[plan.do_step],
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+PARALLEL_RANKS = {"tp16": tp16_rank, "tp16_nccl": tp16_nccl_rank, "tp128": tp128_rank,
+                  "sp128": sp128_rank}
+
+
+def summed(reports) -> list[int]:
+    """The ranks' launch counts, summed (a counter is per process)."""
+    return [int(sum(col)) for col in zip(*(r["launches"] for r in reports))]
+
+
+def same_canvas(reports, key) -> bool:
+    return all(np.array_equal(r[key], reports[0][key]) for r in reports[1:])
+
+
+# The sharded head's probabilities: exp(l - lse), with the logsumexp's sum
+# taken over other slices; an fp32 ulp of an lse up to 16 (2^-19) moves
+# the probability by that much relative, some 16 of its own ulps. The gate
+# is 4 ulps of the lse.
+HEAD_PROB_RTOL = 4 * 2.0**-19
+
+
+def head_gate(name, checks) -> dict:
+    for c in checks:
+        for t in ("1", "0"):
+            require(c[f"ids_differing_t{t}"] == 0,
+                    f"{name}: the sharded head's ids differ from the whole head's: {c}")
+            require(c[f"prob_rel_err_t{t}"] <= HEAD_PROB_RTOL,
+                    f"{name}: the sharded head's probabilities are {c[f'prob_rel_err_t{t}']} "
+                    f"off, relative (gate {HEAD_PROB_RTOL})")
+    return dict(checks[0], prob_rtol=HEAD_PROB_RTOL)
+
+
+def logits_gate(name, reports) -> dict:
+    worst = max((r["logits"] for r in reports), key=lambda e: e["max_err_vs_fp32"])
+    require(worst["max_err_vs_fp32"] <= worst["bound"],
+            f"{name}: logits {worst['max_err_vs_fp32']} from fp32, past the bf16 bound "
+            f"{worst['bound']}")
+    return worst
+
+
+def maskgit_plan_16():
+    """The plan of the 16f recipe's window."""
+    from mebt_tpu_torch.sampler.mask_schedule import maskgit_plan
+
+    return maskgit_plan(1024, RECIPE["vid_n_steps"], "cosine", "linear")
+
+
+def run_tp16(card) -> tuple[dict, list[int]]:
+    reports, wall = timed(lambda: run_ranks("tp16", 2))
+    k1_step, k2_step = attention_launches_per_step()
+    live = int(maskgit_plan_16().do_step.sum())
+    expect = [2 * live * k1_step, 2 * live * k2_step, 2 * live, 0, 0, 0, 0, 0, 0]
+    launches = summed(reports)
+    require(launches == expect, f"tp16 launches {launches} != expected {expect}")
+    require(same_canvas(reports, "code_maps"), "tp16: the model ranks' canvases differ")
+    codes = reports[0]["code_maps"]
+    require(codes.shape == (BATCH, 4, 16, 16) and codes.min() >= 0 and codes.max() < 16384
+            and len(np.unique(codes)) > 100, f"tp16: codes {codes.shape} [{codes.min()}, "
+                                              f"{codes.max()}]")
+    require(all(np.isfinite(r["score"]).all() and r["samples_std"] > 0 for r in reports),
+            "tp16: scores or samples degenerate")
+    return dict(
+        phase="tp16", config="stl_16f", card=card, mesh=dict(data=1, model=2), backend="gloo",
+        note="two ranks on one card; gloo copies every collective through the host",
+        batch=BATCH, sharded_k3=head_gate("tp16", [r["k3"] for r in reports]),
+        logits=logits_gate("tp16", reports), generate_wall_s=[r["wall_s"] for r in reports],
+        phase_wall_s=wall, peak_mem_gb=[r["peak_mem_gb"] for r in reports],
+        launches=dict(zip(KERNELS, launches)), expected_launches=dict(zip(KERNELS, expect)),
+    ), launches
+
+
+def run_tp16_nccl(dev, card, gen16_codes) -> tuple[dict, list[int]]:
+    if gen16_codes is None:  # gen16 did not run: its generation, here
+        from mebt_tpu_torch.cli.common import random_mebt, random_vqgan
+        from mebt_tpu_torch.models.mebt import MeBTConfig
+        from mebt_tpu_torch.models.vqgan import VQGANConfig
+        from mebt_tpu_torch.sampler.generation import bidirect_generate
+
+        model = random_mebt(MeBTConfig(dtype=torch.bfloat16, **STL16), 0, dev)
+        vqgan = random_vqgan(VQGANConfig(n_codes=STL16["vocab_size"], downsample=(4, 8, 8)),
+                             1, dev)
+        gen16_codes = bidirect_generate(model, vqgan, 0, BATCH, **RECIPE).code_maps
+        del model, vqgan
+        torch.cuda.empty_cache()
+    (report,), wall = timed(lambda: run_ranks("tp16_nccl", 1, backend="nccl"))
+    k1_step, k2_step = attention_launches_per_step()
+    live = int(maskgit_plan_16().do_step.sum())
+    expect = [live * k1_step, live * k2_step, live, 0, 0, 0, 0, 0, 0]
+    require(report["launches"] == expect,
+            f"tp16_nccl launches {report['launches']} != expected {expect}")
+    differ = int((report["code_maps"] != gen16_codes).sum())
+    require(differ == 0, f"tp16_nccl: {differ} codes differ from gen16's")
+    return dict(phase="tp16_nccl", config="stl_16f", card=card, mesh=dict(data=1, model=1),
+                backend="nccl", batch=BATCH, codes_differing_from_gen16=differ,
+                generate_wall_s=report["wall_s"], first_generate_wall_s=report["first_wall_s"],
+                phase_wall_s=wall,
+                launches=dict(zip(KERNELS, report["launches"]))), report["launches"]
+
+
+def run_tp128(card) -> tuple[dict, list[int]]:
+    from mebt_tpu_torch.sampler.mask_schedule import bootstrap_plan, maskgit_plan
+
+    reports, wall = timed(lambda: run_ranks("tp128", 2))
+    n_boot = TP128_RECIPE["bootstrap"]
+    live_boot = int(bootstrap_plan(8192, n_boot).do_step.sum())
+    live = int(maskgit_plan(8192, TP128_RECIPE["vid_n_steps"], "cosine", "linear",
+                            n_ctx_init=n_boot).do_step.sum())
+    k1_step, k2_step = attention_launches_per_step()
+    expect = [2 * (live_boot + live) * k1_step, 2 * (live_boot + live) * k2_step, 0, 2 * live,
+              0, 0, 0, 0, 0]
+    launches = summed(reports)
+    require(launches == expect, f"tp128 launches {launches} != expected {expect}")
+    require(same_canvas(reports, "code_maps"), "tp128: the model ranks' canvases differ")
+    codes = reports[0]["code_maps"]
+    require(codes.shape == (BATCH128, 32, 16, 16) and codes.min() >= 0 and codes.max() < 16384
+            and len(np.unique(codes)) > 100, f"tp128: codes {codes.shape}")
+    require(all(np.isfinite(r["score"]).all() and r["samples_std"] > 0 for r in reports),
+            "tp128: scores or samples degenerate")
+    return dict(
+        phase="tp128", config="stl_128f", card=card, mesh=dict(data=1, model=2), backend="gloo",
+        note="two ranks on one card; gloo copies every collective through the host",
+        batch=BATCH128, cut=f"MaskGIT steps {RECIPE128['vid_n_steps']} -> "
+                           f"{TP128_RECIPE['vid_n_steps']} (bootstrap {n_boot} kept)",
+        live_steps=dict(bootstrap=live_boot, maskgit=live),
+        sharded_k4=head_gate("tp128", [r["k4"] for r in reports]),
+        generate_wall_s=[r["wall_s"] for r in reports], phase_wall_s=wall,
+        peak_mem_gb=[r["peak_mem_gb"] for r in reports],
+        launches=dict(zip(KERNELS, launches)), expected_launches=dict(zip(KERNELS, expect)),
+    ), launches
+
+
+def run_sp128(card) -> tuple[dict, list[int]]:
+    reports, wall = timed(lambda: run_ranks("sp128", 2))
+    steps = len(reports[0]["n_new"])
+    k2_step = attention_launches_per_step()[1]
+    expect = [0, 2 * steps * k2_step, 0, 0, 0, 0, 0, 0, 0]
+    launches = summed(reports)
+    require(launches == expect, f"sp128 launches {launches} != expected {expect}")
+    require(same_canvas(reports, "promoted"), "sp128: the seq ranks' promotions differ")
+    prom = reports[0]["promoted"]  # (steps, B, N)
+    require(np.array_equal(prom.sum(axis=-1), np.repeat(reports[0]["n_new"][:, None], BATCH128, 1)),
+            "sp128: a step promoted other than the plan's count")
+    codes = np.concatenate([r["codes"] for r in reports], axis=1)
+    ctx = np.concatenate([r["ctx"] for r in reports], axis=1)
+    require(np.array_equal(ctx, prom.any(axis=0)), "sp128: the ranks' spans miss a promotion")
+    require(codes.min() >= 0 and codes.max() < 16384 and len(np.unique(codes)) > 100
+            and all(r["chosen_finite"] for r in reports), "sp128: codes or probabilities invalid")
+    return dict(
+        phase="sp128", config="stl_128f", card=card, mesh=dict(data=1, model=1, seq=2),
+        backend="gloo", note="two ranks on one card; gloo copies every collective through "
+                             "the host", batch=BATCH128, steps=steps, top_k=RECIPE128["top_k"],
+        logits=logits_gate("sp128", reports), decode_wall_s=[r["wall_s"] for r in reports],
+        phase_wall_s=wall, peak_mem_gb=[r["peak_mem_gb"] for r in reports],
+        launches=dict(zip(KERNELS, launches)), expected_launches=dict(zip(KERNELS, expect)),
+    ), launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="results/chip_smoke",
@@ -2809,6 +3232,20 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             report["vqgan_whole_step"] = vqgan_whole_step_check(dev)
             emit(report["vqgan_whole_step"])
+        torch.cuda.empty_cache()
+        if on("tp16"):
+            report["tp16"], launches["stl_16f_tp16"] = run_tp16(smi)
+            emit(report["tp16"])
+        if on("tp16_nccl"):
+            report["tp16_nccl"], launches["stl_16f_tp16_nccl"] = run_tp16_nccl(
+                dev, smi, None if gen16 is None else gen16.code_maps)
+            emit(report["tp16_nccl"])
+        if on("tp128"):
+            report["tp128"], launches["stl_128f_tp128"] = run_tp128(smi)
+            emit(report["tp128"])
+        if on("sp128"):
+            report["sp128"], launches["stl_128f_sp128"] = run_sp128(smi)
+            emit(report["sp128"])
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -2825,15 +3262,16 @@ def main(argv=None) -> int:
 
     def entry(i, name, replaces, row, src="mebt_tpu_torch/csrc/attention.cu", **extra):
         """`launches` is the count on the newest path that runs the
-        kernel: VQGAN training (5 steps) for K9, 16f generation and
-        encode from an imported checkpoint (ckpt16) for K1, K2 and K3,
-        128f training from video (2
-        optimizer steps under the main remat policy) for the backward
-        kernels and K8, 128f generation for K4; 0 for K5, which no path
+        kernel: VQGAN training (5 steps) for K9, the tensor-parallel 16f
+        generation (tp16, both ranks' counts summed) for K1, K2 and K3,
+        the tensor-parallel 128f generation (tp128) for K4, 128f
+        training from video (2 optimizer steps under the main remat
+        policy) for the backward kernels and K8; 0 for K5, which no path
         runs."""
         by_path = {path: counts[i] for path, counts in launches.items()}
         newest = [by_path.get(p, 0) for p in (
-            "vqgan_train_16f", "stl_16f_ckpt", "stl_16f_ckpt_exp", "stl_128f_dnr", "stl_16f_dnr", "stl_16f_dnr_scratch", "stl_16f_extrapolate",
+            "vqgan_train_16f", "stl_16f_tp16", "stl_128f_tp128", "stl_128f_sp128",
+            "stl_16f_tp16_nccl", "stl_16f_ckpt", "stl_16f_ckpt_exp", "stl_128f_dnr", "stl_16f_dnr", "stl_16f_dnr_scratch", "stl_16f_extrapolate",
             "stl_128f_train_video", "stl_16f_train_video", "stl_16f_train", "stl_128f",
             "stl_16f") if by_path.get(p, 0)]
         return dict(
@@ -2855,9 +3293,10 @@ def main(argv=None) -> int:
         entry(1, "K2 largeq_attention", "mebt_tpu/ops/attention_pallas.py:271",
               case(report["K2"], "latent_dec_128f")),
         entry(2, "K3 head_sample", "mebt_tpu/ops/head_sample_pallas.py:615",
-              case(report["K3"], "step1"), head_src),
+              case(report["K3"], "step1"), head_src, sharded=report["tp16"]["sharded_k3"]),
         entry(3, "K4 head_topk_sample", "mebt_tpu/ops/head_sample_pallas.py:428",
-              case(report["K4"], "step1_128f"), head_src),
+              case(report["K4"], "step1_128f"), head_src,
+              sharded=report["tp128"]["sharded_k4"]),
         entry(4, "K5 head_topk_sample_v1", "mebt_tpu/ops/head_sample_pallas.py:535",
               case(report["K5"], "step1_128f"), head_src,
               launched_in="the k5 phase only: no generation or training path runs it",

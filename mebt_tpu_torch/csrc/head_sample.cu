@@ -718,9 +718,9 @@ __device__ __forceinline__ void walk_slice(const bf16* __restrict__ x,
 struct SampleEpi {
   float m[4], s[4], best[4], bl[4];
   int bi[4];
-  int row0, t, R, V;
+  int row0, t, R, V, col_off;
   float inv_temp;
-  uint32_t seed;
+  uint32_t seed, row_off;
 
   __device__ __forceinline__ void chunk(const Acc& acc, int c0) {
 #pragma unroll 1
@@ -749,10 +749,12 @@ struct SampleEpi {
         for (int c = 0; c < 2 * HT_NT; ++c) {
           const int col = c0 + (c >> 1) * 8 + 2 * t + (c & 1);
           if (col < V) {
-            const float pert = l[c] - logf(exp_noise(seed, (uint32_t)row, (uint32_t)col));
+            const int gcol = col_off + col;  // the column of the whole vocabulary
+            const float pert =
+                l[c] - logf(exp_noise(seed, row_off + (uint32_t)row, (uint32_t)gcol));
             if (pert > b) {
               b = pert;
-              bc = col;
+              bc = gcol;
               bv = l[c];
             }
           }
@@ -795,11 +797,15 @@ struct SampleEpi {
   }
 };
 
-// K3 (bf16). Grid (row blocks of 32 nw rows, slices of cps chunks).
+// K3 (bf16). Grid (row blocks of 32 nw rows, slices of cps chunks). W holds
+// the vocabulary's columns [col_off, col_off + V) and x the batch's rows
+// [row_off, row_off + R): the noise and the stored columns are the whole
+// head's.
 __global__ void __launch_bounds__(HT_WARPS * 32, 2)
 head_sample_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                        float4* __restrict__ part, int* __restrict__ part_col, int R, int D,
-                       int V, int cps, float inv_temp, uint32_t seed) {
+                       int V, int cps, float inv_temp, uint32_t seed, uint32_t row_off,
+                       int col_off) {
   extern __shared__ __align__(16) unsigned char ht_smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = blockIdx.x * (blockDim.x >> 5) * HT_WM, slice = blockIdx.y;
@@ -820,32 +826,51 @@ head_sample_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   epi.V = V;
   epi.inv_temp = inv_temp;
   epi.seed = seed;
+  epi.row_off = row_off;
+  epi.col_off = col_off;
   walk_slice(x, w, R, D, V, r0, chunk0, chunk1, reinterpret_cast<bf16*>(ht_smem),
                         epi);
   epi.finish(part, part_col, slice);
 }
 
+// A K3 scratch part of S slices: the float4 states, then the columns.
+__device__ __forceinline__ const float4* k3_states(const unsigned char* parts,
+                                                   size_t part_bytes, int p) {
+  return reinterpret_cast<const float4*>(parts + (size_t)p * part_bytes);
+}
+__device__ __forceinline__ const int* k3_cols(const unsigned char* parts, size_t part_bytes,
+                                              int p, int S, int R) {
+  return reinterpret_cast<const int*>(k3_states(parts, part_bytes, p) + (size_t)S * R);
+}
+
 // K3's merge, a thread per row, over the slices in order: m = max m_i,
 // s = sum s_i e^(m_i - m), the best perturbed logit by a strict '>' (the
-// slices ascend in column, so the lowest column wins a tie).
+// slices ascend in column, so the lowest column wins a tie). The slices
+// are those of n_parts scratch parts of S slices each, part_bytes apart:
+// one launch's (n_parts 1), or the parts of the ranks that split the
+// vocabulary in rank order, gathered, which then fold as the slices of
+// one launch.
 __global__ void __launch_bounds__(256)
-head_sample_merge_kernel(const float4* __restrict__ part, const int* __restrict__ part_col,
-                         int* __restrict__ ids, float* __restrict__ probs, int R, int S) {
+head_sample_merge_kernel(const unsigned char* __restrict__ parts, size_t part_bytes,
+                         int n_parts, int* __restrict__ ids, float* __restrict__ probs, int R,
+                         int S) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= R) return;
   float m = -1e30f;
-  for (int s = 0; s < S; ++s) m = fmaxf(m, part[(size_t)s * R + row].x);
+  for (int p = 0; p < n_parts; ++p)
+    for (int s = 0; s < S; ++s) m = fmaxf(m, k3_states(parts, part_bytes, p)[(size_t)s * R + row].x);
   float sum = 0.f, best = -CUDART_INF_F, bl = 0.f;
   int bi = 0;
-  for (int s = 0; s < S; ++s) {
-    const float4 p = part[(size_t)s * R + row];
-    sum += p.y * expf(p.x - m);
-    if (p.z > best) {
-      best = p.z;
-      bl = p.w;
-      bi = part_col[(size_t)s * R + row];
+  for (int p = 0; p < n_parts; ++p)
+    for (int s = 0; s < S; ++s) {
+      const float4 q = k3_states(parts, part_bytes, p)[(size_t)s * R + row];
+      sum += q.y * expf(q.x - m);
+      if (q.z > best) {
+        best = q.z;
+        bl = q.w;
+        bi = k3_cols(parts, part_bytes, p, S, R)[(size_t)s * R + row];
+      }
     }
-  }
   ids[row] = bi;
   probs[row] = expf(bl - (m + logf(sum)));
 }
@@ -857,8 +882,8 @@ head_sample_merge_kernel(const float4* __restrict__ part, const int* __restrict_
 // its columns of a chunk 8 nt + 2 t + e.
 struct TopkRows {
   float* bv;  // the CTA's rows' values, pitch k + 1
-  int* bi;    // their columns
-  int k, rl0, row0, t, R, V;
+  int* bi;    // their columns, of the whole vocabulary (W's first is col_off)
+  int k, rl0, row0, t, R, V, col_off;
   float inv_temp;
 };
 
@@ -906,7 +931,7 @@ struct TopkEpi : TopkRows {
       for (int c = 0; c < 2 * HT_NT; ++c) {
         const int col = c0 + (c >> 1) * 8 + 2 * t + (c & 1);
         l[c] = pick(acc, j, c >> 1, c & 1) * inv_temp;
-        if (row < R && col < V && ahead(l[c], col, kth_v, kth_i)) cand |= 1u << c;
+        if (row < R && col < V && ahead(l[c], col_off + col, kth_v, kth_i)) cand |= 1u << c;
       }
       if (!__any_sync(FULL, cand != 0)) continue;  // warp-uniform
       int kth_s = ks[j], n = cnt[j];
@@ -920,7 +945,7 @@ struct TopkEpi : TopkRows {
         for (unsigned wc = __reduce_or_sync(FULL, tc); wc; wc &= wc - 1) {  // warp-uniform
           const int c = __ffs(wc) - 1;
           const float v = __shfl_sync(FULL, l[c], qbase | turn);
-          const int col = c0 + (c >> 1) * 8 + 2 * turn + (c & 1);
+          const int col = col_off + c0 + (c >> 1) * 8 + 2 * turn + (c & 1);
           const bool ins = ((tc >> c) & 1u) && ahead(v, col, kth_v, kth_i);  // quad-uniform
           if (ins) {
             const int slot = n < k ? n++ : kth_s;
@@ -1104,7 +1129,7 @@ struct SortedEpi : TopkRows {
         }
     mv = v[0];
     mbit = b[0];
-    mc = left ? c0 + (mbit >> 1) * 8 + 2 * t + (mbit & 1) : 0x7fffffff;
+    mc = left ? col_off + c0 + (mbit >> 1) * 8 + 2 * t + (mbit & 1) : 0x7fffffff;
   }
 
   // (v, c) into the row's sorted buffer where `ins` (quad-uniform): slot s
@@ -1189,7 +1214,7 @@ __device__ __forceinline__ void topk_slice(unsigned char* smem, const bf16* __re
                                            const bf16* __restrict__ w,
                                            float* __restrict__ part_v, int* __restrict__ part_i,
                                            int R, int D, int V, int k, int cps,
-                                           float inv_temp) {
+                                           float inv_temp, int col_off) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
   const int r0 = blockIdx.x * nw * HT_WM, slice = blockIdx.y;
   const int chunk0 = slice * cps;
@@ -1212,50 +1237,60 @@ __device__ __forceinline__ void topk_slice(unsigned char* smem, const bf16* __re
   epi.t = lane & 3;
   epi.R = R;
   epi.V = V;
+  epi.col_off = col_off;
   epi.inv_temp = inv_temp;
   epi.start();
   walk_slice(x, w, R, D, V, r0, chunk0, chunk1, reinterpret_cast<bf16*>(smem), epi);
   epi.finish(part_v, part_i, slice);
 }
 
-// K4 (bf16). Grid (row blocks of 32 nw rows, slices of cps chunks).
+// K4 (bf16). Grid (row blocks of 32 nw rows, slices of cps chunks). W holds
+// the vocabulary's columns [col_off, col_off + V): the pairs hold the whole
+// head's columns.
 __global__ void __launch_bounds__(HT_WARPS * 32, 2)
 head_topk_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                      float* __restrict__ part_v, int* __restrict__ part_i, int R, int D, int V,
-                     int k, int cps, float inv_temp) {
+                     int k, int cps, float inv_temp, int col_off) {
   extern __shared__ __align__(16) unsigned char ht_smem[];
-  topk_slice<TopkEpi>(ht_smem, x, w, part_v, part_i, R, D, V, k, cps, inv_temp);
+  topk_slice<TopkEpi>(ht_smem, x, w, part_v, part_i, R, D, V, k, cps, inv_temp, col_off);
 }
 
 // K5 (bf16): K4's grid, plan and scratch, v1's sorted extraction.
 __global__ void __launch_bounds__(HT_WARPS * 32, 2)
 head_topk_v1_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                         float* __restrict__ part_v, int* __restrict__ part_i, int R, int D,
-                        int V, int k, int cps, float inv_temp) {
+                        int V, int k, int cps, float inv_temp, int col_off) {
   extern __shared__ __align__(16) unsigned char ht_smem[];
-  topk_slice<SortedEpi>(ht_smem, x, w, part_v, part_i, R, D, V, k, cps, inv_temp);
+  topk_slice<SortedEpi>(ht_smem, x, w, part_v, part_i, R, D, V, k, cps, inv_temp, col_off);
 }
 
 // K4's merge, a warp per row: lane s holds the head of slice s's sorted
 // list; k times the warp takes the head that comes first (value
 // descending, column ascending) and that lane moves on. Then K4's draw:
-// Philox noise at the k survivors' columns, Gumbel-max with the lowest
-// slot winning a tie, and the probability under the softmax of the k.
+// Philox noise at the k survivors' columns (row row_off + row of the
+// batch), Gumbel-max with the lowest slot winning a tie, and the
+// probability under the softmax of the k. The slices are those of n_parts
+// scratch parts of S each, part_bytes apart (one launch's, or the gathered
+// parts of the ranks that split the vocabulary), n_parts S <= 32.
 __global__ void __launch_bounds__(MERGE_WARPS * 32)
-head_topk_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part_i,
-                       int* __restrict__ ids, float* __restrict__ probs, int R, int k, int S,
-                       uint32_t seed) {
+head_topk_merge_kernel(const unsigned char* __restrict__ parts, size_t part_bytes,
+                       int n_parts, int* __restrict__ ids, float* __restrict__ probs, int R,
+                       int k, int S, uint32_t seed, uint32_t row_off) {
   extern __shared__ float merge_smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row = blockIdx.x * MERGE_WARPS + warp;
   if (row >= R) return;  // the whole warp
   float* mv = merge_smem + warp * 2 * k;
   int* mi = reinterpret_cast<int*>(mv + k);
-  const size_t base = ((size_t)lane * R + row) * k;
+  // lane = p S + s: slice s of part p
+  const float* part_v =
+      reinterpret_cast<const float*>(parts + (size_t)(lane / S) * part_bytes);
+  const int* part_i = reinterpret_cast<const int*>(part_v + (size_t)S * R * k);
+  const size_t base = ((size_t)(lane % S) * R + row) * k;
   int h = 0;
   float hv = -CUDART_INF_F;
   int hc = 0x7fffffff;
-  if (lane < S) {
+  if (lane < n_parts * S) {
     hv = part_v[base];
     hc = part_i[base];
   }
@@ -1275,7 +1310,7 @@ head_topk_merge_kernel(const float* __restrict__ part_v, const int* __restrict__
       mv[j] = bv;
       mi[j] = bc;
     }
-    if (lane < S && hc == bc && hv == bv) {  // columns are unique across slices
+    if (lane < n_parts * S && hc == bc && hv == bv) {  // columns are unique across slices
       ++h;
       hv = h < k ? part_v[base + h] : -CUDART_INF_F;
       hc = h < k ? part_i[base + h] : 0x7fffffff;
@@ -1288,7 +1323,7 @@ head_topk_merge_kernel(const float* __restrict__ part_v, const int* __restrict__
   for (int s = lane; s < k; s += 32) {
     const float l = mv[s];
     sum += expf(l - m);
-    const float pert = l - logf(exp_noise(seed, (uint32_t)row, (uint32_t)mi[s]));
+    const float pert = l - logf(exp_noise(seed, row_off + (uint32_t)row, (uint32_t)mi[s]));
     if (pert > best) {
       best = pert;
       slot = s;
@@ -1323,8 +1358,11 @@ struct HeadPlan {
 // chunks plus, for K4 and K5, a warm-up costed as TOPK_WARMUP chunks
 // (their buffers start empty in every slice, so the first chunks insert
 // most of the pairs); the fewer slices on a tie. S is then cut so that no
-// slice is empty.
-inline cudaError_t head_plan(int R, int V, int k, HeadPlan& p) {
+// slice is empty. A launch that is one of n_parts parts of a vocabulary
+// split over ranks takes at most HT_MAX_SPLITS / n_parts slices, so that
+// K4's merge holds every part's slices one a lane.
+inline cudaError_t head_plan(int R, int V, int k, int n_parts, HeadPlan& p) {
+  if (n_parts < 1 || n_parts > HT_MAX_SPLITS) return cudaErrorInvalidValue;
   int sms = 0, smem_sm = 0, optin = 0;
   const cudaError_t e = card_shape(sms, smem_sm, optin);
   if (e != cudaSuccess) return e;
@@ -1337,7 +1375,7 @@ inline cudaError_t head_plan(int R, int V, int k, HeadPlan& p) {
   p.blocks = (R + p.nw * HT_WM - 1) / (p.nw * HT_WM);
   const int chunks = (V + HT_BN - 1) / HT_BN;
   long best_cost = -1;
-  for (int s = 1; s <= HT_MAX_SPLITS && s <= chunks; ++s) {
+  for (int s = 1; s <= HT_MAX_SPLITS / n_parts && s <= chunks; ++s) {
     const long waves = ((long)p.blocks * s + slots - 1) / slots;
     const long cost = waves * ((chunks + s - 1) / s + (k ? TOPK_WARMUP : 0));
     if (best_cost < 0 || cost < best_cost) {
@@ -1358,31 +1396,73 @@ inline size_t head_scratch_bytes(int R, int k, const HeadPlan& p) {
   return (size_t)p.splits * R * k * (sizeof(float) + sizeof(int));
 }
 
+// K3's slices (bf16) into `scratch`: rows row_off.. of the batch against
+// the vocabulary's columns col_off..
+cudaError_t launch_sample_part(const void* x, const void* w, void* scratch, int R, int D,
+                               int V, float inv_temp, uint32_t seed, uint32_t row_off,
+                               int col_off, const HeadPlan& p, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(head_sample_mma_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (e != cudaSuccess) return e;
+  float4* part = static_cast<float4*>(scratch);
+  int* part_col = reinterpret_cast<int*>(part + (size_t)p.splits * R);
+  head_sample_mma_kernel<<<dim3(p.blocks, p.splits), p.nw * 32, p.smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), part, part_col, R, D, V, p.cps,
+      inv_temp, seed, row_off, col_off);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_sample_merge(const void* parts, size_t part_bytes, int n_parts, void* ids,
+                                void* probs, int R, int S, cudaStream_t stream) {
+  head_sample_merge_kernel<<<(R + 255) / 256, 256, 0, stream>>>(
+      static_cast<const unsigned char*>(parts), part_bytes, n_parts, static_cast<int*>(ids),
+      static_cast<float*>(probs), R, S);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_sample_mma(const void* x, const void* w, void* ids, void* probs,
                               void* scratch, int R, int D, int V, float inv_temp, uint32_t seed,
                               cudaStream_t stream) {
   if (D % 8 != 0) return cudaErrorInvalidValue;
   if (R == 0) return cudaSuccess;
   HeadPlan p;
-  cudaError_t e = head_plan(R, V, 0, p);
+  cudaError_t e = head_plan(R, V, 0, 1, p);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(head_sample_mma_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  e = launch_sample_part(x, w, scratch, R, D, V, inv_temp, seed, 0, 0, p, stream);
   if (e != cudaSuccess) return e;
-  float4* part = static_cast<float4*>(scratch);
-  int* part_col = reinterpret_cast<int*>(part + (size_t)p.splits * R);
-  head_sample_mma_kernel<<<dim3(p.blocks, p.splits), p.nw * 32, p.smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), part, part_col, R, D, V, p.cps,
-      inv_temp, seed);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  head_sample_merge_kernel<<<(R + 255) / 256, 256, 0, stream>>>(
-      part, part_col, static_cast<int*>(ids), static_cast<float*>(probs), R, p.splits);
-  return cudaGetLastError();
+  return launch_sample_merge(scratch, head_scratch_bytes(R, 0, p), 1, ids, probs, R, p.splits,
+                             stream);
 }
 
 using TopkKernel = void (*)(const bf16*, const bf16*, float*, int*, int, int, int, int, int,
-                           float);
+                           float, int);
+
+// K4's or K5's slices (bf16, the slices' kernel `kern`) into `scratch`,
+// against the vocabulary's columns col_off..
+cudaError_t launch_topk_part(TopkKernel kern, const void* x, const void* w, void* scratch,
+                             int R, int D, int V, int k, float inv_temp, int col_off,
+                             const HeadPlan& p, cudaStream_t stream) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (e != cudaSuccess) return e;
+  float* part_v = static_cast<float*>(scratch);
+  int* part_i = reinterpret_cast<int*>(part_v + (size_t)p.splits * R * k);
+  kern<<<dim3(p.blocks, p.splits), p.nw * 32, p.smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), part_v, part_i, R, D, V, k,
+      p.cps, inv_temp, col_off);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_topk_merge(const void* parts, size_t part_bytes, int n_parts, void* ids,
+                              void* probs, int R, int k, int S, uint32_t seed, uint32_t row_off,
+                              cudaStream_t stream) {
+  if (n_parts * S > HT_MAX_SPLITS) return cudaErrorInvalidValue;
+  head_topk_merge_kernel<<<(R + MERGE_WARPS - 1) / MERGE_WARPS, MERGE_WARPS * 32,
+                           MERGE_WARPS * 2 * k * sizeof(float), stream>>>(
+      static_cast<const unsigned char*>(parts), part_bytes, n_parts, static_cast<int*>(ids),
+      static_cast<float*>(probs), R, k, S, seed, row_off);
+  return cudaGetLastError();
+}
 
 // K4 or K5 (bf16): the slices' kernel `kern`, then the merge and draw
 cudaError_t launch_topk_mma(TopkKernel kern, const void* x, const void* w, void* ids,
@@ -1391,21 +1471,12 @@ cudaError_t launch_topk_mma(TopkKernel kern, const void* x, const void* w, void*
   if (D % 8 != 0) return cudaErrorInvalidValue;
   if (R == 0) return cudaSuccess;
   HeadPlan p;
-  cudaError_t e = head_plan(R, V, k, p);
+  cudaError_t e = head_plan(R, V, k, 1, p);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  e = launch_topk_part(kern, x, w, scratch, R, D, V, k, inv_temp, 0, p, stream);
   if (e != cudaSuccess) return e;
-  float* part_v = static_cast<float*>(scratch);
-  int* part_i = reinterpret_cast<int*>(part_v + (size_t)p.splits * R * k);
-  kern<<<dim3(p.blocks, p.splits), p.nw * 32, p.smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), part_v, part_i, R, D, V, k,
-      p.cps, inv_temp);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  head_topk_merge_kernel<<<(R + MERGE_WARPS - 1) / MERGE_WARPS, MERGE_WARPS * 32,
-                           MERGE_WARPS * 2 * k * sizeof(float), stream>>>(
-      part_v, part_i, static_cast<int*>(ids), static_cast<float*>(probs), R, k, p.splits, seed);
-  return cudaGetLastError();
+  return launch_topk_merge(scratch, head_scratch_bytes(R, k, p), 1, ids, probs, R, k, p.splits,
+                           seed, 0, stream);
 }
 
 }  // namespace
@@ -1419,7 +1490,7 @@ size_t mebt_head_scratch_bytes(int R, int V, int k, int is_bf16, int* err) {
   *err = 0;
   if (!is_bf16 || R == 0) return 0;
   HeadPlan p;
-  const cudaError_t e = head_plan(R, V, k, p);
+  const cudaError_t e = head_plan(R, V, k, 1, p);
   if (e != cudaSuccess) {
     *err = (int)e;
     return 0;
@@ -1462,6 +1533,65 @@ int mebt_head_topk_sample_v1(const void* x, const void* w, void* ids, void* prob
   return is_bf16 ? (int)launch_topk_mma(head_topk_v1_mma_kernel, x, w, ids, probs, scratch,
                                         R, D, V, k, inv_temp, seed, s)
                  : (int)launch_topk_v1_fma(x, w, ids, probs, R, D, V, k, inv_temp, seed, s);
+}
+
+// The sharded head (bf16): the vocabulary split over n_parts ranks in
+// rank order, this rank's W holding columns [col_off, col_off + V), x rows
+// [row_off, row_off + R) of the batch. mebt_head_part_plan gives the bytes
+// of this rank's part and its slices (*splits); mebt_head_*_part fills the
+// part, the caller gathers the n_parts parts (rank order, part_bytes
+// apart) and mebt_head_*_merge folds them as the slices of one launch:
+// the whole head's ids, noise drawn at the whole head's (row, column).
+size_t mebt_head_part_plan(int R, int V, int k, int n_parts, int* splits, int* err) {
+  *err = 0;
+  *splits = 0;
+  if (R == 0) return 0;
+  HeadPlan p;
+  const cudaError_t e = head_plan(R, V, k, n_parts, p);
+  if (e != cudaSuccess) {
+    *err = (int)e;
+    return 0;
+  }
+  *splits = p.splits;
+  return head_scratch_bytes(R, k, p);
+}
+
+int mebt_head_sample_part(const void* x, const void* w, void* part, int R, int D, int V,
+                          float inv_temp, unsigned int seed, unsigned int row_off, int col_off,
+                          int n_parts, void* stream) {
+  if (D % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (R == 0) return 0;
+  HeadPlan p;
+  const cudaError_t e = head_plan(R, V, 0, n_parts, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_sample_part(x, w, part, R, D, V, inv_temp, seed, row_off, col_off, p,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+int mebt_head_sample_merge(const void* parts, size_t part_bytes, int n_parts, void* ids,
+                           void* probs, int R, int S, void* stream) {
+  if (R == 0) return 0;
+  return (int)launch_sample_merge(parts, part_bytes, n_parts, ids, probs, R, S,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+int mebt_head_topk_part(const void* x, const void* w, void* part, int R, int D, int V, int k,
+                        float inv_temp, int col_off, int n_parts, void* stream) {
+  if (D % 8 != 0 || k < 1 || k > 256) return (int)cudaErrorInvalidValue;
+  if (R == 0) return 0;
+  HeadPlan p;
+  const cudaError_t e = head_plan(R, V, k, n_parts, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_topk_part(head_topk_mma_kernel, x, w, part, R, D, V, k, inv_temp, col_off,
+                               p, static_cast<cudaStream_t>(stream));
+}
+
+int mebt_head_topk_merge(const void* parts, size_t part_bytes, int n_parts, void* ids,
+                         void* probs, int R, int k, int S, unsigned int seed,
+                         unsigned int row_off, void* stream) {
+  if (R == 0) return 0;
+  return (int)launch_topk_merge(parts, part_bytes, n_parts, ids, probs, R, k, S, seed, row_off,
+                                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

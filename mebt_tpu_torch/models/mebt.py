@@ -13,6 +13,17 @@ with a `DropoutState` and takes `mlm_loss` of the logits.
 
 Activations are in `config.dtype`; parameters may be kept in fp32 (the
 trainer does) and are cast at use (models/transformer.py).
+
+On a mesh (`on_mesh`; parallel/mesh.py): under tensor parallelism the
+token embedding holds this rank's vocabulary rows and the positional
+table its positions (mebt_tpu/parallel/mesh.py:65-82); a rank looks up
+the codes and positions it holds, zeros elsewhere, and one all_reduce
+over `model` adds them up. At most two terms of an element are nonzero
+and x + 0 is exact, so the embedding is the unsharded one bit for bit.
+The head holds this rank's vocabulary rows; logits are gathered over
+`model`. Under sequence parallelism codes and masks are this rank's span
+of the canvas and the positional table is read at its global offset
+(mebt_tpu/models/mebt.py:155-158); the compact enc phase is refused there.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ from mebt_tpu_torch.models.transformer import (
     LatentTransformer,
     staged_split,
 )
+from mebt_tpu_torch.parallel.mesh import Mesh, all_reduce, local_size, shard_state_dict
 
 
 def transformer_split(cfg: "MeBTConfig") -> int | None:
@@ -84,19 +96,22 @@ class MeBTConfig:
 class MeBT(nn.Module):
     """Bidirectional masked-token transformer over VQ code indices."""
 
-    def __init__(self, config: MeBTConfig):
+    def __init__(self, config: MeBTConfig, mesh: Mesh | None = None):
         super().__init__()
-        self.config = config
+        if mesh is not None and mesh.size("seq") > 1 and mesh.size("model") > 1:
+            raise NotImplementedError("sequence parallelism with model > 1")
+        self.config, self.mesh = config, mesh
         D = config.n_embd
-        self.tok_emb = nn.Embedding(config.vocab_size, D)
+        self.tok_emb = nn.Embedding(local_size(config.vocab_size, mesh, "vocab_size"), D)
         self.mask_emb = nn.Parameter(torch.zeros(1, 1, D))
-        self.pos_emb = nn.Parameter(torch.zeros(1, config.block_size, D))
+        self.pos_emb = nn.Parameter(
+            torch.zeros(1, local_size(config.block_size, mesh, "block_size"), D))
         self.sos_emb = nn.Parameter(torch.zeros(1, config.sos_emb, D))
         self.transformer = LatentTransformer(
             config.vocab_size, config.n_layer, config.n_head, D, config.mode,
             embd_pdrop=config.embd_pdrop, attn_pdrop=config.attn_pdrop,
             resid_pdrop=config.resid_pdrop, remat=config.remat,
-            remat_policy=config.remat_policy,
+            remat_policy=config.remat_policy, mesh=mesh,
         )
 
     @torch.no_grad()
@@ -115,12 +130,36 @@ class MeBT(nn.Module):
                 p.normal_(0.0, 0.02, generator=generator)
         return self
 
+    def _held(self, idx, table: torch.Tensor, rows: int):
+        """table[idx - offset] in the compute type where this rank holds
+        row idx of the whole table (`rows` a rank, from its `model`
+        index), zeros elsewhere."""
+        local = idx - self.mesh.index("model") * rows
+        held = (local >= 0) & (local < rows)
+        out = table[local.clamp(0, rows - 1)].to(self.config.dtype)
+        return torch.where(held[..., None], out, torch.zeros_like(out))
+
+    def _sharded_rows(self, codes, pos, take_tok=None):
+        """On a mesh: the token rows of `codes` (where `take_tok`) plus the
+        positional rows of `pos`, summed over `model`."""
+        tok = self._held(codes, self.tok_emb.weight, self.tok_emb.num_embeddings)
+        if take_tok is not None:
+            tok = torch.where(take_tok[..., None], tok, torch.zeros_like(tok))
+        part = tok + self._held(pos, self.pos_emb[0], self.pos_emb.shape[1])
+        return all_reduce(part, self.mesh, "model")
+
     def _embed_canvas(self, codes, ctx_mask):
         N, dt = codes.shape[1], self.config.dtype
-        tokens = torch.where(
-            ctx_mask[..., None], self.tok_emb(codes).to(dt), self.mask_emb.to(dt)
-        )
-        return tokens + self.pos_emb[:, :N].to(dt)
+        if self.mesh is None:
+            tokens = torch.where(
+                ctx_mask[..., None], self.tok_emb(codes).to(dt), self.mask_emb.to(dt)
+            )
+            return tokens + self.pos_emb[:, :N].to(dt)
+        # global positions: this rank's span under sequence parallelism
+        pos = self.mesh.index("seq") * N + torch.arange(N, device=codes.device)
+        mask = torch.where(ctx_mask[..., None], torch.zeros((), dtype=dt, device=codes.device),
+                           self.mask_emb.to(dt))
+        return self._sharded_rows(codes, pos.expand_as(codes), ctx_mask) + mask
 
     def _latent_queries(self, B: int):
         return self.sos_emb.to(self.config.dtype).expand(B, -1, -1)
@@ -153,9 +192,14 @@ class MeBT(nn.Module):
         positions (>= N = padding, gathers clip to N-1), ctx_valid (B, C)
         live slots. An all-invalid bucket gives zero attention output."""
         k = self._split()
+        if self.mesh is not None and self.mesh.size("seq") > 1:
+            raise ValueError("stage_a_compact is not defined under sequence parallelism")
         idx = ctx_idx.clamp(max=codes.shape[1] - 1)
         dt = self.config.dtype
-        tokens = self.tok_emb(codes.gather(1, idx)).to(dt) + self.pos_emb[0][idx].to(dt)
+        if self.mesh is None:
+            tokens = self.tok_emb(codes.gather(1, idx)).to(dt) + self.pos_emb[0][idx].to(dt)
+        else:
+            tokens = self._sharded_rows(codes.gather(1, idx), idx)
         latents = self._latent_queries(codes.shape[0])
         latents, _ = self.transformer.run_blocks(
             latents, tokens, ctx_valid, torch.zeros_like(ctx_valid), 0, k
@@ -168,7 +212,11 @@ class MeBT(nn.Module):
         k = self._split()
         idx = tgt_idx.clamp(max=self.config.block_size - 1)
         dt = self.config.dtype
-        tokens = self.mask_emb.to(dt) + self.pos_emb[0][idx].to(dt)
+        if self.mesh is None:
+            tokens = self.mask_emb.to(dt) + self.pos_emb[0][idx].to(dt)
+        else:
+            pos = self._held(idx, self.pos_emb[0], self.pos_emb.shape[1])
+            tokens = all_reduce(pos, self.mesh, "model") + self.mask_emb.to(dt)
         _, tokens = self.transformer.run_blocks(
             latents, tokens, torch.zeros_like(tgt_valid), tgt_valid, k, None
         )
@@ -177,7 +225,18 @@ class MeBT(nn.Module):
     def stage_b_compact(self, latents, tgt_idx, tgt_valid):
         """Dec phase + vocab head on the target bucket: (B, M, V) fp32."""
         tokens = self.stage_b_tokens(latents, tgt_idx, tgt_valid)
-        return self.transformer.head(tokens).float()
+        return self.transformer.vocab_logits(tokens)
+
+
+def on_mesh(model: MeBT, mesh: Mesh) -> MeBT:
+    """`model` on a mesh: a MeBT whose parameters are this rank's slices
+    of model's (parallel/mesh.py:shard_state_dict), on their device and in
+    their dtype. Every rank of the mesh calls it with the same model."""
+    state = shard_state_dict(model.state_dict(), mesh)
+    with torch.device("meta"):
+        out = MeBT(model.config, mesh)
+    out.load_state_dict(state, assign=True)
+    return out.train(model.training)
 
 
 def mlm_loss(logits, codes, tgt_mask, seq_len, masked_weight, avg_loss: float = 1.0,

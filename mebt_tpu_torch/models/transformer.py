@@ -38,6 +38,21 @@ and embedding dropouts draw from an explicit generator that torch's RNG
 preservation does not cover: a checkpointed block rewinds it to where
 its forward started before a recompute, and puts it back after, so the
 recompute draws the forward's masks and later draws are untouched.
+
+On a mesh (parallel/mesh.py; the decode, no autograd through the
+collectives yet): Megatron tensor parallelism over its `model` axis, each
+rank holding n_head / model heads and 4 n_embd / model hidden units (q,
+k, v and mlp.0 split their outputs, attn.proj and mlp.2 their inputs;
+K1 and K2 run on the local heads) and the vocabulary rows of the head
+from its rank's offset; the row-parallel products are summed over
+`model` in fp32 and their bias added once after that, or, where the axis
+holds one rank, inside the product as the unsharded layer does it.
+Sequence parallelism over its `seq` axis (mebt_tpu/models/transformer.py:
+313-350): tokens and masks are this rank's span of the canvas, latents
+are whole; latent_enc and lt2l attend over the local keys and merge the
+partial softmaxes over `seq` (ops/attention.py:sp_masked_attention),
+lt2l counting the prepended latents on seq rank 0 only; latent_dec
+(K2 on the local tokens) and latent_self stay local; maskgit raises.
 """
 
 from __future__ import annotations
@@ -56,7 +71,9 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
+from mebt_tpu_torch.ops.attention import sp_masked_attention
 from mebt_tpu_torch.ops.attention_cuda import fused_dropout_attention
+from mebt_tpu_torch.parallel.mesh import Mesh, all_gather, all_reduce, local_size
 
 BLOCK_MODES = ("latent_enc", "latent_self", "latent_dec", "lt2l", "maskgit")
 REMAT_POLICIES = ("full", "dots", "saved", "saved_mlp")
@@ -144,11 +161,35 @@ class CastLayerNorm(nn.LayerNorm):
                             self.bias.to(x.dtype), self.eps)
 
 
-class HeadSplitProj(CastLinear):
-    """Linear projection returning (B, H, N, Dh)."""
+class RowParallelLinear(CastLinear):
+    """CastLinear whose input features are split over the mesh's `model`
+    axis: the ranks' products are summed (fp32) and the bias is added once
+    after the sum; where the axis holds one rank the bias goes into the
+    product, the unsharded layer's operations. Without a mesh, CastLinear."""
 
-    def __init__(self, n_embd: int, n_head: int):
-        super().__init__(n_embd, n_embd)
+    def __init__(self, in_features: int, out_features: int, mesh: Mesh | None = None,
+                 bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
+        self.mesh = mesh
+
+    def forward(self, x):
+        if self.mesh is None:
+            return super().forward(x)
+        one = self.mesh.size("model") == 1
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        out = F.linear(x, self.weight.to(x.dtype), bias if one else None)
+        acc = all_reduce(out.float(), self.mesh, "model")
+        if not one and bias is not None:
+            acc = acc + bias.float()
+        return acc.to(x.dtype)
+
+
+class HeadSplitProj(CastLinear):
+    """Linear projection returning (B, H, N, Dh): n_head heads of
+    n_out / n_head (this rank's heads under tensor parallelism)."""
+
+    def __init__(self, n_embd: int, n_head: int, n_out: int | None = None):
+        super().__init__(n_embd, n_embd if n_out is None else n_out)
         self.n_head = n_head
 
     def forward(self, x):
@@ -156,8 +197,8 @@ class HeadSplitProj(CastLinear):
         return super().forward(x).view(B, N, self.n_head, -1).transpose(1, 2)
 
 
-class HeadMergeProj(CastLinear):
-    """Linear projection consuming (B, H, N, Dh)."""
+class HeadMergeProj(RowParallelLinear):
+    """Linear projection consuming (B, H, N, Dh); row-parallel on a mesh."""
 
     def forward(self, y):
         B, H, N, Dh = y.shape
@@ -166,41 +207,57 @@ class HeadMergeProj(CastLinear):
 
 class CrossAttention(nn.Module):
     """Q from `query`, K/V from `key`, boolean key mask; dropout on the
-    attention probabilities (in the kernels) and on the output."""
+    attention probabilities (in the kernels) and on the output. On a mesh,
+    this rank's n_head / model heads."""
 
     def __init__(self, n_embd: int, n_head: int, attn_pdrop: float = 0.0,
-                 resid_pdrop: float = 0.0, layer: int = 0):
+                 resid_pdrop: float = 0.0, layer: int = 0, mesh: Mesh | None = None):
         super().__init__()
-        self.query = HeadSplitProj(n_embd, n_head)
-        self.key = HeadSplitProj(n_embd, n_head)
-        self.value = HeadSplitProj(n_embd, n_head)
-        self.proj = HeadMergeProj(n_embd, n_embd)
+        heads = local_size(n_head, mesh, "n_head")
+        width = n_embd // n_head * heads
+        self.query = HeadSplitProj(n_embd, heads, width)
+        self.key = HeadSplitProj(n_embd, heads, width)
+        self.value = HeadSplitProj(n_embd, heads, width)
+        self.proj = HeadMergeProj(width, n_embd, mesh)
         self.attn_pdrop, self.resid_pdrop, self.layer = attn_pdrop, resid_pdrop, layer
+        self.mesh = mesh
 
     def project_kv(self, key):
         return self.key(key), self.value(key)
 
-    def attend(self, query, k, v, key_mask=None, drop: DropoutState | None = None):
+    def attend(self, query, k, v, key_mask=None, drop: DropoutState | None = None,
+               kv_sharded: bool = False):
+        """`kv_sharded`: the keys are this rank's span of a canvas split
+        over `seq`; the partial softmaxes merge over it."""
         q = self.query(query)
         rate = self.attn_pdrop if drop is not None else 0.0
-        seed = drop.attention_seed(self.layer) if rate > 0.0 else 0
-        y = fused_dropout_attention(q, k, v, key_mask, rate, seed)
+        if kv_sharded:
+            if rate > 0.0:
+                raise NotImplementedError(
+                    "attention-prob dropout under sequence parallelism is not implemented")
+            y = sp_masked_attention(q, k, v, key_mask, self.mesh, "seq")
+        else:
+            seed = drop.attention_seed(self.layer) if rate > 0.0 else 0
+            y = fused_dropout_attention(q, k, v, key_mask, rate, seed)
         return dropout(self.proj(y), self.resid_pdrop, drop)
 
-    def forward(self, query, key, key_mask=None, drop: DropoutState | None = None):
+    def forward(self, query, key, key_mask=None, drop: DropoutState | None = None,
+                kv_sharded: bool = False):
         k, v = self.project_kv(key)
-        return self.attend(query, k, v, key_mask, drop)
+        return self.attend(query, k, v, key_mask, drop, kv_sharded)
 
 
 class Mlp(nn.Sequential):
     """fc -> exact GELU -> proj (reference names mlp.0 / mlp.2), then
-    residual dropout."""
+    residual dropout. On a mesh, this rank's 4 n_embd / model hidden
+    units: mlp.0 column-parallel, mlp.2 row-parallel."""
 
-    def __init__(self, n_embd: int, resid_pdrop: float = 0.0):
+    def __init__(self, n_embd: int, resid_pdrop: float = 0.0, mesh: Mesh | None = None):
+        hidden = local_size(4 * n_embd, mesh, "mlp hidden")
         super().__init__(
-            CastLinear(n_embd, 4 * n_embd),
+            CastLinear(n_embd, hidden),
             nn.GELU(approximate="none"),
-            CastLinear(4 * n_embd, n_embd),
+            RowParallelLinear(hidden, n_embd, mesh),
         )
         self.resid_pdrop = resid_pdrop
 
@@ -214,38 +271,48 @@ class Block(nn.Module):
     the normalized query: x = qn + attn(qn, kn) (reference gpt.py:180-184)."""
 
     def __init__(self, mode: str, n_embd: int, n_head: int, attn_pdrop: float = 0.0,
-                 resid_pdrop: float = 0.0, layer: int = 0):
+                 resid_pdrop: float = 0.0, layer: int = 0, mesh: Mesh | None = None):
         super().__init__()
         if mode not in BLOCK_MODES:
             raise ValueError(mode)
         self.mode = mode
         self.ln1 = CastLayerNorm(n_embd, eps=1e-5)
         self.ln2 = CastLayerNorm(n_embd, eps=1e-5)
-        self.attn = CrossAttention(n_embd, n_head, attn_pdrop, resid_pdrop, layer)
-        self.mlp = Mlp(n_embd, resid_pdrop)
+        self.attn = CrossAttention(n_embd, n_head, attn_pdrop, resid_pdrop, layer, mesh)
+        self.mlp = Mlp(n_embd, resid_pdrop, mesh)
+        self.sp = mesh is not None and mesh.size("seq") > 1
+        self.first_seq = not self.sp or mesh.index("seq") == 0
 
     def forward(self, latents, tokens, ctx_mask, tgt_mask, drop: DropoutState | None = None):
         mode = self.mode
+        kv_sharded = False
         if mode == "latent_self":
             query, key, key_mask = latents, latents, None
         elif mode == "latent_enc":
             query, key, key_mask = latents, tokens, ctx_mask
+            kv_sharded = self.sp
         elif mode == "latent_dec":
             query, key, key_mask = tokens, latents, None
         elif mode == "lt2l":
             query = latents
             key = torch.cat([latents, tokens], dim=1)
-            ones = torch.ones(
-                latents.shape[:2], dtype=torch.bool, device=latents.device
-            )
+            # under SP every rank prepends the (whole) latents to its key
+            # span: the merged softmax counts them on seq rank 0 only
+            ones = torch.full(latents.shape[:2], self.first_seq, dtype=torch.bool,
+                              device=latents.device)
             key_mask = torch.cat([ones, tgt_mask], dim=1)
+            kv_sharded = self.sp
         else:  # maskgit
+            if self.sp:
+                raise NotImplementedError(
+                    "maskgit blocks (full token<->token attention) are not supported "
+                    "under sequence parallelism")
             query, key = tokens, tokens
             key_mask = ctx_mask | tgt_mask
 
         qn = self.ln1(query)
         kn = qn if key is query else self.ln1(key)
-        x = qn + self.attn(qn, kn, key_mask, drop)
+        x = qn + self.attn(qn, kn, key_mask, drop, kv_sharded)
         x = x + self.mlp(self.ln2(x), drop)
         if mode in ("latent_enc", "latent_self", "lt2l"):
             return x, tokens
@@ -258,18 +325,20 @@ class LatentTransformer(nn.Module):
     def __init__(self, vocab_size: int, n_layer: int, n_head: int,
                  n_embd: int, mode: Sequence[str] = (), embd_pdrop: float = 0.0,
                  attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
-                 remat: bool = False, remat_policy: str = "full"):
+                 remat: bool = False, remat_policy: str = "full", mesh: Mesh | None = None):
         super().__init__()
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat policy {remat_policy!r}")
         self.remat, self.remat_policy = remat, remat_policy
         self.blocks = nn.ModuleList(
-            Block(m, n_embd, n_head, attn_pdrop, resid_pdrop, layer=i)
+            Block(m, n_embd, n_head, attn_pdrop, resid_pdrop, layer=i, mesh=mesh)
             for i, m in enumerate(default_mode_list(n_layer, mode))
         )
         self.embd_pdrop = embd_pdrop
         self.ln_f = CastLayerNorm(n_embd, eps=1e-5)
-        self.head = CastLinear(n_embd, vocab_size, bias=False)
+        # on a mesh, this rank's vocabulary rows
+        self.head = CastLinear(n_embd, local_size(vocab_size, mesh, "vocab_size"), bias=False)
+        self.mesh = mesh
 
     def forward(self, latents, tokens, ctx_mask, tgt_mask, drop: DropoutState | None = None):
         """Embedding dropout on latents, then tokens (the JAX module's
@@ -292,7 +361,13 @@ class LatentTransformer(nn.Module):
         return latents, tokens
 
     def logits_head(self, tokens):
-        return self.head(self.ln_f(tokens)).float()
+        return self.vocab_logits(self.ln_f(tokens))
+
+    def vocab_logits(self, x):
+        """Head logits (fp32) of ln_f'd tokens over the whole vocabulary:
+        on a mesh, the ranks' columns gathered over `model`."""
+        logits = self.head(x).float()
+        return logits if self.mesh is None else all_gather(logits, self.mesh, "model", dim=-1)
 
 
 def remat_block(block: Block, policy: str, latents, tokens, ctx_mask, tgt_mask,

@@ -1,4 +1,5 @@
-"""Plain masked multi-head attention (mebt_tpu/ops/attention.py:20-70).
+"""Plain masked multi-head attention (mebt_tpu/ops/attention.py:20-129),
+and its sequence-parallel form.
 
 Membership of a key is a boolean mask over a static key axis; a fully
 masked row gives exactly zero output, as the reference does when it
@@ -8,6 +9,8 @@ attends over an empty context.
 from __future__ import annotations
 
 import torch
+
+from mebt_tpu_torch.parallel.mesh import all_reduce
 
 
 def masked_softmax(scores: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
@@ -47,3 +50,40 @@ def masked_attention(
     probs = masked_softmax(scores, key_mask)
     out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
     return out.to(q.dtype)
+
+
+def sp_masked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: torch.Tensor | None,
+    mesh,
+    axis: str = "seq",
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Sequence-parallel masked attention (mebt_tpu/ops/attention.py:77-129):
+    k/v (B, H, NK_local, Dh) and key_mask (B, NK_local) are this rank's
+    span of keys split over the mesh's `axis`, q is whole. The partial
+    softmaxes merge exactly: the global row max by an all_reduce MAX, then
+    the exp-sums and the weighted values by two all_reduce SUMs,
+
+        m = max over ranks of max_local(scores)
+        out = sum over ranks of exp(scores - m) @ v / sum over ranks of sum_local exp(scores - m).
+
+    A row with no live key anywhere gives zeros. The JAX package computes
+    this in plain jnp too (no Pallas kernel); no autograd through the
+    collectives."""
+    scores = attention_scores(q, k, scale)
+    if key_mask is not None:
+        if key_mask.dim() == 2:
+            key_mask = key_mask[:, None, None, :]
+        scores = scores.masked_fill(~key_mask, float("-inf"))
+    m = all_reduce(scores.amax(dim=-1, keepdim=True), mesh, axis, "max")
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.exp(scores - m)
+    if key_mask is not None:
+        e = torch.where(key_mask, e, torch.zeros_like(e))
+    denom = all_reduce(e.sum(dim=-1, keepdim=True), mesh, axis)
+    out = all_reduce(torch.einsum("bhqk,bhkd->bhqd", e.to(v.dtype), v).float(), mesh, axis)
+    return (out / torch.where(denom == 0, torch.ones_like(denom), denom)).to(q.dtype)

@@ -47,19 +47,24 @@ def philox_bits(seed: int, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tens
     return c0
 
 
-def philox_exponential_at(seed: int, cols: torch.Tensor) -> torch.Tensor:
-    """Exp(1) draws q = -log(u) at row r's columns cols[r] (cols (R, k),
-    or (1, V) for the same columns in one row), u from the top 23 bits
-    of the Philox word as in the kernels (u in [2^-25, 1))."""
-    rows = torch.arange(cols.shape[0], device=cols.device)[:, None]
+def philox_exponential_at(seed: int, cols: torch.Tensor, row_offset: int = 0) -> torch.Tensor:
+    """Exp(1) draws q = -log(u) at row row_offset + r's columns cols[r]
+    (cols (R, k), or (1, V) for the same columns in one row), u from the
+    top 23 bits of the Philox word as in the kernels (u in [2^-25, 1)).
+    A rank that holds rows [row_offset, row_offset + R) of a batch draws
+    those rows' noise."""
+    rows = row_offset + torch.arange(cols.shape[0], device=cols.device)[:, None]
     bits = ((philox_bits(seed, rows, cols) >> 9) | 0x3F800000).to(torch.int32)
     u = (bits.view(torch.float32) - 1.0) + 2.9802322e-8
     return -torch.log(u)
 
 
-def philox_exponential(seed: int, R: int, V: int, device) -> torch.Tensor:
-    """(R, V) Exp(1) draws: `philox_exponential_at` every column."""
-    return philox_exponential_at(seed, torch.arange(V, device=device).expand(R, V))
+def philox_exponential(seed: int, R: int, V: int, device, row_offset: int = 0,
+                       col_offset: int = 0) -> torch.Tensor:
+    """(R, V) Exp(1) draws: `philox_exponential_at` every column, of rows
+    and columns from the offsets on (a rank's block of a sharded head)."""
+    cols = col_offset + torch.arange(V, device=device)
+    return philox_exponential_at(seed, cols.expand(R, V), row_offset)
 
 
 def drop_threshold(p_drop: float) -> int:

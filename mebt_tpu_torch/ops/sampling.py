@@ -6,7 +6,8 @@ Conventions kept from the JAX package: logits are scaled by
 q ~ Exp(1), which equals argmax(softmax(l/T) / q); ranks are a stable
 descending sort, so the lowest index wins a tie. Every function takes an
 optional explicit `noise=` (shared with the JAX side in the tests) and
-otherwise draws from the given `torch.Generator`.
+otherwise draws from the given `torch.Generator`, or from a `RowDraws`,
+which makes a whole batch's draws and keeps some rows of them.
 """
 
 from __future__ import annotations
@@ -16,7 +17,39 @@ import torch
 NEG_INF = torch.finfo(torch.float32).min
 
 
+class RowDraws:
+    """Draws of a batch of `total` rows from `generator`, of which the
+    caller keeps `rows`: a data rank of a mesh makes the single-rank
+    decode's draws and takes its own rows of them. A draw's first
+    dimension is the batch; with all the rows (rows None: whatever batch
+    is drawn) they are the generator's own draws."""
+
+    def __init__(self, generator: torch.Generator, rows: slice | None = None,
+                 total: int | None = None):
+        self.generator, self.rows, self.total = generator, rows, total
+        self._keep = slice(None) if rows is None else rows
+
+    def _whole(self, shape):
+        if self.rows is None:
+            return tuple(shape)
+        if shape[0] != self.rows.stop - self.rows.start:
+            raise ValueError(f"a draw of {shape[0]} rows for rows {self.rows}")
+        return (self.total, *shape[1:])
+
+    def exponential(self, shape, device):
+        t = torch.empty(self._whole(shape), device=device)
+        return t.exponential_(generator=self.generator)[self._keep]
+
+    def uniform(self, shape, device):
+        return torch.rand(self._whole(shape), device=device, generator=self.generator)[self._keep]
+
+    def normal(self, shape, device):
+        return torch.randn(self._whole(shape), device=device, generator=self.generator)[self._keep]
+
+
 def _exponential(shape, device, generator):
+    if isinstance(generator, RowDraws):
+        return generator.exponential(shape, device)
     return torch.empty(shape, device=device).exponential_(generator=generator)
 
 
@@ -142,8 +175,9 @@ def promote_targets(
         if noise is not None:
             scores, noise = noise, None
         else:
-            scores = torch.randn(
-                (B, N), device=scores.device, generator=generator
+            scores = (
+                generator.normal((B, N), scores.device) if isinstance(generator, RowDraws)
+                else torch.randn((B, N), device=scores.device, generator=generator)
             )
         context_temperature = 0.0
     tgtf = tgt_mask.float()

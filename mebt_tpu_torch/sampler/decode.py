@@ -35,6 +35,19 @@ device: counts, offsets and skipped steps are known on the host, the
 kernels' per-step seeds come from a host generator and the other noise
 from a device generator. Padding slots of a compact index hold N:
 gathers clip them, scatters drop them.
+
+On a mesh (a model from models/mebt.py:on_mesh; the JAX package's
+sharded decode, tests/test_multichip.py): each data rank decodes its
+rows of the batch, and the ranks of a tensor-parallel group, which hold
+the same rows, make the same draws. B is the whole batch, and `codes`,
+`ctx_mask`, `chosen_prob` and the state returned are this rank's rows
+(parallel/mesh.py:batch_rows); the noise hooks keep the whole batch's
+shape. Every rank makes the whole batch's device draws and keeps its
+rows, the head kernels draw at the batch's rows (their row offset), and
+the per-row counts that size the buckets are gathered over `data`: so a
+(data x model) decode gives the single-rank decode's codes. Under tensor
+parallelism the head samples through the sharded K3 / K4 and the dense
+scan's logits are gathered over the vocabulary before sampling.
 """
 
 from __future__ import annotations
@@ -48,10 +61,12 @@ from mebt_tpu_torch.models.mebt import transformer_split
 from mebt_tpu_torch.models.transformer import default_mode_list
 from mebt_tpu_torch.ops.head_sample import head_sample, head_topk_sample
 from mebt_tpu_torch.ops.sampling import (
+    RowDraws,
     exact_rank_desc,
     promote_targets,
     sample_tokens,
 )
+from mebt_tpu_torch.parallel.mesh import all_gather, batch_rows
 from mebt_tpu_torch.sampler.mask_schedule import (
     DecodePlan,
     plan_segments_joint,
@@ -98,12 +113,16 @@ class DecodeState:
 class _Rng:
     """The decode's random streams, from one integer seed: a host
     generator for the head kernels' per-step seeds and a device
-    generator for the noise drawn on the device. Neither waits for the
-    device."""
+    generator for the noise drawn on the device, through `draws`, which
+    keeps this rank's `rows` of a batch of `total` (None: every row).
+    Neither waits for the device."""
 
-    def __init__(self, seed: int, device: torch.device):
+    def __init__(self, seed: int, device: torch.device, rows: slice | None = None,
+                 total: int | None = None):
         self.host = torch.Generator().manual_seed(int(seed))
         self.dev = torch.Generator(device).manual_seed(self.next_int(2**62))
+        self.row0 = 0 if rows is None else rows.start
+        self.draws = RowDraws(self.dev, rows, total)
 
     def next_int(self, high: int) -> int:
         return int(torch.randint(high, (1,), generator=self.host))
@@ -169,7 +188,7 @@ def _maskgit_scan(model, state: DecodeState, plan: DecodePlan, *,
             logits, temperature, top_k, top_p,
             need_probs=score_mode == "entropy",
             noise=None if sample_noise is None else sample_noise[i],
-            generator=rng.dev,
+            generator=rng.draws,
         )
         scores, ctemp = _scores(score_mode, chosen_p, probs, tgt_mask,
                                 context_temperature, plan.ctemp_scale[i])
@@ -177,7 +196,7 @@ def _maskgit_scan(model, state: DecodeState, plan: DecodePlan, *,
             scores, tgt_mask, int(plan.n_new[i]), ctemp,
             random_scores=random_scores,
             noise=None if promote_noise is None else promote_noise[i],
-            generator=rng.dev,
+            generator=rng.draws,
         )
         state = DecodeState(
             codes=torch.where(tgt_mask, sampled.long(), state.codes),
@@ -204,15 +223,18 @@ def _sample_compact_bucket(model, latents, idx, cvalid, temperature, top_k,
         B, M, D = tokens.shape
         x, w = tokens.reshape(B * M, D), model.transformer.head.weight
         seed = rng.next_int(2**32)
+        # on a mesh: w is this rank's vocabulary rows; x's rows start at
+        # the batch row rng.row0
+        kw = dict(mesh=model.mesh, row_offset=rng.row0 * M)
         if top_k is None:
-            ids, probs = head_sample(x, w, seed, temperature)
+            ids, probs = head_sample(x, w, seed, temperature, **kw)
         else:
-            ids, probs = head_topk_sample(x, w, seed, int(top_k), temperature)
+            ids, probs = head_topk_sample(x, w, seed, int(top_k), temperature, **kw)
         return ids.view(B, M), probs.view(B, M), None
     logits = model.stage_b_compact(latents, idx, cvalid)
     return sample_tokens(
         logits, temperature, top_k, top_p,
-        need_probs=score_mode == "entropy", generator=rng.dev,
+        need_probs=score_mode == "entropy", generator=rng.draws,
     )
 
 
@@ -237,7 +259,7 @@ def _staged_confidence_scan(model, state: DecodeState, plan: DecodePlan,
         scores, ctemp = _scores(score_mode, chosen_p, probs, cvalid,
                                 context_temperature, plan.ctemp_scale[i])
         promote_c = promote_targets(
-            scores, cvalid, int(plan.n_new[i]), ctemp, generator=rng.dev,
+            scores, cvalid, int(plan.n_new[i]), ctemp, generator=rng.draws,
         )
         state = DecodeState(
             codes=_scatter_drop(state.codes, idx, sampled),
@@ -246,6 +268,18 @@ def _staged_confidence_scan(model, state: DecodeState, plan: DecodePlan,
             chosen_prob=_scatter_drop(state.chosen_prob, idx, chosen_p),
         )
     return state
+
+
+def _batch_values(x: torch.Tensor, mesh) -> np.ndarray:
+    """x (rows,) of this rank as numpy over the whole batch: gathered over
+    `data` on a mesh, so the host's decisions are the single-rank decode's."""
+    return (x if mesh is None else all_gather(x, mesh, "data")).cpu().numpy()
+
+
+def _rows_of(mesh, B: int) -> slice:
+    if mesh is not None and mesh.size("seq") > 1:
+        raise ValueError("a model split over seq decodes with parallel/sp.py:sp_maskgit_sample")
+    return slice(0, B) if mesh is None else batch_rows(B, mesh)
 
 
 def _round_bucket(v: int, N: int, align: int = 128) -> int:
@@ -277,7 +311,7 @@ def _staged_random_scan(model, state: DecodeState, plan: DecodePlan, *,
     device = state.codes.device
     tgt0 = ~state.ctx_mask
     noise = (
-        torch.rand(tgt0.shape, device=device, generator=rng.dev)
+        rng.draws.uniform(tgt0.shape, device)
         if perm_noise is None else perm_noise.to(device, torch.float32)
     )
     perm_rank = exact_rank_desc(
@@ -295,7 +329,7 @@ def _staged_random_scan(model, state: DecodeState, plan: DecodePlan, *,
         latents = _stage_a_latents(model, state, ctx_bucket)
         logits = model.stage_b_compact(latents, idx, cvalid)
         sampled, chosen_p, _ = sample_tokens(
-            logits, temperature, top_k, top_p, generator=rng.dev
+            logits, temperature, top_k, top_p, generator=rng.draws
         )
         state = DecodeState(
             codes=_scatter_drop(state.codes, idx, sampled),
@@ -362,13 +396,15 @@ def maskgit_sample(
     `promote_noise` (S, B, N) replace the random draws per plan step and
     force the dense scan; `perm_noise` (B, N) replaces the one draw that
     fixes the promotion order of the staged `random`/`bootstrap` decode
-    (larger = promoted earlier)."""
+    (larger = promoted earlier). On a mesh (module docstring) B is the
+    whole batch and the tensors are this rank's rows."""
     if strategy not in ("maskgit", "random", "bootstrap", "entp", "ar"):
         raise ValueError(f"unknown decoding strategy {strategy!r}")
     device = next(model.parameters()).device
     N = model.config.seq_len
-    state = DecodeState.create(B, N, device, codes, ctx_mask, chosen_prob)
-    rng = _Rng(seed, device)
+    rows = _rows_of(model.mesh, B)
+    state = DecodeState.create(rows.stop - rows.start, N, device, codes, ctx_mask, chosen_prob)
+    rng = _Rng(seed, device, rows, B)
     random_scores = strategy in ("random", "bootstrap")
     score_mode = {"entp": "entropy", "ar": "position"}.get(strategy, "prob")
     with_noise = sample_noise is not None or promote_noise is not None
@@ -384,7 +420,7 @@ def maskgit_sample(
         # the given context's per-row counts: one host fetch, before any step
         n_ctx = (
             np.zeros(1, np.int64) if ctx_mask is None
-            else np.unique(state.ctx_mask.sum(dim=-1).cpu().numpy())
+            else np.unique(_batch_values(state.ctx_mask.sum(dim=-1), model.mesh))
         )
         # the confidence scan takes its target counts from the plan
         if not random_scores and not np.all(n_ctx == plan.n_ctx_init):
@@ -397,7 +433,8 @@ def maskgit_sample(
             model, state, plan, temperature=float(temperature), top_k=top_k,
             top_p=top_p, context_temperature=float(context_temperature),
             random_scores=random_scores, score_mode=score_mode,
-            n_ctx0=int(n_ctx.max()), rng=rng, perm_noise=perm_noise,
+            n_ctx0=int(n_ctx.max()), rng=rng,
+            perm_noise=None if perm_noise is None else perm_noise[rows],
         )
     if with_noise and (sample_noise is None or promote_noise is None):
         raise ValueError("sample_noise and promote_noise must be passed together")
@@ -406,8 +443,8 @@ def maskgit_sample(
         temperature=float(temperature), top_k=top_k, top_p=top_p,
         context_temperature=float(context_temperature),
         random_scores=random_scores, score_mode=score_mode, rng=rng,
-        sample_noise=None if sample_noise is None else sample_noise.to(device),
-        promote_noise=None if promote_noise is None else promote_noise.to(device),
+        sample_noise=None if sample_noise is None else sample_noise[:, rows].to(device),
+        promote_noise=None if promote_noise is None else promote_noise[:, rows].to(device),
     )
 
 
@@ -472,7 +509,7 @@ def _gibbs_scan(model, state: DecodeState, chunk_ids, base_ctx, steps, *,
         sampled, chosen_p, _ = sample_tokens(
             logits, temperature, top_k, top_p,
             noise=None if sample_noise is None else sample_noise[j],
-            generator=rng.dev,
+            generator=rng.draws,
         )
         state = DecodeState(
             codes=torch.where(tgt, sampled.long(), state.codes),
@@ -542,21 +579,25 @@ def draft_and_revise(
     uniforms that assign each sweep's chunks; `sample_noise` (steps, B,
     N, V) the Exp(1) draws of every step of every sweep, dense only;
     `visits`, a list, gets one (B, N) int32 count a sweep of how often
-    each position was sampled."""
+    each position was sampled. On a mesh (module docstring) `codes` and
+    `ctx_mask` are this rank's rows; the hooks keep the whole batch's shape."""
     device = next(model.parameters()).device
     B, N = codes.shape
+    mesh = model.mesh
+    total = B * (1 if mesh is None else mesh.size("data"))
+    rows = _rows_of(mesh, total)
     state = DecodeState.create(B, N, device, codes, ctx_mask)
     base_ctx = state.ctx_mask
     tgt_all = ~base_ctx
-    rng = _Rng(seed, device)
+    rng = _Rng(seed, device, rows, total)
     use_staged = (
         staged and transformer_split(model.config) is not None and sample_noise is None
     )
     # per-row target counts, one host fetch before the first sweep: a
     # row-dependent context makes chunk and spill sizes row-dependent
     n_tgt_rows = (
-        np.full(B, N, np.int64) if ctx_mask is None
-        else tgt_all.sum(dim=-1).cpu().numpy()
+        np.full(total, N, np.int64) if ctx_mask is None
+        else _batch_values(tgt_all.sum(dim=-1), mesh)
     )
     sweeps = ([] if skip_draft else [("draft", n_draft, draft_t, draft_k, draft_p)]) + [
         ("revise", n_revise, revise_t, revise_k, revise_p)
@@ -564,8 +605,8 @@ def draft_and_revise(
     step0 = 0
     for j, (mode, n, temperature, top_k, top_p) in enumerate(sweeps):
         noise = (
-            torch.rand((B, N), device=device, generator=rng.dev)
-            if chunk_noise is None else chunk_noise[j].to(device, torch.float32)
+            rng.draws.uniform((B, N), device)
+            if chunk_noise is None else chunk_noise[j][rows].to(device, torch.float32)
         )
         chunk_ids = _random_chunk_ids(tgt_all, n, noise)
         count = None
@@ -578,7 +619,7 @@ def draft_and_revise(
             state = _gibbs_scan(
                 model, state, chunk_ids, base_ctx, range(n),
                 sample_noise=None if sample_noise is None
-                else sample_noise[step0:step0 + n].to(device), **kw,
+                else sample_noise[step0:step0 + n, rows].to(device), **kw,
             )
         elif mode == "draft":
             counts = _gibbs_chunk_counts(n_tgt_rows, n)

@@ -7,6 +7,11 @@ decode.
 Sizes arrive in pixel frames and are converted to latent frames by the
 VQGAN's temporal downsample. Results come back as numpy, as in the JAX
 package.
+
+On a mesh (a model from models/mebt.py:on_mesh), `batch_size` is the
+whole batch and every array given or returned holds this rank's rows
+(parallel/mesh.py:batch_rows): each data rank decodes its rows, to
+pixels too, with its own whole VQGAN.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from mebt_tpu_torch.parallel.mesh import batch_rows
 from mebt_tpu_torch.sampler.decode import draft_and_revise, maskgit_sample
 from mebt_tpu_torch.sampler.mask_schedule import bootstrap_plan, maskgit_plan
 
@@ -39,6 +45,18 @@ def _decode_pixels(vqgan, codes_bthw: torch.Tensor) -> np.ndarray:
 
 def _split(seed_gen: torch.Generator) -> int:
     return int(torch.randint(2**62, (1,), generator=seed_gen))
+
+
+def _local_rows(model, B: int) -> int:
+    """This rank's rows of a whole batch of B."""
+    if model.mesh is None:
+        return B
+    rows = batch_rows(B, model.mesh)
+    return rows.stop - rows.start
+
+
+def _whole_batch(model, B_local: int) -> int:
+    return B_local * (1 if model.mesh is None else model.mesh.size("data"))
 
 
 def bidirect_generate(
@@ -84,7 +102,7 @@ def bidirect_generate(
         )
     num_pos = h * w
     N = T * num_pos
-    B = batch_size
+    B = _local_rows(model, batch_size)
     seeds = torch.Generator().manual_seed(int(seed))
     sample_kw = dict(
         temperature=temperature, top_k=top_k, top_p=top_p,
@@ -96,7 +114,7 @@ def bidirect_generate(
         nonlocal n_call
         noise = {} if _noise_hook is None else _noise_hook(n_call, plan)
         n_call += 1
-        return maskgit_sample(model, _split(seeds), B, plan, **kw, **noise)
+        return maskgit_sample(model, _split(seeds), batch_size, plan, **kw, **noise)
 
     carried = {}
     if bootstrap > 0:
@@ -192,7 +210,7 @@ def extrapolate_generate(
         window = np.zeros((B, T, h, w), np.int64)
         window[:, :ctx_lat] = last[:, -ctx_lat:]
         state = maskgit_sample(
-            model, _split(seeds), B, plan,
+            model, _split(seeds), _whole_batch(model, B), plan,
             codes=torch.from_numpy(window.reshape(B, N)), ctx_mask=ctx_mask,
             temperature=temperature, top_k=top_k, top_p=top_p,
             context_temperature=vid_c_temp,
@@ -232,7 +250,7 @@ def dnr_generate(
     T, h, w = model.config.latent_shape
     device = next(model.parameters()).device
     N = T * h * w
-    B = batch_size
+    B = _local_rows(model, batch_size)
     codes = (
         torch.zeros((B, N), dtype=torch.int64) if draft is None
         else torch.from_numpy(np.asarray(draft, np.int64).reshape(B, N))

@@ -17,6 +17,14 @@ the top k of the S k pairs head by head, then draws the noise at the
 survivors' columns. Both sides get the same fp32 logits here, so the ids
 must be equal; the probabilities are held to 1e-5 relative (the same
 exponentials summed in another order in fp32; the card gate is 1e-3).
+
+The sharded head (ranks holding consecutive vocabulary rows of W, and
+batch rows from an offset): each rank's slices draw the noise of the
+whole head's (row, column) and keep its columns; the ranks' slice states,
+gathered in rank order, merge as the slices of one launch, K4's under
+the cap of 32 slices in all. Ids equal the whole head's, as do those of
+the plain cross-rank path (head_sample_part_ref / head_topk_part_ref and
+their merges).
 """
 
 import math
@@ -26,7 +34,11 @@ import pytest
 import torch
 
 from mebt_tpu_torch.ops.head_sample import (
+    head_sample_merge_ref,
+    head_sample_part_ref,
     head_sample_ref,
+    head_topk_merge_ref,
+    head_topk_part_ref,
     head_topk_sample_ref,
     philox_exponential,
     philox_exponential_at,
@@ -62,10 +74,18 @@ def _fold(a, b):
 
 def emulate_k3(x, w, temperature, S, noise=None, seed=0):
     """(ids, probs) as the sliced K3 computes them."""
+    return k3_merge(k3_slice_states(x, w, temperature, S, noise, seed))
+
+
+def k3_slice_states(x, w, temperature, S, noise=None, seed=0, row_offset=0, col_offset=0):
+    """The slices' states of the sliced K3 (head_sample_mma_kernel) over
+    W's columns, which are the whole head's col_offset.., for x's rows,
+    the batch's row_offset..: the noise and the stored columns are the
+    whole head's."""
     logits = _logits(x, w, temperature)
     R, V = logits.shape
     if noise is None:
-        noise = philox_exponential(seed, R, V, x.device)
+        noise = philox_exponential(seed, R, V, x.device, row_offset, col_offset)
     pert = logits - torch.log(noise)
     states = []
     for c0, c1 in slices(V, S):
@@ -88,9 +108,15 @@ def emulate_k3(x, w, temperature, S, noise=None, seed=0):
                 take = pb > st["best"]
                 st["best"] = torch.where(take, pb, st["best"])
                 st["l"] = torch.where(take, lv.gather(1, j[:, None])[:, 0], st["l"])
-                st["col"] = torch.where(take, cols[j], st["col"])
+                st["col"] = torch.where(take, cols[j] + col_offset, st["col"])
             quad.append(st)
         states.append(_fold(_fold(quad[0], quad[1]), _fold(quad[2], quad[3])))
+    return states
+
+
+def k3_merge(states):
+    """K3's merge (head_sample_merge_kernel) of slice states in order."""
+    R = states[0]["m"].shape[0]
     m = torch.stack([st["m"] for st in states]).max(dim=0).values
     total = torch.zeros(R)
     best, bl = torch.full((R,), -math.inf), torch.zeros(R)
@@ -104,12 +130,12 @@ def emulate_k3(x, w, temperature, S, noise=None, seed=0):
     return col.to(torch.int32), torch.exp(bl - (m + torch.log(total)))
 
 
-def _slice_topk(logits, c0, c1, k):
+def _slice_topk(logits, c0, c1, k, col_offset=0):
     """A slice's sorted top k (value descending, column ascending), padded
-    with (-inf, NO_COL) to k pairs."""
+    with (-inf, NO_COL) to k pairs; columns counted from col_offset."""
     R = logits.shape[0]
     vals, idx = torch.sort(logits[:, c0:c1], dim=1, descending=True, stable=True)
-    vals, cols = vals[:, :k], idx[:, :k] + c0
+    vals, cols = vals[:, :k], idx[:, :k] + c0 + col_offset
     pad = k - vals.shape[1]
     if pad:
         vals = torch.cat([vals, torch.full((R, pad), -math.inf)], dim=1)
@@ -126,7 +152,7 @@ def emulate_k4(x, w, k, temperature, S, seed=0):
                         seed=seed)
 
 
-def merge_slices(lists, V, seed=0, noise=None):
+def merge_slices(lists, V, seed=0, noise=None, row_offset=0):
     """K4's merge (head_topk_merge_kernel) of the slices' sorted (values,
     columns) lists of k pairs a row: the top k of the S k pairs head by
     head, then Gumbel-max among them with `noise` (R, k) Exp(1) draws in
@@ -151,7 +177,7 @@ def merge_slices(lists, V, seed=0, noise=None):
         heads[rows, win] += 1
     assert int(mc.max()) < V  # no padding pair survives: V >= k real columns
     if noise is None:
-        noise = philox_exponential_at(seed, mc)
+        noise = philox_exponential_at(seed, mc, row_offset)
     pert = mv - torch.log(noise)
     slot = torch.argmax(pert, dim=1, keepdim=True)  # the lowest slot on a tie
     m = mv[:, :1]
@@ -247,3 +273,95 @@ def test_k4_split_ties_keep_the_lowest_columns(S, k):
     for temperature in (1.0, 0.0):
         _assert_same(*emulate_k4(x, w, k, temperature, S, seed=3),
                      *head_topk_sample_ref(x, w, k, temperature, seed=3))
+
+
+def _shards(w, n):
+    """The ranks' vocabulary rows of W and their first columns."""
+    v = w.shape[0] // n
+    return [(w[r * v:(r + 1) * v], r * v) for r in range(n)]
+
+
+@pytest.mark.parametrize("n,S", [(1, 3), (2, 1), (2, 5), (4, 2), (4, 9)])
+@pytest.mark.parametrize("temperature", [1.0, 0.0])
+def test_k3_sharded_slices_merge_as_the_whole_head(n, S, temperature):
+    """Each rank's slices (the sharded K3's part), gathered in rank order,
+    merge to the whole head's ids at a batch row offset."""
+    V, R, row_offset = 2048, 6, 37
+    x, w = _inputs(n * 10 + S, R, V, 32)
+    states = []
+    for w_r, c0 in _shards(w, n):
+        states += k3_slice_states(x, w_r, temperature, S, seed=11, row_offset=row_offset,
+                                  col_offset=c0)
+    rids, rprobs = head_sample_ref(x, w, temperature, seed=11, row_offset=row_offset)
+    _assert_same(*k3_merge(states), rids, rprobs)
+
+
+def test_offsets_draw_the_whole_batchs_noise():
+    """Rows from an offset and columns from an offset draw the noise of
+    those rows and columns of the whole (batch, vocabulary)."""
+    whole = philox_exponential(7, 50, 300, "cpu")
+    assert torch.equal(philox_exponential(7, 20, 100, "cpu", row_offset=30, col_offset=200),
+                       whole[30:, 200:])
+    cols = torch.tensor([[3, 299], [0, 150]])
+    assert torch.equal(philox_exponential_at(7, cols, row_offset=48),
+                       whole[48:].gather(1, cols))
+
+
+@pytest.mark.parametrize("n,S", [(2, 1), (2, 16), (4, 8), (8, 4)])  # n S up to the cap, 32
+@pytest.mark.parametrize("k", [1, 32, 200])
+@pytest.mark.parametrize("temperature", [1.0, 0.0])
+def test_k4_sharded_slices_merge_as_the_whole_head(n, S, k, temperature):
+    """The union of the ranks' top-k lists holds the whole head's top k
+    in order (value descending, column ascending), the draw at the batch's
+    rows: the sharded K4's ids and probabilities are the whole head's."""
+    V, R, row_offset = 2048, 6, 37
+    x, w = _inputs(n + S + k, R, V, 32)
+    lists = []
+    for w_r, c0 in _shards(w, n):
+        logits = _logits(x, w_r, temperature)
+        lists += [_slice_topk(logits, c0_, c1_, k, c0) for c0_, c1_ in slices(w_r.shape[0], S)]
+    assert len(lists) <= 32
+    _assert_same(*merge_slices(lists, V, seed=13, row_offset=row_offset),
+                 *head_topk_sample_ref(x, w, k, temperature, seed=13, row_offset=row_offset))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_ties_go_to_the_lowest_column(n):
+    """Equal logits in several ranks' shards: the merged K3 and K4 keep
+    the lowest columns, as the whole plain head does."""
+    V = 1024
+    x, w = _inputs(5, 8, V, 16, ties=True)
+    ones = torch.ones(8, V)
+    states, lists = [], []
+    for w_r, c0 in _shards(w, n):
+        states += k3_slice_states(x, w_r, 1.0, 3, noise=ones[:, c0:c0 + w_r.shape[0]],
+                                  col_offset=c0)
+        lists += [_slice_topk(_logits(x, w_r, 1.0), a, b, 40, c0)
+                  for a, b in slices(w_r.shape[0], 3)]
+    logits = _logits(x, w, 1.0)
+    first = torch.argmax((logits == logits.max(1, keepdim=True).values).to(torch.int8), dim=1)
+    assert torch.equal(k3_merge(states)[0].long(), first)
+    _assert_same(*merge_slices(lists, V, seed=3), *head_topk_sample_ref(x, w, 40, 1.0, seed=3))
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("k", [None, 1, 32, 300])
+@pytest.mark.parametrize("temperature", [1.0, 0.0])
+def test_plain_cross_rank_head_matches_the_whole_plain_head(n, k, temperature):
+    """The plain versions' cross-rank path (a rank's state, the merge):
+    K3's ids bit-equal and probabilities to 1e-5; K4's both bit-equal (the
+    same k values in the same order). k 300 exceeds a rank's 256 rows."""
+    V, R, row_offset = 1024, 9, 5
+    x, w = _inputs(n * 7 + (k or 0), R, V, 24)
+    if k is None:
+        parts = torch.stack([head_sample_part_ref(x, w_r, temperature, seed=2,
+                                                  row_offset=row_offset, col_offset=c0)
+                             for w_r, c0 in _shards(w, n)])
+        _assert_same(*head_sample_merge_ref(parts),
+                     *head_sample_ref(x, w, temperature, seed=2, row_offset=row_offset))
+    else:
+        parts = torch.stack([head_topk_part_ref(x, w_r, k, temperature, col_offset=c0)
+                             for w_r, c0 in _shards(w, n)])
+        ids, probs = head_topk_merge_ref(parts, seed=2, row_offset=row_offset)
+        rids, rprobs = head_topk_sample_ref(x, w, k, temperature, seed=2, row_offset=row_offset)
+        assert torch.equal(ids, rids) and torch.equal(probs, rprobs)

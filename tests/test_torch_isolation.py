@@ -44,6 +44,8 @@ def test_the_training_slices_modules_are_covered():
     # VQGAN training
     assert {"models/discriminator.py", "models/lpips.py", "train/vqgan_train.py",
             "cli/train_vqgan.py"} <= covered
+    # the parallel decode
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/sp.py"} <= covered
 
 
 def test_import_pulls_in_no_jax_and_no_jax_package():

@@ -222,6 +222,43 @@ def test_head_sample_ties_match_plain(dev, R, V):
         assert torch.equal(ids, head_sample_ref(x, w, temp, seed=3)[0])
 
 
+@pytest.mark.parametrize("k", [None, 32], ids=["k3", "k4"])
+def test_sharded_head_at_a_row_offset_gives_the_whole_batchs_ids(dev, k):
+    """The sharded K3 / K4 (slice kernel into a part, the gather, the
+    merge kernel) of rows 100.. of a batch, on one rank of a gloo group of
+    one and without a mesh: the whole-head kernel's ids and probabilities
+    of those rows, bit for bit (one part: the same slices and sums)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from mebt_tpu_torch.parallel.mesh import make_mesh
+
+    gen = torch.Generator(dev).manual_seed(9)
+    x, w = _head_case(gen, dev, 1000, 16384)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(data=1, model=1)
+        for temp in (1.0, 0.0):
+            if k is None:
+                whole = head_sample(x, w, 5, temp)
+                parts = [head_sample(x[100:], w, 5, temp, mesh=m, row_offset=100)
+                         for m in (mesh, None)]
+            else:
+                whole = head_topk_sample(x, w, 5, k, temp)
+                parts = [head_topk_sample(x[100:], w, 5, k, temp, mesh=m, row_offset=100)
+                         for m in (mesh, None)]
+            for ids, probs in parts:
+                assert torch.equal(ids, whole[0][100:])
+                assert torch.equal(probs, whole[1][100:])
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("R", [256, 3328, 6400])  # the most slices; 128f last two segments
 def test_head_topk_sample_slices_match_plain(dev, R):
     gen = torch.Generator(dev).manual_seed(R)
