@@ -116,12 +116,30 @@
    whole canvas (32 steps, top-k 32), every step's promotion identical on
    both ranks. gloo copies the collectives through the host: no time of
    these phases is a multi-GPU time;
-16. prints the kernels' JSON line and, last, the result line.
+16. trains on meshes the same way (parallel/mesh.py, sp.py, pp.py,
+   train/): `tp16_train`, STL-16f from codes at full width, batch 6, the
+   config's dropouts (0.1), 3 MeBTTrainer.fit steps at model 2;
+   `dp16_train`, data 2 (3 rows a rank) with exp.zero1, 3 steps, its
+   final checkpoint read back by a single-rank trainer with every
+   parameter and moment bit-equal (integer checksums of the bits);
+   `train16_nccl`, 3 fit steps on a world-size-1 nccl mesh, losses and
+   final parameters bit-equal to the single-rank trainer's; `sp128_train`,
+   STL-128f batch 2 over seq 2 (4096 positions a rank), 2 steps of
+   sp_loss_fn + backward + AdamW, attention dropout 0 (sequence
+   parallelism refuses it); `pp16_train`, STL-16f batch 6 over pipe 2 (12
+   blocks a stage), 3 microbatches, 2 steps of pp_loss_fn + backward +
+   AdamW. Each step's loss and step 1's gathered gradients must stay
+   within twice the single-rank bf16 run's distance from an fp32
+   single-rank run of the same steps, draws and batches (for pp16_train
+   the pipeline's function on one rank, one stage); each rank's K1, K2,
+   K6, K7, K8 and K9 launches a step must be the predicted ones (under
+   SP, K1 and K6 are 0: the merge is plain); walls and peaks a rank;
+17. prints the kernels' JSON line and, last, the result line.
 
 `--only a,b` runs a subset of the phases (k1 k2 k3 k4 k5 k6 k7 k8 k9
 gen16 gen128 dnr16 dnr128 whole whole_dnr train whole_train train_video
 train_video_128 whole_video ckpt16 fvd16 tp16 tp16_nccl tp128 sp128
-vqgan_train)
+vqgan_train tp16_train dp16_train train16_nccl sp128_train pp16_train)
 while developing; it then prints no kernels line and no result line.
 
 Any failure exits non-zero. Without a CUDA device, or without the
@@ -959,6 +977,50 @@ def check_k8(dev, gen):
                     bound_ms=bnd, bound_by=by,
                 )
             rows.append(row)
+    rows += k8_offset_rows(dev, gen, SEED)
+    return rows
+
+
+def k8_offset_rows(dev, gen, seed):
+    """K8 keyed on the whole model's rows: a tensor-parallel rank's 8 of
+    16 heads (h0 8) and a data rank's rows (b0 6) of the 16f train shapes,
+    bf16, K1/K6 and K2/K7 against the plain versions at the same offsets;
+    at b0 = h0 = 0, heads = H the kernels give the default's bits."""
+    from mebt_tpu_torch.ops import attention_cuda as ac
+
+    rows = []
+    at = dict(b0=TRAIN_BATCH, h0=8, heads=16)
+    for case, regime, NQ, NK, head_ones, _ in K8_CASES:
+        if case not in ("lt2l", "latent_dec"):
+            continue
+        masked = regime == "smallq"
+        q, k, v, g, mask = k6_inputs(dev, gen, TRAIN_BATCH, NK, head_ones, masked,
+                                     torch.bfloat16, H=8, NQ=NQ)
+        kw = dict(p_drop=P_DROP, seed=seed)
+        if masked:
+            out, lse = ac.smallq_attention(q, k, v, mask, **kw, **at)
+            ref = ac.smallq_attention_ref(q, k, v, mask, **kw, **at)[0]
+            grads = ac.smallq_backward(q, k, v, mask, out, lse, g, **kw, **at)
+            gref = ac.smallq_backward_ref(q, k, v, mask, out, lse, g, **kw, **at)
+            local = ac.smallq_attention(q, k, v, mask, **kw)[0]
+            same = ac.smallq_attention(q, k, v, mask, **kw, b0=0, h0=0, heads=8)[0]
+        else:
+            out = ac.largeq_attention(q, k, v, **kw, **at)
+            ref = ac.largeq_attention_ref(q, k, v, **kw, **at)
+            grads = ac.largeq_backward(q, k, v, g, **kw, **at)
+            gref = ac.largeq_backward_ref(q, k, v, g, **kw, **at)
+            local = ac.largeq_attention(q, k, v, **kw)
+            same = ac.largeq_attention(q, k, v, **kw, b0=0, h0=0, heads=8)
+        ferr, fover = bf16_errors(out, ref)
+        gerr, gover = grad_errors(grads, gref, torch.bfloat16)
+        require(fover <= 1 and gover <= 1, f"K8 {case} at offsets {at}: forward err {ferr} "
+                                            f"({fover}), backward {gerr} ({gover})")
+        require(bool(torch.equal(local, same)) and not torch.equal(local, out),
+                f"K8 {case}: zero offsets are not the default rows, or offsets change nothing")
+        rows.append(dict(case=f"{case}_offsets", regime=regime, dtype="bfloat16",
+                         shape=[TRAIN_BATCH, 8, NQ, NK, 64], offsets=at, rate=P_DROP,
+                         max_abs_err=ferr, err_over_tol=fover, grad_max_abs_err=gerr,
+                         grad_err_over_tol=gover, zero_offsets_bit_equal=True))
     return rows
 
 
@@ -2804,8 +2866,13 @@ def sharded_head_check(dev, model, tp, mesh, R: int, k: int | None) -> dict:
     against the whole-head kernel at one seed, temperatures 1 and 0, x
     (R, D) from a seed (the same on every rank): ids bit for bit,
     probabilities' relative error; CUDA-event times of both (the sharded
-    call holds the gloo gather of the slices' states)."""
+    call holds the gloo gather of the slices' states), and of the library
+    version: a rank's torch.matmul on its vocabulary slice, the plain
+    sampler (ops/sampling.py:sample_tokens) and the gather of its per-row
+    state over `model`."""
     from mebt_tpu_torch.ops.head_sample import head_sample, head_topk_sample
+    from mebt_tpu_torch.ops.sampling import sample_tokens
+    from mebt_tpu_torch.parallel.mesh import all_gather
 
     D = model.config.n_embd
     x = torch.randn(R, D, device=dev, generator=torch.Generator(dev).manual_seed(5))
@@ -2825,8 +2892,15 @@ def sharded_head_check(dev, model, tp, mesh, R: int, k: int | None) -> dict:
         a, b = whole(1234, t), sharded(1234, t)
         out[f"ids_differing_t{t:g}"] = int((a[0] != b[0]).sum().item())
         out[f"prob_rel_err_t{t:g}"] = ((a[1] - b[1]).abs() / a[1]).max().item()
+    gen = torch.Generator(dev).manual_seed(7)
+
+    def library():
+        ids, probs, _ = sample_tokens(torch.matmul(x, w_l.t()), 1.0, top_k=k, generator=gen)
+        return all_gather(torch.stack([probs.double(), ids.double()], -1)[None], mesh, "model")
+
     out["whole_ms"] = cuda_ms(lambda: whole(7, 1.0))
     out["sharded_ms"] = cuda_ms(lambda: sharded(7, 1.0))
+    out["library_ms"] = cuda_ms(library, reps=5)
     return out
 
 
@@ -2946,8 +3020,8 @@ def sp128_rank(dev) -> dict:
     codes = torch.randint(0, STL128["vocab_size"], (B, N), device=dev, generator=g)
     ctx = torch.rand(B, N, device=dev, generator=g) < 0.4
     span = canvas_span(N, mesh)
-    got = sp_forward(msp, *(canvas_block(t, mesh) for t in (codes, ctx, ~ctx)), mesh)
     with torch.no_grad():
+        got = sp_forward(msp, *(canvas_block(t, mesh) for t in (codes, ctx, ~ctx)), mesh)
         ref = model(codes, ctx, ~ctx)[:, span]
     out = dict(coords=mesh.coords,
                logits=logits_errors(dev, STL128, got, ref, codes, ctx, span))
@@ -2965,8 +3039,495 @@ def sp128_rank(dev) -> dict:
     return out
 
 
+# -- the parallel training paths (parallel/mesh.py, sp.py, pp.py, train/):
+# STL-16f from codes at full width, batch 6, the config's dropouts, through
+# MeBTTrainer.fit on a model-2 mesh (tp16_train), on a data-2 mesh with
+# ZeRO-1 (dp16_train) and on a world-size-1 nccl mesh (train16_nccl);
+# STL-128f batch 2 over seq 2 through sp_loss_fn (sp128_train; attention
+# dropout 0, which sequence parallelism refuses); STL-16f batch 6 over
+# pipe 2 through pp_loss_fn (pp16_train). Each is held to single-rank runs
+# of the same steps, draws and batches, bf16 and fp32.
+PAR_STEPS = 3  # fit steps of tp16_train, dp16_train, train16_nccl
+SP_STEPS = PP_STEPS = 2
+PP_MICRO = 3
+SP_BATCH = 2
+LR_16F, LR_128F = TRAIN_CONFIG["exp"]["exact_lr"], 1.8e-5
+# step 1's gradients held to the gate: the latents, a first and a last
+# block, the vocabulary head
+PAR_GRADS = ("sos_emb", "transformer.blocks.0.attn.query.weight",
+             "transformer.blocks.23.mlp.2.weight", "transformer.head.weight")
+
+
+def par_config(**exp):
+    import copy
+
+    cfg = copy.deepcopy(TRAIN_CONFIG)
+    cfg["exp"].update(exp)
+    return cfg
+
+
+class RowsLoader(CodesLoader):
+    """CodesLoader's batches cut to a data rank's rows."""
+
+    def __init__(self, n_batches, B, N, vocab, seed, mesh=None):
+        super().__init__(n_batches, B, N, vocab, seed)
+        if mesh is not None:
+            from mebt_tpu_torch.parallel.mesh import batch_rows
+
+            rows = batch_rows(B, mesh)
+            self.batches = [{k: v[rows] for k, v in b.items()} for b in self.batches]
+
+
+def step_grads(model, mesh, axes, names=PAR_GRADS, stage=None) -> dict:
+    """The whole gradients of `names` as they stand before an optimizer
+    step: summed over the mesh's `axes` (copies: the optimizer sums its
+    own), gathered over the axes that shard them (a collective); fp32
+    numpy arrays (a rank's report crosses processes by value). A pipeline
+    stage's names are its local ones."""
+    import torch.distributed as dist
+
+    from mebt_tpu_torch.parallel.mesh import gather_state_dict
+    from mebt_tpu_torch.parallel.pp import from_pp_params
+
+    params = dict(model.named_parameters())
+    g = {n: params[n].grad.detach().clone() for n in names}
+    if mesh is not None:
+        for t in g.values():
+            for a in axes:
+                if mesh.size(a) > 1:
+                    dist.all_reduce(t, group=mesh.group(a))
+        g = gather_state_dict(g, mesh) if stage is None else from_pp_params(stage, mesh, g)
+    return {n: t.float().cpu().numpy() for n, t in g.items()}
+
+
+def checksums(tensors: dict) -> dict:
+    """Two integer checksums of each tensor's bits (their sum, and their
+    sum weighted by position mod 1021), exact on the device."""
+    out = {}
+    for n, t in tensors.items():
+        bits = t.detach().contiguous().view(-1).view(torch.int32).long()
+        w = torch.arange(bits.numel(), device=bits.device) % 1021 + 1
+        out[n] = (int(bits.sum()), int((bits * w).sum()))
+    return out
+
+
+def fit_probe(trainer, state, loader, steps, mesh, axes=("data",), final_checkpoint=False):
+    """trainer.fit for `steps` optimizer steps from `state`, counted: each
+    step's loss (the whole batch's) and step 1's gradients (step_grads)."""
+    losses, grads = [], {}
+    step_fn, opt_step = trainer.step_fn, state.optimizer.step
+
+    def update():
+        if not grads:
+            grads.update(step_grads(state.model, mesh, axes))
+        return opt_step()
+
+    def run(st, b):
+        st, m = step_fn(st, b)
+        losses.append(float(m["loss"]))
+        return st, m
+
+    state.optimizer.step, trainer.step_fn = update, run
+    torch.cuda.reset_peak_memory_stats()
+    state, launches, wall = counted(lambda: trainer.fit(
+        loader, max_steps=steps, state=state, log_every=1000, final_checkpoint=final_checkpoint))
+    return state, dict(losses=losses, grads=grads, launches=launches, wall_s=wall,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def fit_run(dev, out_dir, name, mesh, dtype=torch.bfloat16, final_checkpoint=False, **exp):
+    """STL-16f fit of PAR_STEPS steps on batch TRAIN_BATCH (this rank's rows
+    on a mesh): fit_probe's report and every parameter's checksums."""
+    import shutil
+
+    from mebt_tpu_torch.train.trainer import MeBTTrainer
+
+    logdir = os.path.join(out_dir, name)
+    shutil.rmtree(logdir, ignore_errors=True)
+    trainer = MeBTTrainer(par_config(**exp), logdir, seed=0, compute_dtype=dtype, device=dev,
+                          mesh=mesh)
+    loader = RowsLoader(PAR_STEPS, TRAIN_BATCH, 1024, STL16["vocab_size"], 1, mesh)
+    state, out = fit_probe(trainer, trainer.init_state(), loader, PAR_STEPS, mesh,
+                           final_checkpoint=final_checkpoint)
+    out["params"] = checksums(dict(state.model.named_parameters()))
+    out["logdir"], out["step"] = logdir, state.step
+    trainer.logger.close()
+    return out, trainer, state
+
+
+def per_step(launches, steps) -> list[int]:
+    require(all(n % steps == 0 for n in launches), f"launches {launches} over {steps} steps")
+    return [n // steps for n in launches]
+
+
+def train_launches(k1, k2, drop=True) -> list[int]:
+    """A rank's launches a step: K1/K2 forward, K6/K7 backward and, with
+    attention dropout, the forward and backward of each through K8."""
+    return [k1, k2, 0, 0, 0, k1, k2, 2 * (k1 + k2) if drop else 0, 0]
+
+
+def tp16_train_rank(dev, out_dir) -> dict:
+    from mebt_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(data=1, model=2)
+    out, _, _ = fit_run(dev, out_dir, f"tp16_train_{mesh.index('model')}", mesh,
+                        model_parallel=2)
+    out.pop("params")
+    return dict(out, coords=mesh.coords)
+
+
+def dp16_train_rank(dev, out_dir) -> dict:
+    """data 2 with ZeRO-1; fit's final checkpoint, and the checksums of
+    the whole parameters and moments this mesh holds (the gathers are
+    collectives)."""
+    from mebt_tpu_torch.parallel.mesh import gather_state_dict, make_mesh
+
+    mesh = make_mesh(data=2, model=1)
+    out, trainer, state = fit_run(dev, out_dir, "dp16_train", mesh, final_checkpoint=True,
+                                  zero1=True)
+    out.pop("params")
+    opt = state.optimizer
+    adam = opt.adamw.state
+    out["moments_here"] = sum(st["exp_avg"].numel() for st in adam.values())
+    out["moments_whole"] = sum(p.numel() for p in state.model.parameters())
+    out["zero1_params"] = len(opt.zero)
+    whole = gather_state_dict(state.model.state_dict(), mesh)
+    moments = opt.whole_state_dict()["adamw"]["state"]
+    if mesh.index("data") == 0:
+        out["whole_params"] = checksums(whole)
+        out["whole_moments"] = {f"{i}.{k}": v for i, st in moments.items()
+                                for k, v in checksums({k: st[k] for k in
+                                                       ("exp_avg", "exp_avg_sq")}).items()}
+    return dict(out, coords=mesh.coords)
+
+
+def train16_nccl_rank(dev, out_dir) -> dict:
+    """The single-rank trainer's steps on a world-size-1 nccl mesh (the
+    trainer builds it from the initialized group): NCCL's collectives on
+    the card, every gradient and update through the mesh code."""
+    out, trainer, _ = fit_run(dev, out_dir, "train16_nccl", None)
+    require(trainer.mesh is not None, "train16_nccl: the trainer built no mesh")
+    return out
+
+
+def sp_batches(steps, B, N, seed):
+    """Codes and training masks of STL-128f (linear schedule, budget N,
+    the whole window) from a seed."""
+    from mebt_tpu_torch.sampler.mask_schedule import MaskGen
+
+    rng = np.random.default_rng(seed)
+    gen = MaskGen(schedule="linear", max_token=N, shape=(N // 256, 16, 16), budget=N)
+    out = []
+    for _ in range(steps):
+        m = gen.train_masks(np.stack([rng.permutation(N) for _ in range(B)]),
+                            float(rng.uniform(0.2, 0.8)), 0, N // 256)
+        out.append(dict(codes=torch.from_numpy(rng.integers(0, STL16["vocab_size"], (B, N))),
+                        ctx_mask=torch.from_numpy(m.ctx_mask),
+                        tgt_mask=torch.from_numpy(m.tgt_mask), seq_len=float(m.seq_len),
+                        masked_weight=float(m.masked_weight)))
+    return out
+
+
+def train_model(dev, dims, dtype, **rates):
+    """fp32 parameters from seed 0 (the trainer's init), compute in dtype."""
+    from mebt_tpu_torch.models.mebt import MeBT, MeBTConfig
+
+    with torch.device(dev):
+        model = MeBT(MeBTConfig(dtype=dtype, avg_loss=1.0, **dims, **rates))
+    return model.init_random_(torch.Generator(dev).manual_seed(0)).train()
+
+
+def loop_probe(model, opt, batches, loss_of, mesh, axes, stage=None):
+    """Training steps by hand (sp / pp): each step's whole loss and step
+    1's gradients, counted."""
+    from mebt_tpu_torch.models.transformer import DropoutState, fold_seed
+
+    dev = next(model.parameters()).device
+    gen = torch.Generator(dev).manual_seed(1)
+    losses, grads = [], {}
+    names = PAR_GRADS
+    if stage is not None:  # the stage's first and last block, by their local names
+        per = stage.pp_stage[1] - stage.pp_stage[0]
+        names = ("sos_emb", "transformer.blocks.0.attn.query.weight",
+                 f"transformer.blocks.{per - 1}.mlp.2.weight", "transformer.head.weight")
+
+    def run():
+        for step, b in enumerate(batches):
+            b = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in b.items()}
+            loss, m = loss_of(b, DropoutState(gen, fold_seed(1, step)))
+            loss.backward()
+            if step == 0:
+                grads.update(step_grads(model, mesh, axes, names, stage))
+            opt.step()
+            losses.append(float(m["loss"]))
+
+    torch.cuda.reset_peak_memory_stats()
+    _, launches, wall = counted(run)
+    return dict(losses=losses, grads=grads, launches=launches, wall_s=wall,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def sp_run(dev, mesh, dtype) -> dict:
+    """STL-128f, batch SP_BATCH, SP_STEPS steps of AdamW: through sp_loss_fn
+    on a seq mesh, or the dense forward and mlm_loss single-rank (mesh
+    None); embedding and residual dropout P_DROP, attention dropout 0."""
+    from mebt_tpu_torch.models.mebt import mlm_loss
+    from mebt_tpu_torch.parallel.sp import SP_GRAD_AXES, canvas_block, sp_loss_fn, sp_model
+    from mebt_tpu_torch.train.train_state import make_optimizer
+
+    N = 8192
+    model = train_model(dev, STL128, dtype, embd_pdrop=P_DROP, resid_pdrop=P_DROP)
+    if mesh is not None:
+        model = sp_model(model, mesh).train()
+    opt = make_optimizer(model, LR_128F, mesh=mesh, grad_axes=SP_GRAD_AXES)
+    batches = sp_batches(SP_STEPS, SP_BATCH, N, 2)
+    if mesh is None:
+        def loss_of(b, drop):
+            return mlm_loss(model(b["codes"], b["ctx_mask"], b["tgt_mask"], drop=drop),
+                            b["codes"], b["tgt_mask"], b["seq_len"], b["masked_weight"])
+    else:
+        fn = sp_loss_fn(model, mesh)
+
+        def loss_of(b, drop):
+            return fn({k: canvas_block(v, mesh) if torch.is_tensor(v) else v
+                       for k, v in b.items()}, SP_BATCH, drop)
+    return loop_probe(model, opt, batches, loss_of, mesh, SP_GRAD_AXES)
+
+
+def pp_run(dev, mesh, dtype) -> dict:
+    """STL-16f, batch TRAIN_BATCH, PP_STEPS steps of pp_loss_fn + backward +
+    AdamW, PP_MICRO microbatches, the config's dropouts; one stage where
+    the mesh has no pipe axis (the reference)."""
+    from mebt_tpu_torch.parallel.pp import pp_loss_fn, to_pp_params
+    from mebt_tpu_torch.train.train_state import make_optimizer
+
+    whole = train_model(dev, STL16, dtype, embd_pdrop=P_DROP, resid_pdrop=P_DROP,
+                        attn_pdrop=P_DROP)
+    stage = to_pp_params(whole, mesh).train()
+    del whole
+    torch.cuda.empty_cache()
+    opt = make_optimizer(stage, LR_16F, mesh=mesh)
+    fn = pp_loss_fn(stage, mesh, PP_MICRO)
+    batches = sp_batches(PP_STEPS, TRAIN_BATCH, 1024, 3)
+    out = loop_probe(stage, opt, batches, fn, mesh, ("data",), stage)
+    out["blocks"], out["stage"] = len(stage.transformer.blocks), stage.pp_stage
+    out["params_here"] = sum(p.numel() for p in stage.parameters())
+    out["moments_here"] = sum(st["exp_avg"].numel() for st in opt.adamw.state.values())
+    return out
+
+
+def sp128_train_rank(dev, out_dir) -> dict:
+    from mebt_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(data=1, model=1, seq=2)
+    return dict(sp_run(dev, mesh, torch.bfloat16), coords=mesh.coords)
+
+
+def pp16_train_rank(dev, out_dir) -> dict:
+    from mebt_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(data=1, model=1, pipe=2)
+    return dict(pp_run(dev, mesh, torch.bfloat16), coords=mesh.coords)
+
+
+def pp16_ref_rank(dev, out_dir) -> dict:
+    """The pipeline's function on one rank (one stage, the same
+    microbatches and draws), bf16 and fp32."""
+    from mebt_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(data=1, model=1)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        out[str(dtype).split(".")[1]] = pp_run(dev, mesh, dtype)
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_gate(name, got: dict, refs: dict) -> dict:
+    """Each step's loss, and step 1's gradients, within twice the
+    single-rank bf16 run's distance from the fp32 single-rank run (the
+    run's largest over its steps; a tensor's largest element)."""
+    bf, f32 = refs["bfloat16"], refs["float32"]
+    single = max(abs(a - b) for a, b in zip(bf["losses"], f32["losses"]))
+    dist = [abs(a - b) for a, b in zip(got["losses"], f32["losses"])]
+    require(len(dist) == len(f32["losses"]) and all(np.isfinite(got["losses"])),
+            f"{name}: losses {got['losses']}")
+    require(max(dist) <= 2 * single, f"{name}: loss {max(dist)} from fp32, past twice the "
+                                     f"single-rank bf16 run's {single}")
+    grads = {}
+    for n, want in f32["grads"].items():
+        e_single = float(np.abs(bf["grads"][n] - want).max())
+        e_got = float(np.abs(got["grads"][n] - want).max())
+        require(e_got <= 2 * e_single, f"{name}: gradient of {n} {e_got} from fp32, past "
+                                       f"twice the single-rank bf16 run's {e_single}")
+        grads[n] = dict(max_err_vs_fp32=e_got, single_rank_max_err_vs_fp32=e_single,
+                        fp32_max=float(np.abs(want).max()))
+    return dict(losses=got["losses"], losses_fp32=f32["losses"], losses_single_bf16=bf["losses"],
+                loss_max_err_vs_fp32=max(dist), single_rank_loss_max_err_vs_fp32=single,
+                grads=grads)
+
+
+def train_refs(dev, out_dir, cache: dict) -> dict:
+    """The single-rank trainer's PAR_STEPS steps, bf16 and fp32 (computed
+    once, shared by tp16_train, dp16_train and train16_nccl)."""
+    if "fit" not in cache:
+        cache["fit"] = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            out, trainer, state = fit_run(dev, out_dir, "train_ref", None, dtype)
+            cache["fit"][str(dtype).split(".")[1]] = out
+            del trainer, state
+            torch.cuda.empty_cache()
+    return cache["fit"]
+
+
+def par_report(name, config, card, mesh, reports, expect, steps, **extra) -> dict:
+    """The phase's launches a rank a step against `expect` (a list per
+    rank), walls and peaks a rank (one card over gloo)."""
+    for r, rep_ in enumerate(reports):
+        got = per_step(rep_["launches"], steps)
+        require(got == expect[r], f"{name} rank {r}: launches a step {got} != expected "
+                                  f"{expect[r]}")
+    return dict(phase=name, config=config, card=card, mesh=mesh, backend=extra.pop(
+        "backend", "gloo"), note="ranks on one card; gloo copies every collective through "
+                                 "the host: walls and peaks a rank, not multi-GPU times",
+                steps=steps, wall_s=[r["wall_s"] for r in reports],
+                peak_mem_gb=[r["peak_mem_gb"] for r in reports],
+                launches_per_rank_step=[dict(zip(KERNELS, per_step(r["launches"], steps)))
+                                        for r in reports],
+                expected_per_rank_step=[dict(zip(KERNELS, e)) for e in expect], **extra)
+
+
+def run_tp16_train(dev, card, out_dir, cache):
+    k1, k2 = attention_launches_per_step()
+    reports, wall = timed(lambda: run_ranks("tp16_train", 2, out_dir=out_dir))
+    refs = train_refs(dev, out_dir, cache)
+    gate = train_gate("tp16_train", reports[0], refs)
+    require(reports[0]["losses"] == reports[1]["losses"], "tp16_train: the ranks' losses differ")
+    rep = par_report("tp16_train", "stl_16f_train", card, dict(data=1, model=2), reports,
+                     [train_launches(k1, k2)] * 2, PAR_STEPS, batch=TRAIN_BATCH,
+                     dropout=P_DROP, gate=gate, phase_wall_s=wall)
+    return rep, summed(reports)
+
+
+def run_dp16_train(dev, card, out_dir, cache):
+    import shutil
+
+    from mebt_tpu_torch.train.trainer import MeBTTrainer
+
+    k1, k2 = attention_launches_per_step()
+    reports, wall = timed(lambda: run_ranks("dp16_train", 2, out_dir=out_dir))
+    refs = train_refs(dev, out_dir, cache)
+    gate = train_gate("dp16_train", reports[0], refs)
+    require(reports[0]["losses"] == reports[1]["losses"], "dp16_train: the ranks' losses differ")
+    for r in reports:
+        require(r["zero1_params"] > 0 and r["moments_here"] < r["moments_whole"],
+                f"dp16_train: ZeRO-1 sharded nothing ({r['moments_here']} of "
+                f"{r['moments_whole']} moments)")
+    # the checkpoint fit wrote on the mesh, read by a single-rank trainer
+    logdir = reports[0]["logdir"]
+    path = os.path.join(logdir, "checkpoints", f"{reports[0]['step']}.pt")
+    tr = MeBTTrainer(par_config(zero1=True), os.path.join(out_dir, "dp16_reload"), seed=0,
+                     device=dev)
+    state = tr.restore(tr.init_state(), path)
+    params = checksums(state.model.state_dict())
+    moments = {f"{i}.{k}": v for i, st in state.optimizer.state_dict()["adamw"]["state"].items()
+               for k, v in checksums({k: st[k] for k in ("exp_avg", "exp_avg_sq")}).items()}
+    bad_p = [n for n, c in params.items() if reports[0]["whole_params"][n] != c]
+    bad_m = [n for n, c in moments.items() if reports[0]["whole_moments"][n] != c]
+    require(not bad_p and not bad_m and len(moments) == len(reports[0]["whole_moments"]),
+            f"dp16_train: the checkpoint reloads single-rank with other bits: params {bad_p[:4]}"
+            f", moments {bad_m[:4]}")
+    ckpt_gb = os.path.getsize(path) / 2**30
+    tr.logger.close()
+    del state, tr
+    shutil.rmtree(logdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    for r in reports:
+        for k in ("whole_params", "whole_moments"):
+            r.pop(k, None)
+    rep = par_report("dp16_train", "stl_16f_train", card, dict(data=2, model=1), reports,
+                     [train_launches(k1, k2)] * 2, PAR_STEPS, batch=TRAIN_BATCH,
+                     rows_a_rank=TRAIN_BATCH // 2, zero1=True, dropout=P_DROP, gate=gate,
+                     moments_a_rank=[r["moments_here"] for r in reports],
+                     moments_whole=reports[0]["moments_whole"],
+                     checkpoint=dict(gb=ckpt_gb, params_bit_equal=len(params),
+                                     moments_bit_equal=len(moments)), phase_wall_s=wall)
+    return rep, summed(reports)
+
+
+def run_train16_nccl(dev, card, out_dir, cache):
+    k1, k2 = attention_launches_per_step()
+    (report,), wall = timed(lambda: run_ranks("train16_nccl", 1, backend="nccl",
+                                              out_dir=out_dir))
+    want = train_refs(dev, out_dir, cache)["bfloat16"]
+    require(report["losses"] == want["losses"],
+            f"train16_nccl: losses {report['losses']} != the single-rank trainer's "
+            f"{want['losses']}")
+    differ = [n for n, c in report["params"].items() if want["params"][n] != c]
+    require(not differ, f"train16_nccl: {len(differ)} parameters differ from the single-rank "
+                        f"trainer's bits: {differ[:4]}")
+    rep = par_report("train16_nccl", "stl_16f_train", card, dict(data=1, model=1), [report],
+                     [train_launches(k1, k2)], PAR_STEPS, backend="nccl", batch=TRAIN_BATCH,
+                     losses=report["losses"], params_bit_equal=len(report["params"]),
+                     phase_wall_s=wall)
+    return rep, report["launches"]
+
+
+def run_sp128_train(dev, card, out_dir):
+    k2 = attention_launches_per_step()[1]
+    reports, wall = timed(lambda: run_ranks("sp128_train", 2, out_dir=out_dir))
+    refs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        refs[str(dtype).split(".")[1]] = sp_run(dev, None, dtype)
+        torch.cuda.empty_cache()
+    gate = train_gate("sp128_train", reports[0], refs)
+    require(reports[0]["losses"] == reports[1]["losses"], "sp128_train: the ranks' losses differ")
+    rep = par_report("sp128_train", "stl_128f_train", card, dict(data=1, model=1, seq=2),
+                     reports, [[0, k2, 0, 0, 0, 0, k2, 0, 0]] * 2, SP_STEPS, batch=SP_BATCH,
+                     positions_a_rank=8192 // 2, dropout=dict(embd=P_DROP, resid=P_DROP, attn=0.0),
+                     cut="attention dropout 0.1 -> 0: the JAX package refuses it on the "
+                         "kv-sharded blocks; the training steps 2",
+                     gate=gate, phase_wall_s=wall,
+                     single_rank_wall_s=refs["bfloat16"]["wall_s"],
+                     single_rank_peak_mem_gb=refs["bfloat16"]["peak_mem_gb"])
+    return rep, summed(reports)
+
+
+def pp_stage_launches(stage_layers) -> list[int]:
+    modes = [STL16_MODES[i] for i in stage_layers]
+    k1 = PP_MICRO * sum(m in ("latent_enc", "lt2l") for m in modes)
+    k2 = PP_MICRO * sum(m in ("latent_self", "latent_dec") for m in modes)
+    return train_launches(k1, k2)
+
+
+def run_pp16_train(dev, card, out_dir):
+    reports, wall = timed(lambda: run_ranks("pp16_train", 2, out_dir=out_dir))
+    (refs,), ref_wall = timed(lambda: run_ranks("pp16_ref", 1, out_dir=out_dir))
+    gate = train_gate("pp16_train", reports[0], refs)
+    require(reports[0]["losses"] == reports[1]["losses"], "pp16_train: the ranks' losses differ")
+    per = STL16["n_layer"] // 2
+    for p, r in enumerate(reports):
+        require(r["blocks"] == per and tuple(r["stage"]) == (p * per, (p + 1) * per),
+                f"pp16_train: rank {p} holds blocks {r['stage']}")
+        require(r["moments_here"] == r["params_here"] < refs["bfloat16"]["params_here"],
+                f"pp16_train: rank {p} holds {r['moments_here']} moments, "
+                f"{r['params_here']} parameters")
+    expect = [pp_stage_launches(range(p * per, (p + 1) * per)) for p in range(2)]
+    rep = par_report("pp16_train", "stl_16f_train", card, dict(data=1, model=1, pipe=2),
+                     reports, expect, PP_STEPS, batch=TRAIN_BATCH, n_micro=PP_MICRO,
+                     dropout=P_DROP, gate=gate, phase_wall_s=wall, reference_wall_s=ref_wall,
+                     params_a_rank=[r["params_here"] for r in reports],
+                     params_whole=refs["bfloat16"]["params_here"],
+                     single_stage_wall_s=refs["bfloat16"]["wall_s"],
+                     single_stage_peak_mem_gb=refs["bfloat16"]["peak_mem_gb"])
+    return rep, summed(reports)
+
+
 PARALLEL_RANKS = {"tp16": tp16_rank, "tp16_nccl": tp16_nccl_rank, "tp128": tp128_rank,
-                  "sp128": sp128_rank}
+                  "sp128": sp128_rank, "tp16_train": tp16_train_rank,
+                  "dp16_train": dp16_train_rank, "train16_nccl": train16_nccl_rank,
+                  "sp128_train": sp128_train_rank, "pp16_train": pp16_train_rank,
+                  "pp16_ref": pp16_ref_rank}
 
 
 def summed(reports) -> list[int]:
@@ -3246,6 +3807,24 @@ def main(argv=None) -> int:
         if on("sp128"):
             report["sp128"], launches["stl_128f_sp128"] = run_sp128(smi)
             emit(report["sp128"])
+        refs = {}  # the single-rank training runs the 16f phases share
+        for phase, run in (("tp16_train", run_tp16_train), ("dp16_train", run_dp16_train),
+                           ("train16_nccl", run_train16_nccl)):
+            if on(phase):
+                torch.cuda.empty_cache()
+                report[phase], launches[f"stl_16f_{phase}"] = run(dev, smi, args.out, refs)
+                emit(report[phase])
+        refs.clear()
+        torch.cuda.empty_cache()
+        if on("sp128_train"):
+            report["sp128_train"], launches["stl_128f_sp128_train"] = run_sp128_train(
+                dev, smi, args.out)
+            emit(report["sp128_train"])
+            torch.cuda.empty_cache()
+        if on("pp16_train"):
+            report["pp16_train"], launches["stl_16f_pp16_train"] = run_pp16_train(
+                dev, smi, args.out)
+            emit(report["pp16_train"])
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -3262,15 +3841,17 @@ def main(argv=None) -> int:
 
     def entry(i, name, replaces, row, src="mebt_tpu_torch/csrc/attention.cu", **extra):
         """`launches` is the count on the newest path that runs the
-        kernel: VQGAN training (5 steps) for K9, the tensor-parallel 16f
-        generation (tp16, both ranks' counts summed) for K1, K2 and K3,
-        the tensor-parallel 128f generation (tp128) for K4, 128f
-        training from video (2 optimizer steps under the main remat
-        policy) for the backward kernels and K8; 0 for K5, which no path
-        runs."""
+        kernel: VQGAN training (5 steps) for K9, 16f training under tensor
+        parallelism (tp16_train, 3 fit steps, both ranks' counts summed)
+        for K1, K2, K6, K7 and K8, the tensor-parallel 16f generation
+        (tp16) for K3, the tensor-parallel 128f generation (tp128) for K4;
+        0 for K5, which no path runs. `launches_by_path` has every
+        path's."""
         by_path = {path: counts[i] for path, counts in launches.items()}
         newest = [by_path.get(p, 0) for p in (
-            "vqgan_train_16f", "stl_16f_tp16", "stl_128f_tp128", "stl_128f_sp128",
+            "vqgan_train_16f", "stl_16f_tp16_train", "stl_16f_dp16_train",
+            "stl_128f_sp128_train", "stl_16f_pp16_train", "stl_16f_train16_nccl",
+            "stl_16f_tp16", "stl_128f_tp128", "stl_128f_sp128",
             "stl_16f_tp16_nccl", "stl_16f_ckpt", "stl_16f_ckpt_exp", "stl_128f_dnr", "stl_16f_dnr", "stl_16f_dnr_scratch", "stl_16f_extrapolate",
             "stl_128f_train_video", "stl_16f_train_video", "stl_16f_train", "stl_128f",
             "stl_16f") if by_path.get(p, 0)]

@@ -106,12 +106,13 @@
 //
 // K8, dropout on the probabilities (the p_drop branches of the four TPU
 //   kernels, attention_pallas.py:_drop_keep): element (b, h, query, key)
-//   is kept iff the Philox word keyed on (seed, (b * H + h) * NQ + query,
-//   key) is >= thresh = min(int(p * 2^32), 2^32 - 1), and a kept
+//   is kept iff the Philox word keyed on (seed, ((b0 + b) * H_total + h0 +
+//   h) * NQ + query, key) is >= thresh = min(int(p * 2^32), 2^32 - 1), and a kept
 //   probability is scaled by 1 / (1 - p). The softmax denominator and lse
 //   use the undropped p. The index is that of the unpadded problem, so
 //   the mask depends on no tiling and every pass regenerates the same
-//   one. Each kernel is templated on DROP: thresh == 0 runs the
+//   one; b0, h0 and H_total place a rank's rows and heads in the whole
+//   model's problem (Dropout below), 0, 0 and H on one rank. Each kernel is templated on DROP: thresh == 0 runs the
 //   instantiation without a single dropout instruction.
 //
 // All take fp32 or bf16 inputs (is_bf16), accumulate in fp32, and
@@ -138,15 +139,35 @@ constexpr float NEG_BIG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
 // K8: keep(row, key) is 1 / (1 - p) for a kept probability and 0 for a
-// dropped one; row = (b * H + h) * NQ + query of the unpadded problem.
+// dropped one. `row` = (b * H + h) * NQ + query is the row of the local
+// unpadded problem, which also indexes the kernels' scratch (K6's and
+// K7's keep words); the Philox draw is keyed on the row of the whole
+// model's problem, ((b0 + b) * H_total + h0 + h) * NQ + query, where the
+// caller holds batch rows from b0 and heads from h0 of H_total (data,
+// pipeline and tensor parallelism): row + base + b * extra, with b = row /
+// bh_rows. At b0 = h0 = 0 and H_total = H, base = extra = 0 and the row is
+// the local one, bit for bit.
 struct Dropout {
   uint32_t seed;
   uint32_t thresh;
   float keep_scale;
+  uint32_t base;     // (b0 * H_total + h0) * NQ
+  uint32_t extra;    // (H_total - H) * NQ
+  uint32_t bh_rows;  // H * NQ
+  __device__ __forceinline__ uint32_t philox_row(uint32_t row) const {
+    return extra ? row + base + (row / bh_rows) * extra : row + base;
+  }
   __device__ __forceinline__ float keep(uint32_t row, uint32_t key) const {
-    return philox_bits(seed, row, key) >= thresh ? keep_scale : 0.f;
+    return philox_bits(seed, philox_row(row), key) >= thresh ? keep_scale : 0.f;
   }
 };
+
+// The Dropout of an entry point's arguments (see the extern "C" block).
+inline Dropout make_dropout(unsigned seed, unsigned thresh, float keep_scale, int H, int NQ,
+                            unsigned b0, unsigned h0, unsigned heads) {
+  return Dropout{seed, thresh, keep_scale, (b0 * heads + h0) * (uint32_t)NQ,
+                 (heads - (uint32_t)H) * (uint32_t)NQ, (uint32_t)H * (uint32_t)NQ};
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -875,6 +896,8 @@ largeq_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       copy_rows(Gw, g + qoff, (blk + TC_WARPS) * 16, 16, NQ, lane, 32);
     }
     cp_async_commit();
+    // the local row: it indexes the keep words' scratch, and drop.keep
+    // maps it to the Philox row of the whole model's problem
     const uint32_t row0 = (uint32_t)bh * (uint32_t)NQ + (uint32_t)(blk * 16);
     const int nrows = NQ - blk * 16;
     const int nkw = (NK + 31) / 32;
@@ -2457,9 +2480,11 @@ cudaError_t launch_largeq_bwd(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// Every entry point takes the dropout triple (seed, thresh, keep_scale):
-// thresh = min(int(p * 2^32), 2^32 - 1), keep_scale = 1 / (1 - p);
-// thresh 0 means no dropout.
+// Every entry point takes the dropout arguments (seed, thresh, keep_scale,
+// b0, h0, heads): thresh = min(int(p * 2^32), 2^32 - 1), keep_scale =
+// 1 / (1 - p), thresh 0 means no dropout; the Philox rows are those of
+// batch rows from b0 and heads from h0 of a problem of `heads` heads
+// (0, 0, H: the local problem).
 
 // Bytes of the scratch K1 needs for these shapes on the current card
 // (the bf16 kernel's split partials; 0 for one split and in fp32), or
@@ -2481,10 +2506,10 @@ int mebt_smallq_attention(const void* q, const void* k, const void* v,
                           const void* mask, void* out, void* lse, void* part, int B, int H,
                           int NQ, int NK, int Dh, float scale, int is_bf16,
                           unsigned seed, unsigned thresh, float keep_scale,
-                          void* stream) {
+                          unsigned b0, unsigned h0, unsigned heads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dh != 64) return (int)cudaErrorInvalidValue;
-  const Dropout drop{seed, thresh, keep_scale};
+  const Dropout drop = make_dropout(seed, thresh, keep_scale, H, NQ, b0, h0, heads);
   return MEBT_DISPATCH(launch_smallq, is_bf16, drop, q, k, v, mask, out, lse, part, B,
                        H, NQ, NK, scale, drop, s);
 }
@@ -2499,10 +2524,11 @@ size_t mebt_largeq_smem_bytes(int NK, int is_bf16) {
 int mebt_largeq_attention(const void* q, const void* k, const void* v,
                           void* out, int B, int H, int NQ, int NK, int Dh,
                           float scale, int is_bf16, unsigned seed,
-                          unsigned thresh, float keep_scale, void* stream) {
+                          unsigned thresh, float keep_scale, unsigned b0, unsigned h0,
+                          unsigned heads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dh != 64) return (int)cudaErrorInvalidValue;
-  const Dropout drop{seed, thresh, keep_scale};
+  const Dropout drop = make_dropout(seed, thresh, keep_scale, H, NQ, b0, h0, heads);
   return MEBT_DISPATCH(launch_largeq, is_bf16, drop, q, k, v, out, B, H, NQ, NK,
                        scale, drop, s);
 }
@@ -2520,10 +2546,11 @@ int mebt_smallq_backward(const void* q, const void* k, const void* v,
                          const void* g, void* dq, void* dk, void* dv, void* scratch,
                          int B, int H, int NQ, int NK, int Dh, float scale,
                          int is_bf16, unsigned seed, unsigned thresh,
-                         float keep_scale, void* stream) {
+                         float keep_scale, unsigned b0, unsigned h0, unsigned heads,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dh != 64) return (int)cudaErrorInvalidValue;
-  const Dropout drop{seed, thresh, keep_scale};
+  const Dropout drop = make_dropout(seed, thresh, keep_scale, H, NQ, b0, h0, heads);
   return MEBT_DISPATCH(launch_smallq_bwd, is_bf16, drop, q, k, v, mask, lse, out,
                        dvec, g, dq, dk, dv, scratch, B, H, NQ, NK, scale, drop, s);
 }
@@ -2564,10 +2591,11 @@ int mebt_largeq_backward(const void* q, const void* k, const void* v,
                          const void* g, void* dq, void* dk, void* dv, void* lse,
                          void* dvec, void* keep, void* part, int B, int H, int NQ, int NK,
                          int Dh, float scale, int is_bf16, unsigned seed,
-                         unsigned thresh, float keep_scale, void* stream) {
+                         unsigned thresh, float keep_scale, unsigned b0, unsigned h0,
+                         unsigned heads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dh != 64) return (int)cudaErrorInvalidValue;
-  const Dropout drop{seed, thresh, keep_scale};
+  const Dropout drop = make_dropout(seed, thresh, keep_scale, H, NQ, b0, h0, heads);
   return MEBT_DISPATCH(launch_largeq_bwd, is_bf16, drop, q, k, v, g, dq, dk, dv,
                        lse, dvec, keep, part, B, H, NQ, NK, scale, drop, s);
 }

@@ -585,14 +585,32 @@ class VideoFileDataset(_Base):
         return out[:, h0 : h0 + r, w0 : w0 + r]
 
 
+def _shared_seed() -> int:
+    """A fresh seed drawn on rank 0 of the default process group and
+    broadcast to every rank."""
+    import torch
+    import torch.distributed as dist
+
+    seed = torch.tensor([np.random.SeedSequence().entropy % (2**62)], dtype=torch.int64)
+    if dist.get_backend() == "nccl":
+        seed = seed.cuda()
+    dist.broadcast(seed, src=0)
+    return int(seed.item())
+
+
 class VideoData:
     """Dataset dispatch + loader factory (reference VideoData,
     data.py:236-305). DistributedSampler is replaced by per-process
     shard selection in DataLoader."""
 
-    def __init__(self, args, shuffle: bool = True):
+    def __init__(self, args, shuffle: bool = True, mesh=None):
         self.args = args
         self.shuffle = shuffle
+        # on a mesh the loaders shard by its `data` axis, and every rank's
+        # datasets draw their windows and permutations from rank 0's seed,
+        # so the ranks of one data index (model, seq, pipe) hold one batch
+        self.mesh = mesh
+        self.seed = None if mesh is None else _shared_seed()
 
     def _dataset(self, train: bool):
         a = self.args
@@ -603,6 +621,7 @@ class VideoData:
             resolution=a["resolution"],
             sample_every_n_frames=a.get("sample_every_n_frames", 1),
             latent_shape=latent_shape,
+            seed=self.seed,
         )
         if a.get("vtokens"):
             return HDF5VTokensDataset(
@@ -624,6 +643,7 @@ class VideoData:
             shuffle=self.shuffle if train else False,
             num_workers=self.args.get("num_workers", 4),
             drop_last=train,
+            mesh=self.mesh,
         )
 
     def train_dataloader(self):

@@ -2,9 +2,10 @@
 port's own copy of mebt_tpu/data/loader.py).
 
 Decode happens on host threads (PIL/h5py release the GIL), batches are
-collated into numpy arrays, and each process of a torch.distributed run
+collated into numpy arrays, and each data rank of a torch.distributed run
 sees a disjoint shard of every epoch, as DistributedSampler(num_replicas,
-rank) gives it.
+rank) gives it: the ranks of one data index (tensor, sequence or
+pipeline parallel ranks, which hold the same rows) see the same shard.
 """
 
 from __future__ import annotations
@@ -24,8 +25,12 @@ def default_collate(items: list[Mapping[str, Any]]) -> dict[str, np.ndarray]:
     return out
 
 
-def _process_shard() -> tuple[int, int]:
-    """(rank, world size) of an initialized torch.distributed run, else (0, 1)."""
+def _process_shard(mesh=None) -> tuple[int, int]:
+    """(index, size) of the mesh's `data` axis (parallel/mesh.py); without
+    a mesh, (rank, world size) of an initialized torch.distributed run
+    (every rank a data rank), else (0, 1)."""
+    if mesh is not None:
+        return mesh.index("data"), mesh.size("data")
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
@@ -45,6 +50,7 @@ class DataLoader:
         prefetch_batches: int = 2,
         process_index: int | None = None,
         process_count: int | None = None,
+        mesh=None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -55,7 +61,7 @@ class DataLoader:
         self.prefetch_batches = prefetch_batches
         self.epoch = 0
         if process_index is None:
-            process_index, process_count = _process_shard()
+            process_index, process_count = _process_shard(mesh)
         self.process_index = process_index
         self.process_count = process_count or 1
 

@@ -20,8 +20,13 @@ table its positions (mebt_tpu/parallel/mesh.py:65-82); a rank looks up
 the codes and positions it holds, zeros elsewhere, and one all_reduce
 over `model` adds them up. At most two terms of an element are nonzero
 and x + 0 is exact, so the embedding is the unsharded one bit for bit.
-The head holds this rank's vocabulary rows; logits are gathered over
-`model`. Under sequence parallelism codes and masks are this rank's span
+Where the model axis holds one rank the canvas embedding is the unsharded
+one, operations and gradients alike. The head holds this rank's
+vocabulary rows; logits are gathered over
+`model`, or kept as this rank's columns for `mlm_loss`'s vocab-parallel
+cross-entropy (training). In training the sum over `model` passes its
+gradient on unchanged, so each rank's table gets the gradient of the
+rows it holds only. Under sequence parallelism codes and masks are this rank's span
 of the canvas and the positional table is read at its global offset
 (mebt_tpu/models/mebt.py:155-158); the compact enc phase is refused there.
 """
@@ -150,13 +155,15 @@ class MeBT(nn.Module):
 
     def _embed_canvas(self, codes, ctx_mask):
         N, dt = codes.shape[1], self.config.dtype
-        if self.mesh is None:
+        if self.mesh is None or self.mesh.size("model") == 1:
+            # global positions: this rank's span under sequence parallelism;
+            # whole tables: the unsharded operations, gradients included
+            p0 = 0 if self.mesh is None else self.mesh.index("seq") * N
             tokens = torch.where(
                 ctx_mask[..., None], self.tok_emb(codes).to(dt), self.mask_emb.to(dt)
             )
-            return tokens + self.pos_emb[:, :N].to(dt)
-        # global positions: this rank's span under sequence parallelism
-        pos = self.mesh.index("seq") * N + torch.arange(N, device=codes.device)
+            return tokens + self.pos_emb[:, p0:p0 + N].to(dt)
+        pos = torch.arange(N, device=codes.device)
         mask = torch.where(ctx_mask[..., None], torch.zeros((), dtype=dt, device=codes.device),
                            self.mask_emb.to(dt))
         return self._sharded_rows(codes, pos.expand_as(codes), ctx_mask) + mask
@@ -170,12 +177,18 @@ class MeBT(nn.Module):
             raise ValueError("mode list is not stageable; use forward")
         return k
 
-    def forward(self, codes, ctx_mask, tgt_mask, *, drop: DropoutState | None = None):
+    def forward(self, codes, ctx_mask, tgt_mask, *, drop: DropoutState | None = None,
+                vocab_shard: bool = False):
         """(B, N) codes and masks -> (B, N, V) fp32 logits. `drop` turns
-        the config's dropouts on (training); None is deterministic."""
+        the config's dropouts on (training); None is deterministic. On a
+        mesh, `vocab_shard` keeps this rank's vocabulary columns (B, N,
+        V / model) instead of gathering them."""
         tokens = self._embed_canvas(codes, ctx_mask)
         latents = self._latent_queries(codes.shape[0])
-        return self.transformer(latents, tokens, ctx_mask, tgt_mask, drop)
+        tf = self.transformer
+        latents, tokens = tf.embed_dropout(latents, tokens, drop)
+        _, tokens = tf.run_blocks(latents, tokens, ctx_mask, tgt_mask, 0, drop=drop)
+        return tf.logits_head(tokens, vocab_shard)
 
     def stage_a(self, codes, ctx_mask):
         """Enc phase on the full canvas; returns latents (B, sos_emb, D)."""
@@ -231,7 +244,8 @@ class MeBT(nn.Module):
 def on_mesh(model: MeBT, mesh: Mesh) -> MeBT:
     """`model` on a mesh: a MeBT whose parameters are this rank's slices
     of model's (parallel/mesh.py:shard_state_dict), on their device and in
-    their dtype. Every rank of the mesh calls it with the same model."""
+    their dtype, trainable, in model's train / eval mode. Every rank of
+    the mesh calls it with the same model."""
     state = shard_state_dict(model.state_dict(), mesh)
     with torch.device("meta"):
         out = MeBT(model.config, mesh)
@@ -240,7 +254,8 @@ def on_mesh(model: MeBT, mesh: Mesh) -> MeBT:
 
 
 def mlm_loss(logits, codes, tgt_mask, seq_len, masked_weight, avg_loss: float = 1.0,
-             label_smoothing: float = 0.0):
+             label_smoothing: float = 0.0, *, mesh: Mesh | None = None, batch: int | None = None,
+             split: tuple = ("data",)):
     """MLM objective of the reference's shared_step
     (mebt_tpu/models/mebt.py:mlm_loss):
 
@@ -253,21 +268,61 @@ def mlm_loss(logits, codes, tgt_mask, seq_len, masked_weight, avg_loss: float = 
     Cross-entropy is lse - logit[target] (no (B, N, V) log-softmax
     array); label smoothing follows F.cross_entropy:
     (1 - eps) * nll + eps * mean(-logp). acc1 / acc5 count how many
-    logits beat the target's. Returns (loss, metrics): 0-d tensors, and the host float `ratio`."""
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt_logit = logits.gather(-1, codes[..., None].long())[..., 0]
+    logits beat the target's. Returns (loss, metrics): 0-d tensors
+    (loss, ce_sum, acc1, acc5), and the host float `ratio`.
+
+    On a mesh the tokens are this rank's block of a batch of `batch` rows
+    (logits.shape[0] * data by default) split over the axes `split`
+    (data; data and seq under sequence parallelism). The loss returned is
+    this rank's share, normalized by the whole batch, so the shares add
+    up to the whole loss over `split` and so do their gradients. With
+    model > 1 the logits are this rank's vocabulary columns (B, N, V /
+    model) and the cross-entropy is vocab-parallel: the lse from a MAX
+    and a SUM over `model`, the target's logit from the rank holding its
+    column, the smoothing mean over the whole vocabulary, the ranks of
+    acc1 / acc5 summed; every model rank computes the same share. The
+    metrics are the whole batch's (summed over `split`)."""
+    if batch is None:
+        batch = logits.shape[0] * (1 if mesh is None else mesh.size("data"))
+    if mesh is None or mesh.size("model") == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt_logit = logits.gather(-1, codes[..., None].long())[..., 0]
+        mean_logit = logits.mean(dim=-1) if label_smoothing > 0.0 else None
+        with torch.no_grad():
+            rank = (logits > tgt_logit[..., None]).sum(dim=-1)
+    else:
+        V_l = logits.shape[-1]
+        m = all_reduce(logits.detach().amax(dim=-1), mesh, "model", "max")
+        lse = m + torch.log(all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1), mesh,
+                                       "model"))
+        local = codes.long() - mesh.index("model") * V_l
+        held = (local >= 0) & (local < V_l)
+        own = logits.gather(-1, local.clamp(0, V_l - 1)[..., None])[..., 0]
+        tgt_logit = all_reduce(torch.where(held, own, torch.zeros_like(own)), mesh, "model")
+        mean_logit = None
+        if label_smoothing > 0.0:
+            mean_logit = all_reduce(logits.sum(dim=-1), mesh, "model") / (V_l * mesh.size("model"))
+        with torch.no_grad():
+            rank = all_reduce((logits > tgt_logit[..., None]).sum(dim=-1), mesh, "model")
     per_tok = lse - tgt_logit
     if label_smoothing > 0.0:
-        smooth = lse - logits.mean(dim=-1)
+        smooth = lse - mean_logit
         per_tok = (1.0 - label_smoothing) * per_tok + label_smoothing * smooth
     tgtf = tgt_mask.to(torch.float32)
     ce_sum = (per_tok * tgtf).sum()
     ratio = float(masked_weight) / float(seq_len)
-    loss = ce_sum / (logits.shape[0] * float(seq_len) * ratio**avg_loss)
+    loss = ce_sum / (batch * float(seq_len) * ratio**avg_loss)
     with torch.no_grad():
-        n_tgt = tgtf.sum().clamp(min=1.0)
-        rank = (logits > tgt_logit[..., None]).sum(dim=-1)
-        acc1 = ((rank < 1) * tgtf).sum() / n_tgt * 100.0
-        acc5 = ((rank < 5) * tgtf).sum() / n_tgt * 100.0
-    metrics = {"ce_sum": ce_sum.detach(), "acc1": acc1, "acc5": acc5, "ratio": ratio}
+        sums = torch.stack([loss.detach(), ce_sum.detach(), tgtf.sum(),
+                            ((rank < 1) * tgtf).sum(), ((rank < 5) * tgtf).sum()])
+        if mesh is not None:
+            for axis in split:
+                if mesh.size(axis) > 1:
+                    all_reduce(sums, mesh, axis)
+        whole_loss, whole_ce, n_tgt, top1, top5 = sums.unbind(0)
+        n_tgt = n_tgt.clamp(min=1.0)
+        acc1 = top1 / n_tgt * 100.0
+        acc5 = top5 / n_tgt * 100.0
+    metrics = {"loss": whole_loss, "ce_sum": whole_ce, "acc1": acc1, "acc5": acc5,
+               "ratio": ratio}
     return loss, metrics

@@ -39,14 +39,27 @@ preservation does not cover: a checkpointed block rewinds it to where
 its forward started before a recompute, and puts it back after, so the
 recompute draws the forward's masks and later draws are untouched.
 
-On a mesh (parallel/mesh.py; the decode, no autograd through the
-collectives yet): Megatron tensor parallelism over its `model` axis, each
-rank holding n_head / model heads and 4 n_embd / model hidden units (q,
-k, v and mlp.0 split their outputs, attn.proj and mlp.2 their inputs;
-K1 and K2 run on the local heads) and the vocabulary rows of the head
-from its rank's offset; the row-parallel products are summed over
-`model` in fp32 and their bias added once after that, or, where the axis
-holds one rank, inside the product as the unsharded layer does it.
+On a mesh (parallel/mesh.py): Megatron tensor parallelism over its
+`model` axis, each rank holding n_head / model heads and 4 n_embd / model
+hidden units (q, k, v and mlp.0 split their outputs, attn.proj and mlp.2
+their inputs; K1 and K2 run on the local heads) and the vocabulary rows
+of the head from its rank's offset; the row-parallel products are summed
+over `model` in fp32 and their bias added once after that, or, where the
+axis holds one rank, inside the product as the unsharded layer does it.
+In training the loss is the same on every model rank, so that sum passes
+its gradient on unchanged, and the input of each column-parallel layer
+(q, k, v, mlp.0, the head) sums its gradient over `model`
+(parallel/mesh.py:copy_to).
+
+Dropout on a mesh (`DropoutState.batch` / `row0`, `canvas` / `pos0`):
+the residual and embedding masks are drawn over the whole batch and, on
+the token stream, the whole canvas, and each forward keeps its rows and
+span, so a rank holding other rows or positions draws other masks, and
+the ranks holding one replicated activation (the model ranks after a
+row-parallel sum, the seq ranks' latents) draw the same one. The
+attention kernels key their masks on the whole model's batch row and
+head (ops/attention_cuda.py:fused_dropout_attention's b0, h0, heads).
+With one rank all of it is the single-rank forward's draws.
 Sequence parallelism over its `seq` axis (mebt_tpu/models/transformer.py:
 313-350): tokens and masks are this rank's span of the canvas, latents
 are whole; latent_enc and lt2l attend over the local keys and merge the
@@ -73,7 +86,7 @@ from torch.utils.checkpoint import (
 
 from mebt_tpu_torch.ops.attention import sp_masked_attention
 from mebt_tpu_torch.ops.attention_cuda import fused_dropout_attention
-from mebt_tpu_torch.parallel.mesh import Mesh, all_gather, all_reduce, local_size
+from mebt_tpu_torch.parallel.mesh import Mesh, all_gather, all_reduce, copy_to, local_size
 
 BLOCK_MODES = ("latent_enc", "latent_self", "latent_dec", "lt2l", "maskgit")
 REMAT_POLICIES = ("full", "dots", "saved", "saved_mlp")
@@ -119,13 +132,33 @@ class DropoutState:
     the activations' device and draws the residual and embedding masks;
     `seed` is a host integer (the run's seed folded with the step) from
     which each attention call derives its own kernel seed, so no device
-    value is ever read back."""
+    value is ever read back. On a mesh, `batch` is the whole batch's row
+    count and `row0` the first of them this forward holds, `canvas` the
+    whole canvas's positions and `pos0` the first this forward holds
+    (sequence parallelism); None takes the forward's own."""
 
     generator: torch.Generator
     seed: int
+    batch: int | None = None
+    row0: int = 0
+    canvas: int | None = None
+    pos0: int = 0
 
     def attention_seed(self, layer: int) -> int:
         return (self.seed * 0x9E3779B1 + (layer + 1) * 0x85EBCA77) & 0xFFFFFFFF
+
+    def keep(self, x, p: float, tokens: bool):
+        """The keep mask of x (B, n, ...) (kept iff a uniform draw is
+        >= p): drawn over the whole batch and, for the token stream, the
+        whole canvas; this forward's rows and span of it."""
+        B, n = x.shape[0], x.shape[1]
+        rows = B if self.batch is None else self.batch
+        cols = self.canvas if tokens and self.canvas is not None else n
+        u = torch.rand((rows, cols, *x.shape[2:]), device=x.device, generator=self.generator)
+        if (rows, cols) != (B, n):
+            p0 = self.pos0 if cols != n else 0
+            u = u[self.row0:self.row0 + B, p0:p0 + n]
+        return u >= p
 
 
 def fold_seed(seed: int, step: int) -> int:
@@ -136,12 +169,13 @@ def fold_seed(seed: int, step: int) -> int:
     return (x * 0x2C1B3C6D) & 0xFFFFFFFF
 
 
-def dropout(x, p: float, drop: DropoutState | None):
+def dropout(x, p: float, drop: DropoutState | None, tokens: bool = False):
     """nn.Dropout with an explicit generator: keep with probability
-    1 - p, kept values times 1 / (1 - p); identity when drop is None."""
+    1 - p, kept values times 1 / (1 - p); identity when drop is None.
+    `tokens`: x is the token stream (DropoutState.keep)."""
     if drop is None or p <= 0.0:
         return x
-    keep = torch.rand(x.shape, device=x.device, generator=drop.generator) >= p
+    keep = drop.keep(x, p, tokens)
     return x * (keep.to(x.dtype) * (1.0 / (1.0 - p)))
 
 
@@ -159,6 +193,20 @@ class CastLayerNorm(nn.LayerNorm):
     def forward(self, x):
         return F.layer_norm(x, self.normalized_shape, self.weight.to(x.dtype),
                             self.bias.to(x.dtype), self.eps)
+
+
+class ColumnParallelLinear(CastLinear):
+    """CastLinear whose output features are split over the mesh's `model`
+    axis: its input's gradient is summed over `model` (each rank's slice
+    gives only its part). Without a mesh, CastLinear."""
+
+    def __init__(self, in_features: int, out_features: int, mesh: Mesh | None = None,
+                 bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
+        self.mesh = mesh
+
+    def forward(self, x):
+        return super().forward(copy_to(x, self.mesh))
 
 
 class RowParallelLinear(CastLinear):
@@ -184,12 +232,13 @@ class RowParallelLinear(CastLinear):
         return acc.to(x.dtype)
 
 
-class HeadSplitProj(CastLinear):
+class HeadSplitProj(ColumnParallelLinear):
     """Linear projection returning (B, H, N, Dh): n_head heads of
     n_out / n_head (this rank's heads under tensor parallelism)."""
 
-    def __init__(self, n_embd: int, n_head: int, n_out: int | None = None):
-        super().__init__(n_embd, n_embd if n_out is None else n_out)
+    def __init__(self, n_embd: int, n_head: int, n_out: int | None = None,
+                 mesh: Mesh | None = None):
+        super().__init__(n_embd, n_embd if n_out is None else n_out, mesh)
         self.n_head = n_head
 
     def forward(self, x):
@@ -215,36 +264,42 @@ class CrossAttention(nn.Module):
         super().__init__()
         heads = local_size(n_head, mesh, "n_head")
         width = n_embd // n_head * heads
-        self.query = HeadSplitProj(n_embd, heads, width)
-        self.key = HeadSplitProj(n_embd, heads, width)
-        self.value = HeadSplitProj(n_embd, heads, width)
+        self.query = HeadSplitProj(n_embd, heads, width, mesh)
+        self.key = HeadSplitProj(n_embd, heads, width, mesh)
+        self.value = HeadSplitProj(n_embd, heads, width, mesh)
         self.proj = HeadMergeProj(width, n_embd, mesh)
         self.attn_pdrop, self.resid_pdrop, self.layer = attn_pdrop, resid_pdrop, layer
-        self.mesh = mesh
+        self.mesh, self.n_head = mesh, n_head
+        self.head0 = 0 if mesh is None else mesh.index("model") * heads
 
     def project_kv(self, key):
         return self.key(key), self.value(key)
 
     def attend(self, query, k, v, key_mask=None, drop: DropoutState | None = None,
-               kv_sharded: bool = False):
+               kv_sharded: bool = False, tokens: bool = False):
         """`kv_sharded`: the keys are this rank's span of a canvas split
-        over `seq`; the partial softmaxes merge over it."""
+        over `seq`; the partial softmaxes merge over it. `tokens`: the
+        queries are the token stream (the residual dropout's draw)."""
         q = self.query(query)
         rate = self.attn_pdrop if drop is not None else 0.0
+        if rate > 0.0 and self.mesh is not None and self.mesh.size("seq") > 1:
+            # mebt_tpu/models/transformer.py:193-197 refuses the kv-sharded
+            # blocks; K8's rows carry no canvas offset, so the local ones too
+            raise NotImplementedError(
+                "attention-prob dropout under sequence parallelism is not implemented")
         if kv_sharded:
-            if rate > 0.0:
-                raise NotImplementedError(
-                    "attention-prob dropout under sequence parallelism is not implemented")
             y = sp_masked_attention(q, k, v, key_mask, self.mesh, "seq")
         else:
             seed = drop.attention_seed(self.layer) if rate > 0.0 else 0
-            y = fused_dropout_attention(q, k, v, key_mask, rate, seed)
-        return dropout(self.proj(y), self.resid_pdrop, drop)
+            b0 = drop.row0 if drop is not None else 0
+            y = fused_dropout_attention(q, k, v, key_mask, rate, seed, b0=b0, h0=self.head0,
+                                        heads=self.n_head)
+        return dropout(self.proj(y), self.resid_pdrop, drop, tokens)
 
     def forward(self, query, key, key_mask=None, drop: DropoutState | None = None,
-                kv_sharded: bool = False):
+                kv_sharded: bool = False, tokens: bool = False):
         k, v = self.project_kv(key)
-        return self.attend(query, k, v, key_mask, drop, kv_sharded)
+        return self.attend(query, k, v, key_mask, drop, kv_sharded, tokens)
 
 
 class Mlp(nn.Sequential):
@@ -255,14 +310,14 @@ class Mlp(nn.Sequential):
     def __init__(self, n_embd: int, resid_pdrop: float = 0.0, mesh: Mesh | None = None):
         hidden = local_size(4 * n_embd, mesh, "mlp hidden")
         super().__init__(
-            CastLinear(n_embd, hidden),
+            ColumnParallelLinear(n_embd, hidden, mesh),
             nn.GELU(approximate="none"),
             RowParallelLinear(hidden, n_embd, mesh),
         )
         self.resid_pdrop = resid_pdrop
 
-    def forward(self, x, drop: DropoutState | None = None):
-        return dropout(super().forward(x), self.resid_pdrop, drop)
+    def forward(self, x, drop: DropoutState | None = None, tokens: bool = False):
+        return dropout(super().forward(x), self.resid_pdrop, drop, tokens)
 
 
 class Block(nn.Module):
@@ -310,10 +365,11 @@ class Block(nn.Module):
             query, key = tokens, tokens
             key_mask = ctx_mask | tgt_mask
 
+        tok = mode in ("latent_dec", "maskgit")  # the block updates the token stream
         qn = self.ln1(query)
         kn = qn if key is query else self.ln1(key)
-        x = qn + self.attn(qn, kn, key_mask, drop, kv_sharded)
-        x = x + self.mlp(self.ln2(x), drop)
+        x = qn + self.attn(qn, kn, key_mask, drop, kv_sharded, tok)
+        x = x + self.mlp(self.ln2(x), drop, tok)
         if mode in ("latent_enc", "latent_self", "lt2l"):
             return x, tokens
         return latents, x
@@ -337,16 +393,20 @@ class LatentTransformer(nn.Module):
         self.embd_pdrop = embd_pdrop
         self.ln_f = CastLayerNorm(n_embd, eps=1e-5)
         # on a mesh, this rank's vocabulary rows
-        self.head = CastLinear(n_embd, local_size(vocab_size, mesh, "vocab_size"), bias=False)
+        self.head = ColumnParallelLinear(n_embd, local_size(vocab_size, mesh, "vocab_size"),
+                                         mesh, bias=False)
         self.mesh = mesh
 
     def forward(self, latents, tokens, ctx_mask, tgt_mask, drop: DropoutState | None = None):
         """Embedding dropout on latents, then tokens (the JAX module's
         order), the blocks, the head."""
-        latents = dropout(latents, self.embd_pdrop, drop)
-        tokens = dropout(tokens, self.embd_pdrop, drop)
+        latents, tokens = self.embed_dropout(latents, tokens, drop)
         _, tokens = self.run_blocks(latents, tokens, ctx_mask, tgt_mask, 0, drop=drop)
         return self.logits_head(tokens)
+
+    def embed_dropout(self, latents, tokens, drop: DropoutState | None):
+        return (dropout(latents, self.embd_pdrop, drop),
+                dropout(tokens, self.embd_pdrop, drop, tokens=True))
 
     def run_blocks(self, latents, tokens, ctx_mask, tgt_mask, start: int,
                    stop: int | None = None, drop: DropoutState | None = None):
@@ -360,14 +420,18 @@ class LatentTransformer(nn.Module):
                 latents, tokens = block(latents, tokens, ctx_mask, tgt_mask, drop)
         return latents, tokens
 
-    def logits_head(self, tokens):
-        return self.vocab_logits(self.ln_f(tokens))
+    def logits_head(self, tokens, vocab_shard: bool = False):
+        return self.vocab_logits(self.ln_f(tokens), vocab_shard)
 
-    def vocab_logits(self, x):
+    def vocab_logits(self, x, vocab_shard: bool = False):
         """Head logits (fp32) of ln_f'd tokens over the whole vocabulary:
-        on a mesh, the ranks' columns gathered over `model`."""
+        on a mesh, the ranks' columns gathered over `model`, or with
+        `vocab_shard` this rank's columns only (models/mebt.py:mlm_loss
+        takes them)."""
         logits = self.head(x).float()
-        return logits if self.mesh is None else all_gather(logits, self.mesh, "model", dim=-1)
+        if self.mesh is None or vocab_shard:
+            return logits
+        return all_gather(logits, self.mesh, "model", dim=-1)
 
 
 def remat_block(block: Block, policy: str, latents, tokens, ctx_mask, tgt_mask,

@@ -72,18 +72,21 @@ def sp_masked_attention(
         out = sum over ranks of exp(scores - m) @ v / sum over ranks of sum_local exp(scores - m).
 
     A row with no live key anywhere gives zeros. The JAX package computes
-    this in plain jnp too (no Pallas kernel); no autograd through the
-    collectives."""
+    this in plain jnp too (no Pallas kernel). In training the two SUMs
+    sum their gradients over the axis as well (each rank's loss is its
+    own share: shard_map's psum transpose) and the MAX is taken of
+    detached scores (jax.lax.stop_gradient; the shift cancels)."""
     scores = attention_scores(q, k, scale)
     if key_mask is not None:
         if key_mask.dim() == 2:
             key_mask = key_mask[:, None, None, :]
         scores = scores.masked_fill(~key_mask, float("-inf"))
-    m = all_reduce(scores.amax(dim=-1, keepdim=True), mesh, axis, "max")
+    m = all_reduce(scores.detach().amax(dim=-1, keepdim=True), mesh, axis, "max")
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     e = torch.exp(scores - m)
     if key_mask is not None:
         e = torch.where(key_mask, e, torch.zeros_like(e))
-    denom = all_reduce(e.sum(dim=-1, keepdim=True), mesh, axis)
-    out = all_reduce(torch.einsum("bhqk,bhkd->bhqd", e.to(v.dtype), v).float(), mesh, axis)
+    denom = all_reduce(e.sum(dim=-1, keepdim=True), mesh, axis, grad="sum")
+    out = all_reduce(torch.einsum("bhqk,bhkd->bhqd", e.to(v.dtype), v).float(), mesh, axis,
+                     grad="sum")
     return (out / torch.where(denom == 0, torch.ones_like(denom), denom)).to(q.dtype)

@@ -22,7 +22,10 @@ blocks, forward and backward, with dropout on the probabilities
      attention_pallas.py:_drop_keep / _fused_dropout_op): the keep mask is
      Philox keyed on (seed, query row, key) of the unpadded problem, so
      forward and backward regenerate the same mask whatever their tiling,
-     and `ops/philox.py:philox_keep` draws the same bits in PyTorch.
+     and `ops/philox.py:philox_keep` draws the same bits in PyTorch. On
+     a mesh the query row is that of the whole model's problem: every
+     wrapper takes the offsets (b0, h0, heads) of a rank's batch rows and
+     heads (0, 0 and its own H by default, the local row bit for bit).
      `dropout_branch.launches` counts the launches of any of the four
      kernels made with p_drop > 0.
 
@@ -57,7 +60,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
-_DROP = [_U, _U, _F]  # seed, thresh, keep_scale
+_DROP = [_U, _U, _F, _U, _U, _U]  # seed, thresh, keep_scale, b0, h0, heads
 _SIGNATURES = {
     "mebt_smallq_attention": (
         ctypes.c_int, [_P] * 7 + [_I] * 5 + [_F, _I] + _DROP + [_P],
@@ -93,15 +96,16 @@ def _smem_per_block(device: torch.device) -> int:
 # plain versions
 
 
-def _keep_scale(q, k, p_drop: float, seed: int, keep):
+def _keep_scale(q, k, p_drop: float, seed: int, keep, rows=(0, 0, None)):
     """(B, H, NQ, NK) fp32 factor on the probabilities: 1 / (1 - p) where
     kept, 0 where dropped; None without dropout. `keep` is an explicit
-    bool mask (tests); otherwise the Philox mask of `seed`."""
+    bool mask (tests); otherwise the Philox mask of `seed` at the row
+    offsets `rows` = (b0, h0, heads)."""
     if p_drop <= 0.0:
         return None
     if keep is None:
         B, H, NQ, _ = q.shape
-        keep = philox_keep(seed, (B, H, NQ, k.shape[2]), p_drop, q.device)
+        keep = philox_keep(seed, (B, H, NQ, k.shape[2]), p_drop, q.device, *rows)
     return keep.to(torch.float32) / (1.0 - p_drop)
 
 
@@ -127,20 +131,21 @@ def _attend(p, scale_keep, v, dtype):
 
 
 def smallq_attention_ref(q, k, v, key_mask, *, p_drop: float = 0.0, seed: int = 0,
-                         keep=None):
+                         keep=None, b0: int = 0, h0: int = 0, heads: int | None = None):
     """Plain K1: (out, lse) in fp32 arithmetic; a fully masked row gives
     out 0 and lse +1e30. With p_drop > 0 the probabilities are dropped
     after the softmax (the denominator and lse take the undropped ones)."""
     p = attention_probs(q, k, key_mask)
-    out = _attend(p, _keep_scale(q, k, p_drop, seed, keep), v, q.dtype)
+    out = _attend(p, _keep_scale(q, k, p_drop, seed, keep, (b0, h0, heads)), v, q.dtype)
     return out, _lse(q, k, key_mask)
 
 
-def largeq_attention_ref(q, k, v, *, p_drop: float = 0.0, seed: int = 0, keep=None):
+def largeq_attention_ref(q, k, v, *, p_drop: float = 0.0, seed: int = 0, keep=None,
+                         b0: int = 0, h0: int = 0, heads: int | None = None):
     """Plain K2: unmasked attention in fp32 arithmetic, with the same
     dropout as K1's."""
     p = attention_probs(q, k, None)
-    return _attend(p, _keep_scale(q, k, p_drop, seed, keep), v, q.dtype)
+    return _attend(p, _keep_scale(q, k, p_drop, seed, keep, (b0, h0, heads)), v, q.dtype)
 
 
 def _backward_from_probs(p, scale_keep, q, k, v, g, dvec):
@@ -160,7 +165,8 @@ def _backward_from_probs(p, scale_keep, q, k, v, g, dvec):
 
 
 def smallq_backward_ref(q, k, v, key_mask, out, lse, g, *, p_drop: float = 0.0,
-                        seed: int = 0, keep=None):
+                        seed: int = 0, keep=None, b0: int = 0, h0: int = 0,
+                        heads: int | None = None):
     """Plain K6: p = exp(s * scale - lse) from the saved lse (0 at masked
     keys, and everywhere in a fully masked row, whose lse is +1e30),
     D = rowsum(g * out) with the out the forward returned."""
@@ -168,13 +174,15 @@ def smallq_backward_ref(q, k, v, key_mask, out, lse, g, *, p_drop: float = 0.0,
     p = torch.exp(s - lse[..., None])
     p = torch.where(key_mask.bool()[:, None, None, :], p, torch.zeros_like(p))
     dvec = (g.float() * out.float()).sum(-1)
-    return _backward_from_probs(p, _keep_scale(q, k, p_drop, seed, keep), q, k, v, g, dvec)
+    return _backward_from_probs(p, _keep_scale(q, k, p_drop, seed, keep, (b0, h0, heads)),
+                                q, k, v, g, dvec)
 
 
-def largeq_backward_ref(q, k, v, g, *, p_drop: float = 0.0, seed: int = 0, keep=None):
+def largeq_backward_ref(q, k, v, g, *, p_drop: float = 0.0, seed: int = 0, keep=None,
+                        b0: int = 0, h0: int = 0, heads: int | None = None):
     """Plain K7: softmax, O and D recomputed, nothing saved."""
     p = attention_probs(q, k, None)
-    scale_keep = _keep_scale(q, k, p_drop, seed, keep)
+    scale_keep = _keep_scale(q, k, p_drop, seed, keep, (b0, h0, heads))
     dvec = (g.float() * _attend(p, scale_keep, v, torch.float32)).sum(-1)
     return _backward_from_probs(p, scale_keep, q, k, v, g, dvec)
 
@@ -183,7 +191,7 @@ def largeq_backward_ref(q, k, v, g, *, p_drop: float = 0.0, seed: int = 0, keep=
 # kernel wrappers
 
 
-def _check(q, k, v):
+def _check(q, k, v, b0: int = 0, h0: int = 0, heads: int | None = None):
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"expected (B,H,N,Dh) q/k/v, got {q.shape} {k.shape} {v.shape}")
     B, H, NQ, Dh = q.shape
@@ -199,7 +207,10 @@ def _check(q, k, v):
         raise ValueError("q, k and v must be on one device")
     if k.shape[2] == 0:
         raise ValueError("no keys")
-    if B * H * NQ >= 1 << 32:
+    heads = H if heads is None else heads
+    if b0 < 0 or h0 < 0 or h0 + H > heads:
+        raise ValueError(f"heads [{h0}, {h0 + H}) of {heads}, batch rows from {b0}")
+    if (b0 + B) * heads * NQ >= 1 << 32:
         raise ValueError("too many query rows for the 32-bit dropout counter")
 
 
@@ -214,13 +225,17 @@ def _check_mask(key_mask, B, NK, device):
     return key_mask.to(torch.uint8).contiguous()
 
 
-def _drop_args(p_drop: float, seed: int):
-    """(seed, thresh, keep_scale) of the C entry points; thresh 0 = off."""
+def _drop_args(p_drop: float, seed: int, q, b0: int = 0, h0: int = 0,
+               heads: int | None = None):
+    """(seed, thresh, keep_scale, b0, h0, heads) of the C entry points;
+    thresh 0 = off."""
     if not 0.0 <= p_drop < 1.0:
         raise ValueError(f"dropout rate {p_drop} outside [0, 1)")
+    H = q.shape[1]
     if p_drop == 0.0:
-        return 0, 0, 1.0
-    return int(seed) & 0xFFFFFFFF, drop_threshold(p_drop), 1.0 / (1.0 - p_drop)
+        return 0, 0, 1.0, 0, 0, H
+    return (int(seed) & 0xFFFFFFFF, drop_threshold(p_drop), 1.0 / (1.0 - p_drop), int(b0),
+            int(h0), H if heads is None else int(heads))
 
 
 # K8: launches of K1/K2/K6/K7 made with p_drop > 0
@@ -238,12 +253,15 @@ def _ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def smallq_attention(q, k, v, key_mask, *, p_drop: float = 0.0, seed: int = 0):
+def smallq_attention(q, k, v, key_mask, *, p_drop: float = 0.0, seed: int = 0, b0: int = 0,
+                     h0: int = 0, heads: int | None = None):
     """K1: masked attention, few queries over many keys. Returns
-    (out (B,H,NQ,Dh) in q.dtype, lse (B,H,NQ) fp32)."""
+    (out (B,H,NQ,Dh) in q.dtype, lse (B,H,NQ) fp32). b0, h0, heads: the
+    dropout rows' offsets (module docstring)."""
     if not q.is_cuda:
-        return smallq_attention_ref(q, k, v, key_mask, p_drop=p_drop, seed=seed)
-    _check(q, k, v)
+        return smallq_attention_ref(q, k, v, key_mask, p_drop=p_drop, seed=seed, b0=b0, h0=h0,
+                                    heads=heads)
+    _check(q, k, v, b0, h0, heads)
     B, H, NQ, Dh = q.shape
     NK = k.shape[2]
     mask = _check_mask(key_mask, B, NK, q.device)
@@ -259,7 +277,7 @@ def smallq_attention(q, k, v, key_mask, *, p_drop: float = 0.0, seed: int = 0):
     status = lib.mebt_smallq_attention(
         _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(out), _ptr(lse),
         None if part is None else _ptr(part), B, H, NQ, NK, Dh, 1.0 / math.sqrt(Dh),
-        bf16, *_drop_args(p_drop, seed), _build.stream_ptr(q),
+        bf16, *_drop_args(p_drop, seed, q, b0, h0, heads), _build.stream_ptr(q),
     )
     _build.check(status, "smallq_attention")
     _launched(smallq_attention, p_drop)
@@ -283,11 +301,13 @@ def _largeq_lib(q, k, entry: str, what: str):
     return lib
 
 
-def largeq_attention(q, k, v, *, p_drop: float = 0.0, seed: int = 0):
+def largeq_attention(q, k, v, *, p_drop: float = 0.0, seed: int = 0, b0: int = 0, h0: int = 0,
+                     heads: int | None = None):
     """K2: unmasked attention with K/V resident in shared memory."""
     if not q.is_cuda:
-        return largeq_attention_ref(q, k, v, p_drop=p_drop, seed=seed)
-    _check(q, k, v)
+        return largeq_attention_ref(q, k, v, p_drop=p_drop, seed=seed, b0=b0, h0=h0,
+                                    heads=heads)
+    _check(q, k, v, b0, h0, heads)
     B, H, NQ, Dh = q.shape
     NK = k.shape[2]
     lib = _largeq_lib(q, k, "mebt_largeq_smem_bytes", "largeq_attention")
@@ -296,7 +316,7 @@ def largeq_attention(q, k, v, *, p_drop: float = 0.0, seed: int = 0):
     status = lib.mebt_largeq_attention(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), B, H, NQ, NK, Dh,
         1.0 / math.sqrt(Dh), int(q.dtype == torch.bfloat16),
-        *_drop_args(p_drop, seed), _build.stream_ptr(q),
+        *_drop_args(p_drop, seed, q, b0, h0, heads), _build.stream_ptr(q),
     )
     _build.check(status, "largeq_attention")
     _launched(largeq_attention, p_drop)
@@ -306,13 +326,15 @@ def largeq_attention(q, k, v, *, p_drop: float = 0.0, seed: int = 0):
 largeq_attention.launches = 0
 
 
-def smallq_backward(q, k, v, key_mask, out, lse, g, *, p_drop: float = 0.0, seed: int = 0):
+def smallq_backward(q, k, v, key_mask, out, lse, g, *, p_drop: float = 0.0, seed: int = 0,
+                    b0: int = 0, h0: int = 0, heads: int | None = None):
     """K6: (dq, dk, dv) of K1 in the input dtype, from the out and lse the
     forward returned and the seed it used. D = rowsum(g * out) is taken in
     the kernel in bf16, by a PyTorch reduction in fp32."""
     if not q.is_cuda:
-        return smallq_backward_ref(q, k, v, key_mask, out, lse, g, p_drop=p_drop, seed=seed)
-    _check(q, k, v)
+        return smallq_backward_ref(q, k, v, key_mask, out, lse, g, p_drop=p_drop, seed=seed,
+                                   b0=b0, h0=h0, heads=heads)
+    _check(q, k, v, b0, h0, heads)
     _check_grad(q, g)
     B, H, NQ, Dh = q.shape
     NK = k.shape[2]
@@ -335,7 +357,7 @@ def smallq_backward(q, k, v, key_mask, out, lse, g, *, p_drop: float = 0.0, seed
         _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(lse), _ptr(out),
         None if dvec is None else _ptr(dvec), _ptr(g),
         _ptr(dq), _ptr(dk), _ptr(dv), None if scratch is None else _ptr(scratch),
-        B, H, NQ, NK, Dh, 1.0 / math.sqrt(Dh), bf16, *_drop_args(p_drop, seed),
+        B, H, NQ, NK, Dh, 1.0 / math.sqrt(Dh), bf16, *_drop_args(p_drop, seed, q, b0, h0, heads),
         _build.stream_ptr(q),
     )
     _build.check(status, "smallq_backward")
@@ -357,12 +379,14 @@ def dkdv_splits(q, k, p_drop: float = 0.0) -> int:
     return n
 
 
-def largeq_backward(q, k, v, g, *, p_drop: float = 0.0, seed: int = 0):
+def largeq_backward(q, k, v, g, *, p_drop: float = 0.0, seed: int = 0, b0: int = 0,
+                    h0: int = 0, heads: int | None = None):
     """K7: (dq, dk, dv) of K2 in the input dtype; the softmax and D are
     recomputed in the kernel."""
     if not q.is_cuda:
-        return largeq_backward_ref(q, k, v, g, p_drop=p_drop, seed=seed)
-    _check(q, k, v)
+        return largeq_backward_ref(q, k, v, g, p_drop=p_drop, seed=seed, b0=b0, h0=h0,
+                                   heads=heads)
+    _check(q, k, v, b0, h0, heads)
     _check_grad(q, g)
     B, H, NQ, Dh = q.shape
     NK = k.shape[2]
@@ -385,7 +409,8 @@ def largeq_backward(q, k, v, g, *, p_drop: float = 0.0, seed: int = 0):
         _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(dq), _ptr(dk), _ptr(dv),
         _ptr(scratch), _ptr(scratch[2 * rows:]), None if keep is None else _ptr(keep),
         None if part is None else _ptr(part), B, H, NQ, NK, Dh, 1.0 / math.sqrt(Dh),
-        int(q.dtype == torch.bfloat16), *_drop_args(p_drop, seed), _build.stream_ptr(q),
+        int(q.dtype == torch.bfloat16), *_drop_args(p_drop, seed, q, b0, h0, heads),
+        _build.stream_ptr(q),
     )
     _build.check(status, "largeq_backward")
     _launched(largeq_backward, p_drop)
@@ -400,52 +425,57 @@ largeq_backward.launches = 0
 
 
 class _SmallQ(torch.autograd.Function):
-    """K1 forward saving (q, k, v, mask, out, lse) and the seed; K6 backward."""
+    """K1 forward saving (q, k, v, mask, out, lse), the seed and the row
+    offsets; K6 backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_mask, p_drop, seed):
-        out, lse = smallq_attention(q, k, v, key_mask, p_drop=p_drop, seed=seed)
+    def forward(ctx, q, k, v, key_mask, p_drop, seed, rows):
+        out, lse = smallq_attention(q, k, v, key_mask, p_drop=p_drop, seed=seed, **rows)
         ctx.save_for_backward(q, k, v, key_mask, out, lse)
-        ctx.p_drop, ctx.seed = p_drop, seed
+        ctx.p_drop, ctx.seed, ctx.rows = p_drop, seed, rows
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, key_mask, out, lse = ctx.saved_tensors
         dq, dk, dv = smallq_backward(q, k, v, key_mask, out, lse, g,
-                                     p_drop=ctx.p_drop, seed=ctx.seed)
-        return dq, dk, dv, None, None, None
+                                     p_drop=ctx.p_drop, seed=ctx.seed, **ctx.rows)
+        return dq, dk, dv, None, None, None, None
 
 
 class _LargeQ(torch.autograd.Function):
-    """K2 forward saving (q, k, v) and the seed; K7 backward."""
+    """K2 forward saving (q, k, v), the seed and the row offsets; K7 backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, p_drop, seed):
+    def forward(ctx, q, k, v, p_drop, seed, rows):
         ctx.save_for_backward(q, k, v)
-        ctx.p_drop, ctx.seed = p_drop, seed
-        return largeq_attention(q, k, v, p_drop=p_drop, seed=seed)
+        ctx.p_drop, ctx.seed, ctx.rows = p_drop, seed, rows
+        return largeq_attention(q, k, v, p_drop=p_drop, seed=seed, **rows)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = largeq_backward(q, k, v, g, p_drop=ctx.p_drop, seed=ctx.seed)
-        return dq, dk, dv, None, None
+        dq, dk, dv = largeq_backward(q, k, v, g, p_drop=ctx.p_drop, seed=ctx.seed, **ctx.rows)
+        return dq, dk, dv, None, None, None
 
 
-def fused_dropout_attention(q, k, v, key_mask, rate: float, seed: int):
+def fused_dropout_attention(q, k, v, key_mask, rate: float, seed: int, *, b0: int = 0,
+                            h0: int = 0, heads: int | None = None):
     """Attention with dropout of rate `rate` on the probabilities
     (nn.Dropout semantics: after the softmax, kept values times
     1 / (1 - rate)), differentiable in q, k, v. Masked calls -> K1 / K6,
     unmasked calls -> K2 / K7 (plain versions on CPU). `seed` is a host
-    integer, one per call; the backward reuses it. With no input
-    requiring grad, the call launches the forward kernel and nothing
-    else."""
+    integer, one per call; the backward reuses it. b0, h0 and heads place
+    q's batch rows and heads in the whole model's problem (a rank's rows
+    under data or pipeline parallelism, its heads under tensor
+    parallelism), so that its dropout mask is its block of the whole
+    model's. With no input requiring grad, the call launches the forward
+    kernel and nothing else."""
     rate = float(rate)
+    rows = dict(b0=int(b0), h0=int(h0), heads=None if heads is None else int(heads))
     if key_mask is None:
-        return _LargeQ.apply(q, k, v, rate, int(seed))
-    return _SmallQ.apply(q, k, v, key_mask, rate, int(seed))
-
+        return _LargeQ.apply(q, k, v, rate, int(seed), rows)
+    return _SmallQ.apply(q, k, v, key_mask, rate, int(seed), rows)
 
 
 def fused_attention(q, k, v, key_mask=None):

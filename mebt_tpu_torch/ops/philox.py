@@ -7,7 +7,9 @@ One draw is keyed on (seed, row, column): key (seed, 0), counter
 it into Exp(1) noise at (token row, vocabulary column); the attention
 kernels (K1, K2, K6, K7 with dropout) turn it into a keep mask at
 (query row of the unpadded (B, H, NQ) problem, key), which depends on
-no tiling, so forward and backward regenerate the same mask.
+no tiling, so forward and backward regenerate the same mask; on a mesh
+the row is that of the whole model's problem (`keep_rows`), so no two
+ranks draw the same mask for different rows or heads.
 """
 
 from __future__ import annotations
@@ -73,14 +75,34 @@ def drop_threshold(p_drop: float) -> int:
     return min(int(p_drop * 4294967296.0), 4294967295)
 
 
-def philox_keep(seed: int, shape, p_drop: float, device) -> torch.Tensor:
+def keep_rows(shape, b0: int = 0, h0: int = 0, heads: int | None = None, device=None):
+    """The Philox rows (B * H * NQ, 1) of the attention problem `shape`
+    (B, H, NQ, NK) held from batch row b0 and head h0 of a whole problem
+    of `heads` heads (H by default): row ((b0 + b) * heads + h0 + h) * NQ
+    + q. At b0 = h0 = 0, heads = H that is (b * H + h) * NQ + q, the
+    local problem's own row."""
+    B, H, NQ, _ = shape
+    heads = H if heads is None else int(heads)
+    if b0 < 0 or h0 < 0 or h0 + H > heads:
+        raise ValueError(f"heads [{h0}, {h0 + H}) of {heads}, batch rows from {b0}")
+    if (b0 + B) * heads * NQ >= 1 << 32:
+        raise ValueError(f"{(b0 + B) * heads * NQ} query rows do not fit the 32-bit "
+                         "Philox counter")
+    b = torch.arange(B, device=device)[:, None, None]
+    h = torch.arange(H, device=device)[None, :, None]
+    q = torch.arange(NQ, device=device)[None, None, :]
+    return (((b0 + b) * heads + h0 + h) * NQ + q).reshape(-1, 1)
+
+
+def philox_keep(seed: int, shape, p_drop: float, device, b0: int = 0, h0: int = 0,
+                heads: int | None = None) -> torch.Tensor:
     """Dropout keep mask of attention probabilities, shape (B, H, NQ, NK)
-    bool: the draw of element (b, h, q, k) is keyed on row
-    (b * H + h) * NQ + q and column k."""
+    bool: the draw of element (b, h, q, k) is keyed on the row
+    `keep_rows` gives it and column k. A rank that holds batch rows from
+    b0 and heads from h0 of a model of `heads` heads (data and tensor
+    parallelism) draws its block of the whole model's mask."""
     B, H, NQ, NK = shape
-    if B * H * NQ >= 1 << 32:
-        raise ValueError(f"{B * H * NQ} query rows do not fit the 32-bit Philox counter")
-    rows = torch.arange(B * H * NQ, device=device)[:, None]
+    rows = keep_rows(shape, b0, h0, heads, device)
     cols = torch.arange(NK, device=device)[None, :]
     bits = philox_bits(seed, rows, cols)
     return (bits >= drop_threshold(p_drop)).view(B, H, NQ, NK)

@@ -13,6 +13,18 @@ A function here takes and returns this rank's block of the canvas: its
 rows of the batch (parallel/mesh.py:batch_rows) and its span of the
 positions (`canvas_block`); the noise hooks keep the whole canvas's
 shape. The parameters are whole on every rank (model axis 1).
+
+Training (`sp_loss_fn`, mebt_tpu/parallel/sp.py:294): each rank's loss
+is its block's share of the whole batch's, the merges' SUMs sum their
+gradients over `seq` (ops/attention.py:sp_masked_attention), and the
+gradients of the (replicated) parameters are partial on each rank and
+summed over `seq` and `data` after the backward (`SP_GRAD_AXES`, which
+train/train_state.py:Optimizer takes as grad_axes). The residual and
+embedding dropouts draw over the whole batch and canvas and keep the
+rank's block: the token stream's masks differ across shards, and the
+latents' are the same on every seq rank of a row (sp_dropout_rngs'
+`dropout_lat` stream, mebt_tpu/parallel/sp.py:41). Attention-probability
+dropout raises, as the JAX package refuses it on the kv-sharded blocks.
 """
 
 from __future__ import annotations
@@ -20,12 +32,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mebt_tpu_torch.models.mebt import MeBT, on_mesh
+from mebt_tpu_torch.models.mebt import MeBT, mlm_loss, on_mesh
+from mebt_tpu_torch.models.transformer import DropoutState
 from mebt_tpu_torch.ops.sampling import promote_targets, sample_tokens
 from mebt_tpu_torch.parallel.mesh import Mesh, all_gather, batch_rows
 from mebt_tpu_torch.sampler.mask_schedule import DecodePlan
 
 _MASK64 = (1 << 64) - 1
+SP_GRAD_AXES = ("data", "seq")  # the axes an SP step sums its gradients over
 
 
 def sp_model(model: MeBT, mesh: Mesh) -> MeBT:
@@ -51,11 +65,47 @@ def canvas_block(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return x[batch_rows(x.shape[0], mesh), canvas_span(x.shape[1], mesh)]
 
 
-@torch.no_grad()
-def sp_forward(model: MeBT, codes, ctx_mask, tgt_mask, mesh: Mesh) -> torch.Tensor:
+def sp_forward(model: MeBT, codes, ctx_mask, tgt_mask, mesh: Mesh,
+               drop: DropoutState | None = None) -> torch.Tensor:
     """Logits (B_l, N_l, V) fp32 of this rank's block of the canvas;
-    codes and masks are the block (B_l, N_l)."""
-    return sp_model(model, mesh)(codes, ctx_mask, tgt_mask)
+    codes and masks are the block (B_l, N_l). It records gradients where
+    grad mode is on and `model` is the sequence-parallel model itself
+    (sp_model: its parameters take them); `drop` (with this block's
+    `sp_drop_rows`) turns the dropouts on."""
+    return sp_model(model, mesh)(codes, ctx_mask, tgt_mask, drop=drop)
+
+
+def sp_drop_rows(drop: DropoutState, B: int, N: int, mesh: Mesh) -> DropoutState:
+    """`drop` for this rank's block of a (B, N) canvas: the residual and
+    embedding masks drawn over the whole batch and canvas."""
+    rows, span = batch_rows(B, mesh), canvas_span(N, mesh)
+    return DropoutState(drop.generator, drop.seed, batch=B, row0=rows.start, canvas=N,
+                        pos0=span.start)
+
+
+def sp_loss_fn(model: MeBT, mesh: Mesh, avg_loss: float = 1.0, label_smoothing: float = 0.0):
+    """Sequence-parallel MLM objective (mebt_tpu/parallel/sp.py:294):
+    fn(batch, drop=None) -> (loss, metrics) of this rank's block of a
+    whole-canvas batch (batch_rows and canvas_span: 'codes', 'ctx_mask',
+    'tgt_mask' (B_l, N_l), 'seq_len', 'masked_weight'; `B` its whole row
+    count). `loss` is the block's share (its backward, then the
+    gradients summed over SP_GRAD_AXES, gives the dense gradient);
+    metrics are the whole batch's. `model` must be the sequence-parallel
+    model (sp_model)."""
+    if model.mesh is not mesh:
+        raise ValueError("sp_loss_fn takes the sequence-parallel model: sp_model(model, mesh)")
+
+    def fn(batch: dict, B: int, drop: DropoutState | None = None):
+        codes = batch["codes"]
+        if drop is not None:
+            drop = sp_drop_rows(drop, B, codes.shape[1] * mesh.size("seq"), mesh)
+        logits = sp_forward(model, codes, batch["ctx_mask"], batch["tgt_mask"], mesh, drop)
+        return mlm_loss(logits, codes, batch["tgt_mask"], batch["seq_len"],
+                        batch["masked_weight"], avg_loss=avg_loss,
+                        label_smoothing=label_smoothing, mesh=mesh, batch=B,
+                        split=SP_GRAD_AXES)
+
+    return fn
 
 
 def _fold(seed: int, *idx: int) -> int:

@@ -15,8 +15,19 @@ written every `exp.ckpt_every` optimizer steps and at the end of `fit`
 (`log_samples`); `exp.profile_step` traces `exp.profile_n_steps` steps
 with torch.profiler into `logdir/profile/`.
 
-Not ported yet, and refused where a config asks for them: the mesh and
-ZeRO-1 sharding (`exp.model_parallel`, `exp.zero1`).
+Under torch.distributed (cli/train.py --multihost, or any initialized
+default group) the trainer runs on a (data, model) mesh
+(mebt_tpu/train/trainer.py:118-120, parallel/mesh.py): model =
+`exp.model_parallel` (Megatron tensor parallelism), data = the ranks
+left (each data rank trains on its loader shard's rows; the gradients
+are summed over `data`), and `exp.zero1` shards the AdamW moments over
+`data`. Every rank draws the same host curriculum (t, window), only rank
+0 logs, `validate` reports the whole batches' losses, and `save` is
+collective: the whole weights and moments are gathered and rank 0 writes
+them, in the single-rank layout, so a checkpoint written under any mesh
+loads under any other; `restore` cuts each tensor to the rank's block.
+Without a process group `exp.model_parallel` above 1 raises and
+`exp.zero1` has nothing to shard.
 """
 
 from __future__ import annotations
@@ -27,9 +38,11 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from mebt_tpu_torch.models.mebt import MeBT, MeBTConfig, mlm_loss
+from mebt_tpu_torch.models.mebt import MeBT, MeBTConfig, mlm_loss, on_mesh
 from mebt_tpu_torch.models.vqgan import VQGAN
+from mebt_tpu_torch.parallel.mesh import Mesh, gather_state_dict, make_mesh, shard_state_dict
 from mebt_tpu_torch.runtime import resolve_device
 from mebt_tpu_torch.sampler.mask_schedule import T_PRIORS, MaskGen
 from mebt_tpu_torch.train.train_state import (
@@ -40,7 +53,7 @@ from mebt_tpu_torch.train.train_state import (
     make_optimizer,
     make_train_step,
 )
-from mebt_tpu_torch.utils.metrics import MetricsLogger
+from mebt_tpu_torch.utils.metrics import MetricsLogger, NullLogger
 
 
 def start_profile(device: torch.device):
@@ -66,17 +79,23 @@ def start_profile(device: torch.device):
 
 class MeBTTrainer:
     def __init__(self, config: Mapping, logdir: str, vqgan: VQGAN | None = None,
-                 seed: int = 42, compute_dtype: torch.dtype = torch.bfloat16, device=None):
+                 seed: int = 42, compute_dtype: torch.dtype = torch.bfloat16, device=None,
+                 mesh: Mesh | None = None):
         self.config = config
         self.logdir = logdir
         self.device = resolve_device(device)
         mp = config["model"]["params"]
         mask_cfg = config["model"]["mask"]["params"]
         exp = config.get("exp", {})
-        if exp.get("zero1"):
-            raise NotImplementedError("exp.zero1: ZeRO-1 sharding is not ported yet (A13)")
-        if int(exp.get("model_parallel", 1)) != 1:
-            raise NotImplementedError("exp.model_parallel: the mesh is not ported yet (A13)")
+        model_parallel = int(exp.get("model_parallel", 1))
+        if mesh is None and dist.is_initialized():
+            mesh = make_mesh(model=model_parallel)
+        if mesh is None and model_parallel != 1:
+            raise ValueError(f"exp.model_parallel={model_parallel} needs an initialized "
+                             "torch.distributed group (cli.train --multihost)")
+        self.mesh = mesh
+        self.zero1 = bool(exp.get("zero1", False))
+        self.rank0 = mesh is None or dist.get_rank() == 0
 
         self.mask_gen = MaskGen(
             schedule=mask_cfg.get("schedule", "cosine"),
@@ -125,8 +144,9 @@ class MeBTTrainer:
             self._opt_kw["cosine_lr"], self.max_steps,
         )
         self.seed = seed
+        # the same on every rank: the curriculum is the whole batch's
         self.rng = np.random.default_rng(seed)
-        self.logger = MetricsLogger(logdir)
+        self.logger = MetricsLogger(logdir) if self.rank0 else NullLogger()
         self._ckpt_every = int(exp.get("ckpt_every", 50_000))
         self.step_fn = None
 
@@ -135,18 +155,26 @@ class MeBTTrainer:
     def init_state(self) -> TrainState:
         """fp32 parameters from `seed` (N(0, 0.02) weights, zero biases,
         unit LayerNorm scales), AdamW, and the dropout generator from
-        `seed + 1`."""
+        `seed + 1`. On a mesh every rank draws the whole model and keeps
+        its shards."""
         with torch.device(self.device):
             model = MeBT(self.model_cfg)
         model.init_random_(torch.Generator(self.device).manual_seed(self.seed))
+        if self.mesh is not None:
+            model = on_mesh(model, self.mesh)
         self.step_fn = self._make_step(model)
-        return TrainState.create(model, make_optimizer(model, **self._opt_kw), self.seed + 1)
+        opt = make_optimizer(model, **self._opt_kw, mesh=self.mesh, zero1=self.zero1)
+        return TrainState.create(model, opt, self.seed + 1)
 
     def _make_step(self, model: MeBT):
         return make_train_step(model, vqgan=self.vqgan,
                                sample_every_n_latent_frames=self.sample_every_n_latent_frames)
 
     def load_pretrained(self, state: TrainState, state_dict) -> TrainState:
+        """Whole weights (single-rank names and shapes); on a mesh each
+        rank keeps its shards."""
+        if self.mesh is not None:
+            state_dict = shard_state_dict(state_dict, self.mesh)
         state.model.load_state_dict(state_dict, strict=True)
         return state
 
@@ -215,18 +243,28 @@ class MeBTTrainer:
         )
 
     def save(self, state: TrainState) -> None:
+        """Write `checkpoints/<step>.pt`: whole weights and AdamW moments in
+        the single-rank layout. On a mesh every rank calls it (the
+        gathers are collectives) and rank 0 writes."""
         path = os.path.join(self._ckpt_dir(), f"{state.step}.pt")
-        torch.save(
-            {
-                "step": state.step,
-                "model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "generator": state.generator.get_state(),
-                "seed": state.seed,
-            },
-            path + ".tmp",
-        )
-        os.replace(path + ".tmp", path)
+        model_sd = state.model.state_dict()
+        if self.mesh is not None:
+            model_sd = gather_state_dict(model_sd, self.mesh)
+        opt_sd = state.optimizer.whole_state_dict()
+        if self.rank0:
+            torch.save(
+                {
+                    "step": state.step,
+                    "model": model_sd,
+                    "optimizer": opt_sd,
+                    "generator": state.generator.get_state(),
+                    "seed": state.seed,
+                },
+                path + ".tmp",
+            )
+            os.replace(path + ".tmp", path)
+        if self.mesh is not None:
+            dist.barrier()
 
     def try_restore(self, state: TrainState) -> TrainState:
         """Resume from the newest checkpoint in logdir, if there is one."""
@@ -236,10 +274,11 @@ class MeBTTrainer:
         return self.restore(state, os.path.join(self._ckpt_dir(), f"{steps[-1]}.pt"))
 
     def restore(self, state: TrainState, path: str) -> TrainState:
-        """Load the checkpoint file `path` (written by `save`) into state."""
+        """Load the checkpoint file `path` (written by `save`, under any
+        mesh or none) into state; on a mesh each rank keeps its blocks."""
         ckpt = torch.load(path, map_location=self.device, weights_only=True)
-        state.model.load_state_dict(ckpt["model"], strict=True)
-        state.optimizer.load_state_dict(ckpt["optimizer"])
+        self.load_pretrained(state, ckpt["model"])
+        state.optimizer.load_whole_state_dict(ckpt["optimizer"])
         state.generator.set_state(ckpt["generator"].cpu())
         state.step, state.seed = int(ckpt["step"]), int(ckpt["seed"])
         return state
@@ -291,7 +330,7 @@ class MeBTTrainer:
                     except StopIteration:
                         break
                 dev_batch = next_dev
-                if self.profile_step and step == self.profile_step * k:
+                if self.profile_step and step == self.profile_step * k and self.rank0:
                     prof = self._start_profile()
                 state, metrics = self.step_fn(state, dev_batch)
                 # prepare the following batch while this step executes
@@ -354,14 +393,21 @@ class MeBTTrainer:
 
         cfg = self.model_cfg
         plan = maskgit_plan(cfg.seq_len, 32, "cosine", "linear")
+        if self.mesh is not None:  # a whole batch the data ranks split; rank 0 logs its rows
+            n = -(-n // self.mesh.size("data")) * self.mesh.size("data")
         out = maskgit_sample(state.model, step, n, plan, context_temperature=6.0)
-        pix = self.vqgan.decode(out.codes.view(n, *cfg.latent_shape)).float()
+        if not self.rank0:
+            return
+        codes = out.codes
+        pix = self.vqgan.decode(codes.view(codes.shape[0], *cfg.latent_shape)).float()
         pix = (torch.clamp(pix, -0.5, 0.5) + 0.5).permute(0, 2, 3, 4, 1).cpu().numpy()
         save_video_grid(pix, os.path.join(self.logdir, f"samples/step_{step}.gif"))
         self.logger.log_video(step, "sample", to_uint8_frames(pix))
 
     def validate(self, state: TrainState, val_loader, step: int, max_batches: int = 8):
-        """val/loss and accuracies under eval-mode masks, no dropout."""
+        """val/loss and accuracies under eval-mode masks, no dropout; on a
+        mesh each batch's metrics are the whole batch's (summed over
+        `data`), the same on every rank."""
         val_rng = np.random.default_rng(0xE7A1)  # fixed: comparable curves
         agg: dict[str, list[float]] = {}
         for i, batch in enumerate(val_loader):
@@ -379,9 +425,9 @@ class MeBTTrainer:
         cfg = self.model_cfg
         b = batch_to_device(batch, self.device)
         codes = batch_codes(b, self.vqgan)
-        logits = state.model(codes, b["ctx_mask"], b["tgt_mask"])
-        loss, metrics = mlm_loss(
+        logits = state.model(codes, b["ctx_mask"], b["tgt_mask"], vocab_shard=True)
+        _, metrics = mlm_loss(
             logits, codes, b["tgt_mask"], b["seq_len"], b["masked_weight"],
-            avg_loss=cfg.avg_loss, label_smoothing=cfg.label_smoothing,
+            avg_loss=cfg.avg_loss, label_smoothing=cfg.label_smoothing, mesh=self.mesh,
         )
-        return dict(metrics, loss=loss)
+        return metrics

@@ -60,3 +60,6 @@ class NullLogger:
 
     def log_video(self, step, tag, video_uint8) -> None:
         pass
+
+    def close(self) -> None:
+        pass

@@ -191,3 +191,39 @@ def test_philox_keep_fraction():
     n = keep.numel()
     sigma = (rate * (1 - rate) / n) ** 0.5
     assert abs(keep.float().mean().item() - (1 - rate)) < 4 * sigma
+
+
+@pytest.mark.parametrize("b0,h0,heads", [(0, 0, 3), (2, 0, 3), (0, 1, 3), (3, 2, 4), (1, 1, 5)])
+def test_philox_keep_at_offsets_is_a_block_of_the_whole_models_mask(b0, h0, heads):
+    """A rank holding batch rows b0.. and heads h0.. of a model of `heads`
+    heads (data, pipeline and tensor parallelism) draws its block of the
+    whole model's mask; at b0 = h0 = 0, heads = H the local mask itself."""
+    B, H, NQ, NK, rate, seed = 2, 2, 10, 37, 0.2, 42
+    whole = philox_keep(seed, (b0 + B + 1, heads, NQ, NK), rate, "cpu")
+    got = philox_keep(seed, (B, H, NQ, NK), rate, "cpu", b0=b0, h0=h0, heads=heads)
+    assert torch.equal(got, whole[b0:b0 + B, h0:h0 + H])
+    local = philox_keep(seed, (B, H, NQ, NK), rate, "cpu")
+    assert torch.equal(local, philox_keep(seed, (B, H, NQ, NK), rate, "cpu", 0, 0, H))
+    if (b0, h0) != (0, 0):
+        assert not torch.equal(got, local)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_dropout_attention_at_offsets_equals_the_whole_models_block(masked):
+    """fused_dropout_attention of a rank's rows and heads (b0, h0 of a
+    4-row, 4-head problem) equals the same rows and heads of the whole
+    problem's attention, output and gradients."""
+    rate, seed = 0.25, 9
+    q, k, v, g, mask = _inputs(3, G=4, H=4, masked=masked)
+    leaves = [t.requires_grad_() for t in _t(q, k, v)]
+    tm = None if mask is None else torch.from_numpy(mask)
+    whole = fused_dropout_attention(*leaves, tm, rate, seed)
+    whole.backward(torch.from_numpy(g))
+    rows, heads = slice(2, 4), slice(1, 3)
+    part = [torch.from_numpy(np.array(a[rows, heads])).requires_grad_() for a in (q, k, v)]
+    pm = None if mask is None else torch.from_numpy(mask[rows])
+    out = fused_dropout_attention(*part, pm, rate, seed, b0=2, h0=1, heads=4)
+    out.backward(torch.from_numpy(np.array(g[rows, heads])))
+    torch.testing.assert_close(out, whole[rows, heads], rtol=0, atol=0)
+    for t, w in zip(part, leaves):
+        torch.testing.assert_close(t.grad, w.grad[rows, heads], rtol=0, atol=0)

@@ -46,6 +46,8 @@ def test_the_training_slices_modules_are_covered():
             "cli/train_vqgan.py"} <= covered
     # the parallel decode
     assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/sp.py"} <= covered
+    # the parallel training paths
+    assert {"parallel/pp.py"} <= covered
 
 
 def test_import_pulls_in_no_jax_and_no_jax_package():

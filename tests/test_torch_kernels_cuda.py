@@ -696,3 +696,34 @@ def test_start_profile_records_the_first_kernels(dev):
                     if e.device_type == torch.autograd.DeviceType.CUDA and "MulFunctor" in e.key)
         assert calls == 40
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [True, False])
+def test_dropout_rows_at_offsets_match_the_plain_version(dev, dtype, masked):
+    """K8 keyed on the whole model's rows: K1/K6 (masked) or K2/K7 with
+    batch rows from b0 = 3 and heads from h0 = 2 of 6 against the plain
+    versions at the same offsets, and the counter at b0 = h0 = 0, heads = H
+    equal to the default's bit for bit."""
+    gen = torch.Generator(dev).manual_seed(8)
+    B, H, NQ, NK = 2, 2, 70, 200
+    q, k, v, g = (_randn(gen, B, H, n, 64, dtype=dtype, dev=dev) for n in (NQ, NK, NK, NQ))
+    rows = dict(b0=3, h0=2, heads=6)
+    if masked:
+        mask = torch.rand(B, NK, device=dev, generator=gen) > 0.3
+        out, lse = smallq_attention(q, k, v, mask, p_drop=0.1, seed=5, **rows)
+        ref, _ = smallq_attention_ref(q, k, v, mask, p_drop=0.1, seed=5, **rows)
+        grads = smallq_backward(q, k, v, mask, out, lse, g, p_drop=0.1, seed=5, **rows)
+        want = smallq_backward_ref(q, k, v, mask, out, lse, g, p_drop=0.1, seed=5, **rows)
+        base = smallq_attention(q, k, v, mask, p_drop=0.1, seed=5)[0]
+        same = smallq_attention(q, k, v, mask, p_drop=0.1, seed=5, b0=0, h0=0, heads=H)[0]
+    else:
+        out = largeq_attention(q, k, v, p_drop=0.1, seed=5, **rows)
+        ref = largeq_attention_ref(q, k, v, p_drop=0.1, seed=5, **rows)
+        grads = largeq_backward(q, k, v, g, p_drop=0.1, seed=5, **rows)
+        want = largeq_backward_ref(q, k, v, g, p_drop=0.1, seed=5, **rows)
+        base = largeq_attention(q, k, v, p_drop=0.1, seed=5)
+        same = largeq_attention(q, k, v, p_drop=0.1, seed=5, b0=0, h0=0, heads=H)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    _assert_all_close(grads, want, GRAD_TOL[dtype])
+    assert torch.equal(base, same) and not torch.equal(base, out)

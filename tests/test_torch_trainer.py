@@ -211,16 +211,20 @@ def test_validate_uses_eval_masks_and_no_dropout(tmp_path):
 
 
 def test_video_batches_and_unported_options_are_refused(tmp_path):
-    """A video batch needs a VQGAN; the mesh and ZeRO-1 are not ported."""
+    """A video batch needs a VQGAN; exp.model_parallel needs a
+    torch.distributed group (tests/test_torch_parallel_train_tp.py runs
+    it on one), and exp.zero1 without one has no data axis to shard."""
     tr = _trainer(tmp_path / "video", ckpt_every=0)
     tr.vtokens = False
     batch = dict(video=np.zeros((2, 4, 16, 16, 3), np.float32),
                  indices=np.stack([np.arange(32)] * 2))
     with pytest.raises(ValueError, match="VQGAN"):
         tr.fit(FakeLoader([batch]), max_steps=1)
-    for key, value in (("zero1", True), ("model_parallel", 2)):
-        with pytest.raises(NotImplementedError, match=key):
-            _trainer(tmp_path / key, **{key: value})
+    with pytest.raises(ValueError, match="model_parallel"):
+        _trainer(tmp_path / "model_parallel", model_parallel=2)
+    tr = _trainer(tmp_path / "zero1", zero1=True)
+    assert tr.mesh is None and tr.zero1
+    assert not tr.init_state().optimizer.zero
 
 
 def _video_batches(n, B=2, seed=0):
