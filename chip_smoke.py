@@ -3387,9 +3387,10 @@ def par_report(name, config, card, mesh, reports, expect, steps, **extra) -> dic
         got = per_step(rep_["launches"], steps)
         require(got == expect[r], f"{name} rank {r}: launches a step {got} != expected "
                                   f"{expect[r]}")
-    return dict(phase=name, config=config, card=card, mesh=mesh, backend=extra.pop(
-        "backend", "gloo"), note="ranks on one card; gloo copies every collective through "
-                                 "the host: walls and peaks a rank, not multi-GPU times",
+    backend = extra.pop("backend", "gloo")
+    note = ("ranks on one card; gloo copies every collective through the host: walls and "
+            "peaks a rank, not multi-GPU times" if backend == "gloo" else "one rank")
+    return dict(phase=name, config=config, card=card, mesh=mesh, backend=backend, note=note,
                 steps=steps, wall_s=[r["wall_s"] for r in reports],
                 peak_mem_gb=[r["peak_mem_gb"] for r in reports],
                 launches_per_rank_step=[dict(zip(KERNELS, per_step(r["launches"], steps)))

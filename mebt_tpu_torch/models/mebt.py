@@ -185,10 +185,7 @@ class MeBT(nn.Module):
         V / model) instead of gathering them."""
         tokens = self._embed_canvas(codes, ctx_mask)
         latents = self._latent_queries(codes.shape[0])
-        tf = self.transformer
-        latents, tokens = tf.embed_dropout(latents, tokens, drop)
-        _, tokens = tf.run_blocks(latents, tokens, ctx_mask, tgt_mask, 0, drop=drop)
-        return tf.logits_head(tokens, vocab_shard)
+        return self.transformer(latents, tokens, ctx_mask, tgt_mask, drop, vocab_shard)
 
     def stage_a(self, codes, ctx_mask):
         """Enc phase on the full canvas; returns latents (B, sos_emb, D)."""

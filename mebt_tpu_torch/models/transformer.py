@@ -397,12 +397,13 @@ class LatentTransformer(nn.Module):
                                          mesh, bias=False)
         self.mesh = mesh
 
-    def forward(self, latents, tokens, ctx_mask, tgt_mask, drop: DropoutState | None = None):
+    def forward(self, latents, tokens, ctx_mask, tgt_mask, drop: DropoutState | None = None,
+                vocab_shard: bool = False):
         """Embedding dropout on latents, then tokens (the JAX module's
-        order), the blocks, the head."""
+        order), the blocks, the head (`vocab_logits`)."""
         latents, tokens = self.embed_dropout(latents, tokens, drop)
         _, tokens = self.run_blocks(latents, tokens, ctx_mask, tgt_mask, 0, drop=drop)
-        return self.logits_head(tokens)
+        return self.logits_head(tokens, vocab_shard)
 
     def embed_dropout(self, latents, tokens, drop: DropoutState | None):
         return (dropout(latents, self.embd_pdrop, drop),

@@ -216,40 +216,33 @@ def _gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
 
 
 class _Gather(torch.autograd.Function):
-    """all_gather; backward: this rank's block of the gradient, summed
-    over the axis first where grad is "sum"."""
+    """all_gather; backward: this rank's block of the gradient (the loss
+    is the same on every rank of the axis)."""
 
     @staticmethod
-    def forward(ctx, t, mesh, axis, dim, grad):
-        ctx.mesh, ctx.axis, ctx.dim, ctx.grad, ctx.n = mesh, axis, dim, grad, t.shape[dim]
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.n = mesh, axis, dim, t.shape[dim]
         return _gather(t, mesh, axis, dim)
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.grad == "sum":
-            g = _sum(g, ctx.mesh, ctx.axis)
-        g = g.narrow(ctx.dim, ctx.mesh.index(ctx.axis) * ctx.n, ctx.n)
-        return g, None, None, None, None
+        return g.narrow(ctx.dim, ctx.mesh.index(ctx.axis) * ctx.n, ctx.n), None, None, None
 
 
-def all_gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0,
-               grad: str = "identity") -> torch.Tensor:
+def all_gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
     """The blocks `t` (one shape on every rank) of every rank of `axis`,
     concatenated along `dim` in axis order. Where t records gradients,
-    the backward keeps this rank's block of the gradient ("identity":
-    the loss is the same on every rank) or of its sum over the axis
-    ("sum")."""
-    if grad not in ("identity", "sum"):
-        raise ValueError(f"grad={grad!r}")
+    the backward keeps this rank's block of the gradient (every rank of
+    the axis computes the same loss from the gathered tensor: the
+    vocabulary-gathered logits)."""
     if not _records(t):
         return _gather(t, mesh, axis, dim)
-    return _Gather.apply(t, mesh, axis, dim % t.dim(), grad)
+    return _Gather.apply(t, mesh, axis, dim % t.dim())
 
 
 def broadcast(t: torch.Tensor, mesh: Mesh, axis: str, src: int = 0) -> torch.Tensor:
     """t of the rank at index `src` of `axis`, in place on every rank."""
-    g = mesh.group(axis)
-    dist.broadcast(t, src=dist.get_global_rank(g, src), group=g)
+    dist.broadcast(t, src=mesh.global_rank(axis, src), group=mesh.group(axis))
     return t
 
 
@@ -385,9 +378,9 @@ def shard_state_dict(state: dict, mesh: Mesh, rules: list[Rule] | None = None) -
     return {name: shard_tensor(t, specs[name], mesh, name).clone() for name, t in state.items()}
 
 
-def gather_state_dict(state: dict, mesh: Mesh, rules: list[Rule] | None = None) -> dict:
+def gather_state_dict(state: dict, mesh: Mesh) -> dict:
     """The whole state dict of this rank's shards (collective)."""
-    specs = spec_for_state_dict(state, rules)
+    specs = spec_for_state_dict(state)
     return {name: gather_tensor(t, specs[name], mesh) for name, t in state.items()}
 
 

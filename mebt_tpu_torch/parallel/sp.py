@@ -85,10 +85,9 @@ def sp_drop_rows(drop: DropoutState, B: int, N: int, mesh: Mesh) -> DropoutState
 
 def sp_loss_fn(model: MeBT, mesh: Mesh, avg_loss: float = 1.0, label_smoothing: float = 0.0):
     """Sequence-parallel MLM objective (mebt_tpu/parallel/sp.py:294):
-    fn(batch, drop=None) -> (loss, metrics) of this rank's block of a
-    whole-canvas batch (batch_rows and canvas_span: 'codes', 'ctx_mask',
-    'tgt_mask' (B_l, N_l), 'seq_len', 'masked_weight'; `B` its whole row
-    count). `loss` is the block's share (its backward, then the
+    fn(batch, B, drop=None) -> (loss, metrics) of this rank's block of a
+    whole-canvas batch of B rows (batch_rows and canvas_span: 'codes',
+    'ctx_mask', 'tgt_mask' (B_l, N_l), 'seq_len', 'masked_weight'). `loss` is the block's share (its backward, then the
     gradients summed over SP_GRAD_AXES, gives the dense gradient);
     metrics are the whole batch's. `model` must be the sequence-parallel
     model (sp_model)."""

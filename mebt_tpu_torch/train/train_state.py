@@ -103,6 +103,7 @@ class Optimizer:
         decayed = decay_names(model)
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         self.params = [p for _, p in named]
+        self.by_name = dict(named)
         self.mesh, self.grad_axes = mesh, tuple(grad_axes)
         self.specs = {n: () for n, _ in named}
         self.zero = {}  # name -> the dimension ZeRO-1 splits over `data`
@@ -124,13 +125,11 @@ class Optimizer:
                       for n, p in named if n in self.zero}
         groups = ([n for n, _ in named if n in decayed], [n for n, _ in named if n not in decayed])
         self.names = groups[0] + groups[1]  # AdamW's parameter order
-        by_name = dict(named)
-        self._named = named
         self.adamw = torch.optim.AdamW(
             [
-                {"params": [self.slots.get(n, by_name[n]) for n in groups[0]],
+                {"params": [self.slots.get(n, self.by_name[n]) for n in groups[0]],
                  "weight_decay": weight_decay},
-                {"params": [self.slots.get(n, by_name[n]) for n in groups[1]],
+                {"params": [self.slots.get(n, self.by_name[n]) for n in groups[1]],
                  "weight_decay": 0.0},
             ],
             lr=exact_lr, betas=(0.9, 0.95), eps=1e-8,
@@ -155,8 +154,9 @@ class Optimizer:
         """The norm of the whole gradient: each gradient split over axes
         of more than one rank has its squares summed over them."""
         groups: dict = {}
-        for n, g in zip((n for n, _ in self._named), grads):
-            axes = tuple(a for a in self.split[n] if self.mesh.size(a) > 1)
+        for n, g in zip(self.by_name, grads):
+            axes = () if self.mesh is None else tuple(
+                a for a in self.split[n] if self.mesh.size(a) > 1)
             groups.setdefault(axes, []).append(g)
         if list(groups) == [()]:
             return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
@@ -180,8 +180,7 @@ class Optimizer:
         grads = [p.grad for p in self.params]
         if self.k > 1:
             torch._foreach_div_(grads, float(self.k))
-        norm = (torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-                if self.mesh is None else self._global_norm(grads))
+        norm = self._global_norm(grads)
         if self.grad_clip:
             # optax.clip_by_global_norm: g * max_norm / norm where norm >= max_norm
             scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
@@ -190,16 +189,15 @@ class Optimizer:
         lr = self.schedule(self.opt_step)
         for group in self.adamw.param_groups:
             group["lr"] = lr
-        by_name = dict(self._named)
         for n, slot in self.slots.items():
-            p = by_name[n]
+            p = self.by_name[n]
             spec = self._zero_spec(n, p)
             slot.copy_(shard_tensor(p.detach(), spec, self.mesh))
             slot.grad = shard_tensor(p.grad, spec, self.mesh).contiguous()
         self.adamw.step()
         for n, slot in self.slots.items():
             with torch.no_grad():
-                by_name[n].copy_(all_gather(slot, self.mesh, "data", dim=self.zero[n]))
+                self.by_name[n].copy_(all_gather(slot, self.mesh, "data", dim=self.zero[n]))
         self.adamw.zero_grad(set_to_none=True)
         for p in self.params:
             p.grad = None
@@ -219,7 +217,7 @@ class Optimizer:
         """The spec of AdamW's i-th parameter's moments: its own, with
         ZeRO-1's `data` dimension."""
         n = self.names[i]
-        spec = list(self.specs[n]) + [None] * (dict(self._named)[n].dim() - len(self.specs[n]))
+        spec = list(self.specs[n]) + [None] * (self.by_name[n].dim() - len(self.specs[n]))
         if n in self.zero:
             spec[self.zero[n]] = "data"
         return tuple(spec)

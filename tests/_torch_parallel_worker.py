@@ -282,8 +282,7 @@ def task_collective_grads(model, mesh, x):
         "sum_identity": lambda t: all_reduce(t, mesh, "model"),
         "sum_sum": lambda t: all_reduce(t, mesh, "model", grad="sum"),
         "copy_to": lambda t: copy_to(t, mesh, "model"),
-        "gather_identity": lambda t: all_gather(t, mesh, "model", dim=1),
-        "gather_sum": lambda t: all_gather(t, mesh, "model", dim=1, grad="sum"),
+        "gather": lambda t: all_gather(t, mesh, "model", dim=1),
     }
     with torch.enable_grad():
         for name, fn in cases.items():

@@ -225,7 +225,8 @@ def test_fit_matches_single_rank(ranks, tmp_path, monkeypatch):
 def test_collective_gradients(ranks):
     """Forward y from x_r = (r + 1) x, loss sum(w_r * y) on rank r with
     w_r = arange + 10 r: identity backward passes w_r on, sum backward
-    (and copy_to's) passes sum_r w_r; a gather's keeps the rank's block."""
+    (and copy_to's) passes sum_r w_r; a gather's keeps the rank's block
+    of w_r."""
     outs = ranks[1]
     n = max(o["coords"]["model"] for o in outs) + 1
     x = torch.arange(6.0).view(2, 3)
@@ -242,8 +243,5 @@ def test_collective_gradients(ranks):
         assert torch.equal(got["copy_to"]["value"], (r + 1) * x)
         assert torch.equal(got["copy_to"]["grad"], w_all)
         wide = torch.arange(6.0 * n).view(2, 3 * n)
-        assert torch.equal(got["gather_identity"]["value"],
-                           torch.cat([(i + 1) * x for i in range(n)], dim=1))
-        assert torch.equal(got["gather_identity"]["grad"], (wide + 10.0 * r)[:, 3 * r:3 * r + 3])
-        w_sum = n * wide + 10.0 * sum(range(n))
-        assert torch.equal(got["gather_sum"]["grad"], w_sum[:, 3 * r:3 * r + 3])
+        assert torch.equal(got["gather"]["value"], torch.cat([(i + 1) * x for i in range(n)], dim=1))
+        assert torch.equal(got["gather"]["grad"], (wide + 10.0 * r)[:, 3 * r:3 * r + 3])
