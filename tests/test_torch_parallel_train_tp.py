@@ -3,9 +3,9 @@
 this process, and against the port's single-rank training (fp32, tiny
 model, every dropout at 0 unless a test says otherwise).
 
-* Loss and every gradient (model 2; data 2 x model 2), label smoothing 0
-  and 0.1: against jax.value_and_grad of the dense mlm_loss, loss rtol
-  1e-5, each gradient atol 1e-5 / rtol 1e-4 (the vocab-parallel
+* Loss and every gradient (model 2; data 2; data 2 x model 2), label
+  smoothing 0 and 0.1: against jax.value_and_grad of the dense mlm_loss,
+  loss rtol 1e-5, each gradient atol 1e-5 / rtol 1e-4 (the vocab-parallel
   cross-entropy, the identity- and sum-backward collectives, the data
   sum).
 * One AdamW step of make_train_step on the mesh: parameters within 2e-5
@@ -14,9 +14,9 @@ model, every dropout at 0 unless a test says otherwise).
   equal the single-rank port's within the fp32 tolerance (the residual
   masks drawn over the whole batch, K8 keyed on the whole model's batch
   row and head).
-* Three steps of MeBTTrainer.fit (model 2; data 2 x model 2): parameters
-  and eval loss against a single-rank fit on the same global batches,
-  rtol 2e-4 / atol 2e-5 (tests/test_multiprocess.py's bound).
+* Three steps of MeBTTrainer.fit (each mesh): parameters and eval loss
+  against a single-rank fit on the same global batches, rtol 2e-4 / atol
+  2e-5 (tests/test_multiprocess.py's bound).
 * Each collective's gradient (identity- and sum-backward).
 """
 
@@ -45,7 +45,8 @@ SHAPE = dict(vocab_size=32, block_size=32, n_head=2, n_embd=16, sos_emb=4,
              latent_shape=(2, 4, 4))
 B, N = 4, 32
 LR = 1e-3
-MESHES = {"model2": dict(data=1, model=2), "data2_model2": dict(data=2, model=2)}
+MESHES = {"model2": dict(data=1, model=2), "data2": dict(data=2, model=1),
+          "data2_model2": dict(data=2, model=2)}
 RATES = dict(embd_pdrop=0.1, resid_pdrop=0.1, attn_pdrop=0.1)
 DROP = dict(gen=5, seed=1234)
 FIT_STEPS = 3
