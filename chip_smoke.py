@@ -134,12 +134,29 @@
    the pipeline's function on one rank, one stage); each rank's K1, K2,
    K6, K7, K8 and K9 launches a step must be the predicted ones (under
    SP, K1 and K6 are 0: the merge is plain); walls and peaks a rank;
-17. prints the kernels' JSON line and, last, the result line.
+17. runs maskgit_sample's options and the closure loop (right after the
+   D&R phases): `opts16`, STL-16f at full width, batch 16, 32 steps, the
+   dense scan with a valid_mask that leaves the last latent frame out
+   (no step makes an outside position a target, every valid position is
+   decided; K1 / K2 on every dense step, no head kernel), then the
+   staged decode with return_history at gen16's seed, its final state
+   gen16's codes and score and its launches gen16's; `opts128`, the 128f
+   recipe through bidirect_generate with approx_top_k, codes, scores and
+   launches (K4 30) equal to gen128's; `closure16`,
+   tests/test_fvd_closure.py's train -> sample -> FVD loop at its sizes
+   (a tiny VQGAN 200 steps, a tiny MeBT on its frozen codes, 4000 steps
+   where the test's 400 meet its bar in neither package, 8-step
+   sampling, a fixed seeded I3D; one head of 64, the kernels' head dim,
+   where the test has two of 32): the trained model's FVD
+   below half the untrained one's, and K1-K3, K6, K7 and K9 launched as
+   the loop predicts;
+18. prints the kernels' JSON line and, last, the result line.
 
 `--only a,b` runs a subset of the phases (k1 k2 k3 k4 k5 k6 k7 k8 k9
-gen16 gen128 dnr16 dnr128 whole whole_dnr train whole_train train_video
-train_video_128 whole_video ckpt16 fvd16 tp16 tp16_nccl tp128 sp128
-vqgan_train tp16_train dp16_train train16_nccl sp128_train pp16_train)
+gen16 gen128 dnr16 dnr128 opts16 opts128 closure16 whole whole_dnr train
+whole_train train_video train_video_128 whole_video ckpt16 fvd16 tp16
+tp16_nccl tp128 sp128 vqgan_train tp16_train dp16_train train16_nccl
+sp128_train pp16_train)
 while developing; it then prints no kernels line and no result line.
 
 Any failure exits non-zero. Without a CUDA device, or without the
@@ -1258,7 +1275,7 @@ def run_slice_128(dev, B, out_dir):
         bootstrap_profile=boot_profile, decode_profile=main_profile,
         launches=dict(zip(KERNELS, launches)), expected_launches=dict(zip(KERNELS, expect)),
         **shapes,
-    ), launches, res.code_maps
+    ), launches, res
 
 
 def zeros_but(**counts) -> list[int]:
@@ -2789,6 +2806,305 @@ def run_fvd16(dev, out_dir, card, samples16):
 # the dense scan at the full N from an empty canvas, 32 steps at top-k 32
 TP128_RECIPE = dict(RECIPE128, vid_n_steps=8)
 SP128_STEPS = 32
+# -- maskgit_sample's options and the train -> sample -> FVD loop ----------------
+
+
+def gen16_seed(seed: int = 0) -> int:
+    """The seed bidirect_generate(seed) hands its first (only) decode."""
+    return int(torch.randint(2**62, (1,), generator=torch.Generator().manual_seed(seed)))
+
+
+def run_opts16(dev, gen16):
+    """STL-16f at full width, batch 16, the 16f recipe's plan (32 steps,
+    ctemp 8.0): (1) the dense scan with a valid_mask that leaves the last
+    latent frame out, from a seeded canvas, with its history: no step
+    makes an invalid position a target (its code, context and
+    probability stay as given) and every valid position is decided; (2)
+    the staged decode with return_history at gen16's seed: its final
+    state is gen16's codes and score bit for bit (a fresh bidirect run
+    when gen16 did not run), its last history entry that state, and its
+    launches gen16's (K1 384, K2 384, K3 32)."""
+    from mebt_tpu_torch.cli.common import random_mebt, random_vqgan
+    from mebt_tpu_torch.models.mebt import MeBTConfig
+    from mebt_tpu_torch.models.vqgan import VQGANConfig
+    from mebt_tpu_torch.sampler.decode import maskgit_sample
+    from mebt_tpu_torch.sampler.generation import bidirect_generate
+    from mebt_tpu_torch.sampler.mask_schedule import maskgit_plan
+
+    B, N = BATCH, 1024
+    model = random_mebt(MeBTConfig(dtype=torch.bfloat16, **STL16), 0, dev)
+    plan = maskgit_plan(N, RECIPE["vid_n_steps"], "cosine", "linear")
+    live = int(plan.do_step.sum())
+    k1, k2 = attention_launches_per_step()
+    kw = dict(temperature=RECIPE["temperature"], context_temperature=RECIPE["vid_c_temp"])
+
+    g = torch.Generator(dev).manual_seed(5)
+    codes0 = torch.randint(0, STL16["vocab_size"], (B, N), device=dev, generator=g)
+    valid = torch.ones((B, N), dtype=torch.bool, device=dev)
+    valid[:, 3 * 256:] = False  # the last of the 4 latent frames
+    torch.cuda.reset_peak_memory_stats()
+    (state, (h_codes, h_ctx)), dense_launches, dense_wall = counted(lambda: maskgit_sample(
+        model, 1, B, plan, codes=codes0, valid_mask=valid, staged=False, return_history=True,
+        **kw))
+    dense_peak = torch.cuda.max_memory_allocated()
+    out = ~valid
+    require(h_codes.shape == h_ctx.shape == (len(plan.do_step), B, N),
+            f"opts16: dense history {tuple(h_codes.shape)}")
+    require(bool((h_codes[:, out] == codes0[out]).all()) and not bool(h_ctx[:, out].any()),
+            "opts16: a position outside valid_mask became a target")
+    require(bool((state.chosen_prob[out] == 1).all()),
+            "opts16: a position outside valid_mask was sampled")
+    require(bool(torch.equal(state.ctx_mask, valid)),
+            "opts16: the dense scan left a valid position undecided")
+    require(bool(torch.equal(h_codes[-1], state.codes)) and bool(torch.equal(h_ctx[-1],
+                                                                           state.ctx_mask)),
+            "opts16: the dense history does not end at the state")
+    dense_expect = zeros_but(K1=live * k1, K2=live * k2)
+    require(dense_launches == dense_expect,
+            f"opts16 dense launches {dense_launches} != expected {dense_expect}")
+    del h_codes, h_ctx, state
+    torch.cuda.empty_cache()
+
+    if gen16 is None:
+        vqgan = random_vqgan(VQGANConfig(n_codes=STL16["vocab_size"], downsample=(4, 8, 8)), 1,
+                             dev)
+        gen16 = bidirect_generate(model, vqgan, 0, B, **RECIPE)
+        del vqgan
+    torch.cuda.reset_peak_memory_stats()
+    (state, (h_codes, h_ctx)), hist_launches, hist_wall = counted(lambda: maskgit_sample(
+        model, gen16_seed(0), B, plan, return_history=True, **kw))
+    hist_peak = torch.cuda.max_memory_allocated()
+    score = torch.log(state.chosen_prob).sum(dim=-1).cpu().numpy().astype(np.float64)
+    require(np.array_equal(state.codes.cpu().numpy().reshape(gen16.code_maps.shape),
+                           gen16.code_maps), "opts16: the staged history run's codes != gen16's")
+    require(np.array_equal(score, gen16.score), "opts16: the staged history run's score != gen16's")
+    require(h_codes.shape == (len(plan.do_step), B, N)
+            and bool(torch.equal(h_codes[-1], state.codes))
+            and bool(torch.equal(h_ctx[-1], state.ctx_mask)),
+            "opts16: the staged history does not end at the state")
+    require(bool((h_ctx.sum(dim=-1) == torch.as_tensor(plan.n_contexts, device=dev)[:, None]).all()),
+            "opts16: the staged history's context counts are not the plan's")
+    hist_expect = zeros_but(K1=live * k1, K2=live * k2, K3=live)
+    require(hist_launches == hist_expect,
+            f"opts16 history launches {hist_launches} != expected {hist_expect}")
+    report = dict(
+        phase="opts16", config="stl_16f", batch=B, steps=len(plan.do_step), live_steps=live,
+        dense_valid_mask=dict(wall_s=dense_wall, peak_mem_gb=dense_peak / 2**30,
+                              invalid_positions_a_row=int(out[0].sum()),
+                              launches=dict(zip(KERNELS, dense_launches))),
+        staged_history=dict(wall_s=hist_wall, peak_mem_gb=hist_peak / 2**30,
+                            launches=dict(zip(KERNELS, hist_launches))),
+        gates=dict(invalid_never_targets=True, valid_all_decided=True,
+                   staged_history_ends_at_gen16=True),
+    )
+    return report, {"stl_16f_opts_dense": dense_launches, "stl_16f_opts_history": hist_launches}
+
+
+def run_opts128(dev, gen128):
+    """STL-128f at full width, batch 2, the 128f recipe (bootstrap 64,
+    then 32 MaskGIT steps at top-k 32) through bidirect_generate with
+    approx_top_k: codes, scores and launches (K4 30) bit-equal to
+    gen128's run at the same seed (a fresh run when gen128 did not run)."""
+    from mebt_tpu_torch.cli.common import random_mebt, random_vqgan
+    from mebt_tpu_torch.models.mebt import MeBTConfig
+    from mebt_tpu_torch.models.vqgan import VQGANConfig
+    from mebt_tpu_torch.sampler.generation import bidirect_generate
+
+    B = BATCH128
+    model = random_mebt(MeBTConfig(dtype=torch.bfloat16, **STL128), 0, dev)
+    vqgan = random_vqgan(VQGANConfig(n_codes=STL128["vocab_size"], downsample=(4, 8, 8)), 1, dev)
+    if gen128 is None:
+        res, launches, _ = counted(lambda: bidirect_generate(model, vqgan, 0, B, **RECIPE128))
+        gen128 = (res, launches)
+    want, want_launches = gen128
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, wall = counted(lambda: bidirect_generate(model, vqgan, 0, B, approx_top_k=True,
+                                                            **RECIPE128))
+    peak = torch.cuda.max_memory_allocated()
+    require(np.array_equal(res.code_maps, want.code_maps),
+            "opts128: approx_top_k changed gen128's codes")
+    require(np.array_equal(res.score, want.score), "opts128: approx_top_k changed gen128's score")
+    require(launches == want_launches and launches[KERNELS.index("K4")] > 0,
+            f"opts128 launches {launches} != gen128's {want_launches}")
+    report = dict(phase="opts128", config="stl_128f", batch=B, approx_top_k=True, wall_s=wall,
+                  peak_mem_gb=peak / 2**30, launches=dict(zip(KERNELS, launches)),
+                  gates=dict(codes_scores_launches_equal_gen128=True),
+                  **check_generation(res, B, 128, (32, 16, 16), "opts128"))
+    return report, launches
+
+
+# tests/test_fvd_closure.py on the port: 16 frames of 16x16 (a smooth
+# colour pattern rolling at a fixed speed from a random phase), a tiny
+# VQGAN trained 200 steps, a tiny MeBT trained on its frozen codes,
+# 8-step sampling, FVD under a fixed seeded I3D. The MeBT trains 4000
+# steps where the original trains 400: after 400 neither package meets
+# the original's bar (trained FVD below half the untrained one) on the
+# CPU; the port's loop gave 0.85, 0.73, 0.30 and 0.06 of the untrained
+# FVD after 400, 1000, 2000 and 4000 steps there, and 0.19 and 0.41 in
+# two card runs after 2000 (cuDNN's and the atomics' sums differ between
+# runs, and the trained VQGAN with them), too near the bar for a gate
+CLOSURE_T = CLOSURE_RES = 16
+CLOSURE_VQGAN = dict(embedding_dim=16, n_codes=64, n_hiddens=8, downsample=(4, 4, 4),
+                     disc_channels=8, disc_layers=2, discriminator_iter_start=10**9,
+                     perceptual_weight=0.0, gan_feat_weight=0.0)
+CLOSURE_MEBT = dict(vocab_size=64, block_size=64, n_layer=4, n_head=2, n_embd=64, sos_emb=16,
+                    mode=("latent_enc", "latent_self", "latent_dec", "lt2l"),
+                    latent_shape=(4, 4, 4), avg_loss=1.0)
+CLOSURE_STEPS = dict(vqgan=200, mebt=4000, sample=8, n_eval=32)
+
+
+def closure_videos(n: int, seed: int) -> np.ndarray:
+    """(n, T, RES, RES, 3) uint8: a fixed smooth colour pattern rolling
+    horizontally by 2 pixels a frame from a random phase."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:CLOSURE_RES, 0:CLOSURE_RES].astype(np.float32) / CLOSURE_RES
+    base = np.stack([0.5 + 0.5 * np.sin(2 * np.pi * (xx + 0.3 * yy)),
+                     0.5 + 0.5 * np.sin(2 * np.pi * (2 * xx - yy) + 1.0),
+                     0.5 + 0.5 * np.cos(2 * np.pi * (xx * yy) + 2.0)], axis=-1)
+    base_u8 = np.round(base * 255).astype(np.uint8)
+    vids = np.empty((n, CLOSURE_T, CLOSURE_RES, CLOSURE_RES, 3), np.uint8)
+    for i in range(n):
+        phase = int(rng.integers(0, CLOSURE_RES))
+        for t in range(CLOSURE_T):
+            vids[i, t] = np.roll(base_u8, phase + 2 * t, axis=1)
+    return vids
+
+
+def closure_loop(dev, n_head: int = 2) -> dict:
+    """Train the tiny VQGAN (lr 3e-3, batch 8, pure autoencoder), then the
+    tiny MeBT on its frozen codes (the fused step, AdamW lr 2e-3 with 20
+    warm-up steps, batch 8, masks from MaskGen; CLOSURE_STEPS), sample 32 videos from
+    the untrained and the trained MeBT (bidirect_generate, 8 steps, ctemp
+    4.5) and embed them and 32 held-out videos with a fixed seeded I3D.
+    Returns the losses, FVDs, KVDs and walls; the gates are the caller's.
+    `n_head` 1 gives the kernels' head dim 64 at the same width."""
+    import copy
+
+    from mebt_tpu_torch.eval.fvd import frechet_distance, get_fvd_logits, polynomial_mmd
+    from mebt_tpu_torch.eval.i3d import InceptionI3d
+    from mebt_tpu_torch.models.mebt import MeBT, MeBTConfig
+    from mebt_tpu_torch.models.vqgan import VQGANConfig
+    from mebt_tpu_torch.sampler.generation import bidirect_generate
+    from mebt_tpu_torch.sampler.mask_schedule import MaskGen
+    from mebt_tpu_torch.train.train_state import TrainState, make_optimizer, make_train_step
+    from mebt_tpu_torch.train.vqgan_train import VQGANTrainer
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    train_f = closure_videos(64, 0).astype(np.float32) / 255.0 - 0.5
+    heldout = closure_videos(32, 100)
+    out, t0 = {}, time.perf_counter()
+
+    trainer = VQGANTrainer(VQGANConfig(**CLOSURE_VQGAN), lr=3e-3, seed=0, device=dev)
+    trainer.init_state()
+    rng = np.random.default_rng(0)
+    losses = []
+    for i in range(CLOSURE_STEPS["vqgan"]):
+        idx = rng.integers(0, len(train_f), size=8)
+        losses.append(trainer.step(torch.from_numpy(train_f[idx]).to(dev))["recon_loss"])
+    out["vqgan_recon_first"], out["vqgan_recon_last"] = float(losses[0]), float(losses[-1])
+    vqgan = trainer.to_vqgan()
+    del trainer
+    sync()
+    out["vqgan_train_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg = MeBTConfig(**dict(CLOSURE_MEBT, n_head=n_head))
+    N = cfg.seq_len
+    with torch.device(dev):
+        model = MeBT(cfg)
+    model.init_random_(torch.Generator(dev).manual_seed(0))
+    untrained = copy.deepcopy(model).eval()
+    mg = MaskGen(schedule="cosine", max_token=N, method="mlm", shape=cfg.latent_shape, budget=N)
+    opt = make_optimizer(model, exact_lr=2e-3, warmup_steps=20, weight_decay=0.01,
+                         cosine_lr=False, max_steps=10_000)
+    state = TrainState.create(model.train(), opt, 1)
+    step = make_train_step(model, vqgan=vqgan)
+    rng = np.random.default_rng(1)
+    losses = []
+    for _ in range(CLOSURE_STEPS["mebt"]):
+        idx = rng.integers(0, len(train_f), size=8)
+        perms = np.stack([rng.permutation(N) for _ in range(8)])
+        masks = mg.train_masks(perms, float(rng.uniform(0.05, 0.95)), 0, cfg.latent_shape[0])
+        state, metrics = step(state, dict(video=train_f[idx], ctx_mask=masks.ctx_mask,
+                                          tgt_mask=masks.tgt_mask, seq_len=masks.seq_len,
+                                          masked_weight=masks.masked_weight))
+        losses.append(metrics["loss"].detach())
+    out["mebt_loss_first"], out["mebt_loss_last"] = float(losses[0]), float(losses[-1])
+    trained = model.eval()
+    sync()
+    out["mebt_train_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+
+    def samples(m, seed):
+        batches = [bidirect_generate(m, vqgan, seed + i, 8, total_length=CLOSURE_T,
+                                     step_size=CLOSURE_T, context_size=CLOSURE_T // 2,
+                                     temperature=1.0, vid_n_steps=CLOSURE_STEPS["sample"],
+                                     vid_c_temp=4.5).samples
+                   for i in range(0, CLOSURE_STEPS["n_eval"], 8)]
+        return np.concatenate(batches, 0)
+
+    fake0, fake1 = samples(untrained, 7), samples(trained, 7)
+    out["sample_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        i3d = InceptionI3d(400)
+    i3d.load_state_dict(i3d_state_dict(42), strict=False)
+    i3d.eval()
+    real = get_fvd_logits(heldout, i3d)
+    emb0, emb1 = get_fvd_logits(fake0, i3d), get_fvd_logits(fake1, i3d)
+    out.update(fvd_untrained=frechet_distance(emb0, real), fvd_trained=frechet_distance(emb1, real),
+               kvd_untrained=polynomial_mmd(emb0, real), kvd_trained=polynomial_mmd(emb1, real))
+    out["fvd_s"] = time.perf_counter() - t0
+    return out
+
+
+def closure_launches(live_sample_steps: int) -> list[int]:
+    """The loop's launches: K9 once a VQGAN step and once a MeBT step (the
+    frozen encode); K1 (latent_enc, lt2l) and K2 (latent_self,
+    latent_dec) twice a MeBT step and twice a live decode step, K3 once
+    a live decode step; K7 twice a MeBT step, K6 once: the last block,
+    lt2l, updates only the latents, which no later block reads, so no
+    gradient reaches it; no dropout (K8)."""
+    steps, calls = CLOSURE_STEPS["mebt"], 2 * CLOSURE_STEPS["n_eval"] // 8
+    live = calls * live_sample_steps
+    return zeros_but(K1=2 * steps + 2 * live, K2=2 * steps + 2 * live, K3=live, K6=steps,
+                     K7=2 * steps, K9=CLOSURE_STEPS["vqgan"] + steps)
+
+
+def run_closure16(dev, card):
+    """closure_loop on the card at one head of 64 (the kernels' head
+    dim; the test's 2 heads of 32 run on the CPU), counted: the trained
+    model's FVD below half the untrained one's (the test's bar), the
+    VQGAN's L1 halved and the MeBT loss fallen, and every launch the loop
+    predicts."""
+    from mebt_tpu_torch.sampler.mask_schedule import maskgit_plan
+
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, wall = counted(lambda: closure_loop(dev, n_head=1))
+    peak = torch.cuda.max_memory_allocated()
+    live = int(maskgit_plan(64, CLOSURE_STEPS["sample"], "cosine", "linear").do_step.sum())
+    expect = closure_launches(live)
+    require(res["vqgan_recon_last"] < 0.5 * res["vqgan_recon_first"],
+            f"closure16: the VQGAN's L1 {res['vqgan_recon_first']} -> {res['vqgan_recon_last']}")
+    require(np.isfinite(res["mebt_loss_last"]) and res["mebt_loss_last"] < res["mebt_loss_first"],
+            f"closure16: the MeBT loss {res['mebt_loss_first']} -> {res['mebt_loss_last']}")
+    require(res["fvd_trained"] < 0.5 * res["fvd_untrained"],
+            f"closure16: FVD trained {res['fvd_trained']} >= half untrained {res['fvd_untrained']}")
+    require(launches == expect, f"closure16 launches {launches} != expected {expect}")
+    report = dict(phase="closure16", card=card, wall_s=wall, peak_mem_gb=peak / 2**30,
+                  n_head=1, steps=CLOSURE_STEPS, live_sample_steps=live,
+                  launches=dict(zip(KERNELS, launches)),
+                  gates=dict(fvd_trained_below_half_untrained=True, vqgan_l1_halved=True,
+                             mebt_loss_fell=True, launches_as_predicted=True),
+                  **res)
+    return report, launches
+
+
 PARALLEL_TIMEOUT_S = 900
 
 
@@ -3734,15 +4050,16 @@ def main(argv=None) -> int:
             for r in report[name]:
                 emit(dict(kernel=name, **r))
             torch.cuda.empty_cache()
-        drafts, gen16 = {}, None
+        drafts, gen16, gen128 = {}, None, None
         if on("gen16"):
             report["slice_16f"], launches["stl_16f"], gen16 = run_slice(dev, BATCH, args.out)
             drafts["stl_16f"] = gen16.code_maps
             emit(report["slice_16f"])
             torch.cuda.empty_cache()
         if on("gen128"):
-            report["slice_128f"], launches["stl_128f"], drafts["stl_128f"] = run_slice_128(
+            report["slice_128f"], launches["stl_128f"], gen128 = run_slice_128(
                 dev, BATCH128, args.out)
+            drafts["stl_128f"] = gen128.code_maps
             emit(report["slice_128f"])
             torch.cuda.empty_cache()
         for phase, config in (("dnr16", "stl_16f"), ("dnr128", "stl_128f")):
@@ -3752,6 +4069,20 @@ def main(argv=None) -> int:
                 launches.update(paths)
                 emit(report[f"slice_{config}_dnr"])
                 torch.cuda.empty_cache()
+        if on("opts16"):
+            report["opts16"], paths = run_opts16(dev, gen16)
+            launches.update(paths)
+            emit(report["opts16"])
+            torch.cuda.empty_cache()
+        if on("opts128"):
+            report["opts128"], launches["stl_128f_opts"] = run_opts128(
+                dev, None if gen128 is None else (gen128, launches["stl_128f"]))
+            emit(report["opts128"])
+            torch.cuda.empty_cache()
+        if on("closure16"):
+            report["closure16"], launches["stl_16f_closure"] = run_closure16(dev, smi)
+            emit(report["closure16"])
+            torch.cuda.empty_cache()
         if on("whole"):
             report["whole_path"] = [whole_path_check(dev, "stl_16f"),
                                     whole_path_check(dev, "stl_128f")]
@@ -3842,14 +4173,14 @@ def main(argv=None) -> int:
 
     def entry(i, name, replaces, row, src="mebt_tpu_torch/csrc/attention.cu", **extra):
         """`launches` is the count on the newest path that runs the
-        kernel: VQGAN training (5 steps) for K9, 16f training under tensor
-        parallelism (tp16_train, 3 fit steps, both ranks' counts summed)
-        for K1, K2, K6, K7 and K8, the tensor-parallel 16f generation
-        (tp16) for K3, the tensor-parallel 128f generation (tp128) for K4;
-        0 for K5, which no path runs. `launches_by_path` has every
-        path's."""
+        kernel: the train -> sample -> FVD loop (closure16) for K1, K2,
+        K3, K6, K7 and K9, the 128f generation under approx_top_k
+        (opts128) for K4, 16f training under tensor parallelism
+        (tp16_train, 3 fit steps, both ranks' counts summed) for K8; 0
+        for K5, which no path runs. `launches_by_path` has every path's."""
         by_path = {path: counts[i] for path, counts in launches.items()}
         newest = [by_path.get(p, 0) for p in (
+            "stl_16f_closure", "stl_128f_opts", "stl_16f_opts_history", "stl_16f_opts_dense",
             "vqgan_train_16f", "stl_16f_tp16_train", "stl_16f_dp16_train",
             "stl_128f_sp128_train", "stl_16f_pp16_train", "stl_16f_train16_nccl",
             "stl_16f_tp16", "stl_128f_tp128", "stl_128f_sp128",

@@ -10,7 +10,12 @@ The model comes from --gpt_ckpt, --exp_name or --random_weights as in
 cli.sample. Runs on the GPU unless --device cpu is given. Writes the
 uint8 videos under the names scripts/valid_dnr.sh reads (not with
 --no_np), with --save_codemap the code maps, with --save_videos video
-grids.
+grids in --format.
+
+As in cli.sample, the pixel .npy holds the first --n_sample videos in
+batch order, row for row with _codemap.npy; the JAX CLI's unseeded
+permutation holds the same set whenever --n_sample is a multiple of
+--batch_size.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ def build_argparser():
     # accepted as the reference CLI does; one model window is generated
     p.add_argument("--context_size", type=int, default=12)
     p.add_argument("--step_size", type=int, default=16)
+    p.add_argument("-v", "--verbose", action="store_true")  # accepted and ignored
     return p
 
 

@@ -9,8 +9,16 @@ The model comes from --gpt_ckpt (a Lightning checkpoint), --exp_name
 results/<exp_name>[_latest]) or --random_weights (cli/common.py). Runs on
 the GPU unless --device cpu is given. Writes the uint8 videos (N, T, H,
 W, C; not with --no_np), the per-sample scores and, with --save_codemap,
-the code maps as .npy files; with --save_videos also video grids. With
---base_np it extends the given code maps (extrapolation) instead.
+the code maps as .npy files; with --save_videos also video grids in
+--format. With --base_np it extends the given code maps (extrapolation)
+instead. --profile DIR writes a torch.profiler trace of the second batch
+(the first pays the first launches) to DIR.
+
+The pixel .npy holds the first --n_sample videos in batch order, so its
+rows line up with those of _codemap.npy and _score.npy. The JAX CLI
+saves a permutation from numpy's unseeded global generator, which no
+run can reproduce; the two files hold the same set of videos whenever
+--n_sample is a multiple of --batch_size, as in every recipe.
 """
 
 from __future__ import annotations
@@ -46,8 +54,20 @@ def build_argparser():
         "--ctemp_schedule", type=str, default="linear",
         choices=["linear", "constant", "cosine"],
     )
+    p.add_argument(
+        "--approx_top_k", action="store_true",
+        help="the JAX package's approximate TPU top-k filter; the port computes the "
+        "exact top-k either way (what that filter computes off the TPU)",
+    )
     # the reference's output names carry it (scripts/valid_dnr.sh passes it)
     p.add_argument("--no_phase", action="store_true")
+    # accepted and ignored, as the reference does: they fed its dead
+    # first-frame phase (sample script:170-190)
+    p.add_argument("--frame_c_temp", type=float, default=4.5)
+    p.add_argument("--frame_n_steps", type=int, default=16)
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("--profile", type=str, default="",
+                   help="write a torch.profiler trace of the second batch to this directory")
     return p
 
 
@@ -64,6 +84,20 @@ def save_tag(args) -> str:
     if args.no_phase:
         tag += "_no_phase"
     return tag + f"_run{args.run}"
+
+
+def stop_profile(prof, device, out_dir: str) -> str:
+    """Stop the trace and write it as out_dir/trace_batch_1.json."""
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace_batch_1.json")
+    prof.export_chrome_trace(path)
+    print(f"torch.profiler trace written to {path}", flush=True)
+    return path
 
 
 def main(argv=None):
@@ -92,12 +126,18 @@ def main(argv=None):
               top_p=args.top_p, vid_n_steps=args.vid_n_steps, vid_c_temp=args.vid_c_temp,
               ctemp_schedule=args.ctemp_schedule, schedule=args.schedule)
     all_pix, all_code, all_score = [], [], []
+    prof = None
     for i in range(n_batch):
+        if args.profile and i == 1:  # batch 0 pays the first launches
+            from mebt_tpu_torch.train.trainer import start_profile
+
+            prof = start_profile(device)
         seed = int(torch.randint(2**62, (1,), generator=seeds))
         if base_np is None:
             res = bidirect_generate(model, vqgan, seed, args.batch_size,
                                     strategy=args.decoding_strategy,
-                                    bootstrap=args.bootstrap, **kw)
+                                    bootstrap=args.bootstrap,
+                                    approx_top_k=args.approx_top_k, **kw)
         else:
             seed_codes = base_np[i * args.batch_size : (i + 1) * args.batch_size]
             res = extrapolate_generate(model, vqgan, seed, seed_codes, **kw)
@@ -106,6 +146,9 @@ def main(argv=None):
         all_code.append(res.code_maps)
         all_score.append(res.score)
         print(f"batch {i + 1}/{n_batch} done", flush=True)
+        if prof is not None:
+            stop_profile(prof, device, args.profile)
+            prof = None
 
     if args.save_codemap:
         np.save(save_np + "_codemap", np.concatenate(all_code, 0)[: args.n_sample])

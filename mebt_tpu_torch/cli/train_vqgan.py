@@ -129,6 +129,7 @@ def main(argv=None):
         discriminator_iter_start=args.discriminator_iter_start,
     )
 
+    device = resolve_device(args.device)
     lpips = None
     if args.perceptual_weight > 0:
         if args.no_perceptual:
@@ -141,7 +142,7 @@ def main(argv=None):
             try:
                 from mebt_tpu_torch.models.lpips import load_lpips
 
-                lpips = load_lpips(args.vgg_path, args.lpips_lin_path)
+                lpips = load_lpips(args.vgg_path, args.lpips_lin_path, device=device)
             except (OSError, KeyError, RuntimeError, pickle.UnpicklingError) as e:
                 # The reference always trains its VQGAN with the
                 # perceptual term (mebt/vqgan.py:186-189); silently
@@ -153,7 +154,6 @@ def main(argv=None):
                     "without the perceptual term."
                 )
 
-    device = resolve_device(args.device)
     loader = VideoData(vars(args)).train_dataloader()
     trainer = VQGANTrainer(cfg, lr=args.lr, lpips=lpips, seed=args.seed, device=device)
     trainer.init_state()

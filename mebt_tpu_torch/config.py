@@ -1,5 +1,6 @@
-"""Layered YAML configuration, the part of mebt_tpu/config.py the CLI
-needs: attribute access, deep merge and dot-list overrides.
+"""Layered YAML configuration (mebt_tpu/config.py): attribute access,
+deep merge, dot-list overrides and `target`/`params` instantiation,
+without OmegaConf (reference train_transformer.py:25-27, utils.py:3-7).
 
 `yaml` is imported inside the functions that parse text, so importing
 this module needs no PyYAML.
@@ -7,6 +8,8 @@ this module needs no PyYAML.
 
 from __future__ import annotations
 
+import copy
+import importlib
 from typing import Any, Iterable, Mapping
 
 
@@ -25,6 +28,28 @@ class Config(dict):
             return self[name]
         except KeyError as e:
             raise AttributeError(name) from e
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        self[name] = _convert(value)
+
+    def __delattr__(self, name: str) -> None:
+        try:
+            del self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+    def __deepcopy__(self, memo):
+        return Config({k: copy.deepcopy(v, memo) for k, v in self.items()})
+
+    def get_path(self, dotted: str, default: Any = None) -> Any:
+        """The value at `a.b.c`, or `default` where a key is missing."""
+        node: Any = self
+        for part in dotted.split("."):
+            if isinstance(node, Mapping) and part in node:
+                node = node[part]
+            else:
+                return default
+        return node
 
     def to_dict(self) -> dict:
         def rec(v):
@@ -96,3 +121,32 @@ def load_configs(bases: Iterable[str], overrides: Iterable[str] = ()) -> Config:
     cfgs = [load_yaml(p) for p in bases]
     cfgs.append(from_dotlist(overrides))
     return merge(*cfgs)
+
+
+# The reference instantiates its model and mask classes from `target`
+# strings such as `mebt.mask_sampler.MaskGen` (utils.py:3-7, with a
+# tats. -> mebt. rewrite); these map them onto this package, so the
+# original YAML files work unchanged.
+_TARGET_ALIASES = {
+    "mebt.mask_sampler.MaskGen": "mebt_tpu_torch.sampler.mask_schedule.MaskGen",
+    "tats.mask_sampler.MaskGen": "mebt_tpu_torch.sampler.mask_schedule.MaskGen",
+    "mebt.transformer.Net2NetTransformer": "mebt_tpu_torch.models.mebt.MeBT",
+    "tats.transformer.Net2NetTransformer": "mebt_tpu_torch.models.mebt.MeBT",
+}
+
+
+def resolve_target(target: str):
+    """The class or function a dotted `target` names, after the aliases."""
+    target = _TARGET_ALIASES.get(target, target)
+    module, _, name = target.rpartition(".")
+    return getattr(importlib.import_module(module), name)
+
+
+def instantiate_from_config(config: Mapping, **extra) -> Any:
+    """`target(**params, **extra)` of a `target`/`params` mapping."""
+    if "target" not in config:
+        raise KeyError("Expected key `target` to instantiate.")
+    cls = resolve_target(config["target"])
+    params = dict(config.get("params", {}) or {})
+    params.update(extra)
+    return cls(**params)

@@ -24,6 +24,8 @@ from typing import Mapping
 import torch
 from torch import nn
 
+from mebt_tpu_torch.runtime import resolve_device
+
 # channels at the five endpoints
 VGG_CHANNELS = (64, 128, 256, 512, 512)
 # conv layer indices (torchvision vgg16 .features numbering) per slice
@@ -105,9 +107,11 @@ def import_lpips_params(vgg_sd: Mapping[str, torch.Tensor],
     return sd
 
 
-def load_lpips(vgg_path: str, lin_path: str, device="cpu") -> LPIPS:
-    """LPIPS on `device` from torch weight files: a torchvision vgg16
-    state dict (or a pickled module holding one) and the lin weights."""
+def load_lpips(vgg_path: str, lin_path: str, device=None) -> LPIPS:
+    """LPIPS on `device` (default cuda) from torch weight files: a
+    torchvision vgg16 state dict (or a pickled module holding one) and
+    the lin weights."""
+    device = resolve_device(device)
     vgg_sd = torch.load(vgg_path, map_location="cpu", weights_only=False)
     if hasattr(vgg_sd, "state_dict"):
         vgg_sd = vgg_sd.state_dict()

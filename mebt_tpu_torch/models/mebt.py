@@ -71,6 +71,7 @@ class MeBTConfig:
     avg_loss: float = 0.0
     label_smoothing: float = 0.0
     t_prior: str = "longest"
+    unconditional: bool = True  # read by nothing: every MeBT config is unconditional
     remat: bool = False
     remat_policy: str = "full"  # models/transformer.py:REMAT_POLICIES
     latent_shape: tuple[int, int, int] = (4, 16, 16)
@@ -81,7 +82,7 @@ class MeBTConfig:
                     **overrides) -> "MeBTConfig":
         known = {"vocab_size", "block_size", "n_layer", "n_head", "n_embd",
                  "sos_emb", "mode", "embd_pdrop", "resid_pdrop", "attn_pdrop",
-                 "avg_loss", "label_smoothing", "t_prior"}
+                 "avg_loss", "label_smoothing", "t_prior", "unconditional"}
         kw = {k: params[k] for k in known if k in params}
         if "mode" in kw:
             kw["mode"] = tuple(kw["mode"])

@@ -53,8 +53,13 @@ def _exponential(shape, device, generator):
     return torch.empty(shape, device=device).exponential_(generator=generator)
 
 
-def top_k_logits(logits: torch.Tensor, k: int) -> torch.Tensor:
-    """Keep the k largest logits per row, set the rest to float32 min."""
+def top_k_logits(logits: torch.Tensor, k: int, approx: bool = False) -> torch.Tensor:
+    """Keep the k largest logits per row, set the rest to float32 min.
+
+    `approx` is the JAX package's `approx_max_k(recall_target=0.99)`
+    filter, a TPU speed choice: XLA lowers it to an exact top-k on every
+    other backend, so the port keeps the exact threshold under it."""
+    del approx  # exact top-k, what approx_max_k computes off the TPU
     kth = torch.topk(logits, int(k), dim=-1).values[..., -1:]
     return torch.where(logits < kth, torch.full_like(logits, NEG_INF), logits)
 
@@ -83,11 +88,13 @@ def sample_tokens(
     need_probs: bool = False,
     noise: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    approx_top_k: bool = False,
 ):
     """Sample token ids; returns (samples int32, chosen_prob, probs|None).
 
     `noise` ((..., V) Exp(1) draws) replaces the generator and takes the
-    probability-materializing path, as in the JAX package."""
+    probability-materializing path, as in the JAX package.
+    `approx_top_k` takes the exact top-k filter (`top_k_logits`)."""
     if noise is not None:
         scaled = logits.float() / (temperature + 1e-8)
         if top_k is not None:
@@ -102,7 +109,7 @@ def sample_tokens(
 
     logits = logits.float() / (temperature + 1e-8)
     if top_k is not None:
-        logits = top_k_logits(logits, int(top_k))
+        logits = top_k_logits(logits, int(top_k), approx=approx_top_k)
     if top_p is None and not need_probs:
         q = _exponential(logits.shape, logits.device, generator)
         samples = torch.argmax(logits - torch.log(q), dim=-1)
@@ -118,6 +125,30 @@ def sample_tokens(
     samples = torch.argmax(perturbed, dim=-1)
     chosen = probs.gather(-1, samples[..., None])[..., 0]
     return samples.to(torch.int32), chosen, probs
+
+
+def sample_from_logits(
+    logits: torch.Tensor,
+    temperature: float = 1.0,
+    top_k: int | None = None,
+    top_p: float | None = None,
+    noise: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+):
+    """Sample token ids from the filtered softmax by the Exp(1) division
+    (reference transformer.py:843-889, mebt_tpu/ops/sampling.py:193-222):
+    argmax(probs / q) over the positive probabilities. `noise` ((..., V)
+    Exp(1) draws) replaces the generator. Returns (samples int32, probs),
+    probs the (..., V) fp32 probabilities after top-k / top-p."""
+    logits = logits.float() / (temperature + 1e-8)
+    if top_k is not None:
+        logits = top_k_logits(logits, int(top_k))
+    probs = torch.softmax(logits, dim=-1)
+    if top_p is not None:
+        probs = top_p_probs(probs, float(top_p))
+    q = _exponential(probs.shape, probs.device, generator) if noise is None else noise
+    perturbed = torch.where(probs > 0, probs / q, torch.zeros_like(probs))
+    return torch.argmax(perturbed, dim=-1).to(torch.int32), probs
 
 
 def sample_topk_tokens(

@@ -4,9 +4,10 @@ strategies maskgit, random, bootstrap, entp and ar).
 The per-step counts come from a host-side `DecodePlan`. Two paths:
 
 * dense: every step runs the full-canvas forward (`MeBT.forward`) and
-  samples every position; the `sample_noise=` / `promote_noise=` hooks
-  make its draws equal to the JAX package's in the tests.
-* staged (default when the mode list allows it), the enc phase over a
+  samples every position; its targets may be limited by a `valid_mask`;
+  the `sample_noise=` / `promote_noise=` hooks make its draws equal to
+  the JAX package's in the tests.
+* staged (`staged="auto"`, when the mode list allows it), the enc phase over a
   compacted context bucket (`stage_a_compact`) and the dec phase over a
   compacted target bucket, at static bucket shapes:
   - confidence (maskgit): the plan is cut into segments by the joint
@@ -176,19 +177,24 @@ def _scores(score_mode: str, chosen_p, probs, live, context_temperature, scale):
 
 def _maskgit_scan(model, state: DecodeState, plan: DecodePlan, *,
                   temperature, top_k, top_p, context_temperature,
-                  random_scores, score_mode, rng: _Rng, sample_noise=None,
-                  promote_noise=None) -> DecodeState:
-    """Dense decode: full-canvas forward and sampling at every step."""
+                  random_scores, score_mode, rng: _Rng, valid_mask=None,
+                  sample_noise=None, promote_noise=None, history=None,
+                  approx_top_k=False) -> DecodeState:
+    """Dense decode: full-canvas forward and sampling at every step. The
+    targets are the positions of `valid_mask` (None: all) outside the
+    context. `history`, a list, gets each plan step's (codes, ctx_mask),
+    a skipped step's too."""
     for i in range(len(plan.do_step)):
         if not plan.do_step[i]:
+            _record(history, state)
             continue
-        tgt_mask = ~state.ctx_mask
+        tgt_mask = ~state.ctx_mask if valid_mask is None else valid_mask & ~state.ctx_mask
         logits = model(state.codes, state.ctx_mask, tgt_mask)
         sampled, chosen_p, probs = sample_tokens(
             logits, temperature, top_k, top_p,
             need_probs=score_mode == "entropy",
             noise=None if sample_noise is None else sample_noise[i],
-            generator=rng.draws,
+            generator=rng.draws, approx_top_k=approx_top_k,
         )
         scores, ctemp = _scores(score_mode, chosen_p, probs, tgt_mask,
                                 context_temperature, plan.ctemp_scale[i])
@@ -203,7 +209,23 @@ def _maskgit_scan(model, state: DecodeState, plan: DecodePlan, *,
             ctx_mask=state.ctx_mask | promote,
             chosen_prob=torch.where(tgt_mask, chosen_p, state.chosen_prob),
         )
+        _record(history, state)
     return state
+
+
+def _record(history, state: DecodeState):
+    if history is not None:
+        history.append((state.codes, state.ctx_mask))
+
+
+def _stacked(history, state: DecodeState):
+    """(codes, ctx_mask) of every recorded step, stacked on a leading
+    step axis: (S, B, N) each, S = 0 for a plan without steps."""
+    if not history:
+        return (state.codes.new_empty((0, *state.codes.shape)),
+                state.ctx_mask.new_empty((0, *state.ctx_mask.shape)))
+    codes, ctx = zip(*history)
+    return torch.stack(codes), torch.stack(ctx)
 
 
 def _stage_a_latents(model, state: DecodeState, ctx_bucket: int):
@@ -242,12 +264,13 @@ def _staged_confidence_scan(model, state: DecodeState, plan: DecodePlan,
                             n_tgt, start: int, stop: int, *, bucket: int,
                             ctx_bucket: int, temperature, top_k, top_p,
                             context_temperature, score_mode,
-                            rng: _Rng) -> DecodeState:
+                            rng: _Rng, history=None) -> DecodeState:
     """One segment of the staged confidence decode at static shapes."""
     B = state.codes.shape[0]
     slots = torch.arange(bucket, device=state.codes.device)
     for i in range(start, stop):
         if not plan.do_step[i]:
+            _record(history, state)
             continue
         idx = compact_indices(~state.ctx_mask, bucket)
         cvalid = (slots < int(n_tgt[i])).expand(B, bucket)
@@ -267,6 +290,7 @@ def _staged_confidence_scan(model, state: DecodeState, plan: DecodePlan,
             | _scatter_drop(torch.zeros_like(state.ctx_mask), idx, promote_c),
             chosen_prob=_scatter_drop(state.chosen_prob, idx, chosen_p),
         )
+        _record(history, state)
     return state
 
 
@@ -299,7 +323,7 @@ def random_path_buckets(plan: DecodePlan, N: int, n_ctx0: int) -> tuple[int, int
 
 def _staged_random_scan(model, state: DecodeState, plan: DecodePlan, *,
                         bucket: int, ctx_bucket: int, temperature, top_k,
-                        top_p, rng: _Rng, perm_noise=None) -> DecodeState:
+                        top_p, rng: _Rng, perm_noise=None, history=None) -> DecodeState:
     """Staged random/bootstrap decode. Taking the top n_new of fresh
     noise among the remaining targets at every step is sampling without
     replacement, the same as consuming one random permutation of the
@@ -321,6 +345,7 @@ def _staged_random_scan(model, state: DecodeState, plan: DecodePlan, *,
     slots = torch.arange(bucket, device=device)
     for i in range(len(plan.do_step)):
         if not plan.do_step[i]:
+            _record(history, state)
             continue
         off, n_new = int(offsets[i]), int(plan.n_new[i])
         promote = tgt0 & (perm_rank >= off) & (perm_rank < off + n_new)
@@ -336,22 +361,25 @@ def _staged_random_scan(model, state: DecodeState, plan: DecodePlan, *,
             ctx_mask=state.ctx_mask | promote,
             chosen_prob=_scatter_drop(state.chosen_prob, idx, chosen_p),
         )
+        _record(history, state)
     return state
 
 
 def _staged_sample(model, state: DecodeState, plan: DecodePlan, *,
                    temperature, top_k, top_p, context_temperature,
                    random_scores: bool, score_mode: str, n_ctx0: int,
-                   rng: _Rng, perm_noise=None) -> DecodeState:
+                   rng: _Rng, perm_noise=None, history=None) -> DecodeState:
     """`n_ctx0`: the largest initial context count of a row, known on
-    the host; it sizes the random path's context bucket."""
+    the host; it sizes the random path's context bucket. `history` gets
+    the (codes, ctx_mask) of every step of the segments, as the JAX
+    package's scans give them."""
     N = state.codes.shape[1]
     if random_scores:
         bucket, ctx_bucket = random_path_buckets(plan, N, n_ctx0)
         return _staged_random_scan(
             model, state, plan, bucket=bucket, ctx_bucket=ctx_bucket,
             temperature=temperature, top_k=top_k, top_p=top_p, rng=rng,
-            perm_noise=perm_noise,
+            perm_noise=perm_noise, history=history,
         )
     n_tgt = plan.n_targets_before(N)
     segments = plan_segments_joint(plan, N, ctx_weight=_ctx_weight(model.config))
@@ -361,7 +389,7 @@ def _staged_sample(model, state: DecodeState, plan: DecodePlan, *,
             bucket=bucket, ctx_bucket=ctx_bucket, temperature=temperature,
             top_k=top_k, top_p=top_p,
             context_temperature=context_temperature, score_mode=score_mode,
-            rng=rng,
+            rng=rng, history=history,
         )
     return state
 
@@ -376,28 +404,44 @@ def maskgit_sample(
     codes: torch.Tensor | None = None,
     ctx_mask: torch.Tensor | None = None,
     chosen_prob: torch.Tensor | None = None,
+    valid_mask: torch.Tensor | None = None,
     temperature: float = 1.0,
     top_k: int | None = None,
     top_p: float | None = None,
     context_temperature: float = 4.5,
     strategy: str = "maskgit",
-    staged: bool = True,
+    return_history: bool = False,
+    approx_top_k: bool = False,
+    staged: bool | str = "auto",
     sample_noise: torch.Tensor | None = None,
     promote_noise: torch.Tensor | None = None,
     perm_noise: torch.Tensor | None = None,
-) -> DecodeState:
+):
     """One MaskGIT/bootstrap/random/entp/ar decode pass (reference
     sample() and entp_sample(), transformer.py:353-542) on the device of
-    `model`.
+    `model`; returns the final DecodeState, or (state, (codes, ctx_mask))
+    with `return_history=True`: each plan step's canvas and context
+    stacked on a leading step axis, (S, B, N) each, on either path (the
+    reference's debug=True history, transformer.py:380-446).
 
-    `staged=True` uses the compacted two-stage forward when the mode
-    list allows it, no noise is injected and the strategy is not `ar`;
-    `staged=False` forces the dense scan. Test hooks: `sample_noise` (S, B, N, V) and
-    `promote_noise` (S, B, N) replace the random draws per plan step and
-    force the dense scan; `perm_noise` (B, N) replaces the one draw that
-    fixes the promotion order of the staged `random`/`bootstrap` decode
-    (larger = promoted earlier). On a mesh (module docstring) B is the
-    whole batch and the tensors are this rank's rows."""
+    `staged="auto"` uses the compacted two-stage forward when the mode
+    list allows it, no `valid_mask` is given, no noise is injected and
+    the strategy is not `ar`; `staged=True` raises where that does not
+    hold; `staged=False` forces the dense scan. `valid_mask` (B, N) bool
+    marks the positions that may become targets (None: all): the dense
+    scan's targets are `valid_mask & ~ctx_mask` at every step, and the
+    other positions keep their codes, context and probabilities.
+    `approx_top_k` is the JAX package's TPU filter (approx_max_k at
+    recall 0.99), which XLA computes as an exact top-k on every other
+    backend: the port keeps its exact top-k under it, K4 on the staged
+    path and `top_k_logits` on the dense one, so it changes nothing.
+
+    Test hooks: `sample_noise` (S, B, N, V) and `promote_noise` (S, B, N)
+    replace the random draws per plan step and take the dense scan;
+    `perm_noise` (B, N) replaces the one draw that fixes the promotion
+    order of the staged `random`/`bootstrap` decode (larger = promoted
+    earlier). On a mesh (module docstring) B is the whole batch and the
+    tensors, `valid_mask` too, are this rank's rows."""
     if strategy not in ("maskgit", "random", "bootstrap", "entp", "ar"):
         raise ValueError(f"unknown decoding strategy {strategy!r}")
     device = next(model.parameters()).device
@@ -409,13 +453,19 @@ def maskgit_sample(
     score_mode = {"entp": "entropy", "ar": "position"}.get(strategy, "prob")
     with_noise = sample_noise is not None or promote_noise is not None
     use_staged = (
-        staged and transformer_split(model.config) is not None and not with_noise
-        and strategy != "ar"
+        staged in (True, "auto") and transformer_split(model.config) is not None
+        and valid_mask is None and strategy != "ar" and not with_noise
     )
+    if staged is True and not use_staged:
+        raise ValueError(
+            "staged=True requires a stageable mode list, no valid_mask, "
+            "and a non-'ar' strategy"
+        )
     if perm_noise is not None and not (use_staged and random_scores):
         raise ValueError(
             "perm_noise belongs to the staged random/bootstrap decode only"
         )
+    history = [] if return_history else None
     if use_staged:
         # the given context's per-row counts: one host fetch, before any step
         n_ctx = (
@@ -429,28 +479,33 @@ def maskgit_sample(
                 f"{plan.n_ctx_init}; build the plan with matching "
                 "n_ctx_init (and pass the ctx_mask) or pass staged=False"
             )
-        return _staged_sample(
+        state = _staged_sample(
             model, state, plan, temperature=float(temperature), top_k=top_k,
             top_p=top_p, context_temperature=float(context_temperature),
             random_scores=random_scores, score_mode=score_mode,
             n_ctx0=int(n_ctx.max()), rng=rng,
             perm_noise=None if perm_noise is None else perm_noise[rows],
+            history=history,
         )
-    if with_noise and (sample_noise is None or promote_noise is None):
-        raise ValueError("sample_noise and promote_noise must be passed together")
-    return _maskgit_scan(
-        model, state, plan,
-        temperature=float(temperature), top_k=top_k, top_p=top_p,
-        context_temperature=float(context_temperature),
-        random_scores=random_scores, score_mode=score_mode, rng=rng,
-        sample_noise=None if sample_noise is None else sample_noise[:, rows].to(device),
-        promote_noise=None if promote_noise is None else promote_noise[:, rows].to(device),
-    )
+    else:
+        if with_noise and (sample_noise is None or promote_noise is None):
+            raise ValueError("sample_noise and promote_noise must be passed together")
+        state = _maskgit_scan(
+            model, state, plan,
+            temperature=float(temperature), top_k=top_k, top_p=top_p,
+            context_temperature=float(context_temperature),
+            random_scores=random_scores, score_mode=score_mode, rng=rng,
+            valid_mask=None if valid_mask is None else valid_mask.to(device, torch.bool),
+            sample_noise=None if sample_noise is None else sample_noise[:, rows].to(device),
+            promote_noise=None if promote_noise is None else promote_noise[:, rows].to(device),
+            history=history, approx_top_k=approx_top_k,
+        )
+    return state if history is None else (state, _stacked(history, state))
 
 
-def entp_sample(model, seed: int, B: int, plan: DecodePlan, **kwargs) -> DecodeState:
+def entp_sample(model, seed: int, B: int, plan: DecodePlan, **kwargs):
     """Entropy-confidence MaskGIT (reference entp_sample,
-    transformer.py:449-542)."""
+    transformer.py:449-542); takes every option of `maskgit_sample`."""
     return maskgit_sample(model, seed, B, plan, **dict(kwargs, strategy="entp"))
 
 

@@ -77,13 +77,15 @@ def bidirect_generate(
     strategy: str = "maskgit",
     schedule: str = "cosine",
     bootstrap: int = 0,
+    approx_top_k: bool = False,
     _noise_hook=None,
 ) -> GenerationResult:
     """MaskGIT generation with the sliding-window long-video loop, on
     the device of `model`. `bootstrap` > 0 first promotes that many
     random positions of the first window one per step, sampled at
     temperature 1.0 without filtering, and the main plan starts from
-    them.
+    them. `approx_top_k` goes to the main and shift windows' decodes
+    (`maskgit_sample`: the exact top-k, so the same codes).
 
     `_noise_hook(call_idx, plan) -> dict(sample_noise=, promote_noise=)`
     is a test-only seam, called once per decode pass (the bootstrap
@@ -106,7 +108,7 @@ def bidirect_generate(
     seeds = torch.Generator().manual_seed(int(seed))
     sample_kw = dict(
         temperature=temperature, top_k=top_k, top_p=top_p,
-        context_temperature=vid_c_temp, strategy=strategy,
+        context_temperature=vid_c_temp, strategy=strategy, approx_top_k=approx_top_k,
     )
     n_call = 0
 

@@ -48,6 +48,22 @@ def test_the_training_slices_modules_are_covered():
     assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/sp.py"} <= covered
     # the parallel training paths
     assert {"parallel/pp.py"} <= covered
+    # the last modules of the JAX package: cond stage, tensor and FLOP
+    # utilities, config instantiation, the lazy top-level API
+    assert {"models/encoders.py", "utils/tensor.py", "utils/flops.py", "config.py",
+            "__init__.py", "ops/sampling.py"} <= covered
+
+
+def test_the_top_level_api_resolves_without_jax():
+    code = ("import sys, mebt_tpu_torch as m\n"
+            "vals = [getattr(m, n) for n in m.__all__]\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'mebt_tpu'))\n"
+            "assert not bad, bad\n"
+            "print('ok', len(vals))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
 
 
 def test_import_pulls_in_no_jax_and_no_jax_package():

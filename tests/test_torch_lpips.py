@@ -80,13 +80,13 @@ def test_torchvision_layout_loads_from_files(tmp_path, weights, lin_prefix):
     vgg_path, lin_path = tmp_path / "vgg16.pth", tmp_path / "vgg.pth"
     torch.save({k: torch.from_numpy(v) for k, v in vgg.items()}, vgg_path)
     torch.save({k: torch.from_numpy(v) for k, v in lin.items()}, lin_path)
-    loaded = load_lpips(str(vgg_path), str(lin_path))
+    loaded = load_lpips(str(vgg_path), str(lin_path), device="cpu")
     want = port.state_dict()
     got = loaded.state_dict()
     assert set(got) == set(want)
     assert all(torch.equal(got[k], want[k]) for k in want)
     with pytest.raises(FileNotFoundError):
-        load_lpips(str(tmp_path / "missing.pth"), str(lin_path))
+        load_lpips(str(tmp_path / "missing.pth"), str(lin_path), device="cpu")
 
 
 def test_bridge_from_jax_params(weights):
