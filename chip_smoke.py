@@ -147,9 +147,15 @@
    (a tiny VQGAN 200 steps, a tiny MeBT on its frozen codes, 4000 steps
    where the test's 400 meet its bar in neither package, 8-step
    sampling, a fixed seeded I3D; one head of 64, the kernels' head dim,
-   where the test has two of 32): the trained model's FVD
-   below half the untrained one's, and K1-K3, K6, K7 and K9 launched as
-   the loop predicts;
+   where the test has two of 32; the VQGAN's steps under torch's
+   deterministic algorithms): the trained model's FVD below half the
+   untrained one's, K1-K3, K6, K7 and K9 launched as the loop predicts;
+   then those kernels against their plain versions at the loop's shapes
+   on its trained weights and data (the encode's codes, a training
+   step's loss and gradients, a decode step's logits and K3's ids), and
+   the loop's first 20 VQGAN and MeBT steps run twice, bit-equal (a
+   gate), with op probes run twice with and without deterministic
+   algorithms (reported);
 18. prints the kernels' JSON line and, last, the result line.
 
 `--only a,b` runs a subset of the phases (k1 k2 k3 k4 k5 k6 k7 k8 k9
@@ -170,11 +176,13 @@ below.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1275,7 +1283,7 @@ def run_slice_128(dev, B, out_dir):
         bootstrap_profile=boot_profile, decode_profile=main_profile,
         launches=dict(zip(KERNELS, launches)), expected_launches=dict(zip(KERNELS, expect)),
         **shapes,
-    ), launches, res
+    ), launches, res, (model, vqgan)
 
 
 def zeros_but(**counts) -> list[int]:
@@ -2903,20 +2911,23 @@ def run_opts16(dev, gen16):
 def run_opts128(dev, gen128):
     """STL-128f at full width, batch 2, the 128f recipe (bootstrap 64,
     then 32 MaskGIT steps at top-k 32) through bidirect_generate with
-    approx_top_k: codes, scores and launches (K4 30) bit-equal to
-    gen128's run at the same seed (a fresh run when gen128 did not run)."""
+    approx_top_k, on gen128's model and VQGAN: codes, scores and launches
+    (K4 30) bit-equal to gen128's run at the same seed (a fresh model,
+    VQGAN and run when gen128 did not run). `gen128` is (its result,
+    launches, model, VQGAN)."""
     from mebt_tpu_torch.cli.common import random_mebt, random_vqgan
     from mebt_tpu_torch.models.mebt import MeBTConfig
     from mebt_tpu_torch.models.vqgan import VQGANConfig
     from mebt_tpu_torch.sampler.generation import bidirect_generate
 
     B = BATCH128
-    model = random_mebt(MeBTConfig(dtype=torch.bfloat16, **STL128), 0, dev)
-    vqgan = random_vqgan(VQGANConfig(n_codes=STL128["vocab_size"], downsample=(4, 8, 8)), 1, dev)
     if gen128 is None:
+        model = random_mebt(MeBTConfig(dtype=torch.bfloat16, **STL128), 0, dev)
+        vqgan = random_vqgan(VQGANConfig(n_codes=STL128["vocab_size"], downsample=(4, 8, 8)),
+                             1, dev)
         res, launches, _ = counted(lambda: bidirect_generate(model, vqgan, 0, B, **RECIPE128))
-        gen128 = (res, launches)
-    want, want_launches = gen128
+        gen128 = (res, launches, model, vqgan)
+    want, want_launches, model, vqgan = gen128
     torch.cuda.reset_peak_memory_stats()
     res, launches, wall = counted(lambda: bidirect_generate(model, vqgan, 0, B, approx_top_k=True,
                                                             **RECIPE128))
@@ -2941,8 +2952,10 @@ def run_opts128(dev, gen128):
 # the original's bar (trained FVD below half the untrained one) on the
 # CPU; the port's loop gave 0.85, 0.73, 0.30 and 0.06 of the untrained
 # FVD after 400, 1000, 2000 and 4000 steps there, and 0.19 and 0.41 in
-# two card runs after 2000 (cuDNN's and the atomics' sums differ between
-# runs, and the trained VQGAN with them), too near the bar for a gate
+# two card runs after 2000 (the VQGAN's EMA index_add_ and cuDNN's
+# convolution backward differed between runs, and the trained VQGAN with
+# them, before its steps ran under deterministic algorithms), too near
+# the bar for a gate
 CLOSURE_T = CLOSURE_RES = 16
 CLOSURE_VQGAN = dict(embedding_dim=16, n_codes=64, n_hiddens=8, downsample=(4, 4, 4),
                      disc_channels=8, disc_layers=2, discriminator_iter_start=10**9,
@@ -2970,47 +2983,71 @@ def closure_videos(n: int, seed: int) -> np.ndarray:
     return vids
 
 
-def closure_loop(dev, n_head: int = 2) -> dict:
-    """Train the tiny VQGAN (lr 3e-3, batch 8, pure autoencoder), then the
-    tiny MeBT on its frozen codes (the fused step, AdamW lr 2e-3 with 20
-    warm-up steps, batch 8, masks from MaskGen; CLOSURE_STEPS), sample 32 videos from
-    the untrained and the trained MeBT (bidirect_generate, 8 steps, ctemp
-    4.5) and embed them and 32 held-out videos with a fixed seeded I3D.
-    Returns the losses, FVDs, KVDs and walls; the gates are the caller's.
-    `n_head` 1 gives the kernels' head dim 64 at the same width."""
-    import copy
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch's deterministic algorithms, warn-only (an op without one
+    warns; the context yields the list of those warnings), and cuDNN's
+    deterministic convolutions, as they were on exit."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2:4]
+        if saved[4] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[4]
 
-    from mebt_tpu_torch.eval.fvd import frechet_distance, get_fvd_logits, polynomial_mmd
-    from mebt_tpu_torch.eval.i3d import InceptionI3d
-    from mebt_tpu_torch.models.mebt import MeBT, MeBTConfig
+
+def nondeterministic_ops(warned) -> list[str]:
+    """The distinct warnings of ops without a deterministic algorithm."""
+    return sorted({str(w.message)[:200] for w in warned if "deterministic" in str(w.message)})
+
+
+def closure_vqgan(dev, train_f, steps: int):
+    """The loop's VQGAN: `steps` steps of the pure autoencoder (lr 3e-3,
+    batch 8, seed 0) on train_f, under deterministic algorithms: on the
+    card the EMA's index_add_ and cuDNN's convolution backward are not
+    bit-reproducible without them (closure_repro), and the MeBT, its
+    samples and the FVD inherit the VQGAN. Returns (the trained VQGAN,
+    its L1 a step as a tensor, the ops that warned of having no
+    deterministic algorithm)."""
     from mebt_tpu_torch.models.vqgan import VQGANConfig
-    from mebt_tpu_torch.sampler.generation import bidirect_generate
-    from mebt_tpu_torch.sampler.mask_schedule import MaskGen
-    from mebt_tpu_torch.train.train_state import TrainState, make_optimizer, make_train_step
     from mebt_tpu_torch.train.vqgan_train import VQGANTrainer
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+    with deterministic_algorithms() as warned:
+        trainer = VQGANTrainer(VQGANConfig(**CLOSURE_VQGAN), lr=3e-3, seed=0, device=dev)
+        trainer.init_state()
+        rng = np.random.default_rng(0)
+        losses = []
+        for _ in range(steps):
+            idx = rng.integers(0, len(train_f), size=8)
+            losses.append(trainer.step(torch.from_numpy(train_f[idx]).to(dev))["recon_loss"])
+        vqgan = trainer.to_vqgan()
+    return vqgan, torch.stack(losses), nondeterministic_ops(warned)
 
-    train_f = closure_videos(64, 0).astype(np.float32) / 255.0 - 0.5
-    heldout = closure_videos(32, 100)
-    out, t0 = {}, time.perf_counter()
 
-    trainer = VQGANTrainer(VQGANConfig(**CLOSURE_VQGAN), lr=3e-3, seed=0, device=dev)
-    trainer.init_state()
-    rng = np.random.default_rng(0)
-    losses = []
-    for i in range(CLOSURE_STEPS["vqgan"]):
-        idx = rng.integers(0, len(train_f), size=8)
-        losses.append(trainer.step(torch.from_numpy(train_f[idx]).to(dev))["recon_loss"])
-    out["vqgan_recon_first"], out["vqgan_recon_last"] = float(losses[0]), float(losses[-1])
-    vqgan = trainer.to_vqgan()
-    del trainer
-    sync()
-    out["vqgan_train_s"] = time.perf_counter() - t0
+def closure_mebt(dev, vqgan, train_f, n_head: int, steps: int):
+    """The loop's MeBT on `vqgan`'s frozen codes: seeded weights, the
+    fused step (AdamW lr 2e-3 with 20 warm-up steps, batch 8, masks from
+    MaskGen), `steps` steps. Returns (an untrained copy, the trained
+    model, both in eval mode; its loss a step as a tensor; the last
+    step's batch)."""
+    import copy
 
-    t0 = time.perf_counter()
+    from mebt_tpu_torch.models.mebt import MeBT, MeBTConfig
+    from mebt_tpu_torch.sampler.mask_schedule import MaskGen
+    from mebt_tpu_torch.train.train_state import TrainState, make_optimizer, make_train_step
+
     cfg = MeBTConfig(**dict(CLOSURE_MEBT, n_head=n_head))
     N = cfg.seq_len
     with torch.device(dev):
@@ -3023,21 +3060,53 @@ def closure_loop(dev, n_head: int = 2) -> dict:
     state = TrainState.create(model.train(), opt, 1)
     step = make_train_step(model, vqgan=vqgan)
     rng = np.random.default_rng(1)
-    losses = []
-    for _ in range(CLOSURE_STEPS["mebt"]):
+    losses, batch = [], None
+    for _ in range(steps):
         idx = rng.integers(0, len(train_f), size=8)
         perms = np.stack([rng.permutation(N) for _ in range(8)])
         masks = mg.train_masks(perms, float(rng.uniform(0.05, 0.95)), 0, cfg.latent_shape[0])
-        state, metrics = step(state, dict(video=train_f[idx], ctx_mask=masks.ctx_mask,
-                                          tgt_mask=masks.tgt_mask, seq_len=masks.seq_len,
-                                          masked_weight=masks.masked_weight))
+        batch = dict(video=train_f[idx], ctx_mask=masks.ctx_mask, tgt_mask=masks.tgt_mask,
+                     seq_len=masks.seq_len, masked_weight=masks.masked_weight)
+        state, metrics = step(state, batch)
         losses.append(metrics["loss"].detach())
-    out["mebt_loss_first"], out["mebt_loss_last"] = float(losses[0]), float(losses[-1])
-    trained = model.eval()
+    return untrained, model.eval(), torch.stack(losses), batch
+
+
+def closure_loop(dev, n_head: int = 2, keep: dict | None = None) -> dict:
+    """Train the tiny VQGAN (closure_vqgan), then the tiny MeBT on its
+    frozen codes (closure_mebt, CLOSURE_STEPS), sample 32 videos from
+    the untrained and the trained MeBT (bidirect_generate, 8 steps, ctemp
+    4.5) and embed them and 32 held-out videos with a fixed seeded I3D,
+    these two under deterministic algorithms (the MeBT's steps are
+    bit-reproducible without them, and twice as fast).
+    Returns the losses, FVDs, KVDs and walls; the gates are the caller's.
+    `n_head` 1 gives the kernels' head dim 64 at the same width. `keep`,
+    a dict, gets the trained VQGAN and MeBT, the MeBT's last batch and
+    the training videos."""
+    from mebt_tpu_torch.eval.fvd import frechet_distance, get_fvd_logits, polynomial_mmd
+    from mebt_tpu_torch.eval.i3d import InceptionI3d
+    from mebt_tpu_torch.sampler.generation import bidirect_generate
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    train_f = closure_videos(64, 0).astype(np.float32) / 255.0 - 0.5
+    heldout = closure_videos(32, 100)
+    out, t0 = {}, time.perf_counter()
+    vqgan, losses, warned = closure_vqgan(dev, train_f, CLOSURE_STEPS["vqgan"])
+    out["vqgan_recon_first"], out["vqgan_recon_last"] = float(losses[0]), float(losses[-1])
     sync()
-    out["mebt_train_s"] = time.perf_counter() - t0
+    out["vqgan_train_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    untrained, trained, losses, batch = closure_mebt(dev, vqgan, train_f, n_head,
+                                                     CLOSURE_STEPS["mebt"])
+    out["mebt_loss_first"], out["mebt_loss_last"] = float(losses[0]), float(losses[-1])
+    sync()
+    out["mebt_train_s"] = time.perf_counter() - t0
+    if keep is not None:
+        keep.update(vqgan=vqgan, model=trained, batch=batch, train_f=train_f)
 
     def samples(m, seed):
         batches = [bidirect_generate(m, vqgan, seed + i, 8, total_length=CLOSURE_T,
@@ -3047,19 +3116,26 @@ def closure_loop(dev, n_head: int = 2) -> dict:
                    for i in range(0, CLOSURE_STEPS["n_eval"], 8)]
         return np.concatenate(batches, 0)
 
-    fake0, fake1 = samples(untrained, 7), samples(trained, 7)
-    out["sample_s"] = time.perf_counter() - t0
+    # without them the FVD moved in its sixth digit between two card runs
+    # whose VQGAN and MeBT were bit-equal (the decode and the I3D are cuDNN's)
+    with deterministic_algorithms() as warned_eval:
+        t0 = time.perf_counter()
+        fake0, fake1 = samples(untrained, 7), samples(trained, 7)
+        out["sample_s"] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    with torch.device(dev):
-        i3d = InceptionI3d(400)
-    i3d.load_state_dict(i3d_state_dict(42), strict=False)
-    i3d.eval()
-    real = get_fvd_logits(heldout, i3d)
-    emb0, emb1 = get_fvd_logits(fake0, i3d), get_fvd_logits(fake1, i3d)
-    out.update(fvd_untrained=frechet_distance(emb0, real), fvd_trained=frechet_distance(emb1, real),
-               kvd_untrained=polynomial_mmd(emb0, real), kvd_trained=polynomial_mmd(emb1, real))
-    out["fvd_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with torch.device(dev):
+            i3d = InceptionI3d(400)
+        i3d.load_state_dict(i3d_state_dict(42), strict=False)
+        i3d.eval()
+        real = get_fvd_logits(heldout, i3d)
+        emb0, emb1 = get_fvd_logits(fake0, i3d), get_fvd_logits(fake1, i3d)
+        out.update(fvd_untrained=frechet_distance(emb0, real),
+                   fvd_trained=frechet_distance(emb1, real),
+                   kvd_untrained=polynomial_mmd(emb0, real), kvd_trained=polynomial_mmd(emb1, real))
+        out["fvd_s"] = time.perf_counter() - t0
+    out["ops_without_deterministic_algorithm"] = sorted(
+        set(warned) | set(nondeterministic_ops(warned_eval)))
     return out
 
 
@@ -3076,17 +3152,241 @@ def closure_launches(live_sample_steps: int) -> list[int]:
                      K7=2 * steps, K9=CLOSURE_STEPS["vqgan"] + steps)
 
 
+# what the checks of the loop's kernels hold them to: the whole_step and
+# whole_path gates of the full-width fp32 checks, and check_k3's rules. A
+# gradient's error is taken over its largest entry, or over grad_floor of
+# the model's largest gradient entry where that is larger. The attention's
+# key biases have an exact gradient of 0 (softmax ignores a shift shared
+# by all keys: the sum of a query's score gradients over its keys is 0),
+# so both sides hold only rounding noise there and their ratio says
+# nothing: each side's must stay under zero_grad_abs of the model's
+# largest gradient entry instead (a dk that breaks that sum fails it)
+CLOSURE_TOL = dict(loss_rel=1e-4, grad_rel=1e-3, grad_floor=1e-6, zero_grad_abs=1e-5,
+                   logit_abs=1e-3, greedy_agree=0.99, encode_agree=0.99,
+                   head_ids_differing=2, head_prob_rel=1e-3, head_greedy_gap=1e-4)
+
+
+def closure_checks(dev, vqgan, model, batch, train_f=None) -> tuple[dict, list[int]]:
+    """The loop's kernels against their plain versions at the loop's own
+    shapes (fp32, batch 8, N 64, vocab 64, one head of 64; 512 latents
+    against 64 codes of 16), on its trained weights and its last MeBT
+    batch:
+    - K9: the card's latents of the batch through K9 and through the
+      plain search: codes equal but at near-ties (ops/vq.py:
+      code_mismatches); the whole encode against a CPU copy of the
+      VQGAN's (plain convolutions and search): CLOSURE_TOL's share equal.
+    - K1, K2, K6, K7: one training step's loss and every parameter's
+      gradient on those codes and the batch's masks, against a CPU copy
+      of the model's plain step.
+    - K1, K2, K3: one staged decode step (a row without context, 45% of
+      the others' positions as context, the rest targets): the logits
+      against the CPU copy's; K3 on the card's tokens against the plain
+      sampler on the same tokens and Philox draws, at temperature 1 and
+      greedy.
+    Returns the report and the checks' own launches."""
+    import torch.nn.functional as F
+
+    from mebt_tpu_torch.models.mebt import MeBT, mlm_loss
+    from mebt_tpu_torch.ops.head_sample import head_sample, head_sample_ref
+    from mebt_tpu_torch.ops.vq import code_mismatches, nearest_code, nearest_code_ref
+    from mebt_tpu_torch.sampler.decode import compact_indices
+    from mebt_tpu_torch.train.train_state import _encode_codes
+
+    import copy
+
+    tol, cpu = CLOSURE_TOL, torch.device("cpu")
+    with torch.device("meta"):
+        m_cpu = MeBT(model.config)
+    m_cpu.load_state_dict({k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+                          assign=True)
+    m_cpu.eval().requires_grad_(True)
+    model.requires_grad_(True)
+    vq_cpu = copy.deepcopy(vqgan).cpu()
+
+    def run():
+        rep = {}
+        video = torch.from_numpy(batch["video"]).to(dev)
+        emb = vqgan.codebook.embeddings
+        with torch.no_grad():
+            z = vqgan.encode_latent(video)
+            flat = z.reshape(-1, z.shape[-1])
+            got, want = nearest_code(flat, emb), nearest_code_ref(flat, emb)
+            n_differ, gap, over = code_mismatches(flat, emb, got, want)
+            codes = got.view(z.shape[:-1]).reshape(len(video), -1)
+            agree = (codes.cpu() == _encode_codes(vq_cpu, video.cpu())).float().mean().item()
+        require(over <= 1, f"closure16 K9: {n_differ} codes differ, gap {over} of its bound")
+        require(agree >= tol["encode_agree"], f"closure16 encode: {agree} of the codes agree")
+        rep["encode"] = dict(shape=[flat.shape[0], emb.shape[0], emb.shape[1]],
+                             codes_differing_from_plain=n_differ, max_score_gap_f64=gap,
+                             gap_over_bound=over, codes_equal_to_cpu=agree)
+
+        ctx, tgt = (torch.from_numpy(batch[k]) for k in ("ctx_mask", "tgt_mask"))
+
+        def train_step(m, d):
+            m.zero_grad(set_to_none=True)
+            c = codes.to(d)
+            loss, _ = mlm_loss(m(c, ctx.to(d), tgt.to(d)), c, tgt.to(d), batch["seq_len"],
+                               batch["masked_weight"], avg_loss=m.config.avg_loss)
+            loss.backward()
+            return loss.item(), {n: p.grad.detach().cpu() for n, p in m.named_parameters()
+                                 if p.grad is not None}
+
+        got_loss, got_g = train_step(model, dev)
+        want_loss, want_g = train_step(m_cpu, cpu)
+        require(sorted(got_g) == sorted(want_g), "closure16 train step: gradient sets differ")
+        loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+        top = max(g.abs().max().item() for g in want_g.values())
+        zero = [n for n in want_g if n.endswith("attn.key.bias")]
+        floor = tol["grad_floor"] * top
+        grad_rel = {n: (got_g[n] - want_g[n]).abs().max().item()
+                    / max(want_g[n].abs().max().item(), floor) for n in want_g if n not in zero}
+        noise = max(max(got_g[n].abs().max().item(), want_g[n].abs().max().item()) / top
+                    for n in zero)
+        worst = sorted(grad_rel, key=grad_rel.get, reverse=True)[:3]
+        require(loss_rel <= tol["loss_rel"] and grad_rel[worst[0]] <= tol["grad_rel"]
+                and noise <= tol["zero_grad_abs"],
+                f"closure16 train step: loss rel {loss_rel}, gradient rel "
+                f"{ {n: grad_rel[n] for n in worst} }, key biases' {noise} of the largest")
+        model.zero_grad(set_to_none=True)
+        rep["train_step"] = dict(
+            loss=got_loss, loss_plain_cpu=want_loss, loss_rel_diff=loss_rel,
+            max_grad_rel_diff=grad_rel[worst[0]], worst_grads={n: grad_rel[n] for n in worst},
+            n_grads=len(want_g), largest_grad=top, key_bias_grads=len(zero),
+            key_bias_grad_over_largest=noise)
+
+        B, N = codes.shape
+        rng = np.random.default_rng(5)
+        cmask = torch.from_numpy(rng.random((B, N)) < 0.45)
+        cmask[1] = False
+        cidx, tidx = compact_indices(cmask, N), compact_indices(~cmask, N)
+
+        def decode_step(m, d):
+            with torch.no_grad():
+                c, ci, ti = codes.to(d), cidx.to(d), tidx.to(d)
+                lat = m.stage_a_compact(c, ci, ci < N)
+                return m.stage_b_compact(lat, ti, ti < N), m.stage_b_tokens(lat, ti, ti < N)
+
+        (logits, tokens), (want_logits, _) = decode_step(model, dev), decode_step(m_cpu, cpu)
+        live = tidx < N
+        ldiff = (logits.cpu() - want_logits).abs()[live].max().item()
+        lagree = (logits.cpu().argmax(-1) == want_logits.argmax(-1))[live].float().mean().item()
+        require(ldiff <= tol["logit_abs"] and lagree >= tol["greedy_agree"],
+                f"closure16 decode step: logit diff {ldiff}, greedy agreement {lagree}")
+        x, w = tokens.reshape(-1, tokens.shape[-1]), model.transformer.head.weight
+        with torch.no_grad():
+            full = x.float() @ w.float().t()
+            ids, probs = head_sample(x, w, 1234, 1.0)
+            rids, _ = head_sample_ref(x, w, 1.0, seed=1234)
+            p_plain = F.softmax(full, -1).gather(1, ids.long()[:, None])[:, 0]
+            prob_rel = ((probs - p_plain).abs() / p_plain).max().item()
+            differ = int((ids != rids).sum())
+            g_ids, _ = head_sample(x, w, 99, 0.0)
+            top = full.argmax(-1)
+            miss = g_ids.long() != top
+            g_gap = ((full.gather(1, top[:, None]) - full.gather(1, g_ids.long()[:, None]))[miss]
+                     .abs().max().item() if miss.any() else 0.0)
+        require(differ <= tol["head_ids_differing"] and prob_rel <= tol["head_prob_rel"]
+                and g_gap <= tol["head_greedy_gap"],
+                f"closure16 K3: {differ} ids differ, prob rel {prob_rel}, greedy gap {g_gap}")
+        rep["decode_step"] = dict(
+            shape=[B, N, model.config.vocab_size], live_targets=int(live.sum()),
+            max_abs_logit_diff=ldiff, greedy_agreement=lagree, head_rows=x.shape[0],
+            head_ids_differing_from_plain=differ, head_prob_rel_err=prob_rel,
+            head_greedy_near_ties=int(miss.sum()), head_greedy_gap=g_gap)
+        return rep
+
+    rep, launches, _ = counted(run)
+    missing = [k for k in ("K1", "K2", "K3", "K6", "K7", "K9") if not launches[KERNELS.index(k)]]
+    require(not missing, f"closure16 checks launched no {missing}: {launches}")
+    return dict(rep, tol=tol), launches
+
+
+def closure_repro(dev, vqgan, model, batch, train_f, steps: int = 20) -> dict:
+    """Is the loop bit-reproducible here? `loop`: two runs from the same
+    seeds of its first `steps` VQGAN steps (closure_vqgan, under
+    deterministic algorithms) and of `steps` MeBT steps on `vqgan`'s
+    codes (closure_mebt, as it runs), losses and final weights bit-equal
+    (True) or not. `ops_deterministic` and `ops_default`: probes run
+    twice on the same inputs and weights, with and without deterministic
+    algorithms: the EMA's index_add_ of the codebook sums, the VQGAN's
+    gradients (cuDNN's 3-D convolutions), the MeBT's logits (K1, K2) and
+    its gradients (K6, K7, the gathers' and the embeddings' backward)."""
+    import copy
+
+    from mebt_tpu_torch.models.mebt import mlm_loss
+    from mebt_tpu_torch.ops.vq import nearest_code
+
+    def same(a, b):
+        a, b = list(a), list(b)
+        return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def twice(fn):
+        return same(fn(), fn())
+
+    def same_runs(a, b):  # (module, losses) of two runs
+        return bool(torch.equal(a[1], b[1])) and same(a[0].state_dict().values(),
+                                                      b[0].state_dict().values())
+
+    loop = {"vqgan_steps": same_runs(*[closure_vqgan(dev, train_f, steps)[:2] for _ in range(2)]),
+            "mebt_steps": same_runs(*[closure_mebt(dev, vqgan, train_f, model.config.n_head,
+                                                   steps)[1:3] for _ in range(2)])}
+
+    video = torch.from_numpy(batch["video"]).to(dev)
+    emb = vqgan.codebook.embeddings
+    with torch.no_grad():
+        z = vqgan.encode_latent(video)
+        flat = z.reshape(-1, z.shape[-1])
+        codes = nearest_code(flat, emb)
+    vq = copy.deepcopy(vqgan).train().requires_grad_(True)
+    m = copy.deepcopy(model).requires_grad_(True)
+    c = codes.view(len(video), -1)
+    ctx, tgt = (torch.from_numpy(batch[k]).to(dev) for k in ("ctx_mask", "tgt_mask"))
+
+    def vq_grads():
+        vq.zero_grad(set_to_none=True)
+        recon = vq.decode_latent(vq.encode_latent(video))
+        (recon - video.permute(0, 4, 1, 2, 3)).abs().mean().backward()
+        return [p.grad for p in vq.parameters()]
+
+    def mebt_logits():
+        with torch.no_grad():
+            return [m(c, ctx, tgt)]
+
+    def mebt_grads():
+        m.zero_grad(set_to_none=True)
+        loss, _ = mlm_loss(m(c, ctx, tgt), c, tgt, batch["seq_len"], batch["masked_weight"],
+                           avg_loss=m.config.avg_loss)
+        loss.backward()
+        return [p.grad for p in m.parameters() if p.grad is not None]
+
+    def probes():
+        return dict(ema_index_add=twice(lambda: [torch.zeros_like(emb).index_add_(0, codes, flat)]),
+                    vqgan_backward=twice(vq_grads), mebt_forward=twice(mebt_logits),
+                    mebt_backward=twice(mebt_grads))
+
+    with deterministic_algorithms():
+        ops_det = probes()
+    return dict(loop=loop, ops_deterministic=ops_det, ops_default=probes())
+
+
 def run_closure16(dev, card):
     """closure_loop on the card at one head of 64 (the kernels' head
     dim; the test's 2 heads of 32 run on the CPU), counted: the trained
     model's FVD below half the untrained one's (the test's bar), the
     VQGAN's L1 halved and the MeBT loss fallen, and every launch the loop
-    predicts."""
+    predicts. Then its kernels against their plain versions on its
+    trained weights and data (closure_checks), and its reproducibility
+    (closure_repro): the loop's first steps bit-equal in two runs (a
+    gate), and which ops are so with and without deterministic
+    algorithms (reported)."""
     from mebt_tpu_torch.sampler.mask_schedule import maskgit_plan
 
     torch.cuda.reset_peak_memory_stats()
-    res, launches, wall = counted(lambda: closure_loop(dev, n_head=1))
+    keep = {}
+    res, launches, wall = counted(lambda: closure_loop(dev, n_head=1, keep=keep))
     peak = torch.cuda.max_memory_allocated()
+    checks, check_launches = closure_checks(dev, **keep)
+    repro = closure_repro(dev, **keep)
     live = int(maskgit_plan(64, CLOSURE_STEPS["sample"], "cosine", "linear").do_step.sum())
     expect = closure_launches(live)
     require(res["vqgan_recon_last"] < 0.5 * res["vqgan_recon_first"],
@@ -3096,11 +3396,15 @@ def run_closure16(dev, card):
     require(res["fvd_trained"] < 0.5 * res["fvd_untrained"],
             f"closure16: FVD trained {res['fvd_trained']} >= half untrained {res['fvd_untrained']}")
     require(launches == expect, f"closure16 launches {launches} != expected {expect}")
+    require(all(repro["loop"].values()), f"closure16: two runs of the loop's steps differ: {repro}")
     report = dict(phase="closure16", card=card, wall_s=wall, peak_mem_gb=peak / 2**30,
                   n_head=1, steps=CLOSURE_STEPS, live_sample_steps=live,
                   launches=dict(zip(KERNELS, launches)),
+                  kernel_checks=dict(checks, launches=dict(zip(KERNELS, check_launches))),
+                  bit_equal=repro,
                   gates=dict(fvd_trained_below_half_untrained=True, vqgan_l1_halved=True,
-                             mebt_loss_fell=True, launches_as_predicted=True),
+                             mebt_loss_fell=True, launches_as_predicted=True,
+                             kernels_agree_with_plain=True, loop_bit_reproducible=True),
                   **res)
     return report, launches
 
@@ -4050,14 +4354,14 @@ def main(argv=None) -> int:
             for r in report[name]:
                 emit(dict(kernel=name, **r))
             torch.cuda.empty_cache()
-        drafts, gen16, gen128 = {}, None, None
+        drafts, gen16, gen128, bundle128 = {}, None, None, None
         if on("gen16"):
             report["slice_16f"], launches["stl_16f"], gen16 = run_slice(dev, BATCH, args.out)
             drafts["stl_16f"] = gen16.code_maps
             emit(report["slice_16f"])
             torch.cuda.empty_cache()
         if on("gen128"):
-            report["slice_128f"], launches["stl_128f"], gen128 = run_slice_128(
+            report["slice_128f"], launches["stl_128f"], gen128, bundle128 = run_slice_128(
                 dev, BATCH128, args.out)
             drafts["stl_128f"] = gen128.code_maps
             emit(report["slice_128f"])
@@ -4076,9 +4380,10 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         if on("opts128"):
             report["opts128"], launches["stl_128f_opts"] = run_opts128(
-                dev, None if gen128 is None else (gen128, launches["stl_128f"]))
+                dev, None if gen128 is None else (gen128, launches["stl_128f"], *bundle128))
             emit(report["opts128"])
-            torch.cuda.empty_cache()
+        bundle128 = None
+        torch.cuda.empty_cache()
         if on("closure16"):
             report["closure16"], launches["stl_16f_closure"] = run_closure16(dev, smi)
             emit(report["closure16"])
@@ -4172,21 +4477,23 @@ def main(argv=None) -> int:
         return 0
 
     def entry(i, name, replaces, row, src="mebt_tpu_torch/csrc/attention.cu", **extra):
-        """`launches` is the count on the newest path that runs the
-        kernel: the train -> sample -> FVD loop (closure16) for K1, K2,
-        K3, K6, K7 and K9, the 128f generation under approx_top_k
-        (opts128) for K4, 16f training under tensor parallelism
-        (tp16_train, 3 fit steps, both ranks' counts summed) for K8; 0
-        for K5, which no path runs. `launches_by_path` has every path's."""
+        """`launches` is the count on the newest full-width path that
+        runs the kernel: the 128f generation under approx_top_k (opts128)
+        for K1, K2 and K4, the staged 16f decode with return_history
+        (opts16) for K3, the VQGAN training step (vqgan_train) for K9,
+        16f training under tensor parallelism (tp16_train, 3 fit steps,
+        both ranks' counts summed) for K6, K7 and K8; 0 for K5, which no
+        path runs. The closure loop's toy widths come last.
+        `launches_by_path` has every path's."""
         by_path = {path: counts[i] for path, counts in launches.items()}
         newest = [by_path.get(p, 0) for p in (
-            "stl_16f_closure", "stl_128f_opts", "stl_16f_opts_history", "stl_16f_opts_dense",
+            "stl_128f_opts", "stl_16f_opts_history", "stl_16f_opts_dense",
             "vqgan_train_16f", "stl_16f_tp16_train", "stl_16f_dp16_train",
             "stl_128f_sp128_train", "stl_16f_pp16_train", "stl_16f_train16_nccl",
             "stl_16f_tp16", "stl_128f_tp128", "stl_128f_sp128",
             "stl_16f_tp16_nccl", "stl_16f_ckpt", "stl_16f_ckpt_exp", "stl_128f_dnr", "stl_16f_dnr", "stl_16f_dnr_scratch", "stl_16f_extrapolate",
             "stl_128f_train_video", "stl_16f_train_video", "stl_16f_train", "stl_128f",
-            "stl_16f") if by_path.get(p, 0)]
+            "stl_16f", "stl_16f_closure") if by_path.get(p, 0)]
         return dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=newest[0] if newest else 0, launches_by_path=by_path, **extra,

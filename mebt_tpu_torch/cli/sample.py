@@ -12,7 +12,8 @@ W, C; not with --no_np), the per-sample scores and, with --save_codemap,
 the code maps as .npy files; with --save_videos also video grids in
 --format. With --base_np it extends the given code maps (extrapolation)
 instead. --profile DIR writes a torch.profiler trace of the second batch
-(the first pays the first launches) to DIR.
+(the first pays the first launches) to DIR, or of the only batch when
+there is one.
 
 The pixel .npy holds the first --n_sample videos in batch order, so its
 rows line up with those of _codemap.npy and _score.npy. The JAX CLI
@@ -67,7 +68,8 @@ def build_argparser():
     p.add_argument("--frame_n_steps", type=int, default=16)
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("--profile", type=str, default="",
-                   help="write a torch.profiler trace of the second batch to this directory")
+                   help="write a torch.profiler trace of the second batch (the only one "
+                        "when there is one) to this directory")
     return p
 
 
@@ -86,15 +88,15 @@ def save_tag(args) -> str:
     return tag + f"_run{args.run}"
 
 
-def stop_profile(prof, device, out_dir: str) -> str:
-    """Stop the trace and write it as out_dir/trace_batch_1.json."""
+def stop_profile(prof, device, out_dir: str, batch: int) -> str:
+    """Stop the trace and write it as out_dir/trace_batch_<batch>.json."""
     import torch
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     prof.stop()
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "trace_batch_1.json")
+    path = os.path.join(out_dir, f"trace_batch_{batch}.json")
     prof.export_chrome_trace(path)
     print(f"torch.profiler trace written to {path}", flush=True)
     return path
@@ -127,8 +129,9 @@ def main(argv=None):
               ctemp_schedule=args.ctemp_schedule, schedule=args.schedule)
     all_pix, all_code, all_score = [], [], []
     prof = None
+    traced = min(1, n_batch - 1)  # batch 0 pays the first launches
     for i in range(n_batch):
-        if args.profile and i == 1:  # batch 0 pays the first launches
+        if args.profile and i == traced:
             from mebt_tpu_torch.train.trainer import start_profile
 
             prof = start_profile(device)
@@ -147,7 +150,7 @@ def main(argv=None):
         all_score.append(res.score)
         print(f"batch {i + 1}/{n_batch} done", flush=True)
         if prof is not None:
-            stop_profile(prof, device, args.profile)
+            stop_profile(prof, device, args.profile, i)
             prof = None
 
     if args.save_codemap:

@@ -178,8 +178,7 @@ def _scores(score_mode: str, chosen_p, probs, live, context_temperature, scale):
 def _maskgit_scan(model, state: DecodeState, plan: DecodePlan, *,
                   temperature, top_k, top_p, context_temperature,
                   random_scores, score_mode, rng: _Rng, valid_mask=None,
-                  sample_noise=None, promote_noise=None, history=None,
-                  approx_top_k=False) -> DecodeState:
+                  sample_noise=None, promote_noise=None, history=None) -> DecodeState:
     """Dense decode: full-canvas forward and sampling at every step. The
     targets are the positions of `valid_mask` (None: all) outside the
     context. `history`, a list, gets each plan step's (codes, ctx_mask),
@@ -194,7 +193,7 @@ def _maskgit_scan(model, state: DecodeState, plan: DecodePlan, *,
             logits, temperature, top_k, top_p,
             need_probs=score_mode == "entropy",
             noise=None if sample_noise is None else sample_noise[i],
-            generator=rng.draws, approx_top_k=approx_top_k,
+            generator=rng.draws,
         )
         scores, ctemp = _scores(score_mode, chosen_p, probs, tgt_mask,
                                 context_temperature, plan.ctemp_scale[i])
@@ -442,6 +441,7 @@ def maskgit_sample(
     order of the staged `random`/`bootstrap` decode (larger = promoted
     earlier). On a mesh (module docstring) B is the whole batch and the
     tensors, `valid_mask` too, are this rank's rows."""
+    del approx_top_k  # the exact top-k on both paths: nothing to pass on
     if strategy not in ("maskgit", "random", "bootstrap", "entp", "ar"):
         raise ValueError(f"unknown decoding strategy {strategy!r}")
     device = next(model.parameters()).device
@@ -498,7 +498,7 @@ def maskgit_sample(
             valid_mask=None if valid_mask is None else valid_mask.to(device, torch.bool),
             sample_noise=None if sample_noise is None else sample_noise[:, rows].to(device),
             promote_noise=None if promote_noise is None else promote_noise[:, rows].to(device),
-            history=history, approx_top_k=approx_top_k,
+            history=history,
         )
     return state if history is None else (state, _stacked(history, state))
 

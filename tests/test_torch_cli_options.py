@@ -56,6 +56,14 @@ def test_sample_flags_keep_the_codes_and_write_grid_and_trace(tmp_path):
     assert any("aten::" in e.get("name", "") for e in events)
 
 
+def test_sample_profile_of_a_single_batch_traces_that_batch(tmp_path):
+    prof = tmp_path / "prof"
+    _sample(tmp_path, "one", "--profile", str(prof), "--n_sample", "2")
+    assert os.listdir(prof) == ["trace_batch_0.json"]
+    events = json.load(open(prof / "trace_batch_0.json"))["traceEvents"]
+    assert any("aten::" in e.get("name", "") for e in events)
+
+
 def test_sample_writes_its_grids_in_every_format(tmp_path):
     for fmt in ("gif", "mp4", "avi"):
         _sample(tmp_path, fmt, "--format", fmt, "--save_videos", "--save_n", "2",
