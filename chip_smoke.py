@@ -1542,8 +1542,8 @@ def kernel_table(prof, span: str | None = None, ranges=()) -> list[tuple[str, fl
     return sorted(table, key=lambda r: -r[1])
 
 
-# Traces that kernel_ms took again: the keys it expected, and the kernels
-# and spin kernels that the lost trace held (written to the report).
+# Traces that kernel_ms and profile_decode took again: what the lost
+# trace lacked, and the spin kernels it kept (written to the report).
 RETAKEN_TRACES = []
 
 
@@ -1551,14 +1551,15 @@ def kernel_ms(fn, keys, expect=None, tries: int = 3) -> dict:
     """Device ms of the kernels whose names hold each of `keys`, from one
     profiled call of fn. Now and then an H100 trace holds none of a
     call's kernels; a trace without a kernel of `expect` (default: every
-    key) is taken again, up to `tries` traces in all. The caller checks
-    the last one: a kernel that does not run is missing from each."""
-    from mebt_tpu_torch.train.trainer import start_profile
+    key) is taken again, with twice the spin kernels before fn, up to
+    `tries` traces in all. The caller checks the last one: a kernel that
+    does not run is missing from each."""
+    from mebt_tpu_torch.train.trainer import spin_kernels, start_profile
 
     expect = keys if expect is None else expect
-    for _ in range(tries):
+    for attempt in range(tries):
         torch.cuda.synchronize()
-        prof = start_profile(torch.device("cuda"))
+        prof = start_profile(torch.device("cuda"), spins=100 * 2**attempt)
         fn()
         torch.cuda.synchronize()
         prof.stop()
@@ -1566,8 +1567,8 @@ def kernel_ms(fn, keys, expect=None, tries: int = 3) -> dict:
         out = {key: sum(ms for n, ms, _ in table if key in n) for key in keys}
         if all(out[key] > 0 for key in expect):
             break
-        spins = sum(e.count for e in prof.key_averages() if "spin_kernel" in e.key)
-        RETAKEN_TRACES.append(dict(expect=list(expect), kernels=len(table), spin_kernels=spins))
+        RETAKEN_TRACES.append(dict(expect=list(expect), kernels=len(table),
+                                   spins=100 * 2**attempt, spin_kernels=spin_kernels(prof)))
         print(f"chip_smoke: trace re-taken: {RETAKEN_TRACES[-1]}", file=sys.stderr, flush=True)
     return out
 
@@ -1650,7 +1651,8 @@ def check_sass():
                 head_sample_tensor_core_instructions=head, vq_tensor_core_instructions=vq)
 
 
-def profile_decode(fn, out_dir, name, span: str | None = None, ranges=()) -> dict:
+def profile_decode(fn, out_dir, name, span: str | None = None, ranges=(),
+                   tries: int = 3) -> dict:
     """Device time of one warm decode (or of a few train steps) by
     kernel, from torch.profiler: each hand-written kernel's share (dropout
     runs inside them), everything else, and the idle share of the
@@ -1659,16 +1661,31 @@ def profile_decode(fn, out_dir, name, span: str | None = None, ranges=()) -> dic
     that name, from the same profile; with `ranges`, each named range's
     kernel ms and its busiest kernels (kernels launched from another
     thread, as autograd's backward, stay outside). The full table goes
-    to <out_dir>/<name>."""
-    from mebt_tpu_torch.train.trainer import start_profile
+    to <out_dir>/<name>. A trace whose `span` ranges hold unequal kernel
+    counts lost or misplaced some: it is taken again (fn must do the same
+    work on each call), with twice the spin kernels before fn, up to
+    `tries` traces in all, and reported in RETAKEN_TRACES. The caller's
+    gates judge the last. `spin_kernels_kept` says how many of the
+    spins the trace kept: the fewer, the wider its lost window."""
+    from mebt_tpu_torch.train.trainer import spin_kernels, start_profile
 
-    torch.cuda.synchronize()
-    prof = start_profile(torch.device("cuda"))  # its spin kernels stay out of the table
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    prof.stop()
+    for attempt in range(tries):
+        spins = 100 * 2**attempt
+        torch.cuda.synchronize()
+        prof = start_profile(torch.device("cuda"), spins)  # the spins stay out of the table
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.stop()
+        kept = spin_kernels(prof)
+        per = span_kernels(prof, span) if span else []
+        counts = [len(k) for k in per]
+        if not span or (len(set(counts)) == 1 and counts[0] > 0):
+            break
+        RETAKEN_TRACES.append(dict(trace=name, kernels_per_range=counts, spins=spins,
+                                   spin_kernels=kept))
+        print(f"chip_smoke: trace re-taken: {RETAKEN_TRACES[-1]}", file=sys.stderr, flush=True)
     table = kernel_table(prof, span, ranges)
     with open(os.path.join(out_dir, name), "w") as f:
         json.dump([dict(name=n, ms=ms, calls=c) for n, ms, c in table], f, indent=1)
@@ -1680,14 +1697,14 @@ def profile_decode(fn, out_dir, name, span: str | None = None, ranges=()) -> dic
     busy = sum(ms for _, ms, _ in table)
     out["other"] = busy - sum(out.values())
     out.update(device_busy_ms=busy, wall_ms=wall_ms, idle_share=1.0 - busy / wall_ms,
+               spins=spins, spin_kernels_kept=kept,
                top=[dict(name=n[:80], ms=ms, calls=c) for n, ms, c in table[:8]])
     if span:
         # K9 counts whole: only the encode launches it, and the profiler
         # does not link its ctypes launch to the span
-        per = span_kernels(prof, span)
         ks = [k for kernels in per for k in kernels]
         enc = sum(ms for n, ms in ks if not any(key in n for key in K9_KERNELS))
-        out["span"] = dict(name=span, kernels_per_range=[len(k) for k in per], encoder_ms=enc,
+        out["span"] = dict(name=span, kernels_per_range=counts, encoder_ms=enc,
                            k9_ms=out["K9"], share=(enc + out["K9"]) / busy)
     if ranges:
         out["ranges"] = {}
@@ -1787,6 +1804,13 @@ def read_metrics(logdir):
         return [json.loads(line) for line in f]
 
 
+def two_more_steps(trainer, loader, state):
+    """A call of `fit` that trains the two optimizer steps after
+    `state`'s, as often as it is called (a re-taken trace's)."""
+    return lambda: trainer.fit(loader, max_steps=state.step // trainer.accum_k + 2, state=state,
+                               log_every=1000, final_checkpoint=False)
+
+
 def run_train_slice(dev, out_dir, keep_checkpoint=False):
     """STL-16f training at full width through MeBTTrainer.fit. The timed
     and profiled fits write no checkpoint (final_checkpoint=False); the
@@ -1844,9 +1868,7 @@ def run_train_slice(dev, out_dir, keep_checkpoint=False):
     require(all(s["exp_avg"].dtype == torch.float32 for s in adam.values()),
             "train: AdamW moments must be fp32")
     profile = profile_decode(
-        lambda: trainer.fit(loader, max_steps=warm + timed_steps + 2, state=state,
-                            log_every=1000, final_checkpoint=False),
-        out_dir, "train_profile.json")
+        two_more_steps(trainer, loader, state), out_dir, "train_profile.json")
     profile["steps"] = 2
     trainer.logger.close()
     del state, trainer, before
@@ -2054,8 +2076,7 @@ def train_video(dev, out_dir, name, cfg, frames, B, N, steps, warm=1, profile=Fa
         require(any(t.endswith(".json") for t in traces), f"{name}: no trace in profile/: {traces}")
         res["trainer_trace"] = sorted(traces)
         prof = profile_decode(
-            lambda: trainer.fit(loader, max_steps=warm + steps + 4, state=state, log_every=1000,
-                                final_checkpoint=False),
+            two_more_steps(trainer, loader, state),
             out_dir, f"{name}_profile.json", span=ENCODE_SPAN)
         prof["steps"] = 2
         n = prof["span"]["kernels_per_range"]

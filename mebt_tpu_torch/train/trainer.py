@@ -56,12 +56,26 @@ from mebt_tpu_torch.train.train_state import (
 from mebt_tpu_torch.utils.metrics import MetricsLogger, NullLogger
 
 
-def start_profile(device: torch.device):
+def _spin(device: torch.device, n: int) -> None:
+    """n synchronized spin kernels (`spin_kernel`), 5 ms apart."""
+    for _ in range(n):
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize(device)
+        time.sleep(0.005)
+
+
+def spin_kernels(prof) -> int:
+    """The spin kernels that a stopped trace kept."""
+    return sum(e.count for e in prof.key_averages() if "spin_kernel" in e.key)
+
+
+def start_profile(device: torch.device, spins: int = 100):
     """A started torch.profiler over the host and, on a GPU, the device.
-    On a GPU the kernels that run in the first milliseconds after a
-    trace's first launch get no record (up to 12 on an H100), so 20
-    synchronized spin kernels (`spin_kernel`), 5 ms apart, take them
-    before the traced work."""
+    On a GPU a trace keeps no record of the kernels that run in its first
+    milliseconds, a window that varies from trace to trace and can grow
+    as the process ages (`profile_window.py` at the repository's root
+    measures it). So `spins` synchronized spin kernels, 5 ms apart, take
+    it before the traced work; `spin_kernels` counts those a trace kept."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -70,10 +84,7 @@ def start_profile(device: torch.device):
     prof = profile(activities=acts)
     prof.start()
     if device.type == "cuda":
-        for _ in range(20):
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize(device)
-            time.sleep(0.005)
+        _spin(device, spins)
     return prof
 
 

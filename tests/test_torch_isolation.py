@@ -11,14 +11,15 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "mebt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PACKAGE_FILES = sorted((ROOT / "mebt_tpu_torch").rglob("*.py"))
+PORT_FILES = PACKAGE_FILES + [ROOT / "chip_smoke.py", ROOT / "profile_window.py"]
 
 IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 import mebt_tpu_torch
 for m in pkgutil.walk_packages(mebt_tpu_torch.__path__, "mebt_tpu_torch."):
     importlib.import_module(m.name)
-import chip_smoke
+import chip_smoke, profile_window
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.")
              or n == "mebt_tpu" or n.startswith("mebt_tpu.")
@@ -29,7 +30,7 @@ print("ok", len([n for n in sys.modules if n.startswith("mebt_tpu_torch")]))
 
 
 def test_the_training_slices_modules_are_covered():
-    covered = {str(p.relative_to(ROOT / "mebt_tpu_torch")) for p in PORT_FILES[:-1]}
+    covered = {str(p.relative_to(ROOT / "mebt_tpu_torch")) for p in PACKAGE_FILES}
     assert {"train/trainer.py", "train/train_state.py", "utils/metrics.py",
             "ops/philox.py", "sampler/mask_schedule.py"} <= covered
     # training from video

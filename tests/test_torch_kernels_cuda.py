@@ -681,8 +681,8 @@ def test_start_profile_records_the_first_kernels(dev):
     """A trace from train/trainer.py:start_profile holds every kernel of
     the work it traces, the first ones included, in each of a process's
     traces: a plain torch.profiler trace loses the kernels that run in
-    the first milliseconds after its first launch."""
-    from mebt_tpu_torch.train.trainer import start_profile
+    its first milliseconds, a window that grows with the process's age."""
+    from mebt_tpu_torch.train.trainer import spin_kernels, start_profile
 
     x = torch.zeros(1 << 20, device=dev)
     for _ in range(3):
@@ -695,6 +695,7 @@ def test_start_profile_records_the_first_kernels(dev):
         calls = sum(e.count for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA and "MulFunctor" in e.key)
         assert calls == 40
+        assert spin_kernels(prof) > 0  # the lost window ended inside the spins
 
 
 
