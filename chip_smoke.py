@@ -156,13 +156,25 @@
    the loop's first 20 VQGAN and MeBT steps run twice, bit-equal (a
    gate), with op probes run twice with and without deterministic
    algorithms (reported);
-18. prints the kernels' JSON line and, last, the result line.
+18. repeats itself (after the phases each extends): `codes16`, gen16's
+   model and seed through bidirect_generate without a VQGAN, its codes,
+   scores and launches gen16's and its samples the zero stub;
+   `vqgan_repro`, 4 VQGAN steps at vqgan_train's width three times from
+   one seed: twice under torch's deterministic algorithms (warn-only,
+   where no op may warn, and strict, as cli/train_vqgan.py
+   --deterministic runs), losses, weights and codebook buffers bit-equal
+   (a gate), once without, the step's seconds with and without the mode,
+   and the EMA buffers without the mode (reported); `train16_repro`, 3
+   steps of the train phase's 16f training twice from one seed, losses
+   and parameters bit-equal or not, with forward and backward probes
+   (reported); vqgan_train also times the EMA update and its sums;
+19. prints the kernels' JSON line and, last, the result line.
 
 `--only a,b` runs a subset of the phases (k1 k2 k3 k4 k5 k6 k7 k8 k9
-gen16 gen128 dnr16 dnr128 opts16 opts128 closure16 whole whole_dnr train
-whole_train train_video train_video_128 whole_video ckpt16 fvd16 tp16
-tp16_nccl tp128 sp128 vqgan_train tp16_train dp16_train train16_nccl
-sp128_train pp16_train)
+gen16 gen128 dnr16 dnr128 opts16 codes16 opts128 closure16 whole
+whole_dnr train train16_repro whole_train train_video train_video_128
+whole_video ckpt16 fvd16 tp16 tp16_nccl tp128 sp128 vqgan_train
+vqgan_repro tp16_train dp16_train train16_nccl sp128_train pp16_train)
 while developing; it then prints no kernels line and no result line.
 
 Any failure exits non-zero. Without a CUDA device, or without the
@@ -284,7 +296,12 @@ def require(cond: bool, what: str):
         raise Failed(what)
 
 
+EMITTED = []  # (what, seconds since the start): where the script's time goes
+
+
 def emit(obj):
+    EMITTED.append((obj.get("config") or obj.get("phase") or obj.get("kernel") or next(iter(obj)),
+                    time.perf_counter()))
     print(json.dumps(obj), flush=True)
 
 
@@ -1912,6 +1929,77 @@ def run_train_slice(dev, out_dir, keep_checkpoint=False):
     ), launches
 
 
+TRAIN_REPRO_STEPS = 3
+
+
+def run_train16_repro(dev, out_dir):
+    """Is full-width bf16 MeBT training bit-reproducible? Two runs of
+    TRAIN_REPRO_STEPS MeBTTrainer.fit steps from the same seed (STL-16f
+    from codes, batch 6, the config's dropouts 0.1, as `train`): losses
+    and final parameters bit-equal or not (reported, not a gate), the
+    parameters that differ, and probes run twice on run 2's model: a
+    forward's logits and, without dropout, a backward's gradients. The
+    launches must be the train phase's a step (a gate)."""
+    import shutil
+
+    from mebt_tpu_torch.models.mebt import mlm_loss
+    from mebt_tpu_torch.train.train_state import batch_to_device
+    from mebt_tpu_torch.train.trainer import MeBTTrainer
+
+    B, N, V = TRAIN_BATCH, 1024, STL16["vocab_size"]
+    runs = []
+    for r in range(2):
+        logdir = os.path.join(out_dir, f"train_repro_{r}")
+        shutil.rmtree(logdir, ignore_errors=True)
+        trainer = MeBTTrainer(TRAIN_CONFIG, logdir, seed=0, device=dev)
+        loader = CodesLoader(TRAIN_REPRO_STEPS, B, N, V, seed=1)
+        state, launches, wall = counted(lambda: trainer.fit(
+            loader, max_steps=TRAIN_REPRO_STEPS, log_every=1, final_checkpoint=False))
+        trainer.logger.close()
+        runs.append(dict(losses=[m["train/loss"] for m in read_metrics(logdir)],
+                         params={n: p.detach().clone()
+                                 for n, p in state.model.named_parameters()},
+                         launches=launches, wall_s=wall))
+        model = state.model
+        del state
+    k1, k2 = attention_launches_per_step()
+    expect = [TRAIN_REPRO_STEPS * n for n in (k1, k2, 0, 0, 0, k1, k2, 2 * (k1 + k2), 0)]
+    require(all(r["launches"] == expect for r in runs),
+            f"train16_repro: launches {[r['launches'] for r in runs]} != {expect}")
+    diff = differing(runs[0]["params"], runs[1]["params"])
+
+    batch = batch_to_device(trainer.prepare_batch(CodesLoader(1, B, N, V, seed=2).batches[0], 0),
+                            dev)
+
+    def logits():  # without `drop=`: no dropout
+        with torch.no_grad():
+            return model(batch["codes"], batch["ctx_mask"], batch["tgt_mask"])
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, _ = mlm_loss(model(batch["codes"], batch["ctx_mask"], batch["tgt_mask"]),
+                           batch["codes"], batch["tgt_mask"], batch["seq_len"],
+                           batch["masked_weight"], avg_loss=model.config.avg_loss)
+        loss.backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+
+    same_logits = bool(torch.equal(logits(), logits()))
+    grad_diff = differing(grads(), grads())
+    model.zero_grad(set_to_none=True)
+    del model, trainer
+    torch.cuda.empty_cache()
+    return dict(
+        phase="train16_repro", config="stl_16f_train", batch=B, dtype="bfloat16",
+        dropout=P_DROP, steps=TRAIN_REPRO_STEPS, walls_s=[r["wall_s"] for r in runs],
+        losses=[r["losses"] for r in runs],
+        losses_bit_equal=runs[0]["losses"] == runs[1]["losses"],
+        params_bit_equal=not diff, params_differing=len(diff), first_differing=diff[:8],
+        probes=dict(forward_bit_equal=same_logits, backward_bit_equal=not grad_diff,
+                    grads_differing=len(grad_diff), first_differing_grads=grad_diff[:8]),
+        launches=dict(zip(KERNELS, runs[1]["launches"])),
+    ), runs[1]["launches"]
+
+
 def whole_step_check(dev):
     """One training step's loss and gradients in fp32 at full width,
     batch 1, no dropout: kernels on the card against the plain versions
@@ -2332,7 +2420,161 @@ def run_vqgan_train(dev, out_dir):
                 dtype="float32", tf32=False, lpips="seeded VGG16", steps_timed=steps,
                 first_step_s=first_wall, step_s=step_s, videos_per_s=B / step_s,
                 peak_mem_gb=peak / 2**30, metrics=traj, profile=prof,
+                ema=ema_times(dev, trainer, B * 4 * 16 * 16),
                 launches_per_step=dict(zip(KERNELS, expect))), launches
+
+
+def ema_times(dev, trainer, M: int) -> dict:
+    """CUDA-event ms of the EMA update at the step's shape (M latents of
+    the codebook's width): the whole codebook_ema_update (on a copy of
+    the trained codebook, restart included), its per-code sums as the
+    fixed-order one-hot product it computes them, and as the index_add_
+    they replaced (timed only)."""
+    import copy
+
+    from mebt_tpu_torch.models.vqgan import codebook_ema_update
+    from mebt_tpu_torch.runtime import no_tf32
+
+    cb = copy.deepcopy(trainer.state.vqgan.codebook)
+    n_codes, D = cb.embeddings.shape
+    g = torch.Generator(dev).manual_seed(4)
+    z = torch.randn(M, D, device=dev, generator=g)
+    codes = torch.randint(0, n_codes, (M,), device=dev, generator=g)
+
+    def one_hot():
+        onehot = z.new_zeros(M, n_codes).scatter_(1, codes[:, None], 1.0)
+        with no_tf32():
+            return onehot.t() @ z
+
+    with torch.no_grad():
+        out = dict(M=M, n_codes=n_codes, D=D,
+                   update_ms=cuda_ms(lambda: codebook_ema_update(cb, z, codes, g)),
+                   one_hot_sums_ms=cuda_ms(one_hot),
+                   index_add_sums_ms=cuda_ms(
+                       lambda: torch.zeros_like(cb.z_avg).index_add_(0, codes, z)))
+    out["one_hot_gflop"] = 2 * M * n_codes * D / 1e9
+    return out
+
+
+VQGAN_REPRO_STEPS = 4  # a first step (the data init) and 3 timed ones, a run
+
+
+def vqgan_run(dev, videos, mode: str):
+    """A fresh vqgan_trainer (seed 0) through `videos` one step each:
+    `mode` "default", "warn" (torch's deterministic algorithms,
+    warn-only: the ops without one are listed) or "strict" (as
+    cli/train_vqgan.py --deterministic runs, an op without one raises).
+    Returns the trainer and dict(metrics (steps, len(METRICS)), the
+    codebook's buffers after the first step, seconds a step after the
+    first, launches, the ops that warned)."""
+    from mebt_tpu_torch.train.vqgan_train import METRICS
+
+    ctx = (contextlib.nullcontext([]) if mode == "default"
+           else deterministic_algorithms(warn_only=mode == "warn"))
+    with ctx as warned:
+        trainer = vqgan_trainer(dev)
+        history = [trainer.step(videos[0])]
+        cb = trainer.state.vqgan.codebook
+        first_ema = [cb.embeddings.clone(), cb.N.clone(), cb.z_avg.clone()]
+        _, launches, wall = counted(lambda: history.extend(trainer.step(v) for v in videos[1:]))
+        ops = nondeterministic_ops(warned)
+    metrics = torch.stack([torch.stack([m[k].float() for k in METRICS]) for m in history])
+    return trainer, dict(metrics=metrics, first_ema=first_ema, step_s=wall / (len(videos) - 1),
+                         launches=launches, ops=ops)
+
+
+def trainer_tensors(trainer) -> dict:
+    """Every weight and buffer of the VQGAN (the codebook's embeddings, N
+    and z_avg included) and of both discriminators."""
+    st = trainer.state
+    return {f"{part}.{k}": v.detach().clone()
+            for part, m in (("vqgan", st.vqgan), ("disc_img", st.disc_img),
+                            ("disc_vid", st.disc_vid))
+            for k, v in m.state_dict().items()}
+
+
+def differing(a: dict, b: dict) -> list[str]:
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def run_vqgan_repro(dev):
+    """C3 at full width (VQGAN_TRAIN, batch 2 of vqgan_train's synthetic
+    16x128x128 videos, VQGAN_REPRO_STEPS steps a run), four runs from the
+    same seed: two under torch's deterministic algorithms (one warn-only,
+    which must warn of no op, one strict, as --deterministic runs) must
+    give bit-equal losses, weights and codebook buffers (a gate); two
+    without the mode time the step beside them and are compared with
+    each other (reported), as are their EMA buffers after the first step
+    and codebook_ema_update on the same inputs twice (its sums have a
+    fixed order now)."""
+    import copy
+
+    from mebt_tpu_torch.data.loader import DataLoader
+    from mebt_tpu_torch.models.vqgan import codebook_ema_update, codebook_quantize
+
+    B, frames = VQGAN_TRAIN_BATCH, 16
+    loader = DataLoader(VideoSet(VQGAN_REPRO_STEPS * B, frames, 1, seed=11), batch_size=B,
+                        num_workers=1, seed=0)
+    loader.set_epoch(0)
+    videos = [torch.from_numpy(b["video"]) for b in loader]
+    runs, tensors = {}, {}
+    for name, mode in (("default", "default"), ("default_again", "default"),
+                       ("warn", "warn"), ("strict", "strict")):
+        trainer, runs[name] = vqgan_run(dev, videos, mode)
+        require(runs[name]["ops"] == [],
+                f"vqgan_repro: ops without a deterministic algorithm: {runs[name]['ops']}")
+        tensors[name] = trainer_tensors(trainer)
+        if name != "strict":
+            del trainer
+            torch.cuda.empty_cache()
+
+    def same(a, b):
+        return bool(torch.equal(runs[a]["metrics"], runs[b]["metrics"])) and not differing(
+            tensors[a], tensors[b])
+
+    diff = differing(tensors["warn"], tensors["strict"])
+    require(same("warn", "strict"),
+            f"vqgan_repro: two runs under deterministic algorithms differ: tensors "
+            f"{diff[:8]} ({len(diff)})")
+    expect = [0] * 8 + [VQGAN_REPRO_STEPS - 1]
+    require(all(r["launches"] == expect for r in runs.values()),
+            f"vqgan_repro: launches {[r['launches'] for r in runs.values()]} != {expect}")
+    default_diff = differing(tensors["default"], tensors["default_again"])
+    default_same = same("default", "default_again")
+    default_vs_det = same("default", "strict")
+
+    # one EMA update on the same inputs twice, without the mode
+    with torch.no_grad():
+        cb = trainer.state.vqgan.codebook
+        z = trainer.state.vqgan.encode_latent(videos[0].to(dev))
+        codes = codebook_quantize(cb, z)[0]
+        twice = []
+        for _ in range(2):
+            c = copy.deepcopy(cb)
+            codebook_ema_update(c, z, codes, torch.Generator(dev).manual_seed(5))
+            twice.append(torch.cat([c.embeddings.flatten(), c.N, c.z_avg.flatten()]))
+    del trainer, tensors
+    torch.cuda.empty_cache()
+    det_s = [runs["warn"]["step_s"], runs["strict"]["step_s"]]
+    default_s = [runs["default"]["step_s"], runs["default_again"]["step_s"]]
+    return dict(
+        phase="vqgan_repro", config="vqgan_train", batch=B, frames=frames, res=RES,
+        steps_a_run=VQGAN_REPRO_STEPS,
+        step_s=dict(default=default_s, deterministic_warn_only=det_s[0], deterministic=det_s[1]),
+        deterministic_over_default=float(np.mean(det_s) / np.mean(default_s)),
+        first_losses={m: r["metrics"][0].tolist() for m, r in runs.items()},
+        last_losses={m: r["metrics"][-1].tolist() for m, r in runs.items()},
+        launches={m: dict(zip(KERNELS, r["launches"])) for m, r in runs.items()},
+        default_runs=dict(bit_equal=default_same,
+                          tensors_differing=len(default_diff), first_differing=default_diff[:8],
+                          ema_after_first_step_bit_equal=all(
+                              torch.equal(x, y) for x, y in zip(runs["default"]["first_ema"],
+                                                                runs["default_again"]["first_ema"])),
+                          ema_update_twice_bit_equal=bool(torch.equal(*twice))),
+        default_vs_deterministic_bit_equal=default_vs_det,
+        gates=dict(no_op_without_deterministic_algorithm=True,
+                   deterministic_runs_bit_equal=True, launches_as_predicted=True),
+    ), runs["strict"]["launches"]
 
 
 class KinkReplay:
@@ -2929,6 +3171,42 @@ def run_opts16(dev, gen16):
     return report, {"stl_16f_opts_dense": dense_launches, "stl_16f_opts_history": hist_launches}
 
 
+def run_codes16(dev, gen16):
+    """Codes-only generation (`vqgan=None`) at full width: gen16's model
+    (seed 0) and seed through bidirect_generate without a VQGAN, the
+    temporal ratio taken as 4. Its codes and scores must be gen16's bit
+    for bit (the VQGAN only decodes), its launches gen16's (K1 384, K2
+    384, K3 32) and its samples the zero stub (16, 16, 1, 1, 3). `gen16`
+    is (result, launches), or None to generate it here."""
+    from mebt_tpu_torch.cli.common import random_mebt, random_vqgan
+    from mebt_tpu_torch.models.mebt import MeBTConfig
+    from mebt_tpu_torch.models.vqgan import VQGANConfig
+    from mebt_tpu_torch.sampler.generation import bidirect_generate
+
+    B = BATCH
+    model = random_mebt(MeBTConfig(dtype=torch.bfloat16, **STL16), 0, dev)
+    if gen16 is None:
+        vqgan = random_vqgan(VQGANConfig(n_codes=STL16["vocab_size"], downsample=(4, 8, 8)), 1,
+                             dev)
+        gen16 = counted(lambda: bidirect_generate(model, vqgan, 0, B, **RECIPE))[:2]
+        del vqgan
+    want, want_launches = gen16
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, wall = counted(lambda: bidirect_generate(model, None, 0, B, **RECIPE))
+    peak = torch.cuda.max_memory_allocated()
+    require(np.array_equal(res.code_maps, want.code_maps), "codes16: codes != gen16's")
+    require(np.array_equal(res.score, want.score), "codes16: scores != gen16's")
+    require(launches == want_launches, f"codes16: launches {launches} != gen16's {want_launches}")
+    require(res.samples.shape == (B, RECIPE["total_length"], 1, 1, 3)
+            and res.samples.dtype == np.uint8 and not res.samples.any(),
+            f"codes16: samples {res.samples.shape} {res.samples.dtype} are not the zero stub")
+    return dict(phase="codes16", config="stl_16f", batch=B, vqgan=None, wall_s=wall,
+                peak_mem_gb=peak / 2**30, samples=list(res.samples.shape),
+                code_maps=list(res.code_maps.shape), launches=dict(zip(KERNELS, launches)),
+                gates=dict(codes_and_scores_equal_gen16=True, launches_equal_gen16=True,
+                           zero_stub=True)), launches
+
+
 def run_opts128(dev, gen128):
     """STL-128f at full width, batch 2, the 128f recipe (bootstrap 64,
     then 32 MaskGIT steps at top-k 32) through bidirect_generate with
@@ -3005,16 +3283,18 @@ def closure_videos(n: int, seed: int) -> np.ndarray:
 
 
 @contextlib.contextmanager
-def deterministic_algorithms():
-    """torch's deterministic algorithms, warn-only (an op without one
-    warns; the context yields the list of those warnings), and cuDNN's
-    deterministic convolutions, as they were on exit."""
+def deterministic_algorithms(warn_only: bool = True):
+    """torch's deterministic algorithms, warn-only by default (an op
+    without one warns; the context yields the list of those warnings;
+    with warn_only=False it raises, as cli/train_vqgan.py
+    --deterministic runs), and cuDNN's deterministic convolutions, as
+    they were on exit."""
     saved = (torch.are_deterministic_algorithms_enabled(),
              torch.is_deterministic_algorithms_warn_only_enabled(),
              torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
              os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.use_deterministic_algorithms(True, warn_only=warn_only)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     try:
         with warnings.catch_warnings(record=True) as caught:
@@ -4343,7 +4623,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(smi, flush=True)
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     logs = _build.build_all()
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               sources=list(_build.SOURCES), arch="sm_90a"))
@@ -4399,6 +4679,11 @@ def main(argv=None) -> int:
             launches.update(paths)
             emit(report["opts16"])
             torch.cuda.empty_cache()
+        if on("codes16"):
+            report["codes16"], launches["stl_16f_codes"] = run_codes16(
+                dev, None if gen16 is None else (gen16, launches["stl_16f"]))
+            emit(report["codes16"])
+            torch.cuda.empty_cache()
         if on("opts128"):
             report["opts128"], launches["stl_128f_opts"] = run_opts128(
                 dev, None if gen128 is None else (gen128, launches["stl_128f"], *bundle128))
@@ -4421,6 +4706,11 @@ def main(argv=None) -> int:
             report["slice_16f_train"], launches["stl_16f_train"] = run_train_slice(
                 dev, args.out, keep_checkpoint=on("ckpt16"))
             emit(report["slice_16f_train"])
+        if on("train16_repro"):
+            report["train16_repro"], launches["stl_16f_train_repro"] = run_train16_repro(
+                dev, args.out)
+            emit(report["train16_repro"])
+            torch.cuda.empty_cache()
         if on("whole_train"):
             report["whole_step"] = whole_step_check(dev)
             emit(report["whole_step"])
@@ -4451,6 +4741,10 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             report["vqgan_whole_step"] = vqgan_whole_step_check(dev)
             emit(report["vqgan_whole_step"])
+        if on("vqgan_repro"):
+            torch.cuda.empty_cache()
+            report["vqgan_repro"], launches["vqgan_repro_16f"] = run_vqgan_repro(dev)
+            emit(report["vqgan_repro"])
         torch.cuda.empty_cache()
         if on("tp16"):
             report["tp16"], launches["stl_16f_tp16"] = run_tp16(smi)
@@ -4491,6 +4785,7 @@ def main(argv=None) -> int:
 
         shutil.rmtree(os.path.join("logs", TRAIN_EXP), ignore_errors=True)
     report["retaken_traces"] = RETAKEN_TRACES
+    report["emitted_at_s"] = [(what, t - t_start) for what, t in EMITTED]
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     if only:
@@ -4514,7 +4809,7 @@ def main(argv=None) -> int:
             "stl_16f_tp16", "stl_128f_tp128", "stl_128f_sp128",
             "stl_16f_tp16_nccl", "stl_16f_ckpt", "stl_16f_ckpt_exp", "stl_128f_dnr", "stl_16f_dnr", "stl_16f_dnr_scratch", "stl_16f_extrapolate",
             "stl_128f_train_video", "stl_16f_train_video", "stl_16f_train", "stl_128f",
-            "stl_16f", "stl_16f_closure") if by_path.get(p, 0)]
+            "stl_16f_codes", "stl_16f", "stl_16f_closure") if by_path.get(p, 0)]
         return dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=newest[0] if newest else 0, launches_by_path=by_path, **extra,

@@ -6,7 +6,8 @@ Checkpoint sources:
     utils/torch_ckpt.py:load_mebt (with its embedded VQGAN, if any);
   * --exp_name: the newest `logs/<exp>/checkpoints/<step>.pt` that this
     package's trainer wrote (its "model" entry). The JAX package's orbax
-    checkpoint directories cannot be read without JAX;
+    checkpoint directories cannot be read without JAX: the root script
+    convert_orbax_checkpoint.py writes them in this layout;
   * --random_weights: seeded random weights, for runs without a
     checkpoint.
 Without an embedded VQGAN the VQGAN comes from the config's
@@ -111,8 +112,9 @@ def load_model_bundle(args, config: Config, device):
     if os.path.isdir(ckpt):
         raise SystemExit(
             f"{ckpt} is a directory: the JAX package's orbax checkpoints cannot be read "
-            "without JAX. Pass a Lightning .ckpt file, or --exp_name for this "
-            "package's trainer checkpoints")
+            "without JAX. Convert it where JAX and orbax are installed with "
+            "`python convert_orbax_checkpoint.py --base CONFIG --ckpt DIR --out_logdir "
+            "logs/<exp>` and pass --exp_name <exp>, or pass a Lightning .ckpt file")
     _, model, vqgan = load_mebt(ckpt, device=device, dtype=dtype)
     return model, vqgan if vqgan is not None else config_vqgan(config, device)
 

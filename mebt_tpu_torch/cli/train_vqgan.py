@@ -14,7 +14,10 @@ VQGAN with its codebook buffers, both discriminators, both optimizers
 and the draws' generator), written every --ckpt_every steps and at the
 end; the newest 3 are kept, and a run resumes from the newest. Metrics
 go to <logdir>/metrics.jsonl every --log_every steps. Runs on the GPU
-unless --device cpu is given.
+unless --device cpu is given. --deterministic makes two runs from the
+same seed and data bit-equal: torch's deterministic algorithms
+(runtime.py:use_deterministic), at a cost in step time on the GPU, and
+the clips' windows drawn from --seed.
 """
 
 from __future__ import annotations
@@ -78,6 +81,12 @@ def build_argparser():
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu, where every kernel runs its plain version")
+    p.add_argument(
+        "--deterministic", action="store_true",
+        help="repeat a run bit for bit at a fixed seed: torch's deterministic "
+        "algorithms (an op without one raises), cuDNN's deterministic "
+        "convolutions, the clips' windows drawn from --seed; slower on the GPU",
+    )
     return p
 
 
@@ -103,11 +112,13 @@ def main(argv=None):
 
     from mebt_tpu_torch.data.datasets import VideoData
     from mebt_tpu_torch.models.vqgan import VQGANConfig
-    from mebt_tpu_torch.runtime import resolve_device
+    from mebt_tpu_torch.runtime import resolve_device, use_deterministic
     from mebt_tpu_torch.train.vqgan_train import VQGANTrainer
     from mebt_tpu_torch.utils.metrics import MetricsLogger
 
     args = build_argparser().parse_args(argv)
+    if args.deterministic:
+        use_deterministic()
 
     cfg = VQGANConfig(
         embedding_dim=args.embedding_dim,
@@ -154,7 +165,9 @@ def main(argv=None):
                     "without the perceptual term."
                 )
 
-    loader = VideoData(vars(args)).train_dataloader()
+    # --deterministic also draws the clips' windows from --seed
+    loader = VideoData(vars(args), seed=args.seed if args.deterministic else None
+                       ).train_dataloader()
     trainer = VQGANTrainer(cfg, lr=args.lr, lpips=lpips, seed=args.seed, device=device)
     trainer.init_state()
     logger = MetricsLogger(args.logdir)

@@ -603,14 +603,16 @@ class VideoData:
     data.py:236-305). DistributedSampler is replaced by per-process
     shard selection in DataLoader."""
 
-    def __init__(self, args, shuffle: bool = True, mesh=None):
+    def __init__(self, args, shuffle: bool = True, mesh=None, seed: int | None = None):
         self.args = args
         self.shuffle = shuffle
         # on a mesh the loaders shard by its `data` axis, and every rank's
         # datasets draw their windows and permutations from rank 0's seed,
-        # so the ranks of one data index (model, seq, pipe) hold one batch
+        # so the ranks of one data index (model, seq, pipe) hold one batch.
+        # `seed` fixes those draws (a run that must repeat itself); None
+        # draws a fresh seed, as the JAX package's datasets do
         self.mesh = mesh
-        self.seed = None if mesh is None else _shared_seed()
+        self.seed = seed if mesh is None else _shared_seed()
 
     def _dataset(self, train: bool):
         a = self.args

@@ -21,14 +21,13 @@ channels-first (cuDNN on the card).
 
 from __future__ import annotations
 
-import contextlib
 from typing import Any, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mebt_tpu_torch.runtime import resolve_device
+from mebt_tpu_torch.runtime import no_tf32, resolve_device
 
 # (name, kind, spec)
 # conv: (out_channels, kernel, stride)
@@ -148,18 +147,6 @@ class InceptionI3d(nn.Module):
         x = self.logits(F.avg_pool3d(x, (2, 7, 7), stride=1))
         # (B, classes, T', H', W') -> the first spatial cell, mean over time
         return x[:, :, :, 0, 0].mean(dim=2).float()
-
-
-@contextlib.contextmanager
-def no_tf32():
-    """TF32 off for cuDNN convolutions and cuBLAS matmuls inside the
-    block; the previous settings come back after it."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def load_i3d(path: str, device=None) -> InceptionI3d:

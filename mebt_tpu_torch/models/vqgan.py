@@ -32,6 +32,7 @@ from torch import nn
 
 from mebt_tpu_torch.ops.conv3d import same_pad_conv3d, same_pad_conv_transpose3d
 from mebt_tpu_torch.ops.vq import nearest_code
+from mebt_tpu_torch.runtime import no_tf32
 
 
 def _triple(v) -> tuple[int, int, int]:
@@ -310,12 +311,18 @@ def codebook_ema_update(codebook: Codebook, z: torch.Tensor, codes: torch.Tensor
     restarts, a code whose new N is under `restart_thres` takes a row of
     z tiled up to n_codes (noise only when tiling is needed) and
     permuted. `perm` (the restart's permutation of the tiled rows) and
-    `noise` replace the draws from `generator`."""
+    `noise` replace the draws from `generator`. Every sum has a fixed
+    order, so the same inputs give the same buffers bit for bit."""
     n_codes, dim = codebook.embeddings.shape
     flat = z.reshape(-1, dim).to(codebook.z_avg.dtype)
     codes = codes.reshape(-1)
     onehot_sum = torch.bincount(codes, minlength=n_codes).to(flat.dtype)
-    encode_sum = torch.zeros_like(codebook.z_avg).index_add_(0, codes, flat)
+    # per-code sums in a fixed order: a one-hot (n_codes, M) x (M, D)
+    # product at full fp32 precision, not index_add_, whose CUDA atomics
+    # add in a different order from run to run
+    onehot = flat.new_zeros(codes.numel(), n_codes).scatter_(1, codes[:, None], 1.0)
+    with no_tf32():
+        encode_sum = onehot.t() @ flat
 
     new_N = codebook.N * decay + onehot_sum * (1.0 - decay)
     new_z_avg = codebook.z_avg * decay + encode_sum * (1.0 - decay)

@@ -6,7 +6,9 @@ decode.
 
 Sizes arrive in pixel frames and are converted to latent frames by the
 VQGAN's temporal downsample. Results come back as numpy, as in the JAX
-package.
+package. With `vqgan=None` a driver generates codes only: the temporal
+ratio is taken as 4 and `samples` is a zero stub (B, T, 1, 1, 3), as the
+JAX package returns it.
 
 On a mesh (a model from models/mebt.py:on_mesh), `batch_size` is the
 whole batch and every array given or returned holds this rank's rows
@@ -36,7 +38,12 @@ class GenerationResult:
 @torch.no_grad()
 def _decode_pixels(vqgan, codes_bthw: torch.Tensor) -> np.ndarray:
     """VQGAN decode, clip to [-0.5, 0.5], + 0.5, uint8 on the device
-    (reference sample script:75-83). Returns (B, T, H, W, C) uint8."""
+    (reference sample script:75-83). Returns (B, T, H, W, C) uint8. With
+    no VQGAN (codes-only generation) a zero pixel stub of the right
+    leading shape, (B, 4 t, 1, 1, 3), as the JAX package returns it."""
+    if vqgan is None:
+        B, T = codes_bthw.shape[:2]
+        return np.zeros((B, T * 4, 1, 1, 3), np.uint8)  # reference ratio 0.25 (script:30)
     pix = vqgan.decode(codes_bthw).float()  # (B, C, T, H, W)
     pix = torch.clamp(pix, -0.5, 0.5) + 0.5
     pix = torch.round(pix * 255.0).to(torch.uint8)
@@ -93,7 +100,7 @@ def bidirect_generate(
     window), so that a test can share noise with the JAX package."""
     T, h, w = model.config.latent_shape
     device = next(model.parameters()).device
-    ratio = 1.0 / vqgan.config.downsample[0]
+    ratio = 1.0 / (vqgan.config.downsample[0] if vqgan is not None else 4)
     step_lat = int(step_size * ratio)
     ctx_lat = int(context_size * ratio)
     total_lat = int(total_length * ratio)
@@ -179,13 +186,16 @@ def extrapolate_generate(
     vid_c_temp: float = 4.5,
     ctemp_schedule: str = "linear",
     schedule: str = "cosine",
+    _noise_hook=None,
 ) -> GenerationResult:
     """Extend the code maps `vq_input` (B, T_lat, h, w), one model window
     each, by repeated window shifts (reference extrapolate:95-157, the
-    `edit=True` path: the schedule counts the editable region only)."""
+    `edit=True` path: the schedule counts the editable region only).
+    `_noise_hook` as in bidirect_generate, called as `_noise_hook(j,
+    plan)` for shift window j."""
     T, h, w = model.config.latent_shape
     device = next(model.parameters()).device
-    ratio = 1.0 / vqgan.config.downsample[0]
+    ratio = 1.0 / (vqgan.config.downsample[0] if vqgan is not None else 4)
     step_lat = int(step_size * ratio)
     ctx_lat = int(context_size * ratio)
     total_lat = int(total_length * ratio)
@@ -208,14 +218,15 @@ def extrapolate_generate(
 
     chunks = [np.asarray(vq_input, np.int64)]
     last = chunks[0]
-    for _ in range(n_jumps):
+    for j in range(n_jumps):
         window = np.zeros((B, T, h, w), np.int64)
         window[:, :ctx_lat] = last[:, -ctx_lat:]
+        noise = {} if _noise_hook is None else _noise_hook(j, plan)
         state = maskgit_sample(
             model, _split(seeds), _whole_batch(model, B), plan,
             codes=torch.from_numpy(window.reshape(B, N)), ctx_mask=ctx_mask,
             temperature=temperature, top_k=top_k, top_p=top_p,
-            context_temperature=vid_c_temp,
+            context_temperature=vid_c_temp, **noise,
         )
         last = state.codes.cpu().numpy().reshape(B, T, h, w)
         chunks.append(last[:, ctx_lat:])

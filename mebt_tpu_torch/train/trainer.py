@@ -286,11 +286,16 @@ class MeBTTrainer:
 
     def restore(self, state: TrainState, path: str) -> TrainState:
         """Load the checkpoint file `path` (written by `save`, under any
-        mesh or none) into state; on a mesh each rank keeps its blocks."""
+        mesh or none) into state; on a mesh each rank keeps its blocks.
+        `generator` is the generator's state, or a seed for it (a
+        checkpoint carried over from the JAX package)."""
         ckpt = torch.load(path, map_location=self.device, weights_only=True)
         self.load_pretrained(state, ckpt["model"])
         state.optimizer.load_whole_state_dict(ckpt["optimizer"])
-        state.generator.set_state(ckpt["generator"].cpu())
+        if isinstance(ckpt["generator"], int):  # a seed: convert_orbax_checkpoint.py
+            state.generator.manual_seed(ckpt["generator"])
+        else:
+            state.generator.set_state(ckpt["generator"].cpu())
         state.step, state.seed = int(ckpt["step"]), int(ckpt["seed"])
         return state
 
