@@ -367,6 +367,7 @@ K2_CASES = (
 
 # the bf16 K1's kernels: the forward and the merge of its splits
 K1_KERNELS_BF16 = ("smallq_fwd_mma_kernel", "smallq_merge_kernel")
+K2_KERNELS_BF16 = ("largeq_fwd_wgmma_kernel",)
 
 
 def check_k1(dev, gen):
@@ -447,15 +448,31 @@ def check_k2(dev, gen):
         err, err_over_tol = bf16_errors(out, ref)
         require(err_over_tol <= 1, f"K2 {case}: err {err} ({err_over_tol} of its bound)")
         bnd, by = bound_ms(nbytes(q, k, v, out), 4.0 * B * H * NQ * NK * Dh, torch.bfloat16)
-        rows.append(dict(
+
+        def kernel():
+            return largeq_attention(q, k, v)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v)
+
+        row = dict(
             case=case, shape=[B, H, NQ, NK, Dh],
             max_abs_err=err, max_abs_ref=ref.float().abs().max().item(),
             err_over_tol=err_over_tol, tol=dict(rtol=BF16_RTOL, atol=BF16_ATOL),
-            ms=cuda_ms(lambda: largeq_attention(q, k, v)),
-            plain_ms=cuda_ms(lambda: largeq_attention_ref(q, k, v), reps=3),
-            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
             bound_ms=bnd, bound_by=by,
-        ))
+        )
+        # in turns on one card: kernel, library, library, kernel
+        row["ms"] = cuda_ms(kernel)
+        row["library_ms"] = cuda_ms(library)
+        row["library_ms_again"] = cuda_ms(library)
+        row["ms_again"] = cuda_ms(kernel)
+        row["plain_ms"] = cuda_ms(lambda: largeq_attention_ref(q, k, v), reps=3)
+        # the kernel's and the library call's own device time from one
+        # profiled call each (ms above holds the wrappers' host work where
+        # that is the longer)
+        row["device_ms"] = sum(kernel_ms(kernel, K2_KERNELS_BF16).values())
+        row["library_device_ms"] = sum(kernel_ms(library, ("",)).values())
+        rows.append(row)
     return rows
 
 
@@ -568,7 +585,10 @@ def check_k3(dev, gen):
 # are no multiple of the 128-row block and the 128-column chunk; a vocab
 # smaller than k, where k becomes V; exact ties, where the k-th value is
 # shared by columns in several slices.
-HEAD_CHUNK = 128  # csrc/head_sample.cu HT_BN: vocabulary columns a chunk
+HEAD_CHUNK = 128  # csrc/head_sample.cu HT_BN, HW_BN: vocabulary columns a chunk
+# the bf16 K4's and K5's kernels: the slices and the merge
+TOPK_KERNELS_BF16 = {"K4": ("head_topk_wgmma_kernel", "head_topk_merge_kernel"),
+                     "K5": ("head_topk_v1_wgmma_kernel", "head_topk_merge_kernel")}
 TOPK_CASES = (("step1_128f", BATCH128 * 8192, 16384, False, True),
               ("seg_r6400", BATCH128 * 3200, 16384, False, True),
               ("last_seg_r3328", BATCH128 * 1664, 16384, False, True),
@@ -682,13 +702,22 @@ def check_topk(dev, gen, name: str):
             row["library_ms_again"] = cuda_ms(library, reps=5)
             row["ms_again"] = cuda_ms(lambda: kernel(x, w, 7, K, 1.0))
             row["k4_ms"] = [k4_a, cuda_ms(lambda: head_topk_sample(x, w, 7, K, 1.0))]
+        elif timed_all:
+            # in turns on one card: K4, library, library, K4
+            row["ms"] = cuda_ms(lambda: kernel(x, w, 7, K, 1.0))
+            row["library_ms"] = cuda_ms(library, reps=5)
+            row["library_ms_again"] = cuda_ms(library, reps=5)
+            row["ms_again"] = cuda_ms(lambda: kernel(x, w, 7, K, 1.0))
         else:
             row["ms"] = cuda_ms(lambda: kernel(x, w, 7, K, 1.0))
-            if timed_all:
-                row["library_ms"] = cuda_ms(library, reps=5)
         row["ms_per_1k_rows"] = row["ms"] / R * 1000
         if timed_all:
             row["plain_ms"] = cuda_ms(lambda: head_topk_sample_ref(x, w, K, 1.0, seed=7), reps=3)
+            # the kernels' (slices and merge) and the library call's own
+            # device time from one profiled call each
+            row["device_ms"] = sum(kernel_ms(lambda: kernel(x, w, 7, K, 1.0),
+                                             TOPK_KERNELS_BF16[name]).values())
+            row["library_device_ms"] = sum(kernel_ms(library, ("",)).values())
         rows.append(row)
 
     # distribution: one row repeated, small vocab, temperature 1; the
@@ -1513,10 +1542,10 @@ def span_kernels(prof, span: str) -> list[list[tuple[str, float]]]:
 # `attn_bwd_dkdv_kernel`).
 PROFILE_GROUPS = {
     "K1": ("smallq_kernel", "smallq_fwd_mma_kernel", "smallq_merge_kernel"),
-    "K2": ("largeq_kernel", "largeq_fwd_mma_kernel"),
+    "K2": ("largeq_kernel", "largeq_fwd_wgmma_kernel"),
     "K3": ("head_sample_kernel", "head_sample_mma_kernel", "head_sample_merge_kernel"),
-    "K4": ("head_topk_sample_kernel", "head_topk_mma_kernel", "head_topk_merge_kernel"),
-    "K5": ("head_topk_sample_v1_kernel", "head_topk_v1_mma_kernel"),
+    "K4": ("head_topk_sample_kernel", "head_topk_wgmma_kernel", "head_topk_merge_kernel"),
+    "K5": ("head_topk_sample_v1_kernel", "head_topk_v1_wgmma_kernel"),
     "K6_dq": ("smallq_bwd_dq_kernel", "smallq_bwd_dq_mma_kernel"),
     "K6_dkdv": ("attn_bwd_dkdv_kernel", "smallq_bwd_dkdv_mma_kernel"),
     "K7_dq": ("largeq_bwd_dq_kernel", "largeq_bwd_dq_mma_kernel"),
@@ -1526,15 +1555,22 @@ PROFILE_GROUPS = {
 # the FMA attention kernels, which only fp32 calls (the parity checks) launch
 FMA_ATTENTION = ("largeq_kernel", "largeq_bwd_dq_kernel", "smallq_kernel",
                  "smallq_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
-# the bf16 K1, K2, K6 and K7 kernels: their SASS must hold tensor-core instructions
-TENSOR_CORE_KERNELS = ("largeq_fwd_mma_kernel", "largeq_bwd_dq_mma_kernel",
-                       "largeq_bwd_dkdv_mma_kernel", "smallq_fwd_mma_kernel",
-                       "smallq_bwd_dq_mma_kernel", "smallq_bwd_dkdv_mma_kernel")
+# the bf16 K1, K6 and K7 kernels: their SASS must hold tensor-core instructions
+TENSOR_CORE_KERNELS = ("largeq_bwd_dq_mma_kernel", "largeq_bwd_dkdv_mma_kernel",
+                       "smallq_fwd_mma_kernel", "smallq_bwd_dq_mma_kernel",
+                       "smallq_bwd_dkdv_mma_kernel")
 # the FMA K3 / K4 / K5 kernels, which only fp32 calls (the parity checks)
-# may launch, and the bf16 K3 / K4 / K5 kernels, whose SASS must hold HMMA
-# or HGMMA
+# may launch, and the bf16 K3 kernel, whose SASS must hold HMMA or HGMMA
 FMA_HEAD = ("head_sample_kernel", "head_topk_sample_kernel", "head_topk_sample_v1_kernel")
-TENSOR_CORE_HEAD = ("head_sample_mma_kernel", "head_topk_mma_kernel", "head_topk_v1_mma_kernel")
+TENSOR_CORE_HEAD = ("head_sample_mma_kernel",)
+# the Hopper kernels (csrc/hopper.cuh): bf16 K2 (with and without
+# dropout, over 2 or 4 key blocks), K4 and K5. Each instantiation must
+# multiply by wgmma (HGMMA) and never by mma.sync (HMMA), and load by TMA
+# (UTMALDG).
+WGMMA_KERNELS = {"attention": {"largeq_fwd_wgmma_kernel": 4},
+                 "head_sample": {"head_topk_wgmma_kernel": 1, "head_topk_v1_wgmma_kernel": 1}}
+# the kernels they replace, which must be gone
+REPLACED_KERNELS = ("largeq_fwd_mma_kernel", "head_topk_mma_kernel", "head_topk_v1_mma_kernel")
 
 
 def kernel_table(prof, span: str | None = None, ranges=()) -> list[tuple[str, float, int]]:
@@ -1590,10 +1626,14 @@ def kernel_ms(fn, keys, expect=None, tries: int = 3) -> dict:
     return out
 
 
-def sass_tensor_core_counts(lib_path) -> dict:
-    """HMMA and HGMMA instructions in each kernel of a built library, from
-    `cuobjdump -sass`, by kernel name (demangled and cut to the template
-    arguments where cu++filt is at hand)."""
+SASS_OPS = {"hmma": "HMMA", "hgmma": "HGMMA", "utmaldg": "UTMALDG"}
+
+
+def sass_counts(lib_path) -> dict:
+    """HMMA (mma.sync), HGMMA (wgmma) and UTMALDG (TMA load) instructions
+    in each kernel of a built library, from `cuobjdump -sass`, by kernel
+    name (demangled and cut to the template arguments where cu++filt is
+    at hand)."""
     from mebt_tpu_torch.ops import _build
 
     bin_dir = os.path.dirname(_build.nvcc())
@@ -1603,9 +1643,11 @@ def sass_tensor_core_counts(lib_path) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
-            counts[fn] += 1
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            ops = line.split()
+            for key, op in SASS_OPS.items():
+                counts[fn][key] += any(w == op or w.startswith(op + ".") for w in ops)
     filt = os.path.join(bin_dir, "cu++filt")
     if counts and os.path.exists(filt):
         names = subprocess.run([filt, *counts], capture_output=True, text=True,
@@ -1615,9 +1657,13 @@ def sass_tensor_core_counts(lib_path) -> dict:
     return counts
 
 
+def tensor_core(c: dict) -> int:
+    return c["hmma"] + c["hgmma"]
+
+
 def _kernel_label(name: str) -> str:
     """A demangled kernel name without its return type, namespace and
-    parameter list: `largeq_fwd_mma_kernel<(bool)1>`."""
+    parameter list: `largeq_fwd_wgmma_kernel<(bool)1, (int)4>`."""
     name = name.removeprefix("void ")
     for ns in ("(anonymous namespace)::", "<unnamed>::"):
         name = name.replace(ns, "")
@@ -1635,37 +1681,47 @@ def _bf16_instances(counts, names) -> list[str]:
 
 
 def check_sass():
-    """The tensor-core instructions of every attention and head kernel;
-    each instantiation of the bf16 K1 / K2 / K6 / K7 kernels (two each:
-    with and without dropout) and of the bf16 K3 / K4 / K5 kernels must
-    have some, and no bf16 instantiation of an FMA attention, K3, K4 or
-    K5 kernel may exist; K9's search must have them and its FMA kernel
-    must be gone."""
+    """The tensor-core and TMA instructions of every attention, head and
+    K9 kernel. Each instantiation of the bf16 K1 / K6 / K7 kernels (two
+    each: with and without dropout) and of the bf16 K3 kernel must have
+    some; each instantiation of the Hopper K2, K4 and K5 kernels HGMMA
+    and UTMALDG and no HMMA, and the kernels they replaced must be gone;
+    no bf16 instantiation of an FMA attention, K3, K4 or K5 kernel may
+    exist; K9's search must have them and its FMA kernel must be gone."""
     from mebt_tpu_torch.ops import _build
 
-    counts = sass_tensor_core_counts(_build.library_path("attention"))
+    libs = {name: sass_counts(_build.library_path(name))
+            for name in ("attention", "head_sample", "vq")}
+    counts, head, vq = libs["attention"], libs["head_sample"], libs["vq"]
     for name in TENSOR_CORE_KERNELS:
         inst = {n: c for n, c in counts.items() if name in n}
-        require(len(inst) == 2 and all(c > 0 for c in inst.values()),
+        require(len(inst) == 2 and all(tensor_core(c) > 0 for c in inst.values()),
                 f"SASS: {name} instantiations {inst} (need 2, each with HMMA/HGMMA)")
+    for lib, kernels in WGMMA_KERNELS.items():
+        for name, n_inst in kernels.items():
+            inst = {n: c for n, c in libs[lib].items() if name in n}
+            require(len(inst) == n_inst and all(
+                c["hgmma"] > 0 and c["hmma"] == 0 and c["utmaldg"] > 0 for c in inst.values()),
+                f"SASS: {name} instantiations {inst} (need {n_inst}, each with HGMMA and "
+                f"UTMALDG, without HMMA)")
+    gone = [n for lib in libs.values() for n in lib if any(r in n for r in REPLACED_KERNELS)]
+    require(not gone, f"SASS: replaced kernels still built: {gone}")
     fma_bf16 = _bf16_instances(counts, FMA_ATTENTION)
     require(not fma_bf16, f"SASS: bf16 FMA attention kernels still built: {fma_bf16}")
-    head = sass_tensor_core_counts(_build.library_path("head_sample"))
     for name in TENSOR_CORE_HEAD:
         inst = {n: c for n, c in head.items() if name in n}
-        require(len(inst) >= 1 and all(c > 0 for c in inst.values()),
+        require(len(inst) >= 1 and all(tensor_core(c) > 0 for c in inst.values()),
                 f"SASS: {name} instantiations {inst} (each needs HMMA/HGMMA)")
     fma_bf16 = _bf16_instances(head, FMA_HEAD)
     require(not fma_bf16, f"SASS: bf16 FMA K3 / K4 / K5 kernels still built: {fma_bf16}")
     # K9: the 3xTF32 search on the tensor cores, and no FMA search left
-    vq = sass_tensor_core_counts(_build.library_path("vq"))
     inst = {n: c for n, c in vq.items() if K9_KERNELS[0] in n}
-    require(len(inst) == 1 and all(c > 0 for c in inst.values()),
+    require(len(inst) == 1 and all(tensor_core(c) > 0 for c in inst.values()),
             f"SASS: {K9_KERNELS[0]} {inst} (needs HMMA/HGMMA)")
     fma_k9 = [n for n in vq if "nearest_code_kernel" in n]
     require(not fma_k9, f"SASS: the FMA K9 kernel is still built: {fma_k9}")
-    return dict(phase="sass", library="attention", tensor_core_instructions=counts,
-                head_sample_tensor_core_instructions=head, vq_tensor_core_instructions=vq)
+    return dict(phase="sass", library="attention", instructions=counts,
+                head_sample_instructions=head, vq_instructions=vq)
 
 
 def profile_decode(fn, out_dir, name, span: str | None = None, ranges=(),

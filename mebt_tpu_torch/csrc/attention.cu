@@ -16,7 +16,7 @@
 //   their K/V rows into 64-key tiles with 16-byte cp.async, double-
 //   buffered and shared by 8 warps of 16 query rows: dead keys cost
 //   nothing (training masks are random over positions, so whole dead
-//   tiles are rare). The tile is K2's (mma.sync, two-part P, exp2-domain
+//   tiles are rare). The tile is mma.sync with K2's two-part P (exp2-domain
 //   online softmax); S sums each 16-deep product apart in fp32 so that
 //   lse keeps its fp32 accuracy at large scores. Too few (b, h) pairs to
 //   fill the card (128f, batch 2) split the live list over up to 8 CTAs
@@ -30,22 +30,39 @@
 //   many queries over <= 512 UNMASKED keys (latent_self: 256 x 256;
 //   latent_dec: M tokens x 256 latents). K and V of one (b, h) stay
 //   resident in shared memory in the input type.
-//   bf16, largeq_fwd_mma_kernel: bound by bytes on the card (67 MB
-//   against 17.2 GFLOP at 16f latent_dec, 25.8 with the split below:
-//   0.020 ms of HBM against 0.026 ms of bf16 tensor-core time, so the
-//   products must run on the tensor cores to come near it). K/V are
-//   copied in once per CTA with 16-byte cp.async and each CTA walks many
-//   16-row query blocks of its (b, h), one warp a block, so 64 KB of K/V
-//   serve up to 1024 queries. Both products are mma.sync m16n8k16 bf16
-//   with fp32 sums, operands from ldmatrix (.trans for V) on rows padded
-//   to 72 elements (conflict-free). The softmax is online over 64-key
-//   chunks in fp32 registers on scores pre-scaled by log2(e), with
-//   exp2f. The probabilities go to P V as two bf16 operands, hi =
-//   bf16(e) and lo = bf16(e - hi), summed in one fp32 accumulator: e to
-//   about 2^-18, where one bf16 rounding of e (the TPU kernel's choice)
-//   would miss the plain version's fp32 result by some 2^-9 and break
-//   the two-ulp gate by 36x. e = 2^(s c - m) takes s c - m in one fmaf.
-//   The output is normalized and rounded once.
+//   bf16, largeq_fwd_wgmma_kernel, on Hopper's own instructions
+//   (csrc/hopper.cuh): 16f latent_dec moves 84 MB (q, k, v, out; 0.025 ms
+//   of HBM) and takes 17.2 GFLOP, 25.8 with the two-part P below (0.026
+//   ms of bf16 tensor-core time). A persistent grid of one CTA an SM walks
+//   (b, h, 64-query tile) items in (b, h)-major order, a balanced range a
+//   CTA. A producer warpgroup's first lane loads by TMA, behind mbarriers,
+//   K and V of each (b, h) the range enters (all keys, 128-byte swizzled,
+//   into a ring of two stages at 256 keys, so the next (b, h)'s keys load
+//   while this one's run) and each item's 64-row Q tile (TMA zero-fills
+//   rows past NQ and keys past NK). Three consumer warpgroups take every
+//   third item. Per 64-key block, S = Q K^T is wgmma m64n64k16 (both
+//   K-major in shared memory) and P V is wgmma m64n64k16 with P from
+//   registers (S's accumulator registers are mma.m16n8k16's A fragments)
+//   and V MN-major (the transpose bit), phased so that a block's softmax
+//   runs while the block before's P V does. The softmax keeps a reference
+//   m in the log2 domain that moves only where a block's maximum passes it
+//   by more than 8, so O is rescaled only there, and takes 2^(s c - m) by
+//   one fmaf and the SFU's ex2. The probabilities go to P V as two bf16
+//   operands, hi = bf16(e) and lo = bf16(e - hi), summed in one fp32
+//   accumulator: e to about 2^-18, where one bf16 rounding of e (the TPU
+//   kernel's choice) would miss the plain version's fp32 result by some
+//   2^-9 and break the two-ulp gate by 36x. The output is normalized and
+//   rounded once. 128-key blocks (S and P twice as wide) left ptxas short
+//   of registers at 384 threads: it spilled and ran the products one
+//   after another, setmaxnreg or not.
+//   Measured (chip_smoke.py's k2 phase, NVIDIA H100 80GB HBM3, 700 W):
+//   0.072 ms on the device at 16f latent_dec, SDPA 0.054; 0.068 at 128f,
+//   SDPA 0.054; by events, which hold the wrappers' host work, 0.073-0.094
+//   against 0.059 and 0.071 against 0.073-0.084. It loses at 16f: without
+//   any product (scripts/k2_variants.py, no_mma) the kernel still takes
+//   0.04 ms, its softmax and P's split (some 10 instructions a score on
+//   12 warps an SM) and its loads and stores, and the products overlap
+//   that only in part.
 //   fp32, largeq_kernel: each CTA takes 32 queries and does one softmax
 //   pass as fp32 FMA loops from shared memory (the parity checks only).
 //
@@ -81,8 +98,8 @@
 //   over the query tiles of one (b, h) per key tile.
 //   bf16: bound by operations (10 NQ NK Dh per (b, h), 0.11 ms at 128f
 //   latent_dec, against 0.03 ms of bytes); both passes run every
-//   product on the tensor cores with K2's fragments. largeq_bwd_dq_mma_
-//   kernel is K2's tile: K/V resident, a warp per 16-row block. Sweep 1
+//   product on the tensor cores with mma.sync fragments. largeq_bwd_dq_
+//   mma_kernel: K/V resident, a warp per 16-row block. Sweep 1
 //   takes S = Q K^T and dP = g V^T a 32-key chunk and keeps, beside the
 //   online softmax's (m, l), d = sum_k e_k keep_k dp_k rescaled by the
 //   same 2^(m_old - m_new): D = d / l is rowsum(g * O) without forming
@@ -130,6 +147,7 @@
 #include <type_traits>
 
 #include "card.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 #include "philox.cuh"
 
@@ -158,7 +176,11 @@ struct Dropout {
     return extra ? row + base + (row / bh_rows) * extra : row + base;
   }
   __device__ __forceinline__ float keep(uint32_t row, uint32_t key) const {
-    return philox_bits(seed, philox_row(row), key) >= thresh ? keep_scale : 0.f;
+    return keep_at(philox_row(row), key);
+  }
+  // keep() at a row already mapped by philox_row
+  __device__ __forceinline__ float keep_at(uint32_t prow, uint32_t key) const {
+    return philox_bits(seed, prow, key) >= thresh ? keep_scale : 0.f;
   }
 };
 
@@ -336,7 +358,7 @@ cudaError_t launch_smallq(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// K2 / K7 in bf16: tensor-core tiles (mma.sync m16n8k16, ldmatrix; the
+// K1, K6, K7 in bf16: tensor-core tiles (mma.sync m16n8k16, ldmatrix; the
 // fragment layouts and the instructions are in mma.cuh). Two
 // neighbouring C fragments of S are the A fragment of P for the next
 // product, with no data movement.
@@ -344,9 +366,8 @@ cudaError_t launch_smallq(const void* q, const void* k, const void* v,
 constexpr int TC_DH = 64;       // head width of every MeBT config
 constexpr int TC_PITCH = 72;    // bf16 per shared row: 144 B, so the 8 rows
                                 // an ldmatrix reads fall in distinct banks
-constexpr int TC_WARPS = 8;     // K2 / K7 dq: warps a CTA, 16 query rows each
+constexpr int TC_WARPS = 8;     // K7 dq: warps a CTA, 16 query rows each
 constexpr int TC_KPAD = 64;     // resident keys are padded to this multiple
-constexpr int K2_KC = 64;       // keys per online-softmax chunk, K2
 constexpr int K7_KC = 32;       // keys per chunk, K7's dq pass sweep 1
 constexpr int K7_KC2 = 16;      // keys per chunk, its sweep 2 (registers)
 constexpr int DKDV_WARPS = 4;   // K7 dk/dv: 16 keys a warp, 64 keys a CTA
@@ -528,7 +549,6 @@ __host__ __device__ constexpr int pad_keys(int NK) {
 inline size_t tc_smem_bytes(int NK, int qrows) {
   return sizeof(bf16) * TC_PITCH * ((size_t)2 * pad_keys(NK) + (size_t)TC_WARPS * qrows);
 }
-inline size_t k2_tc_smem_bytes(int NK) { return tc_smem_bytes(NK, 16); }
 inline size_t k7_dq_tc_smem_bytes(int NK) { return tc_smem_bytes(NK, 32); }
 constexpr size_t k7_dkdv_tc_smem_bytes() {
   return sizeof(bf16) * TC_PITCH * (2 * DKDV_WARPS * 16 + 2 * 2 * DKDV_QT) +
@@ -630,30 +650,8 @@ __device__ __forceinline__ void softmax_chunk(float (&o)[TC_DH / 8][4], float (&
   mma_ab_parts<NP, NT / 2>(o, pa, Vc, lane);
 }
 
-// K2's online softmax for one warp's 16 query rows: softmax_chunk over
-// all NK resident keys in chunks of KC. row0 = (b * H + h) * NQ + the
-// block's first row.
-template <int KC, int NP, bool DROP>
-__device__ __forceinline__ void attend_rows(float (&o)[TC_DH / 8][4], float (&m)[2], float (&l)[2],
-                                            const uint32_t (&qa)[TC_DH / 16][4], const bf16* Ks,
-                                            const bf16* Vs, int NK, float scale_log2,
-                                            uint32_t row0, const Dropout& drop, int lane) {
-  zero(o);
-  m[0] = m[1] = -INFINITY;
-  l[0] = l[1] = 0.f;
-  const uint32_t r0 = row0 + (lane >> 2);
-  for (int k0 = 0; k0 < NK; k0 += KC) {
-    uint32_t kbits[2];
-    softmax_chunk<KC, NP, DROP>(o, m, l, qa, Ks + k0 * TC_PITCH, Vs + k0 * TC_PITCH, NK - k0,
-                                scale_log2, r0, drop, lane,
-                                [k0](int c) { return (uint32_t)(k0 + c); }, kbits);
-  }
-  l[0] = quad_sum(l[0]);
-  l[1] = quad_sum(l[1]);
-}
-
 // Sweep 1 of K7's dq pass for one warp's 16 query rows (A fragments qa
-// of q, ga of g): the online softmax (m, l) of K2 and beside l the
+// of q, ga of g): the online softmax (m, l) of the forward and beside l the
 // unnormalized d = sum_k e_k keep_k dp_k with dp = g V^T, rescaled by the
 // same 2^(m_old - m_new), so that D = d / l = rowsum(g o O) (the
 // sum(dp * p) form of attention_pallas.py:_xla_bwd). Two products a
@@ -757,7 +755,7 @@ __device__ __forceinline__ void store_rows_f32(float* base, const float (&c)[TC_
   }
 }
 
-// Grid of K2 and K7's dq pass: (splits, B * H). Each CTA takes `bpc`
+// Grid of K7's dq pass: (splits, B * H). Each CTA takes `bpc`
 // consecutive 16-row blocks of its (b, h), warp w the blocks w, w +
 // TC_WARPS, ...; the split count is the one whose launch ends soonest
 // when the CTAs run in waves (slots = SMs x CTAs an SM), each CTA costing
@@ -789,63 +787,357 @@ cudaError_t tc_grid(Kern kern, size_t smem, int BH, int NQ, dim3& grid, int& bpc
   return cudaSuccess;
 }
 
-template <bool DROP>
-__global__ void __launch_bounds__(TC_WARPS * 32, 2)
-largeq_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ out, int NQ, int NK,
-                      int bpc, float scale_log2, Dropout drop) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int NKP = pad_keys(NK);
+// ---------------------------------------------------------------------------
+// K2 in bf16 on Hopper: largeq_fwd_wgmma_kernel (the source note above)
+
+constexpr int K2W_QT = 64;                 // query rows a tile: one warpgroup's m64
+constexpr int K2W_KB = 64;                 // keys a block: one m64n64 S accumulator
+constexpr int K2W_MAX_NK = 8 * K2W_KB;     // K/V of 512 keys fill 128 KB
+constexpr int K2W_CONSUMERS = 3;           // warpgroups of products and softmax
+constexpr float K2W_RESCALE = 8.f;         // log2 headroom of the softmax's reference m
+constexpr int K2W_QSTAGES = 2;             // Q ring depth a warpgroup
+constexpr int K2W_THREADS = (K2W_CONSUMERS + 1) * 128;  // + a producer warpgroup (one lane works)
+constexpr uint32_t K2W_TILE_BYTES = K2W_QT * TC_DH * 2;   // 8 KB
+constexpr uint32_t K2W_BLOCK_BYTES = K2W_KB * TC_DH * 2;  // 8 KB of K or of V
+
+// K/V stages for nkb key blocks: two at 256 keys (the next (b, h)'s K/V
+// loads while this one's run), one at 512
+__host__ __device__ constexpr int k2w_kv_stages(int nkb) { return nkb <= 4 ? 2 : 1; }
+
+__host__ __device__ constexpr size_t k2w_smem_bytes(int nkb) {
+  return 1024 + (size_t)k2w_kv_stages(nkb) * 2 * nkb * K2W_BLOCK_BYTES +
+         (size_t)K2W_CONSUMERS * K2W_QSTAGES * K2W_TILE_BYTES + 256;
+}
+
+// 2^x by the SFU alone (ex2.approx.ftz): exp2f's range fix-ups for results
+// below 2^-126 cost four more instructions an element, and such an e adds
+// nothing a row's sum (at least 1) keeps
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The (b, h, 64-query tile) items of the problem in (b, h)-major order,
+// t = bh * ceil(NQ / 64) + tile; CTA c walks items [t0, t1), a balanced
+// share, and consumer warpgroup w takes items t0 + w, t0 + w + C, ...
+// (C = K2W_CONSUMERS). The producer warpgroup's first lane streams what
+// they need: K and V of each (b, h) the range enters (into a ring of
+// k2w_kv_stages, so the next (b, h)'s keys load while this one's run),
+// then each item's Q tile into its warpgroup's two-stage ring. Every
+// consumer warpgroup holds every (b, h) of the range in turn, and
+// releases it when it is past it, whether or not it had an item in it.
+//
+// NKB 64-key blocks (4 up to 256 keys, 8 up to 512); a block wholly past
+// NK is never loaded, and its V rows are zeroed once (its P is 0, and
+// 0 x V must stay 0). A tile runs in NKB + 1 phases: phase b rescales O by
+// the block before's new maximum, issues S = Q K^T of block b and P V of
+// block b - 1 (P from registers, in two bf16 parts), draws block b's keep
+// bits (dropout) while they run, waits for S, runs the softmax on it while
+// P V runs, waits for P V, and turns S into P. The warpgroups run their
+// phases unsynchronised: the tensor cores take their products as they
+// come.
+template <bool DROP, int NKB>
+__global__ void __launch_bounds__(K2W_THREADS, 1)
+largeq_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ out, int NQ,
+                        int NK, int n_items, float scale_log2, Dropout drop) {
+  constexpr int KB_ELEMS = K2W_KB * TC_DH, TILE_ELEMS = K2W_QT * TC_DH;
+  constexpr int KVS = k2w_kv_stages(NKB);
+  const int nkb = (NK + K2W_KB - 1) / K2W_KB;  // blocks that hold a key
+  extern __shared__ unsigned char k2w_smem[];
+  unsigned char* base = align1024(k2w_smem);
+  bf16* kv = reinterpret_cast<bf16*>(base);  // stage s: NKB K blocks, then NKB V blocks
+  bf16* qs = kv + (size_t)KVS * 2 * NKB * KB_ELEMS;  // tile (w, stage) at w * QSTAGES + stage
+  uint64_t* bars = reinterpret_cast<uint64_t*>(qs + K2W_CONSUMERS * K2W_QSTAGES * TILE_ELEMS);
+  uint64_t* kv_full = bars;                          // [KVS]
+  uint64_t* kv_empty = bars + 2;                     // [KVS], a warp of each warpgroup
+  uint64_t* q_full = bars + 4;                       // [w * QSTAGES + stage]
+  uint64_t* q_empty = q_full + K2W_CONSUMERS * K2W_QSTAGES;  // the 4 warps of w
+
+  const int nqt = (NQ + K2W_QT - 1) / K2W_QT;
+  const int t0 = (int)((long long)blockIdx.x * n_items / gridDim.x);
+  const int t1 = (int)((long long)(blockIdx.x + 1) * n_items / gridDim.x);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [NKP][PITCH]
-  bf16* Vs = Ks + (size_t)NKP * TC_PITCH;        // [NKP][PITCH]
-  bf16* Qw = Vs + (size_t)NKP * TC_PITCH + warp * 16 * TC_PITCH;  // [16][PITCH]
-
-  const int bh = blockIdx.y;
-  const int nb = (NQ + 15) / 16;
-  const int b_end = min(nb, (int)(blockIdx.x + 1) * bpc);
-  const bf16* qg = q + (size_t)bh * NQ * TC_DH;
-  bf16* og = out + (size_t)bh * NQ * TC_DH;
-
-  load_kv(Ks, Vs, k + (size_t)bh * NK * TC_DH, v + (size_t)bh * NK * TC_DH, NK);
-  int blk = blockIdx.x * bpc + warp;
-  if (blk < b_end) copy_rows(Qw, qg, blk * 16, 16, NQ, lane, 32);
-  cp_async_commit();
-  cp_async_wait_all();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < KVS; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], 4 * K2W_CONSUMERS);
+    }
+    for (int i = 0; i < K2W_CONSUMERS * K2W_QSTAGES; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], 4);
+    }
+    mbar_init_fence();
+  }
+  if (nkb < NKB) {  // the V blocks that no load fills
+    for (int s = 0; s < KVS; ++s) {
+      uint4* z = reinterpret_cast<uint4*>(kv + ((size_t)s * 2 * NKB + NKB + nkb) * KB_ELEMS);
+      for (int i = threadIdx.x; i < (NKB - nkb) * KB_ELEMS / 8; i += blockDim.x)
+        z[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // seen by wgmma
+  }
   __syncthreads();
 
-  for (; blk < b_end; blk += TC_WARPS) {
-    uint32_t qa[TC_DH / 16][4];
-    load_a(qa, Qw, lane);
-    __syncwarp();  // every lane's fragments are read before the next copy lands
-    if (blk + TC_WARPS < b_end) copy_rows(Qw, qg, (blk + TC_WARPS) * 16, 16, NQ, lane, 32);
-    cp_async_commit();
+  if (warp >= 4 * K2W_CONSUMERS) {
+    // the producer warpgroup: one lane issues every load
+    if (warp == 4 * K2W_CONSUMERS && lane == 0) {
+      int kvs = 0, qst[K2W_CONSUMERS] = {};
+      uint32_t kvph = 0, qph[K2W_CONSUMERS] = {};
+      int cur = -1;
+      for (int t = t0; t < t1; ++t) {
+        const int bh = t / nqt, qt = t - bh * nqt;
+        if (bh != cur) {
+          mbar_wait(&kv_empty[kvs], kvph ^ 1);
+          mbar_expect_tx(&kv_full[kvs], 2 * nkb * K2W_BLOCK_BYTES);
+          bf16* ks = kv + (size_t)kvs * 2 * NKB * KB_ELEMS;
+          for (int b = 0; b < nkb; ++b) {
+            tma_load_3d(ks + b * KB_ELEMS, &kmap, &kv_full[kvs], 0, b * K2W_KB, bh);
+            tma_load_3d(ks + (NKB + b) * KB_ELEMS, &vmap, &kv_full[kvs], 0, b * K2W_KB, bh);
+          }
+          cur = bh;
+          if (++kvs == KVS) {
+            kvs = 0;
+            kvph ^= 1;
+          }
+        }
+        const int w = (t - t0) % K2W_CONSUMERS, i = w * K2W_QSTAGES + qst[w];
+        mbar_wait(&q_empty[i], qph[w] ^ 1);
+        mbar_expect_tx(&q_full[i], K2W_TILE_BYTES);
+        tma_load_3d(qs + (size_t)i * TILE_ELEMS, &qmap, &q_full[i], 0, qt * K2W_QT, bh);
+        if (++qst[w] == K2W_QSTAGES) {
+          qst[w] = 0;
+          qph[w] ^= 1;
+        }
+      }
+    }
+  } else {
+    // a consumer warpgroup: warp wl of it holds tile rows 16 wl + g, + 8.
+    // S (32 registers), P's two parts (32) and O (32) live across a phase
+    // with the softmax's temporaries within the 128 a thread that 512
+    // threads leave (three consumer warpgroups: 12 warps an SM to hide
+    // the softmax's latencies, where two ran longer, and the kernel
+    // is bound by its instructions, scripts/k2_variants.py).
+    // The warpgroup index as the compiler can see it is warp-uniform.
+    const int wg = __shfl_sync(FULL, warp >> 2, 0), wl = warp & 3, g = lane >> 2, tq = lane & 3;
+    constexpr int C = K2W_CONSUMERS;
+    // the (b, h) whose K/V stage this warpgroup holds; hold(bh) releases
+    // the ones before bh and waits for bh's
+    const int bh0 = t0 / nqt;
+    int cur = bh0 - 1, kvs = 0;
+    uint32_t kvph = 0;
+    auto hold = [&](int bh) {
+      while (cur < bh) {
+        if (cur >= bh0) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&kv_empty[kvs]);
+          if (++kvs == KVS) {
+            kvs = 0;
+            kvph ^= 1;
+          }
+        }
+        ++cur;
+        mbar_wait(&kv_full[kvs], kvph);
+      }
+    };
+    int qst = 0;
+    uint32_t qph = 0;
+    for (int t = t0 + wg; t < t1; t += C) {
+      const int bh = t / nqt, qt = t - bh * nqt;
+      hold(bh);
+      const int qi = wg * K2W_QSTAGES + qst;
+      mbar_wait(&q_full[qi], qph);
+      const bf16* qtile = qs + (size_t)qi * TILE_ELEMS;
+      const bf16* ks = kv + (size_t)kvs * 2 * NKB * KB_ELEMS;
+      const bf16* vs = ks + NKB * KB_ELEMS;
+      const int row0 = qt * K2W_QT + wl * 16 + g;  // rows row0 and row0 + 8 of (b, h)
+      uint32_t prow[2] = {0u, 0u};  // their Philox rows
+      if (DROP) {
+        const uint32_t r = (uint32_t)bh * (uint32_t)NQ + (uint32_t)row0;
+        prow[0] = drop.philox_row(r);
+        prow[1] = drop.philox_row(r + 8);
+      }
+      // the tiles' descriptors, once a tile; a product's is its tile's plus
+      // the offset of its 16-deep step (wg_desc_at)
+      const uint64_t dq = wg_desc(qtile), dk = wg_desc(ks), dv = wg_desc(vs);
 
-    float o[TC_DH / 8][4], m[2], l[2];
-    attend_rows<K2_KC, K2_PARTS, DROP>(o, m, l, qa, Ks, Vs, NK, scale_log2,
-                             (uint32_t)bh * (uint32_t)NQ + (uint32_t)(blk * 16), drop, lane);
-    const float inv[2] = {1.f / l[0], 1.f / l[1]};
-    store_rows(og + (size_t)blk * 16 * TC_DH, o, inv, NQ - blk * 16, lane);
-    cp_async_wait_all();
-    __syncwarp();
+      float sc[K2W_KB / 2], o[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+      float alpha[2] = {1.f, 1.f};
+      uint32_t pa[K2_PARTS][K2W_KB / 16][4];
+#pragma unroll
+      for (int b = 0; b <= NKB; ++b) {
+        if (b >= 2 && (alpha[0] != 1.f || alpha[1] != 1.f)) {
+          // O through block b - 2 to block b - 1's reference m
+#pragma unroll
+          for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+        }
+        wgmma_fence_regs(o);
+        wgmma_fence();
+        // this phase's products: S = Q K^T over block b's 64 keys, 16 deep
+        // a product, then P V of block b - 1
+        if (b < NKB) {
+#pragma unroll
+          for (int k16 = 0; k16 < TC_DH / 16; ++k16)
+            wgmma_m64n64k16(sc, wg_desc_at(dq, 32 * k16),
+                            wg_desc_at(dk, 2 * (b * KB_ELEMS + k16 * 16)), k16);
+          wgmma_commit();
+        }
+        if (b > 0) {  // O += P V over block b - 1; V MN-major (transposed)
+#pragma unroll
+          for (int k = 0; k < K2W_KB / 16; ++k)
+#pragma unroll
+            for (int p = 0; p < K2_PARTS; ++p)
+              wgmma_m64n64k16_rt(o, pa[p][k],
+                                 wg_desc_at(dv, 2 * ((b - 1) * KB_ELEMS + k * 16 * TC_DH)),
+                                 b > 1 || k > 0 || p > 0);
+          wgmma_commit();
+        }
+        uint32_t kbits = 0;  // block b's keep bits, bit i for sc[i]
+        if (DROP && b < NKB) {
+          const int k0 = b * K2W_KB;
+#pragma unroll
+          for (int i = 0; i < K2W_KB / 2; ++i)
+            kbits |= (drop.keep_at(prow[(i >> 1) & 1],
+                                   (uint32_t)(k0 + (i >> 2) * 8 + 2 * tq + (i & 1))) != 0.f)
+                     << i;
+        }
+        if (b < NKB) {
+          if (b > 0) wgmma_wait<1>();  // S has landed; P V may still run
+          else wgmma_wait<0>();
+          wgmma_fence_regs(sc);
+          if (b == NKB - 1) {  // the Q tile is read: its stage goes back to the producer
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&q_empty[qi]);
+            if (++qst == K2W_QSTAGES) {
+              qst = 0;
+              qph ^= 1;
+            }
+          }
+          // the softmax of rows g (e < 2) and g + 8 over the block's live keys
+          const int k0 = b * K2W_KB;
+          if (k0 + K2W_KB > NK) {
+#pragma unroll
+            for (int i = 0; i < K2W_KB / 2; ++i)
+              if (k0 + (i >> 2) * 8 + 2 * tq + (i & 1) >= NK) sc[i] = -INFINITY;
+          }
+          // the rows' maxima and sums by trees (short dependence chains)
+          float mx[2][K2W_KB / 8];
+#pragma unroll
+          for (int j = 0; j < K2W_KB / 8; ++j) {
+            mx[0][j] = fmaxf(sc[4 * j], sc[4 * j + 1]);
+            mx[1][j] = fmaxf(sc[4 * j + 2], sc[4 * j + 3]);
+          }
+#pragma unroll
+          for (int w = K2W_KB / 16; w >= 1; w >>= 1)
+#pragma unroll
+            for (int j = 0; j < w; ++j) {
+              mx[0][j] = fmaxf(mx[0][j], mx[0][j + w]);
+              mx[1][j] = fmaxf(mx[1][j], mx[1][j + w]);
+            }
+          // the reference m moves only when the block's maximum passes it by
+          // more than 8 (log2): e then stays below 2^8, exact in fp32 and
+          // split alike, and O is rescaled only where m moved (rarely after
+          // the first block)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float x = mx[h][0];
+            x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
+            x = fmaxf(x, __shfl_xor_sync(FULL, x, 2));
+            x *= scale_log2;  // finite on the first block: key 0 is live
+            alpha[h] = 1.f;
+            if (x > m[h] + K2W_RESCALE) {
+              alpha[h] = exp2_ftz(m[h] - x);  // 0 on the first block
+              m[h] = x;
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < K2W_KB / 2; ++i)
+            sc[i] = exp2_ftz(fmaf(sc[i], scale_log2, -m[(i >> 1) & 1]));
+          float sm[2][K2W_KB / 8];  // the undropped e, the denominator's
+#pragma unroll
+          for (int j = 0; j < K2W_KB / 8; ++j) {
+            sm[0][j] = sc[4 * j] + sc[4 * j + 1];
+            sm[1][j] = sc[4 * j + 2] + sc[4 * j + 3];
+          }
+#pragma unroll
+          for (int w = K2W_KB / 16; w >= 1; w >>= 1)
+#pragma unroll
+            for (int j = 0; j < w; ++j) {
+              sm[0][j] += sm[0][j + w];
+              sm[1][j] += sm[1][j + w];
+            }
+          l[0] = l[0] * alpha[0] + sm[0][0];
+          l[1] = l[1] * alpha[1] + sm[1][0];
+          if (DROP) {
+#pragma unroll
+            for (int i = 0; i < K2W_KB / 2; ++i)
+              sc[i] *= (kbits >> i) & 1u ? drop.keep_scale : 0.f;
+          }
+        }
+        wgmma_wait<0>();
+        wgmma_fence_regs(o);
+        if (b < NKB) {
+          // keys 16 k .. 16 k + 15 are S's columns 8 (2 k) .. and 8 (2 k + 1)
+          // .., whose accumulator registers s[8 k .. 8 k + 7] are
+          // mma.m16n8k16's A fragment of them, pair by pair: P's two parts
+#pragma unroll
+          for (int k = 0; k < K2W_KB / 16; ++k)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              uint32_t t2[K2_PARTS];
+              split_pair<K2_PARTS>(sc[8 * k + 2 * r], sc[8 * k + 2 * r + 1], t2);
+#pragma unroll
+              for (int p = 0; p < K2_PARTS; ++p) pa[p][k][r] = t2[p];
+            }
+        }
+      }
+      // normalize, round once, store the rows below NQ
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float inv = 1.f / quad_sum(l[h]);
+        const int row = row0 + 8 * h;
+        if (row >= NQ) continue;
+        bf16* dst = out + ((size_t)bh * NQ + row) * TC_DH + 2 * tq;
+#pragma unroll
+        for (int j = 0; j < TC_DH / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
+              __floats2bfloat162_rn(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+      }
+    }
+    // on to the range's last (b, h): the producer's ring waits for the
+    // releases
+    hold((t1 - 1) / nqt);
   }
 }
 
 template <bool DROP>
-cudaError_t launch_largeq_mma(const void* q, const void* k, const void* v, void* out, int B,
-                              int H, int NQ, int NK, float scale, Dropout drop,
-                              cudaStream_t stream) {
+cudaError_t launch_largeq_wgmma(const void* q, const void* k, const void* v, void* out, int B,
+                                int H, int NQ, int NK, float scale, Dropout drop,
+                                cudaStream_t stream) {
   if (NQ == 0) return cudaSuccess;
-  const size_t smem = k2_tc_smem_bytes(NK);
-  auto kern = largeq_fwd_mma_kernel<DROP>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  dim3 grid;
-  int bpc = 0;
-  if (e == cudaSuccess) e = tc_grid(kern, smem, B * H, NQ, grid, bpc);
+  if (NK < 1 || NK > K2W_MAX_NK) return cudaErrorInvalidValue;
+  const uint64_t BH = (uint64_t)B * H, row = TC_DH * sizeof(bf16);
+  const uint64_t qdims[3] = {TC_DH, (uint64_t)NQ, BH}, qbytes[2] = {row, row * NQ};
+  const uint64_t kdims[3] = {TC_DH, (uint64_t)NK, BH}, kbytes[2] = {row, row * NK};
+  const uint32_t qbox[3] = {TC_DH, K2W_QT, 1}, kbox[3] = {TC_DH, K2W_KB, 1};
+  CUtensorMap qm, km, vm;
+  cudaError_t e = tma_map_bf16(qm, q, 3, qdims, qbytes, qbox);
+  if (e == cudaSuccess) e = tma_map_bf16(km, k, 3, kdims, kbytes, kbox);
+  if (e == cudaSuccess) e = tma_map_bf16(vm, v, 3, kdims, kbytes, kbox);
+  const int nkb = NK > 4 * K2W_KB ? 8 : 4;
+  auto kern = nkb == 8 ? largeq_fwd_wgmma_kernel<DROP, 8> : largeq_fwd_wgmma_kernel<DROP, 4>;
+  const size_t smem = k2w_smem_bytes(nkb);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int sms = 0, smem_sm = 0, optin = 0;
+  if (e == cudaSuccess) e = card_shape(sms, smem_sm, optin);
   if (e != cudaSuccess) return e;
-  kern<<<grid, TC_WARPS * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), NQ, NK, bpc, scale * LOG2E, drop);
+  const int n_items = (int)BH * ((NQ + K2W_QT - 1) / K2W_QT);
+  const int grid = n_items < sms ? n_items : sms;
+  kern<<<grid, K2W_THREADS, smem, stream>>>(qm, km, vm, static_cast<bf16*>(out), NQ, NK, n_items,
+                                            scale * LOG2E, drop);
   return cudaGetLastError();
 }
 
@@ -1997,8 +2289,8 @@ cudaError_t launch_largeq(const void* q, const void* k, const void* v,
                           void* out, int B, int H, int NQ, int NK, float scale,
                           Dropout drop, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    static_assert(DH == TC_DH, "the tensor-core K2 takes Dh 64");
-    return launch_largeq_mma<DROP>(q, k, v, out, B, H, NQ, NK, scale, drop, stream);
+    static_assert(DH == TC_DH, "the wgmma K2 takes Dh 64");
+    return launch_largeq_wgmma<DROP>(q, k, v, out, B, H, NQ, NK, scale, drop, stream);
   } else {
     const size_t smem = k2_smem_bytes<T, DH>(NK);
     auto kern = largeq_kernel<T, DH, DROP>;
@@ -2517,7 +2809,9 @@ int mebt_smallq_attention(const void* q, const void* k, const void* v,
 // Dynamic shared memory K2 needs for NK keys, in bytes. The caller
 // refuses shapes above the card's per-block limit.
 size_t mebt_largeq_smem_bytes(int NK, int is_bf16) {
-  return is_bf16 ? k2_tc_smem_bytes(NK) : k2_smem_bytes<float, 64>(NK);
+  if (!is_bf16) return k2_smem_bytes<float, 64>(NK);
+  // past 512 keys the kernel takes no launch: more than any card has
+  return NK > K2W_MAX_NK ? ((size_t)1 << 30) : k2w_smem_bytes(NK > 4 * K2W_KB ? 8 : 4);
 }
 
 // q (B,H,NQ,Dh), k/v (B,H,NK,Dh) -> out (B,H,NQ,Dh) in the input type.

@@ -38,23 +38,19 @@
 // nearer 1.8-2 ms than the bound. K4 and K5 draw only for their k
 // survivors.
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W, R 16384
-// (scripts/head_sample_variants.py): the tiles alone run at 237 (K3) and
-// 207 (K4) TFLOP/s, a quarter of peak (mma.sync, x and W re-read from L2
-// for each 128 x 128 tile, 8 warps an SM); K3's epilogue adds 2.4 ms
-// (1.7 of it the noise), K4's 2.2 ms (some 15 dependent rescans per warp,
-// row slot and chunk). The epilogue overlaps the next chunk's loads, not
-// the products: 4.7 and 4.9 ms in all. K5 (the same script, run X in
-// PERF.md section 6): its tile alone 2.64 ms, its epilogue 0.76 (some
-// 1050 turns a warp and slice of 64 chunks), 3.40 ms in all.
+// (scripts/head_sample_variants.py, on the mma.sync tile K3 keeps): the
+// tile alone runs at 237 TFLOP/s, a quarter of peak (x and W re-read from
+// L2 for each 128 x 128 tile, 8 warps an SM); K3's epilogue adds 2.4 ms
+// (1.7 of it the noise), overlapping the next chunk's loads, not the
+// products: 4.7 ms in all. K4 and K5: the wgmma tile below.
 //
-// bf16 (head_sample_mma_kernel, head_topk_mma_kernel and K5's
-// head_topk_v1_mma_kernel; the product of the TPU kernels, bf16 operands
-// with fp32 sums): a CTA takes 128 rows, 4
+// bf16 K3 (head_sample_mma_kernel; the product of the TPU kernels, bf16
+// operands with fp32 sums): a CTA takes 128 rows, 4
 // warps of 32, and walks 128-column chunks of ITS SLICE of the
 // vocabulary. x and W tiles stream along D 64 deep at a time with 16-byte
 // cp.async into a two-stage ring on rows padded to 72 elements, read by
-// ldmatrix (a third stage left L1 too small for the epilogues' local
-// arrays and K4's buffers room for one CTA an SM); the
+// ldmatrix (a third stage left L1 too small for the epilogue's local
+// arrays); the
 // product is mma.sync m16n8k16 (bf16 -> fp32), a warp's 32 x 128 tile in
 // 128 fp32 registers a thread. The loads of the next chunk are in flight
 // while the epilogue reads the finished chunk straight from the
@@ -64,21 +60,42 @@
 // and no barrier per chunk beyond the ring's one per 64-deep stage.
 // W (32 MB in bf16) fits the 50 MB L2, so the row blocks' re-reads of it
 // come from L2.
+//
+// bf16 K4 and K5 (head_topk_wgmma_kernel, head_topk_v1_wgmma_kernel: one
+// tile, topk_slice<Epi>, two epilogues) on Hopper's own instructions
+// (csrc/hopper.cuh): a CTA takes 128 rows (64 where k passes about 80 and
+// the row buffers fill shared memory) and walks 128-column chunks of its
+// slice. A producer warp streams each 64-deep stage, the CTA's x rows and
+// the chunk's 128 W rows, by TMA into a ring of up to 4 stages in
+// 128-byte-swizzled shared memory, behind mbarriers (full: the bytes have
+// landed; empty: every consumer warp has read the stage). Each consumer
+// warpgroup multiplies its 64 rows by the chunk with wgmma m64n128k16
+// (4 a stage, B = W K-major as stored), keeps one stage's products in
+// flight while it waits for the next, and at the chunk's end runs its
+// epilogue on the accumulator: a thread holds 2 rows of its warp (g, g +
+// 8) and 32 columns of each in the m16n8 C layout, so the quads of the
+// mma.sync tile carry over with half the row slots. While one warpgroup
+// selects, the other's products and the producer's loads go on; the
+// ring's depth lets the warpgroups drift up to 3 stages apart.
+// Measured (chip_smoke.py's k4 and k5 phases, NVIDIA H100 80GB HBM3,
+// 700 W): K4 2.11 / 1.23 / 0.62 ms at R 16384 / 6400 / 3328 against the
+// library's 4.57 / 1.94 / 1.11 (torch.matmul and the plain top-k sampler)
+// and the bound's 0.56 / 0.22 / 0.11; K5 the same within 3%.
 // K3's epilogue: per thread and row an online max and sum of exp and a
 // running Gumbel argmax over its own columns, which it visits in column
 // order (strict '>': the lowest column wins a tie); the quad's four
 // states are merged once per slice by shuffles (a tie to the lower
-// column). K4's epilogue: per thread and row the pre-filter against the
-// row's k-th pair as it stood when the chunk began (the k-th pair only
-// moves ahead, so nothing that can still enter is dropped); only when a
-// quad holds a candidate does the warp, converged, walk the candidates:
-// one that still comes before the k-th fills an empty slot or replaces
-// the k-th, and the quad finds the new k-th pair (k / 4 slots a thread,
-// two shuffles); at the slice's end each pair's rank gives its place.
-// Both epilogues loop over a thread's columns rolled where the body is
-// long (K3's noise two columns a turn, K4's walk over the set bits of the
-// warp's candidate mask): unrolled 32 times the code outgrew the
-// instruction cache (K4's walk ran 23 ms against 4.9).
+// column); its noise loop takes two columns a turn (unrolled 32 times,
+// Philox inline, it ran 4% slower: instruction fetch). K4's epilogue
+// (TopkEpi): per thread and row the pre-filter against the row's k-th
+// pair as it stood when the chunk began (the k-th pair only moves ahead,
+// so nothing that can still enter is dropped); where a quad of the warp
+// holds a candidate, the eight quads walk their rows' candidates best
+// first (each thread's best by a comparison tree over its registers, the
+// quad's by two shuffles): one that still comes before the k-th fills an
+// empty slot or replaces the k-th, and the quad finds the new k-th pair
+// (k / 4 slots a thread, two shuffles); the walk stops at the first that
+// would not enter. At the slice's end each pair's rank gives its place.
 // The grid is (row blocks) x (S vocabulary slices of whole chunks); the
 // host picks S from the card's SM count (read once) so that the CTAs
 // fill the card at every R the decode runs (R from 3328 to 16384). Each
@@ -123,12 +140,12 @@
 // once to stop in each chunk where one entered. No decode path runs K5,
 // as none in the JAX package runs v1.
 //
-// bf16 (head_topk_v1_mma_kernel + head_topk_merge_kernel): K4's tile,
+// bf16 (head_topk_v1_wgmma_kernel + head_topk_merge_kernel): K4's tile,
 // slices, plan, scratch and merge, with SortedEpi for TopkEpi. The loop
 // reads the accumulator fragments: the quad that owns a row extracts for
 // it (each thread's best remaining candidate, the quad's best by two
 // shuffles), so a warp's eight quads run eight rows' loops side by side
-// (K4 walks its candidates one at a time a warp). The insertion compares
+// (K4's walk does the same into its unsorted buffer). The insertion compares
 // each slot with the new pair and with the slot before it, 8 slots a
 // thread in blocks of 32 from the end, no count of the pairs ahead
 // first. A slice leaves its k pairs already sorted, which is exactly K4's
@@ -153,6 +170,7 @@
 #include <stdint.h>
 
 #include "card.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 #include "philox.cuh"
 
@@ -593,7 +611,9 @@ cudaError_t launch_topk_v1_fma(const void* x, const void* w, void* ids, void* pr
 }
 
 // ---------------------------------------------------------------------------
-// bf16 K3, K4 and K5: tensor-core logits tiles over a slice of the vocabulary
+// bf16 K3: the mma.sync logits tile over a slice of the vocabulary (K4
+// and K5 take the wgmma tile below; the slices, their plan and K4's merge
+// serve all three)
 
 using bf16 = __nv_bfloat16;
 
@@ -606,7 +626,7 @@ constexpr int HT_PITCH = 72;       // bf16 a shared row: 144 B, so the 8 rows an
                                    // ldmatrix reads fall in distinct banks
 constexpr int HT_MAX_SPLITS = 32;  // K4's merge holds one slice a lane
 constexpr int HT_STAGES = 2;       // ring depth: three stages left L1 too small for the
-                                   // epilogues' local arrays (K3 4% slower, H100)
+                                   // epilogue's local arrays (K3 4% slower, H100)
 constexpr int TOPK_WARMUP = 3;     // chunks a K4 / K5 slice's start costs (head_plan)
 constexpr int MERGE_WARPS = 8;
 
@@ -617,13 +637,8 @@ __host__ __device__ inline size_t ht_stage_bytes(int nw) {
   return sizeof(bf16) * (size_t)(nw * HT_WM + HT_BN) * HT_PITCH;
 }
 
-// Dynamic shared memory of the bf16 K3 (k = 0), K4 or K5: the ring, and
-// K4's or K5's buffers of k (value, column) pairs a row, pitch k + 1 so
-// that the eight rows a warp's quads own fall in different banks.
-inline size_t ht_smem_bytes(int nw, int k) {
-  return HT_STAGES * ht_stage_bytes(nw) +
-         (size_t)nw * HT_WM * (k ? k + 1 : 0) * (sizeof(float) + sizeof(int));
-}
+// Dynamic shared memory of the bf16 K3: the ring.
+inline size_t ht_smem_bytes(int nw) { return HT_STAGES * ht_stage_bytes(nw); }
 
 // A thread's accumulator at row slot j = 2 mt + h (row g + 8 h + 16 mt of
 // its warp), column 8 nt + 2 t + e of the chunk. j is a runtime index and
@@ -875,40 +890,114 @@ head_sample_merge_kernel(const unsigned char* __restrict__ parts, size_t part_by
   probs[row] = expf(bl - (m + logf(sum)));
 }
 
+// ---------------------------------------------------------------------------
+// bf16 K4 and K5 on Hopper: the wgmma tile (the source note above)
+
+constexpr int HW_BN = 128;    // vocabulary columns a chunk: m64n128k16
+constexpr int HW_BK = 64;     // depth a stage: one 128-byte swizzled row
+constexpr int HW_ROWS = 64;   // rows a consumer warpgroup: m64
+constexpr int HW_MAX_WG = 2;  // consumer warpgroups a CTA at most
+constexpr int HW_MAX_STAGES = 4;
+constexpr uint32_t HW_X_BYTES = HW_ROWS * HW_BK * 2;  // a warpgroup's x rows a stage: 8 KB
+constexpr uint32_t HW_W_BYTES = HW_BN * HW_BK * 2;    // a chunk's W rows a stage: 16 KB
+
+// A thread's accumulator of a chunk: row slot j (row g + 8 j of its warp's
+// 16), column 8 nt + 2 t + e at [4 nt + 2 j + e]
+using WAcc = float[HW_BN / 2];
+
+__host__ __device__ inline size_t hw_stage_bytes(int nwg) {
+  return (size_t)nwg * HW_X_BYTES + HW_W_BYTES;
+}
+
+// Dynamic shared memory of the bf16 K4 or K5: the ring (1024-aligned),
+// its barriers, and the buffers of k (value, column) pairs a row, pitch
+// k + 1 so that the eight rows a warp's quads own fall in different banks.
+inline size_t hw_smem_bytes(int nwg, int stages, int k) {
+  return 1024 + (size_t)stages * (hw_stage_bytes(nwg) + 2 * sizeof(uint64_t)) +
+         (size_t)nwg * HW_ROWS * (k + 1) * (sizeof(float) + sizeof(int));
+}
+
 // What K4's and K5's epilogues share: the CTA's rows' buffers of k
 // (value, column) pairs, pitch k + 1 so that the eight rows a warp's quads
 // own fall in different banks; the thread's CTA row rl0 (row0 of x) and
-// quad place t: its row slot j is CTA row rl0 + 8 (j & 1) + 16 (j >> 1),
-// its columns of a chunk 8 nt + 2 t + e.
+// quad place t: its row slot j is CTA row rl0 + 8 j, its columns of a
+// chunk 8 nt + 2 t + e.
 struct TopkRows {
   float* bv;  // the CTA's rows' values, pitch k + 1
   int* bi;    // their columns, of the whole vocabulary (W's first is col_off)
   int k, rl0, row0, t, R, V, col_off;
   float inv_temp;
+
+  // the thread's columns of the chunk at c0 that lie before V, as bits
+  __device__ __forceinline__ unsigned live_cols(int c0) const {
+    if (c0 + HW_BN <= V) return FULL;
+    unsigned live = 0;
+#pragma unroll
+    for (int c = 0; c < HW_BN / 4; ++c)
+      if (c0 + (c >> 1) * 8 + 2 * t + (c & 1) < V) live |= 1u << c;
+    return live;
+  }
+
+  // the thread's 32 logits of row slot J, scaled
+  template <int J>
+  __device__ __forceinline__ void scaled(const WAcc& acc, float (&l)[HW_BN / 4]) const {
+#pragma unroll
+    for (int c = 0; c < HW_BN / 4; ++c) l[c] = acc[4 * (c >> 1) + 2 * J + (c & 1)] * inv_temp;
+  }
+
+  // The best of the logits `left` of l: value, column and bit; (-inf, no
+  // column) when none is left. A tree of 31 comparisons, five deep, over
+  // the registers; the left operand keeps a tie, so the lower bit, which
+  // is the lower column, wins.
+  __device__ __forceinline__ void best(const float (&l)[HW_BN / 4], unsigned left, int c0,
+                                       float& mv, int& mc, int& mbit) const {
+    float v[HW_BN / 4];
+    int b[HW_BN / 4];
+#pragma unroll
+    for (int c = 0; c < HW_BN / 4; ++c) {
+      v[c] = (left >> c) & 1u ? l[c] : -CUDART_INF_F;
+      b[c] = c;
+    }
+#pragma unroll
+    for (int w = 1; w < HW_BN / 4; w <<= 1)
+#pragma unroll
+      for (int c = 0; c < HW_BN / 4; c += 2 * w)
+        if (v[c + w] > v[c]) {
+          v[c] = v[c + w];
+          b[c] = b[c + w];
+        }
+    mv = v[0];
+    mbit = b[0];
+    mc = left ? col_off + c0 + (mbit >> 1) * 8 + 2 * t + (mbit & 1) : 0x7fffffff;
+  }
 };
 
 // K4's epilogue. A row's buffer holds its k best (value, column) pairs of
 // the slice so far, unsorted; its four quad threads keep, in registers,
 // the count of filled slots and the worst pair (the k-th, and its slot).
-// Per chunk a thread holds its 32 logits of a row against that k-th pair
-// as it stood when the chunk began (it only moves ahead, so nothing that
-// can still enter is dropped). Only when a quad has a candidate does the
-// warp walk the candidates, each broadcast from its thread to the quad:
-// one that still comes before the k-th fills the next empty slot or
-// replaces the k-th, and then the quad finds the new worst pair (k / 4
-// slots a thread, two shuffles). Every warp-wide step runs converged: a
-// full-warp shuffle inside one quad's branch made the first version of
-// this loop ten times slower than the tile. After the slice each row's k
-// pairs are ranked under the total order and stored sorted for the merge.
+// Per chunk and row slot a thread takes its 32 logits of the row into
+// registers and marks those that come before the row's k-th pair as it
+// stood when the chunk began (it only moves ahead, so nothing that can
+// still enter is dropped). Where some quad of the warp holds one (a
+// ballot), the warp's eight quads walk their rows' candidates side by
+// side, best first: each thread offers its best remaining one (a
+// comparison tree over its registers), the quad takes the best of the
+// four (two shuffles), and while that comes before the k-th pair it fills
+// the next empty slot or replaces the k-th; a full buffer's new k-th is
+// then its worst pair (k / 4 slots a thread, two shuffles). Best first, a
+// chunk inserts only the logits that stay in the row's top k of the
+// slice so far, and the walk stops at the first that would not (the
+// column-order walk of PR 8 inserted and evicted, with a rescan each).
+// Every warp-wide step runs converged; a quad whose walk has ended idles
+// until the warp's last. After the slice each row's k pairs are ranked
+// under the total order and stored sorted for the merge.
 struct TopkEpi : TopkRows {
-  int qbase;
-  float kv[4];  // per row slot: the k-th pair, its slot, the filled slots
-  int ki[4], ks[4], cnt[4];
+  float kv[2];  // per row slot: the k-th pair, its slot, the filled slots
+  int ki[2], ks[2], cnt[2];
 
   __device__ __forceinline__ void start() {
-    qbase = (threadIdx.x & 31) & ~3;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < 2; ++j) {
       kv[j] = -CUDART_INF_F;
       ki[j] = 0x7fffffff;
       ks[j] = 0;
@@ -916,77 +1005,89 @@ struct TopkEpi : TopkRows {
     }
   }
 
-  __device__ __forceinline__ void chunk(const Acc& acc, int c0) {
+  __device__ __forceinline__ void chunk(const WAcc& acc, int c0) {
+    const unsigned live = live_cols(c0);
 #pragma unroll 1
-    for (int j = 0; j < 4; ++j) {
-      const int dr = (j >> 1) * 16 + (j & 1) * 8;
-      const int row = row0 + dr;
+    for (int j = 0; j < 2; ++j) {
+      const int dr = 8 * j;
       float* rv = bv + (rl0 + dr) * (k + 1);
       int* ri = bi + (rl0 + dr) * (k + 1);
       float kth_v = kv[j];
       int kth_i = ki[j];
-      float l[2 * HT_NT];
-      unsigned cand = 0;
+      float l[HW_BN / 4];
+      if (j == 0) scaled<0>(acc, l);  // static fragment indices in a rolled loop
+      else scaled<1>(acc, l);
+      unsigned left = 0;
+      if (row0 + dr < R) {
 #pragma unroll
-      for (int c = 0; c < 2 * HT_NT; ++c) {
-        const int col = c0 + (c >> 1) * 8 + 2 * t + (c & 1);
-        l[c] = pick(acc, j, c >> 1, c & 1) * inv_temp;
-        if (row < R && col < V && ahead(l[c], col_off + col, kth_v, kth_i)) cand |= 1u << c;
+        for (int c = 0; c < HW_BN / 4; ++c)
+          left |= (ahead(l[c], col_off + c0 + (c >> 1) * 8 + 2 * t + (c & 1), kth_v, kth_i)
+                       ? 1u : 0u) << c;
       }
-      if (!__any_sync(FULL, cand != 0)) continue;  // warp-uniform
+      left &= live;
+      if (!__any_sync(FULL, left != 0)) continue;  // the ballot
       int kth_s = ks[j], n = cnt[j];
-      // a rolled walk over the columns that some quad holds (l[] goes to
-      // local memory): unrolled 32 times with the rescan inside, the code
-      // outgrew the instruction cache and an event took some 8700 cycles
+      float mv;
+      int mc, mbit;
+      best(l, left, c0, mv, mc, mbit);
 #pragma unroll 1
-      for (int turn = 0; turn < 4; ++turn) {
-        const unsigned tc = __shfl_sync(FULL, cand, qbase | turn);  // the quad's thread `turn`
-#pragma unroll 1
-        for (unsigned wc = __reduce_or_sync(FULL, tc); wc; wc &= wc - 1) {  // warp-uniform
-          const int c = __ffs(wc) - 1;
-          const float v = __shfl_sync(FULL, l[c], qbase | turn);
-          const int col = col_off + c0 + (c >> 1) * 8 + 2 * turn + (c & 1);
-          const bool ins = ((tc >> c) & 1u) && ahead(v, col, kth_v, kth_i);  // quad-uniform
-          if (ins) {
-            const int slot = n < k ? n++ : kth_s;
-            if (t == 0) {
-              rv[slot] = v;
-              ri[slot] = col;
-            }
-          }
-          // a full buffer's new k-th pair: its worst, k / 4 slots a thread,
-          // the whole warp in step (no quad waits on another's branch)
-          const bool rescan = ins && n == k;
-          if (!__any_sync(FULL, rescan)) continue;
-          __syncwarp();
-          float wv = CUDART_INF_F;  // ahead of every pair
-          int wi = -1, ws = -1;
-#pragma unroll 4
-          for (int s = t; s < k; s += 4) {
-            const float sv = rv[s];
-            const int si = ri[s];
-            if (ahead(wv, wi, sv, si)) {
-              wv = sv;
-              wi = si;
-              ws = s;
-            }
-          }
+      while (true) {
+        float qv = mv;
+        int qc = mc;
 #pragma unroll
-          for (int off = 1; off < 4; off <<= 1) {
-            const float ov = __shfl_xor_sync(FULL, wv, off);
-            const int oi = __shfl_xor_sync(FULL, wi, off);
-            const int os = __shfl_xor_sync(FULL, ws, off);
-            if (ahead(wv, wi, ov, oi)) {
-              wv = ov;
-              wi = oi;
-              ws = os;
-            }
+        for (int off = 1; off < 4; off <<= 1) {
+          const float ov = __shfl_xor_sync(FULL, qv, off);
+          const int oc = __shfl_xor_sync(FULL, qc, off);
+          if (ahead(ov, oc, qv, qc)) {
+            qv = ov;
+            qc = oc;
           }
-          if (rescan) {
-            kth_v = wv;
-            kth_i = wi;
-            kth_s = ws;
+        }
+        const bool ins = ahead(qv, qc, kth_v, kth_i);  // quad-uniform
+        if (!__any_sync(FULL, ins)) break;              // warp-uniform
+        if (ins) {
+          const int slot = n < k ? n++ : kth_s;
+          if (t == 0) {
+            rv[slot] = qv;
+            ri[slot] = qc;
           }
+          if (mc == qc) {  // the thread offered it: its next
+            left &= ~(1u << mbit);
+            best(l, left, c0, mv, mc, mbit);
+          }
+        }
+        // a full buffer's new k-th pair: its worst, k / 4 slots a thread,
+        // the whole warp in step (no quad waits on another's branch)
+        const bool rescan = ins && n == k;
+        if (!__any_sync(FULL, rescan)) continue;
+        __syncwarp();
+        float wv = CUDART_INF_F;  // ahead of every pair
+        int wi = -1, ws = -1;
+#pragma unroll 4
+        for (int s = t; s < k; s += 4) {
+          const float sv = rv[s];
+          const int si = ri[s];
+          if (ahead(wv, wi, sv, si)) {
+            wv = sv;
+            wi = si;
+            ws = s;
+          }
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          const float ov = __shfl_xor_sync(FULL, wv, off);
+          const int oi = __shfl_xor_sync(FULL, wi, off);
+          const int os = __shfl_xor_sync(FULL, ws, off);
+          if (ahead(wv, wi, ov, oi)) {
+            wv = ov;
+            wi = oi;
+            ws = os;
+          }
+        }
+        if (rescan) {
+          kth_v = wv;
+          kth_i = wi;
+          kth_s = ws;
         }
       }
       kv[j] = kth_v;
@@ -1001,8 +1102,8 @@ struct TopkEpi : TopkRows {
   __device__ __forceinline__ void finish(float* part_v, int* part_i, int slice) {
     __syncwarp();
 #pragma unroll 1
-    for (int j = 0; j < 4; ++j) {
-      const int dr = (j >> 1) * 16 + (j & 1) * 8;
+    for (int j = 0; j < 2; ++j) {
+      const int dr = 8 * j;
       const int row = row0 + dr;
       if (row >= R) continue;
       const float* rv = bv + (rl0 + dr) * (k + 1);
@@ -1038,33 +1139,23 @@ struct TopkEpi : TopkRows {
 struct SortedEpi : TopkRows {
   __device__ __forceinline__ void start() {}
 
-  __device__ __forceinline__ void chunk(const Acc& acc, int c0) {
+  __device__ __forceinline__ void chunk(const WAcc& acc, int c0) {
     const int BP = k + 1;
-    unsigned live = FULL;  // the thread's columns before V
-    if (c0 + HT_BN > V) {  // the vocabulary's last chunk
-      live = 0;
-#pragma unroll
-      for (int c = 0; c < 2 * HT_NT; ++c)
-        if (c0 + (c >> 1) * 8 + 2 * t + (c & 1) < V) live |= 1u << c;
-    }
+    const unsigned live = live_cols(c0);  // the thread's columns before V
 #pragma unroll 1
-    for (int j = 0; j < 4; ++j) {
-      const int dr = (j >> 1) * 16 + (j & 1) * 8;
+    for (int j = 0; j < 2; ++j) {
+      const int dr = 8 * j;
       float* rv = bv + (rl0 + dr) * BP;
       int* ri = bi + (rl0 + dr) * BP;
       float kth_v = rv[k - 1];
       int kth_i = ri[k - 1];
       const float kv = row0 + dr < R ? kth_v : CUDART_INF_F;  // a row past R takes none
-      float l[2 * HT_NT];
-      switch (j) {  // static fragment indices in a rolled loop
-        case 0: scaled<0>(acc, l); break;
-        case 1: scaled<1>(acc, l); break;
-        case 2: scaled<2>(acc, l); break;
-        default: scaled<3>(acc, l);
-      }
+      float l[HW_BN / 4];
+      if (j == 0) scaled<0>(acc, l);  // static fragment indices in a rolled loop
+      else scaled<1>(acc, l);
       unsigned left = 0;
 #pragma unroll
-      for (int c = 0; c < 2 * HT_NT; ++c) left |= (l[c] >= kv ? 1u : 0u) << c;
+      for (int c = 0; c < HW_BN / 4; ++c) left |= (l[c] >= kv ? 1u : 0u) << c;
       left &= live;
       if (!__any_sync(FULL, left != 0)) continue;  // the ballot
       float mv;
@@ -1096,40 +1187,6 @@ struct SortedEpi : TopkRows {
         }
       }
     }
-  }
-
-  // the thread's 32 logits of row slot J, scaled
-  template <int J>
-  __device__ __forceinline__ void scaled(const Acc& acc, float (&l)[2 * HT_NT]) const {
-#pragma unroll
-    for (int c = 0; c < 2 * HT_NT; ++c)
-      l[c] = acc[J >> 1][c >> 1][(J & 1) * 2 + (c & 1)] * inv_temp;
-  }
-
-  // The best of the logits `left` of l: value, column and bit; (-inf, no
-  // column) when none is left. A tree of 31 comparisons, five deep, over
-  // the registers; the left operand keeps a tie, so the lower bit, which
-  // is the lower column, wins.
-  __device__ __forceinline__ void best(const float (&l)[2 * HT_NT], unsigned left, int c0,
-                                       float& mv, int& mc, int& mbit) const {
-    float v[2 * HT_NT];
-    int b[2 * HT_NT];
-#pragma unroll
-    for (int c = 0; c < 2 * HT_NT; ++c) {
-      v[c] = (left >> c) & 1u ? l[c] : -CUDART_INF_F;
-      b[c] = c;
-    }
-#pragma unroll
-    for (int w = 1; w < 2 * HT_NT; w <<= 1)
-#pragma unroll
-      for (int c = 0; c < 2 * HT_NT; c += 2 * w)
-        if (v[c + w] > v[c]) {
-          v[c] = v[c + w];
-          b[c] = b[c + w];
-        }
-    mv = v[0];
-    mbit = b[0];
-    mc = left ? col_off + c0 + (mbit >> 1) * 8 + 2 * t + (mbit & 1) : 0x7fffffff;
   }
 
   // (v, c) into the row's sorted buffer where `ins` (quad-uniform): slot s
@@ -1191,8 +1248,8 @@ struct SortedEpi : TopkRows {
   __device__ __forceinline__ void finish(float* part_v, int* part_i, int slice) {
     __syncwarp();
 #pragma unroll 1
-    for (int j = 0; j < 4; ++j) {
-      const int dr = (j >> 1) * 16 + (j & 1) * 8;
+    for (int j = 0; j < 2; ++j) {
+      const int dr = 8 * j;
       const int row = row0 + dr;
       if (row >= R) continue;
       const float* rv = bv + (rl0 + dr) * (k + 1);
@@ -1206,33 +1263,70 @@ struct SortedEpi : TopkRows {
   }
 };
 
-// One CTA of the bf16 K4 or K5: rows r0.. (32 a warp) over the chunks of
-// slice blockIdx.y; each row's top k of the slice is left sorted for the
-// merge.
+// One CTA of the bf16 K4 or K5: rows r0.. (64 a consumer warpgroup) over
+// the chunks of slice blockIdx.y; each row's top k of the slice is left
+// sorted for the merge. The last warp is the producer: one lane streams
+// each 64-deep stage of the CTA's x rows and the chunk's 128 W rows by TMA
+// into a ring of `stages`. Each consumer warpgroup multiplies its 64 rows
+// by the chunk (4 m64n128k16 a stage, one product in flight while the next
+// stage's run), and when the chunk's last product has ended runs the
+// epilogue on the accumulator while the producer fills the ring ahead and
+// the other warpgroup's products run.
 template <typename Epi>
-__device__ __forceinline__ void topk_slice(unsigned char* smem, const bf16* __restrict__ x,
-                                           const bf16* __restrict__ w,
-                                           float* __restrict__ part_v, int* __restrict__ part_i,
-                                           int R, int D, int V, int k, int cps,
-                                           float inv_temp, int col_off) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  const int r0 = blockIdx.x * nw * HT_WM, slice = blockIdx.y;
+__device__ __forceinline__ void topk_slice(unsigned char* smem, const CUtensorMap& xmap,
+                                           const CUtensorMap& wmap, float* __restrict__ part_v,
+                                           int* __restrict__ part_i, int R, int D, int V, int k,
+                                           int cps, float inv_temp, int col_off, int stages) {
+  const int nwg = blockDim.x >> 7;  // (128 nwg + 32) / 128
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * nwg * HW_ROWS, slice = blockIdx.y;
   const int chunk0 = slice * cps;
-  const int chunk1 = min((V + HT_BN - 1) / HT_BN, chunk0 + cps);
+  const int chunk1 = min((V + HW_BN - 1) / HW_BN, chunk0 + cps);
+  const int ksteps = (D + HW_BK - 1) / HW_BK;
+  const size_t stage_bytes = hw_stage_bytes(nwg);
+  unsigned char* ring = align1024(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + (size_t)stages * stage_bytes);
+  uint64_t* empty = full + stages;  // a warp of each consumer warpgroup
   const int BP = k + 1;
-  float* bv = reinterpret_cast<float*>(smem + HT_STAGES * ht_stage_bytes(nw));
-  int* bi = reinterpret_cast<int*>(bv + nw * HT_WM * BP);
-  // a warp's 32 rows are its own: empty slots rank behind every logit
-  for (int i = lane; i < HT_WM * BP; i += 32) {
-    bv[warp * HT_WM * BP + i] = -CUDART_INF_F;
-    bi[warp * HT_WM * BP + i] = 0x7fffffff;
+  float* bv = reinterpret_cast<float*>(empty + stages);
+  int* bi = reinterpret_cast<int*>(bv + nwg * HW_ROWS * BP);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * nwg);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4 * nwg) {
+    if (lane == 0) {
+      const int n_iter = (chunk1 - chunk0) * ksteps;
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % stages;
+        mbar_wait(&empty[s], ((it / stages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], (uint32_t)stage_bytes);
+        unsigned char* st = ring + (size_t)s * stage_bytes;
+        const int c0 = (chunk0 + it / ksteps) * HW_BN, k0 = (it % ksteps) * HW_BK;
+        tma_load_2d(st, &xmap, &full[s], k0, r0);
+        tma_load_2d(st + nwg * HW_X_BYTES, &wmap, &full[s], k0, c0);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, wl = warp & 3;
+  // a warp's 16 rows are its own: empty slots rank behind every logit
+  for (int i = lane; i < 16 * BP; i += 32) {
+    bv[(wg * HW_ROWS + wl * 16) * BP + i] = -CUDART_INF_F;
+    bi[(wg * HW_ROWS + wl * 16) * BP + i] = 0x7fffffff;
   }
   __syncwarp();
   Epi epi;
   epi.bv = bv;
   epi.bi = bi;
   epi.k = k;
-  epi.rl0 = warp * HT_WM + (lane >> 2);
+  epi.rl0 = wg * HW_ROWS + wl * 16 + (lane >> 2);
   epi.row0 = r0 + epi.rl0;
   epi.t = lane & 3;
   epi.R = R;
@@ -1240,28 +1334,58 @@ __device__ __forceinline__ void topk_slice(unsigned char* smem, const bf16* __re
   epi.col_off = col_off;
   epi.inv_temp = inv_temp;
   epi.start();
-  walk_slice(x, w, R, D, V, r0, chunk0, chunk1, reinterpret_cast<bf16*>(smem), epi);
+
+  auto release = [&](int it) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[it % stages]);
+  };
+  WAcc acc;
+  int it = 0;
+  for (int c = chunk0; c < chunk1; ++c) {
+    for (int kk = 0; kk < ksteps; ++kk, ++it) {
+      const int s = it % stages;
+      mbar_wait(&full[s], (it / stages) & 1);
+      const unsigned char* st = ring + (size_t)s * stage_bytes;
+      const bf16* xa = reinterpret_cast<const bf16*>(st + wg * HW_X_BYTES);
+      const bf16* wb = reinterpret_cast<const bf16*>(st + nwg * HW_X_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int k16 = 0; k16 < HW_BK / 16; ++k16)
+        wgmma_m64n128k16(acc, wg_desc(xa + k16 * 16), wg_desc(wb + k16 * 16), kk > 0 || k16 > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the stage before this one is read
+      if (kk > 0) release(it - 1);
+    }
+    wgmma_wait<0>();
+    wgmma_fence_regs(acc);
+    release(it - 1);
+    epi.chunk(acc, c * HW_BN);
+  }
   epi.finish(part_v, part_i, slice);
 }
 
-// K4 (bf16). Grid (row blocks of 32 nw rows, slices of cps chunks). W holds
-// the vocabulary's columns [col_off, col_off + V): the pairs hold the whole
-// head's columns.
-__global__ void __launch_bounds__(HT_WARPS * 32, 2)
-head_topk_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                     float* __restrict__ part_v, int* __restrict__ part_i, int R, int D, int V,
-                     int k, int cps, float inv_temp, int col_off) {
-  extern __shared__ __align__(16) unsigned char ht_smem[];
-  topk_slice<TopkEpi>(ht_smem, x, w, part_v, part_i, R, D, V, k, cps, inv_temp, col_off);
+// K4 (bf16). Grid (row blocks of 64 nwg rows, slices of cps chunks), 128
+// nwg + 32 threads. W holds the vocabulary's columns [col_off, col_off +
+// V): the pairs hold the whole head's columns.
+__global__ void __launch_bounds__(HW_MAX_WG * 128 + 32, 1)
+head_topk_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wmap, float* __restrict__ part_v,
+                       int* __restrict__ part_i, int R, int D, int V, int k, int cps,
+                       float inv_temp, int col_off, int stages) {
+  extern __shared__ unsigned char hw_smem[];
+  topk_slice<TopkEpi>(hw_smem, xmap, wmap, part_v, part_i, R, D, V, k, cps, inv_temp, col_off,
+                      stages);
 }
 
-// K5 (bf16): K4's grid, plan and scratch, v1's sorted extraction.
-__global__ void __launch_bounds__(HT_WARPS * 32, 2)
-head_topk_v1_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                        float* __restrict__ part_v, int* __restrict__ part_i, int R, int D,
-                        int V, int k, int cps, float inv_temp, int col_off) {
-  extern __shared__ __align__(16) unsigned char ht_smem[];
-  topk_slice<SortedEpi>(ht_smem, x, w, part_v, part_i, R, D, V, k, cps, inv_temp, col_off);
+// K5 (bf16): K4's grid, plan, tile and scratch, v1's sorted extraction.
+__global__ void __launch_bounds__(HW_MAX_WG * 128 + 32, 1)
+head_topk_v1_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                          const __grid_constant__ CUtensorMap wmap, float* __restrict__ part_v,
+                          int* __restrict__ part_i, int R, int D, int V, int k, int cps,
+                          float inv_temp, int col_off, int stages) {
+  extern __shared__ unsigned char hw_smem[];
+  topk_slice<SortedEpi>(hw_smem, xmap, wmap, part_v, part_i, R, D, V, k, cps, inv_temp,
+                        col_off, stages);
 }
 
 // K4's merge, a warp per row: lane s holds the head of slice s's sorted
@@ -1347,33 +1471,19 @@ head_topk_merge_kernel(const unsigned char* __restrict__ parts, size_t part_byte
 
 struct HeadPlan {
   int nw = HT_WARPS, blocks = 0, splits = 1, cps = 1;
+  int nwg = HW_MAX_WG, stages = HW_MAX_STAGES;  // K4 / K5: consumer warpgroups, ring depth
   size_t smem = 0;
 };
 
-// The grid of the bf16 K3 (k = 0), or of K4 or K5 (the same plan) on the
-// current card: the most warps a CTA whose buffers fit (a large k takes
-// fewer rows a CTA), then the S slices whose launch ends soonest when the
-// card runs its CTAs in waves (CTAs an SM: 2 by __launch_bounds__, fewer
-// where shared memory says so), each slice walking ceil(chunks / S)
-// chunks plus, for K4 and K5, a warm-up costed as TOPK_WARMUP chunks
-// (their buffers start empty in every slice, so the first chunks insert
-// most of the pairs); the fewer slices on a tie. S is then cut so that no
-// slice is empty. A launch that is one of n_parts parts of a vocabulary
-// split over ranks takes at most HT_MAX_SPLITS / n_parts slices, so that
-// K4's merge holds every part's slices one a lane.
-inline cudaError_t head_plan(int R, int V, int k, int n_parts, HeadPlan& p) {
-  if (n_parts < 1 || n_parts > HT_MAX_SPLITS) return cudaErrorInvalidValue;
-  int sms = 0, smem_sm = 0, optin = 0;
-  const cudaError_t e = card_shape(sms, smem_sm, optin);
-  if (e != cudaSuccess) return e;
-  p.nw = HT_WARPS;
-  while (p.nw > 1 && ht_smem_bytes(p.nw, k) > (size_t)optin) p.nw >>= 1;
-  p.smem = ht_smem_bytes(p.nw, k);
-  if (p.smem > (size_t)optin) return cudaErrorInvalidValue;
-  const int per_sm = max(1, min(2, smem_sm / (int)(p.smem + 1024)));
-  const long slots = (long)sms * per_sm;
-  p.blocks = (R + p.nw * HT_WM - 1) / (p.nw * HT_WM);
-  const int chunks = (V + HT_BN - 1) / HT_BN;
+// The S slices of `blocks` row blocks over `chunks` chunks whose launch ends
+// soonest when the card runs its CTAs in waves of `slots`, each slice
+// walking ceil(chunks / S) chunks plus, for K4 and K5, a warm-up costed as
+// TOPK_WARMUP chunks (their buffers start empty in every slice, so the
+// first chunks insert most of the pairs); the fewer slices on a tie. S is
+// then cut so that no slice is empty. A launch that is one of n_parts
+// parts of a vocabulary split over ranks takes at most HT_MAX_SPLITS /
+// n_parts slices, so that K4's merge holds every part's slices one a lane.
+inline void plan_slices(int chunks, long slots, int k, int n_parts, HeadPlan& p) {
   long best_cost = -1;
   for (int s = 1; s <= HT_MAX_SPLITS / n_parts && s <= chunks; ++s) {
     const long waves = ((long)p.blocks * s + slots - 1) / slots;
@@ -1385,6 +1495,39 @@ inline cudaError_t head_plan(int R, int V, int k, int n_parts, HeadPlan& p) {
   }
   p.cps = (chunks + p.splits - 1) / p.splits;
   p.splits = (chunks + p.cps - 1) / p.cps;
+}
+
+// The grid of the bf16 K3 (k = 0), or of K4 or K5 (the same plan) on the
+// current card. K3: the most warps a CTA whose shared memory fits, CTAs
+// an SM 2 by __launch_bounds__ (fewer where shared memory says so). K4 and
+// K5: two consumer warpgroups (128 rows) a CTA where their buffers fit,
+// else one (k above about 80), and the deepest ring up to 4 stages that
+// fits beside them; one CTA an SM. Then the slices (plan_slices): at R
+// 3328, 26 blocks of 128 rows in 5 slices fill 130 of 132 SMs.
+inline cudaError_t head_plan(int R, int V, int k, int n_parts, HeadPlan& p) {
+  if (n_parts < 1 || n_parts > HT_MAX_SPLITS) return cudaErrorInvalidValue;
+  int sms = 0, smem_sm = 0, optin = 0;
+  const cudaError_t e = card_shape(sms, smem_sm, optin);
+  if (e != cudaSuccess) return e;
+  if (k == 0) {
+    p.nw = HT_WARPS;
+    while (p.nw > 1 && ht_smem_bytes(p.nw) > (size_t)optin) p.nw >>= 1;
+    p.smem = ht_smem_bytes(p.nw);
+    if (p.smem > (size_t)optin) return cudaErrorInvalidValue;
+    const int per_sm = max(1, min(2, smem_sm / (int)(p.smem + 1024)));
+    p.blocks = (R + p.nw * HT_WM - 1) / (p.nw * HT_WM);
+    plan_slices((V + HT_BN - 1) / HT_BN, (long)sms * per_sm, 0, n_parts, p);
+    return cudaSuccess;
+  }
+  for (p.nwg = HW_MAX_WG; p.nwg >= 1; --p.nwg) {
+    for (p.stages = HW_MAX_STAGES; p.stages >= 2; --p.stages)
+      if (hw_smem_bytes(p.nwg, p.stages, k) <= (size_t)optin) break;
+    if (p.stages >= 2) break;
+  }
+  if (p.nwg < 1) return cudaErrorInvalidValue;
+  p.smem = hw_smem_bytes(p.nwg, p.stages, k);
+  p.blocks = (R + p.nwg * HW_ROWS - 1) / (p.nwg * HW_ROWS);
+  plan_slices((V + HW_BN - 1) / HW_BN, sms, k, n_parts, p);
   return cudaSuccess;
 }
 
@@ -1434,22 +1577,27 @@ cudaError_t launch_sample_mma(const void* x, const void* w, void* ids, void* pro
                              stream);
 }
 
-using TopkKernel = void (*)(const bf16*, const bf16*, float*, int*, int, int, int, int, int,
-                           float, int);
+using TopkKernel = void (*)(CUtensorMap, CUtensorMap, float*, int*, int, int, int, int, int,
+                            float, int, int);
 
 // K4's or K5's slices (bf16, the slices' kernel `kern`) into `scratch`,
 // against the vocabulary's columns col_off..
 cudaError_t launch_topk_part(TopkKernel kern, const void* x, const void* w, void* scratch,
                              int R, int D, int V, int k, float inv_temp, int col_off,
                              const HeadPlan& p, cudaStream_t stream) {
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  const uint64_t row = (uint64_t)D * sizeof(bf16);
+  const uint64_t xd[2] = {(uint64_t)D, (uint64_t)R}, wd[2] = {(uint64_t)D, (uint64_t)V};
+  const uint32_t xbox[2] = {HW_BK, (uint32_t)(p.nwg * HW_ROWS)}, wbox[2] = {HW_BK, HW_BN};
+  CUtensorMap xm, wm;
+  cudaError_t e = tma_map_bf16(xm, x, 2, xd, &row, xbox);
+  if (e == cudaSuccess) e = tma_map_bf16(wm, w, 2, wd, &row, wbox);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (e != cudaSuccess) return e;
   float* part_v = static_cast<float*>(scratch);
   int* part_i = reinterpret_cast<int*>(part_v + (size_t)p.splits * R * k);
-  kern<<<dim3(p.blocks, p.splits), p.nw * 32, p.smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), part_v, part_i, R, D, V, k,
-      p.cps, inv_temp, col_off);
+  kern<<<dim3(p.blocks, p.splits), p.nwg * 128 + 32, p.smem, stream>>>(
+      xm, wm, part_v, part_i, R, D, V, k, p.cps, inv_temp, col_off, p.stages);
   return cudaGetLastError();
 }
 
@@ -1465,7 +1613,7 @@ cudaError_t launch_topk_merge(const void* parts, size_t part_bytes, int n_parts,
 }
 
 // K4 or K5 (bf16): the slices' kernel `kern`, then the merge and draw
-cudaError_t launch_topk_mma(TopkKernel kern, const void* x, const void* w, void* ids,
+cudaError_t launch_topk_wgmma(TopkKernel kern, const void* x, const void* w, void* ids,
                             void* probs, void* scratch, int R, int D, int V, int k,
                             float inv_temp, uint32_t seed, cudaStream_t stream) {
   if (D % 8 != 0) return cudaErrorInvalidValue;
@@ -1517,7 +1665,7 @@ int mebt_head_topk_sample(const void* x, const void* w, void* ids, void* probs,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k < 1 || k > V || k > 256) return (int)cudaErrorInvalidValue;
-  return is_bf16 ? (int)launch_topk_mma(head_topk_mma_kernel, x, w, ids, probs, scratch, R,
+  return is_bf16 ? (int)launch_topk_wgmma(head_topk_wgmma_kernel, x, w, ids, probs, scratch, R,
                                         D, V, k, inv_temp, seed, s)
                  : (int)launch_topk_fma(x, w, ids, probs, R, D, V, k, inv_temp,
                                         seed, s);
@@ -1530,7 +1678,7 @@ int mebt_head_topk_sample_v1(const void* x, const void* w, void* ids, void* prob
                              unsigned int seed, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k < 1 || k > V || k > V1_MAX_K) return (int)cudaErrorInvalidValue;
-  return is_bf16 ? (int)launch_topk_mma(head_topk_v1_mma_kernel, x, w, ids, probs, scratch,
+  return is_bf16 ? (int)launch_topk_wgmma(head_topk_v1_wgmma_kernel, x, w, ids, probs, scratch,
                                         R, D, V, k, inv_temp, seed, s)
                  : (int)launch_topk_v1_fma(x, w, ids, probs, R, D, V, k, inv_temp, seed, s);
 }
@@ -1582,7 +1730,7 @@ int mebt_head_topk_part(const void* x, const void* w, void* part, int R, int D, 
   HeadPlan p;
   const cudaError_t e = head_plan(R, V, k, n_parts, p);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_topk_part(head_topk_mma_kernel, x, w, part, R, D, V, k, inv_temp, col_off,
+  return (int)launch_topk_part(head_topk_wgmma_kernel, x, w, part, R, D, V, k, inv_temp, col_off,
                                p, static_cast<cudaStream_t>(stream));
 }
 

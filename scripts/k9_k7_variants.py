@@ -15,8 +15,9 @@ library:
   k7_no_split     K7's dk/dv pass walking all query tiles in one CTA;
   k7_dkdv_qc32    K7's dk/dv pass adding its products to dk, dv every 32
                   queries instead of 16 (timing only: not gated);
-  one_wave_grid   K2 and K7's dq pass on the earlier grid plan: at most
-                  one wave of CTAs.
+  one_wave_grid   K7's dq pass on the earlier grid plan: at most one
+                  wave of CTAs (K2, timed beside it, keeps its own
+                  persistent grid).
 Each is timed in turns (full first and last): CUDA-event medians, and
 device time from torch.profiler over five calls (the small attention
 shapes are host-bound, so events there time the host); times from one
@@ -112,7 +113,7 @@ def cuda_ms(fn, reps=10, warmup=2) -> float:
 KERNELS = {"K9": ("nearest_code_tf32_kernel", "nearest_code_merge_kernel"),
            "K7": ("largeq_bwd_dq_mma_kernel", "largeq_bwd_dkdv_mma_kernel",
                   "largeq_bwd_dkdv_merge_kernel"),
-           "K2": ("largeq_fwd_mma_kernel",)}
+           "K2": ("largeq_fwd_wgmma_kernel",)}
 
 
 def timing(kernel: str, fn) -> dict:

@@ -1,5 +1,5 @@
 """The arithmetic of the bf16 tensor-core K2 and K7 (csrc/attention.cu:
-largeq_fwd_mma_kernel, largeq_bwd_dq_mma_kernel, largeq_bwd_dkdv_mma_kernel),
+largeq_fwd_wgmma_kernel, largeq_bwd_dq_mma_kernel, largeq_bwd_dkdv_mma_kernel),
 emulated in plain PyTorch on the CPU, against the plain versions
 largeq_attention_ref / largeq_backward_ref under the card gate's own
 tolerance (chip_smoke.py BF16_RTOL, BF16_ATOL: two bf16 ulps of each
@@ -13,8 +13,9 @@ fp32. K2 splits P in two parts (P >= 0: nothing cancels in P V); K7
 splits p and ds in three for dv and dk (sums over all queries: two
 parts miss the gate on some elements when q is eight times larger), ds
 in two for dq (a sum over the keys only). The emulation
-follows the kernels: an online softmax over 64-key chunks (32 in K7's
-dq pass) of e = 2^(s c - m) with c = scale log2(e) and s c - m rounded
+follows the kernels: an online softmax over 64-key blocks (K2's m64n64
+S accumulator; its reference m moves only past a margin of 8 in the log2
+domain; 32-key chunks in K7's dq pass) of e = 2^(s c - m) with c = scale log2(e) and s c - m rounded
 once (an fmaf), the undropped e in the denominator; K7's D = d / l with
 d = sum e keep dp carried beside l (no O), p = 2^(s c - m - log2 l) in
 the second sweep; dk and dv summed 16 queries at a time in fp32 over
@@ -39,6 +40,8 @@ P_DROP = 0.1
 
 
 K2_PARTS, K7_PARTS, K7_DQ_PARTS = 2, 3, 2  # csrc/attention.cu
+K2_KB = 64  # csrc/attention.cu K2W_KB: keys a block of K2's softmax
+K2_RESCALE = 8.0  # csrc/attention.cu K2W_RESCALE
 
 
 def _operand(x, parts: int):
@@ -62,7 +65,9 @@ def _fma(s, c, m):
 
 
 def _sweep1(q, k, v, keep, parts: int, kc: int):
-    """The online softmax: (unnormalized O, m in the log2 domain, l)."""
+    """The online softmax: (unnormalized O, m in the log2 domain, l). The
+    reference m moves only where a block's maximum passes it by more than
+    K2_RESCALE (e < 2^8 in between), as in K2."""
     c = torch.tensor(LOG2E / math.sqrt(q.shape[-1]), dtype=torch.float32)
     qf, kf, vf = q.float(), k.float(), v.float()
     o = torch.zeros(qf.shape)
@@ -70,7 +75,8 @@ def _sweep1(q, k, v, keep, parts: int, kc: int):
     l = torch.zeros(m.shape)
     for k0 in range(0, kf.shape[2], kc):
         s = torch.matmul(qf, kf[:, :, k0:k0 + kc].transpose(-1, -2))
-        mn = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+        x = s.amax(-1, keepdim=True) * c
+        mn = torch.where(x > m + K2_RESCALE, x, m)
         alpha = torch.exp2(m - mn)
         e = torch.exp2(_fma(s, c, mn))
         l = l * alpha + e.sum(-1, keepdim=True)
@@ -82,7 +88,7 @@ def _sweep1(q, k, v, keep, parts: int, kc: int):
 
 
 def emulate_forward(q, k, v, keep, split: bool):
-    o, _, l, _ = _sweep1(q, k, v, keep, K2_PARTS if split else 1, kc=64)
+    o, _, l, _ = _sweep1(q, k, v, keep, K2_PARTS if split else 1, kc=K2_KB)
     return (o / l).to(q.dtype)
 
 

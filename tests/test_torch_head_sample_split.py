@@ -1,6 +1,6 @@
 """The split-over-the-vocabulary arithmetic of the bf16 tensor-core K3
 and K4 (csrc/head_sample.cu: head_sample_mma_kernel +
-head_sample_merge_kernel, head_topk_mma_kernel + head_topk_merge_kernel),
+head_sample_merge_kernel, head_topk_wgmma_kernel + head_topk_merge_kernel),
 emulated in plain PyTorch on the CPU, against the plain versions
 head_sample_ref / head_topk_sample_ref at the same Philox seed.
 

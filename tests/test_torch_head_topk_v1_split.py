@@ -1,5 +1,5 @@
 """The sliced, sorted extraction of the bf16 K5 (csrc/head_sample.cu:
-head_topk_v1_mma_kernel + head_topk_merge_kernel) emulated in plain
+head_topk_v1_wgmma_kernel + head_topk_merge_kernel) emulated in plain
 PyTorch on the CPU, against the plain version head_topk_sample_ref, the
 emulated K4 (tests/test_torch_head_sample_split.py) and the JAX package's
 v1 kernel `fused_head_topk_sample` in interpret mode.

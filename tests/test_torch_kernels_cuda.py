@@ -123,6 +123,43 @@ def test_largeq_matches_plain(dev, dtype, B, NQ, NK, q_scale, p_drop):
     assert torch.equal(out, largeq_attention(q, k, v, p_drop=p_drop, seed=4))
 
 
+# The bf16 K2's wgmma tile at its edges: queries around the 64-row tile
+# (8, 64, 65, 1000, 8192), keys in one 128-key block (64), two (200, a
+# ragged one, and 256), three (320) and four (512, the most), with and
+# without dropout; two calls give the same bits.
+K2_TILE_EDGES = [
+    (2, 8, 64), (2, 64, 200), (2, 65, 256), (1, 1000, 320), (1, 8192, 512),
+    (3, 1000, 256), (2, 64, 512),
+]
+
+
+@pytest.mark.parametrize("B,NQ,NK", K2_TILE_EDGES)
+@pytest.mark.parametrize("p_drop", [0.0, 0.1])
+def test_largeq_wgmma_tile_edges_match_plain(dev, B, NQ, NK, p_drop):
+    q, k, v, _ = _largeq_case(dev, torch.bfloat16, B, NQ, NK, 1.0)
+    out = largeq_attention(q, k, v, p_drop=p_drop, seed=8)
+    ref = largeq_attention_ref(q, k, v, p_drop=p_drop, seed=8)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
+    assert torch.equal(out, largeq_attention(q, k, v, p_drop=p_drop, seed=8))
+
+
+@pytest.mark.parametrize("NQ,NK", [(65, 256), (1000, 320)])
+def test_largeq_wgmma_forward_then_backward_kernels_at_rate_0_1(dev, NQ, NK):
+    """K2's forward and K7's backward under autograd at rate 0.1: the
+    backward draws the forward's mask again, so the gradients match the
+    plain version's only if the new forward dropped the same elements."""
+    q, k, v, g = _largeq_case(dev, torch.bfloat16, 2, NQ, NK, 1.0)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n_f, n_b = largeq_attention.launches, largeq_backward.launches
+    out = fused_dropout_attention(*leaves, None, 0.1, 21)
+    out.backward(g)
+    assert (largeq_attention.launches, largeq_backward.launches) == (n_f + 1, n_b + 1)
+    torch.testing.assert_close(out.float(), largeq_attention_ref(
+        q, k, v, p_drop=0.1, seed=21).float(), **TOL[torch.bfloat16])
+    want = largeq_backward_ref(q, k, v, g, p_drop=0.1, seed=21)
+    _assert_all_close([t.grad for t in leaves], want, GRAD_TOL[torch.bfloat16])
+
+
 def test_unsupported_shapes_raise(dev):
     q = torch.zeros(1, 1, 4, 48, device=dev)
     with pytest.raises(ValueError, match="head dim"):
@@ -286,6 +323,69 @@ def test_head_topk_sample_ties_keep_the_lowest_columns(dev, R, V, k):
     for temp in (1.0, 0.0):
         ids, _ = head_topk_sample(x, w, 3, k, temp)
         assert torch.equal(ids, head_topk_sample_ref(x, w, k, temp, seed=3)[0])
+
+
+# The bf16 K4's wgmma tile at its edges: rows around the 64-row
+# warpgroup and 128-row CTA (1, 63, 64, 1000), a vocabulary smaller than k
+# (24) and no multiple of the 128-column chunk (16100), k 1, 32 and 256
+# (256: one warpgroup a CTA, whose buffers fill shared memory).
+@pytest.mark.parametrize("R", [1, 63, 64, 1000])
+@pytest.mark.parametrize("V", [24, 16100])
+@pytest.mark.parametrize("k", [1, 32, 256])
+def test_head_topk_wgmma_tile_edges_match_plain(dev, R, V, k):
+    gen = torch.Generator(dev).manual_seed(R * 7 + V + k)
+    x, w = _head_case(gen, dev, R, V)
+    logits = x.float() @ w.float().t()
+    kk = min(k, V)
+    kth = torch.topk(logits, kk, dim=-1).values
+    for temp in (1.0, 0.0):
+        ids, probs = head_topk_sample(x, w, 5, k, temp)
+        rids, rprobs = head_topk_sample_ref(x, w, k, temp, seed=5)
+        assert bool(((ids >= 0) & (ids < V)).all())
+        assert (ids != rids).sum().item() <= 1  # a near-tie may flip
+        at = logits.gather(1, ids.long()[:, None])[:, 0]
+        assert (at >= kth[:, -1] - 1e-4).all()
+        if temp == 1.0:
+            torch.testing.assert_close(probs, torch.exp(at - torch.logsumexp(kth, -1)),
+                                       rtol=1e-3, atol=0.0)
+        again = head_topk_sample(x, w, 5, k, temp)
+        assert torch.equal(again[0], ids) and torch.equal(again[1], probs)
+
+
+def test_head_topk_part_at_a_column_offset_gives_the_whole_heads_ids(dev):
+    """The sharded K4 without a group: the two halves of a 16384-row head
+    (the second at col_off 8192) as two ranks' parts, gathered in rank
+    order and merged, give the whole head's ids and probabilities bit
+    for bit (the tile's sums do not depend on a column's place in it)."""
+    import ctypes
+
+    from mebt_tpu_torch.ops import _build
+    from mebt_tpu_torch.ops.head_sample import _SIGNATURES
+
+    gen = torch.Generator(dev).manual_seed(17)
+    R, D, V, k = 1000, 1024, 8192, 32
+    x, w = _head_case(gen, dev, R, 2 * V)
+    lib = _build.load("head_sample", _SIGNATURES)
+    splits, err = ctypes.c_int(0), ctypes.c_int(0)
+    n = lib.mebt_head_part_plan(R, V, k, 2, ctypes.byref(splits), ctypes.byref(err))
+    _build.check(err.value, "plan")
+    part_bytes = -(-n // 256) * 256
+    parts = torch.zeros(2 * part_bytes, device=dev, dtype=torch.uint8)
+    ids = torch.empty(R, device=dev, dtype=torch.int32)
+    probs = torch.empty(R, device=dev, dtype=torch.float32)
+    stream, ptr = _build.stream_ptr(x), ctypes.c_void_p
+    for temp in (1.0, 0.0):
+        inv_temp = 1.0 / (temp + 1e-8)
+        for r in range(2):
+            w_r = w[r * V:(r + 1) * V]
+            _build.check(lib.mebt_head_topk_part(
+                ptr(x.data_ptr()), ptr(w_r.data_ptr()), ptr(parts.data_ptr() + r * part_bytes),
+                R, D, V, k, inv_temp, r * V, 2, stream), "part")
+        _build.check(lib.mebt_head_topk_merge(
+            ptr(parts.data_ptr()), part_bytes, 2, ptr(ids.data_ptr()), ptr(probs.data_ptr()),
+            R, k, splits.value, 5, 0, stream), "merge")
+        whole = head_topk_sample(x, w, 5, k, temp)
+        assert torch.equal(ids, whole[0]) and torch.equal(probs, whole[1])
 
 
 def test_head_topk_sample_frequencies(dev):
