@@ -6,8 +6,10 @@
    from mebt_tpu_torch/csrc with nvcc for sm_90a, and counts the
    tensor-core instructions (HMMA, HGMMA) of every attention and head
    kernel in `cuobjdump -sass` of the built libraries: each bf16 K1-K7
-   kernel and K9's search must have some, and no bf16 FMA K1-K7 kernel
-   nor the FMA K9 may be built;
+   kernel and K9's search must have some, the Hopper kernels (K2-K5, K7)
+   HGMMA and TMA loads (UTMALDG) and no HMMA, K3's and K7's no local-
+   memory loads or stores (spills), and no bf16 FMA K1-K7 kernel nor the
+   FMA K9 may be built;
 2. holds each kernel against its plain PyTorch version on the card, at
    the shapes of the STL-16f decode (batch 16) and of the STL-128f
    decode (batch 2) in bf16 (K3 and K4 also at the smaller segments'
@@ -514,6 +516,10 @@ K3_CASES = (("step1", 16384, 16384, False, True), ("dnr_r8192", 8192, 16384, Fal
             ("ties", 2048, 16384, True, False))
 
 
+# the bf16 K3's kernels: the slices and the merge
+K3_KERNELS_BF16 = ("head_sample_wgmma_kernel", "head_sample_merge_kernel")
+
+
 def check_k3(dev, gen):
     from mebt_tpu_torch.ops.head_sample import head_sample, head_sample_ref
     from mebt_tpu_torch.ops.sampling import sample_tokens
@@ -557,9 +563,17 @@ def check_k3(dev, gen):
         if timed_all:
             del logits, p_plain, gap
             row["plain_ms"] = cuda_ms(lambda: head_sample_ref(x, w, 1.0, seed=7), reps=3)
-            row["library_ms"] = cuda_ms(
-                lambda: sample_tokens(torch.matmul(x, w.t()), 1.0, generator=gen), reps=5
-            )
+
+            def library():
+                return sample_tokens(torch.matmul(x, w.t()), 1.0, generator=gen)
+
+            # in turns (kernel, library, library, kernel), and the kernels'
+            # device time from one profiled call
+            row["library_ms"] = cuda_ms(library, reps=5)
+            row["library_ms_again"] = cuda_ms(library, reps=5)
+            row["ms_again"] = cuda_ms(lambda: head_sample(x, w, 7, 1.0))
+            dev_ms = kernel_ms(lambda: head_sample(x, w, 7, 1.0), K3_KERNELS_BF16)
+            row["device_ms"] = sum(dev_ms.values())
         else:
             del logits
         rows.append(row)
@@ -862,7 +876,7 @@ def check_k6(dev, gen):
 
 # K7's dq pass, dk/dv pass and (bf16, when the dk/dv pass splits its
 # query walk) the merge of the splits, by kernel name
-K7_PASSES_BF16 = ("largeq_bwd_dq_mma_kernel", "largeq_bwd_dkdv_mma_kernel",
+K7_PASSES_BF16 = ("largeq_bwd_dq_wgmma_kernel", "largeq_bwd_dkdv_wgmma_kernel",
                   "largeq_bwd_dkdv_merge_kernel")
 K7_PASSES_FP32 = ("largeq_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
 
@@ -1535,42 +1549,50 @@ def span_kernels(prof, span: str) -> list[list[tuple[str, float]]]:
 
 
 # The profile's kernel groups, by substrings of the kernels' names: the
-# bf16 K1-K7 run the tensor-core kernels (`*_mma_kernel`, and the merges
-# of K1's splits and of K3's and K4's vocabulary slices; K5 takes K4's
+# bf16 K1-K7 run the tensor-core kernels (`*_mma_kernel`, `*_wgmma_kernel`,
+# and the merges of K1's splits, K7's dk/dv splits and K3's and K4's
+# vocabulary slices; K5 takes K4's
 # merge, counted under K4), fp32 the FMA ones (in the parity checks only,
 # which no profile covers; fp32 K7's dk/dv pass is K6's
 # `attn_bwd_dkdv_kernel`).
 PROFILE_GROUPS = {
     "K1": ("smallq_kernel", "smallq_fwd_mma_kernel", "smallq_merge_kernel"),
     "K2": ("largeq_kernel", "largeq_fwd_wgmma_kernel"),
-    "K3": ("head_sample_kernel", "head_sample_mma_kernel", "head_sample_merge_kernel"),
+    "K3": ("head_sample_kernel", "head_sample_wgmma_kernel", "head_sample_merge_kernel"),
     "K4": ("head_topk_sample_kernel", "head_topk_wgmma_kernel", "head_topk_merge_kernel"),
     "K5": ("head_topk_sample_v1_kernel", "head_topk_v1_wgmma_kernel"),
     "K6_dq": ("smallq_bwd_dq_kernel", "smallq_bwd_dq_mma_kernel"),
     "K6_dkdv": ("attn_bwd_dkdv_kernel", "smallq_bwd_dkdv_mma_kernel"),
-    "K7_dq": ("largeq_bwd_dq_kernel", "largeq_bwd_dq_mma_kernel"),
-    "K7_dkdv": ("largeq_bwd_dkdv_mma_kernel", "largeq_bwd_dkdv_merge_kernel"),
+    "K7_dq": ("largeq_bwd_dq_kernel", "largeq_bwd_dq_wgmma_kernel"),
+    "K7_dkdv": ("largeq_bwd_dkdv_wgmma_kernel", "largeq_bwd_dkdv_merge_kernel"),
     "K9": K9_KERNELS,
 }
 # the FMA attention kernels, which only fp32 calls (the parity checks) launch
 FMA_ATTENTION = ("largeq_kernel", "largeq_bwd_dq_kernel", "smallq_kernel",
                  "smallq_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
-# the bf16 K1, K6 and K7 kernels: their SASS must hold tensor-core instructions
-TENSOR_CORE_KERNELS = ("largeq_bwd_dq_mma_kernel", "largeq_bwd_dkdv_mma_kernel",
-                       "smallq_fwd_mma_kernel", "smallq_bwd_dq_mma_kernel",
+# the bf16 K1 and K6 kernels: their SASS must hold tensor-core instructions
+TENSOR_CORE_KERNELS = ("smallq_fwd_mma_kernel", "smallq_bwd_dq_mma_kernel",
                        "smallq_bwd_dkdv_mma_kernel")
 # the FMA K3 / K4 / K5 kernels, which only fp32 calls (the parity checks)
-# may launch, and the bf16 K3 kernel, whose SASS must hold HMMA or HGMMA
+# may launch
 FMA_HEAD = ("head_sample_kernel", "head_topk_sample_kernel", "head_topk_sample_v1_kernel")
-TENSOR_CORE_HEAD = ("head_sample_mma_kernel",)
 # the Hopper kernels (csrc/hopper.cuh): bf16 K2 (with and without
-# dropout, over 2 or 4 key blocks), K4 and K5. Each instantiation must
-# multiply by wgmma (HGMMA) and never by mma.sync (HMMA), and load by TMA
-# (UTMALDG).
-WGMMA_KERNELS = {"attention": {"largeq_fwd_wgmma_kernel": 4},
-                 "head_sample": {"head_topk_wgmma_kernel": 1, "head_topk_v1_wgmma_kernel": 1}}
+# dropout, over 4 or 8 key blocks), K7's two passes (with and without
+# dropout; the dq pass over 4 or 8 key blocks), K3, K4 and K5. Each
+# instantiation must multiply by wgmma (HGMMA) and never by mma.sync
+# (HMMA), and load by TMA (UTMALDG).
+WGMMA_KERNELS = {"attention": {"largeq_fwd_wgmma_kernel": 4, "largeq_bwd_dq_wgmma_kernel": 4,
+                               "largeq_bwd_dkdv_wgmma_kernel": 2},
+                 "head_sample": {"head_sample_wgmma_kernel": 1, "head_topk_wgmma_kernel": 1,
+                                 "head_topk_v1_wgmma_kernel": 1}}
+# of those, the kernels whose SASS must hold no local-memory load or store
+# (LDL, STL: spills), each instantiation
+NO_SPILL_KERNELS = {"attention": ("largeq_bwd_dq_wgmma_kernel", "largeq_bwd_dkdv_wgmma_kernel"),
+                    "head_sample": ("head_sample_wgmma_kernel",)}
 # the kernels they replace, which must be gone
-REPLACED_KERNELS = ("largeq_fwd_mma_kernel", "head_topk_mma_kernel", "head_topk_v1_mma_kernel")
+REPLACED_KERNELS = ("largeq_fwd_mma_kernel", "head_topk_mma_kernel", "head_topk_v1_mma_kernel",
+                    "largeq_bwd_dq_mma_kernel", "largeq_bwd_dkdv_mma_kernel",
+                    "head_sample_mma_kernel")
 
 
 def kernel_table(prof, span: str | None = None, ranges=()) -> list[tuple[str, float, int]]:
@@ -1626,12 +1648,13 @@ def kernel_ms(fn, keys, expect=None, tries: int = 3) -> dict:
     return out
 
 
-SASS_OPS = {"hmma": "HMMA", "hgmma": "HGMMA", "utmaldg": "UTMALDG"}
+SASS_OPS = {"hmma": "HMMA", "hgmma": "HGMMA", "utmaldg": "UTMALDG", "ldl": "LDL", "stl": "STL"}
 
 
 def sass_counts(lib_path) -> dict:
-    """HMMA (mma.sync), HGMMA (wgmma) and UTMALDG (TMA load) instructions
-    in each kernel of a built library, from `cuobjdump -sass`, by kernel
+    """HMMA (mma.sync), HGMMA (wgmma), UTMALDG (TMA load) and LDL / STL
+    (local memory: spills) instructions in each kernel of a built
+    library, from `cuobjdump -sass`, by kernel
     name (demangled and cut to the template arguments where cu++filt is
     at hand)."""
     from mebt_tpu_torch.ops import _build
@@ -1682,12 +1705,13 @@ def _bf16_instances(counts, names) -> list[str]:
 
 def check_sass():
     """The tensor-core and TMA instructions of every attention, head and
-    K9 kernel. Each instantiation of the bf16 K1 / K6 / K7 kernels (two
-    each: with and without dropout) and of the bf16 K3 kernel must have
-    some; each instantiation of the Hopper K2, K4 and K5 kernels HGMMA
-    and UTMALDG and no HMMA, and the kernels they replaced must be gone;
-    no bf16 instantiation of an FMA attention, K3, K4 or K5 kernel may
-    exist; K9's search must have them and its FMA kernel must be gone."""
+    K9 kernel. Each instantiation of the bf16 K1 / K6 kernels (two each:
+    with and without dropout) must have some; each instantiation of the
+    Hopper K2, K3, K4, K5 and K7 kernels HGMMA and UTMALDG and no HMMA,
+    K3's and K7's no LDL or STL (no spills), and the kernels they
+    replaced must be gone; no bf16 instantiation of an FMA attention, K3,
+    K4 or K5 kernel may exist; K9's search must have them and its FMA
+    kernel must be gone."""
     from mebt_tpu_torch.ops import _build
 
     libs = {name: sass_counts(_build.library_path(name))
@@ -1704,14 +1728,14 @@ def check_sass():
                 c["hgmma"] > 0 and c["hmma"] == 0 and c["utmaldg"] > 0 for c in inst.values()),
                 f"SASS: {name} instantiations {inst} (need {n_inst}, each with HGMMA and "
                 f"UTMALDG, without HMMA)")
+    for lib, kernels in NO_SPILL_KERNELS.items():
+        spills = {n: c for n, c in libs[lib].items() if any(k in n for k in kernels)
+                  and c["ldl"] + c["stl"] > 0}
+        require(not spills, f"SASS: local-memory loads or stores (spills) in {spills}")
     gone = [n for lib in libs.values() for n in lib if any(r in n for r in REPLACED_KERNELS)]
     require(not gone, f"SASS: replaced kernels still built: {gone}")
     fma_bf16 = _bf16_instances(counts, FMA_ATTENTION)
     require(not fma_bf16, f"SASS: bf16 FMA attention kernels still built: {fma_bf16}")
-    for name in TENSOR_CORE_HEAD:
-        inst = {n: c for n, c in head.items() if name in n}
-        require(len(inst) >= 1 and all(tensor_core(c) > 0 for c in inst.values()),
-                f"SASS: {name} instantiations {inst} (each needs HMMA/HGMMA)")
     fma_bf16 = _bf16_instances(head, FMA_HEAD)
     require(not fma_bf16, f"SASS: bf16 FMA K3 / K4 / K5 kernels still built: {fma_bf16}")
     # K9: the 3xTF32 search on the tensor cores, and no FMA search left

@@ -80,7 +80,7 @@
 //   lse log2(e) as an fp32 pair from a double product, dp = g V^T, ds
 //   in three bf16 parts, each tile's ds K added to dq in fp32; it draws
 //   each keep bit once and hands (L, D, the live list, the keep bits) to
-//   smallq_bwd_dkdv_mma_kernel, K7's key-major tile over 64 live keys
+//   smallq_bwd_dkdv_mma_kernel, a key-major mma.sync tile over 64 live keys
 //   (three-part p and ds, each 16 queries' products added in fp32), which
 //   scatters its rows back to their keys and zeroes the dead keys' rows.
 //   fp32: smallq_bwd_dq_kernel (one CTA per (b, h, 64 queries) over the
@@ -97,27 +97,36 @@
 //   dq, and leaves lse and D in a scratch buffer; pass 2 sums dk and dv
 //   over the query tiles of one (b, h) per key tile.
 //   bf16: bound by operations (10 NQ NK Dh per (b, h), 0.11 ms at 128f
-//   latent_dec, against 0.03 ms of bytes); both passes run every
-//   product on the tensor cores with mma.sync fragments. largeq_bwd_dq_
-//   mma_kernel: K/V resident, a warp per 16-row block. Sweep 1
-//   takes S = Q K^T and dP = g V^T a 32-key chunk and keeps, beside the
-//   online softmax's (m, l), d = sum_k e_k keep_k dp_k rescaled by the
-//   same 2^(m_old - m_new): D = d / l is rowsum(g * O) without forming
-//   O (two products where P V in three bf16 parts took four). Sweep 2:
-//   p = exp2(s - lse), dp = g V^T, ds = p (dp keep - D) scale, dq += ds
-//   K with ds in two bf16 parts (a sum over the NK keys only): 6
-//   products in all, where PR 6's dq pass took 9. largeq_bwd_dkdv_mma_kernel has the key axis as
-//   M: a warp per 16 keys, K and V fragments held in registers, Q / g /
-//   lse / D tiles of 64 queries double-buffered with cp.async; S^T =
-//   K Q^T, dv += (P^T keep) g, dk += dS^T Q, each 16 queries' products
-//   summed apart and added to dk, dv in fp32 (the tensor cores' own fp32
-//   sums drop the low bits of small products, which over 8192 queries
-//   showed): 8 products. Its (b, h, key tile) CTAs fill 0.8 of a wave at
-//   128f (320 of 396 slots), so the host splits the query walk over up
-//   to 16 CTAs when that ends the launch sooner (k7_dkdv_plan); each
-//   split leaves fp32 dk, dv in scratch and largeq_bwd_dkdv_merge_kernel
-//   adds them in split order. p and ds enter the dk/dv products in three
-//   bf16 parts (K7_PARTS below).
+//   latent_dec, against 0.03 ms of bytes), on Hopper's own instructions
+//   (csrc/hopper.cuh): every product is wgmma m64n64k16 on operands that
+//   TMA loads behind mbarriers, 56 a 64 x 64 block over both passes (0.30
+//   ms at peak at 128f latent_dec). largeq_bwd_dq_wgmma_kernel has K2's
+//   persistent shape: 64-query tiles over the (b, h)'s resident K and V,
+//   three consumer warpgroups (two with dropout) and a producer
+//   warpgroup. Sweep 1 takes S = Q K^T and dP = g V^T a 64-key block and
+//   keeps, beside the online softmax's (m, l), d = sum_k e_k keep_k dp_k
+//   rescaled by the same 2^(m_old - m_new): D = d / l is rowsum(g * O)
+//   without forming O. Sweep 2: p = exp2(s - lse), dp = g V^T, ds = p (dp
+//   keep - D) scale, dq += ds K with ds from registers in two bf16 parts
+//   and K MN-major (a sum over the NK keys only).
+//   largeq_bwd_dkdv_wgmma_kernel has the key axis as M: a CTA of one
+//   consumer warpgroup (64 keys, K and V resident) and a producer warp
+//   whose first lane streams 64-query tiles of Q and g into a ring and
+//   whose other lanes copy beside them the rows' (m, log2 l), D and keep
+//   words; two CTAs an SM, so that one's softmax runs while the other's
+//   products do (a wider tile would spill: K2's 128-key blocks did at 384
+//   threads). S^T = K Q^T and dP^T = V g^T, then dv += (P^T keep) g and
+//   dk += dS^T Q with P^T and dS^T from the accumulator registers
+//   (FlashAttention-3's conversion) in three bf16 parts and g, Q
+//   MN-major, each query tile's products summed apart in the accumulator
+//   and added to the fp32 dk, dv sums (the tensor cores' own fp32 sums
+//   drop the low bits of small products, which over 8192 queries showed).
+//   Its (b, h, key tile) CTAs fill 1.2 waves at 128f (320 of 264 slots),
+//   so the host splits the query walk over up to 16 CTAs when that ends
+//   the launch sooner (k7_dkdv_plan); each split leaves fp32 dk, dv in
+//   scratch and largeq_bwd_dkdv_merge_kernel adds them in split order, so
+//   two calls give the same bits. p and ds enter the dk/dv products in
+//   three bf16 parts (K7_PARTS below).
 //   fp32: largeq_bwd_dq_kernel (32 queries a CTA, FMA loops) and
 //   attn_bwd_dkdv_kernel without a mask (the parity checks only).
 //
@@ -358,7 +367,7 @@ cudaError_t launch_smallq(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// K1, K6, K7 in bf16: tensor-core tiles (mma.sync m16n8k16, ldmatrix; the
+// K1 and K6 in bf16: tensor-core tiles (mma.sync m16n8k16, ldmatrix; the
 // fragment layouts and the instructions are in mma.cuh). Two
 // neighbouring C fragments of S are the A fragment of P for the next
 // product, with no data movement.
@@ -366,11 +375,7 @@ cudaError_t launch_smallq(const void* q, const void* k, const void* v,
 constexpr int TC_DH = 64;       // head width of every MeBT config
 constexpr int TC_PITCH = 72;    // bf16 per shared row: 144 B, so the 8 rows
                                 // an ldmatrix reads fall in distinct banks
-constexpr int TC_WARPS = 8;     // K7 dq: warps a CTA, 16 query rows each
-constexpr int TC_KPAD = 64;     // resident keys are padded to this multiple
-constexpr int K7_KC = 32;       // keys per chunk, K7's dq pass sweep 1
-constexpr int K7_KC2 = 16;      // keys per chunk, its sweep 2 (registers)
-constexpr int DKDV_WARPS = 4;   // K7 dk/dv: 16 keys a warp, 64 keys a CTA
+constexpr int DKDV_WARPS = 4;   // K6 dk/dv: 16 keys a warp, 64 keys a CTA
 constexpr int DKDV_QT = 64;     // queries per tile of the dk/dv walk
 constexpr int DKDV_QC = 16;     // queries per product chunk inside a tile
 constexpr int K7_MAX_SPLITS = 16;  // K7 dk/dv: most CTAs sharing one key tile's query walk
@@ -385,7 +390,6 @@ constexpr int K7_MAX_SPLITS = 16;  // K7 dk/dv: most CTAs sharing one key tile's
 constexpr int K2_PARTS = 2;
 constexpr int K7_PARTS = 3;
 constexpr int K7_DQ_PARTS = 2;
-static_assert(TC_KPAD % (DKDV_WARPS * 16) == 0, "pass 2's key tiles cover the padded keys");
 constexpr float LOG2E = 1.4426950408889634f;
 
 using bf16 = __nv_bfloat16;
@@ -541,27 +545,12 @@ __device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src, int r0, in
   }
 }
 
-__host__ __device__ constexpr int pad_keys(int NK) {
-  return (NK + TC_KPAD - 1) / TC_KPAD * TC_KPAD;
-}
-
-// K and V resident, then per warp `qrows` rows of each query-side input
-inline size_t tc_smem_bytes(int NK, int qrows) {
-  return sizeof(bf16) * TC_PITCH * ((size_t)2 * pad_keys(NK) + (size_t)TC_WARPS * qrows);
-}
-inline size_t k7_dq_tc_smem_bytes(int NK) { return tc_smem_bytes(NK, 32); }
-constexpr size_t k7_dkdv_tc_smem_bytes() {
+// K6's key-major dk/dv tile: its keys' K and V, two stages of query tiles
+// (q, g, (m, log2 l), D and the keep words)
+constexpr size_t dkdv_tc_smem_bytes() {
   return sizeof(bf16) * TC_PITCH * (2 * DKDV_WARPS * 16 + 2 * 2 * DKDV_QT) +
          (sizeof(float2) + sizeof(float) + sizeof(uint32_t) * DKDV_WARPS * 16 / 32) * 2 *
              DKDV_QT;
-}
-
-// K and V of one (b, h) into shared memory, zero rows up to pad_keys(NK)
-__device__ __forceinline__ void load_kv(bf16* Ks, bf16* Vs, const bf16* kg, const bf16* vg,
-                                        int NK) {
-  const int n = pad_keys(NK);
-  copy_rows(Ks, kg, 0, n, NK, threadIdx.x, blockDim.x);
-  copy_rows(Vs, vg, 0, n, NK, threadIdx.x, blockDim.x);
 }
 
 // -inf at keys >= NK of the 16 x 8 NT score tile of keys k0..; returns
@@ -650,80 +639,6 @@ __device__ __forceinline__ void softmax_chunk(float (&o)[TC_DH / 8][4], float (&
   mma_ab_parts<NP, NT / 2>(o, pa, Vc, lane);
 }
 
-// Sweep 1 of K7's dq pass for one warp's 16 query rows (A fragments qa
-// of q, ga of g): the online softmax (m, l) of the forward and beside l the
-// unnormalized d = sum_k e_k keep_k dp_k with dp = g V^T, rescaled by the
-// same 2^(m_old - m_new), so that D = d / l = rowsum(g o O) (the
-// sum(dp * p) form of attention_pallas.py:_xla_bwd). Two products a
-// 32-key chunk, S and dP, neither with a split operand: O is never
-// formed. Rows g and g + 8, summed over the quad. With dropout the keep
-// bits drawn go to keep_rows (row r at keep_rows + r * nkw, one word per
-// 32 keys, bit = key % 32) for the rows below nrows.
-template <bool DROP>
-__device__ __forceinline__ void softmax_rows_d(float (&m)[2], float (&l)[2], float (&d)[2],
-                                               const uint32_t (&qa)[TC_DH / 16][4],
-                                               const uint32_t (&ga)[TC_DH / 16][4],
-                                               const bf16* Ks, const bf16* Vs, int NK,
-                                               float scale_log2, uint32_t row0,
-                                               const Dropout& drop, int lane, uint32_t* keep_rows,
-                                               int nkw, int nrows) {
-  constexpr int KC = K7_KC, NT = KC / 8;
-  static_assert(KC == 32, "one keep word per chunk");
-  m[0] = m[1] = -INFINITY;
-  l[0] = l[1] = d[0] = d[1] = 0.f;
-  const uint32_t r0 = row0 + (lane >> 2);
-  for (int k0 = 0; k0 < NK; k0 += KC) {
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mma_abt<NT>(s, qa, Ks + k0 * TC_PITCH, lane);
-    mma_abt<NT>(dp, ga, Vs + k0 * TC_PITCH, lane);  // zero rows past NK
-    float mx[2];
-    mask_max<NT>(s, 0, NK - k0, lane, mx[0], mx[1]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float mn = fmaxf(m[h], mx[h] * scale_log2);  // finite: column 0 is live
-      const float alpha = exp2f(m[h] - mn);              // 0 on the first chunk
-      m[h] = mn;
-      l[h] *= alpha;
-      d[h] *= alpha;
-    }
-    uint32_t kbits[2] = {0u, 0u};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        float x = exp2f(fmaf(s[j][e], scale_log2, -m[h]));
-        l[h] += x;  // the denominator takes the undropped e
-        if (DROP) {
-          const int c = j * 8 + 2 * (lane & 3) + (e & 1);
-          const float kp = drop.keep(r0 + h * 8, (uint32_t)(k0 + c));
-          if (kp != 0.f) kbits[h] |= 1u << c;
-          x *= kp;
-        }
-        d[h] = fmaf(x, dp[j][e], d[h]);
-      }
-    if (DROP) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint32_t w = kbits[h];
-        w |= __shfl_xor_sync(FULL, w, 1);
-        w |= __shfl_xor_sync(FULL, w, 2);
-        const int r = (lane >> 2) + 8 * h;
-        if ((lane & 3) == h && r < nrows) keep_rows[(size_t)r * nkw + k0 / 32] = w;
-      }
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] = quad_sum(l[h]);
-    d[h] = quad_sum(d[h]);
-  }
-}
-
 // rows g, g + 8 of a 16-row block at `base` (row-major, TC_DH wide) from
 // the C fragments c (times inv[h]), skipping rows >= nrows
 __device__ __forceinline__ void store_rows(bf16* base, const float (&c)[TC_DH / 8][4],
@@ -738,53 +653,6 @@ __device__ __forceinline__ void store_rows(bf16* base, const float (&c)[TC_DH / 
       *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
           __floats2bfloat162_rn(c[j][2 * h] * inv[h], c[j][2 * h + 1] * inv[h]);
   }
-}
-
-// rows g, g + 8 of a 16-row block at `base` (row-major fp32, TC_DH wide)
-// from the C fragments c, skipping rows >= nrows
-__device__ __forceinline__ void store_rows_f32(float* base, const float (&c)[TC_DH / 8][4],
-                                               int nrows, int lane) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = (lane >> 2) + 8 * h;
-    if (r >= nrows) continue;
-    float* dst = base + (size_t)r * TC_DH + 2 * (lane & 3);
-#pragma unroll
-    for (int j = 0; j < TC_DH / 8; ++j)
-      *reinterpret_cast<float2*>(dst + j * 8) = make_float2(c[j][2 * h], c[j][2 * h + 1]);
-  }
-}
-
-// Grid of K7's dq pass: (splits, B * H). Each CTA takes `bpc`
-// consecutive 16-row blocks of its (b, h), warp w the blocks w, w +
-// TC_WARPS, ...; the split count is the one whose launch ends soonest
-// when the CTAs run in waves (slots = SMs x CTAs an SM), each CTA costing
-// the most blocks one of its warps takes; the fewer splits on a tie, so
-// that a CTA's copy of K/V serves as many queries as that allows. At the
-// 16f training shape (96 (b, h), 64 blocks) that is 8 splits, three
-// waves of one block a warp, where one wave of two splits would give each
-// warp four; at 128f batch 5, 13 splits (4 waves of 5 blocks a warp)
-// against one wave of up to 22.
-template <typename Kern>
-cudaError_t tc_grid(Kern kern, size_t smem, int BH, int NQ, dim3& grid, int& bpc) {
-  int sms = 0, smem_sm = 0, optin = 0, per_sm = 0;
-  cudaError_t e = card_shape(sms, smem_sm, optin);
-  if (e == cudaSuccess) e = blocks_per_sm(kern, TC_WARPS * 32, smem, per_sm);
-  if (e != cudaSuccess) return e;
-  const long slots = (long)sms * (per_sm > 0 ? per_sm : 1);
-  const int nb = (NQ + 15) / 16;
-  long best_cost = -1;
-  for (int s = 1; s <= nb; ++s) {
-    const int b = (nb + s - 1) / s;
-    if ((nb + b - 1) / b != s) continue;  // the same grid as a smaller s
-    const long cost = ((long)BH * s + slots - 1) / slots * ((b + TC_WARPS - 1) / TC_WARPS);
-    if (best_cost < 0 || cost < best_cost) {
-      best_cost = cost;
-      bpc = b;
-    }
-  }
-  grid = dim3((nb + bpc - 1) / bpc, BH);
-  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -1141,258 +1009,548 @@ cudaError_t launch_largeq_wgmma(const void* q, const void* k, const void* v, voi
   return cudaGetLastError();
 }
 
-// K7 pass 1 (bf16): writes dq, and for pass 2 each row's softmax as the
-// pair (m, log2 l) of sweep 1 (lse = (m + log2 l) ln 2, kept apart: their
-// fp32 sum rounds at the size of m), D, and with dropout the keep bits
-// of every (row, key) as (B, H, NQ, nkw) words: the Philox draw of an
-// element is made once in K7, by sweep 1, and read back by sweep 2 and
-// by pass 2.
-template <bool DROP>
-__global__ void __launch_bounds__(TC_WARPS * 32, 2)
-largeq_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ g,
-                         bf16* __restrict__ dq, float2* __restrict__ lse2,
-                         float* __restrict__ dvec, uint32_t* __restrict__ keep, int NQ,
-                         int NK, int bpc, float scale, float scale_log2, Dropout drop) {
-  constexpr int NT = K7_KC2 / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int NKP = pad_keys(NK);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + (size_t)NKP * TC_PITCH;
-  bf16* Qw = Vs + (size_t)NKP * TC_PITCH + warp * 32 * TC_PITCH;  // [16][PITCH] q
-  bf16* Gw = Qw + 16 * TC_PITCH;                                   // [16][PITCH] g
+// ---------------------------------------------------------------------------
+// K7 in bf16 on Hopper: largeq_bwd_dq_wgmma_kernel and
+// largeq_bwd_dkdv_wgmma_kernel (the source note above)
 
-  const int bh = blockIdx.y;
-  const int nb = (NQ + 15) / 16;
-  const int b_end = min(nb, (int)(blockIdx.x + 1) * bpc);
-  const size_t qoff = (size_t)bh * NQ * TC_DH;
+constexpr int K7W_QT = 64;                        // queries a tile: one warpgroup's m64
+constexpr int K7W_KT = 64;                        // keys a block (dq) or a dk/dv CTA: m64
+constexpr int K7W_THREADS = 128 + 32;             // dk/dv: a consumer warpgroup, a producer warp
+constexpr int K7W_STAGES = 3;                     // the dk/dv pass's ring of query tiles
+constexpr int K7W_DQ_STAGES = 2;                  // dq: Q / g ring depth a warpgroup
+// dq: consumer warpgroups a CTA, 128 registers a thread at three; with
+// dropout two, at 168 (its Philox draws spilled at 128)
+__host__ __device__ constexpr int k7w_dq_consumers(bool drop) { return drop ? 2 : 3; }
+__host__ __device__ constexpr int k7w_dq_threads(bool drop) {
+  return (k7w_dq_consumers(drop) + 1) * 128;  // + a producer warpgroup
+}
+constexpr uint32_t K7W_TILE_BYTES = K7W_QT * TC_DH * 2;  // 8 KB of Q, g, K or V
+// a dk/dv stage: Q and g tiles, then each query's (m, log2 l), D and its
+// two keep words at the CTA's 64 keys; 1024-aligned for the next stage
+constexpr uint32_t K7W_SIDE_BYTES =
+    K7W_QT * (sizeof(float2) + sizeof(float) + 2 * sizeof(uint32_t));
+constexpr uint32_t K7W_STAGE_BYTES = (2 * K7W_TILE_BYTES + K7W_SIDE_BYTES + 1023) / 1024 * 1024;
 
-  load_kv(Ks, Vs, k + (size_t)bh * NK * TC_DH, v + (size_t)bh * NK * TC_DH, NK);
-  int blk = blockIdx.x * bpc + warp;
-  if (blk < b_end) {
-    copy_rows(Qw, q + qoff, blk * 16, 16, NQ, lane, 32);
-    copy_rows(Gw, g + qoff, blk * 16, 16, NQ, lane, 32);
-  }
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
+// the dk/dv pass's dk or dv sums, fp32, a float2 per (warp, row half, 8
+// columns, lane): 16 KB each
+constexpr uint32_t K7W_SUM_BYTES = K7W_KT * TC_DH * sizeof(float);
 
-  for (; blk < b_end; blk += TC_WARPS) {
-    uint32_t qa[TC_DH / 16][4], ga[TC_DH / 16][4];
-    load_a(qa, Qw, lane);
-    load_a(ga, Gw, lane);
-    __syncwarp();
-    if (blk + TC_WARPS < b_end) {  // the next block lands while this one computes
-      copy_rows(Qw, q + qoff, (blk + TC_WARPS) * 16, 16, NQ, lane, 32);
-      copy_rows(Gw, g + qoff, (blk + TC_WARPS) * 16, 16, NQ, lane, 32);
+__host__ __device__ constexpr size_t k7w_dkdv_smem_bytes() {
+  return 1024 + 2 * K7W_TILE_BYTES + (size_t)K7W_STAGES * K7W_STAGE_BYTES + 2 * K7W_SUM_BYTES +
+         (1 + 2 * K7W_STAGES) * sizeof(uint64_t);
+}
+
+// the dq pass: K2's K/V ring, each consumer warpgroup's Q and g ring, the
+// barriers (230,656 bytes at 256 keys and three consumers, two K/V stages;
+// as many at 512 keys, one)
+__host__ __device__ constexpr size_t k7w_dq_smem_bytes(int nkb, bool drop) {
+  return 1024 + (size_t)k2w_kv_stages(nkb) * 2 * nkb * K7W_TILE_BYTES +
+         (size_t)k7w_dq_consumers(drop) * K7W_DQ_STAGES * 2 * K7W_TILE_BYTES + 256;
+}
+
+// S (or S^T) = A B^T over the 64-deep head width: A and B 64-row tiles,
+// both K-major (as stored), four m64n64k16 a product
+__device__ __forceinline__ void wg_abt64(float (&d)[32], uint64_t a, uint64_t b) {
+#pragma unroll
+  for (int k16 = 0; k16 < TC_DH / 16; ++k16)
+    wgmma_m64n64k16(d, wg_desc_at(a, 32 * k16), wg_desc_at(b, 32 * k16), k16);
+}
+
+// The m64n64 accumulator c as A fragments of its four 16-column blocks in
+// NP bf16 parts: columns 16 k .. 16 k + 15 are c[8 k .. 8 k + 7], pair by
+// pair mma.m16n8k16's A fragment of them
+template <int NP>
+__device__ __forceinline__ void wg_a_parts(const float (&c)[32], uint32_t (&a)[NP][4][4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      uint32_t t[NP];
+      split_pair<NP>(c[8 * k + 2 * r], c[8 * k + 2 * r + 1], t);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) a[p][k][r] = t[p];
     }
-    cp_async_commit();
-    // the local row: it indexes the keep words' scratch, and drop.keep
-    // maps it to the Philox row of the whole model's problem
-    const uint32_t row0 = (uint32_t)bh * (uint32_t)NQ + (uint32_t)(blk * 16);
-    const int nrows = NQ - blk * 16;
-    const int nkw = (NK + 31) / 32;
-    uint32_t* keep_rows = DROP ? keep + (size_t)row0 * nkw : nullptr;
+}
 
-    // sweep 1: (m, l) and D = d / l, the online form of rowsum(g o O)
-    float m[2], l[2], lg2[2], dr[2];
-    softmax_rows_d<DROP>(m, l, dr, qa, ga, Ks, Vs, NK, scale_log2, row0, drop, lane, keep_rows,
-                         nkw, nrows);
+// a thread's 32 sums at `at` (float2 x / 2 at at[x / 2 * 32]) += tile, in fp32
+__device__ __forceinline__ void add_sums(float2* at, const float (&tile)[32]) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      dr[h] /= l[h];
-      lg2[h] = log2f(l[h]);
-    }
-
-    // sweep 2: p = 2^(s c - m - log2 l), dp = g V^T, ds = p (dp keep - D) scale,
-    // dq += ds K
-    float acc[TC_DH / 8][4];
-    zero(acc);
-    if (DROP) __syncwarp();  // the block's keep words are written
-    for (int k0 = 0; k0 < NK; k0 += K7_KC2) {
-      uint32_t kw[2] = {0u, 0u};
-      if (DROP) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = (lane >> 2) + 8 * h;
-          if (r < nrows) kw[h] = keep_rows[(size_t)r * nkw + k0 / 32] >> (k0 % 32);
-        }
-      }
-      float s[NT][4], dp[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      mma_abt<NT>(s, qa, Ks + k0 * TC_PITCH, lane);
-      mma_abt<NT>(dp, ga, Vs + k0 * TC_PITCH, lane);
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + j * 8 + 2 * (lane & 3) + (e & 1);
-          const int h = e >> 1;
-          const float p = key < NK ? exp2f(fmaf(s[j][e], scale_log2, -m[h]) - lg2[h]) : 0.f;
-          float x = dp[j][e];
-          if (DROP) x = (kw[h] >> (key - k0)) & 1u ? x * drop.keep_scale : 0.f;
-          dp[j][e] = p * (x - dr[h]) * scale;
-        }
-      uint32_t da[K7_DQ_PARTS][NT / 2][4];
-      to_a_parts<K7_DQ_PARTS, NT>(dp, da);
-      mma_ab_parts<K7_DQ_PARTS, NT / 2>(acc, da, Ks + k0 * TC_PITCH, lane);
-    }
-    const float one[2] = {1.f, 1.f};
-    store_rows(dq + qoff + (size_t)blk * 16 * TC_DH, acc, one, nrows, lane);
-    if ((lane & 3) == 0) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = (lane >> 2) + 8 * h;
-        if (r < nrows) {
-          lse2[(size_t)bh * NQ + blk * 16 + r] = make_float2(m[h], lg2[h]);
-          dvec[(size_t)bh * NQ + blk * 16 + r] = dr[h];
-        }
-      }
-    }
-    cp_async_wait_all();
-    __syncwarp();
+  for (int x = 0; x < 16; ++x) {
+    const float2 a = at[x * 32];
+    at[x * 32] = make_float2(a.x + tile[2 * x], a.y + tile[2 * x + 1]);
   }
 }
 
-// K7 pass 2 (bf16): one CTA per (b, h, 64 keys, query split), a warp
-// per 16 keys, walking the split's 64-query tiles (tiles tps z .. of
-// split z = blockIdx.z); (m, log2 l), D and the keep bits of each row
-// from pass 1. One split writes dk, dv in bf16; with more, each leaves
-// its fp32 sums in part (dk of split z at part + z n, dv at part +
-// (splits + z) n, n = B H NK Dh) for largeq_bwd_dkdv_merge_kernel.
-template <bool DROP>
-__global__ void __launch_bounds__(DKDV_WARPS * 32, 3)
-largeq_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, const bf16* __restrict__ g,
-                           const float2* __restrict__ lse2, const float* __restrict__ dvec,
-                           const uint32_t* __restrict__ keep, bf16* __restrict__ dk,
-                           bf16* __restrict__ dv, float* __restrict__ part, int NQ, int NK,
-                           int tps, float scale, float scale_log2, Dropout drop) {
-  constexpr int NT = DKDV_QC / 8;
-  constexpr int TILE = DKDV_QT * TC_PITCH;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tid = threadIdx.x;
-  constexpr int NTHR = DKDV_WARPS * 32;
-  bf16* Kt = reinterpret_cast<bf16*>(smem_raw);  // [64][PITCH] this CTA's keys
-  bf16* Vt = Kt + DKDV_WARPS * 16 * TC_PITCH;
-  bf16* Qs = Vt + DKDV_WARPS * 16 * TC_PITCH;  // [2][64][PITCH]
-  bf16* Gs = Qs + 2 * TILE;                    // [2][64][PITCH]
-  float2* Ls = reinterpret_cast<float2*>(Gs + 2 * TILE);  // [2][64] (m, log2 l)
-  float* Ds = reinterpret_cast<float*>(Ls + 2 * DKDV_QT);  // [2][64]
-  // [2][64][KW]: the keep words of the tile's queries at this CTA's keys
-  uint32_t* Ms = reinterpret_cast<uint32_t*>(Ds + 2 * DKDV_QT);
-  constexpr int KW = DKDV_WARPS * 16 / 32;
-  const int nkw = (NK + 31) / 32;
+// d (+)= A B over 64 deep: A from registers in NP parts (wg_a_parts), B a
+// 64-row tile MN-major (its 64 columns contiguous: g, Q, K or V as
+// stored), 16 rows a step; d is zeroed first where `add` is false
+template <int NP>
+__device__ __forceinline__ void wg_ab64(float (&d)[32], const uint32_t (&a)[NP][4][4],
+                                        uint64_t b, bool add) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      wgmma_m64n64k16_rt(d, a[p][k], wg_desc_at(b, 2 * k * 16 * TC_DH), add || k > 0 || p > 0);
+}
 
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * DKDV_WARPS * 16;
-  const size_t qoff = (size_t)bh * NQ * TC_DH, koff = (size_t)bh * NK * TC_DH;
-  const float2* lg = lse2 + (size_t)bh * NQ;
-  const float* dg = dvec + (size_t)bh * NQ;
+// K7 pass 1 (bf16): K2's persistent shape. One CTA an SM walks (b, h,
+// 64-query tile) items in (b, h)-major order, a balanced range a CTA; the
+// producer warpgroup's first lane loads by TMA K and V of each (b, h) the
+// range enters (every 64-key block that holds a key, into K2's ring of
+// k2w_kv_stages) and each item's Q and g tiles into its consumer
+// warpgroup's two-stage ring; C consumer warpgroups (three, two with
+// dropout: k7w_dq_consumers) take every C-th item, warp wl holding tile
+// rows 16 wl + g, + 8. Sweep 1, per 64-key
+// block: S = Q K^T and dP = g V^T (wgmma, K-major operands), the online
+// softmax (m, l) and beside l the unnormalized d = sum_k e_k keep_k dp_k
+// rescaled with it, so that D = d / l = rowsum(g o O) without O; each keep
+// bit is drawn here once and written as (B, H, NQ, nkw) words for sweep 2
+// and pass 2. Sweep 2: p = 2^(s c - m - log2 l), ds = p (dp keep - D)
+// scale, dq += ds K with ds from registers in K7_DQ_PARTS bf16 parts and
+// K MN-major. Then dq (bf16), each row's (m, log2 l) (lse = (m + log2 l)
+// ln 2, kept apart: their fp32 sum rounds at the size of m) and D. Twelve
+// consumer warps an SM: with two CTAs of one warpgroup each, the pass's
+// chains of products, waits and softmax took 0.45 ms at 128f latent_dec
+// on an NVIDIA H100 80GB HBM3, 0.31 with twelve.
+template <bool DROP, int NKB>
+__global__ void __launch_bounds__(k7w_dq_threads(DROP), 1)
+largeq_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap gmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ dq,
+                           float2* __restrict__ lse2, float* __restrict__ dvec,
+                           uint32_t* __restrict__ keep, int NQ, int NK, int n_items,
+                           float scale, float scale_log2, Dropout drop) {
+  constexpr int KB_ELEMS = K7W_KT * TC_DH, TILE_ELEMS = K7W_QT * TC_DH;
+  constexpr int KVS = k2w_kv_stages(NKB), C = k7w_dq_consumers(DROP), QS = K7W_DQ_STAGES;
+  const int nkb = (NK + K7W_KT - 1) / K7W_KT, nkw = (NK + 31) / 32;  // blocks that hold a key
+  extern __shared__ unsigned char k7w_smem[];
+  unsigned char* base = align1024(k7w_smem);
+  bf16* kv = reinterpret_cast<bf16*>(base);  // stage s: NKB K blocks, then NKB V blocks
+  bf16* qg = kv + (size_t)KVS * 2 * NKB * KB_ELEMS;  // stage (w, s) at w QS + s: Q, then g
+  uint64_t* bars = reinterpret_cast<uint64_t*>(qg + (size_t)C * QS * 2 * TILE_ELEMS);
+  uint64_t* kv_full = bars;              // [KVS]
+  uint64_t* kv_empty = bars + 2;         // [KVS], a warp of each consumer warpgroup
+  uint64_t* q_full = bars + 4;           // [w QS + s]
+  uint64_t* q_empty = q_full + C * QS;   // the 4 warps of w
 
-  auto load_tile = [&](int t, int buf) {
-    const int q0 = t * DKDV_QT;
-    copy_rows(Qs + buf * TILE, q + qoff, q0, DKDV_QT, NQ, tid, NTHR);
-    copy_rows(Gs + buf * TILE, g + qoff, q0, DKDV_QT, NQ, tid, NTHR);
-    for (int i = tid; i < DKDV_QT; i += NTHR) {
-      const bool in = q0 + i < NQ;  // zeros past NQ: with q = g = 0 the row adds nothing
-      cp_async8(Ls + buf * DKDV_QT + i, lg + (in ? q0 + i : 0), in);
-      cp_async4(Ds + buf * DKDV_QT + i, dg + (in ? q0 + i : 0), in);
+  const int nqt = (NQ + K7W_QT - 1) / K7W_QT;
+  const int t0 = (int)((long long)blockIdx.x * n_items / gridDim.x);
+  const int t1 = (int)((long long)(blockIdx.x + 1) * n_items / gridDim.x);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < KVS; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], 4 * C);
     }
-    if (DROP) {
-      const int w0 = k0 / 32;
-      for (int i = tid; i < DKDV_QT * KW; i += NTHR) {
-        const int qq = i / KW, w = w0 + i % KW;
-        const bool in = q0 + qq < NQ && w < nkw;
-        const size_t row = (size_t)bh * NQ + (in ? q0 + qq : 0);
-        cp_async4(Ms + buf * DKDV_QT * KW + i, keep + row * nkw + (in ? w : 0), in);
-      }
+    for (int i = 0; i < C * QS; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], 4);
     }
-  };
-
-  const int ntiles = (NQ + DKDV_QT - 1) / DKDV_QT;
-  const int t0 = blockIdx.z * tps, t1 = min(ntiles, t0 + tps);
-  copy_rows(Kt, k + koff, k0, DKDV_WARPS * 16, NK, tid, NTHR);
-  copy_rows(Vt, v + koff, k0, DKDV_WARPS * 16, NK, tid, NTHR);
-  load_tile(t0, 0);
-  cp_async_commit();
-  cp_async_wait_all();
+    mbar_init_fence();
+  }
   __syncthreads();
 
-  uint32_t ka[TC_DH / 16][4], va[TC_DH / 16][4];
-  load_a(ka, Kt + warp * 16 * TC_PITCH, lane);
-  load_a(va, Vt + warp * 16 * TC_PITCH, lane);
-  float dka[TC_DH / 8][4], dva[TC_DH / 8][4];
-  zero(dka);
-  zero(dva);
-  const int key_r = k0 + warp * 16 + (lane >> 2);  // +8 for e >= 2
-
-  for (int t = t0; t < t1; ++t) {
-    const int buf = (t - t0) & 1;
-    if (t + 1 < t1) load_tile(t + 1, buf ^ 1);
-    cp_async_commit();
-    const bf16* Qt = Qs + buf * TILE;
-    const bf16* Gt = Gs + buf * TILE;
-#pragma unroll
-    for (int c0 = 0; c0 < DKDV_QT; c0 += DKDV_QC) {
-      float s[NT][4], dp[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      mma_abt<NT>(s, ka, Qt + c0 * TC_PITCH, lane);  // S^T: keys x queries
-      mma_abt<NT>(dp, va, Gt + c0 * TC_PITCH, lane);  // dP^T = V g^T
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = c0 + j * 8 + 2 * (lane & 3) + (e & 1);
-          const float2 L = Ls[buf * DKDV_QT + col];
-          const float p = exp2f(fmaf(s[j][e], scale_log2, -L.x) - L.y);
-          float keep = 1.f;
-          if (DROP) {
-            const uint32_t w = Ms[(buf * DKDV_QT + col) * KW + warp * 16 / 32];
-            keep = (w >> ((key_r + 8 * (e >> 1)) % 32)) & 1u ? drop.keep_scale : 0.f;
+  if (warp >= 4 * C) {
+    // the producer warpgroup: one lane issues every load
+    if (warp == 4 * C && lane == 0) {
+      int kvs = 0;
+      uint32_t kvph = 0;
+      int cur = -1;
+      for (int t = t0; t < t1; ++t) {
+        const int bh = t / nqt, qt = t - bh * nqt;
+        if (bh != cur) {
+          mbar_wait(&kv_empty[kvs], kvph ^ 1);
+          mbar_expect_tx(&kv_full[kvs], 2 * nkb * K7W_TILE_BYTES);
+          bf16* ks = kv + (size_t)kvs * 2 * NKB * KB_ELEMS;
+          for (int b = 0; b < nkb; ++b) {
+            tma_load_3d(ks + b * KB_ELEMS, &kmap, &kv_full[kvs], 0, b * K7W_KT, bh);
+            tma_load_3d(ks + (NKB + b) * KB_ELEMS, &vmap, &kv_full[kvs], 0, b * K7W_KT, bh);
           }
-          s[j][e] = p * keep;
-          dp[j][e] = p * (dp[j][e] * keep - Ds[buf * DKDV_QT + col]) * scale;
+          cur = bh;
+          if (++kvs == KVS) {
+            kvs = 0;
+            kvph ^= 1;
+          }
         }
-      // Each chunk's products go to a zeroed fragment that is then added
-      // to dk / dv by an fp32 add: the tensor cores' fp32 sums drop the
-      // bits of a small product below the accumulator's last place, which
-      // over 8192 queries cost elements near zero 2-3x their bound.
-      float part[TC_DH / 8][4];
-      {
-        uint32_t pa[K7_PARTS][NT / 2][4];
-        to_a_parts<K7_PARTS, NT>(s, pa);
-        zero(part);
-        mma_ab_parts<K7_PARTS, NT / 2>(part, pa, Gt + c0 * TC_PITCH, lane);  // P^T g
-        add_to(dva, part);
+        // item t is consumer w's j-th: its stage j % QS, phase (j / QS) & 1
+        const int w = (t - t0) % C, j = (t - t0) / C, i = w * QS + j % QS;
+        mbar_wait(&q_empty[i], ((j / QS) & 1) ^ 1);
+        mbar_expect_tx(&q_full[i], 2 * K7W_TILE_BYTES);
+        bf16* st = qg + (size_t)i * 2 * TILE_ELEMS;
+        tma_load_3d(st, &qmap, &q_full[i], 0, qt * K7W_QT, bh);
+        tma_load_3d(st + TILE_ELEMS, &gmap, &q_full[i], 0, qt * K7W_QT, bh);
       }
-      uint32_t da[K7_PARTS][NT / 2][4];
-      to_a_parts<K7_PARTS, NT>(dp, da);
-      zero(part);
-      mma_ab_parts<K7_PARTS, NT / 2>(part, da, Qt + c0 * TC_PITCH, lane);  // dS^T q
-      add_to(dka, part);
     }
-    cp_async_wait_all();
-    __syncthreads();  // the next tile is in; every warp is done with this one
+    return;
   }
 
-  const int nrows = NK - (k0 + warp * 16);
-  const size_t row0 = koff + (size_t)(k0 + warp * 16) * TC_DH;
-  if (part == nullptr) {
-    const float one[2] = {1.f, 1.f};
-    store_rows(dk + row0, dka, one, nrows, lane);
-    store_rows(dv + row0, dva, one, nrows, lane);
-  } else {
-    const size_t n = (size_t)gridDim.y * NK * TC_DH;
-    store_rows_f32(part + blockIdx.z * n + row0, dka, nrows, lane);
-    store_rows_f32(part + (gridDim.z + blockIdx.z) * n + row0, dva, nrows, lane);
+  // a consumer warpgroup (the warpgroup index as the compiler can see it
+  // is warp-uniform)
+  const int wg = __shfl_sync(FULL, warp >> 2, 0), wl = warp & 3, g = lane >> 2, tq = lane & 3;
+  // the (b, h) whose K/V stage this warpgroup holds; hold(bh) releases the
+  // ones before bh and waits for bh's (K2's)
+  const int bh0 = t0 / nqt;
+  int cur = bh0 - 1, kvs = 0;
+  uint32_t kvph = 0;
+  auto hold = [&](int bh) {
+    while (cur < bh) {
+      if (cur >= bh0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&kv_empty[kvs]);
+        if (++kvs == KVS) {
+          kvs = 0;
+          kvph ^= 1;
+        }
+      }
+      ++cur;
+      mbar_wait(&kv_full[kvs], kvph);
+    }
+  };
+  int qst = 0;
+  uint32_t qph = 0;
+  for (int t = t0 + wg; t < t1; t += C) {
+    const int bh = t / nqt, qt = t - bh * nqt;
+    hold(bh);
+    const int qi = wg * QS + qst;
+    mbar_wait(&q_full[qi], qph);
+    const bf16* st = qg + (size_t)qi * 2 * TILE_ELEMS;
+    const uint64_t dQ = wg_desc(st), dG = wg_desc(st + TILE_ELEMS);
+    const bf16* ks = kv + (size_t)kvs * 2 * NKB * KB_ELEMS;
+    const uint64_t dk = wg_desc(ks), dv = wg_desc(ks + NKB * KB_ELEMS);
+    const int row0 = qt * K7W_QT + wl * 16 + g;  // rows row0, row0 + 8 of (b, h)
+    const uint32_t lrow = (uint32_t)bh * (uint32_t)NQ + (uint32_t)row0;  // the local row
+    uint32_t prow[2] = {0u, 0u};  // their Philox rows
+    if (DROP) {
+      prow[0] = drop.philox_row(lrow);
+      prow[1] = drop.philox_row(lrow + 8);
+    }
+
+    // sweep 1: (m, l) and D = d / l
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, d[2] = {0.f, 0.f};
+    float sc[32], dp[32];
+#pragma unroll
+    for (int b = 0; b < NKB; ++b) {
+      if (b >= nkb) continue;
+      wgmma_fence();
+      wg_abt64(sc, dQ, wg_desc_at(dk, 2 * b * KB_ELEMS));
+      wg_abt64(dp, dG, wg_desc_at(dv, 2 * b * KB_ELEMS));  // zero rows past NK
+      wgmma_commit();
+      uint32_t kb = 0u;  // element i's keep bit at bit i
+      if (DROP) {
+        // drawn while the products run, four Philox draws at a time:
+        // unrolled whole, ptxas ran out of registers interleaving them
+#pragma unroll 4
+        for (int i = 0; i < 32; ++i) {
+          const uint32_t key = (uint32_t)(b * K7W_KT + (i >> 2) * 8 + 2 * tq + (i & 1));
+          kb |= (uint32_t)(drop.keep_at(i & 2 ? prow[1] : prow[0], key) != 0.f) << i;
+        }
+      }
+      wgmma_wait<0>();
+      wgmma_fence_regs(sc);
+      wgmma_fence_regs(dp);
+      const int k0 = b * K7W_KT;
+      if (k0 + K7W_KT > NK) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (k0 + (i >> 2) * 8 + 2 * tq + (i & 1) >= NK) sc[i] = -INFINITY;
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float x = mx[h];
+        x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(FULL, x, 2));
+        const float mn = fmaxf(m[h], x * scale_log2);  // finite: key 0 is live
+        const float alpha = exp2_ftz(m[h] - mn);  // 0 on the first block
+        m[h] = mn;
+        l[h] *= alpha;
+        d[h] *= alpha;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1;
+        float x = exp2_ftz(fmaf(sc[i], scale_log2, -m[h]));
+        l[h] += x;  // the denominator takes the undropped e
+        if (DROP) x *= (kb >> i) & 1u ? drop.keep_scale : 0.f;
+        d[h] = fmaf(x, dp[i], d[h]);
+      }
+      if (DROP) {
+        // the block's two words of each row: word w holds keys k0 + 32 w ..,
+        // element i at bit (i >> 2) * 8 + 2 tq + (i & 1) - 32 w
+        uint32_t wd[2][2] = {{0u, 0u}, {0u, 0u}};
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          wd[(i >> 1) & 1][i >> 4] |= ((kb >> i) & 1u) << (((i >> 2) & 3) * 8 + 2 * tq + (i & 1));
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int w = 0; w < 2; ++w) {
+            wd[h][w] |= __shfl_xor_sync(FULL, wd[h][w], 1);
+            wd[h][w] |= __shfl_xor_sync(FULL, wd[h][w], 2);
+          }
+        const int h = tq >> 1, w = tq & 1, kw = 2 * b + w;  // lane tq stores one word
+        if (row0 + 8 * h < NQ && kw < nkw)
+          keep[(size_t)(lrow + 8 * h) * nkw + kw] = h ? (w ? wd[1][1] : wd[1][0])
+                                                      : (w ? wd[0][1] : wd[0][0]);
+      }
+    }
+    float D[2], lg2[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] = quad_sum(l[h]);
+      D[h] = quad_sum(d[h]) / l[h];
+      lg2[h] = log2f(l[h]);
+    }
+    if (DROP) __syncwarp();  // the rows' keep words are written
+
+    // sweep 2: dq += ds K
+    float acc[32];
+#pragma unroll
+    for (int b = 0; b < NKB; ++b) {
+      if (b >= nkb) continue;
+      wgmma_fence();
+      wg_abt64(sc, dQ, wg_desc_at(dk, 2 * b * KB_ELEMS));
+      wg_abt64(dp, dG, wg_desc_at(dv, 2 * b * KB_ELEMS));
+      wgmma_commit();
+      // the rows' keep bits of this block, read back (bit = key % 32)
+      uint32_t kw[2][2] = {{0u, 0u}, {0u, 0u}};
+      if (DROP) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int w = 0; w < 2; ++w)
+            if (row0 + 8 * h < NQ && 2 * b + w < nkw)
+              kw[h][w] = keep[(size_t)(lrow + 8 * h) * nkw + 2 * b + w];
+      }
+      wgmma_wait<0>();
+      wgmma_fence_regs(sc);
+      wgmma_fence_regs(dp);
+      const int k0 = b * K7W_KT;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1, c = (i >> 2) * 8 + 2 * tq + (i & 1);  // the block's column
+        const bool live = k0 + c < NK;
+        const float p = live ? exp2_ftz(fmaf(sc[i], scale_log2, -m[h]) - lg2[h]) : 0.f;
+        float x = dp[i];
+        if (DROP) x = (kw[h][i >> 4] >> (c & 31)) & 1u ? x * drop.keep_scale : 0.f;
+        dp[i] = p * (x - D[h]) * scale;
+      }
+      uint32_t da[K7_DQ_PARTS][4][4];
+      wg_a_parts<K7_DQ_PARTS>(dp, da);
+      wgmma_fence();
+      wg_ab64<K7_DQ_PARTS>(acc, da, wg_desc_at(dk, 2 * b * KB_ELEMS), b > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_regs(acc);
+    }
+    // the tile's Q and g are read: the stage goes back to the producer
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&q_empty[qi]);
+    if (++qst == QS) {
+      qst = 0;
+      qph ^= 1;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= NQ) continue;
+      bf16* dst = dq + ((size_t)bh * NQ + row) * TC_DH + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < TC_DH / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      if (tq == 0) {
+        lse2[(size_t)bh * NQ + row] = make_float2(m[h], lg2[h]);
+        dvec[(size_t)bh * NQ + row] = D[h];
+      }
+    }
+  }
+  // on to the range's last (b, h): the producer's ring waits for the
+  // releases
+  hold((t1 - 1) / nqt);
+}
+
+// K7 pass 2 (bf16). Grid (64-key tiles, B * H, query splits), one CTA a
+// key tile and the split's query tiles (tps from tile tps z of split z =
+// blockIdx.z). The producer warp's first lane loads the tile's K and V
+// rows (zeros past NK) and streams each query tile's Q and g rows by TMA
+// into a ring of K7W_STAGES; its other lanes copy beside them the rows'
+// (m, log2 l), D and keep words at the CTA's keys (zeros past NQ: with
+// q = g = 0 a row adds nothing), and every lane arrives on the stage's
+// barrier. The consumer warpgroup: S^T = K Q^T and dP^T = V g^T
+// (m64n64k16, K-major operands; keys are M, warp wl holds keys 16 wl + g,
+// + 8), p and ds in place, then dv += P^T g and dk += dS^T Q with the A
+// operand from registers in K7_PARTS bf16 parts (FlashAttention-3's
+// conversion of the accumulator) and g, Q MN-major. Each tile's products
+// are summed apart in the wgmma accumulator and added to the fp32 dk, dv
+// sums. One split writes dk, dv in bf16; with more, each leaves its fp32
+// sums in part (dk of split z at part + z n, dv at part + (splits + z) n,
+// n = B H NK Dh) for largeq_bwd_dkdv_merge_kernel.
+template <bool DROP>
+__global__ void __launch_bounds__(K7W_THREADS, 2)
+largeq_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap gmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const float2* __restrict__ lse2, const float* __restrict__ dvec,
+                             const uint32_t* __restrict__ keep, bf16* __restrict__ dk,
+                             bf16* __restrict__ dv, float* __restrict__ part, int NQ, int NK,
+                             int tps, float scale, float scale_log2, Dropout drop) {
+  constexpr int TILE_ELEMS = K7W_QT * TC_DH;
+  extern __shared__ unsigned char k7w_smem[];
+  unsigned char* base = align1024(k7w_smem);
+  bf16* kt = reinterpret_cast<bf16*>(base);
+  bf16* vt = kt + TILE_ELEMS;
+  unsigned char* ring = base + 2 * K7W_TILE_BYTES;
+  float2* sums = reinterpret_cast<float2*>(ring + (size_t)K7W_STAGES * K7W_STAGE_BYTES);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sums + 2 * K7W_SUM_BYTES / sizeof(float2));
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + K7W_STAGES;
+  const int bh = blockIdx.y, k0 = blockIdx.x * K7W_KT, nkw = (NK + 31) / 32;
+  const int ntiles = (NQ + K7W_QT - 1) / K7W_QT;
+  const int t0 = blockIdx.z * tps, t1 = min(ntiles, t0 + tps);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < K7W_STAGES; ++s) {
+      mbar_init(&full[s], 32);  // the TMA's expect_tx and 31 lanes' side rows
+      mbar_init(&empty[s], 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer warp
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * K7W_TILE_BYTES);
+      tma_load_3d(kt, &kmap, kv_full, 0, k0, bh);
+      tma_load_3d(vt, &vmap, kv_full, 0, k0, bh);
+    }
+    const int w0 = k0 / 32;
+    for (int t = t0; t < t1; ++t) {
+      const int i = t - t0, s = i % K7W_STAGES;
+      mbar_wait(&empty[s], ((i / K7W_STAGES) & 1) ^ 1);
+      unsigned char* st = ring + (size_t)s * K7W_STAGE_BYTES;
+      float2* ls = reinterpret_cast<float2*>(st + 2 * K7W_TILE_BYTES);
+      float* ds = reinterpret_cast<float*>(ls + K7W_QT);
+      uint32_t* ms = reinterpret_cast<uint32_t*>(ds + K7W_QT);
+      for (int qq = lane; qq < K7W_QT; qq += 32) {
+        const int row = t * K7W_QT + qq;
+        const bool in = row < NQ;
+        const size_t r = (size_t)bh * NQ + (in ? row : 0);
+        ls[qq] = in ? lse2[r] : make_float2(0.f, 0.f);
+        ds[qq] = in ? dvec[r] : 0.f;
+        if (DROP) {
+#pragma unroll
+          for (int w = 0; w < 2; ++w)
+            ms[2 * qq + w] = in && w0 + w < nkw ? keep[r * nkw + w0 + w] : 0u;
+        }
+      }
+      if (lane == 0) {  // arrives once with the bytes TMA will bring
+        mbar_expect_tx(&full[s], 2 * K7W_TILE_BYTES);
+        tma_load_3d(st, &qmap, &full[s], 0, t * K7W_QT, bh);
+        tma_load_3d(st + K7W_TILE_BYTES, &gmap, &full[s], 0, t * K7W_QT, bh);
+      } else {
+        mbar_arrive(&full[s]);  // after this lane's side rows (release)
+      }
+    }
+    return;
+  }
+
+  const int wl = warp, g = lane >> 2, tq = lane & 3;
+  const int kw = wl >> 1, kbit = (wl & 1) * 16 + g;  // the keep word and bit of key row g
+  const uint64_t dK = wg_desc(kt), dV = wg_desc(vt);
+  // the dk and dv sums in shared memory (the thread's own 32 each, float2
+  // x at at[x / 2 * 32]: lanes side by side), which leaves the registers
+  // to the tile's products and the A parts (in registers the sums spilled)
+  float2* dk_at = sums + wl * 16 * 32 + lane;
+  float2* dv_at = dk_at + K7W_SUM_BYTES / sizeof(float2);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dk_at[i * 32] = dv_at[i * 32] = make_float2(0.f, 0.f);
+  mbar_wait(kv_full, 0);
+  for (int t = t0; t < t1; ++t) {
+    const int i = t - t0, s = i % K7W_STAGES;
+    mbar_wait(&full[s], (i / K7W_STAGES) & 1);
+    const unsigned char* st = ring + (size_t)s * K7W_STAGE_BYTES;
+    const float2* ls = reinterpret_cast<const float2*>(st + 2 * K7W_TILE_BYTES);
+    const float* ds = reinterpret_cast<const float*>(ls + K7W_QT);
+    const uint32_t* ms = reinterpret_cast<const uint32_t*>(ds + K7W_QT);
+    const uint64_t dQ = wg_desc(st), dG = wg_desc(st + K7W_TILE_BYTES);
+    float sc[32], dp[32];
+    wgmma_fence();
+    wg_abt64(sc, dK, dQ);  // S^T: keys x queries
+    wg_abt64(dp, dV, dG);  // dP^T = V g^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(sc);
+    wgmma_fence_regs(dp);
+    // element 4 j + e: key row g + 8 (e >> 1), query 8 j + 2 tq + (e & 1)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * tq;
+      const float4 L = *reinterpret_cast<const float4*>(ls + c);  // (m, log2 l) of c, c + 1
+      const float2 Dc = *reinterpret_cast<const float2*>(ds + c);
+      uint32_t w[2] = {0u, 0u};
+      if (DROP) {
+        w[0] = ms[2 * c + kw];
+        w[1] = ms[2 * (c + 1) + kw];
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, cc = e & 1;
+        const float p =
+            exp2_ftz(fmaf(sc[4 * j + e], scale_log2, -(cc ? L.z : L.x)) - (cc ? L.w : L.y));
+        float kp = 1.f;
+        if (DROP) kp = (w[cc] >> (kbit + 8 * h)) & 1u ? drop.keep_scale : 0.f;
+        sc[4 * j + e] = p * kp;
+        dp[4 * j + e] = p * (dp[4 * j + e] * kp - (cc ? Dc.y : Dc.x)) * scale;
+      }
+    }
+    // the tile's products summed apart in the accumulator, then added in
+    // fp32: the tensor cores' own sums drop the bits of a small product
+    // below the accumulator's last place, which over 8192 queries cost
+    // elements near zero 2-3x their bound
+    float tile[32];
+    uint32_t a[K7_PARTS][4][4];
+    wg_a_parts<K7_PARTS>(sc, a);
+    wgmma_fence();
+    wg_ab64<K7_PARTS>(tile, a, dG, false);  // P^T g
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(tile);
+    add_sums(dv_at, tile);
+    wg_a_parts<K7_PARTS>(dp, a);
+    wgmma_fence();
+    wg_ab64<K7_PARTS>(tile, a, dQ, false);  // dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(tile);
+    add_sums(dk_at, tile);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  const size_t n = (size_t)gridDim.y * NK * TC_DH;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + wl * 16 + g + 8 * h;
+    if (key >= NK) continue;
+    const size_t off = ((size_t)bh * NK + key) * TC_DH + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < TC_DH / 8; ++j) {
+      const float2 k2 = dk_at[(2 * j + h) * 32], v2 = dv_at[(2 * j + h) * 32];
+      if (part == nullptr) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + j * 8) = __floats2bfloat162_rn(k2.x, k2.y);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + j * 8) = __floats2bfloat162_rn(v2.x, v2.y);
+      } else {
+        *reinterpret_cast<float2*>(part + blockIdx.z * n + off + j * 8) = k2;
+        *reinterpret_cast<float2*>(part + (gridDim.z + blockIdx.z) * n + off + j * 8) = v2;
+      }
+    }
   }
 }
 
@@ -1419,29 +1577,32 @@ largeq_bwd_dkdv_merge_kernel(const float* __restrict__ part, bf16* __restrict__ 
   dst[1] = __floats2bfloat162_rn(acc.z, acc.w);
 }
 
-// The query splits of K7's dk/dv pass on the current card: with the key
-// tiles x (b, h) CTAs short of a few waves, the walk over the ceil(NQ /
-// 64) query tiles is cut into the count whose launch ends soonest when
-// the CTAs run in waves (slots = SMs x CTAs an SM), each CTA costing its
-// tiles plus one for its K/V, first tile and store; the fewer splits on a
-// tie. tps = tiles a split; no split is empty.
+// The query splits of K7's dk/dv pass on the current card: its (64-key
+// tile, b, h) CTAs fall short of a few waves (320 at 128f against 264
+// slots), so each key tile's walk over the ceil(NQ / 64) query tiles is
+// cut into the count whose launch ends soonest when the CTAs run in waves
+// (slots = SMs x CTAs an SM), each CTA costing its tiles plus one for its
+// K/V, first tile and store, and a split walk one more for the merge's
+// launch; the fewer splits on a tie. tps = tiles a split; no split is
+// empty.
 template <bool DROP>
 cudaError_t k7_dkdv_plan(int BH, int NQ, int NK, int& splits, int& tps) {
-  const size_t smem = k7_dkdv_tc_smem_bytes();
-  auto kern = largeq_bwd_dkdv_mma_kernel<DROP>;
+  const size_t smem = k7w_dkdv_smem_bytes();
+  auto kern = largeq_bwd_dkdv_wgmma_kernel<DROP>;
   int sms = 0, smem_sm = 0, optin = 0, per_sm = 0;
   cudaError_t e = card_shape(sms, smem_sm, optin);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess) e = blocks_per_sm(kern, DKDV_WARPS * 32, smem, per_sm);
+  if (e == cudaSuccess) e = blocks_per_sm(kern, K7W_THREADS, smem, per_sm);
   if (e != cudaSuccess) return e;
   const long slots = (long)sms * (per_sm > 0 ? per_sm : 1);
-  const long ctas = (long)(pad_keys(NK) / (DKDV_WARPS * 16)) * BH;
-  const int ntiles = (NQ + DKDV_QT - 1) / DKDV_QT;
+  const long ctas = (long)((NK + K7W_KT - 1) / K7W_KT) * BH;
+  const int ntiles = (NQ + K7W_QT - 1) / K7W_QT;
   splits = 1;
   long best_cost = -1;
   for (int s = 1; s <= K7_MAX_SPLITS && s <= ntiles; ++s) {
-    const long cost = (ctas * s + slots - 1) / slots * ((ntiles + s - 1) / s + 1);
+    const long cost =
+        (ctas * s + slots - 1) / slots * ((ntiles + s - 1) / s + 1) + (s > 1 ? 1 : 0);
     if (best_cost < 0 || cost < best_cost) {
       best_cost = cost;
       splits = s;
@@ -1452,43 +1613,65 @@ cudaError_t k7_dkdv_plan(int BH, int NQ, int NK, int& splits, int& tps) {
   return cudaSuccess;
 }
 
+template <bool DROP, int NKB>
+cudaError_t launch_largeq_bwd_dq(const CUtensorMap& qm, const CUtensorMap& gm,
+                                 const CUtensorMap& km, const CUtensorMap& vm, void* dq,
+                                 void* lse2, void* dvec, void* keep, int BH, int NQ, int NK,
+                                 float scale, Dropout drop, cudaStream_t stream) {
+  auto kern = largeq_bwd_dq_wgmma_kernel<DROP, NKB>;
+  const size_t smem = k7w_dq_smem_bytes(NKB, DROP);
+  int sms = 0, smem_sm = 0, optin = 0;
+  cudaError_t e = card_shape(sms, smem_sm, optin);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int n_items = BH * ((NQ + K7W_QT - 1) / K7W_QT);
+  const int grid = n_items < sms ? n_items : sms;
+  kern<<<grid, k7w_dq_threads(DROP), smem, stream>>>(
+      qm, gm, km, vm, static_cast<bf16*>(dq), static_cast<float2*>(lse2),
+      static_cast<float*>(dvec), static_cast<uint32_t*>(keep), NQ, NK, n_items, scale,
+      scale * LOG2E, drop);
+  return cudaGetLastError();
+}
+
 template <bool DROP>
-cudaError_t launch_largeq_bwd_mma(const void* q, const void* k, const void* v, const void* g,
-                                  void* dq, void* dk, void* dv, void* lse2, void* dvec,
-                                  void* keep, void* part, int B, int H, int NQ, int NK,
-                                  float scale, Dropout drop, cudaStream_t stream) {
-  size_t smem = k7_dq_tc_smem_bytes(NK);
-  auto kern = largeq_bwd_dq_mma_kernel<DROP>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch_largeq_bwd_wgmma(const void* q, const void* k, const void* v, const void* g,
+                                    void* dq, void* dk, void* dv, void* lse2, void* dvec,
+                                    void* keep, void* part, int B, int H, int NQ, int NK,
+                                    float scale, Dropout drop, cudaStream_t stream) {
+  if (NK < 1 || NK > K2W_MAX_NK) return cudaErrorInvalidValue;
+  const int BH = B * H;
+  const uint64_t row = TC_DH * sizeof(bf16);
+  const uint64_t qdims[3] = {TC_DH, (uint64_t)(NQ > 0 ? NQ : 1), (uint64_t)BH};
+  const uint64_t qbytes[2] = {row, row * (NQ > 0 ? NQ : 1)};
+  const uint64_t kdims[3] = {TC_DH, (uint64_t)NK, (uint64_t)BH}, kbytes[2] = {row, row * NK};
+  const uint32_t box[3] = {TC_DH, 64, 1};
+  CUtensorMap qm, gm, km, vm;
+  cudaError_t e = tma_map_bf16(qm, q, 3, qdims, qbytes, box);
+  if (e == cudaSuccess) e = tma_map_bf16(gm, g, 3, qdims, qbytes, box);
+  if (e == cudaSuccess) e = tma_map_bf16(km, k, 3, kdims, kbytes, box);
+  if (e == cudaSuccess) e = tma_map_bf16(vm, v, 3, kdims, kbytes, box);
   if (e != cudaSuccess) return e;
   if (NQ > 0) {  // with no query, dk = dv = 0 from pass 2 alone
-    dim3 grid;
-    int bpc = 0;
-    e = tc_grid(kern, smem, B * H, NQ, grid, bpc);
-    if (e != cudaSuccess) return e;
-    kern<<<grid, TC_WARPS * 32, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(g), static_cast<bf16*>(dq), static_cast<float2*>(lse2),
-        static_cast<float*>(dvec), static_cast<uint32_t*>(keep), NQ, NK, bpc, scale,
-        scale * LOG2E, drop);
-    e = cudaGetLastError();
+    e = NK > 4 * K7W_KT
+            ? launch_largeq_bwd_dq<DROP, 8>(qm, gm, km, vm, dq, lse2, dvec, keep, BH, NQ, NK,
+                                            scale, drop, stream)
+            : launch_largeq_bwd_dq<DROP, 4>(qm, gm, km, vm, dq, lse2, dvec, keep, BH, NQ, NK,
+                                            scale, drop, stream);
     if (e != cudaSuccess) return e;
   }
-
   int splits = 1, tps = 1;
-  e = k7_dkdv_plan<DROP>(B * H, NQ, NK, splits, tps);
+  e = k7_dkdv_plan<DROP>(BH, NQ, NK, splits, tps);
   if (e != cudaSuccess) return e;
   float* partf = splits > 1 ? static_cast<float*>(part) : nullptr;
-  const dim3 grid2(pad_keys(NK) / (DKDV_WARPS * 16), B * H, splits);
-  largeq_bwd_dkdv_mma_kernel<DROP><<<grid2, DKDV_WARPS * 32, k7_dkdv_tc_smem_bytes(), stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), static_cast<const float2*>(lse2),
-      static_cast<const float*>(dvec), static_cast<const uint32_t*>(keep),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), partf, NQ, NK, tps, scale, scale * LOG2E,
-      drop);
+  const dim3 grid((NK + K7W_KT - 1) / K7W_KT, BH, splits);
+  largeq_bwd_dkdv_wgmma_kernel<DROP><<<grid, K7W_THREADS, k7w_dkdv_smem_bytes(), stream>>>(
+      qm, gm, km, vm, static_cast<const float2*>(lse2), static_cast<const float*>(dvec),
+      static_cast<const uint32_t*>(keep), static_cast<bf16*>(dk), static_cast<bf16*>(dv), partf,
+      NQ, NK, tps, scale, scale * LOG2E, drop);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
-  const size_t n = (size_t)B * H * NK * TC_DH;
+  const size_t n = (size_t)BH * NK * TC_DH;
   largeq_bwd_dkdv_merge_kernel<<<(unsigned)((2 * n / 4 + 255) / 256), 256, 0, stream>>>(
       partf, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, splits);
   return cudaGetLastError();
@@ -1981,7 +2164,7 @@ smallq_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // K6 pass 2: K7's dk/dv tiles and the CTA's live keys
 constexpr size_t k6_dkdv_tc_smem_bytes() {
-  return k7_dkdv_tc_smem_bytes() + sizeof(int) * DKDV_WARPS * 16;
+  return dkdv_tc_smem_bytes() + sizeof(int) * DKDV_WARPS * 16;
 }
 
 // K6 pass 2 (bf16): K7's dk/dv tile on one tile of 64 live positions of
@@ -2741,7 +2924,7 @@ cudaError_t launch_largeq_bwd(const void* q, const void* k, const void* v,
                               cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
     static_assert(DH == TC_DH, "the tensor-core K7 takes Dh 64");
-    return launch_largeq_bwd_mma<DROP>(q, k, v, g, dq, dk, dv, lse, dvec, keep, part, B, H,
+    return launch_largeq_bwd_wgmma<DROP>(q, k, v, g, dq, dk, dv, lse, dvec, keep, part, B, H,
                                        NQ, NK, scale, drop, stream);
   } else {
     const size_t smem = k7_smem_bytes<T, DH>(NK);
@@ -2857,7 +3040,10 @@ size_t mebt_smallq_bwd_scratch_bytes(int B, int H, int NQ, int NK, int is_bf16, 
 // Dynamic shared memory of K7's passes for NK keys (the larger), in bytes.
 size_t mebt_largeq_bwd_smem_bytes(int NK, int is_bf16) {
   if (!is_bf16) return k7_smem_bytes<float, 64>(NK);
-  const size_t dq = k7_dq_tc_smem_bytes(NK), dkdv = k7_dkdv_tc_smem_bytes();
+  // past 512 keys the kernel takes no launch: more than any card has
+  if (NK > K2W_MAX_NK) return (size_t)1 << 30;
+  const size_t dq = k7w_dq_smem_bytes(NK > 4 * K7W_KT ? 8 : 4, false),
+               dkdv = k7w_dkdv_smem_bytes();
   return dq > dkdv ? dq : dkdv;
 }
 

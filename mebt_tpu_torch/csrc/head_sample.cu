@@ -34,59 +34,46 @@
 // Bound on the card, K3, K4 and K5: 2 R D V operations, 5.5e11 at R =
 // 16384, D = 1024, V = 16384 (0.556 ms at 989 TFLOP/s bf16), against 64 MB
 // of x and W: operations. K3 also draws one Philox word and takes two logf
-// per logit (268 M of each at R = 16384), so its floor on the card is
-// nearer 1.8-2 ms than the bound. K4 and K5 draw only for their k
-// survivors.
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W, R 16384
-// (scripts/head_sample_variants.py, on the mma.sync tile K3 keeps): the
-// tile alone runs at 237 TFLOP/s, a quarter of peak (x and W re-read from
-// L2 for each 128 x 128 tile, 8 warps an SM); K3's epilogue adds 2.4 ms
-// (1.7 of it the noise), overlapping the next chunk's loads, not the
-// products: 4.7 ms in all. K4 and K5: the wgmma tile below.
+// per logit (268 M of each at R = 16384), some 100 instructions a logit,
+// so its floor on the card is nearer 1 ms than the bound. K4 and K5 draw
+// only for their k survivors.
 //
-// bf16 K3 (head_sample_mma_kernel; the product of the TPU kernels, bf16
-// operands with fp32 sums): a CTA takes 128 rows, 4
-// warps of 32, and walks 128-column chunks of ITS SLICE of the
-// vocabulary. x and W tiles stream along D 64 deep at a time with 16-byte
-// cp.async into a two-stage ring on rows padded to 72 elements, read by
-// ldmatrix (a third stage left L1 too small for the epilogue's local
-// arrays); the
-// product is mma.sync m16n8k16 (bf16 -> fp32), a warp's 32 x 128 tile in
-// 128 fp32 registers a thread. The loads of the next chunk are in flight
-// while the epilogue reads the finished chunk straight from the
-// accumulator fragments: in the m16n8 layout a thread holds 4 rows of its
-// warp (g, g + 8, g + 16, g + 24) and 32 columns of each, and the four
-// threads of a quad share a row. There is no logits tile in shared memory
-// and no barrier per chunk beyond the ring's one per 64-deep stage.
-// W (32 MB in bf16) fits the 50 MB L2, so the row blocks' re-reads of it
-// come from L2.
-//
-// bf16 K4 and K5 (head_topk_wgmma_kernel, head_topk_v1_wgmma_kernel: one
-// tile, topk_slice<Epi>, two epilogues) on Hopper's own instructions
-// (csrc/hopper.cuh): a CTA takes 128 rows (64 where k passes about 80 and
-// the row buffers fill shared memory) and walks 128-column chunks of its
-// slice. A producer warp streams each 64-deep stage, the CTA's x rows and
-// the chunk's 128 W rows, by TMA into a ring of up to 4 stages in
-// 128-byte-swizzled shared memory, behind mbarriers (full: the bytes have
-// landed; empty: every consumer warp has read the stage). Each consumer
-// warpgroup multiplies its 64 rows by the chunk with wgmma m64n128k16
-// (4 a stage, B = W K-major as stored), keeps one stage's products in
-// flight while it waits for the next, and at the chunk's end runs its
-// epilogue on the accumulator: a thread holds 2 rows of its warp (g, g +
-// 8) and 32 columns of each in the m16n8 C layout, so the quads of the
-// mma.sync tile carry over with half the row slots. While one warpgroup
-// selects, the other's products and the producer's loads go on; the
-// ring's depth lets the warpgroups drift up to 3 stages apart.
+// bf16 K3, K4 and K5 (head_sample_wgmma_kernel, head_topk_wgmma_kernel,
+// head_topk_v1_wgmma_kernel: one tile, head_slice<Epi>, three epilogues)
+// on Hopper's own instructions (csrc/hopper.cuh): a CTA takes 64 rows a
+// consumer warpgroup (K3, K4, K5: two, 128 rows; K4 and K5 one where k
+// passes about 80 and the row buffers fill shared memory) and walks
+// 128-column chunks of its slice. One lane streams each 64-deep stage, the
+// CTA's x rows and the chunk's 128 W rows, by TMA into a ring of up to 4
+// stages in 128-byte-swizzled shared memory, behind mbarriers (full: the
+// bytes have landed; empty: every consumer warp has read the stage). Each
+// consumer warpgroup multiplies its 64 rows by the chunk with wgmma
+// m64n128k16 (4 a stage, B = W K-major as stored), keeps one stage's
+// products in flight while it waits for the next, and at the chunk's end
+// runs its epilogue on the accumulator: a thread holds 2 rows of its warp
+// (g, g + 8) and 32 columns of each in the m16n8 C layout, the four
+// threads of a quad sharing a row. The stages are shared, so the
+// warpgroups keep within the ring's 3 stages of each other and their
+// epilogues overlap each other's products little. K3's noise (one
+// 10-round Philox and two logf a logit, longer than the products) is
+// therefore drawn apart: a noise warpgroup writes each chunk's -log(q)
+// into one of two buffers in shared memory while the product warpgroups
+// multiply, and a chunk's epilogue adds it. With the noise in the
+// epilogue the products and the noise ran one after the other (1.0 and
+// 1.5 ms at R 16384 on an NVIDIA H100 80GB HBM3); three warpgroups of
+// that design took 3.1 ms, this one 3.0. K3's CTA has no producer warp
+// (its first product thread issues the loads as it releases a stage): at
+// 13 warps ptxas's budget was 128 registers a thread and the product
+// warpgroups spilled; at 12 it is 168.
 // Measured (chip_smoke.py's k4 and k5 phases, NVIDIA H100 80GB HBM3,
 // 700 W): K4 2.11 / 1.23 / 0.62 ms at R 16384 / 6400 / 3328 against the
 // library's 4.57 / 1.94 / 1.11 (torch.matmul and the plain top-k sampler)
 // and the bound's 0.56 / 0.22 / 0.11; K5 the same within 3%.
 // K3's epilogue: per thread and row an online max and sum of exp and a
 // running Gumbel argmax over its own columns, which it visits in column
-// order (strict '>': the lowest column wins a tie); the quad's four
-// states are merged once per slice by shuffles (a tie to the lower
-// column); its noise loop takes two columns a turn (unrolled 32 times,
-// Philox inline, it ran 4% slower: instruction fetch). K4's epilogue
+// order (strict '>': the lowest column wins a tie), with the noise
+// warpgroup's -log(q) for them; the quad's four states are merged once
+// per slice by shuffles (a tie to the lower column). K4's epilogue
 // (TopkEpi): per thread and row the pre-filter against the row's k-th
 // pair as it stood when the chunk began (the k-th pair only moves ahead,
 // so nothing that can still enter is dropped); where a quad of the warp
@@ -611,242 +598,15 @@ cudaError_t launch_topk_v1_fma(const void* x, const void* w, void* ids, void* pr
 }
 
 // ---------------------------------------------------------------------------
-// bf16 K3: the mma.sync logits tile over a slice of the vocabulary (K4
-// and K5 take the wgmma tile below; the slices, their plan and K4's merge
-// serve all three)
+// bf16 K3, K4 and K5 on Hopper: the wgmma tile over a slice of the
+// vocabulary (the source note above), K3's merge and K4's
 
 using bf16 = __nv_bfloat16;
 
-constexpr int HT_WARPS = 4;        // warps a CTA at most, 32 rows each
-constexpr int HT_WM = 32;          // rows a warp: two m16 tiles
-constexpr int HT_BN = 128;         // vocabulary columns a chunk: sixteen n8 tiles
-constexpr int HT_NT = HT_BN / 8;
-constexpr int HT_BK = 64;          // depth a stage
-constexpr int HT_PITCH = 72;       // bf16 a shared row: 144 B, so the 8 rows an
-                                   // ldmatrix reads fall in distinct banks
 constexpr int HT_MAX_SPLITS = 32;  // K4's merge holds one slice a lane
-constexpr int HT_STAGES = 2;       // ring depth: three stages left L1 too small for the
-                                   // epilogue's local arrays (K3 4% slower, H100)
 constexpr int TOPK_WARMUP = 3;     // chunks a K4 / K5 slice's start costs (head_plan)
+constexpr int K3_START = 1;        // chunks a K3 slice's start (the ring's fill) costs
 constexpr int MERGE_WARPS = 8;
-
-using Acc = float[2][HT_NT][4];
-
-// One ring stage: the CTA's x rows, then the chunk's 128 W rows, 64 deep.
-__host__ __device__ inline size_t ht_stage_bytes(int nw) {
-  return sizeof(bf16) * (size_t)(nw * HT_WM + HT_BN) * HT_PITCH;
-}
-
-// Dynamic shared memory of the bf16 K3: the ring.
-inline size_t ht_smem_bytes(int nw) { return HT_STAGES * ht_stage_bytes(nw); }
-
-// A thread's accumulator at row slot j = 2 mt + h (row g + 8 h + 16 mt of
-// its warp), column 8 nt + 2 t + e of the chunk. j is a runtime index and
-// nt, e are unrolled, so the fragment stays in registers.
-__device__ __forceinline__ float pick(const Acc& acc, int j, int nt, int e) {
-  const float a = acc[0][nt][e], b = acc[0][nt][2 + e];
-  const float c = acc[1][nt][e], d = acc[1][nt][2 + e];
-  return j == 0 ? a : j == 1 ? b : j == 2 ? c : d;
-}
-
-// x W^T for rows r0.. of x and the chunks [chunk0, chunk1) of W, one
-// 128-column chunk at a time: epi.chunk(acc, c0) reads each finished
-// chunk from the accumulator fragments while the next chunk's first
-// stages load. Every thread of the CTA calls it.
-template <typename Epi>
-__device__ __forceinline__ void walk_slice(const bf16* __restrict__ x,
-                                           const bf16* __restrict__ w, int R, int D, int V,
-                                           int r0, int chunk0, int chunk1, bf16* ring,
-                                           Epi& epi) {
-  const int tid = threadIdx.x, nthr = blockDim.x, warp = tid >> 5, lane = tid & 31;
-  const int rows = (nthr >> 5) * HT_WM;
-  const int ksteps = (D + HT_BK - 1) / HT_BK;
-  const int n_iter = (chunk1 - chunk0) * ksteps;
-  const size_t stage = (size_t)(rows + HT_BN) * HT_PITCH;
-
-  // 16-byte granules of stage `it`: the x rows, then the W rows; zeros
-  // beyond R, V and D
-  auto load = [&](int it) {
-    const int c0 = (chunk0 + it / ksteps) * HT_BN, k0 = (it % ksteps) * HT_BK;
-    bf16* st = ring + (size_t)(it % HT_STAGES) * stage;
-    for (int i = tid; i < (rows + HT_BN) * (HT_BK / 8); i += nthr) {
-      const int r = i >> 3, kk = k0 + (i & 7) * 8;
-      const bool is_x = r < rows;
-      const int gr = is_x ? r0 + r : c0 + r - rows;
-      const bool in = (is_x ? gr < R : gr < V) && kk < D;
-      const bf16* src = (is_x ? x : w) + (in ? (size_t)gr * D + kk : 0);
-      cp_async16(st + r * HT_PITCH + (i & 7) * 8, src, in);
-    }
-  };
-
-  float acc[2][HT_NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < HT_NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-#pragma unroll
-  for (int p = 0; p < HT_STAGES - 1; ++p) {
-    if (p < n_iter) load(p);
-    cp_async_commit();
-  }
-  const int a_off = (warp * HT_WM + (lane & 15)) * HT_PITCH + (lane >> 4) * 8;
-  const int b_off = (rows + (lane & 7) + (lane >> 4) * 8) * HT_PITCH + ((lane >> 3) & 1) * 8;
-  for (int it = 0; it < n_iter; ++it) {
-    cp_async_wait<HT_STAGES - 2>();
-    __syncthreads();  // stage `it` has landed for all; the slot of it - 1 is free
-    if (it + HT_STAGES - 1 < n_iter) load(it + HT_STAGES - 1);
-    cp_async_commit();
-    const bf16* st = ring + (size_t)(it % HT_STAGES) * stage;
-#pragma unroll
-    for (int kc = 0; kc < HT_BK / 16; ++kc) {
-      uint32_t a0[4], a1[4];
-      ldsm_x4(a0, st + a_off + kc * 16);
-      ldsm_x4(a1, st + a_off + 16 * HT_PITCH + kc * 16);
-#pragma unroll
-      for (int np = 0; np < HT_NT / 2; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, st + b_off + np * 16 * HT_PITCH + kc * 16);
-        mma16816(acc[0][2 * np], a0, b[0], b[1]);
-        mma16816(acc[0][2 * np + 1], a0, b[2], b[3]);
-        mma16816(acc[1][2 * np], a1, b[0], b[1]);
-        mma16816(acc[1][2 * np + 1], a1, b[2], b[3]);
-      }
-    }
-    if (it % ksteps == ksteps - 1) {
-      epi.chunk(acc, (chunk0 + it / ksteps) * HT_BN);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < HT_NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-    }
-  }
-}
-
-// K3's epilogue: per thread and row slot an online max m and sum s of
-// e^(l - m), and the best perturbed logit of its own columns (visited in
-// column order, strict '>') with its logit and column.
-struct SampleEpi {
-  float m[4], s[4], best[4], bl[4];
-  int bi[4];
-  int row0, t, R, V, col_off;
-  float inv_temp;
-  uint32_t seed, row_off;
-
-  __device__ __forceinline__ void chunk(const Acc& acc, int c0) {
-#pragma unroll 1
-    for (int j = 0; j < 4; ++j) {
-      const int row = row0 + (j >> 1) * 16 + (j & 1) * 8;
-      float l[2 * HT_NT];
-      float cm = -1e30f;
-#pragma unroll
-      for (int c = 0; c < 2 * HT_NT; ++c) {
-        const int col = c0 + (c >> 1) * 8 + 2 * t + (c & 1);
-        l[c] = col < V ? pick(acc, j, c >> 1, c & 1) * inv_temp : -CUDART_INF_F;
-        cm = fmaxf(cm, l[c]);
-      }
-      const float mj = m[j], mn = fmaxf(mj, cm);
-      float cs = 0.f;
-#pragma unroll
-      for (int c = 0; c < 2 * HT_NT; ++c) cs += __expf(l[c] - mn);
-      s[j] = s[j] * __expf(mj - mn) + cs;
-      m[j] = mn;
-      if (row < R) {
-        float b = best[j], bv = bl[j];
-        int bc = bi[j];
-        // two columns a turn: the loop unrolled 32 times with Philox inline
-        // ran 4% slower on an H100 (instruction fetch)
-#pragma unroll 2
-        for (int c = 0; c < 2 * HT_NT; ++c) {
-          const int col = c0 + (c >> 1) * 8 + 2 * t + (c & 1);
-          if (col < V) {
-            const int gcol = col_off + col;  // the column of the whole vocabulary
-            const float pert =
-                l[c] - logf(exp_noise(seed, row_off + (uint32_t)row, (uint32_t)gcol));
-            if (pert > b) {
-              b = pert;
-              bc = gcol;
-              bv = l[c];
-            }
-          }
-        }
-        best[j] = b;
-        bl[j] = bv;
-        bi[j] = bc;
-      }
-    }
-  }
-
-  // the quad's four states folded by shuffles, once a slice (a tie of the
-  // perturbed logits to the lower column); thread t = 0 stores the row's
-  // slice state
-  __device__ __forceinline__ void finish(float4* part, int* part_col, int slice) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float mj = m[j], sj = s[j], bj = best[j], lj = bl[j];
-      int ij = bi[j];
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        const float om = __shfl_xor_sync(FULL, mj, off), os = __shfl_xor_sync(FULL, sj, off);
-        const float ob = __shfl_xor_sync(FULL, bj, off), ol = __shfl_xor_sync(FULL, lj, off);
-        const int oi = __shfl_xor_sync(FULL, ij, off);
-        const float mn = fmaxf(mj, om);
-        sj = sj * expf(mj - mn) + os * expf(om - mn);
-        mj = mn;
-        if (ob > bj || (ob == bj && oi < ij)) {
-          bj = ob;
-          ij = oi;
-          lj = ol;
-        }
-      }
-      const int row = row0 + (j >> 1) * 16 + (j & 1) * 8;
-      if (t == 0 && row < R) {
-        part[(size_t)slice * R + row] = make_float4(mj, sj, bj, lj);
-        part_col[(size_t)slice * R + row] = ij;
-      }
-    }
-  }
-};
-
-// K3 (bf16). Grid (row blocks of 32 nw rows, slices of cps chunks). W holds
-// the vocabulary's columns [col_off, col_off + V) and x the batch's rows
-// [row_off, row_off + R): the noise and the stored columns are the whole
-// head's.
-__global__ void __launch_bounds__(HT_WARPS * 32, 2)
-head_sample_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                       float4* __restrict__ part, int* __restrict__ part_col, int R, int D,
-                       int V, int cps, float inv_temp, uint32_t seed, uint32_t row_off,
-                       int col_off) {
-  extern __shared__ __align__(16) unsigned char ht_smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = blockIdx.x * (blockDim.x >> 5) * HT_WM, slice = blockIdx.y;
-  const int chunk0 = slice * cps;
-  const int chunk1 = min((V + HT_BN - 1) / HT_BN, chunk0 + cps);
-  SampleEpi epi;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    epi.m[j] = -1e30f;
-    epi.s[j] = 0.f;
-    epi.best[j] = -CUDART_INF_F;
-    epi.bl[j] = 0.f;
-    epi.bi[j] = 0x7fffffff;
-  }
-  epi.row0 = r0 + warp * HT_WM + (lane >> 2);
-  epi.t = lane & 3;
-  epi.R = R;
-  epi.V = V;
-  epi.inv_temp = inv_temp;
-  epi.seed = seed;
-  epi.row_off = row_off;
-  epi.col_off = col_off;
-  walk_slice(x, w, R, D, V, r0, chunk0, chunk1, reinterpret_cast<bf16*>(ht_smem),
-                        epi);
-  epi.finish(part, part_col, slice);
-}
 
 // A K3 scratch part of S slices: the float4 states, then the columns.
 __device__ __forceinline__ const float4* k3_states(const unsigned char* parts,
@@ -896,7 +656,13 @@ head_sample_merge_kernel(const unsigned char* __restrict__ parts, size_t part_by
 constexpr int HW_BN = 128;    // vocabulary columns a chunk: m64n128k16
 constexpr int HW_BK = 64;     // depth a stage: one 128-byte swizzled row
 constexpr int HW_ROWS = 64;   // rows a consumer warpgroup: m64
-constexpr int HW_MAX_WG = 2;  // consumer warpgroups a CTA at most
+constexpr int HW_MAX_WG = 2;  // consumer warpgroups a K4 / K5 CTA at most (their buffers)
+constexpr int K3_WG = 2;      // K3's product warpgroups a CTA (128 rows)
+// K3's noise warps, -log(q) for the product warpgroups: a warpgroup, and
+// no producer warp (the first product thread issues the loads), so that
+// the CTA has 384 threads and 168 registers a thread (at 416 ptxas's
+// budget is 128, where the product warpgroups spilled)
+constexpr int K3_NOISE_WARPS = 4;
 constexpr int HW_MAX_STAGES = 4;
 constexpr uint32_t HW_X_BYTES = HW_ROWS * HW_BK * 2;  // a warpgroup's x rows a stage: 8 KB
 constexpr uint32_t HW_W_BYTES = HW_BN * HW_BK * 2;    // a chunk's W rows a stage: 16 KB
@@ -909,12 +675,16 @@ __host__ __device__ inline size_t hw_stage_bytes(int nwg) {
   return (size_t)nwg * HW_X_BYTES + HW_W_BYTES;
 }
 
-// Dynamic shared memory of the bf16 K4 or K5: the ring (1024-aligned),
-// its barriers, and the buffers of k (value, column) pairs a row, pitch
-// k + 1 so that the eight rows a warp's quads own fall in different banks.
+// Dynamic shared memory of the bf16 K3, K4 or K5: the ring (1024-aligned),
+// its barriers, and K4's and K5's buffers of k (value, column) pairs a row,
+// pitch k + 1 so that the eight rows a warp's quads own fall in different
+// banks, or K3's (k = 0) two chunks of noise (64 values a product thread)
+// and their four barriers.
 inline size_t hw_smem_bytes(int nwg, int stages, int k) {
-  return 1024 + (size_t)stages * (hw_stage_bytes(nwg) + 2 * sizeof(uint64_t)) +
-         (size_t)nwg * HW_ROWS * (k + 1) * (sizeof(float) + sizeof(int));
+  const size_t bufs =
+      k ? (size_t)nwg * HW_ROWS * (k + 1) * (sizeof(float) + sizeof(int))
+        : 4 * sizeof(uint64_t) + 2 * (size_t)nwg * 128 * (HW_BN / 2) * sizeof(float);
+  return 1024 + (size_t)stages * (hw_stage_bytes(nwg) + 2 * sizeof(uint64_t)) + bufs;
 }
 
 // What K4's and K5's epilogues share: the CTA's rows' buffers of k
@@ -922,11 +692,34 @@ inline size_t hw_smem_bytes(int nwg, int stages, int k) {
 // own fall in different banks; the thread's CTA row rl0 (row0 of x) and
 // quad place t: its row slot j is CTA row rl0 + 8 j, its columns of a
 // chunk 8 nt + 2 t + e.
-struct TopkRows {
-  float* bv;  // the CTA's rows' values, pitch k + 1
-  int* bi;    // their columns, of the whole vocabulary (W's first is col_off)
+struct SliceRows {
   int k, rl0, row0, t, R, V, col_off;
   float inv_temp;
+};
+
+struct TopkRows : SliceRows {
+  static constexpr int HELPER_WARPS = 0;  // no warps beside the products and the producer
+  __device__ __forceinline__ void init(unsigned char*) const {}
+  __device__ __forceinline__ void help(unsigned char*, int, int, int) const {}
+
+  float* bv;  // the CTA's rows' values, pitch k + 1
+  int* bi;    // their columns, of the whole vocabulary (W's first is col_off)
+  float* part_v;  // the slices' sorted pairs (the scratch)
+  int* part_i;
+
+  // the buffers at `bufs`; this warp's 16 rows' slots emptied: empty
+  // slots rank behind every logit
+  __device__ __forceinline__ void bind(unsigned char* bufs) {
+    const int BP = k + 1, nwg = blockDim.x >> 7, lane = threadIdx.x & 31;
+    bv = reinterpret_cast<float*>(bufs);
+    bi = reinterpret_cast<int*>(bv + nwg * HW_ROWS * BP);
+    const int r = rl0 - (lane >> 2);  // the warp's first row
+    for (int i = lane; i < 16 * BP; i += 32) {
+      bv[r * BP + i] = -CUDART_INF_F;
+      bi[r * BP + i] = 0x7fffffff;
+    }
+    __syncwarp();
+  }
 
   // the thread's columns of the chunk at c0 that lie before V, as bits
   __device__ __forceinline__ unsigned live_cols(int c0) const {
@@ -972,6 +765,162 @@ struct TopkRows {
   }
 };
 
+// K3's epilogue: per thread and row slot an online max m and sum s of
+// e^(l - m), and the best perturbed logit l - log(q), q ~ Exp(1), of its
+// own columns (visited in column order, strict '>': the lowest column wins
+// a tie) with its logit and column. A thread holds rows g, g + 8 of its
+// warp's 16 and 32 columns of each (8 nt + 2 t + e): the quad shares a
+// row. The noise does not depend on the logits: warps of their own (help)
+// draw -log(q) for each chunk of the slice into one of two buffers in
+// shared memory, value v = 32 J + c of product thread p at [v NTHR + p],
+// while the product warpgroups multiply; a chunk's epilogue adds it
+// (noise_full: drawn; noise_empty: read).
+struct SampleEpi : SliceRows {
+  static constexpr int HELPER_WARPS = K3_NOISE_WARPS;
+  float m[2], s[2], best[2], bl[2];
+  int bi[2];
+  uint32_t seed, row_off;
+  float4* part;  // the slices' states (the scratch), then their columns
+  int* part_col;
+  static constexpr int NTHR = K3_WG * 128;  // product threads
+  int turn;  // chunks done
+
+  __device__ __forceinline__ static uint64_t* bars(unsigned char* bufs) {
+    return reinterpret_cast<uint64_t*>(bufs);  // full[2], empty[2]
+  }
+  __device__ __forceinline__ static float* noise(unsigned char* bufs) {
+    return reinterpret_cast<float*>(bars(bufs) + 4);
+  }
+
+  __device__ __forceinline__ void init(unsigned char* bufs) const {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&bars(bufs)[b], 32 * HELPER_WARPS);
+      mbar_init(&bars(bufs)[2 + b], NTHR);
+    }
+  }
+
+  // the noise warps: the slice's chunks [chunk0, chunk1) of the CTA's rows
+  // r0..; noise thread n draws the values q = n, n + nn, ... of the chunk's
+  // np 64 (value v = q / np of product thread p = q % np), eight Philox
+  // draws side by side (one warp a scheduler: its own independent draws
+  // hide the chains' latencies)
+  __device__ __forceinline__ void help(unsigned char* bufs, int chunk0, int chunk1, int r0) {
+    constexpr int nn = 32 * HELPER_WARPS, np = NTHR;
+    const int n = threadIdx.x - np;
+    uint64_t* bar = bars(bufs);
+    for (int c = chunk0, i = 0; c < chunk1; ++c, ++i) {
+      const int b = i & 1;
+      mbar_wait(&bar[2 + b], ((i >> 1) & 1) ^ 1);  // the buffer's last chunk is read
+      float* buf = noise(bufs) + (size_t)b * np * (HW_BN / 2);
+#pragma unroll 8
+      for (int q = n; q < np * (HW_BN / 2); q += nn) {
+        const int p = q % np, v = q / np, cc = v & 31, lane = p & 31;
+        // product thread p's row g + 8 (v >> 5) and its column cc
+        const uint32_t r = row_off + (uint32_t)(r0 + (p >> 7) * HW_ROWS + ((p >> 5) & 3) * 16 +
+                                                (lane >> 2) + 8 * (v >> 5));
+        const int gcol = col_off + c * HW_BN + (cc >> 1) * 8 + 2 * (lane & 3) + (cc & 1);
+        buf[q] = -logf(exp_noise(seed, r, (uint32_t)gcol));
+      }
+      mbar_arrive(&bar[b]);  // after this thread's stores (release)
+    }
+  }
+
+  unsigned char* bufs;
+
+  __device__ __forceinline__ void start(unsigned char* b) {
+    bufs = b;
+    turn = 0;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      m[j] = -1e30f;
+      s[j] = 0.f;
+      best[j] = -CUDART_INF_F;
+      bl[j] = 0.f;
+      bi[j] = 0x7fffffff;
+    }
+  }
+
+  // the thread's logit c of row slot J, scaled; -inf past V (taken from
+  // the accumulator at each use: 32 more registers held them spilled)
+  template <int J>
+  __device__ __forceinline__ float logit(const WAcc& acc, int c0, int c) const {
+    const int col = c0 + (c >> 1) * 8 + 2 * t + (c & 1);
+    return col < V ? acc[4 * (c >> 1) + 2 * J + (c & 1)] * inv_temp : -CUDART_INF_F;
+  }
+
+  template <int J>
+  __device__ __forceinline__ void row(const WAcc& acc, int c0, const float* nz) {
+    const int r = row0 + 8 * J;
+    float cm = -1e30f;
+#pragma unroll
+    for (int c = 0; c < HW_BN / 4; ++c) cm = fmaxf(cm, logit<J>(acc, c0, c));
+    const float mj = m[J], mn = fmaxf(mj, cm);
+    float cs = 0.f;
+#pragma unroll
+    for (int c = 0; c < HW_BN / 4; ++c) cs += __expf(logit<J>(acc, c0, c) - mn);
+    s[J] = s[J] * __expf(mj - mn) + cs;
+    m[J] = mn;
+    if (r >= R) return;
+    float b = best[J], bv = bl[J];
+    int bc = bi[J];
+#pragma unroll
+    for (int c = 0; c < HW_BN / 4; ++c) {
+      const int col = c0 + (c >> 1) * 8 + 2 * t + (c & 1);
+      const float l = logit<J>(acc, c0, c);
+      // l - log(q) as l + (-log(q)): the same bits
+      const float pert = l + nz[(32 * J + c) * NTHR];
+      if (col < V && pert > b) {
+        b = pert;
+        bc = col_off + col;  // the column of the whole vocabulary
+        bv = l;
+      }
+    }
+    best[J] = b;
+    bl[J] = bv;
+    bi[J] = bc;
+  }
+
+  __device__ __forceinline__ void chunk(const WAcc& acc, int c0) {
+    const int b = turn & 1;
+    mbar_wait(&bars(bufs)[b], (turn >> 1) & 1);
+    const float* nz = noise(bufs) + (size_t)b * NTHR * (HW_BN / 2) + threadIdx.x;
+    row<0>(acc, c0, nz);
+    row<1>(acc, c0, nz);
+    mbar_arrive(&bars(bufs)[2 + b]);  // this thread has read the chunk's noise
+    ++turn;
+  }
+
+  // the quad's four states folded by shuffles, once a slice (a tie of the
+  // perturbed logits to the lower column); thread t = 0 stores the row's
+  // slice state
+  __device__ __forceinline__ void finish(int slice) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float mj = m[j], sj = s[j], bj = best[j], lj = bl[j];
+      int ij = bi[j];
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float om = __shfl_xor_sync(FULL, mj, off), os = __shfl_xor_sync(FULL, sj, off);
+        const float ob = __shfl_xor_sync(FULL, bj, off), ol = __shfl_xor_sync(FULL, lj, off);
+        const int oi = __shfl_xor_sync(FULL, ij, off);
+        const float mn = fmaxf(mj, om);
+        sj = sj * expf(mj - mn) + os * expf(om - mn);
+        mj = mn;
+        if (ob > bj || (ob == bj && oi < ij)) {
+          bj = ob;
+          ij = oi;
+          lj = ol;
+        }
+      }
+      const int r = row0 + 8 * j;
+      if (t == 0 && r < R) {
+        part[(size_t)slice * R + r] = make_float4(mj, sj, bj, lj);
+        part_col[(size_t)slice * R + r] = ij;
+      }
+    }
+  }
+};
+
 // K4's epilogue. A row's buffer holds its k best (value, column) pairs of
 // the slice so far, unsorted; its four quad threads keep, in registers,
 // the count of filled slots and the worst pair (the k-th, and its slot).
@@ -995,7 +944,8 @@ struct TopkEpi : TopkRows {
   float kv[2];  // per row slot: the k-th pair, its slot, the filled slots
   int ki[2], ks[2], cnt[2];
 
-  __device__ __forceinline__ void start() {
+  __device__ __forceinline__ void start(unsigned char* bufs) {
+    bind(bufs);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       kv[j] = -CUDART_INF_F;
@@ -1099,7 +1049,7 @@ struct TopkEpi : TopkRows {
 
   // each row's k pairs stored in order: a pair's place is the number of
   // pairs ahead of it (equal pairs, the empty slots, by slot)
-  __device__ __forceinline__ void finish(float* part_v, int* part_i, int slice) {
+  __device__ __forceinline__ void finish(int slice) {
     __syncwarp();
 #pragma unroll 1
     for (int j = 0; j < 2; ++j) {
@@ -1137,7 +1087,7 @@ struct TopkEpi : TopkRows {
 // (a comparison tree over its registers). Every warp-wide step is taken
 // converged; a quad whose loop has ended idles until the warp's last.
 struct SortedEpi : TopkRows {
-  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void start(unsigned char* bufs) { bind(bufs); }
 
   __device__ __forceinline__ void chunk(const WAcc& acc, int c0) {
     const int BP = k + 1;
@@ -1245,7 +1195,7 @@ struct SortedEpi : TopkRows {
   }
 
   // each row's k pairs, already in order, to the slice's scratch
-  __device__ __forceinline__ void finish(float* part_v, int* part_i, int slice) {
+  __device__ __forceinline__ void finish(int slice) {
     __syncwarp();
 #pragma unroll 1
     for (int j = 0; j < 2; ++j) {
@@ -1263,21 +1213,27 @@ struct SortedEpi : TopkRows {
   }
 };
 
-// One CTA of the bf16 K4 or K5: rows r0.. (64 a consumer warpgroup) over
-// the chunks of slice blockIdx.y; each row's top k of the slice is left
-// sorted for the merge. The last warp is the producer: one lane streams
-// each 64-deep stage of the CTA's x rows and the chunk's 128 W rows by TMA
-// into a ring of `stages`. Each consumer warpgroup multiplies its 64 rows
-// by the chunk (4 m64n128k16 a stage, one product in flight while the next
-// stage's run), and when the chunk's last product has ended runs the
-// epilogue on the accumulator while the producer fills the ring ahead and
-// the other warpgroup's products run.
+// One CTA of the bf16 K3, K4 or K5: rows r0.. (64 a consumer warpgroup)
+// over the chunks of slice blockIdx.y; the epilogue Epi reads each
+// finished chunk from the accumulator and leaves each row's state of the
+// slice for the merge (epi.finish). One lane streams each 64-deep stage of
+// the CTA's x rows and the chunk's 128 W rows by TMA into a ring of
+// `stages`: the last warp's (K4, K5), or the first product thread's as it
+// releases a stage (K3, whose noise warps run Epi::help). Each consumer
+// warpgroup multiplies its 64 rows by the chunk (4 m64n128k16 a stage, one
+// product in flight while the next stage's run), and when the chunk's
+// last product has ended runs the epilogue on the accumulator while the
+// ring fills ahead and the other warpgroups' products run.
+// The caller sets the epilogue's own fields; head_slice the rows'.
 template <typename Epi>
-__device__ __forceinline__ void topk_slice(unsigned char* smem, const CUtensorMap& xmap,
-                                           const CUtensorMap& wmap, float* __restrict__ part_v,
-                                           int* __restrict__ part_i, int R, int D, int V, int k,
-                                           int cps, float inv_temp, int col_off, int stages) {
-  const int nwg = blockDim.x >> 7;  // (128 nwg + 32) / 128
+__device__ __forceinline__ void head_slice(unsigned char* smem, const CUtensorMap& xmap,
+                                           const CUtensorMap& wmap, int R, int D, int V, int k,
+                                           int cps, float inv_temp, int col_off, int stages,
+                                           Epi& epi) {
+  // with helper warps (K3) the loads are issued by the first product
+  // thread, which keeps the CTA at 12 warps; else by a producer warp
+  constexpr bool own_producer = Epi::HELPER_WARPS == 0;
+  const int nwg = (blockDim.x - 32 * Epi::HELPER_WARPS - (own_producer ? 32 : 0)) >> 7;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = blockIdx.x * nwg * HW_ROWS, slice = blockIdx.y;
   const int chunk0 = slice * cps;
@@ -1287,58 +1243,59 @@ __device__ __forceinline__ void topk_slice(unsigned char* smem, const CUtensorMa
   unsigned char* ring = align1024(smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + (size_t)stages * stage_bytes);
   uint64_t* empty = full + stages;  // a warp of each consumer warpgroup
-  const int BP = k + 1;
-  float* bv = reinterpret_cast<float*>(empty + stages);
-  int* bi = reinterpret_cast<int*>(bv + nwg * HW_ROWS * BP);
+  unsigned char* bufs = reinterpret_cast<unsigned char*>(empty + stages);
+  epi.k = k;
+  epi.R = R;
+  epi.V = V;
+  epi.col_off = col_off;
+  epi.inv_temp = inv_temp;
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 4 * nwg);
     }
+    epi.init(bufs);
     mbar_init_fence();
   }
   __syncthreads();
 
-  if (warp == 4 * nwg) {
-    if (lane == 0) {
-      const int n_iter = (chunk1 - chunk0) * ksteps;
-      for (int it = 0; it < n_iter; ++it) {
-        const int s = it % stages;
-        mbar_wait(&empty[s], ((it / stages) & 1) ^ 1);
-        mbar_expect_tx(&full[s], (uint32_t)stage_bytes);
-        unsigned char* st = ring + (size_t)s * stage_bytes;
-        const int c0 = (chunk0 + it / ksteps) * HW_BN, k0 = (it % ksteps) * HW_BK;
-        tma_load_2d(st, &xmap, &full[s], k0, r0);
-        tma_load_2d(st + nwg * HW_X_BYTES, &wmap, &full[s], k0, c0);
-      }
-    }
+  const int n_iter = (chunk1 - chunk0) * ksteps;
+  // stage `it`: the CTA's x rows and the chunk's W rows, once every
+  // consumer warp has read the stage before it in the same slot
+  auto load = [&](int it) {
+    const int s = it % stages;
+    mbar_wait(&empty[s], ((it / stages) & 1) ^ 1);
+    mbar_expect_tx(&full[s], (uint32_t)stage_bytes);
+    unsigned char* st = ring + (size_t)s * stage_bytes;
+    const int c0 = (chunk0 + it / ksteps) * HW_BN, k0 = (it % ksteps) * HW_BK;
+    tma_load_2d(st, &xmap, &full[s], k0, r0);
+    tma_load_2d(st + nwg * HW_X_BYTES, &wmap, &full[s], k0, c0);
+  };
+  if (warp >= 4 * nwg && warp < 4 * nwg + Epi::HELPER_WARPS) {  // the epilogue's helpers
+    epi.help(bufs, chunk0, chunk1, r0);
+    return;
+  }
+  if (own_producer && warp == 4 * nwg) {
+    if (lane == 0)
+      for (int it = 0; it < n_iter; ++it) load(it);
     return;
   }
 
   const int wg = warp >> 2, wl = warp & 3;
-  // a warp's 16 rows are its own: empty slots rank behind every logit
-  for (int i = lane; i < 16 * BP; i += 32) {
-    bv[(wg * HW_ROWS + wl * 16) * BP + i] = -CUDART_INF_F;
-    bi[(wg * HW_ROWS + wl * 16) * BP + i] = 0x7fffffff;
-  }
-  __syncwarp();
-  Epi epi;
-  epi.bv = bv;
-  epi.bi = bi;
-  epi.k = k;
   epi.rl0 = wg * HW_ROWS + wl * 16 + (lane >> 2);
   epi.row0 = r0 + epi.rl0;
   epi.t = lane & 3;
-  epi.R = R;
-  epi.V = V;
-  epi.col_off = col_off;
-  epi.inv_temp = inv_temp;
-  epi.start();
+  epi.start(bufs);
 
+  // releases stage `it`; without a producer warp the first thread then
+  // loads the stage that goes into its slot
   auto release = [&](int it) {
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[it % stages]);
+    if (!own_producer && threadIdx.x == 0 && it + stages < n_iter) load(it + stages);
   };
+  if (!own_producer && threadIdx.x == 0)
+    for (int it = 0; it < stages && it < n_iter; ++it) load(it);
   WAcc acc;
   int it = 0;
   for (int c = chunk0; c < chunk1; ++c) {
@@ -1361,7 +1318,28 @@ __device__ __forceinline__ void topk_slice(unsigned char* smem, const CUtensorMa
     release(it - 1);
     epi.chunk(acc, c * HW_BN);
   }
-  epi.finish(part_v, part_i, slice);
+  epi.finish(slice);
+}
+
+// K3 (bf16). Grid (row blocks of 128 rows, slices of cps chunks), K3_WG
+// product warpgroups and K3_NOISE_WARPS noise warps (384 threads, no
+// producer warp). W holds the vocabulary's columns [col_off, col_off +
+// V) and x the batch's rows [row_off, row_off + R): the noise and the
+// stored columns are the whole head's.
+constexpr int K3_THREADS = K3_WG * 128 + 32 * K3_NOISE_WARPS;
+__global__ void __launch_bounds__(K3_THREADS, 1)
+head_sample_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap wmap, float4* __restrict__ part,
+                         int* __restrict__ part_col, int R, int D, int V, int cps,
+                         float inv_temp, uint32_t seed, uint32_t row_off, int col_off,
+                         int stages) {
+  extern __shared__ unsigned char hw_smem[];
+  SampleEpi epi;
+  epi.part = part;
+  epi.part_col = part_col;
+  epi.seed = seed;
+  epi.row_off = row_off;
+  head_slice(hw_smem, xmap, wmap, R, D, V, 0, cps, inv_temp, col_off, stages, epi);
 }
 
 // K4 (bf16). Grid (row blocks of 64 nwg rows, slices of cps chunks), 128
@@ -1373,8 +1351,10 @@ head_topk_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                        int* __restrict__ part_i, int R, int D, int V, int k, int cps,
                        float inv_temp, int col_off, int stages) {
   extern __shared__ unsigned char hw_smem[];
-  topk_slice<TopkEpi>(hw_smem, xmap, wmap, part_v, part_i, R, D, V, k, cps, inv_temp, col_off,
-                      stages);
+  TopkEpi epi;
+  epi.part_v = part_v;
+  epi.part_i = part_i;
+  head_slice(hw_smem, xmap, wmap, R, D, V, k, cps, inv_temp, col_off, stages, epi);
 }
 
 // K5 (bf16): K4's grid, plan, tile and scratch, v1's sorted extraction.
@@ -1384,8 +1364,10 @@ head_topk_v1_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                           int* __restrict__ part_i, int R, int D, int V, int k, int cps,
                           float inv_temp, int col_off, int stages) {
   extern __shared__ unsigned char hw_smem[];
-  topk_slice<SortedEpi>(hw_smem, xmap, wmap, part_v, part_i, R, D, V, k, cps, inv_temp,
-                        col_off, stages);
+  SortedEpi epi;
+  epi.part_v = part_v;
+  epi.part_i = part_i;
+  head_slice(hw_smem, xmap, wmap, R, D, V, k, cps, inv_temp, col_off, stages, epi);
 }
 
 // K4's merge, a warp per row: lane s holds the head of slice s's sorted
@@ -1470,16 +1452,17 @@ head_topk_merge_kernel(const unsigned char* __restrict__ parts, size_t part_byte
 }
 
 struct HeadPlan {
-  int nw = HT_WARPS, blocks = 0, splits = 1, cps = 1;
-  int nwg = HW_MAX_WG, stages = HW_MAX_STAGES;  // K4 / K5: consumer warpgroups, ring depth
+  int blocks = 0, splits = 1, cps = 1;
+  int nwg = HW_MAX_WG, stages = HW_MAX_STAGES;  // consumer warpgroups a CTA, ring depth
   size_t smem = 0;
 };
 
 // The S slices of `blocks` row blocks over `chunks` chunks whose launch ends
 // soonest when the card runs its CTAs in waves of `slots`, each slice
-// walking ceil(chunks / S) chunks plus, for K4 and K5, a warm-up costed as
-// TOPK_WARMUP chunks (their buffers start empty in every slice, so the
-// first chunks insert most of the pairs); the fewer slices on a tie. S is
+// walking ceil(chunks / S) chunks plus its start: for K4 and K5 a warm-up
+// costed as TOPK_WARMUP chunks (their buffers start empty in every slice,
+// so the first chunks insert most of the pairs), for K3 K3_START (the
+// ring's fill, the merge's read); the fewer slices on a tie. S is
 // then cut so that no slice is empty. A launch that is one of n_parts
 // parts of a vocabulary split over ranks takes at most HT_MAX_SPLITS /
 // n_parts slices, so that K4's merge holds every part's slices one a lane.
@@ -1487,7 +1470,7 @@ inline void plan_slices(int chunks, long slots, int k, int n_parts, HeadPlan& p)
   long best_cost = -1;
   for (int s = 1; s <= HT_MAX_SPLITS / n_parts && s <= chunks; ++s) {
     const long waves = ((long)p.blocks * s + slots - 1) / slots;
-    const long cost = waves * ((chunks + s - 1) / s + (k ? TOPK_WARMUP : 0));
+    const long cost = waves * ((chunks + s - 1) / s + (k ? TOPK_WARMUP : K3_START));
     if (best_cost < 0 || cost < best_cost) {
       best_cost = cost;
       p.splits = s;
@@ -1497,34 +1480,23 @@ inline void plan_slices(int chunks, long slots, int k, int n_parts, HeadPlan& p)
   p.splits = (chunks + p.cps - 1) / p.cps;
 }
 
-// The grid of the bf16 K3 (k = 0), or of K4 or K5 (the same plan) on the
-// current card. K3: the most warps a CTA whose shared memory fits, CTAs
-// an SM 2 by __launch_bounds__ (fewer where shared memory says so). K4 and
-// K5: two consumer warpgroups (128 rows) a CTA where their buffers fit,
-// else one (k above about 80), and the deepest ring up to 4 stages that
-// fits beside them; one CTA an SM. Then the slices (plan_slices): at R
-// 3328, 26 blocks of 128 rows in 5 slices fill 130 of 132 SMs.
+// The grid of the bf16 K3 (k = 0), K4 or K5 on the current card, one CTA
+// an SM: K3_WG product warpgroups (K3), or two (128 rows) where K4's and
+// K5's buffers fit, else one (k above about 80); the deepest ring up to
+// 4 stages that fits beside them (K3: 3, beside its noise buffers). Then
+// the slices (plan_slices): at R 8192, K3's 64 blocks of 128 rows in 2
+// slices fill 128 of 132 SMs; at R 3328, K4's 26 blocks in 5 slices 130.
 inline cudaError_t head_plan(int R, int V, int k, int n_parts, HeadPlan& p) {
   if (n_parts < 1 || n_parts > HT_MAX_SPLITS) return cudaErrorInvalidValue;
   int sms = 0, smem_sm = 0, optin = 0;
   const cudaError_t e = card_shape(sms, smem_sm, optin);
   if (e != cudaSuccess) return e;
-  if (k == 0) {
-    p.nw = HT_WARPS;
-    while (p.nw > 1 && ht_smem_bytes(p.nw) > (size_t)optin) p.nw >>= 1;
-    p.smem = ht_smem_bytes(p.nw);
-    if (p.smem > (size_t)optin) return cudaErrorInvalidValue;
-    const int per_sm = max(1, min(2, smem_sm / (int)(p.smem + 1024)));
-    p.blocks = (R + p.nw * HT_WM - 1) / (p.nw * HT_WM);
-    plan_slices((V + HT_BN - 1) / HT_BN, (long)sms * per_sm, 0, n_parts, p);
-    return cudaSuccess;
-  }
-  for (p.nwg = HW_MAX_WG; p.nwg >= 1; --p.nwg) {
+  for (p.nwg = k == 0 ? K3_WG : HW_MAX_WG; p.nwg >= (k == 0 ? K3_WG : 1); --p.nwg) {
     for (p.stages = HW_MAX_STAGES; p.stages >= 2; --p.stages)
       if (hw_smem_bytes(p.nwg, p.stages, k) <= (size_t)optin) break;
     if (p.stages >= 2) break;
   }
-  if (p.nwg < 1) return cudaErrorInvalidValue;
+  if (p.nwg < 1 || p.stages < 2) return cudaErrorInvalidValue;
   p.smem = hw_smem_bytes(p.nwg, p.stages, k);
   p.blocks = (R + p.nwg * HW_ROWS - 1) / (p.nwg * HW_ROWS);
   plan_slices((V + HW_BN - 1) / HW_BN, sms, k, n_parts, p);
@@ -1539,19 +1511,32 @@ inline size_t head_scratch_bytes(int R, int k, const HeadPlan& p) {
   return (size_t)p.splits * R * k * (sizeof(float) + sizeof(int));
 }
 
+// The TMA maps of x (R, D) and W (V, D) for the plan's tile: boxes of
+// 64 deep by the CTA's rows and by a chunk's 128 columns
+inline cudaError_t head_maps(const void* x, const void* w, int R, int D, int V,
+                             const HeadPlan& p, CUtensorMap& xm, CUtensorMap& wm) {
+  const uint64_t row = (uint64_t)D * sizeof(bf16);
+  const uint64_t xd[2] = {(uint64_t)D, (uint64_t)R}, wd[2] = {(uint64_t)D, (uint64_t)V};
+  const uint32_t xbox[2] = {HW_BK, (uint32_t)(p.nwg * HW_ROWS)}, wbox[2] = {HW_BK, HW_BN};
+  const cudaError_t e = tma_map_bf16(xm, x, 2, xd, &row, xbox);
+  return e == cudaSuccess ? tma_map_bf16(wm, w, 2, wd, &row, wbox) : e;
+}
+
 // K3's slices (bf16) into `scratch`: rows row_off.. of the batch against
 // the vocabulary's columns col_off..
 cudaError_t launch_sample_part(const void* x, const void* w, void* scratch, int R, int D,
                                int V, float inv_temp, uint32_t seed, uint32_t row_off,
                                int col_off, const HeadPlan& p, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(head_sample_mma_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  CUtensorMap xm, wm;
+  cudaError_t e = head_maps(x, w, R, D, V, p, xm, wm);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(head_sample_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (e != cudaSuccess) return e;
   float4* part = static_cast<float4*>(scratch);
   int* part_col = reinterpret_cast<int*>(part + (size_t)p.splits * R);
-  head_sample_mma_kernel<<<dim3(p.blocks, p.splits), p.nw * 32, p.smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), part, part_col, R, D, V, p.cps,
-      inv_temp, seed, row_off, col_off);
+  head_sample_wgmma_kernel<<<dim3(p.blocks, p.splits), K3_THREADS, p.smem, stream>>>(
+      xm, wm, part, part_col, R, D, V, p.cps, inv_temp, seed, row_off, col_off, p.stages);
   return cudaGetLastError();
 }
 
@@ -1585,12 +1570,8 @@ using TopkKernel = void (*)(CUtensorMap, CUtensorMap, float*, int*, int, int, in
 cudaError_t launch_topk_part(TopkKernel kern, const void* x, const void* w, void* scratch,
                              int R, int D, int V, int k, float inv_temp, int col_off,
                              const HeadPlan& p, cudaStream_t stream) {
-  const uint64_t row = (uint64_t)D * sizeof(bf16);
-  const uint64_t xd[2] = {(uint64_t)D, (uint64_t)R}, wd[2] = {(uint64_t)D, (uint64_t)V};
-  const uint32_t xbox[2] = {HW_BK, (uint32_t)(p.nwg * HW_ROWS)}, wbox[2] = {HW_BK, HW_BN};
   CUtensorMap xm, wm;
-  cudaError_t e = tma_map_bf16(xm, x, 2, xd, &row, xbox);
-  if (e == cudaSuccess) e = tma_map_bf16(wm, w, 2, wd, &row, wbox);
+  cudaError_t e = head_maps(x, w, R, D, V, p, xm, wm);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (e != cudaSuccess) return e;

@@ -1,7 +1,7 @@
-"""Time variants of the bf16 K3 kernel (head_sample_mma_kernel, the
-mma.sync tile of mebt_tpu_torch/csrc/head_sample.cu) on one CUDA card, to
-see what bounds it. (K4 and K5 run the wgmma tile; chip_smoke.py times
-them.)
+"""Time variants of the bf16 K3 kernel (head_sample_wgmma_kernel: K4's
+wgmma tile head_slice<SampleEpi> in mebt_tpu_torch/csrc/head_sample.cu,
+two product warpgroups and three noise warps) on one CUDA card, to see
+what bounds it.
 
     python3 scripts/head_sample_variants.py [--out results/head_sample_variants]
 
@@ -9,13 +9,15 @@ Each variant is the source with text substitutions, built with the
 package's nvcc flags into --out (ptxas's report beside it) and loaded in
 place of the package's library:
   full        the kernel as it is;
-  tile_only   the logits tile alone: the epilogue runs only if the sum
-              of the accumulators hits an impossible value (so no MMA is
-              optimized away);
-  no_noise    without its Philox draw and two logf a logit (the Gumbel
-              argmax of the plain logits);
-  three_stages   a three-stage ring (less L1 for the epilogue's arrays);
-  stagger     one of the two CTAs on an SM starts 30 us late.
+  tile_only   without the epilogue's arithmetic: it runs only if the sum
+              of the accumulators hits an impossible value (so no product
+              is optimized away); the noise is still drawn and handed over;
+  no_noise    the noise warps write zeros instead of their Philox draw
+              and two logf a logit (the Gumbel argmax of the plain logits);
+  no_mma      without the products (timing only): the noise, the loads and
+              the epilogue alone;
+  unroll4     the noise warps with four Philox draws side by side instead
+              of eight.
 Each variant is timed at the decode's shapes (CUDA-event medians) in
 turns (full first and last); times from one call only compare with each
 other. Prints the card's name and power limit, then one JSON line per
@@ -38,34 +40,20 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from mebt_tpu_torch.ops import _build, head_sample as hs  # noqa: E402
 
-CHUNK_CALL = "epi.chunk(acc, (chunk0 + it / ksteps) * HT_BN);"
+ROWS = "    row<0>(acc, c0, nz);\n    row<1>(acc, c0, nz);\n"
 # (text substitutions, kernels timed)
 VARIANTS = {
     "full": ([], ("K3",)),
-    "tile_only": ([(CHUNK_CALL,
-                   "{ float z = 0.f;\n"
-                   "#pragma unroll\n for (int q = 0; q < 2 * HT_NT * 4; ++q)"
-                   " z += (&acc[0][0][0])[q];\n"
-                   " if (z == -1234.5f) " + CHUNK_CALL + " }")], ("K3",)),
-    "no_noise": ([("l[c] - logf(exp_noise(seed, (uint32_t)row, (uint32_t)col))", "l[c]")],
+    "tile_only": ([(ROWS, "    float z = 0.f;\n#pragma unroll\n    for (int q = 0; q < HW_BN / 2; ++q)"
+                          " z += acc[q];\n    if (z == -1234.5f) {\n" + ROWS + "    }\n")],
+                  ("K3",)),
+    "no_noise": ([("buf[q] = -logf(exp_noise(seed, r, (uint32_t)gcol));", "buf[q] = 0.f;")],
                  ("K3",)),
-    # a three-stage ring: 111 KB of shared memory a K3 CTA instead of 74,
-    # which leaves L1 too small for the epilogue's local arrays
-    "three_stages": ([("constexpr int HT_STAGES = 2;", "constexpr int HT_STAGES = 3;")],
-                     ("K3",)),
-    # one of the two CTAs on an SM starts 30 us late (by a counter per SM),
-    # so that their epilogues could fall in each other's products
-    "stagger": ([
-        ("template <typename Epi>\n__device__ __forceinline__ void walk_slice(",
-         "__device__ unsigned g_sm_turn[1024];\n"
-         "template <typename Epi>\n__device__ __forceinline__ void walk_slice("),
-        ("#pragma unroll\n  for (int p = 0; p < HT_STAGES - 1; ++p) {\n",
-         "  if (tid == 0) {\n    unsigned smid;\n"
-         "    asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(smid));\n"
-         "    if (atomicAdd(&g_sm_turn[smid & 1023], 1u) & 1u) __nanosleep(30000);\n  }\n"
-         "  __syncthreads();\n"
-         "#pragma unroll\n  for (int p = 0; p < HT_STAGES - 1; ++p) {\n"),
-    ], ("K3",)),
+    "no_mma": ([("wgmma_m64n128k16(acc, wg_desc(xa + k16 * 16), wg_desc(wb + k16 * 16), "
+                 "kk > 0 || k16 > 0);", ";")], ("K3",)),
+    "unroll4": ([("#pragma unroll 8\n      for (int q = n; q < np * (HW_BN / 2); q += nn) {",
+                  "#pragma unroll 4\n      for (int q = n; q < np * (HW_BN / 2); q += nn) {")],
+                ("K3",)),
 }
 # (kernel, R): 16f segments R = 16 x bucket (16384 .. 4096), D&R R 8192
 SHAPES = (("K3", 16384), ("K3", 8192), ("K3", 4096))

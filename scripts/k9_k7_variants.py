@@ -12,12 +12,8 @@ library:
                   of two integer operations;
   k9_ks32         K9's stages 32 deep (two barriers a 64-deep step);
   k7_dq_3parts    K7's dq pass with ds in three bf16 parts (as before);
-  k7_no_split     K7's dk/dv pass walking all query tiles in one CTA;
-  k7_dkdv_qc32    K7's dk/dv pass adding its products to dk, dv every 32
-                  queries instead of 16 (timing only: not gated);
-  one_wave_grid   K7's dq pass on the earlier grid plan: at most one
-                  wave of CTAs (K2, timed beside it, keeps its own
-                  persistent grid).
+  k7_no_split     K7's dk/dv pass walking all query tiles in one CTA.
+(scripts/k7_variants.py times K7's own variants.)
 Each is timed in turns (full first and last): CUDA-event medians, and
 device time from torch.profiler over five calls (the small attention
 shapes are host-bound, so events there time the host); times from one
@@ -56,13 +52,6 @@ VARIANTS = {
                                     "constexpr int K7_DQ_PARTS = 3;")]},
     "k7_no_split": {"attention": [("constexpr int K7_MAX_SPLITS = 16;",
                                    "constexpr int K7_MAX_SPLITS = 1;")]},
-    "k7_dkdv_qc32": {"attention": [("constexpr int DKDV_QC = 16;", "constexpr int DKDV_QC = 32;")]},
-    "one_wave_grid": {"attention": [(
-        "  for (int s = 1; s <= nb; ++s) {",
-        "  {\n    int sp = (int)(slots / BH);\n    sp = sp < 1 ? 1 : sp;\n"
-        "    const int most = (nb + TC_WARPS - 1) / TC_WARPS;\n    sp = sp > most ? most : sp;\n"
-        "    bpc = (nb + sp - 1) / sp;\n    grid = dim3((nb + bpc - 1) / bpc, BH);\n"
-        "    return cudaSuccess;\n  }\n  for (int s = 1; s <= nb; ++s) {")]},
 }
 SIGNATURES = {"vq": vq._SIGNATURES, "attention": ac._SIGNATURES}
 K9_SHAPES = (("16f", 6144), ("128f", 40960))       # M rows, K 16384, D 256
@@ -111,7 +100,7 @@ def cuda_ms(fn, reps=10, warmup=2) -> float:
 
 
 KERNELS = {"K9": ("nearest_code_tf32_kernel", "nearest_code_merge_kernel"),
-           "K7": ("largeq_bwd_dq_mma_kernel", "largeq_bwd_dkdv_mma_kernel",
+           "K7": ("largeq_bwd_dq_wgmma_kernel", "largeq_bwd_dkdv_wgmma_kernel",
                   "largeq_bwd_dkdv_merge_kernel"),
            "K2": ("largeq_fwd_wgmma_kernel",)}
 

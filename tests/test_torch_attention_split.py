@@ -1,5 +1,5 @@
 """The arithmetic of the bf16 tensor-core K2 and K7 (csrc/attention.cu:
-largeq_fwd_wgmma_kernel, largeq_bwd_dq_mma_kernel, largeq_bwd_dkdv_mma_kernel),
+largeq_fwd_wgmma_kernel, largeq_bwd_dq_wgmma_kernel, largeq_bwd_dkdv_wgmma_kernel),
 emulated in plain PyTorch on the CPU, against the plain versions
 largeq_attention_ref / largeq_backward_ref under the card gate's own
 tolerance (chip_smoke.py BF16_RTOL, BF16_ATOL: two bf16 ulps of each
@@ -15,11 +15,13 @@ parts miss the gate on some elements when q is eight times larger), ds
 in two for dq (a sum over the keys only). The emulation
 follows the kernels: an online softmax over 64-key blocks (K2's m64n64
 S accumulator; its reference m moves only past a margin of 8 in the log2
-domain; 32-key chunks in K7's dq pass) of e = 2^(s c - m) with c = scale log2(e) and s c - m rounded
-once (an fmaf), the undropped e in the denominator; K7's D = d / l with
-d = sum e keep dp carried beside l (no O), p = 2^(s c - m - log2 l) in
-the second sweep; dk and dv summed 16 queries at a time in fp32 over
-the query walk, cut into splits whose sums are added in split order.
+domain; K7's dq pass moves it at every larger block maximum) of e =
+2^(s c - m) with c = scale log2(e) and s c - m rounded once (an fmaf),
+the undropped e in the denominator; K7's D = d / l with d = sum e keep dp
+carried beside l over the same 64-key blocks (no O), p = 2^(s c - m -
+log2 l) in the second sweep; dk and dv summed a 64-query tile at a time
+(one wgmma accumulator a tile) and added in fp32 over the query walk,
+cut into splits whose sums are added in split order.
 With one bf16 rounding of p and ds instead (the TPU kernel's choice)
 the same emulation misses the gate by far.
 """
@@ -41,6 +43,7 @@ P_DROP = 0.1
 
 K2_PARTS, K7_PARTS, K7_DQ_PARTS = 2, 3, 2  # csrc/attention.cu
 K2_KB = 64  # csrc/attention.cu K2W_KB: keys a block of K2's softmax
+K7_KB, K7_QT = 64, 64  # csrc/attention.cu K7W_KT, K7W_QT: K7's key blocks and query tiles
 K2_RESCALE = 8.0  # csrc/attention.cu K2W_RESCALE
 
 
@@ -92,10 +95,10 @@ def emulate_forward(q, k, v, keep, split: bool):
     return (o / l).to(q.dtype)
 
 
-def _sweep1_d(q, k, v, g, keep, kc: int = 32):
+def _sweep1_d(q, k, v, g, keep, kc: int = K7_KB):
     """K7's sweep 1: the online softmax (m, l) and beside l the
     unnormalized d = sum_k e_k keep_k dp_k, dp = g V^T, rescaled with it;
-    D = d / l. Two products a chunk, neither with a split operand."""
+    D = d / l. Two products a 64-key block, neither with a split operand."""
     c = torch.tensor(LOG2E / math.sqrt(q.shape[-1]), dtype=torch.float32)
     qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
     m = torch.full(qf.shape[:-1] + (1,), -math.inf)
@@ -115,21 +118,38 @@ def _sweep1_d(q, k, v, g, keep, kc: int = 32):
     return m, l, d / l, c
 
 
-def _key_major(x, y, parts: int, splits: int, qt: int = 64, qc: int = 16):
+def _key_major(x, y, parts: int, splits: int, qt: int = K7_QT):
     """x^T @ y summed over the query axis as the dk/dv pass sums it: each
-    qc queries' product (x in bf16 parts) apart in fp32 and added to the
-    split's sum, the query walk of qt-query tiles cut into `splits`
-    ranges of whole tiles, the splits' sums added in split order."""
+    qt-query tile's product (x in bf16 parts) apart in fp32 and added to
+    the split's sum, the query walk of tiles cut into `splits` ranges of
+    whole tiles, the splits' sums added in split order."""
     nq = x.shape[2]
     tiles = -(-nq // qt)
     tps = -(-tiles // splits)
     total = None
     for q0 in range(0, nq, tps * qt):
         part = torch.zeros(x.shape[:2] + (x.shape[3], y.shape[3]))
-        for c0 in range(q0, min(nq, q0 + tps * qt), qc):
-            part = part + _product(x[:, :, c0:c0 + qc].transpose(-1, -2), y[:, :, c0:c0 + qc], parts)
+        for c0 in range(q0, min(nq, q0 + tps * qt), qt):
+            part = part + _product(x[:, :, c0:c0 + qt].transpose(-1, -2), y[:, :, c0:c0 + qt], parts)
         total = part if total is None else total + part
     return total
+
+
+def k7_split(ctas: int, slots: int, ntiles: int, max_splits: int = 16) -> int:
+    """csrc/attention.cu k7_dkdv_plan: the cut of a walk over ntiles tiles
+    shared by `ctas` CTAs that ends soonest in waves of `slots`, each CTA
+    costing its tiles plus one and a split walk one more (the merge); the
+    fewer splits on a tie; no split empty."""
+    best, splits = None, 1
+    for s in range(1, min(max_splits, ntiles) + 1):
+        cost = -(-ctas * s // slots) * (-(-ntiles // s) + 1) + (s > 1)
+        if best is None or cost < best:
+            best, splits = cost, s
+    tps = -(-ntiles // splits)
+    return -(-ntiles // tps)
+
+
+H100_SLOTS = 2 * 132  # K7's dk/dv CTAs at once on an H100: two an SM
 
 
 def emulate_backward(q, k, v, g, keep, split: bool, dkdv_splits: int = 1):
@@ -203,12 +223,13 @@ def test_split_products_keep_the_card_gate(case, B, H, NQ, NK, drop, q_scale, sp
 
 @pytest.mark.parametrize("case,B,H,NQ,NK,drop,q_scale", CASES, ids=[c[0] for c in CASES])
 def test_split_dkdv_walk_keeps_the_card_gate(case, B, H, NQ, NK, drop, q_scale):
-    """The dk/dv pass's query walk cut into splits (128f: 6 of its 128
-    tiles a split, as the H100's plan cuts it; the smaller cases into
-    3), each split's fp32 sums added in split order: within the gate, and
-    within a few fp32 roundings of the one-split result."""
+    """The dk/dv pass's query walk cut into splits (128f: as the H100's
+    plan cuts it at 5 x 16 heads, 4 splits of 32 tiles; the smaller cases
+    into 3), each split's fp32 sums added in split order: within the gate,
+    and within a few fp32 roundings of the one-split result."""
     q, k, v, g, keep, scale_keep = _inputs(B, H, NQ, NK, drop, q_scale)
-    splits = 6 if NQ >= 8192 else 3
+    splits = k7_split(4 * 5 * 16, H100_SLOTS, NQ // K7_QT) if NQ >= 8192 else 3
+    assert splits > 1
     got = emulate_backward(q, k, v, g, scale_keep, True, dkdv_splits=splits)
     want = largeq_backward_ref(q, k, v, g, p_drop=P_DROP if drop else 0.0, keep=keep)
     over = [_over(a, b) for a, b in zip(got, want)]
@@ -229,6 +250,22 @@ def test_two_part_dq_keeps_the_card_gate_over_seeds(case, B, H, NQ, NK, drop, q_
     got = emulate_backward(q, k, v, g, scale_keep, True)[0]
     want = largeq_backward_ref(q, k, v, g, p_drop=P_DROP if drop else 0.0, keep=keep)[0]
     assert _over(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+@pytest.mark.parametrize("case,B,H,NQ,NK,drop,q_scale",
+                         [c for c in CASES if c[1] * c[2] * c[3] <= 4096],
+                         ids=[c[0] for c in CASES if c[1] * c[2] * c[3] <= 4096])
+def test_tile_sums_keep_the_card_gate_over_seeds(case, B, H, NQ, NK, drop, q_scale, seed):
+    """dk and dv with each 64-query tile's three-part products summed in
+    one accumulator, over more seeds than the other cases, on one split
+    and on three."""
+    q, k, v, g, keep, scale_keep = _inputs(B, H, NQ, NK, drop, q_scale, seed)
+    want = largeq_backward_ref(q, k, v, g, p_drop=P_DROP if drop else 0.0, keep=keep)
+    for splits in (1, 3):
+        got = emulate_backward(q, k, v, g, scale_keep, True, dkdv_splits=splits)
+        over = [_over(a, b) for a, b in zip(got[1:], want[1:])]
+        assert max(over) <= 1.0, f"{case} at {splits} splits: dk, dv at {over} of the bound"
 
 
 @pytest.mark.parametrize("drop", [False, True], ids=["plain", "dropout"])

@@ -1,11 +1,13 @@
 """The split-over-the-vocabulary arithmetic of the bf16 tensor-core K3
-and K4 (csrc/head_sample.cu: head_sample_mma_kernel +
+and K4 (csrc/head_sample.cu: head_sample_wgmma_kernel +
 head_sample_merge_kernel, head_topk_wgmma_kernel + head_topk_merge_kernel),
 emulated in plain PyTorch on the CPU, against the plain versions
 head_sample_ref / head_topk_sample_ref at the same Philox seed.
 
 The kernels cut the vocabulary into S slices of whole 128-column chunks
-(no slice empty). K3: in each slice the four threads of a row's quad keep
+(no slice empty), as many as head_plan takes on the card (K3 on an H100:
+1 slice at R 16384, 2 at 8192, 4 at 4096, for 128-row blocks). K3: in
+each slice the four threads of a row's quad keep
 an online max m and sum s of e^(l - m) over their own columns (column c
 of a chunk belongs to thread (c % 8) // 2) chunk by chunk, and a running
 Gumbel argmax (strict '>' in column order); the quad folds its states
@@ -46,7 +48,9 @@ from mebt_tpu_torch.ops.head_sample import (
 
 torch.set_num_threads(1)
 
-CHUNK = 128  # csrc/head_sample.cu HT_BN: vocabulary columns a chunk
+CHUNK = 128  # csrc/head_sample.cu HW_BN: vocabulary columns a chunk
+K3_ROWS = 2 * 64  # csrc/head_sample.cu K3_WG warpgroups of HW_ROWS: rows a K3 CTA
+H100_SMS = 132
 NO_COL = 0x7FFFFFFF
 PROB_RTOL = 1e-5
 
@@ -57,6 +61,22 @@ def slices(V: int, S: int):
     chunks = -(-V // CHUNK)
     cps = -(-chunks // min(S, chunks))
     return [(c * CHUNK, min(V, (c + cps) * CHUNK)) for c in range(0, chunks, cps)]
+
+
+def k3_slices(R: int, V: int, sms: int = H100_SMS) -> int:
+    """head_plan's slice count for the bf16 K3: one CTA an SM, blocks of
+    K3_ROWS rows, the S whose launch ends soonest in waves of `sms` CTAs
+    (each slice walking ceil(chunks / S) chunks and its start, costed as
+    one, K3_START), the fewer on a tie,
+    then cut so that no slice is empty (plan_slices, k = 0)."""
+    blocks, chunks = -(-R // K3_ROWS), -(-V // CHUNK)
+    best, S = None, 1
+    for s in range(1, min(32, chunks) + 1):
+        cost = -(-blocks * s // sms) * (-(-chunks // s) + 1)
+        if best is None or cost < best:
+            best, S = cost, s
+    cps = -(-chunks // S)
+    return -(-chunks // cps)
 
 
 def _logits(x, w, temperature):
@@ -78,7 +98,7 @@ def emulate_k3(x, w, temperature, S, noise=None, seed=0):
 
 
 def k3_slice_states(x, w, temperature, S, noise=None, seed=0, row_offset=0, col_offset=0):
-    """The slices' states of the sliced K3 (head_sample_mma_kernel) over
+    """The slices' states of the sliced K3 (head_sample_wgmma_kernel) over
     W's columns, which are the whole head's col_offset.., for x's rows,
     the batch's row_offset..: the noise and the stored columns are the
     whole head's."""
@@ -225,6 +245,19 @@ def test_k3_split_matches_plain(V, S, temperature):
     ids, probs = emulate_k3(x, w, temperature, S, seed=11)
     rids, rprobs = head_sample_ref(x, w, temperature, seed=11)
     _assert_same(ids, probs, rids, rprobs)
+
+
+@pytest.mark.parametrize("R", [16384, 8192, 4096])  # the 16f decode's segments and D&R
+@pytest.mark.parametrize("temperature", [1.0, 0.0])
+def test_k3_split_at_the_h100_plan(R, temperature):
+    """The slices the H100's plan cuts at the decode's rows (each row's
+    slices are those of its CTA's launch; a few rows of the full V here)."""
+    V = 16384
+    S = k3_slices(R, V)
+    assert S == {16384: 1, 8192: 2, 4096: 4}[R]
+    x, w = _inputs(R + 1, 6, V, 32)
+    _assert_same(*emulate_k3(x, w, temperature, S, seed=17),
+                 *head_sample_ref(x, w, temperature, seed=17))
 
 
 @pytest.mark.parametrize("S", [1, 4, 9])

@@ -249,6 +249,35 @@ def test_head_sample_slices_match_plain(dev, R):
     assert _greedy_gap(logits, head_sample(x, w, 5, 0.0)[0]) <= 1e-4
 
 
+# The bf16 K3's wgmma tile (two 64-row product warpgroups and a noise
+# warpgroup a CTA) at its edges: rows around the CTA's 128 (1, 127, 129,
+# 1000), a vocabulary narrower
+# than a chunk (24) and no multiple of it (16100), the head width no
+# multiple of the 64-deep stage (96); ids but at near-ties, the chosen
+# probability under the logits' softmax, one launch a call, two calls
+# bit-equal.
+@pytest.mark.parametrize("R", [1, 127, 129, 1000])
+@pytest.mark.parametrize("V,D", [(24, 1024), (16100, 1024), (1000, 96)])
+def test_head_sample_wgmma_tile_edges_match_plain(dev, R, V, D):
+    gen = torch.Generator(dev).manual_seed(R * 3 + V + D)
+    x, w = _head_case(gen, dev, R, V, D=D)
+    logits = x.float() @ w.float().t()
+    for temp in (1.0, 0.0):
+        before = head_sample.launches
+        ids, probs = head_sample(x, w, 5, temp)
+        assert head_sample.launches == before + 1
+        rids, _ = head_sample_ref(x, w, temp, seed=5)
+        assert bool(((ids >= 0) & (ids < V)).all())
+        assert (ids != rids).sum().item() <= 1  # a near-tie may flip
+        if temp == 1.0:
+            p = torch.softmax(logits, -1).gather(1, ids.long()[:, None])[:, 0]
+            torch.testing.assert_close(probs, p, rtol=1e-3, atol=0.0)
+        else:
+            assert _greedy_gap(logits, ids) <= 1e-4
+        again = head_sample(x, w, 5, temp)
+        assert torch.equal(again[0], ids) and torch.equal(again[1], probs)
+
+
 @pytest.mark.parametrize("R,V", [(256, 16384), (300, 1100)])
 def test_head_sample_ties_match_plain(dev, R, V):
     """Exact ties across slices: the plain version's ids, bit for bit."""
@@ -583,6 +612,32 @@ def test_largeq_backward_split_walk_with_dropout(dev):
     _assert_all_close(got, largeq_backward_ref(q, k, v, g, p_drop=0.1, seed=4),
                       GRAD_TOL[torch.bfloat16])
     again = largeq_backward(q, k, v, g, p_drop=0.1, seed=4)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# The bf16 K7's wgmma passes at their edges: queries around the 64-query
+# tile (1, 63, 65, 1000), keys in one 64-key block (16, 64), ragged (200),
+# four (256: the dq pass's 4-block instantiation), five and eight (320,
+# 512: its 8-block one), with and without dropout; the dk/dv pass at one
+# query split and at several (the 128f shape, test_largeq_backward_split_
+# walk_with_dropout). One launch a call, the plain version's gradients
+# under the bf16 gate, the same bits on two calls.
+K7_TILE_EDGES = [
+    (2, 1, 256), (2, 63, 16), (2, 65, 64), (1, 1000, 200), (3, 1000, 256), (2, 65, 320),
+    (1, 1000, 512),
+]
+
+
+@pytest.mark.parametrize("B,NQ,NK", K7_TILE_EDGES)
+@pytest.mark.parametrize("p_drop", [0.0, 0.1])
+def test_largeq_backward_wgmma_tile_edges_match_plain(dev, B, NQ, NK, p_drop):
+    q, k, v, g = _largeq_case(dev, torch.bfloat16, B, NQ, NK, 1.0)
+    before = largeq_backward.launches
+    got = largeq_backward(q, k, v, g, p_drop=p_drop, seed=6)
+    assert largeq_backward.launches == before + 1
+    _assert_all_close(got, largeq_backward_ref(q, k, v, g, p_drop=p_drop, seed=6),
+                      GRAD_TOL[torch.bfloat16])
+    again = largeq_backward(q, k, v, g, p_drop=p_drop, seed=6)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

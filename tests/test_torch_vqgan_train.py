@@ -17,8 +17,20 @@ layers, video (2, 4, 16, 16, 3)).
   rounding of 0 may take either sign); codes under the near-tie
   rule and the codebook buffers within 1e-5 (1 + |value|) on the rows
   whose codes agree.
+
+LPIPS max-pools its VGG features over 2x2 windows, and which input of a
+window wins is a kink: where a window's two largest inputs lie within
+rounding of each other, the port's reconstruction (which rounds its
+convolutions differently from XLA's) may pick the other one, which moves
+the gradient reaching the reconstruction by far more than rounding (one
+such window at relu1_2, 5e-6 apart at values near 15, moved the generator's
+gradients to 10x their tolerance on some CPUs). The port's step replays
+JAX's picks, computed by the JAX package's LPIPS on JAX's reconstruction,
+and a pick may differ from the port's own only within 1e-4 of the pool
+input's largest value (the near-tie rule of chip_smoke.KinkReplay).
 """
 
+import contextlib
 import copy
 
 import jax
@@ -26,10 +38,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from _torch_port import seeded_lpips_weights
 from mebt_tpu.models import vqgan as jvq
 from mebt_tpu.models.lpips import LPIPS as JaxLPIPS
+from mebt_tpu.models.lpips import VGG_SLICES
 from mebt_tpu.models.lpips import import_lpips_params as jax_import_lpips
 from mebt_tpu.train.vqgan_train import VQGANTrainer as JaxVQGANTrainer
 from mebt_tpu_torch.models.lpips import LPIPS, import_lpips_params
@@ -141,6 +155,57 @@ def test_codebook_draws_from_a_generator():
 
 # -- one fused step against the JAX step ------------------------------------------
 
+KINK_BAND = 1e-4  # chip_smoke.KinkReplay's band
+
+
+def _jax_pool_picks(lp_params, frames, frames_recon):
+    """The input each 2x2 window of the JAX LPIPS's four max-pools
+    takes, for its two passes (frames, then the reconstruction's), as
+    F.max_pool2d's indices: (B, C, H / 2, W / 2) of h W + w into the
+    pool input's (H, W) plane. The first of tied inputs, as both take it."""
+    _, inter = JaxLPIPS().apply({"params": lp_params}, frames, frames_recon,
+                               capture_intermediates=True, mutable=["intermediates"])
+    convs = inter["intermediates"]["vgg"]
+    picks = []
+    for pass_ in range(2):
+        for convs_of_slice in VGG_SLICES[:-1]:  # each pool's input: relu(the slice's last conv)
+            a = np.maximum(np.asarray(convs[f"conv{convs_of_slice[-1]}"]["__call__"][pass_]), 0)
+            B, H, W, C = a.shape
+            win = a.reshape(B, H // 2, 2, W // 2, 2, C).transpose(0, 5, 1, 3, 2, 4)
+            k = win.reshape(B, C, H // 2, W // 2, 4).argmax(-1)
+            rows = 2 * np.arange(H // 2)[:, None] + k // 2
+            cols = 2 * np.arange(W // 2)[None, :] + k % 2
+            picks.append(torch.from_numpy(rows * W + cols))
+    return picks
+
+
+@contextlib.contextmanager
+def _replay_pool_picks(picks, report):
+    """F.max_pool2d takes the given picks, call by call; `report` gets
+    the number of windows whose pick differs from the port's own and
+    their largest gap (the port's max less the value picked) over
+    KINK_BAND times that pool input's largest |x|."""
+    real, calls = F.max_pool2d, iter(picks)
+    report.update(calls=0, flips=0, over=0.0)
+
+    def pool(x, *args, return_indices=False, **kwargs):
+        out, idx = real(x, *args, return_indices=True, **kwargs)
+        pick = next(calls)
+        picked = x.flatten(2).gather(2, pick.flatten(2)).view_as(out)
+        differ = idx != pick
+        report["calls"] += 1
+        if bool(differ.any()):
+            gap = (out - picked).detach()[differ].max().item()
+            report["flips"] += int(differ.sum())
+            report["over"] = max(report["over"], gap / (KINK_BAND * x.detach().abs().max().item()))
+        return (picked, pick) if return_indices else picked
+
+    F.max_pool2d = pool
+    try:
+        yield report
+    finally:
+        F.max_pool2d = real
+
 
 def _disc_sd(jax_tree):
     return discriminator_state_dict(jax.tree.map(np.asarray, jax_tree))
@@ -183,25 +248,43 @@ def step_pair():
     # after the data init
     jz = jt.core.apply({"params": s0.gen_params}, jnp.asarray(video),
                        method=jvq.VQGANCore.encode_latent)
-    jcodes, _, _ = jvq.codebook_quantize(jvq.codebook_init_from_data(s0.codebook, jz, r_init), jz)
+    jcodes, emb_st, _ = jvq.codebook_quantize(
+        jvq.codebook_init_from_data(s0.codebook, jz, r_init), jz)
+    # JAX's reconstruction of the step's frames, and its LPIPS's pool picks
+    jrecon = jt.core.apply({"params": s0.gen_params}, emb_st,
+                           method=jvq.VQGANCore.decode_latent)
+    rows = np.arange(VIDEO_SHAPE[0])
+    frame_idx = draws["frame_idx"].numpy()
+    picks = _jax_pool_picks(jax_import_lpips(vgg, lin), video[rows, frame_idx],
+                            np.asarray(jrecon)[rows, frame_idx])
     with torch.no_grad():
         pz = st.vqgan.encode_latent(torch.from_numpy(video)).reshape(-1, 8)
         cb = copy.deepcopy(st.vqgan.codebook)
         codebook_init_from_data(cb, pz, perm=draws["init_perm"])
         pcodes = nearest_code(pz, cb.embeddings)
-    pm = pt.step(torch.from_numpy(video), draws=draws)
+    with _replay_pool_picks(picks, {}) as kinks:
+        pm = pt.step(torch.from_numpy(video), draws=draws)
 
     mu_g, mu_d = s1.gen_opt[0].mu, s1.disc_opt[0].mu  # (1 - b1) g on Adam's first step
     grads = dict(gen=vqgan_state_dict(jax.tree.map(lambda m: np.asarray(m) / 0.5, mu_g)),
                  image=_disc_sd(jax.tree.map(lambda m: m / 0.5, mu_d["image"])),
                  video=_disc_sd(jax.tree.map(lambda m: m / 0.5, mu_d["video"])))
     return dict(s1=s1, jm=jm, pt=pt, pm=pm, grads=grads, pz=pz, embeddings=cb.embeddings,
-                pcodes=pcodes, jcodes=_t(jcodes).reshape(-1))
+                pcodes=pcodes, jcodes=_t(jcodes).reshape(-1), kinks=kinks)
 
 
 def _port_modules(pt):
     st = pt.state
     return dict(gen=st.vqgan, image=st.disc_img, video=st.disc_vid)
+
+
+def test_step_replays_jax_pool_picks_within_rounding(step_pair):
+    """The port's LPIPS took JAX's pick in every window of its eight
+    max-pools (two passes of four), and where that differs from its own
+    pick the two inputs lie within rounding of each other."""
+    kinks = step_pair["kinks"]
+    assert kinks["calls"] == 8
+    assert kinks["over"] <= 1.0, kinks
 
 
 def test_step_metrics_match_jax(step_pair):
