@@ -368,7 +368,7 @@ K2_CASES = (
 
 
 # the bf16 K1's kernels: the forward and the merge of its splits
-K1_KERNELS_BF16 = ("smallq_fwd_mma_kernel", "smallq_merge_kernel")
+K1_KERNELS_BF16 = ("smallq_fwd_wgmma_kernel", "smallq_merge_kernel")
 K2_KERNELS_BF16 = ("largeq_fwd_wgmma_kernel",)
 
 
@@ -408,6 +408,9 @@ def check_k1(dev, gen):
                     f"K1 {case}: fully masked row must give out 0, lse 1e30")
         require(err_over_tol <= 1 and lse_err <= LSE_TOL,
                 f"K1 {case}: err {err} ({err_over_tol} of its bound) lse_err {lse_err}")
+        again = smallq_attention(q, k, v, mask)
+        require(bool(torch.equal(out, again[0])) and bool(torch.equal(lse, again[1])),
+                f"K1 {case}: two calls differ")
         # masked keys do not touch the output: count their K/V rows, and Q
         # of a batch row without a live key, as nothing; every out and lse
         # element is written once, the zeros of empty rows included
@@ -817,8 +820,11 @@ def k6_inputs(dev, gen, B, NK, head_ones, empty_row, dtype, H=16, NQ=256, Dh=64)
     return q, k, v, g, mask
 
 
-# K6's dq pass and dk/dv pass, by kernel name
-K6_PASSES_BF16 = ("smallq_bwd_dq_mma_kernel", "smallq_bwd_dkdv_mma_kernel")
+# K6's dq pass and dk/dv pass, by kernel name (bf16: then the live-list
+# pre-pass and the merge of the dq pass's key splits, which runs only when
+# it splits)
+K6_PASSES_BF16 = ("smallq_bwd_dq_wgmma_kernel", "smallq_bwd_dkdv_wgmma_kernel",
+                  "smallq_bwd_live_kernel", "smallq_bwd_dq_merge_kernel")
 K6_PASSES_FP32 = ("smallq_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
 
 
@@ -858,19 +864,26 @@ def check_k6(dev, gen):
                 ms=cuda_ms(lambda: smallq_backward(q, k, v, mask, out, lse, g)),
                 bound_ms=bnd, bound_by=by,
             )
-            # the two passes apart, from one profiled call
+            again = smallq_backward(q, k, v, mask, out, lse, g)
+            require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+                    f"K6 {case} {dtype}: two calls differ")
+            # the passes apart, from one profiled call (bf16: the merge runs
+            # only where the dq pass splits its keys)
             passes = K6_PASSES_BF16 if dtype == torch.bfloat16 else K6_PASSES_FP32
-            pass_ms = kernel_ms(lambda: smallq_backward(q, k, v, mask, out, lse, g), passes)
-            require(all(ms > 0 for ms in pass_ms.values()),
-                    f"K6 {case} {dtype}: a pass of {passes} did not run: {pass_ms}")
+            want = passes[:3] if dtype == torch.bfloat16 else passes
+            pass_ms = kernel_ms(lambda: smallq_backward(q, k, v, mask, out, lse, g), passes,
+                                expect=want)
+            require(all(pass_ms[p] > 0 for p in want),
+                    f"K6 {case} {dtype}: a pass of {want} did not run: {pass_ms}")
             row.update(dq_pass_ms=pass_ms[passes[0]], dkdv_pass_ms=pass_ms[passes[1]])
             if dtype == torch.bfloat16:
+                row.update(live_ms=pass_ms[passes[2]], dq_merge_ms=pass_ms[passes[3]])
                 row["plain_ms"] = cuda_ms(
                     lambda: smallq_backward_ref(q, k, v, mask, out, lse, g), reps=3)
                 row["library_ms"] = cuda_ms(
                     sdpa_fwd_bwd(q, k, v, g, attn_mask=mask[:, None, None, :]), reps=5)
             rows.append(row)
-            del got, ref
+            del got, ref, again
     return rows
 
 
@@ -1549,20 +1562,21 @@ def span_kernels(prof, span: str) -> list[list[tuple[str, float]]]:
 
 
 # The profile's kernel groups, by substrings of the kernels' names: the
-# bf16 K1-K7 run the tensor-core kernels (`*_mma_kernel`, `*_wgmma_kernel`,
-# and the merges of K1's splits, K7's dk/dv splits and K3's and K4's
-# vocabulary slices; K5 takes K4's
+# bf16 K1-K7 run the Hopper kernels (`*_wgmma_kernel`, the merges of K1's
+# and K6's key splits, K7's dk/dv splits and K3's and K4's vocabulary
+# slices, and K6's live-list pre-pass; K5 takes K4's
 # merge, counted under K4), fp32 the FMA ones (in the parity checks only,
 # which no profile covers; fp32 K7's dk/dv pass is K6's
 # `attn_bwd_dkdv_kernel`).
 PROFILE_GROUPS = {
-    "K1": ("smallq_kernel", "smallq_fwd_mma_kernel", "smallq_merge_kernel"),
+    "K1": ("smallq_kernel", "smallq_fwd_wgmma_kernel", "smallq_merge_kernel"),
     "K2": ("largeq_kernel", "largeq_fwd_wgmma_kernel"),
     "K3": ("head_sample_kernel", "head_sample_wgmma_kernel", "head_sample_merge_kernel"),
     "K4": ("head_topk_sample_kernel", "head_topk_wgmma_kernel", "head_topk_merge_kernel"),
     "K5": ("head_topk_sample_v1_kernel", "head_topk_v1_wgmma_kernel"),
-    "K6_dq": ("smallq_bwd_dq_kernel", "smallq_bwd_dq_mma_kernel"),
-    "K6_dkdv": ("attn_bwd_dkdv_kernel", "smallq_bwd_dkdv_mma_kernel"),
+    "K6_dq": ("smallq_bwd_dq_kernel", "smallq_bwd_dq_wgmma_kernel", "smallq_bwd_dq_merge_kernel",
+              "smallq_bwd_live_kernel"),
+    "K6_dkdv": ("attn_bwd_dkdv_kernel", "smallq_bwd_dkdv_wgmma_kernel"),
     "K7_dq": ("largeq_bwd_dq_kernel", "largeq_bwd_dq_wgmma_kernel"),
     "K7_dkdv": ("largeq_bwd_dkdv_wgmma_kernel", "largeq_bwd_dkdv_merge_kernel"),
     "K9": K9_KERNELS,
@@ -1570,29 +1584,32 @@ PROFILE_GROUPS = {
 # the FMA attention kernels, which only fp32 calls (the parity checks) launch
 FMA_ATTENTION = ("largeq_kernel", "largeq_bwd_dq_kernel", "smallq_kernel",
                  "smallq_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
-# the bf16 K1 and K6 kernels: their SASS must hold tensor-core instructions
-TENSOR_CORE_KERNELS = ("smallq_fwd_mma_kernel", "smallq_bwd_dq_mma_kernel",
-                       "smallq_bwd_dkdv_mma_kernel")
 # the FMA K3 / K4 / K5 kernels, which only fp32 calls (the parity checks)
 # may launch
 FMA_HEAD = ("head_sample_kernel", "head_topk_sample_kernel", "head_topk_sample_v1_kernel")
 # the Hopper kernels (csrc/hopper.cuh): bf16 K2 (with and without
 # dropout, over 4 or 8 key blocks), K7's two passes (with and without
-# dropout; the dq pass over 4 or 8 key blocks), K3, K4 and K5. Each
-# instantiation must multiply by wgmma (HGMMA) and never by mma.sync
-# (HMMA), and load by TMA (UTMALDG).
+# dropout; the dq pass over 4 or 8 key blocks), K1 and K6's two passes
+# (with and without dropout), K3, K4 and K5. Each instantiation must
+# multiply by wgmma (HGMMA) and never by mma.sync (HMMA), and load by
+# TMA (UTMALDG).
 WGMMA_KERNELS = {"attention": {"largeq_fwd_wgmma_kernel": 4, "largeq_bwd_dq_wgmma_kernel": 4,
-                               "largeq_bwd_dkdv_wgmma_kernel": 2},
+                               "largeq_bwd_dkdv_wgmma_kernel": 2,
+                               "smallq_fwd_wgmma_kernel": 2, "smallq_bwd_dq_wgmma_kernel": 2,
+                               "smallq_bwd_dkdv_wgmma_kernel": 2},
                  "head_sample": {"head_sample_wgmma_kernel": 1, "head_topk_wgmma_kernel": 1,
                                  "head_topk_v1_wgmma_kernel": 1}}
 # of those, the kernels whose SASS must hold no local-memory load or store
 # (LDL, STL: spills), each instantiation
-NO_SPILL_KERNELS = {"attention": ("largeq_bwd_dq_wgmma_kernel", "largeq_bwd_dkdv_wgmma_kernel"),
+NO_SPILL_KERNELS = {"attention": ("largeq_bwd_dq_wgmma_kernel", "largeq_bwd_dkdv_wgmma_kernel",
+                                   "smallq_fwd_wgmma_kernel", "smallq_bwd_dq_wgmma_kernel",
+                                   "smallq_bwd_dkdv_wgmma_kernel"),
                     "head_sample": ("head_sample_wgmma_kernel",)}
 # the kernels they replace, which must be gone
 REPLACED_KERNELS = ("largeq_fwd_mma_kernel", "head_topk_mma_kernel", "head_topk_v1_mma_kernel",
                     "largeq_bwd_dq_mma_kernel", "largeq_bwd_dkdv_mma_kernel",
-                    "head_sample_mma_kernel")
+                    "head_sample_mma_kernel", "smallq_fwd_mma_kernel",
+                    "smallq_bwd_dq_mma_kernel", "smallq_bwd_dkdv_mma_kernel")
 
 
 def kernel_table(prof, span: str | None = None, ranges=()) -> list[tuple[str, float, int]]:
@@ -1705,10 +1722,9 @@ def _bf16_instances(counts, names) -> list[str]:
 
 def check_sass():
     """The tensor-core and TMA instructions of every attention, head and
-    K9 kernel. Each instantiation of the bf16 K1 / K6 kernels (two each:
-    with and without dropout) must have some; each instantiation of the
-    Hopper K2, K3, K4, K5 and K7 kernels HGMMA and UTMALDG and no HMMA,
-    K3's and K7's no LDL or STL (no spills), and the kernels they
+    K9 kernel. Each instantiation of the Hopper K1, K2, K3, K4, K5, K6
+    and K7 kernels must have HGMMA and UTMALDG and no HMMA, K1's, K3's,
+    K6's and K7's no LDL or STL (no spills), and the kernels they
     replaced must be gone; no bf16 instantiation of an FMA attention, K3,
     K4 or K5 kernel may exist; K9's search must have them and its FMA
     kernel must be gone."""
@@ -1717,10 +1733,6 @@ def check_sass():
     libs = {name: sass_counts(_build.library_path(name))
             for name in ("attention", "head_sample", "vq")}
     counts, head, vq = libs["attention"], libs["head_sample"], libs["vq"]
-    for name in TENSOR_CORE_KERNELS:
-        inst = {n: c for n, c in counts.items() if name in n}
-        require(len(inst) == 2 and all(tensor_core(c) > 0 for c in inst.values()),
-                f"SASS: {name} instantiations {inst} (need 2, each with HMMA/HGMMA)")
     for lib, kernels in WGMMA_KERNELS.items():
         for name, n_inst in kernels.items():
             inst = {n: c for n, c in libs[lib].items() if name in n}

@@ -11,17 +11,24 @@
 //   0 and lse = +1e30 (the first MaskGIT step has no context at all).
 //   Bound on the card: bytes (Q/out plus K/V of the LIVE keys only; 4
 //   NQ Dh operations a live key are far below the tensor cores' rate).
-//   bf16, smallq_fwd_mma_kernel (+ smallq_merge_kernel): each CTA lists
-//   its batch row's live keys (a ballot scan of the mask row) and gathers
-//   their K/V rows into 64-key tiles with 16-byte cp.async, double-
-//   buffered and shared by 8 warps of 16 query rows: dead keys cost
-//   nothing (training masks are random over positions, so whole dead
-//   tiles are rare). The tile is mma.sync with K2's two-part P (exp2-domain
-//   online softmax); S sums each 16-deep product apart in fp32 so that
-//   lse keeps its fp32 accuracy at large scores. Too few (b, h) pairs to
-//   fill the card (128f, batch 2) split the live list over up to 8 CTAs
-//   (split-K); each leaves fp32 (o, m, l) and a merge adds them in split
-//   order, so two calls give the same bits. lse is summed in double.
+//   bf16, smallq_fwd_wgmma_kernel (+ smallq_merge_kernel), on Hopper's
+//   own instructions (csrc/hopper.cuh): a CTA a (b, h) of four consumer
+//   warpgroups (its 256 queries, a 64-query tile each; two with dropout)
+//   and a producer warp. The CTA lists its batch row's live keys (a scan
+//   of the mask row in 16-byte chunks while TMA loads the Q tiles), and the
+//   producer warp gathers their K/V rows 64 at a time with 16-byte
+//   cp.async into 128-byte-swizzled tiles, the layout TMA writes and wgmma
+//   reads, completing on the stages' mbarriers; every warpgroup reads each
+//   stage. Dead keys cost nothing (training masks are random over
+//   positions, so whole dead tiles are rare). Per stage S = Q K^T is one
+//   wgmma m64n64k16 chain, the softmax is K2's (a reference m that moves
+//   only past a margin of 8, two-part P from the accumulator registers),
+//   and P V is wgmma with V MN-major. Too few (b, h) CTAs to fill the card
+//   (128f, batch 2) split the live list over up to 8 CTAs (split-K); each
+//   leaves fp32 (o, m, l) and a merge adds them in split order, so two
+//   calls give the same bits. lse is summed in double. The plan and the
+//   shared-memory opt-in are made once per shape and card: K1 runs 1128
+//   times a 128f batch on a card that waits for the host.
 //   fp32, smallq_kernel: one CTA per (b, h, 64 queries), FMA loops over
 //   64-key tiles, dead tiles skipped (the parity checks only).
 //
@@ -75,13 +82,19 @@
 //   need no atomics (bit-repeatable). Bound: 10 * NQ * live keys * Dh
 //   operations per (b, h) against the bytes of q, g, dq and the live
 //   K/V/dk/dv rows: bytes at NQ = 256.
-//   bf16: smallq_bwd_dq_mma_kernel walks the live-key tiles as K1 does,
-//   a warp per 16 query rows: D from g and out, p = 2^(s c - L) with L =
-//   lse log2(e) as an fp32 pair from a double product, dp = g V^T, ds
-//   in three bf16 parts, each tile's ds K added to dq in fp32; it draws
-//   each keep bit once and hands (L, D, the live list, the keep bits) to
-//   smallq_bwd_dkdv_mma_kernel, a key-major mma.sync tile over 64 live keys
-//   (three-part p and ds, each 16 queries' products added in fp32), which
+//   bf16, on Hopper's own instructions: smallq_bwd_live_kernel lists each
+//   batch row's live keys once into scratch; smallq_bwd_dq_wgmma_kernel is
+//   K7's second dq sweep over K1's gathered stages, a CTA a (64-query
+//   tile, key split, b, h) of one consumer warpgroup and a producer warp:
+//   Q and g by TMA, D from g and out, p = 2^(s c - L) with L = lse log2(e)
+//   as an fp32 pair from a double product, S and dP by wgmma, ds in three
+//   bf16 parts from registers, each stage's ds K summed apart and added
+//   to dq in fp32; where the CTAs fill less than a few waves the live keys
+//   split over CTAs and smallq_bwd_dq_merge_kernel adds the fp32 partials
+//   in split order. It draws each keep bit once and leaves (L, D, the
+//   keep bits) to smallq_bwd_dkdv_wgmma_kernel, K7's key-major dk/dv tile
+//   with the K and V rows of 64 live keys gathered and resident (p and ds
+//   in three parts, each query tile's products added in fp32), which
 //   scatters its rows back to their keys and zeroes the dead keys' rows.
 //   fp32: smallq_bwd_dq_kernel (one CTA per (b, h, 64 queries) over the
 //   key tiles) and attn_bwd_dkdv_kernel (one CTA per (b, h, 64 keys)
@@ -335,12 +348,12 @@ smallq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// bf16 goes to the tensor-core K1 (smallq_fwd_mma_kernel, defined
-// below), which takes `part` (the split partials) as scratch.
+// bf16 goes to the Hopper K1 (smallq_fwd_wgmma_kernel, defined below),
+// which takes `part` (the split partials) as scratch.
 template <bool DROP>
-cudaError_t launch_smallq_mma(const void* q, const void* k, const void* v, const void* mask,
-                              void* out, void* lse, void* part, int B, int H, int NQ, int NK,
-                              float scale, Dropout drop, cudaStream_t stream);
+cudaError_t launch_smallq_wgmma(const void* q, const void* k, const void* v, const void* mask,
+                                void* out, void* lse, void* part, int B, int H, int NQ, int NK,
+                                float scale, Dropout drop, cudaStream_t stream);
 
 template <typename T, int DH, bool DROP>
 cudaError_t launch_smallq(const void* q, const void* k, const void* v,
@@ -348,9 +361,9 @@ cudaError_t launch_smallq(const void* q, const void* k, const void* v,
                           int NQ, int NK, float scale, Dropout drop,
                           cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    static_assert(DH == 64, "the tensor-core K1 takes Dh 64");
-    return launch_smallq_mma<DROP>(q, k, v, mask, out, lse, part, B, H, NQ, NK, scale, drop,
-                                   stream);
+    static_assert(DH == 64, "the Hopper K1 takes Dh 64");
+    return launch_smallq_wgmma<DROP>(q, k, v, mask, out, lse, part, B, H, NQ, NK, scale, drop,
+                                     stream);
   } else {
     const size_t smem = k1_smem_bytes<DH>();
     auto kern = smallq_kernel<T, DH, DROP>;
@@ -367,23 +380,18 @@ cudaError_t launch_smallq(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// K1 and K6 in bf16: tensor-core tiles (mma.sync m16n8k16, ldmatrix; the
-// fragment layouts and the instructions are in mma.cuh). Two
-// neighbouring C fragments of S are the A fragment of P for the next
-// product, with no data movement.
+// bf16 K1, K2, K6 and K7: shared constants and helpers. Every product is
+// Hopper's wgmma (csrc/hopper.cuh); a left operand from registers is an
+// accumulator, whose registers are mma.m16n8k16's A fragments pair by pair.
 
 constexpr int TC_DH = 64;       // head width of every MeBT config
-constexpr int TC_PITCH = 72;    // bf16 per shared row: 144 B, so the 8 rows
-                                // an ldmatrix reads fall in distinct banks
-constexpr int DKDV_WARPS = 4;   // K6 dk/dv: 16 keys a warp, 64 keys a CTA
-constexpr int DKDV_QT = 64;     // queries per tile of the dk/dv walk
-constexpr int DKDV_QC = 16;     // queries per product chunk inside a tile
 constexpr int K7_MAX_SPLITS = 16;  // K7 dk/dv: most CTAs sharing one key tile's query walk
 // bf16 parts of a left operand. K2's P in two, to 2^-18 of it: P >= 0,
-// so P V loses nothing to cancellation. K7's p and ds in three, to
-// 2^-27: dv = sum_q p g and dk = sum_q ds q cancel; with
+// so P V loses nothing to cancellation (K1's likewise). K7's p and ds in
+// three, to 2^-27: dv = sum_q p g and dk = sum_q ds q cancel; with
 // two parts and q eight times larger, some dk and dv elements missed
-// the gate by up to 30% (an emulation over seeds, and the card).
+// the gate by up to 30% (an emulation over seeds, and the card); K6's
+// dk/dv pass takes K7's.
 // K7's dq pass adds ds K over only the NK <= 512 resident keys: ds in
 // two parts kept every dq element within the gate in the emulation over
 // seeds (tests/test_torch_attention_split.py) and on the card.
@@ -393,26 +401,6 @@ constexpr int K7_DQ_PARTS = 2;
 constexpr float LOG2E = 1.4426950408889634f;
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(in ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(in ? 8 : 0));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
@@ -434,225 +422,9 @@ __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t (&out)[N
 __device__ __forceinline__ float bf_lo(uint32_t x) { return __uint_as_float(x << 16); }
 __device__ __forceinline__ float bf_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
 
-// A fragments of 16 rows x TC_DH of a row-major shared tile: a[kc] holds
-// columns 16 kc .. 16 kc + 15.
-__device__ __forceinline__ void load_a(uint32_t (&a)[TC_DH / 16][4], const bf16* rows,
-                                       int lane) {
-  const bf16* p = rows + (lane & 15) * TC_PITCH + (lane >> 4) * 8;
-#pragma unroll
-  for (int kc = 0; kc < TC_DH / 16; ++kc) ldsm_x4(a[kc], p + kc * 16);
-}
-
-// c[j] += A B^T for the 8 NT rows of B at `rows` (a row-major shared
-// tile, TC_DH wide): S = Q K^T over keys, or S^T = K Q^T over queries.
-template <int NT>
-__device__ __forceinline__ void mma_abt(float (&c)[NT][4], const uint32_t (&a)[TC_DH / 16][4],
-                                        const bf16* rows, int lane) {
-  const bf16* p = rows + ((lane & 7) + (lane >> 4) * 8) * TC_PITCH + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int np = 0; np < NT / 2; ++np)
-#pragma unroll
-    for (int kc = 0; kc < TC_DH / 16; ++kc) {
-      uint32_t b[4];
-      ldsm_x4(b, p + np * 16 * TC_PITCH + kc * 16);
-      mma16816(c[2 * np], a[kc], b[0], b[1]);
-      mma16816(c[2 * np + 1], a[kc], b[2], b[3]);
-    }
-}
-
-// mma_abt with each 16-deep product summed apart and added to c in fp32:
-// the tensor cores' own fp32 sums truncate, which moved K1's lse at
-// scores eight times larger (about 35) by up to 1e-5 from its float64
-// value; this keeps it within 7.5e-6 on the card.
-template <int NT>
-__device__ __forceinline__ void mma_abt_fine(float (&c)[NT][4], const uint32_t (&a)[TC_DH / 16][4],
-                                             const bf16* rows, int lane) {
-  const bf16* p = rows + ((lane & 7) + (lane >> 4) * 8) * TC_PITCH + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int np = 0; np < NT / 2; ++np)
-#pragma unroll
-    for (int kc = 0; kc < TC_DH / 16; ++kc) {
-      uint32_t b[4];
-      ldsm_x4(b, p + np * 16 * TC_PITCH + kc * 16);
-      float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
-      mma16816(t0, a[kc], b[0], b[1]);
-      mma16816(t1, a[kc], b[2], b[3]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        c[2 * np][e] += t0[e];
-        c[2 * np + 1][e] += t1[e];
-      }
-    }
-}
-
-// c (16 x TC_DH) += A B for the 16 KS rows of B at `rows`, A given as NP
-// bf16 parts (a[i][ks]) whose products go into one fp32 sum.
-template <int NP, int KS>
-__device__ __forceinline__ void mma_ab_parts(float (&c)[TC_DH / 8][4],
-                                             const uint32_t (&a)[NP][KS][4], const bf16* rows,
-                                             int lane) {
-  const bf16* p = rows + ((lane & 7) + ((lane >> 3) & 1) * 8) * TC_PITCH + (lane >> 4) * 8;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-    for (int dp = 0; dp < TC_DH / 16; ++dp) {
-      uint32_t b[4];
-      ldsm_x4_t(b, p + ks * 16 * TC_PITCH + dp * 16);
-#pragma unroll
-      for (int i = 0; i < NP; ++i) {
-        mma16816(c[2 * dp], a[i][ks], b[0], b[1]);
-        mma16816(c[2 * dp + 1], a[i][ks], b[2], b[3]);
-      }
-    }
-}
-
-__device__ __forceinline__ void zero(float (&c)[TC_DH / 8][4]) {
-#pragma unroll
-  for (int j = 0; j < TC_DH / 8; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-}
-
-__device__ __forceinline__ void add_to(float (&acc)[TC_DH / 8][4], const float (&c)[TC_DH / 8][4]) {
-#pragma unroll
-  for (int j = 0; j < TC_DH / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] += c[j][e];
-}
-
-// The C tile c (16 x 8 NT, fp32) as A fragments of its NT / 2 16-column
-// blocks, in NP bf16 parts.
-template <int NP, int NT>
-__device__ __forceinline__ void to_a_parts(const float (&c)[NT][4], uint32_t (&a)[NP][NT / 2][4]) {
-#pragma unroll
-  for (int ks = 0; ks < NT / 2; ++ks)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {  // a0..a3: (C tile, row half) = (2ks, 0), (2ks, 1), (2ks+1, 0), (2ks+1, 1)
-      uint32_t t[NP];
-      split_pair<NP>(c[2 * ks + (r >> 1)][2 * (r & 1)], c[2 * ks + (r >> 1)][2 * (r & 1) + 1], t);
-#pragma unroll
-      for (int i = 0; i < NP; ++i) a[i][ks][r] = t[i];
-    }
-}
-
-// Rows r0 .. r0 + n - 1 of an (N, TC_DH) bf16 matrix into a padded
-// shared tile as 16-byte cp.async copies (zeros past row N), shared by
-// `nthreads` threads of which this is `tid`.
-__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src, int r0, int n, int N,
-                                          int tid, int nthreads) {
-  for (int i = tid; i < n * (TC_DH / 8); i += nthreads) {
-    const int r = i / (TC_DH / 8), c = (i % (TC_DH / 8)) * 8;
-    const bool in = r0 + r < N;
-    cp_async16(dst + r * TC_PITCH + c, src + (size_t)(in ? r0 + r : 0) * TC_DH + c, in);
-  }
-}
-
-// K6's key-major dk/dv tile: its keys' K and V, two stages of query tiles
-// (q, g, (m, log2 l), D and the keep words)
-constexpr size_t dkdv_tc_smem_bytes() {
-  return sizeof(bf16) * TC_PITCH * (2 * DKDV_WARPS * 16 + 2 * 2 * DKDV_QT) +
-         (sizeof(float2) + sizeof(float) + sizeof(uint32_t) * DKDV_WARPS * 16 / 32) * 2 *
-             DKDV_QT;
-}
-
-// -inf at keys >= NK of the 16 x 8 NT score tile of keys k0..; returns
-// its row maxima (rows g, g + 8) over the quad.
-template <int NT>
-__device__ __forceinline__ void mask_max(float (&s)[NT][4], int k0, int NK, int lane,
-                                         float& mx0, float& mx1) {
-  mx0 = mx1 = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = k0 + j * 8 + 2 * (lane & 3) + (e & 1);
-      const float x = key < NK ? s[j][e] : -INFINITY;
-      s[j][e] = x;
-      if (e < 2) mx0 = fmaxf(mx0, x);
-      else mx1 = fmaxf(mx1, x);
-    }
-  mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 1));
-  mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, 2));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 1));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, 2));
-}
-
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(FULL, x, 1);
   return x + __shfl_xor_sync(FULL, x, 2);
-}
-
-// One KC-key chunk of the online softmax for one warp's 16 query rows
-// (A fragments qa) over the keys at Kc / Vc, of which the first n are
-// live (the rest are -inf): o = o alpha + (e keep) V unnormalized, with
-// e = 2^(s c - m) for c = scale log2(e) taken by one fmaf (so e carries
-// no rounding of s c, which reaches some 2^-18 of 1 at |s c| ~ 50), the
-// reference m = max s c (rounded; a common factor of the row's e), and
-// l = the sum of the undropped e, rows g and g + 8. P goes to P V in NP
-// bf16 parts. r0 is the dropout row of row g; key_of(c) the dropout key
-// of column c. kbits gets the chunk's keep bits of rows g and g + 8 at
-// this lane's columns (bit = column). FINE_S takes S by mma_abt_fine.
-template <int KC, int NP, bool DROP, bool FINE_S = false, typename KeyOf>
-__device__ __forceinline__ void softmax_chunk(float (&o)[TC_DH / 8][4], float (&m)[2],
-                                              float (&l)[2], const uint32_t (&qa)[TC_DH / 16][4],
-                                              const bf16* Kc, const bf16* Vc, int n,
-                                              float scale_log2, uint32_t r0, const Dropout& drop,
-                                              int lane, KeyOf key_of, uint32_t (&kbits)[2]) {
-  constexpr int NT = KC / 8;
-  float s[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-  if (FINE_S) mma_abt_fine<NT>(s, qa, Kc, lane);
-  else mma_abt<NT>(s, qa, Kc, lane);
-  float mx[2];
-  mask_max<NT>(s, 0, n, lane, mx[0], mx[1]);
-  float alpha[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float mn = fmaxf(m[h], mx[h] * scale_log2);  // finite: column 0 is live
-    alpha[h] = exp2f(m[h] - mn);                        // 0 on the first chunk
-    m[h] = mn;
-    l[h] *= alpha[h];
-  }
-#pragma unroll
-  for (int j = 0; j < TC_DH / 8; ++j) {
-    o[j][0] *= alpha[0];
-    o[j][1] *= alpha[0];
-    o[j][2] *= alpha[1];
-    o[j][3] *= alpha[1];
-  }
-  kbits[0] = kbits[1] = 0u;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float x = exp2f(fmaf(s[j][e], scale_log2, -m[e >> 1]));
-      l[e >> 1] += x;  // the denominator takes the undropped e
-      if (DROP) {
-        const int c = j * 8 + 2 * (lane & 3) + (e & 1);
-        const float kp = drop.keep(r0 + (e >> 1) * 8, key_of(c));
-        if (kp != 0.f) kbits[e >> 1] |= 1u << c;
-        x *= kp;
-      }
-      s[j][e] = x;
-    }
-  uint32_t pa[NP][NT / 2][4];
-  to_a_parts<NP, NT>(s, pa);
-  mma_ab_parts<NP, NT / 2>(o, pa, Vc, lane);
-}
-
-// rows g, g + 8 of a 16-row block at `base` (row-major, TC_DH wide) from
-// the C fragments c (times inv[h]), skipping rows >= nrows
-__device__ __forceinline__ void store_rows(bf16* base, const float (&c)[TC_DH / 8][4],
-                                           const float (&inv)[2], int nrows, int lane) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = (lane >> 2) + 8 * h;
-    if (r >= nrows) continue;
-    bf16* dst = base + (size_t)r * TC_DH + 2 * (lane & 3);
-#pragma unroll
-    for (int j = 0; j < TC_DH / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
-          __floats2bfloat162_rn(c[j][2 * h] * inv[h], c[j][2 * h + 1] * inv[h]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1678,94 +1450,128 @@ cudaError_t launch_largeq_bwd_wgmma(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// K1 / K6 in bf16: tensor-core tiles over streamed tiles of LIVE keys
+// K1 / K6 in bf16 on Hopper: wgmma over gathered stages of LIVE keys
 //
-// Each CTA lists the live keys of its batch row in key order (a ballot
-// scan of the mask row, in shared memory) and gathers their K/V rows
-// into 64-key tiles with 16-byte cp.async, so dead keys cost nothing and
-// a tile is dead only past the last live key. Dropout keys stay the
-// original key indices.
+// The live keys of a batch row are listed in key order: by each K1 CTA
+// itself while its Q tile lands, and for K6 once by a pre-pass of B CTAs
+// into scratch (count, then keys: smallq_bwd_live_kernel), since its dk/dv
+// pass reads the list again.
+// A producer warp walks them in 64-key stages, gathering each stage's K
+// and V rows with 16-byte cp.async into 128-byte-swizzled tiles
+// (gather_rows_b128, csrc/hopper.cuh) whose copies complete on the
+// stage's mbarrier, so that consumers wait and read them by wgmma as K2
+// and K7 do TMA's tiles; rows past the live count are zeros (a zero V row
+// meets a zero probability). Dead keys cost nothing, a stage is partly
+// empty only at the end of a list, and dropout keys stay the original key
+// indices.
 
-constexpr int SQ_WARPS = 8;        // K1, K6 dq: warps a CTA, 16 query rows each
-constexpr int SQ_KT = 64;          // live keys per streamed K/V tile
-constexpr int SQ_MAX_SPLITS = 8;   // K1: most CTAs sharing one (b, h, query block)
+constexpr int SQ_KT = 64;              // live keys a gathered stage
+constexpr int SQ_QT = 64;              // queries a tile: one warpgroup's m64
+constexpr int SQ_THREADS = 128 + 32;   // a consumer warpgroup and a producer warp
+constexpr int K6W_DQ_STAGES = 3;       // K6's dq pass: its ring of gathered K/V stages
+constexpr int SQ_MAX_SPLITS = 8;       // most CTAs sharing one (b, h, query tile)'s keys
+constexpr uint32_t SQ_TILE_BYTES = SQ_KT * TC_DH * 2;   // 8 KB of Q, g, K or V
+constexpr uint32_t SQ_STAGE_BYTES = 2 * SQ_TILE_BYTES;  // a stage: K, then V
+// K6's dq pass adds ds K over thousands of live keys: ds in three bf16
+// parts (tests/test_torch_attention_split_masked.py)
+constexpr int K6_PARTS = 3;
 constexpr double LN2_D = 0.6931471805599453;
 constexpr double LOG2E_D = 1.4426950408889634;
 
 __host__ __device__ constexpr int round_up(int x, int to) { return (x + to - 1) / to * to; }
 
 // The live keys of one batch row (mask row mrow of NK bytes), in key
-// order. The row is read as 4-byte words (from the word holding key 0;
-// bytes outside the row count as dead): each warp counts a segment of
-// words, the CTA adds up the counts (wcnt: a word per warp), and the key
-// at live position p goes to Is[p - beg] for p in [beg, end), where
-// range(total, beg, end) picks them from the total live count; a warp
-// whose positions miss [beg, end) writes nothing. Every thread of the
-// CTA calls it; it ends on a barrier.
+// order. The row is read as 16-byte chunks (from the chunk holding key 0;
+// bytes outside the row count as dead), a contiguous run of chunks a
+// thread: each thread counts its live keys, a scan over the CTA (warp
+// shuffles, then the warps' sums in wsum, one int a warp, in shared
+// memory) gives each thread its first live position and the total, and
+// the key at live position p goes to Is[p - beg] for p in [beg, end),
+// where range(total, beg, end) picks them from the total; a thread whose
+// positions miss [beg, end) writes nothing. At most 32 warps; Is may be
+// shared or global memory. Every thread of the CTA calls it; it ends on a
+// barrier.
 template <typename Range>
-__device__ __forceinline__ void list_live(const uint8_t* mrow, int NK, int* Is, int* wcnt,
+__device__ __forceinline__ void list_live(const uint8_t* mrow, int NK, int* Is, int* wsum,
                                           Range range, int& beg, int& end) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  const int off = (int)(reinterpret_cast<uintptr_t>(mrow) & 3u);
-  const uint32_t* words = reinterpret_cast<const uint32_t*>(mrow - off);
-  const int nwords = (NK + off + 3) / 4;
-  const int seg = round_up(nwords, nw * 32) / nw;  // words a warp, a multiple of 32
-  const int lo = warp * seg, hi = min(nwords, lo + seg);
-  auto live_bytes = [&](int i) {  // 0x01 in each byte of word i that holds a live key
-    if (i >= hi) return 0u;
-    uint32_t w = __vcmpne4(words[i], 0u) & 0x01010101u;
-    const int k0 = 4 * i - off;  // the key of byte 0
-    if (k0 < 0) w &= 0xffffffffu << (-8 * k0);
-    if (k0 + 4 > NK) w &= 0xffffffffu >> (8 * (k0 + 4 - NK));
-    return w;
-  };
-  int c = 0;
-#pragma unroll 4
-  for (int i = lo + lane; i - lane < hi; i += 32) c += __popc(live_bytes(i));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, nw = blockDim.x >> 5;
+  const int off = (int)(reinterpret_cast<uintptr_t>(mrow) & 15u);
+  const uint4* chunks = reinterpret_cast<const uint4*>(mrow - off);
+  const int nchunks = (NK + off + 15) / 16;
+  const int per = (nchunks + (int)blockDim.x - 1) / (int)blockDim.x;
+  const int c0 = tid * per, c1 = min(nchunks, c0 + per);
+  auto live_bits = [&](int i) {  // bit j: byte j of chunk i holds a live key
+    const uint4 w = chunks[i];
+    const uint32_t v[4] = {w.x, w.y, w.z, w.w};
+    uint32_t m = 0u;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(FULL, c, o);
-  if (lane == 0) wcnt[warp] = c;
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t x = __vcmpne4(v[q], 0u);  // 0xff in each nonzero byte
+      m |= ((x & 1u) | ((x >> 7) & 2u) | ((x >> 14) & 4u) | ((x >> 21) & 8u)) << (4 * q);
+    }
+    const int k0 = 16 * i - off;  // the key of byte 0
+    if (k0 < 0) m &= 0xffffu << (-k0);
+    if (k0 + 16 > NK) m &= 0xffffu >> (k0 + 16 - NK);
+    return m;
+  };
+  int cnt = 0;
+  for (int i = c0; i < c1; ++i) cnt += __popc(live_bits(i));
+  int x = cnt;  // inclusive prefix of the warp's counts
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
   __syncthreads();
-  int pos = 0, total = 0;
+  int pos = x - cnt, total = 0;
   for (int w = 0; w < nw; ++w) {
-    const int x = wcnt[w];
-    pos += w < warp ? x : 0;
-    total += x;
+    const int t = wsum[w];
+    pos += w < warp ? t : 0;
+    total += t;
   }
   range(total, beg, end);
-  if (pos < end && pos + c > beg) {
-    for (int i = lo + lane; i - lane < hi; i += 32) {  // the same trip count in every lane
-      uint32_t w = live_bytes(i);
-      const int n = __popc(w);
-      int x = n;  // inclusive prefix of the lanes' counts
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(FULL, x, o);
-        if (lane >= o) x += y;
+  if (pos < end && pos + cnt > beg) {
+    for (int i = c0; i < c1; ++i) {
+      uint32_t m = live_bits(i);
+      const int k0 = 16 * i - off;
+      while (m != 0u) {
+        const int j = __ffs(m) - 1;
+        m &= m - 1u;
+        if (pos >= beg && pos < end) Is[pos - beg] = k0 + j;
+        ++pos;
       }
-      int p = pos + x - n;
-      for (int key = 4 * i - off; w != 0u; w >>= 8, ++key) {
-        if (w & 1u) {
-          if (p >= beg && p < end) Is[p - beg] = key;
-          ++p;
-        }
-      }
-      pos += __shfl_sync(FULL, x, 31);
     }
   }
   __syncthreads();
 }
 
-// The rows of the n live keys keys[0 .. n) of an (NK, TC_DH) bf16 matrix
-// into a padded shared tile of SQ_KT rows as 16-byte cp.async copies;
-// zeros from row n on (a zero V row times a zero probability stays 0).
-__device__ __forceinline__ void copy_live_rows(bf16* dst, const bf16* src, const int* keys, int n,
-                                               int tid, int nthreads) {
-  for (int i = tid; i < SQ_KT * (TC_DH / 8); i += nthreads) {
-    const int r = i / (TC_DH / 8), c = (i % (TC_DH / 8)) * 8;
-    const bool in = r < n;
-    cp_async16(dst + r * TC_PITCH + c, src + (size_t)(in ? keys[r] : 0) * TC_DH + c, in);
-  }
+// The live positions [beg, end) of split `split` of `splits`: a run of
+// whole 64-key stages, the splits in list order
+__device__ __forceinline__ void split_range(int total, int split, int splits, int& beg,
+                                            int& end) {
+  const int chunk = round_up((total + splits - 1) / splits, SQ_KT);
+  beg = min(total, split * chunk);
+  end = min(total, beg + chunk);
+}
+
+// K6's pre-pass (grid B, SQ_LIVE_THREADS threads: a row of up to 16384
+// keys in one 16-byte chunk a thread): the live list of batch row
+// blockIdx.x, live[b (NK + 1)] its count, then its keys in key order
+constexpr int SQ_LIVE_THREADS = 1024;
+
+__global__ void __launch_bounds__(SQ_LIVE_THREADS)
+smallq_bwd_live_kernel(const uint8_t* __restrict__ mask, int* __restrict__ live, int NK) {
+  __shared__ int wcnt[32];
+  int* row = live + (size_t)blockIdx.x * (NK + 1);
+  int beg, end;
+  list_live(mask + (size_t)blockIdx.x * NK, NK, row + 1, wcnt,
+            [](int total, int& b0, int& e0) {
+              b0 = 0;
+              e0 = total;
+            },
+            beg, end);
+  if (threadIdx.x == 0) row[0] = end;
 }
 
 // ln(sum_k e^(s_k)) of a row from its log2-domain pair (m, l), the sum
@@ -1775,111 +1581,245 @@ __device__ __forceinline__ float lse_of(float m, float l) {
   return l == 0.f ? -NEG_BIG : (float)(LN2_D * ((double)m + log2((double)l)));
 }
 
-// K1: queries, K/V tiles (double-buffered), the warps' key counts and
-// the live keys of the split (at most ceil(NK / splits) rounded to tiles)
-inline size_t k1_tc_smem_bytes(int NK, int splits) {
-  return sizeof(bf16) * TC_PITCH * ((size_t)SQ_WARPS * 16 + 4 * SQ_KT) +
-         sizeof(int) * (SQ_WARPS + (size_t)round_up((NK + splits - 1) / splits, SQ_KT));
+// The producer warp's stage: K and V rows keys[0 .. n) of one (b, h)
+// (kg, vg: its rows) into the stage's two tiles, zeros from row n on; the
+// copies land on `full` (initialised with the warp's 32 lanes)
+__device__ __forceinline__ void gather_kv(unsigned char* st, const bf16* kg, const bf16* vg,
+                                          const int* keys, int n, uint64_t* full, int lane) {
+  gather_rows_b128(st, kg, st + SQ_TILE_BYTES, vg, keys, n, lane);
+  mbar_arrive_cp_async(full);
 }
 
-// K1 (bf16). Grid (splits, query blocks of SQ_WARPS * 16 rows, B * H). A
-// CTA walks the live keys of one split of its batch row's live list,
-// every warp 16 query rows against each shared K/V tile (softmax_chunk:
-// two-part P as K2, S by mma_abt_fine for lse's sake). With one split it
-// writes out and lse; with more,
-// each CTA leaves its rows' unnormalized o and (m, l) in fp32 for
+// The keep bits of a stage's 64 columns for rows prow[0] (g) and prow[1]
+// (g + 8) at lane quad position tq: bit i for accumulator element i
+// (column (i >> 2) 8 + 2 tq + (i & 1)); keys past n draw key 0, unused
+__device__ __forceinline__ uint32_t stage_keep_bits(const Dropout& drop, const uint32_t (&prow)[2],
+                                                    const int* keys, int n, int tq) {
+  uint32_t kb = 0u;
+#pragma unroll 4
+  for (int i = 0; i < 32; ++i) {
+    const int c = (i >> 2) * 8 + 2 * tq + (i & 1);
+    const uint32_t key = c < n ? (uint32_t)keys[c] : 0u;
+    kb |= (uint32_t)(drop.keep_at(prow[(i >> 1) & 1], key) != 0.f) << i;
+  }
+  return kb;
+}
+
+// K1's consumer warpgroups a CTA, a 64-query tile each: four (the 256
+// latent queries of a (b, h)), which share every gathered stage, at the
+// 96 registers a thread that ptxas allots 544 threads; with dropout two,
+// at 168 (its Philox draws spilled at 128)
+__host__ __device__ constexpr int k1w_consumers(bool drop) { return drop ? 2 : 4; }
+__host__ __device__ constexpr int k1w_threads(bool drop) { return k1w_consumers(drop) * 128 + 32; }
+constexpr int K1W_STAGES = 4;  // K1's ring of gathered K/V stages
+
+// K1's dynamic shared memory: the Q tiles, the ring of K/V stages, the
+// barriers and the list scan's warp sums, and the split's live keys
+inline size_t k1w_smem_bytes(bool drop, int NK, int splits) {
+  return 1024 + (size_t)k1w_consumers(drop) * SQ_TILE_BYTES + (size_t)K1W_STAGES * SQ_STAGE_BYTES +
+         256 + sizeof(int) * (size_t)round_up((NK + splits - 1) / splits, SQ_KT);
+}
+
+// K1 (bf16). Grid (query blocks of C 64-query tiles, splits, B * H), C =
+// k1w_consumers: C consumer warpgroups (warpgroup w holds tile C x + w, its
+// warp wl the tile's rows 16 wl + g, + 8) and a producer warp. The
+// producer's first lane loads the Q tiles by TMA (rows past NQ are zeros);
+// the CTA lists the live keys of its split (list_live), and the producer
+// warp gathers them 64 at a time into a ring of K1W_STAGES that every
+// consumer warpgroup reads. Per stage a consumer takes S = Q K^T by one
+// chain of wgmma m64n64k16 over the head width (both K-major: lse at
+// scores eight times larger, about 35, lands within 1e-5 of float64 on an
+// H100, as close as the plain fp32 lse), masks the columns past the live
+// count, runs K2's online
+// softmax (the reference m moves only past a margin of 8 in the log2
+// domain; e = 2^(s c - m) by one fmaf and ex2; l sums the undropped e) and
+// adds P V with P from registers in K2_PARTS bf16 parts and V MN-major.
+// The next stage's keep bits are drawn while P V runs. One split writes
+// out and lse (a row without a live key: 0 and 1e30); with more, each CTA
+// leaves its rows' unnormalized o and (m, l) in fp32 for
 // smallq_merge_kernel.
 template <bool DROP>
-__global__ void __launch_bounds__(SQ_WARPS * 32, 2)
-smallq_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                      bf16* __restrict__ out, float* __restrict__ lse, float* __restrict__ part_o,
-                      float2* __restrict__ part_ml, int H, int NQ, int NK, int splits,
-                      float scale_log2, Dropout drop) {
-  constexpr int TILE = SQ_KT * TC_PITCH;
-  constexpr int NTHR = SQ_WARPS * 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tid = threadIdx.x;
-  bf16* Qw = reinterpret_cast<bf16*>(smem_raw) + warp * 16 * TC_PITCH;  // [16][PITCH]
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw) + SQ_WARPS * 16 * TC_PITCH;  // [2][KT][PITCH]
-  bf16* Vs = Ks + 2 * TILE;                                               // [2][KT][PITCH]
-  int* wcnt = reinterpret_cast<int*>(Vs + 2 * TILE);
-  int* Is = wcnt + SQ_WARPS;
+__global__ void __launch_bounds__(k1w_threads(DROP), 1)
+smallq_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                        bf16* __restrict__ out,
+                        float* __restrict__ lse, float* __restrict__ part_o,
+                        float2* __restrict__ part_ml, int H, int NQ, int NK, int splits,
+                        float scale_log2, Dropout drop) {
+  constexpr int C = k1w_consumers(DROP);
+  extern __shared__ unsigned char sqw_smem[];
+  unsigned char* base = align1024(sqw_smem);
+  unsigned char* qs = base;  // tile w at qs + w SQ_TILE_BYTES
+  unsigned char* ring = base + C * SQ_TILE_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + (size_t)K1W_STAGES * SQ_STAGE_BYTES);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;            // [K1W_STAGES]: the producer warp's copies
+  uint64_t* empty = full + K1W_STAGES;  // [K1W_STAGES]: every consumer warp
+  int* wsum = reinterpret_cast<int*>(bars + 16);  // the list scan's warp sums
+  int* Is = wsum + 32;                            // the split's live keys
 
-  const int split = blockIdx.x, bh = blockIdx.z, b = bh / H;
-  const int blk = blockIdx.y * SQ_WARPS + warp;
-  const bool rows_in = blk < (NQ + 15) / 16;
-  const size_t qoff = (size_t)bh * NQ * TC_DH, koff = (size_t)bh * NK * TC_DH;
-  if (rows_in) copy_rows(Qw, q + qoff, blk * 16, 16, NQ, lane, 32);
-  cp_async_commit();  // the queries land while the mask row is read
-
-  int beg, end;
-  list_live(mask + (size_t)b * NK, NK, Is, wcnt,
-            [&](int total, int& b0, int& e0) {
-              const int chunk = round_up((total + splits - 1) / splits, SQ_KT);
-              b0 = min(total, split * chunk);
-              e0 = min(total, b0 + chunk);
-            },
-            beg, end);
-  const int n = end - beg, ntiles = (n + SQ_KT - 1) / SQ_KT;
-  if (ntiles > 0) {
-    copy_live_rows(Ks, k + koff, Is, n, tid, NTHR);
-    copy_live_rows(Vs, v + koff, Is, n, tid, NTHR);
+  const int qb = blockIdx.x, split = blockIdx.y, bh = blockIdx.z, b = bh / H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nact = min(C, (NQ + SQ_QT - 1) / SQ_QT - qb * C);  // warpgroups with a tile
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < K1W_STAGES; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 4 * nact);
+    }
+    mbar_init_fence();
   }
-  cp_async_commit();
-  cp_async_wait_all();
   __syncthreads();
-  uint32_t qa[TC_DH / 16][4];
-  load_a(qa, Qw, lane);
-
-  float o[TC_DH / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  zero(o);
-  const uint32_t r0 = (uint32_t)bh * (uint32_t)NQ + (uint32_t)(blk * 16 + (lane >> 2));
-  for (int t = 0; t < ntiles; ++t) {
-    if (t > 0) {
-      cp_async_wait_all();
-      __syncthreads();  // tile t is in; every warp is done with tile t - 1's buffer
-    }
-    if (t + 1 < ntiles) {
-      const int nb = (t + 1) & 1;
-      copy_live_rows(Ks + nb * TILE, k + koff, Is + (t + 1) * SQ_KT, n - (t + 1) * SQ_KT, tid, NTHR);
-      copy_live_rows(Vs + nb * TILE, v + koff, Is + (t + 1) * SQ_KT, n - (t + 1) * SQ_KT, tid, NTHR);
-    }
-    cp_async_commit();
-    if (rows_in) {
-      const int* keys = Is + t * SQ_KT;
-      uint32_t kbits[2];
-      softmax_chunk<SQ_KT, K2_PARTS, DROP, true>(o, m, l, qa, Ks + (t & 1) * TILE, Vs + (t & 1) * TILE,
-                                           n - t * SQ_KT, scale_log2, r0, drop, lane,
-                                           [keys](int c) { return (uint32_t)keys[c]; }, kbits);
-    }
+  if (threadIdx.x == C * 128) {  // the Q tiles land while the live keys are listed
+    mbar_expect_tx(q_full, nact * SQ_TILE_BYTES);
+    for (int w = 0; w < nact; ++w)
+      tma_load_3d(qs + w * SQ_TILE_BYTES, &qmap, q_full, 0, (qb * C + w) * SQ_QT, bh);
   }
-  if (!rows_in) return;
-  l[0] = quad_sum(l[0]);
-  l[1] = quad_sum(l[1]);
-  const int nrows = NQ - blk * 16;
-  if (splits == 1) {
-    const float inv[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f, l[1] > 0.f ? 1.f / l[1] : 0.f};
-    store_rows(out + qoff + (size_t)blk * 16 * TC_DH, o, inv, nrows, lane);
-    if ((lane & 3) == 0) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = (lane >> 2) + 8 * h;
-        if (r < nrows) lse[(size_t)bh * NQ + blk * 16 + r] = lse_of(m[h], l[h]);
-      }
+  int beg, end;
+  list_live(mask + (size_t)b * NK, NK, Is, wsum,
+            [&](int total, int& b0, int& e0) { split_range(total, split, splits, b0, e0); },
+            beg, end);
+  const int* keys = Is;
+  const int n = end - beg, ntiles = (n + SQ_KT - 1) / SQ_KT;
+
+  if (warp == 4 * C) {  // the producer warp
+    const bf16* kg = k + (size_t)bh * NK * TC_DH;
+    const bf16* vg = v + (size_t)bh * NK * TC_DH;
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % K1W_STAGES;
+      mbar_wait(&empty[s], ((t / K1W_STAGES) & 1) ^ 1);
+      unsigned char* st = ring + (size_t)s * SQ_STAGE_BYTES;
+      gather_kv(st, kg, vg, keys + t * SQ_KT, min(SQ_KT, n - t * SQ_KT), &full[s], lane);
     }
+    cp_async_wait<0>();
     return;
   }
-  const size_t prow = ((size_t)bh * splits + split) * NQ + blk * 16;
+
+  // a consumer warpgroup (its index as the compiler can see it is
+  // warp-uniform)
+  const int wg = __shfl_sync(FULL, warp >> 2, 0), wl = warp & 3, g = lane >> 2, tq = lane & 3;
+  if (wg >= nact) return;  // past the last query tile
+  const int row0 = (qb * C + wg) * SQ_QT + wl * 16 + g;  // rows row0 and row0 + 8 of (b, h)
+  uint32_t prow[2] = {0u, 0u};                          // their Philox rows
+  if (DROP) {
+    const uint32_t r = (uint32_t)bh * (uint32_t)NQ + (uint32_t)row0;
+    prow[0] = drop.philox_row(r);
+    prow[1] = drop.philox_row(r + 8);
+  }
+  uint32_t kbits = 0u;  // the stage's keep bits, bit i for element i
+  if (DROP && ntiles > 0) kbits = stage_keep_bits(drop, prow, keys, n, tq);
+  mbar_wait(q_full, 0);
+  const uint64_t dQ = wg_desc(qs + wg * SQ_TILE_BYTES);
+  float o[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % K1W_STAGES, nt = min(SQ_KT, n - t * SQ_KT);
+    mbar_wait(&full[s], (t / K1W_STAGES) & 1);
+    fence_proxy_async();  // cp.async wrote the stage
+    const unsigned char* st = ring + (size_t)s * SQ_STAGE_BYTES;
+    const uint64_t dK = wg_desc(st), dV = wg_desc(st + SQ_TILE_BYTES);
+    float sc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int k16 = 0; k16 < TC_DH / 16; ++k16)
+      wgmma_m64n64k16(sc, wg_desc_at(dQ, 32 * k16), wg_desc_at(dK, 32 * k16), k16 > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(sc);
+    if (nt < SQ_KT) {  // the columns past the live count
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if ((i >> 2) * 8 + 2 * tq + (i & 1) >= nt) sc[i] = -INFINITY;
+    }
+    // the rows' maxima and sums by trees (short dependence chains), K2's
+    float mx[2][SQ_KT / 8];
+#pragma unroll
+    for (int j = 0; j < SQ_KT / 8; ++j) {
+      mx[0][j] = fmaxf(sc[4 * j], sc[4 * j + 1]);
+      mx[1][j] = fmaxf(sc[4 * j + 2], sc[4 * j + 3]);
+    }
+#pragma unroll
+    for (int w = SQ_KT / 16; w >= 1; w >>= 1)
+#pragma unroll
+      for (int j = 0; j < w; ++j) {
+        mx[0][j] = fmaxf(mx[0][j], mx[0][j + w]);
+        mx[1][j] = fmaxf(mx[1][j], mx[1][j + w]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x = mx[h][0];
+      x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(FULL, x, 2));
+      x *= scale_log2;  // finite: column 0 of a stage is live
+      alpha[h] = 1.f;
+      if (x > m[h] + K2W_RESCALE) {
+        alpha[h] = exp2_ftz(m[h] - x);  // 0 on the first stage
+        m[h] = x;
+      }
+    }
+    if (alpha[0] != 1.f || alpha[1] != 1.f) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = exp2_ftz(fmaf(sc[i], scale_log2, -m[(i >> 1) & 1]));
+    float sm[2][SQ_KT / 8];  // the undropped e, the denominator's
+#pragma unroll
+    for (int j = 0; j < SQ_KT / 8; ++j) {
+      sm[0][j] = sc[4 * j] + sc[4 * j + 1];
+      sm[1][j] = sc[4 * j + 2] + sc[4 * j + 3];
+    }
+#pragma unroll
+    for (int w = SQ_KT / 16; w >= 1; w >>= 1)
+#pragma unroll
+      for (int j = 0; j < w; ++j) {
+        sm[0][j] += sm[0][j + w];
+        sm[1][j] += sm[1][j + w];
+      }
+    l[0] = l[0] * alpha[0] + sm[0][0];
+    l[1] = l[1] * alpha[1] + sm[1][0];
+    if (DROP) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] *= (kbits >> i) & 1u ? drop.keep_scale : 0.f;
+    }
+    uint32_t pa[K2_PARTS][4][4];
+    wg_a_parts<K2_PARTS>(sc, pa);
+    wgmma_fence();
+    wgmma_fence_regs(o);
+    wg_ab64<K2_PARTS>(o, pa, dV, true);  // O += P V, V MN-major
+    wgmma_commit();
+    if (DROP && t + 1 < ntiles)  // the next stage's keep bits while P V runs
+      kbits = stage_keep_bits(drop, prow, keys + (t + 1) * SQ_KT, n - (t + 1) * SQ_KT, tq);
+    wgmma_wait<0>();
+    wgmma_fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // the stage is read
+  }
+
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = (lane >> 2) + 8 * h;
-    if (r >= nrows) continue;
-    float* dst = part_o + (prow + r) * TC_DH + 2 * (lane & 3);
+    const int row = row0 + 8 * h;
+    if (row >= NQ) continue;
+    if (splits == 1) {
+      const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+      bf16* dst = out + ((size_t)bh * NQ + row) * TC_DH + 2 * tq;
 #pragma unroll
-    for (int j = 0; j < TC_DH / 8; ++j)
-      *reinterpret_cast<float2*>(dst + j * 8) = make_float2(o[j][2 * h], o[j][2 * h + 1]);
-    if ((lane & 3) == 0) part_ml[prow + r] = make_float2(m[h], l[h]);
+      for (int j = 0; j < TC_DH / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
+            __floats2bfloat162_rn(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+      if (tq == 0) lse[(size_t)bh * NQ + row] = lse_of(m[h], l[h]);
+    } else {
+      const size_t pr = ((size_t)bh * splits + split) * NQ + row;
+      float* dst = part_o + pr * TC_DH + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < TC_DH / 8; ++j)
+        *reinterpret_cast<float2*>(dst + j * 8) = make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+      if (tq == 0) part_ml[pr] = make_float2(m[h], l[h]);
+    }
   }
 }
 
@@ -1912,18 +1852,25 @@ smallq_merge_kernel(const float* __restrict__ part_o, const float2* __restrict__
   if (lane == 0) lse[row] = lse_of(mx, l);
 }
 
-// K1's splits: the S (at most SQ_MAX_SPLITS) whose launch ends soonest
-// when the card runs `slots` CTAs at a time, each split walking ceil(tiles
-// / S) tiles (tiles over all NK keys: the live count is on the device
-// only), with the merge costed as two tiles. One split when the CTAs
-// already fill the card.
-inline int k1_splits(int ctas, int NK, int slots) {
+// The splits of a K1 or K6 dq launch of `ctas` CTAs a split over `rows`
+// query rows: the S (at most SQ_MAX_SPLITS) whose launch ends soonest when
+// the card runs `slots` CTAs at a time, each split walking ceil(tiles / S)
+// stages (tiles over all NK keys: the live count is on the device only)
+// after a start (its first loads and the live list) costed as three, with
+// the merge costed as two stages and one more for each 16384 rows of fp32
+// partials it reads. (Without the start, K6's dq pass split 16f's keys in
+// two and ran 0.061 ms where one split took 0.048, and at two it split
+// 128f's six ways for nothing; without the rows, K1 split a 16f batch
+// five ways and moved 84 MB through its merge: scripts/k1_k6_variants.py
+// times every split count.)
+inline int live_splits(int ctas, int NK, int slots, long rows) {
   const int tiles = (NK + SQ_KT - 1) / SQ_KT;
   int best = 1;
   long best_cost = -1;
   for (int s = 1; s <= SQ_MAX_SPLITS && s <= tiles; ++s) {
     const long waves = ((long)ctas * s + slots - 1) / slots;
-    const long cost = waves * ((tiles + s - 1) / s) + (s > 1 ? 2 : 0);
+    const long cost =
+        waves * ((tiles + s - 1) / s + 3) + (s > 1 ? 2 + (s * rows + 16383) / 16384 : 0);
     if (best_cost < 0 || cost < best_cost) {
       best = s;
       best_cost = cost;
@@ -1932,440 +1879,576 @@ inline int k1_splits(int ctas, int NK, int slots) {
   return best;
 }
 
-// K1's grid and splits for these shapes, on the current card: CTAs an SM
-// are what __launch_bounds__ allows (2) and what shared memory holds
-// (1 KB of it reserved a CTA).
-inline cudaError_t k1_plan(int B, int H, int NQ, int NK, dim3& grid, int& splits) {
-  int sms = 0, smem_per_sm = 0, smem_optin = 0;
-  const cudaError_t e = card_shape(sms, smem_per_sm, smem_optin);
+// live_splits for `ctas` CTAs of kern (`threads`, smem bytes) over NK keys
+// and `rows` query rows on the current card, with the CTAs an SM that the
+// card fits. Cached per (kernel, card, ctas, NK, rows), since the plan runs
+// on every call: the key holds every input of live_splits, so an evicted
+// entry is planned again to the same count, and the scratch that
+// mebt_smallq_scratch_bytes sized for a shape always fits its launch.
+template <typename Kern>
+inline cudaError_t live_plan(Kern kern, int threads, size_t smem, int ctas, int NK, long rows,
+                             int& splits) {
+  constexpr int N = 64;
+  static const void* keys[N];
+  static int devs[N], cs[N], nks[N], val[N], used = 0, next = 0;
+  static long rs[N];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  const int per_sm = min(2, smem_per_sm / (int)(k1_tc_smem_bytes(NK, 1) + 1024));
-  const int qblocks = ((NQ + 15) / 16 + SQ_WARPS - 1) / SQ_WARPS;
-  splits = k1_splits(qblocks * B * H, NK, sms * (per_sm > 0 ? per_sm : 1));
-  grid = dim3(splits, qblocks, B * H);
+  const void* key = reinterpret_cast<const void*>(kern);
+  for (int i = 0; i < used; ++i)
+    if (keys[i] == key && devs[i] == dev && cs[i] == ctas && nks[i] == NK && rs[i] == rows) {
+      splits = val[i];
+      return cudaSuccess;
+    }
+  int sms = 0, smem_sm = 0, optin = 0, per_sm = 0;
+  e = card_shape(sms, smem_sm, optin);
+  if (e == cudaSuccess) e = opt_in_smem(kern);
+  if (e == cudaSuccess) e = blocks_per_sm(kern, threads, smem, per_sm);
+  if (e != cudaSuccess) return e;
+  splits = live_splits(ctas, NK, sms * (per_sm > 0 ? per_sm : 1), rows);
+  keys[next] = key;
+  devs[next] = dev;
+  cs[next] = ctas;
+  nks[next] = NK;
+  rs[next] = rows;
+  val[next] = splits;
+  next = (next + 1) % N;
+  if (used < N) ++used;
   return cudaSuccess;
 }
 
-// Bytes of K1's split partials: o (fp32, TC_DH a row) and (m, l) per
-// split and query row; 0 with one split.
-inline size_t k1_part_bytes(int B, int H, int NQ, int splits) {
-  if (splits == 1) return 0;
-  return (size_t)B * H * splits * NQ * (TC_DH * sizeof(float) + sizeof(float2));
+// K1's splits for these shapes, planned for the instantiation's own CTA
+// shape (with dropout half the query rows a CTA, one CTA an SM at 168
+// registers: at 16f training it gains from two splits where the kernel
+// without dropout does not, scripts/k1_k6_variants.py's sweep)
+template <bool DROP>
+inline cudaError_t k1_plan(int B, int H, int NQ, int NK, int& splits) {
+  constexpr int qrows = k1w_consumers(DROP) * SQ_QT;  // query rows a CTA
+  return live_plan(smallq_fwd_wgmma_kernel<DROP>, k1w_threads(DROP),
+                   k1w_smem_bytes(DROP, NK, 1), (NQ + qrows - 1) / qrows * B * H, NK,
+                   (long)B * H * NQ, splits);
+}
+
+// Bytes of K1's scratch: each split's o (fp32, TC_DH a row) and (m, l) a
+// query row (none at one split)
+inline size_t k1_scratch_bytes(int B, int H, int NQ, int splits) {
+  return splits == 1 ? 0 : (size_t)B * H * splits * NQ * (TC_DH * sizeof(float) + sizeof(float2));
 }
 
 template <bool DROP>
-cudaError_t launch_smallq_mma(const void* q, const void* k, const void* v, const void* mask,
-                              void* out, void* lse, void* part, int B, int H, int NQ, int NK,
-                              float scale, Dropout drop, cudaStream_t stream) {
+cudaError_t launch_smallq_wgmma(const void* q, const void* k, const void* v, const void* mask,
+                                void* out, void* lse, void* part, int B, int H, int NQ, int NK,
+                                float scale, Dropout drop, cudaStream_t stream) {
   if (NQ == 0 || B * H == 0) return cudaSuccess;
-  dim3 grid;
   int splits = 1;
-  cudaError_t e = k1_plan(B, H, NQ, NK, grid, splits);
+  cudaError_t e = k1_plan<DROP>(B, H, NQ, NK, splits);
+  auto kern = smallq_fwd_wgmma_kernel<DROP>;
+  if (e == cudaSuccess) e = opt_in_smem(kern);
+  const uint64_t BH = (uint64_t)B * H, row = TC_DH * sizeof(bf16);
+  const uint64_t qdims[3] = {TC_DH, (uint64_t)NQ, BH}, qbytes[2] = {row, row * NQ};
+  const uint32_t qbox[3] = {TC_DH, SQ_QT, 1};
+  CUtensorMap qm;
+  if (e == cudaSuccess) e = tma_map_bf16(qm, q, 3, qdims, qbytes, qbox);
   if (e != cudaSuccess) return e;
-  const size_t smem = k1_tc_smem_bytes(NK, splits);
-  auto kern = smallq_fwd_mma_kernel<DROP>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
+  const size_t rows = (size_t)BH * NQ;
   float* part_o = splits > 1 ? static_cast<float*>(part) : nullptr;
-  float2* part_ml =
-      splits > 1 ? reinterpret_cast<float2*>(part_o + (size_t)B * H * splits * NQ * TC_DH) : nullptr;
-  kern<<<grid, SQ_WARPS * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+  float2* part_ml = splits > 1 ? reinterpret_cast<float2*>(part_o + rows * splits * TC_DH) : nullptr;
+  constexpr int qrows = k1w_consumers(DROP) * SQ_QT;  // query rows a CTA
+  const dim3 grid((NQ + qrows - 1) / qrows, splits, (unsigned)BH);
+  kern<<<grid, k1w_threads(DROP), k1w_smem_bytes(DROP, NK, splits), stream>>>(
+      qm, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), static_cast<float*>(lse),
       part_o, part_ml, H, NQ, NK, splits, scale * LOG2E, drop);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
-  const int rows = B * H * NQ;
-  smallq_merge_kernel<<<(rows + 7) / 8, 256, 0, stream>>>(
-      part_o, part_ml, static_cast<bf16*>(out), static_cast<float*>(lse), rows, NQ, splits);
+  smallq_merge_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      part_o, part_ml, static_cast<bf16*>(out), static_cast<float*>(lse), (int)rows, NQ, splits);
   return cudaGetLastError();
 }
 
-// K6 dq pass: the warps' query and g rows, K/V tiles (double-buffered),
-// the warps' key counts and the row's live keys
-inline size_t k6_dq_tc_smem_bytes(int NK) {
-  return sizeof(bf16) * TC_PITCH * ((size_t)SQ_WARPS * 32 + 4 * SQ_KT) +
-         sizeof(int) * (SQ_WARPS + (size_t)round_up(NK, SQ_KT));
+// K6 pass 1's dynamic shared memory: the Q and g tiles, the ring of K/V
+// stages, the barriers
+constexpr size_t k6w_dq_smem_bytes() {
+  return 1024 + 2 * SQ_TILE_BYTES + (size_t)K6W_DQ_STAGES * SQ_STAGE_BYTES + 128;
 }
 
-// K6 pass 1 (bf16). Grid (query blocks of SQ_WARPS * 16 rows, B * H): a
-// warp per 16 query rows takes D = rowsum(g out) in fp32 and walks every
-// live-key tile of its batch row: p = 2^(s c - L) with L = lse log2(e)
-// kept as an fp32 pair (hi, lo) from a double product, dp = g V^T,
-// ds = p (dp keep - D) scale, dq +=
-// ds K with ds in three bf16 parts and each tile's products summed apart
-// and added to dq in fp32 (over thousands of keys the tensor cores' own
-// fp32 sums would drop small products' low bits). Leaves (hi, lo) and D
-// per row, the batch row's live keys (count, then keys: NK + 1 words a
-// batch row) and, with dropout, the keep bits of every (row, live
-// position), one word per 32 positions, for pass 2: each element is drawn
-// once.
+// K6 pass 1 (bf16): K7's dq sweep over gathered stages. Grid (query tiles
+// of 64, key splits, B * H), 160 threads as K1's. The producer's first
+// lane loads the Q and g tiles by TMA; the producer warp gathers the
+// split's live K/V rows (the pre-pass's list) into the ring. The consumer
+// warpgroup takes D = rowsum(g out) in fp32 and L = lse log2(e) as an fp32
+// pair (hi, lo) from a double product, then per stage S = Q K^T and dP =
+// g V^T (wgmma, K-major), p = 2^(s c - hi - lo), ds = p (dP keep - D)
+// scale, and the stage's ds K (ds from registers in K6_PARTS bf16 parts,
+// K MN-major) summed apart in the accumulator and added to dq in fp32 (over
+// thousands of keys the tensor cores' own sums would drop small products'
+// low bits). Split 0 leaves (hi, lo) and D a row for pass 2, and every
+// split with dropout its stages' keep bits (a word per 32 live positions,
+// each bit drawn once here, the next stage's while the products run). One
+// split writes dq in bf16; with more, each leaves its fp32 sums for
+// smallq_bwd_dq_merge_kernel (split z at dq_part + z B H NQ Dh).
+// K6 dq pass: CTAs an SM, three at 128 registers a thread; with dropout
+// two, at 168 (its Philox draws)
+__host__ __device__ constexpr int k6w_dq_ctas_per_sm(bool drop) { return drop ? 2 : 3; }
+
 template <bool DROP>
-__global__ void __launch_bounds__(SQ_WARPS * 32, 2)
-smallq_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ g,
-                         const uint8_t* __restrict__ mask, const float* __restrict__ lse,
-                         const bf16* __restrict__ out, bf16* __restrict__ dq,
-                         float2* __restrict__ lse2, float* __restrict__ dvec,
-                         int* __restrict__ live_keys,
-                         uint32_t* __restrict__ keep, int H, int NQ, int NK, float scale,
-                         float scale_log2, Dropout drop) {
-  constexpr int TILE = SQ_KT * TC_PITCH;
-  constexpr int NTHR = SQ_WARPS * 32;
-  constexpr int NT = 2;  // 16 keys a product chunk
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tid = threadIdx.x;
-  bf16* Qw = reinterpret_cast<bf16*>(smem_raw) + warp * 32 * TC_PITCH;  // [16][PITCH] q
-  bf16* Gw = Qw + 16 * TC_PITCH;                                         // [16][PITCH] g
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw) + SQ_WARPS * 32 * TC_PITCH;  // [2][KT][PITCH]
-  bf16* Vs = Ks + 2 * TILE;
-  int* wcnt = reinterpret_cast<int*>(Vs + 2 * TILE);
-  int* Is = wcnt + SQ_WARPS;
+__global__ void __launch_bounds__(SQ_THREADS, k6w_dq_ctas_per_sm(DROP))
+smallq_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap gmap, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ g,
+                           const bf16* __restrict__ out, const float* __restrict__ lse,
+                           const int* __restrict__ live, bf16* __restrict__ dq,
+                           float* __restrict__ dq_part, float2* __restrict__ lse2,
+                           float* __restrict__ dvec, uint32_t* __restrict__ keep, int H, int NQ,
+                           int NK, int splits, float scale, float scale_log2, Dropout drop) {
+  extern __shared__ unsigned char sqw_smem[];
+  unsigned char* base = align1024(sqw_smem);
+  unsigned char* qg = base;  // the Q tile, then the g tile
+  unsigned char* ring = base + 2 * SQ_TILE_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + (size_t)K6W_DQ_STAGES * SQ_STAGE_BYTES);
+  uint64_t* qg_full = bars;
+  uint64_t* full = bars + 1;           // [K6W_DQ_STAGES]: the producer warp's copies
+  uint64_t* empty = full + K6W_DQ_STAGES;  // [K6W_DQ_STAGES]: the 4 consumer warps
 
-  const int bh = blockIdx.y, b = bh / H;
-  const int blk = blockIdx.x * SQ_WARPS + warp;
-  const bool rows_in = blk < (NQ + 15) / 16;
-  const size_t qoff = (size_t)bh * NQ * TC_DH, koff = (size_t)bh * NK * TC_DH;
-  if (rows_in) {
-    copy_rows(Qw, q + qoff, blk * 16, 16, NQ, lane, 32);
-    copy_rows(Gw, g + qoff, blk * 16, 16, NQ, lane, 32);
+  const int qt = blockIdx.x, split = blockIdx.y, bh = blockIdx.z, b = bh / H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int* lrow = live + (size_t)b * (NK + 1);
+  int beg, end;
+  split_range(lrow[0], split, splits, beg, end);
+  const int* keys = lrow + 1 + beg;
+  const int n = end - beg, ntiles = (n + SQ_KT - 1) / SQ_KT;
+  if (threadIdx.x == 0) {
+    mbar_init(qg_full, 1);
+    for (int s = 0; s < K6W_DQ_STAGES; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_init_fence();
   }
-  cp_async_commit();
-
-  int beg, n;
-  list_live(mask + (size_t)b * NK, NK, Is, wcnt,
-            [](int total, int& b0, int& e0) { b0 = 0; e0 = total; }, beg, n);
-  const int ntiles = (n + SQ_KT - 1) / SQ_KT;
-  if (ntiles > 0) {
-    copy_live_rows(Ks, k + koff, Is, n, tid, NTHR);
-    copy_live_rows(Vs, v + koff, Is, n, tid, NTHR);
-  }
-  cp_async_commit();
-  if (blockIdx.x == 0 && bh % H == 0) {  // one CTA of the batch row hands its list on
-    int* lg = live_keys + (size_t)b * (NK + 1);
-    if (tid == 0) lg[0] = n;
-    for (int i = tid; i < n; i += NTHR) lg[1 + i] = Is[i];
-  }
-
-  const int nrows = NQ - blk * 16;
-  cp_async_wait_all();
   __syncthreads();
-  float dsum = 0.f;  // D of row lane / 2 over columns 32 (lane % 2) ..., from g in shared memory
-  if (rows_in && lane / 2 < nrows) {
-    const int r = lane >> 1, c0 = (lane & 1) * 32;
-    const uint4* og = reinterpret_cast<const uint4*>(out + qoff + (size_t)(blk * 16 + r) * TC_DH + c0);
-    const uint4* gs = reinterpret_cast<const uint4*>(Gw + r * TC_PITCH + c0);
+
+  if (warp == 4) {  // the producer warp
+    if (lane == 0) {
+      mbar_expect_tx(qg_full, 2 * SQ_TILE_BYTES);
+      tma_load_3d(qg, &qmap, qg_full, 0, qt * SQ_QT, bh);
+      tma_load_3d(qg + SQ_TILE_BYTES, &gmap, qg_full, 0, qt * SQ_QT, bh);
+    }
+    const bf16* kg = k + (size_t)bh * NK * TC_DH;
+    const bf16* vg = v + (size_t)bh * NK * TC_DH;
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % K6W_DQ_STAGES;
+      mbar_wait(&empty[s], ((t / K6W_DQ_STAGES) & 1) ^ 1);
+      gather_kv(ring + (size_t)s * SQ_STAGE_BYTES, kg, vg, keys + t * SQ_KT,
+                min(SQ_KT, n - t * SQ_KT), &full[s], lane);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  const int wl = warp, gr = lane >> 2, tq = lane & 3;
+  const int row0 = qt * SQ_QT + wl * 16 + gr;  // rows row0 and row0 + 8 of (b, h)
+  const size_t rb = (size_t)bh * NQ;
+  // D of the warp's 16 rows: lane 2 r + x sums row r's columns 32 x .. 32 x + 31
+  float dsum = 0.f;
+  {
+    const int r = qt * SQ_QT + wl * 16 + (lane >> 1), c0 = (lane & 1) * 32;
+    if (r < NQ) {
+      const uint4* og = reinterpret_cast<const uint4*>(out + (rb + r) * TC_DH + c0);
+      const uint4* gg = reinterpret_cast<const uint4*>(g + (rb + r) * TC_DH + c0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint4 a = og[i], b = gs[i];
-      const uint32_t av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+      for (int i = 0; i < 4; ++i) {
+        const uint4 a = og[i], c = gg[i];
+        const uint32_t av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        dsum = fmaf(bf_lo(av[j]), bf_lo(bv[j]), dsum);
-        dsum = fmaf(bf_hi(av[j]), bf_hi(bv[j]), dsum);
+        for (int j = 0; j < 4; ++j) {
+          dsum = fmaf(bf_lo(av[j]), bf_lo(cv[j]), dsum);
+          dsum = fmaf(bf_hi(av[j]), bf_hi(cv[j]), dsum);
+        }
       }
     }
   }
   dsum += __shfl_xor_sync(FULL, dsum, 1);
-  float lh[2], ll[2], dr[2];
+  float lh[2], ll[2], D[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = (lane >> 2) + 8 * h;
-    dr[h] = __shfl_sync(FULL, dsum, 2 * r);
+    const int row = row0 + 8 * h;
+    D[h] = __shfl_sync(FULL, dsum, 2 * (gr + 8 * h));
     lh[h] = INFINITY;  // rows past NQ: p = 0
     ll[h] = 0.f;
-    if (rows_in && r < nrows) {
-      const size_t row = (size_t)bh * NQ + blk * 16 + r;
-      const double L = (double)lse[row] * LOG2E_D;
+    if (row < NQ) {
+      const double L = (double)lse[rb + row] * LOG2E_D;
       lh[h] = (float)L;
       ll[h] = (float)(L - (double)lh[h]);
-      if ((lane & 3) == 0) {
-        lse2[row] = make_float2(lh[h], ll[h]);
-        dvec[row] = dr[h];
+      if (split == 0 && tq == 0) {
+        lse2[rb + row] = make_float2(lh[h], ll[h]);
+        dvec[rb + row] = D[h];
       }
     }
   }
   const int nkw = (NK + 31) / 32;
-  uint32_t* keep_rows = DROP ? keep + ((size_t)bh * NQ + blk * 16) * nkw : nullptr;
-  const uint32_t r0 = (uint32_t)bh * (uint32_t)NQ + (uint32_t)(blk * 16 + (lane >> 2));
-  float acc[TC_DH / 8][4];
-  zero(acc);
-
+  uint32_t prow[2] = {0u, 0u};  // the rows' Philox rows
+  if (DROP) {
+    prow[0] = drop.philox_row((uint32_t)(rb + row0));
+    prow[1] = drop.philox_row((uint32_t)(rb + row0 + 8));
+  }
+  mbar_wait(qg_full, 0);
+  const uint64_t dQ = wg_desc(qg), dG = wg_desc(qg + SQ_TILE_BYTES);
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
   for (int t = 0; t < ntiles; ++t) {
-    if (t > 0) {
-      cp_async_wait_all();
-      __syncthreads();
+    const int s = t % K6W_DQ_STAGES, nt = min(SQ_KT, n - t * SQ_KT);
+    mbar_wait(&full[s], (t / K6W_DQ_STAGES) & 1);
+    fence_proxy_async();  // cp.async wrote the stage
+    const unsigned char* st = ring + (size_t)s * SQ_STAGE_BYTES;
+    const uint64_t dK = wg_desc(st), dV = wg_desc(st + SQ_TILE_BYTES);
+    float sc[32], dp[32];
+    wgmma_fence();
+    wg_abt64(sc, dQ, dK);
+    wg_abt64(dp, dG, dV);
+    wgmma_commit();
+    uint32_t kb = 0u;  // drawn while the products run
+    if (DROP) kb = stage_keep_bits(drop, prow, keys + t * SQ_KT, nt, tq);
+    wgmma_wait<0>();
+    wgmma_fence_regs(sc);
+    wgmma_fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1, c = (i >> 2) * 8 + 2 * tq + (i & 1);
+      const float p = c < nt ? exp2_ftz(fmaf(sc[i], scale_log2, -lh[h]) - ll[h]) : 0.f;
+      float x = dp[i];
+      if (DROP) x = (kb >> i) & 1u ? x * drop.keep_scale : 0.f;
+      dp[i] = p * (x - D[h]) * scale;
     }
-    if (t + 1 < ntiles) {
-      const int nb = (t + 1) & 1;
-      copy_live_rows(Ks + nb * TILE, k + koff, Is + (t + 1) * SQ_KT, n - (t + 1) * SQ_KT, tid, NTHR);
-      copy_live_rows(Vs + nb * TILE, v + koff, Is + (t + 1) * SQ_KT, n - (t + 1) * SQ_KT, tid, NTHR);
-    }
-    cp_async_commit();
-    if (!rows_in) continue;
-    const bf16* Kt = Ks + (t & 1) * TILE;
-    const bf16* Vt = Vs + (t & 1) * TILE;
-    float part[TC_DH / 8][4];
-    zero(part);
-    uint32_t kw[2] = {0u, 0u};
+    if (DROP) {
+      // the stage's two words of each row: word w holds live positions
+      // beg + 64 t + 32 w .., element i at bit (i >> 2) % 4 * 8 + 2 tq + (i & 1)
+      uint32_t wd[2][2] = {{0u, 0u}, {0u, 0u}};
 #pragma unroll
-    for (int c0 = 0; c0 < SQ_KT; c0 += NT * 8) {
-      float s[NT][4], dp[NT][4];
+      for (int i = 0; i < 32; ++i)
+        wd[(i >> 1) & 1][i >> 4] |= ((kb >> i) & 1u) << (((i >> 2) & 3) * 8 + 2 * tq + (i & 1));
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      {  // q and g fragments from shared memory each chunk: registers go to part and acc
-        uint32_t fa[TC_DH / 16][4];
-        load_a(fa, Qw, lane);
-        mma_abt<NT>(s, fa, Kt + c0 * TC_PITCH, lane);
-        load_a(fa, Gw, lane);
-        mma_abt<NT>(dp, fa, Vt + c0 * TC_PITCH, lane);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = c0 + j * 8 + 2 * (lane & 3) + (e & 1);  // column in the tile
-          const int pos = t * SQ_KT + c;
-          const int h = e >> 1;
-          const bool live = pos < n;
-          const float p = live ? exp2f(fmaf(s[j][e], scale_log2, -lh[h]) - ll[h]) : 0.f;
-          float x = dp[j][e];
-          if (DROP) {
-            const bool kept = live && drop.keep(r0 + 8 * h, (uint32_t)Is[pos]) != 0.f;
-            if (kept) kw[h] |= 1u << (c % 32);
-            x = kept ? x * drop.keep_scale : 0.f;
-          }
-          dp[j][e] = p * (x - dr[h]) * scale;
+        for (int w = 0; w < 2; ++w) {
+          wd[h][w] |= __shfl_xor_sync(FULL, wd[h][w], 1);
+          wd[h][w] |= __shfl_xor_sync(FULL, wd[h][w], 2);
         }
-      uint32_t da[K7_PARTS][NT / 2][4];
-      to_a_parts<K7_PARTS, NT>(dp, da);
-      mma_ab_parts<K7_PARTS, NT / 2>(part, da, Kt + c0 * TC_PITCH, lane);
-      if (DROP && (c0 + NT * 8) % 32 == 0) {  // a word of 32 positions is drawn
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          uint32_t w = kw[h];
-          w |= __shfl_xor_sync(FULL, w, 1);
-          w |= __shfl_xor_sync(FULL, w, 2);
-          const int r = (lane >> 2) + 8 * h;
-          if ((lane & 3) == h && r < nrows)
-            keep_rows[(size_t)r * nkw + (t * SQ_KT + c0) / 32] = w;
-          kw[h] = 0u;
-        }
-      }
+      const int h = tq >> 1, w = tq & 1, kw = (beg + t * SQ_KT) / 32 + w;  // lane tq stores one
+      if (row0 + 8 * h < NQ && kw < nkw)
+        keep[(rb + row0 + 8 * h) * nkw + kw] = h ? (w ? wd[1][1] : wd[1][0])
+                                                 : (w ? wd[0][1] : wd[0][0]);
     }
-    add_to(acc, part);
+    uint32_t da[K6_PARTS][4][4];
+    wg_a_parts<K6_PARTS>(dp, da);
+    float part[32];
+    wgmma_fence();
+    wg_ab64<K6_PARTS>(part, da, dK, false);  // the stage's ds K, K MN-major
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(part);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // the stage is read
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += part[i];
   }
-  if (!rows_in) return;
-  const float one[2] = {1.f, 1.f};
-  store_rows(dq + qoff + (size_t)blk * 16 * TC_DH, acc, one, nrows, lane);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= NQ) continue;
+    if (splits == 1) {
+      bf16* dst = dq + (rb + row) * TC_DH + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < TC_DH / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    } else {
+      float* dst = dq_part + ((size_t)split * gridDim.z * NQ + rb + row) * TC_DH + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < TC_DH / 8; ++j)
+        *reinterpret_cast<float2*>(dst + j * 8) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
 }
 
-// K6 pass 2: K7's dk/dv tiles and the CTA's live keys
-constexpr size_t k6_dkdv_tc_smem_bytes() {
-  return dkdv_tc_smem_bytes() + sizeof(int) * DKDV_WARPS * 16;
+// dq (n elements) = the sum of the key splits' fp32 partials, added in
+// split order (bit-repeatable), rounded to bf16 once; four a thread
+__global__ void __launch_bounds__(256)
+smallq_bwd_dq_merge_kernel(const float* __restrict__ part, bf16* __restrict__ dq, size_t n,
+                           int splits) {
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= n) return;
+  float4 acc = *reinterpret_cast<const float4*>(part + i);
+  for (int z = 1; z < splits; ++z) {
+    const float4 x = *reinterpret_cast<const float4*>(part + (size_t)z * n + i);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(dq + i);
+  dst[0] = __floats2bfloat162_rn(acc.x, acc.y);
+  dst[1] = __floats2bfloat162_rn(acc.z, acc.w);
 }
 
-// K6 pass 2 (bf16): K7's dk/dv tile on one tile of 64 live positions of
-// a batch row (grid (ceil(NK / 64), B * H); the live keys from pass 1):
-// the K/V rows gathered, each
-// 64-query tile of q, g, (hi, lo), D and keep words double-buffered, p
-// and ds in three bf16 parts, each 16 queries' products added to dk, dv
-// in fp32; the rows go back to their keys. The CTA also writes zero dk,
-// dv rows for the dead keys among keys [64 x, 64 x + 64), so every row
-// is written once; past the live count it writes nothing else.
+// K6 pass 2 (bf16): K7's largeq_bwd_dkdv_wgmma_kernel over 64 live
+// positions of a batch row. Grid (ceil(NK / 64), B * H): CTA x first zeroes
+// the dk, dv rows of the dead keys among keys [64 x, 64 x + 64), so that
+// every row is written once, then, if the row has live positions from
+// 64 x on, its producer warp gathers their K and V rows (the pre-pass's
+// list; zeros past the live count) and streams each 64-query tile's Q and
+// g by TMA into K7's ring, with (hi, lo), D and the keep words at the
+// CTA's positions beside them. The consumer warpgroup runs K7's tile (S^T
+// = K Q^T and dP^T = V g^T, then dv += (P^T keep) g and dk += dS^T Q with
+// the A operand from registers in K7_PARTS bf16 parts, each query tile's
+// products summed apart and added to the fp32 sums in shared memory), and
+// the rows go back to their keys. Two CTAs an SM, as K7's. (A CTA walking
+// several live tiles, the next tile's K and V gathered while this one's
+// run, was no faster at 128f and slower at 16f, where its fewer CTAs left
+// SMs idle, and spilled.)
 template <bool DROP>
-__global__ void __launch_bounds__(DKDV_WARPS * 32, 3)
-smallq_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, const bf16* __restrict__ g,
-                           const uint8_t* __restrict__ mask, const float2* __restrict__ lse2,
-                           const float* __restrict__ dvec, const int* __restrict__ live_keys,
-                           const uint32_t* __restrict__ keep, bf16* __restrict__ dk,
-                           bf16* __restrict__ dv, int H, int NQ, int NK, float scale,
-                           float scale_log2, Dropout drop) {
-  constexpr int NT = DKDV_QC / 8;
-  constexpr int TILE = DKDV_QT * TC_PITCH;
-  constexpr int NTHR = DKDV_WARPS * 32;
-  constexpr int KT = DKDV_WARPS * 16;  // live positions a CTA
-  constexpr int KW = KT / 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tid = threadIdx.x;
-  bf16* Kt = reinterpret_cast<bf16*>(smem_raw);  // [64][PITCH] this CTA's keys
-  bf16* Vt = Kt + KT * TC_PITCH;
-  bf16* Qs = Vt + KT * TC_PITCH;  // [2][64][PITCH]
-  bf16* Gs = Qs + 2 * TILE;       // [2][64][PITCH]
-  float2* Ls = reinterpret_cast<float2*>(Gs + 2 * TILE);  // [2][64] (hi, lo)
-  float* Ds = reinterpret_cast<float*>(Ls + 2 * DKDV_QT);  // [2][64]
-  uint32_t* Ms = reinterpret_cast<uint32_t*>(Ds + 2 * DKDV_QT);  // [2][64][KW]
-  int* Is = reinterpret_cast<int*>(Ms + 2 * DKDV_QT * KW);      // [64]
-  const int nkw = (NK + 31) / 32;
-
-  const int bh = blockIdx.y, b = bh / H;
-  const int p0 = blockIdx.x * KT;
-  const size_t qoff = (size_t)bh * NQ * TC_DH, koff = (size_t)bh * NK * TC_DH;
+__global__ void __launch_bounds__(K7W_THREADS, 2)
+smallq_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap gmap,
+                             const bf16* __restrict__ k, const bf16* __restrict__ v,
+                             const uint8_t* __restrict__ mask, const int* __restrict__ live,
+                             const float2* __restrict__ lse2, const float* __restrict__ dvec,
+                             const uint32_t* __restrict__ keep, bf16* __restrict__ dk,
+                             bf16* __restrict__ dv, int H, int NQ, int NK, float scale,
+                             float scale_log2, Dropout drop) {
+  const int bh = blockIdx.y, b = bh / H, p0 = blockIdx.x * SQ_KT, nkw = (NK + 31) / 32;
+  const size_t koff = (size_t)bh * NK * TC_DH;
   const uint8_t* mrow = mask + (size_t)b * NK;
-
-  for (int i = tid; i < KT * (TC_DH / 8); i += NTHR) {  // zero rows of dead keys
+  for (int i = threadIdx.x; i < SQ_KT * (TC_DH / 8); i += blockDim.x) {  // dead keys' rows
     const int key = p0 + i / (TC_DH / 8), c = (i % (TC_DH / 8)) * 8;
     if (key < NK && mrow[key] == 0) {
       *reinterpret_cast<uint4*>(dk + koff + (size_t)key * TC_DH + c) = make_uint4(0, 0, 0, 0);
       *reinterpret_cast<uint4*>(dv + koff + (size_t)key * TC_DH + c) = make_uint4(0, 0, 0, 0);
     }
   }
-  const int* lg_keys = live_keys + (size_t)b * (NK + 1);
-  const int n = min(KT, lg_keys[0] - p0);
+  const int* lrow = live + (size_t)b * (NK + 1);
+  const int n = min(SQ_KT, lrow[0] - p0);
   if (n <= 0) return;
-  for (int i = tid; i < n; i += NTHR) Is[i] = lg_keys[1 + p0 + i];
+  const int* keys = lrow + 1 + p0;
+
+  extern __shared__ unsigned char sqw_smem[];
+  unsigned char* base = align1024(sqw_smem);
+  unsigned char* kt = base;
+  unsigned char* vt = base + K7W_TILE_BYTES;
+  unsigned char* ring = base + 2 * K7W_TILE_BYTES;
+  float2* sums = reinterpret_cast<float2*>(ring + (size_t)K7W_STAGES * K7W_STAGE_BYTES);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sums + 2 * K7W_SUM_BYTES / sizeof(float2));
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + K7W_STAGES;
+  const int ntiles = (NQ + K7W_QT - 1) / K7W_QT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 32);  // the producer warp's gathers
+    for (int s = 0; s < K7W_STAGES; ++s) {
+      mbar_init(&full[s], 32);  // the TMA's expect_tx and 31 lanes' side rows
+      mbar_init(&empty[s], 4);
+    }
+    mbar_init_fence();
+  }
   __syncthreads();
 
-  const float2* lg = lse2 + (size_t)bh * NQ;
-  const float* dg = dvec + (size_t)bh * NQ;
-  auto load_tile = [&](int t, int buf) {
-    const int q0 = t * DKDV_QT;
-    copy_rows(Qs + buf * TILE, q + qoff, q0, DKDV_QT, NQ, tid, NTHR);
-    copy_rows(Gs + buf * TILE, g + qoff, q0, DKDV_QT, NQ, tid, NTHR);
-    for (int i = tid; i < DKDV_QT; i += NTHR) {
-      const bool in = q0 + i < NQ;  // zeros past NQ: with q = g = 0 the row adds nothing
-      cp_async8(Ls + buf * DKDV_QT + i, lg + (in ? q0 + i : 0), in);
-      cp_async4(Ds + buf * DKDV_QT + i, dg + (in ? q0 + i : 0), in);
-    }
-    if (DROP) {
-      for (int i = tid; i < DKDV_QT * KW; i += NTHR) {
-        const int qq = i / KW, w = p0 / 32 + i % KW;
-        const bool in = q0 + qq < NQ && w < nkw;
-        const size_t row = (size_t)bh * NQ + (in ? q0 + qq : 0);
-        cp_async4(Ms + buf * DKDV_QT * KW + i, keep + row * nkw + (in ? w : 0), in);
-      }
-    }
-  };
-
-  copy_live_rows(Kt, k + koff, Is, n, tid, NTHR);
-  copy_live_rows(Vt, v + koff, Is, n, tid, NTHR);
-  load_tile(0, 0);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  uint32_t ka[TC_DH / 16][4], va[TC_DH / 16][4];
-  load_a(ka, Kt + warp * 16 * TC_PITCH, lane);
-  load_a(va, Vt + warp * 16 * TC_PITCH, lane);
-  float dka[TC_DH / 8][4], dva[TC_DH / 8][4];
-  zero(dka);
-  zero(dva);
-  const int key_r = warp * 16 + (lane >> 2);  // this lane's position in the tile, +8 for e >= 2
-
-  const int ntiles = (NQ + DKDV_QT - 1) / DKDV_QT;
-  for (int t = 0; t < ntiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < ntiles) load_tile(t + 1, buf ^ 1);
-    cp_async_commit();
-    const bf16* Qt = Qs + buf * TILE;
-    const bf16* Gt = Gs + buf * TILE;
+  if (warp == 4) {  // the producer warp
+    gather_rows_b128(kt, k + koff, vt, v + koff, keys, n, lane);
+    mbar_arrive_cp_async(kv_full);
+    const int w0 = p0 / 32;
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % K7W_STAGES;
+      mbar_wait(&empty[s], ((t / K7W_STAGES) & 1) ^ 1);
+      unsigned char* st = ring + (size_t)s * K7W_STAGE_BYTES;
+      float2* ls = reinterpret_cast<float2*>(st + 2 * K7W_TILE_BYTES);
+      float* ds = reinterpret_cast<float*>(ls + K7W_QT);
+      uint32_t* ms = reinterpret_cast<uint32_t*>(ds + K7W_QT);
+      for (int qq = lane; qq < K7W_QT; qq += 32) {
+        const int row = t * K7W_QT + qq;
+        const bool in = row < NQ;
+        const size_t r = (size_t)bh * NQ + (in ? row : 0);
+        ls[qq] = in ? lse2[r] : make_float2(0.f, 0.f);
+        ds[qq] = in ? dvec[r] : 0.f;
+        if (DROP) {
 #pragma unroll
-    for (int c0 = 0; c0 < DKDV_QT; c0 += DKDV_QC) {
-      float s[NT][4], dp[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      mma_abt<NT>(s, ka, Qt + c0 * TC_PITCH, lane);  // S^T: keys x queries
-      mma_abt<NT>(dp, va, Gt + c0 * TC_PITCH, lane);  // dP^T = V g^T
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = c0 + j * 8 + 2 * (lane & 3) + (e & 1);
-          const float2 L = Ls[buf * DKDV_QT + col];
-          const float p = exp2f(fmaf(s[j][e], scale_log2, -L.x) - L.y);
-          float kp = 1.f;
-          if (DROP) {
-            const uint32_t w = Ms[(buf * DKDV_QT + col) * KW + warp * 16 / 32];
-            kp = (w >> ((key_r + 8 * (e >> 1)) % 32)) & 1u ? drop.keep_scale : 0.f;
-          }
-          s[j][e] = p * kp;
-          dp[j][e] = p * (dp[j][e] * kp - Ds[buf * DKDV_QT + col]) * scale;
+          for (int w = 0; w < 2; ++w)
+            ms[2 * qq + w] = in && w0 + w < nkw ? keep[r * nkw + w0 + w] : 0u;
         }
-      float part[TC_DH / 8][4];
-      {
-        uint32_t pa[K7_PARTS][NT / 2][4];
-        to_a_parts<K7_PARTS, NT>(s, pa);
-        zero(part);
-        mma_ab_parts<K7_PARTS, NT / 2>(part, pa, Gt + c0 * TC_PITCH, lane);  // P^T g
-        add_to(dva, part);
       }
-      uint32_t da[K7_PARTS][NT / 2][4];
-      to_a_parts<K7_PARTS, NT>(dp, da);
-      zero(part);
-      mma_ab_parts<K7_PARTS, NT / 2>(part, da, Qt + c0 * TC_PITCH, lane);  // dS^T q
-      add_to(dka, part);
+      if (lane == 0) {  // arrives once with the bytes TMA will bring
+        mbar_expect_tx(&full[s], 2 * K7W_TILE_BYTES);
+        tma_load_3d(st, &qmap, &full[s], 0, t * K7W_QT, bh);
+        tma_load_3d(st + K7W_TILE_BYTES, &gmap, &full[s], 0, t * K7W_QT, bh);
+      } else {
+        mbar_arrive(&full[s]);  // after this lane's side rows (release)
+      }
     }
-    cp_async_wait_all();
-    __syncthreads();  // the next tile is in; every warp is done with this one
+    cp_async_wait<0>();
+    return;
   }
 
-  // rows go back to their keys; positions past n (a zero K/V row) are dropped
+  const int wl = warp, g = lane >> 2, tq = lane & 3;
+  const int kw = wl >> 1, kbit = (wl & 1) * 16 + g;  // the keep word and bit of key row g
+  const uint64_t dK = wg_desc(kt), dV = wg_desc(vt);
+  // the dk and dv sums in shared memory (K7's: the thread's own 32 each)
+  float2* dk_at = sums + wl * 16 * 32 + lane;
+  float2* dv_at = dk_at + K7W_SUM_BYTES / sizeof(float2);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dk_at[i * 32] = dv_at[i * 32] = make_float2(0.f, 0.f);
+  mbar_wait(kv_full, 0);
+  fence_proxy_async();  // cp.async wrote K and V
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % K7W_STAGES;
+    mbar_wait(&full[s], (t / K7W_STAGES) & 1);
+    const unsigned char* st = ring + (size_t)s * K7W_STAGE_BYTES;
+    const float2* ls = reinterpret_cast<const float2*>(st + 2 * K7W_TILE_BYTES);
+    const float* ds = reinterpret_cast<const float*>(ls + K7W_QT);
+    const uint32_t* ms = reinterpret_cast<const uint32_t*>(ds + K7W_QT);
+    const uint64_t dQ = wg_desc(st), dG = wg_desc(st + K7W_TILE_BYTES);
+    float sc[32], dp[32];
+    wgmma_fence();
+    wg_abt64(sc, dK, dQ);  // S^T: live keys x queries
+    wg_abt64(dp, dV, dG);  // dP^T = V g^T over the live keys
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(sc);
+    wgmma_fence_regs(dp);
+    // element 4 j + e: key row g + 8 (e >> 1), query 8 j + 2 tq + (e & 1)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * tq;
+      const float4 L = *reinterpret_cast<const float4*>(ls + c);  // (hi, lo) of c, c + 1
+      const float2 Dc = *reinterpret_cast<const float2*>(ds + c);
+      uint32_t w[2] = {0u, 0u};
+      if (DROP) {
+        w[0] = ms[2 * c + kw];
+        w[1] = ms[2 * (c + 1) + kw];
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, cc = e & 1;
+        const float p =
+            exp2_ftz(fmaf(sc[4 * j + e], scale_log2, -(cc ? L.z : L.x)) - (cc ? L.w : L.y));
+        float kp = 1.f;
+        if (DROP) kp = (w[cc] >> (kbit + 8 * h)) & 1u ? drop.keep_scale : 0.f;
+        sc[4 * j + e] = p * kp;
+        dp[4 * j + e] = p * (dp[4 * j + e] * kp - (cc ? Dc.y : Dc.x)) * scale;
+      }
+    }
+    float tile[32];
+    uint32_t a[K7_PARTS][4][4];
+    wg_a_parts<K7_PARTS>(sc, a);
+    wgmma_fence();
+    wg_ab64<K7_PARTS>(tile, a, dG, false);  // P^T g: the live keys' dv
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(tile);
+    add_sums(dv_at, tile);
+    wg_a_parts<K7_PARTS>(dp, a);
+    wgmma_fence();
+    wg_ab64<K7_PARTS>(tile, a, dQ, false);  // dS^T Q: their dk
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(tile);
+    add_sums(dk_at, tile);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+  // the rows back to their keys; rows past n (zero K and V) are dropped
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = key_r + 8 * h;
+    const int r = wl * 16 + g + 8 * h;
     if (r >= n) continue;
-    const size_t off = koff + (size_t)Is[r] * TC_DH + 2 * (lane & 3);
+    const size_t off = koff + (size_t)keys[r] * TC_DH + 2 * tq;
 #pragma unroll
     for (int j = 0; j < TC_DH / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + j * 8) =
-          __floats2bfloat162_rn(dka[j][2 * h], dka[j][2 * h + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + j * 8) =
-          __floats2bfloat162_rn(dva[j][2 * h], dva[j][2 * h + 1]);
+      const float2 k2 = dk_at[(2 * j + h) * 32], v2 = dv_at[(2 * j + h) * 32];
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + j * 8) = __floats2bfloat162_rn(k2.x, k2.y);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + j * 8) = __floats2bfloat162_rn(v2.x, v2.y);
     }
   }
 }
 
-// K6's bf16 scratch, laid out in this order: each row's (hi, lo) and D,
-// each batch row's live keys (NK + 1 words), with dropout the keep words.
-inline size_t k6_scratch_bytes(int B, int H, int NQ, int NK, bool dropout) {
+// K6's dq-pass splits for these shapes, planned for the instantiation's
+// own occupancy (with dropout two CTAs an SM, not three)
+template <bool DROP>
+inline cudaError_t k6_plan(int B, int H, int NQ, int NK, int& splits) {
+  return live_plan(smallq_bwd_dq_wgmma_kernel<DROP>, SQ_THREADS, k6w_dq_smem_bytes(),
+                   (NQ + SQ_QT - 1) / SQ_QT * B * H, NK, (long)B * H * NQ, splits);
+}
+
+// K6's bf16 scratch, in this order: each row's (hi, lo) and D, each batch
+// row's live list (NK + 1 words), with dropout the keep words, with more
+// than one key split the dq partials (at a 16-byte boundary)
+inline size_t k6_scratch_bytes(int B, int H, int NQ, int NK, bool dropout, int splits,
+                               size_t* part_at = nullptr) {
   const size_t rows = (size_t)B * H * NQ;
-  return rows * (sizeof(float2) + sizeof(float)) + (size_t)B * (NK + 1) * sizeof(int) +
-         (dropout ? rows * ((NK + 31) / 32) * sizeof(uint32_t) : 0);
+  const size_t lists = rows * (sizeof(float2) + sizeof(float)) + (size_t)B * (NK + 1) * sizeof(int) +
+                       (dropout ? rows * ((NK + 31) / 32) * sizeof(uint32_t) : 0);
+  const size_t at = (lists + 15) / 16 * 16;
+  if (part_at != nullptr) *part_at = at;
+  return splits > 1 ? at + (size_t)splits * rows * TC_DH * sizeof(float) : lists;
 }
 
 template <bool DROP>
-cudaError_t launch_smallq_bwd_mma(const void* q, const void* k, const void* v, const void* mask,
-                                  const void* lse, const void* out, const void* g, void* dq,
-                                  void* dk, void* dv, void* scratch, int B, int H, int NQ,
-                                  int NK, float scale, Dropout drop, cudaStream_t stream) {
+cudaError_t launch_smallq_bwd_wgmma(const void* q, const void* k, const void* v,
+                                    const void* mask, const void* lse, const void* out,
+                                    const void* g, void* dq, void* dk, void* dv, void* scratch,
+                                    int B, int H, int NQ, int NK, float scale, Dropout drop,
+                                    cudaStream_t stream) {
   if (B * H == 0) return cudaSuccess;
   const size_t kv_bytes = (size_t)B * H * NK * TC_DH * sizeof(bf16);
   if (NQ == 0) {  // no query: every gradient of K and V is 0
     cudaError_t e = cudaMemsetAsync(dk, 0, kv_bytes, stream);
     return e == cudaSuccess ? cudaMemsetAsync(dv, 0, kv_bytes, stream) : e;
   }
-  float2* lse2 = static_cast<float2*>(scratch);
-  float* dvec = reinterpret_cast<float*>(lse2 + (size_t)B * H * NQ);
-  int* live_keys = reinterpret_cast<int*>(dvec + (size_t)B * H * NQ);
-  uint32_t* keep =
-      DROP ? reinterpret_cast<uint32_t*>(live_keys + (size_t)B * (NK + 1)) : nullptr;
-  size_t smem = k6_dq_tc_smem_bytes(NK);
-  auto kern = smallq_bwd_dq_mma_kernel<DROP>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int BH = B * H;
+  int splits = 1;
+  cudaError_t e = k6_plan<DROP>(B, H, NQ, NK, splits);
+  auto kdq = smallq_bwd_dq_wgmma_kernel<DROP>;
+  auto kdkdv = smallq_bwd_dkdv_wgmma_kernel<DROP>;
+  if (e == cudaSuccess) e = opt_in_smem(kdq);
+  if (e == cudaSuccess) e = opt_in_smem(kdkdv);
+  const uint64_t row = TC_DH * sizeof(bf16);
+  const uint64_t qdims[3] = {TC_DH, (uint64_t)NQ, (uint64_t)BH}, qbytes[2] = {row, row * NQ};
+  const uint32_t box[3] = {TC_DH, SQ_QT, 1};
+  CUtensorMap qm, gm;
+  if (e == cudaSuccess) e = tma_map_bf16(qm, q, 3, qdims, qbytes, box);
+  if (e == cudaSuccess) e = tma_map_bf16(gm, g, 3, qdims, qbytes, box);
   if (e != cudaSuccess) return e;
-  const dim3 grid(((NQ + 15) / 16 + SQ_WARPS - 1) / SQ_WARPS, B * H);
-  kern<<<grid, SQ_WARPS * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), static_cast<const uint8_t*>(mask),
-      static_cast<const float*>(lse), static_cast<const bf16*>(out), static_cast<bf16*>(dq),
-      lse2, dvec, live_keys, keep, H, NQ, NK, scale, scale * LOG2E, drop);
+  const size_t rows = (size_t)BH * NQ;
+  size_t part_at = 0;
+  k6_scratch_bytes(B, H, NQ, NK, DROP, splits, &part_at);
+  unsigned char* sp = static_cast<unsigned char*>(scratch);
+  float2* lse2 = reinterpret_cast<float2*>(sp);
+  float* dvec = reinterpret_cast<float*>(lse2 + rows);
+  int* live = reinterpret_cast<int*>(dvec + rows);
+  uint32_t* keep = DROP ? reinterpret_cast<uint32_t*>(live + (size_t)B * (NK + 1)) : nullptr;
+  float* dq_part = splits > 1 ? reinterpret_cast<float*>(sp + part_at) : nullptr;
+  const uint8_t* m8 = static_cast<const uint8_t*>(mask);
+  smallq_bwd_live_kernel<<<B, SQ_LIVE_THREADS, 0, stream>>>(m8, live, NK);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  smem = k6_dkdv_tc_smem_bytes();
-  auto kern2 = smallq_bwd_dkdv_mma_kernel<DROP>;
-  e = cudaFuncSetAttribute(kern2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int nqt = (NQ + SQ_QT - 1) / SQ_QT;
+  kdq<<<dim3(nqt, splits, BH), SQ_THREADS, k6w_dq_smem_bytes(), stream>>>(
+      qm, gm, static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), static_cast<const bf16*>(out), static_cast<const float*>(lse),
+      live, static_cast<bf16*>(dq), dq_part, lse2, dvec, keep, H, NQ, NK, splits, scale,
+      scale * LOG2E, drop);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const dim3 grid2((NK + DKDV_WARPS * 16 - 1) / (DKDV_WARPS * 16), B * H);
-  kern2<<<grid2, DKDV_WARPS * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), static_cast<const uint8_t*>(mask), lse2, dvec, live_keys,
-      keep, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, NQ, NK, scale, scale * LOG2E, drop);
+  if (splits > 1) {
+    const size_t n = rows * TC_DH;
+    smallq_bwd_dq_merge_kernel<<<(unsigned)((n / 4 + 255) / 256), 256, 0, stream>>>(
+        dq_part, static_cast<bf16*>(dq), n, splits);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  kdkdv<<<dim3((NK + SQ_KT - 1) / SQ_KT, BH), K7W_THREADS, k7w_dkdv_smem_bytes(), stream>>>(
+      qm, gm, static_cast<const bf16*>(k), static_cast<const bf16*>(v), m8, live, lse2, dvec,
+      keep, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, NQ, NK, scale, scale * LOG2E,
+      drop);
   return cudaGetLastError();
 }
 
@@ -2755,9 +2838,9 @@ cudaError_t launch_smallq_bwd(const void* q, const void* k, const void* v,
                               void* dk, void* dv, void* scratch, int B, int H,
                               int NQ, int NK, float scale, Dropout drop, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    static_assert(DH == TC_DH, "the tensor-core K6 takes Dh 64");
-    return launch_smallq_bwd_mma<DROP>(q, k, v, mask, lse, out, g, dq, dk, dv, scratch, B, H,
-                                       NQ, NK, scale, drop, stream);
+    static_assert(DH == TC_DH, "the Hopper K6 takes Dh 64");
+    return launch_smallq_bwd_wgmma<DROP>(q, k, v, mask, lse, out, g, dq, dk, dv, scratch, B, H,
+                                         NQ, NK, scale, drop, stream);
   } else {
     const size_t smem = k6_dq_smem_bytes<DH>();
     auto kern = smallq_bwd_dq_kernel<T, DH, DROP>;
@@ -2961,17 +3044,18 @@ extern "C" {
 // batch rows from b0 and heads from h0 of a problem of `heads` heads
 // (0, 0, H: the local problem).
 
-// Bytes of the scratch K1 needs for these shapes on the current card
-// (the bf16 kernel's split partials; 0 for one split and in fp32), or
-// 0 with *status set on an error.
-size_t mebt_smallq_scratch_bytes(int B, int H, int NQ, int NK, int is_bf16, int* status) {
+// Bytes of the scratch K1 needs for these shapes, with or without
+// dropout, on the current card (the bf16 kernel's split partials, none at
+// one split; 0 in fp32), or 0 with *status set on an error.
+size_t mebt_smallq_scratch_bytes(int B, int H, int NQ, int NK, int is_bf16, int dropout,
+                                 int* status) {
   *status = 0;
   if (!is_bf16 || NQ == 0 || B * H == 0) return 0;
-  dim3 grid;
   int splits = 1;
-  const cudaError_t e = k1_plan(B, H, NQ, NK, grid, splits);
+  const cudaError_t e = dropout ? k1_plan<true>(B, H, NQ, NK, splits)
+                                : k1_plan<false>(B, H, NQ, NK, splits);
   *status = (int)e;
-  return e == cudaSuccess ? k1_part_bytes(B, H, NQ, splits) : 0;
+  return e == cudaSuccess ? k1_scratch_bytes(B, H, NQ, splits) : 0;
 }
 
 // q (B,H,NQ,Dh), k/v (B,H,NK,Dh), mask (B,NK) uint8 -> out (B,H,NQ,Dh)
@@ -2987,6 +3071,21 @@ int mebt_smallq_attention(const void* q, const void* k, const void* v,
   const Dropout drop = make_dropout(seed, thresh, keep_scale, H, NQ, b0, h0, heads);
   return MEBT_DISPATCH(launch_smallq, is_bf16, drop, q, k, v, mask, out, lse, part, B,
                        H, NQ, NK, scale, drop, s);
+}
+
+// The split counts of K1 and of K6's dq pass for these shapes, with or
+// without dropout, on the current card (bf16; 1 in fp32), or -1 with
+// *status set.
+int mebt_smallq_splits(int B, int H, int NQ, int NK, int is_bf16, int dropout, int backward,
+                       int* status) {
+  *status = 0;
+  if (!is_bf16 || NQ == 0 || B * H == 0) return 1;
+  int splits = 1;
+  const cudaError_t e =
+      backward ? (dropout ? k6_plan<true>(B, H, NQ, NK, splits) : k6_plan<false>(B, H, NQ, NK, splits))
+               : (dropout ? k1_plan<true>(B, H, NQ, NK, splits) : k1_plan<false>(B, H, NQ, NK, splits));
+  *status = (int)e;
+  return e == cudaSuccess ? splits : -1;
 }
 
 // Dynamic shared memory K2 needs for NK keys, in bytes. The caller
@@ -3014,10 +3113,10 @@ int mebt_largeq_attention(const void* q, const void* k, const void* v,
 // (B,H,NQ) fp32 -> dq (B,H,NQ,Dh), dk/dv (B,H,NK,Dh) in the input type.
 // fp32 takes dvec = rowsum(g * out) (B,H,NQ) fp32 from the caller; bf16
 // computes it (dvec unused). scratch: mebt_smallq_bwd_scratch_bytes of
-// it, which the bf16 dq pass fills for the dk/dv pass (unused in fp32):
-// each row's lse log2(e) as an fp32 pair (hi, lo) and D, each batch
-// row's live keys and, with dropout, the keep bits by (row, live
-// position).
+// it, which the bf16 passes fill (unused in fp32): each batch row's live
+// keys, each row's lse log2(e) as an fp32 pair (hi, lo) and D and, with
+// dropout, the keep bits by (row, live position), for the dk/dv pass; the
+// dq pass's key-split partials.
 int mebt_smallq_backward(const void* q, const void* k, const void* v,
                          const void* mask, const void* lse, const void* out, const void* dvec,
                          const void* g, void* dq, void* dk, void* dv, void* scratch,
@@ -3032,9 +3131,16 @@ int mebt_smallq_backward(const void* q, const void* k, const void* v,
                        dvec, g, dq, dk, dv, scratch, B, H, NQ, NK, scale, drop, s);
 }
 
-// Bytes of the scratch K6 needs (0 in fp32).
+// Bytes of the scratch K6 needs for these shapes on the current card (0
+// in fp32, and on an error, which the launch then reports).
 size_t mebt_smallq_bwd_scratch_bytes(int B, int H, int NQ, int NK, int is_bf16, int dropout) {
-  return is_bf16 ? k6_scratch_bytes(B, H, NQ, NK, dropout != 0) : 0;
+  if (!is_bf16) return 0;
+  int splits = 1;
+  if (B * H > 0 && NQ > 0 &&
+      (dropout ? k6_plan<true>(B, H, NQ, NK, splits) : k6_plan<false>(B, H, NQ, NK, splits)) !=
+          cudaSuccess)
+    return 0;
+  return k6_scratch_bytes(B, H, NQ, NK, dropout != 0, splits);
 }
 
 // Dynamic shared memory of K7's passes for NK keys (the larger), in bytes.

@@ -1,8 +1,8 @@
 // The current card's SM count, shared memory an SM and the most dynamic
 // shared memory a block may opt in to, read once a card: the launch plans
-// of attention.cu (K1's splits) and head_sample.cu (K3 / K4's vocabulary
-// slices) run on every call, and the CUDA runtime's queries cost host
-// time next to kernels of some 0.02-5 ms.
+// of attention.cu (K1's and K6's splits) and head_sample.cu (K3 / K4's
+// vocabulary slices) run on every call, and the CUDA runtime's queries
+// cost host time next to kernels of some 0.01-5 ms.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -54,6 +54,32 @@ inline cudaError_t blocks_per_sm(Kern kern, int threads, size_t smem, int& n) {
     thr[used] = threads;
     bytes[used] = smem;
     val[used++] = n;
+  }
+  return e;
+}
+
+// Lets `kern` take up to the card's opt-in maximum of dynamic shared
+// memory, once per (kernel, card): the attribute only permits, the launch
+// takes what it asks for, and the call costs host time on every launch of
+// a kernel that runs 1128 times a 128f batch (K1).
+template <typename Kern>
+inline cudaError_t opt_in_smem(Kern kern) {
+  constexpr int N = 64;
+  static const void* keys[N];
+  static int devs[N], used = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const void* key = reinterpret_cast<const void*>(kern);
+  for (int i = 0; i < used; ++i)
+    if (keys[i] == key && devs[i] == dev) return cudaSuccess;
+  int sms = 0, smem_sm = 0, optin = 0;
+  e = card_shape(sms, smem_sm, optin);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (e == cudaSuccess && used < N) {
+    keys[used] = key;
+    devs[used++] = dev;
   }
   return e;
 }

@@ -1,5 +1,6 @@
-// Hopper building blocks shared by attention.cu (K2) and head_sample.cu
-// (K4, K5), for sm_90a: TMA tensor maps and loads, mbarriers, and
+// Hopper building blocks shared by attention.cu (K1, K2, K6, K7) and
+// head_sample.cu (K3, K4, K5), for sm_90a: TMA tensor maps and loads,
+// mbarriers, rows gathered by cp.async into the layout TMA writes, and
 // wgmma (warpgroup matrix multiply) with bf16 operands and fp32 sums.
 //
 // Every tile these kernels load is a run of rows of 64 bf16 (128 bytes),
@@ -11,7 +12,10 @@
 // K-major operands (the reduction dimension contiguous: Q, K, x, W)
 // advance 16 deep by adding 32 bytes to the descriptor's start address;
 // an MN-major operand (V, its 64 columns contiguous) advances 16 deep by
-// 16 rows, 2048 bytes.
+// 16 rows, 2048 bytes. K1 and K6 take rows that TMA's tiled mode cannot
+// fetch (the live keys of a batch row): gather_rows_b128 copies each with
+// 16-byte cp.async to the place TMA would have put it, and the copies
+// complete on an mbarrier as TMA's do (cp.async.mbarrier.arrive.noinc).
 //
 // The tensor maps are encoded on the host by the driver's
 // cuTensorMapEncodeTiled, found in the loaded libcuda with dlsym (the
@@ -150,6 +154,48 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "memory");
     if (done) return;
     if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+// The arrive-on of `bar` once every cp.async this thread issued before it
+// has landed. noinc: the barrier's expected count already holds this
+// arrival (init it with the number of threads that call this).
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Orders what this thread sees of shared memory written through the
+// generic proxy (plain stores, cp.async) before its own accesses through
+// the async proxy (wgmma's operand reads, TMA): a consumer calls it after
+// the mbarrier wait that made gathered rows visible, before its wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Rows of two tensors into two 1024-byte-aligned tiles of 64 rows of 64
+// bf16 (128 bytes) as TMA would write a box of them with the 128-byte
+// swizzle (granule c of row r at granule c ^ (r % 8)): row r < n of each
+// tile is row rows[r] of its tensor (sa, sb), rows from n on are zeros.
+// The 32 lanes of a warp share the 2 x 512 16-byte cp.async copies, eight
+// lanes a row, so each row is read as one 128-byte run; a lane reads each
+// row index once for both tensors. rows may point to shared or global
+// memory.
+__device__ __forceinline__ void gather_rows_b128(void* ta, const void* sa, void* tb,
+                                                 const void* sb, const int* rows, int n,
+                                                 int lane) {
+  unsigned char* da = static_cast<unsigned char*>(ta);
+  unsigned char* db = static_cast<unsigned char*>(tb);
+  const unsigned char* pa = static_cast<const unsigned char*>(sa);
+  const unsigned char* pb = static_cast<const unsigned char*>(sb);
+  const int c = lane & 7;
+#pragma unroll 4
+  for (int r = lane >> 3; r < 64; r += 4) {
+    const bool in = r < n;
+    const size_t src = (size_t)(in ? rows[r] : 0) * 128 + c * 16;
+    const int dst = r * 128 + ((c ^ (r & 7)) << 4);
+    cp_async16(da + dst, pa + src, in);
+    cp_async16(db + dst, pb + src, in);
   }
 }
 

@@ -1,12 +1,6 @@
-// Tensor-core building blocks shared by attention.cu (K1, K2, K6, K7),
-// head_sample.cu (K3, K4) and vq.cu (K9): 16-byte cp.async into shared
-// memory, ldmatrix and mma.sync m16n8k16 with bf16 operands and fp32
-// sums, for sm_90a.
-//
-// Fragments follow the PTX layouts of mma.m16n8k16 with lane = 4 g + t:
-// an A fragment (16 x 16) holds rows g and g + 8 at columns 2t, 2t + 1
-// and 2t + 8, 2t + 9; a C fragment (16 x 8, fp32) holds rows g and g + 8
-// at columns 2t, 2t + 1.
+// Shared-memory building blocks of hopper.cuh (cp.async: the gathered
+// rows of K1 and K6) and vq.cu (K9's tiles): 16-byte cp.async into shared
+// memory and ldmatrix, for sm_90a.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,13 +30,4 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
-}
-
-// c += a b, 16 x 8 x 16, bf16 operands, fp32 sums
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }

@@ -3,15 +3,18 @@ blocks, forward and backward, with dropout on the probabilities
 (csrc/attention.cu).
 
   K1 `smallq_attention`: masked keys, flash forward with lse
-     (replaces attention_pallas.py:_smallq_attention); in bf16 on the
-     tensor cores over the live keys only, split over CTAs when the
-     (b, h) pairs do not fill the card.
+     (replaces attention_pallas.py:_smallq_attention); in bf16 on Hopper's
+     wgmma over the live keys only, gathered into the tiles TMA would
+     write, split over CTAs when the (b, h, query tile) CTAs do not fill
+     the card.
   K2 `largeq_attention`: unmasked keys resident in shared memory
      (replaces attention_pallas.py:_largeq_attention); in bf16 on the
      tensor cores, the probabilities split into two bf16 parts.
   K6 `smallq_backward`: dq, dk, dv of K1 from the saved lse
-     (replaces attention_pallas.py:_smallq_backward); in bf16 on the
-     tensor cores over the live keys, with p and ds in three bf16 parts.
+     (replaces attention_pallas.py:_smallq_backward); in bf16 on Hopper's
+     wgmma over K1's gathered live keys, with p and ds in three bf16 parts
+     and the dq pass's live keys split over CTAs when its CTAs do not fill
+     the card.
   K7 `largeq_backward`: dq, dk, dv of K2, softmax recomputed
      (replaces attention_pallas.py:_largeq_backward); in bf16 on the
      tensor cores as K2, with p and ds in three bf16 parts, D = rowsum(g
@@ -76,7 +79,8 @@ _SIGNATURES = {
         ctypes.c_int, [_P] * 11 + [_I] * 5 + [_F, _I] + _DROP + [_P],
     ),
     "mebt_largeq_bwd_splits": (ctypes.c_int, [_I] * 6 + [ctypes.POINTER(_I)]),
-    "mebt_smallq_scratch_bytes": (ctypes.c_size_t, [_I] * 5 + [ctypes.POINTER(_I)]),
+    "mebt_smallq_splits": (ctypes.c_int, [_I] * 7 + [ctypes.POINTER(_I)]),
+    "mebt_smallq_scratch_bytes": (ctypes.c_size_t, [_I] * 6 + [ctypes.POINTER(_I)]),
     "mebt_largeq_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "mebt_largeq_bwd_smem_bytes": (ctypes.c_size_t, [_I, _I]),
 }
@@ -220,9 +224,14 @@ def _check_grad(q, g):
 
 
 def _check_mask(key_mask, B, NK, device):
+    """The mask as (B, NK) uint8 bytes: a bool mask's own bytes (a view,
+    no launch), any other dtype converted."""
     if key_mask.shape != (B, NK) or key_mask.device != device:
         raise ValueError(f"key_mask {tuple(key_mask.shape)} != {(B, NK)} on {device}")
-    return key_mask.to(torch.uint8).contiguous()
+    key_mask = key_mask.contiguous()
+    if key_mask.dtype == torch.bool:
+        return key_mask.view(torch.uint8)
+    return (key_mask != 0).view(torch.uint8)
 
 
 def _drop_args(p_drop: float, seed: int, q, b0: int = 0, h0: int = 0,
@@ -253,6 +262,20 @@ def _ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+@functools.lru_cache(maxsize=256)
+def _scratch_bytes(lib, entry: str, *shape) -> int:
+    """Bytes of scratch the entry point `entry` of `lib` asks for these
+    shapes (B, H, NQ, NK, bf16, dropout) on the current card, asked once
+    per library, shape and card index: the query's ctypes call costs host
+    time next to kernels of some 0.01 ms."""
+    if entry == "mebt_smallq_scratch_bytes":
+        err = ctypes.c_int(0)
+        n = lib.mebt_smallq_scratch_bytes(*shape[:-1], ctypes.byref(err))
+        _build.check(err.value, "smallq_attention (plan)")
+        return n
+    return getattr(lib, entry)(*shape[:-1])
+
+
 def smallq_attention(q, k, v, key_mask, *, p_drop: float = 0.0, seed: int = 0, b0: int = 0,
                      h0: int = 0, heads: int | None = None):
     """K1: masked attention, few queries over many keys. Returns
@@ -270,9 +293,8 @@ def smallq_attention(q, k, v, key_mask, *, p_drop: float = 0.0, seed: int = 0, b
     lse = torch.empty((B, H, NQ), device=q.device, dtype=torch.float32)
     lib, bf16 = _lib(), int(q.dtype == torch.bfloat16)
     # the bf16 kernel's split partials, sized for this card's split count
-    err = ctypes.c_int(0)
-    n_part = lib.mebt_smallq_scratch_bytes(B, H, NQ, NK, bf16, ctypes.byref(err))
-    _build.check(err.value, "smallq_attention (plan)")
+    n_part = _scratch_bytes(lib, "mebt_smallq_scratch_bytes", B, H, NQ, NK, bf16,
+                            int(p_drop > 0.0), q.device.index)
     part = torch.empty(n_part, device=q.device, dtype=torch.uint8) if n_part else None
     status = lib.mebt_smallq_attention(
         _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(out), _ptr(lse),
@@ -347,11 +369,13 @@ def smallq_backward(q, k, v, key_mask, out, lse, g, *, p_drop: float = 0.0, seed
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib, bf16 = _lib(), int(q.dtype == torch.bfloat16)
     # fp32: D = rowsum(g * out) here; bf16: the dq pass takes D itself and
-    # leaves it, with each row's lse log2(e) as an fp32 pair, the live keys
-    # of each batch row and, with dropout, the keep bits (a 32-bit word per
-    # 32 live keys), in scratch for the dk/dv pass
+    # leaves it, with each row's lse log2(e) as an fp32 pair and, with
+    # dropout, the keep bits (a 32-bit word per 32 live keys), in scratch
+    # for the dk/dv pass, beside each batch row's live keys and the dq
+    # pass's key-split partials
     dvec = None if bf16 else (g.float() * out.float()).sum(-1).contiguous()
-    n_scratch = lib.mebt_smallq_bwd_scratch_bytes(B, H, NQ, NK, bf16, int(p_drop > 0.0))
+    n_scratch = _scratch_bytes(lib, "mebt_smallq_bwd_scratch_bytes", B, H, NQ, NK, bf16,
+                               int(p_drop > 0.0), q.device.index)
     scratch = torch.empty(n_scratch, device=q.device, dtype=torch.uint8) if n_scratch else None
     status = lib.mebt_smallq_backward(
         _ptr(q), _ptr(k), _ptr(v), _ptr(mask), _ptr(lse), _ptr(out),
@@ -366,6 +390,17 @@ def smallq_backward(q, k, v, key_mask, out, lse, g, *, p_drop: float = 0.0, seed
 
 
 smallq_backward.launches = 0
+
+
+def smallq_splits(q, k, backward: bool = False, p_drop: float = 0.0) -> int:
+    """The live-key splits K1 (or K6's dq pass) takes for these CUDA
+    tensors, with dropout at p_drop, on their card (1 in fp32)."""
+    B, H, NQ, _ = q.shape
+    err = ctypes.c_int(0)
+    n = _lib().mebt_smallq_splits(B, H, NQ, k.shape[2], int(q.dtype == torch.bfloat16),
+                                  int(p_drop > 0.0), int(backward), ctypes.byref(err))
+    _build.check(err.value, "smallq_attention (plan)")
+    return n
 
 
 def dkdv_splits(q, k, p_drop: float = 0.0) -> int:

@@ -29,6 +29,7 @@ from mebt_tpu_torch.ops.attention_cuda import (
     smallq_attention_ref,
     smallq_backward,
     smallq_backward_ref,
+    smallq_splits,
 )
 from mebt_tpu_torch.ops.head_sample import (
     head_sample,
@@ -737,6 +738,118 @@ def test_smallq_backward_scaled_matches_float64(dev, p_drop):
     exact = (ds @ k6, ds.transpose(-1, -2) @ q6, p_v.transpose(-1, -2) @ g6)
     for t in (got, plain):
         _assert_all_close(t, [e.to(torch.bfloat16) for e in exact], GRAD_TOL[torch.bfloat16])
+
+
+def _live_mask(dev, gen, NK, counts):
+    """A (len(counts), NK) mask whose row b has counts[b] live keys at
+    random places."""
+    mask = torch.zeros(len(counts), NK, dtype=torch.bool, device=dev)
+    for b, n in enumerate(counts):
+        mask[b, torch.randperm(NK, generator=gen, device=dev)[:n]] = True
+    return mask
+
+
+def _check_smallq_wgmma(q, k, v, g, mask, p_drop=0.0, seed=0, **rows):
+    """bf16 K1 and K6 against their plain versions at the dropout rows'
+    offsets `rows`: out and gradients within the bf16 gate, lse within
+    1e-5; a row without a live key gives out 0, lse 1e30 and zero
+    gradients, a dead key zero dk and dv; one launch a call, and two calls
+    give the same bits."""
+    kw = dict(p_drop=p_drop, seed=seed, **rows)
+    n_f, n_b = smallq_attention.launches, smallq_backward.launches
+    out, lse = smallq_attention(q, k, v, mask, **kw)
+    got = smallq_backward(q, k, v, mask, out, lse, g, **kw)
+    assert (smallq_attention.launches, smallq_backward.launches) == (n_f + 1, n_b + 1)
+    ref, ref_lse = smallq_attention_ref(q, k, v, mask, **kw)
+    want = smallq_backward_ref(q, k, v, mask, out, lse, g, **kw)
+    live = mask.any(dim=1)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse[live], ref_lse[live], atol=1e-5, rtol=0)
+    _assert_all_close(got, want, GRAD_TOL[torch.bfloat16])
+    assert torch.all(out[~live] == 0) and torch.all(lse[~live] == 1e30)
+    assert all(bool(torch.all(t[~live] == 0)) for t in got)
+    assert all(bool(torch.all(t.transpose(1, 2)[~mask] == 0)) for t in got[1:])
+    again = smallq_attention(q, k, v, mask, **kw)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, smallq_backward(q, k, v, mask, out, lse, g, **kw)))
+    return out, lse, got
+
+
+# live keys a batch row around the 64-key stage of the Hopper K1 / K6
+# (none, one, a stage less one, a stage, a stage and one), at key counts
+# that are and are not stage multiples
+@pytest.mark.parametrize("n_live", [0, 1, 63, 64, 65])
+@pytest.mark.parametrize("NK", [128, 200, 1000])
+@pytest.mark.parametrize("p_drop", [0.0, 0.2])
+def test_smallq_wgmma_live_counts_match_plain(dev, n_live, NK, p_drop):
+    gen = torch.Generator(dev).manual_seed(NK + n_live)
+    q, k, v, g = (_randn(gen, 3, 2, n, 64, dtype=torch.bfloat16, dev=dev)
+                  for n in (70, NK, NK, 70))
+    # the count under test, that count plus two stages, and a masked row
+    mask = _live_mask(dev, gen, NK, [n_live, min(NK, n_live + 128), 0])
+    _check_smallq_wgmma(q, k, v, g, mask, p_drop, seed=4)
+
+
+# (B, H, NQ, NK) at which the plans of K1 and of K6's dq pass on an
+# NVIDIA H100 (132 SMs) take every split count 1-8, with and without
+# dropout (tests/test_torch_attention_split_masked.py live_splits)
+SPLIT_SHAPES = ((1, 1, 64, 64), (1, 1, 64, 320), (1, 1, 64, 384), (1, 1, 64, 448),
+                (1, 1, 64, 512), (2, 6, 256, 384), (2, 6, 256, 448), (3, 15, 64, 512),
+                (2, 12, 256, 512), (2, 16, 256, 512), (2, 43, 64, 512), (4, 25, 64, 512))
+
+
+@pytest.mark.parametrize("splits", range(1, 9))
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("p_drop", [0.0, 0.2])
+def test_smallq_wgmma_every_split_count_matches_plain(dev, splits, backward, p_drop):
+    """K1 (or K6's dq pass) at every split count its plan can pick (1-8),
+    at a shape where the plan picks it: the splits' partials merged in
+    split order, the scratch sized for that count."""
+    def planned(B, H, NQ, NK):
+        q = torch.empty(B, H, NQ, 64, dtype=torch.bfloat16, device=dev)
+        return smallq_splits(q, q.new_empty(B, H, NK, 64), backward, p_drop)
+
+    B, H, NQ, NK = next((s for s in SPLIT_SHAPES if planned(*s) == splits), (0, 0, 0, 0))
+    assert B, f"no shape of SPLIT_SHAPES gets {splits} splits on {torch.cuda.get_device_name()}"
+    gen = torch.Generator(dev).manual_seed(splits)
+    q, k, v, g = (_randn(gen, B, H, n, 64, dtype=torch.bfloat16, dev=dev)
+                  for n in (NQ, NK, NK, NQ))
+    # a row live but for one key, and (with more rows) a random half and
+    # a row without a live key
+    mask = _live_mask(dev, gen, NK, [NK - 1, NK // 2, 0][:B] + [NK // 2] * (B - 3))
+    _check_smallq_wgmma(q, k, v, g, mask, p_drop, seed=6)
+
+
+def test_smallq_wgmma_plans_by_query_rows(dev):
+    """The plans count the query rows that a merge of the splits reads, so
+    two shapes of the same CTAs and keys but other query counts take their
+    own split counts, asked in either order (on an H100: 5 at 64 queries a
+    (b, h), 1 at 256), and each runs with scratch sized for its own."""
+    gen = torch.Generator(dev).manual_seed(11)
+    shapes = {NQ: [_randn(gen, 1, 13, n, 64, dtype=torch.bfloat16, dev=dev)
+                   for n in (NQ, 320, 320, NQ)] for NQ in (64, 256)}
+    for order in ((64, 256), (256, 64)):
+        assert [smallq_splits(shapes[n][0], shapes[n][1]) for n in order] == [
+            {64: 5, 256: 1}[n] for n in order]
+    mask = _live_mask(dev, gen, 320, [319])
+    for NQ in (256, 64):
+        _check_smallq_wgmma(*shapes[NQ], mask)
+
+
+def test_smallq_wgmma_dropout_at_row_and_head_offsets(dev):
+    """K8 in the Hopper K1 / K6 keyed on the whole model's rows: batch rows
+    from b0 3 and heads from h0 2 of 6, against the plain versions at the
+    same offsets; zero offsets give the default rows' bits."""
+    gen = torch.Generator(dev).manual_seed(8)
+    q, k, v, g = (_randn(gen, 2, 3, n, 64, dtype=torch.bfloat16, dev=dev)
+                  for n in (256, 1000, 1000, 256))
+    mask = _live_mask(dev, gen, 1000, [500, 1000])
+    at = dict(b0=3, h0=2, heads=6)
+    out, _, grads = _check_smallq_wgmma(q, k, v, g, mask, 0.1, seed=7, **at)
+    local = smallq_attention(q, k, v, mask, p_drop=0.1, seed=7)[0]
+    same = smallq_attention(q, k, v, mask, p_drop=0.1, seed=7, b0=0, h0=0, heads=3)[0]
+    assert torch.equal(local, same) and not torch.equal(local, out)
 
 
 @pytest.mark.parametrize("masked", [True, False])
