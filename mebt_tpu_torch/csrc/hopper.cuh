@@ -1,16 +1,18 @@
-// Hopper building blocks shared by attention.cu (K1, K2, K6, K7) and
-// head_sample.cu (K3, K4, K5), for sm_90a: TMA tensor maps and loads,
-// mbarriers, rows gathered by cp.async into the layout TMA writes, and
-// wgmma (warpgroup matrix multiply) with bf16 operands and fp32 sums.
+// Hopper building blocks shared by attention.cu (K1, K2, K6, K7),
+// head_sample.cu (K3, K4, K5) and vq.cu (K9), for sm_90a: TMA tensor maps
+// and loads, mbarriers, rows gathered by cp.async into the layout TMA
+// writes, and wgmma (warpgroup matrix multiply) with bf16 operands and
+// fp32 sums (vq.cu adds its tf32 product).
 //
-// Every tile these kernels load is a run of rows of 64 bf16 (128 bytes),
-// which TMA writes into shared memory with the 128-byte swizzle: 16-byte
-// granule c of row r lands at granule c ^ (r % 8) of the row. A tile's
-// base sits at a 1024-byte boundary, so the swizzle pattern that TMA
-// writes is the one wgmma reads through a descriptor of layout B128,
-// whose 8-row groups lie 1024 bytes apart (the stride byte offset).
-// K-major operands (the reduction dimension contiguous: Q, K, x, W)
-// advance 16 deep by adding 32 bytes to the descriptor's start address;
+// Every tile these kernels load is a run of rows of 64 bf16 or 32 fp32
+// (128 bytes), which TMA writes into shared memory with the 128-byte
+// swizzle: 16-byte granule c of row r lands at granule c ^ (r % 8) of the
+// row. A tile's base sits at a 1024-byte boundary, so the swizzle pattern
+// that TMA writes is the one wgmma reads through a descriptor of layout
+// B128, whose 8-row groups lie 1024 bytes apart (the stride byte offset).
+// K-major operands (the reduction dimension contiguous: Q, K, x, W, E)
+// advance 16 bf16 (8 tf32) deep by adding 32 bytes to the descriptor's
+// start address;
 // an MN-major operand (V, its 64 columns contiguous) advances 16 deep by
 // 16 rows, 2048 bytes. K1 and K6 take rows that TMA's tiled mode cannot
 // fetch (the live keys of a batch row): gather_rows_b128 copies each with
@@ -51,15 +53,17 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor of `rank` <= 3 dimensions, innermost first: dims[0] = 64
-// columns (one swizzled row), strides in bytes of dims 1.. (bytes[0] is
-// that of dim 1), box[] elements a load. Elements outside the tensor load
-// as zeros. Returns cudaErrorInvalidValue where the driver refuses it.
-inline cudaError_t tma_map_bf16(CUtensorMap& map, const void* base, int rank,
-                                const uint64_t* dims, const uint64_t* bytes,
-                                const uint32_t* box) {
+// A tensor of `type` and `rank` <= 3 dimensions, innermost first, strides
+// in bytes of dims 1.. (bytes[0] is that of dim 1), box[] elements a load,
+// whose innermost box dimension is one swizzled 128-byte row. Elements
+// outside the tensor load as zeros. Returns cudaErrorInvalidValue where
+// the driver refuses it.
+inline cudaError_t tma_map(CUtensorMap& map, CUtensorMapDataType type, const void* base,
+                           int rank, const uint64_t* dims, const uint64_t* bytes,
+                           const uint32_t* box) {
   struct Key {
     const void* base;
+    int type;
     int rank;
     uint64_t dims[3], bytes[2];
     uint32_t box[3];
@@ -75,6 +79,7 @@ inline cudaError_t tma_map_bf16(CUtensorMap& map, const void* base, int rank,
   Key key;
   memset(&key, 0, sizeof(key));
   key.base = base;
+  key.type = (int)type;
   key.rank = rank;
   for (int i = 0; i < rank; ++i) {
     key.dims[i] = dims[i];
@@ -96,7 +101,7 @@ inline cudaError_t tma_map_bf16(CUtensorMap& map, const void* base, int rank,
     b[i] = box[i];
     if (i + 1 < rank) s[i] = bytes[i];
   }
-  const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+  const CUresult r = encode(&map, type, (cuuint32_t)rank,
                             const_cast<void*>(base), d, s, b, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -106,6 +111,20 @@ inline cudaError_t tma_map_bf16(CUtensorMap& map, const void* base, int rank,
   next = (next + 1) % N;
   if (used < N) ++used;
   return cudaSuccess;
+}
+
+// bf16: box[0] = 64 columns (attention.cu, head_sample.cu)
+inline cudaError_t tma_map_bf16(CUtensorMap& map, const void* base, int rank,
+                                const uint64_t* dims, const uint64_t* bytes,
+                                const uint32_t* box) {
+  return tma_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, bytes, box);
+}
+
+// fp32: box[0] = 32 columns (vq.cu: x and the codebook's TF32 planes)
+inline cudaError_t tma_map_f32(CUtensorMap& map, const void* base, int rank,
+                               const uint64_t* dims, const uint64_t* bytes,
+                               const uint32_t* box) {
+  return tma_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank, dims, bytes, box);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 // Shared-memory building blocks of hopper.cuh (cp.async: the gathered
-// rows of K1 and K6) and vq.cu (K9's tiles): 16-byte cp.async into shared
-// memory and ldmatrix, for sm_90a.
+// rows of K1 and K6) and vq.cu (ldmatrix: K9's x fragments): 16-byte
+// cp.async into shared memory and ldmatrix, for sm_90a.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -5,11 +5,14 @@ mebt_tpu/ops/vq_pallas.py:nearest_code_pallas.
 argmin_k -2 x·e_k + |e_k|^2 over the codebook (K, D) as (M,) int64,
 scored in fp32; |x|^2 is dropped (it cannot change the argmin) and the
 lowest index wins an exact tie. |e_k|^2 is computed here, once per call,
-as the JAX wrapper computes it outside its pallas_call. The kernel
+as the JAX wrapper computes it outside its pallas_call. The search
 multiplies in 3xTF32 (each operand split into two TF32 parts, three
-products) over S slices of the codebook, S from the card's SM count, and
-a merge kernel folds the slices in order; the wrapper allocates the
-slices' scratch (one launch of the pair counts once).
+products on wgmma) over S slices of the codebook, S from the card's SM
+count: a split pass writes the codebook's two TF32 parts (`tf32_split`
+alone; its plain version `tf32_split_ref`), the search kernel splits x
+in registers, and a merge kernel folds the slices in order. The wrapper
+allocates the parts' and the slices' scratch; one launch of the three
+counts once.
 
 `nearest_code_ref` is the plain version, chunked over the codebook with
 a running (min, argmin) like `nearest_code_xla`, so the (M, K) scores
@@ -35,7 +38,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "mebt_nearest_code": (ctypes.c_int, [_P] * 5 + [_I] * 4 + [_P]),
-    "mebt_nearest_code_splits": (ctypes.c_int, [_I] * 3 + [ctypes.POINTER(_I)]),
+    "mebt_nearest_code_splits": (ctypes.c_int, [_I] * 4 + [ctypes.POINTER(_I)]),
+    "mebt_tf32_split": (ctypes.c_int, [_P, _P, ctypes.c_longlong, _P]),
 }
 MAX_DIM = 512  # the widths the kernel's checks cover
 
@@ -44,6 +48,19 @@ def code_norms(codebook: torch.Tensor) -> torch.Tensor:
     """|e_k|^2 in fp32, (K,)."""
     e = codebook.float()
     return (e * e).sum(dim=1)
+
+
+def tf32_split_ref(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain split pass: fp32 t as hi + lo, hi = tf32(t), lo = tf32(t - hi),
+    where tf32 is cvt.rna (round to nearest, ties away from zero, to 10
+    mantissa bits) by int32 bit operations: half of the 13 dropped bits'
+    weight added to the magnitude, then the bits cut."""
+    def tf32(v):
+        return ((v.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    v = t.float().contiguous()
+    hi = tf32(v)
+    return hi, tf32(v - hi)
 
 
 def nearest_code_ref(flat: torch.Tensor, codebook: torch.Tensor,
@@ -93,13 +110,38 @@ def _lib():
     return _build.load("vq", _SIGNATURES)
 
 
-def codebook_slices(M: int, K: int, splits: int = 0) -> int:
-    """The codebook slices S the kernel takes for (M, K) on the current
-    card; `splits` > 0 asks for that many (cut to the 128-code chunks)."""
+def _padded(D: int) -> int:
+    return D + (-D) % 4
+
+
+def codebook_slices(M: int, K: int, D: int, splits: int = 0) -> int:
+    """The codebook slices S the kernel takes for (M, K) at width D on
+    the current card; `splits` > 0 asks for that many (cut to the
+    128-code chunks)."""
     err = ctypes.c_int(0)
-    n = _lib().mebt_nearest_code_splits(M, K, splits, ctypes.byref(err))
+    n = _lib().mebt_nearest_code_splits(M, K, _padded(D), splits, ctypes.byref(err))
     _build.check(err.value, "nearest_code (plan)")
     return n
+
+
+def tf32_split(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of fp32 t, each of t's shape: the search's split pass
+    alone (nearest_code launches it itself). A CUDA tensor launches the
+    kernel; a CPU tensor takes tf32_split_ref."""
+    if not t.is_cuda:
+        return tf32_split_ref(t)
+    v = _build.aligned(t.detach().float())
+    out = torch.empty((2,) + tuple(v.shape), dtype=torch.float32, device=v.device)
+    if v.numel():
+        status = _lib().mebt_tf32_split(ctypes.c_void_p(v.data_ptr()),
+                                        ctypes.c_void_p(out.data_ptr()), v.numel(),
+                                        _build.stream_ptr(v))
+        _build.check(status, "tf32_split")
+        tf32_split.launches += 1
+    return out[0], out[1]
+
+
+tf32_split.launches = 0
 
 
 def nearest_code(flat: torch.Tensor, codebook: torch.Tensor, *, splits: int = 0) -> torch.Tensor:
@@ -119,16 +161,18 @@ def nearest_code(flat: torch.Tensor, codebook: torch.Tensor, *, splits: int = 0)
         raise ValueError(f"shape (M {M}, K {K}, D {D}) not taken by the kernel")
     x, e = flat.float(), codebook.float()
     e2 = code_norms(e)
-    if D % 4:  # the kernel copies rows 16 bytes at a time; zeros add nothing
-        x, e = (torch.nn.functional.pad(t, (0, 4 - D % 4)) for t in (x, e))
+    Dp = _padded(D)
+    if Dp != D:  # TMA needs rows at 16-byte strides; zeros add nothing
+        x, e = (torch.nn.functional.pad(t, (0, Dp - D)) for t in (x, e))
     x, e = _build.aligned(x), _build.aligned(e)
-    n_slices = codebook_slices(M, K, splits)
-    scratch = torch.empty(2 * n_slices * M, dtype=torch.int32, device=x.device)
+    n_slices = codebook_slices(M, K, D, splits)
+    # the codebook's hi and lo parts, then the slices' (score, index) pairs
+    scratch = torch.empty(2 * K * Dp + 2 * n_slices * M, dtype=torch.int32, device=x.device)
     out = torch.empty(M, dtype=torch.int64, device=x.device)
     status = _lib().mebt_nearest_code(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(e.data_ptr()),
         ctypes.c_void_p(e2.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(scratch.data_ptr()), M, K, x.shape[1], splits, _build.stream_ptr(x),
+        ctypes.c_void_p(scratch.data_ptr()), M, K, Dp, splits, _build.stream_ptr(x),
     )
     _build.check(status, "nearest_code")
     nearest_code.launches += 1

@@ -1,19 +1,16 @@
-"""Time variants of the tensor-core K9 (mebt_tpu_torch/csrc/vq.cu) and
-the bf16 K7 and K2 (csrc/attention.cu) on one CUDA card, at the shapes
-of training (K9, K7, K2) and generation (K2).
+"""Time variants of the bf16 K7 and K2 (mebt_tpu_torch/csrc/attention.cu)
+on one CUDA card, at the shapes of training (K7, K2) and generation (K2).
 
-    python3 scripts/k9_k7_variants.py [--out results/k9_k7_variants]
+    python3 scripts/k7_k2_variants.py [--out results/k7_k2_variants]
 
 Each variant is the source with text substitutions, built with the
 package's nvcc flags into --out and loaded in place of the package's
 library:
   full            the kernels as they are;
-  k9_cvt          K9's TF32 rounding by the cvt.rna instruction instead
-                  of two integer operations;
-  k9_ks32         K9's stages 32 deep (two barriers a 64-deep step);
   k7_dq_3parts    K7's dq pass with ds in three bf16 parts (as before);
   k7_no_split     K7's dk/dv pass walking all query tiles in one CTA.
-(scripts/k7_variants.py times K7's own variants.)
+(scripts/k7_variants.py times K7's own variants, scripts/k9_variants.py
+K9's.)
 Each is timed in turns (full first and last): CUDA-event medians, and
 device time from torch.profiler over five calls (the small attention
 shapes are host-bound, so events there time the host); times from one
@@ -39,22 +36,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import kernel_ms  # noqa: E402
 from mebt_tpu_torch.ops import _build  # noqa: E402
 from mebt_tpu_torch.ops import attention_cuda as ac  # noqa: E402
-from mebt_tpu_torch.ops import vq  # noqa: E402
 
 # (variant, source, substitutions)
 VARIANTS = {
     "full": {},
-    "k9_cvt": {"vq": [("  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;",
-                       '  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));\n'
-                       "  return r;")]},
-    "k9_ks32": {"vq": [("constexpr int KS = 64;", "constexpr int KS = 32;")]},
     "k7_dq_3parts": {"attention": [("constexpr int K7_DQ_PARTS = 2;",
                                     "constexpr int K7_DQ_PARTS = 3;")]},
     "k7_no_split": {"attention": [("constexpr int K7_MAX_SPLITS = 16;",
                                    "constexpr int K7_MAX_SPLITS = 1;")]},
 }
-SIGNATURES = {"vq": vq._SIGNATURES, "attention": ac._SIGNATURES}
-K9_SHAPES = (("16f", 6144), ("128f", 40960))       # M rows, K 16384, D 256
+SIGNATURES = {"attention": ac._SIGNATURES}
 K7_SHAPES = (("latent_dec", 6, 1024), ("latent_self", 6, 256), ("latent_dec_128f", 5, 8192))
 # (case, batch, queries, dropout rates) over 256 keys: K2 in training, and
 # in the 16f and 128f decodes
@@ -99,8 +90,7 @@ def cuda_ms(fn, reps=10, warmup=2) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-KERNELS = {"K9": ("nearest_code_tf32_kernel", "nearest_code_merge_kernel"),
-           "K7": ("largeq_bwd_dq_wgmma_kernel", "largeq_bwd_dkdv_wgmma_kernel",
+KERNELS = {"K7": ("largeq_bwd_dq_wgmma_kernel", "largeq_bwd_dkdv_wgmma_kernel",
                   "largeq_bwd_dkdv_merge_kernel"),
            "K2": ("largeq_fwd_wgmma_kernel",)}
 
@@ -114,15 +104,15 @@ def timing(kernel: str, fn) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", default="results/k9_k7_variants")
+    ap.add_argument("--out", default="results/k7_k2_variants")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
-        print("k9_k7_variants: no CUDA device", file=sys.stderr)
+        print("k7_k2_variants: no CUDA device", file=sys.stderr)
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
     os.makedirs(args.out, exist_ok=True)
-    _build.build_all(("vq", "attention"))
+    _build.build_all(("attention",))
     libs = {("full", s): str(_build.library_path(s)) for s in SIGNATURES}
     procs = {(n, s): build(n, s, subs, args.out)
              for n, by_src in VARIANTS.items() for s, subs in by_src.items()}
@@ -133,8 +123,6 @@ def main(argv=None) -> int:
             return 1
         libs[key] = so
     gen = torch.Generator("cuda").manual_seed(0)
-    e = torch.randn(16384, 256, device="cuda", generator=gen)
-    xs = {M: torch.randn(M, 256, device="cuda", generator=gen) for _, M in K9_SHAPES}
     attn = {case: [torch.randn(B, 16, n, 64, device="cuda", generator=gen).to(torch.bfloat16)
                    for n in (NQ, 256, 256, NQ)]
             for case, B, NQ, *_ in K7_SHAPES + K2_SHAPES}
@@ -143,12 +131,6 @@ def main(argv=None) -> int:
     for turn, name in enumerate(order):
         for s in SIGNATURES:
             use(s, libs.get((name, s), libs[("full", s)]))
-        for case, M in K9_SHAPES:
-            x = xs[M]
-            t = timing("K9", lambda: vq.nearest_code(x, e))
-            rows.append(dict(variant=name, turn=turn, kernel="K9", case=case, M=M, **t,
-                             tflops_3xtf32=3 * 2.0 * M * 16384 * 256 / t["device_ms"] / 1e9))
-            print(json.dumps(rows[-1]), flush=True)
         for case, B, NQ in K7_SHAPES:
             q, k, v, g = attn[case]
             for p_drop in (0.0, 0.1):

@@ -45,6 +45,8 @@ from mebt_tpu_torch.ops.vq import (
     codebook_slices,
     nearest_code,
     nearest_code_ref,
+    tf32_split,
+    tf32_split_ref,
 )
 
 pytestmark = pytest.mark.cuda
@@ -895,8 +897,11 @@ def test_autograd_runs_the_backward_kernels(dev, masked, rate):
 
 
 # (M, K, D): tile edges in every dimension, a width no multiple of the
-# 32-deep stage, the widest width the kernel keeps resident
-@pytest.mark.parametrize("M,K,D", [(100, 1000, 256), (64, 64, 40), (7, 130, 512)])
+# 32-deep stage (40, 200), the widest width (one 64-row warpgroup a CTA),
+# closure16's (512 rows over 64 codes of width 16: one 16-deep stage), a
+# ragged codebook under 1000 rows
+@pytest.mark.parametrize("M,K,D", [(100, 1000, 256), (64, 64, 40), (7, 130, 512), (512, 64, 16),
+                                   (300, 700, 200), (1000, 16000, 256)])
 def test_nearest_code_matches_plain(dev, M, K, D):
     gen = torch.Generator(dev).manual_seed(M)
     x = torch.randn(M, D, generator=gen, device=dev)
@@ -910,7 +915,7 @@ def test_nearest_code_matches_plain(dev, M, K, D):
     assert over <= 1.0, (n, gap, over)
 
 
-@pytest.mark.parametrize("splits", [0, 1, 3])
+@pytest.mark.parametrize("splits", [0, 1, 2, 3, 7])
 def test_nearest_code_ties_pick_the_lowest_index(dev, splits):
     gen = torch.Generator(dev).manual_seed(9)
     x = torch.randint(-1, 2, (300, 64), generator=gen, device=dev).float()
@@ -929,13 +934,29 @@ def test_nearest_code_slices_give_the_same_codes(dev, M, K):
     gen = torch.Generator(dev).manual_seed(K)
     x = torch.randn(M, 256, generator=gen, device=dev)
     e = torch.randn(K, 256, generator=gen, device=dev)
-    assert codebook_slices(M, K) > 1 and codebook_slices(M, K, 1) == 1
+    assert codebook_slices(M, K, 256) > 1 and codebook_slices(M, K, 256, 1) == 1
     got = nearest_code(x, e)
     assert torch.equal(got, nearest_code(x, e))
     assert torch.equal(got, nearest_code(x, e, splits=1))
     assert torch.equal(got, nearest_code(x, e, splits=7))
     n, gap, over = code_mismatches(x, e, got, nearest_code_ref(x, e))
     assert over <= 1.0, (n, gap, over)
+
+
+@pytest.mark.parametrize("shape", [(16384, 256), (64, 16), (7, 13)])
+def test_tf32_split_matches_plain_bitwise(dev, shape):
+    """The search's split pass (hi = tf32(v), lo = tf32(v - hi)) on values
+    of every magnitude, a tail under four values included, bit for bit."""
+    gen = torch.Generator(dev).manual_seed(shape[1])
+    v = torch.randn(shape, generator=gen, device=dev)
+    v = v * torch.exp2(torch.randint(-60, 60, shape, generator=gen, device=dev).float())
+    v.view(-1)[:3] = torch.tensor([0.0, -0.0, 1.0 + 2.0**-11], device=dev)
+    before = tf32_split.launches
+    hi, lo = tf32_split(v)
+    assert tf32_split.launches == before + 1
+    want_hi, want_lo = tf32_split_ref(v.cpu())
+    assert torch.equal(hi.cpu().view(torch.int32), want_hi.view(torch.int32))
+    assert torch.equal(lo.cpu().view(torch.int32), want_lo.view(torch.int32))
 
 
 def test_nearest_code_refuses_what_it_cannot_take(dev):

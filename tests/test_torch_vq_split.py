@@ -1,16 +1,18 @@
 """The arithmetic of the tensor-core K9 (csrc/vq.cu:
-nearest_code_tf32_kernel + nearest_code_merge_kernel), emulated in plain
-PyTorch on the CPU.
+nearest_code_split_kernel + nearest_code_wgmma_kernel +
+nearest_code_merge_kernel), emulated in plain PyTorch on the CPU.
 
 The kernel splits each fp32 operand into two TF32 parts, hi = tf32(v)
 and lo = tf32(v - hi) (cvt.rna: round to nearest, ties away from zero,
-to 10 mantissa bits), multiplies hi hi into one fp32 accumulator and hi
-lo + lo hi into another, and scores s = fmaf(-2, big + small, |e|^2). A
-CTA walks 128-code chunks of one of S codebook slices and keeps the
-lowest index on equal scores; a merge folds the slices in slice order
-with a strict '<'. The emulation rounds to TF32 by int32 bit operations
-(the products of two TF32 values are exact in fp32) and follows the
-slices and the merge.
+to 10 mantissa bits; the codebook's by a split pass, x's in registers),
+multiplies hi hi into one fp32 accumulator and hi lo + lo hi into
+another, and scores s = fmaf(-2, big + small, |e|^2). A CTA walks
+128-code chunks of one of S codebook slices and keeps the lowest index
+on equal scores; a merge folds the slices in slice order with a strict
+'<'. The emulation rounds to TF32 by int32 bit operations (the products
+of two TF32 values are exact in fp32) and follows the slices and the
+merge; the split pass's plain version (ops/vq.py:tf32_split_ref) is its
+`split`, bit for bit.
 
 Held to: the plain version and the JAX package's nearest_code_xla /
 nearest_code_pallas (interpret mode) under ops/vq.py:code_mismatches
@@ -27,7 +29,8 @@ import pytest
 import torch
 
 from mebt_tpu.ops.vq_pallas import nearest_code_pallas, nearest_code_xla
-from mebt_tpu_torch.ops.vq import code_mismatches, code_norms, nearest_code_ref
+from mebt_tpu_torch.ops.vq import (
+    code_mismatches, code_norms, nearest_code_ref, tf32_split, tf32_split_ref)
 
 CHUNK = 128  # codes a CTA takes at a time (csrc/vq.cu BN)
 
@@ -105,6 +108,21 @@ def test_tf32_rounding_is_cvt_rna():
     assert torch.equal(tf32(v), want)  # ties away from zero, not to even
     hi, lo = split(torch.randn(1000, generator=torch.Generator().manual_seed(0)))
     assert torch.equal(tf32(hi), hi) and torch.equal(tf32(lo), lo)
+
+
+@pytest.mark.parametrize("scale", [0, 40, -40], ids=["unit", "large", "small"])
+def test_plain_split_pass_is_the_emulations_split(scale):
+    """ops/vq.py's plain split pass, and tf32_split on a CPU tensor, give
+    `split`'s parts bit for bit: values of both signs over many binades,
+    exact ties of the rounding, zeros of both signs, subnormals."""
+    gen = torch.Generator().manual_seed(scale + 40)
+    v = torch.randn(4099, generator=gen) * torch.exp2(
+        torch.randint(-20, 20, (4099,), generator=gen).float() + scale)
+    v[:6] = torch.tensor([0.0, -0.0, 1.0 + 2.0**-11, -(1.0 + 2.0**-11), 1e-40, -3e-39])
+    want_hi, want_lo = split(v)
+    for hi, lo in (tf32_split_ref(v), tf32_split(v)):
+        assert torch.equal(hi.view(torch.int32), want_hi.view(torch.int32))
+        assert torch.equal(lo.view(torch.int32), want_lo.view(torch.int32))
 
 
 @pytest.mark.parametrize("parts", [2, 1], ids=["3xtf32", "one_tf32"])
