@@ -942,36 +942,165 @@ def check_k7(dev, gen):
     return rows
 
 
-def probe_dropped_probs(fwd, v_shape, dev):
+def probe_dropped_probs(fwd, v_shape, dev, dtype=torch.float32):
     """The kernel's dropped probabilities P o keep / (1 - p), recovered
     through its output alone: out is linear in v, so with v a block of
     basis vectors the output columns ARE that matrix's columns."""
     B, H, NK, Dh = v_shape
     cols = []
     for j0 in range(0, NK, Dh):
-        vb = torch.zeros(v_shape, device=dev)
+        vb = torch.zeros(v_shape, device=dev, dtype=dtype)
         n = min(Dh, NK - j0)
-        vb[:, :, j0:j0 + n, :n] = torch.eye(n, device=dev)
+        vb[:, :, j0:j0 + n, :n] = torch.eye(n, device=dev, dtype=dtype)
         cols.append(fwd(vb)[..., :n])
     return torch.cat(cols, dim=-1).double()
 
 
+def probe_dropped_probs_bwd(dv_of, g_shape, dev, dtype):
+    """The backward's dropped probabilities, recovered through dv alone:
+    dv = (P o keep / (1 - p))^T g is linear in g, so with g a block of
+    basis vectors over the queries dv's columns are that matrix's rows
+    (the keep bits the dq pass drew and left to the dk/dv pass)."""
+    B, H, NQ, Dh = g_shape
+    rows = []
+    for i0 in range(0, NQ, Dh):
+        gb = torch.zeros(g_shape, device=dev, dtype=dtype)
+        n = min(Dh, NQ - i0)
+        gb[:, :, i0:i0 + n, :n] = torch.eye(n, device=dev, dtype=dtype)
+        rows.append(dv_of(gb)[..., :n].transpose(-1, -2))
+    return torch.cat(rows, dim=-2).double()
+
+
+def kernel_masks(fwd, dv_of, q, k, v, g, key_mask, want, what):
+    """The keep masks of a forward kernel and of its backward's dq pass,
+    recovered through their outputs (probe_dropped_probs and
+    probe_dropped_probs_bwd), held to `want` (philox_keep's) bit for bit
+    wherever the probability passes 1e-6. Each recovered level must be 0
+    or 1 / (1 - p): within 1e-3 in fp32, 2e-2 in bf16 (the outputs' one
+    rounding and the kernel's own softmax). Returns the report and the
+    forward's: recovered matrix, probabilities, where they pass 1e-6,
+    and the recovered levels and keep bits there."""
+    from mebt_tpu_torch.ops import attention_cuda as ac
+
+    dev, dtype = q.device, q.dtype
+    probs = ac.attention_probs(q, k, key_mask).double()
+    solid = probs > 1e-6
+    tol = 1e-3 if dtype == torch.float32 else 2e-2
+    row = dict(mask_elements=int(solid.sum()))
+    pm_fwd = probe_dropped_probs(fwd, v.shape, dev, dtype)
+    fwd_level = fwd_kept = None
+    for side, pm in (("fwd", pm_fwd), ("bwd", probe_dropped_probs_bwd(dv_of, g.shape, dev, dtype))):
+        level = (pm / probs.clamp(min=1e-30))[solid]
+        kept = level > 0.5
+        two_level = (level.abs() < tol) | ((level - 1 / (1 - P_DROP)).abs() < tol)
+        require(bool(two_level.all()), f"K8 {what}: the {side} mask recovered is not two-level")
+        require(bool(torch.equal(kept, want[solid])),
+                f"K8 {what}: the {side} kernels' mask differs from philox_keep's")
+        row[f"{side}_mask_bit_equal"] = True
+        if fwd_level is None:
+            fwd_level, fwd_kept = level, kept
+    return row, pm_fwd, probs, solid, fwd_level, fwd_kept
+
+
 # (case, regime, queries, keys, leading keys always live, probe the mask):
-# the four attention calls of an STL-16f training step, batch 6. The masked
-# ones have a batch row with no live key, as latent_enc has at a small t.
+# the four attention calls of an STL-16f training step, batch 6, and a
+# query count of each regime with NQ % 4 == 2 (the keep stream's groups
+# of four rows straddle heads: each lane draws its own). The masked ones
+# have a batch row with no live key, as latent_enc has at a small t.
 K8_CASES = (
     ("latent_enc", "smallq", 256, 1024, 0, False), ("lt2l", "smallq", 256, 1280, 256, True),
     ("latent_self", "largeq", 256, 256, 0, False), ("latent_dec", "largeq", 1024, 256, 0, True),
+    ("ragged_masked", "smallq", 254, 1000, 0, True), ("ragged", "largeq", 1002, 200, 0, True),
 )
+# the attention calls of an STL-128f training step (batch 5), bf16 only:
+# (case, regime, queries, keys, leading keys always live)
+K8_CASES_128F = (
+    ("lt2l_128f", "smallq", 256, 8448, 256), ("latent_dec_128f", "largeq", 8192, 256, 0),
+)
+
+
+def k8_calls(q, k, v, g, mask, seed=None, **rows):
+    """fwd(v, seed, rate), bwd(seed, rate) and dv_of(g) (the bf16 or fp32
+    kernels through their wrappers) of one K8 case; mask None: K2 / K7."""
+    from mebt_tpu_torch.ops import attention_cuda as ac
+
+    def fwd(v_, seed=seed, rate=P_DROP):
+        if mask is not None:
+            return ac.smallq_attention(q, k, v_, mask, p_drop=rate, seed=seed, **rows)[0]
+        return ac.largeq_attention(q, k, v_, p_drop=rate, seed=seed, **rows)
+
+    def bwd(seed=seed, rate=P_DROP, g_=g):
+        if mask is not None:
+            out, lse = ac.smallq_attention(q, k, v, mask, p_drop=rate, seed=seed, **rows)
+            return ac.smallq_backward(q, k, v, mask, out, lse, g_, p_drop=rate, seed=seed, **rows)
+        return ac.largeq_backward(q, k, v, g_, p_drop=rate, seed=seed, **rows)
+
+    return fwd, bwd, lambda g_: bwd(g_=g_)[2]
+
+
+def k8_refs(q, k, v, g, mask, seed, **rows):
+    """The plain versions' output and gradients (the backward's at the
+    kernel's own out and lse)."""
+    from mebt_tpu_torch.ops import attention_cuda as ac
+
+    kw = dict(p_drop=P_DROP, seed=seed, **rows)
+    if mask is not None:
+        ref = ac.smallq_attention_ref(q, k, v, mask, **kw)[0]
+        out_k, lse_k = ac.smallq_attention(q, k, v, mask, **kw)
+        return ref, ac.smallq_backward_ref(q, k, v, mask, out_k, lse_k, g, **kw)
+    return ac.largeq_attention_ref(q, k, v, **kw), ac.largeq_backward_ref(q, k, v, g, **kw)
+
+
+def k8_times(q, k, v, g, mask, fwd, bwd, seed) -> dict:
+    """K8's timing fields of a bf16 case, by events: the forward with and
+    without dropout, bwd() (fwd_bwd_ms: K6 with K1's forward, or K7
+    alone), a training call's forward and backward with and without
+    dropout (train_ms: K1 + K6, or K2 + K7), the plain version's forward,
+    SDPA's forward and forward + backward at dropout_p = P_DROP, and the
+    forward's bound (live K / V rows, q, out, mask and lse; 4 H NQ Dh
+    operations a live key). scripts/k8_variants.py gives the device times,
+    beside the parent's."""
+    import torch.nn.functional as F
+
+    from mebt_tpu_torch.ops import attention_cuda as ac
+
+    B, H, NQ, Dh = q.shape
+    masked = mask is not None
+    n_live = mask.sum().item() if masked else B * k.shape[2]
+    n_bytes = (2 * n_live * H * Dh * k.element_size() + 2 * nbytes(q)
+               + (nbytes(mask) + 4 * B * H * NQ if masked else 0))
+    bnd, by = bound_ms(n_bytes, 4.0 * H * NQ * Dh * n_live, q.dtype)
+    am = mask[:, None, None, :] if masked else None
+
+    def step(rate):  # forward and backward (K6 runs K1's forward itself; K7 takes none)
+        return bwd(rate=rate) if masked else (fwd(v, rate=rate), bwd(rate=rate))
+
+    fwd_bwd = cuda_ms(bwd)
+    row = dict(
+        tol=dict(rtol=BF16_RTOL, atol=BF16_ATOL),
+        ms=cuda_ms(lambda: fwd(v)), ms_without_dropout=cuda_ms(lambda: fwd(v, rate=0.0)),
+        fwd_bwd_ms=fwd_bwd, train_ms=fwd_bwd if masked else cuda_ms(lambda: step(P_DROP)),
+        train_ms_without_dropout=cuda_ms(lambda: step(0.0)),
+        plain_ms=cuda_ms(
+            lambda: ac.smallq_attention_ref(q, k, v, mask, p_drop=P_DROP, seed=seed)
+            if masked else ac.largeq_attention_ref(q, k, v, p_drop=P_DROP, seed=seed), reps=3),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=am, dropout_p=P_DROP)),
+        library_fwd_bwd_ms=cuda_ms(sdpa_fwd_bwd(q, k, v, g, attn_mask=am, dropout_p=P_DROP),
+                                   reps=5),
+        bound_ms=bnd, bound_by=by,
+    )
+    return row
 
 
 def check_k8(dev, gen):
     """Dropout at rate 0.1 in K1, K2, K6, K7, forward and backward against
     the plain versions under the same Philox mask, at every attention
-    shape of an STL-16f training step; at one shape of each regime the
-    mask the kernels used is also recovered through their outputs."""
-    import torch.nn.functional as F
-
+    shape of an STL-16f training step, at NQ % 4 == 2, and (bf16) at the
+    STL-128f training shapes; at one shape of each regime (and the ragged
+    ones) the masks the forward and the backward's dq pass used are also
+    recovered through their outputs and held to philox_keep bit for bit
+    (fp32 and bf16)."""
     from mebt_tpu_torch.ops import attention_cuda as ac
     from mebt_tpu_torch.ops.philox import philox_keep
 
@@ -982,28 +1111,11 @@ def check_k8(dev, gen):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, g, mask = k6_inputs(dev, gen, B, NK, head_ones, masked, dtype, NQ=NQ)
             km = mask if masked else None
-
-            def fwd(v_, seed=SEED, rate=P_DROP):
-                if masked:
-                    return ac.smallq_attention(q, k, v_, mask, p_drop=rate, seed=seed)[0]
-                return ac.largeq_attention(q, k, v_, p_drop=rate, seed=seed)
-
-            def bwd(seed=SEED, rate=P_DROP):
-                if masked:
-                    out, lse = ac.smallq_attention(q, k, v, mask, p_drop=rate, seed=seed)
-                    return ac.smallq_backward(q, k, v, mask, out, lse, g, p_drop=rate, seed=seed)
-                return ac.largeq_backward(q, k, v, g, p_drop=rate, seed=seed)
+            fwd, bwd, dv_of = k8_calls(q, k, v, g, km, SEED)
 
             # kernel == plain version under the same Philox mask
             out = fwd(v)
-            if masked:
-                ref = ac.smallq_attention_ref(q, k, v, mask, p_drop=P_DROP, seed=SEED)[0]
-                out_k, lse_k = ac.smallq_attention(q, k, v, mask, p_drop=P_DROP, seed=SEED)
-                gref = ac.smallq_backward_ref(q, k, v, mask, out_k, lse_k, g,
-                                              p_drop=P_DROP, seed=SEED)
-            else:
-                ref = ac.largeq_attention_ref(q, k, v, p_drop=P_DROP, seed=SEED)
-                gref = ac.largeq_backward_ref(q, k, v, g, p_drop=P_DROP, seed=SEED)
+            ref, gref = k8_refs(q, k, v, g, km, SEED)
             grads = bwd()
             torch.cuda.synchronize()
             if dtype == torch.bfloat16:
@@ -1028,25 +1140,19 @@ def check_k8(dev, gen):
             row = dict(case=case, regime=regime, dtype=str(dtype).split(".")[-1], shape=[B, H, NQ, NK, Dh],
                        rate=P_DROP, max_abs_err=ferr, err_over_tol=fover,
                        grad_max_abs_err=gerr, grad_err_over_tol=gover)
-
+            if probe:
+                # the masks the kernels really used, through their outputs alone
+                want = philox_keep(SEED, (B, H, NQ, NK), P_DROP, dev)
+                masks, pm, probs, solid, level, kept = kernel_masks(fwd, dv_of, q, k, v, g, km, want,
+                                                                    f"{case} {dtype}")
+                row.update(masks)
+                del want
             if dtype == torch.float32 and probe:
-                # the mask the kernels really used, through their outputs alone
-                pm = probe_dropped_probs(fwd, v.shape, dev)
-                probs = ac.attention_probs(q, k, km).double()
-                solid = probs > 1e-6
-                level = (pm / probs.clamp(min=1e-30))[solid]
-                kept = level > 0.5
-                two_level = ((level.abs() < 1e-3) | ((level - 1 / (1 - P_DROP)).abs() < 1e-3))
-                require(bool(two_level.all()),
-                        f"K8 {case}: recovered mask is not two-level")
                 n = int(solid.sum())
                 frac = kept.double().mean().item()
                 sigma = (P_DROP * (1 - P_DROP) / n) ** 0.5
                 require(abs(frac - (1 - P_DROP)) <= 3 * sigma,
                         f"K8 {case}: kept fraction {frac} not within 3 sigma of {1 - P_DROP}")
-                want = philox_keep(SEED, probs.shape, P_DROP, dev)
-                require(bool(torch.equal(kept, want[solid])),
-                        f"K8 {case}: kernel mask differs from the Philox mask")
                 # backward against a float64 formula built from the recovered mask
                 q64, k64, v64, g64 = (t.double() for t in (q, k, v, g))
                 dpm = torch.einsum("bhqd,bhkd->bhqk", g64, v64) * (pm / probs.clamp(min=1e-30))
@@ -1060,25 +1166,30 @@ def check_k8(dev, gen):
                 require(rel <= 1e-4, f"K8 {case}: backward vs recovered-mask formula {rel}")
                 row.update(kept_fraction=frac, kept_sigma=sigma, probed_elements=n,
                            bwd_vs_recovered_mask_rel=rel, bwd_vs_recovered_mask_tol=1e-4)
-                del pm, probs, dpm, ds, want64, want
-            elif dtype == torch.bfloat16:
-                n_live = mask.sum().item() if masked else B * NK
-                n_bytes = (2 * n_live * H * Dh * k.element_size() + nbytes(q, out)
-                           + (nbytes(mask) + 4 * B * H * NQ if masked else 0))
-                bnd, by = bound_ms(n_bytes, 4.0 * H * NQ * Dh * n_live, dtype)
-                am = mask[:, None, None, :] if masked else None
-                row.update(
-                    tol=dict(rtol=BF16_RTOL, atol=BF16_ATOL),
-                    ms=cuda_ms(lambda: fwd(v)), ms_without_dropout=cuda_ms(lambda: fwd(v, rate=0.0)),
-                    fwd_bwd_ms=cuda_ms(bwd), plain_ms=cuda_ms(
-                        lambda: ac.smallq_attention_ref(q, k, v, mask, p_drop=P_DROP, seed=SEED)
-                        if masked else ac.largeq_attention_ref(q, k, v, p_drop=P_DROP, seed=SEED),
-                        reps=3),
-                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                        q, k, v, attn_mask=am, dropout_p=P_DROP)),
-                    bound_ms=bnd, bound_by=by,
-                )
+                del dpm, ds, want64
+            if dtype == torch.bfloat16:
+                row.update(k8_times(q, k, v, g, km, fwd, bwd, SEED))
             rows.append(row)
+    for case, regime, NQ, NK, head_ones in K8_CASES_128F:
+        masked = regime == "smallq"
+        B128 = TRAIN_BATCH128
+        q, k, v, g, mask = k6_inputs(dev, gen, B128, NK, head_ones, False, torch.bfloat16, NQ=NQ)
+        km = mask if masked else None
+        fwd, bwd, _ = k8_calls(q, k, v, g, km, SEED)
+        out, grads = fwd(v), bwd()
+        ref, gref = k8_refs(q, k, v, g, km, SEED)
+        ferr, fover = bf16_errors(out, ref)
+        gerr, gover = grad_errors(grads, gref, torch.bfloat16)
+        require(fover <= 1 and gover <= 1, f"K8 {case}: forward err {ferr} ({fover}), "
+                                            f"backward {gerr} ({gover})")
+        require(bool(torch.equal(out, fwd(v))) and
+                all(bool(torch.equal(a, b)) for a, b in zip(grads, bwd())),
+                f"K8 {case}: two calls with one seed differ")
+        del ref, gref
+        rows.append(dict(case=case, regime=regime, dtype="bfloat16", shape=[B128, H, NQ, NK, Dh],
+                         rate=P_DROP, max_abs_err=ferr, err_over_tol=fover,
+                         grad_max_abs_err=gerr, grad_err_over_tol=gover,
+                         **k8_times(q, k, v, g, km, fwd, bwd, SEED)))
     rows += k8_offset_rows(dev, gen, SEED)
     return rows
 
@@ -1086,9 +1197,13 @@ def check_k8(dev, gen):
 def k8_offset_rows(dev, gen, seed):
     """K8 keyed on the whole model's rows: a tensor-parallel rank's 8 of
     16 heads (h0 8) and a data rank's rows (b0 6) of the 16f train shapes,
-    bf16, K1/K6 and K2/K7 against the plain versions at the same offsets;
-    at b0 = h0 = 0, heads = H the kernels give the default's bits."""
+    bf16, K1/K6 and K2/K7 against the plain versions at the same offsets,
+    and the masks of the forward and the backward's dq pass recovered
+    through their outputs, held to philox_keep's block of the whole
+    model's mask bit for bit; at b0 = h0 = 0, heads = H the kernels give
+    the default's bits."""
     from mebt_tpu_torch.ops import attention_cuda as ac
+    from mebt_tpu_torch.ops.philox import philox_keep
 
     rows = []
     at = dict(b0=TRAIN_BATCH, h0=8, heads=16)
@@ -1098,19 +1213,15 @@ def k8_offset_rows(dev, gen, seed):
         masked = regime == "smallq"
         q, k, v, g, mask = k6_inputs(dev, gen, TRAIN_BATCH, NK, head_ones, masked,
                                      torch.bfloat16, H=8, NQ=NQ)
+        km = mask if masked else None
         kw = dict(p_drop=P_DROP, seed=seed)
+        fwd, bwd, dv_of = k8_calls(q, k, v, g, km, seed, **at)
+        out, grads = fwd(v), bwd()
+        ref, gref = k8_refs(q, k, v, g, km, seed, **at)
         if masked:
-            out, lse = ac.smallq_attention(q, k, v, mask, **kw, **at)
-            ref = ac.smallq_attention_ref(q, k, v, mask, **kw, **at)[0]
-            grads = ac.smallq_backward(q, k, v, mask, out, lse, g, **kw, **at)
-            gref = ac.smallq_backward_ref(q, k, v, mask, out, lse, g, **kw, **at)
             local = ac.smallq_attention(q, k, v, mask, **kw)[0]
             same = ac.smallq_attention(q, k, v, mask, **kw, b0=0, h0=0, heads=8)[0]
         else:
-            out = ac.largeq_attention(q, k, v, **kw, **at)
-            ref = ac.largeq_attention_ref(q, k, v, **kw, **at)
-            grads = ac.largeq_backward(q, k, v, g, **kw, **at)
-            gref = ac.largeq_backward_ref(q, k, v, g, **kw, **at)
             local = ac.largeq_attention(q, k, v, **kw)
             same = ac.largeq_attention(q, k, v, **kw, b0=0, h0=0, heads=8)
         ferr, fover = bf16_errors(out, ref)
@@ -1119,10 +1230,12 @@ def k8_offset_rows(dev, gen, seed):
                                             f"({fover}), backward {gerr} ({gover})")
         require(bool(torch.equal(local, same)) and not torch.equal(local, out),
                 f"K8 {case}: zero offsets are not the default rows, or offsets change nothing")
+        want = philox_keep(seed, q.shape[:3] + k.shape[2:3], P_DROP, dev, **at)
+        masks = kernel_masks(fwd, dv_of, q, k, v, g, km, want, f"{case} at offsets {at}")[0]
         rows.append(dict(case=f"{case}_offsets", regime=regime, dtype="bfloat16",
                          shape=[TRAIN_BATCH, 8, NQ, NK, 64], offsets=at, rate=P_DROP,
                          max_abs_err=ferr, err_over_tol=fover, grad_max_abs_err=gerr,
-                         grad_err_over_tol=gover, zero_offsets_bit_equal=True))
+                         grad_err_over_tol=gover, zero_offsets_bit_equal=True, **masks))
     return rows
 
 
@@ -1682,13 +1795,16 @@ def kernel_ms(fn, keys, expect=None, tries: int = 3) -> dict:
     return out
 
 
-SASS_OPS = {"hmma": "HMMA", "hgmma": "HGMMA", "utmaldg": "UTMALDG", "ldl": "LDL", "stl": "STL"}
+SASS_OPS = {"hmma": "HMMA", "hgmma": "HGMMA", "utmaldg": "UTMALDG", "ldl": "LDL", "stl": "STL",
+            "imad_hi": "IMAD.HI", "imad_wide": "IMAD.WIDE"}
 
 
 def sass_counts(lib_path) -> dict:
-    """HMMA (mma.sync), HGMMA (wgmma), UTMALDG (TMA load) and LDL / STL
-    (local memory: spills) instructions in each kernel of a built
-    library, from `cuobjdump -sass`, by kernel
+    """HMMA (mma.sync), HGMMA (wgmma), UTMALDG (TMA load), LDL / STL
+    (local memory: spills), IMAD.HI and IMAD.WIDE (32-bit high products,
+    alone or with the low half: Philox's rounds, and addresses)
+    instructions in each kernel of a built library, from
+    `cuobjdump -sass`, by kernel
     name (demangled and cut to the template arguments where cu++filt is
     at hand)."""
     from mebt_tpu_torch.ops import _build

@@ -145,14 +145,20 @@
 //
 // K8, dropout on the probabilities (the p_drop branches of the four TPU
 //   kernels, attention_pallas.py:_drop_keep): element (b, h, query, key)
-//   is kept iff the Philox word keyed on (seed, ((b0 + b) * H_total + h0 +
-//   h) * NQ + query, key) is >= thresh = min(int(p * 2^32), 2^32 - 1), and a kept
-//   probability is scaled by 1 / (1 - p). The softmax denominator and lse
-//   use the undropped p. The index is that of the unpadded problem, so
-//   the mask depends on no tiling and every pass regenerates the same
-//   one; b0, h0 and H_total place a rank's rows and heads in the whole
-//   model's problem (Dropout below), 0, 0 and H on one rank. Each kernel is templated on DROP: thresh == 0 runs the
-//   instantiation without a single dropout instruction.
+//   of whole-model row prow = ((b0 + b) * H_total + h0 + h) * NQ + query
+//   is kept iff word prow & 3 of the Philox4x32-10 call at counter (key,
+//   prow >> 2, KEEP_TAG, 0), key (seed, 0), is >= thresh = min(int(p *
+//   2^32), 2^32 - 1) (csrc/philox.cuh), and a kept probability is scaled
+//   by 1 / (1 - p). The softmax denominator and lse use the undropped p.
+//   The index is that of the unpadded problem, so the mask depends on no
+//   tiling and every pass regenerates the same one; b0, h0 and H_total
+//   place a rank's rows and heads in the whole model's problem (Dropout
+//   below), 0, 0 and H on one rank. One call decides four consecutive
+//   query rows at one key: in the wgmma kernels the four lanes that hold
+//   them share its words (keep_bits_stage), so a lane makes 8 calls for a
+//   64-key stage's 32 bits, not 32. Each kernel is templated on DROP:
+//   thresh == 0 runs the instantiation without a single dropout
+//   instruction.
 //
 // All take fp32 or bf16 inputs (is_bf16), accumulate in fp32, and
 // write the output in the input type. Inputs must be contiguous
@@ -182,11 +188,14 @@ constexpr unsigned FULL = 0xffffffffu;
 // dropped one. `row` = (b * H + h) * NQ + query is the row of the local
 // unpadded problem, which also indexes the kernels' scratch (K6's and
 // K7's keep words); the Philox draw is keyed on the row of the whole
-// model's problem, ((b0 + b) * H_total + h0 + h) * NQ + query, where the
-// caller holds batch rows from b0 and heads from h0 of H_total (data,
+// model's problem, prow = ((b0 + b) * H_total + h0 + h) * NQ + query, where
+// the caller holds batch rows from b0 and heads from h0 of H_total (data,
 // pipeline and tensor parallelism): row + base + b * extra, with b = row /
 // bh_rows. At b0 = h0 = 0 and H_total = H, base = extra = 0 and the row is
-// the local one, bit for bit.
+// the local one, bit for bit. Where NQ % 4 == 0 (`grouped`; every MeBT
+// shape), base, extra and a (b, h)'s first row are multiples of 4, so
+// local rows 4i .. 4i + 3 of a (b, h) are the four rows of one Philox
+// group on every rank.
 struct Dropout {
   uint32_t seed;
   uint32_t thresh;
@@ -194,15 +203,20 @@ struct Dropout {
   uint32_t base;     // (b0 * H_total + h0) * NQ
   uint32_t extra;    // (H_total - H) * NQ
   uint32_t bh_rows;  // H * NQ
+  uint32_t grouped;  // NQ % 4 == 0
   __device__ __forceinline__ uint32_t philox_row(uint32_t row) const {
     return extra ? row + base + (row / bh_rows) * extra : row + base;
   }
   __device__ __forceinline__ float keep(uint32_t row, uint32_t key) const {
     return keep_at(philox_row(row), key);
   }
-  // keep() at a row already mapped by philox_row
+  // keep() at a row already mapped by philox_row: word prow & 3 of its
+  // group's call
   __device__ __forceinline__ float keep_at(uint32_t prow, uint32_t key) const {
-    return philox_bits(seed, prow, key) >= thresh ? keep_scale : 0.f;
+    const uint4 w = philox_keep4(seed, prow >> 2, key);
+    const uint32_t m = prow & 3u;
+    const uint32_t x = m == 0u ? w.x : m == 1u ? w.y : m == 2u ? w.z : w.w;
+    return x >= thresh ? keep_scale : 0.f;
   }
 };
 
@@ -210,8 +224,81 @@ struct Dropout {
 inline Dropout make_dropout(unsigned seed, unsigned thresh, float keep_scale, int H, int NQ,
                             unsigned b0, unsigned h0, unsigned heads) {
   return Dropout{seed, thresh, keep_scale, (b0 * heads + h0) * (uint32_t)NQ,
-                 (heads - (uint32_t)H) * (uint32_t)NQ, (uint32_t)H * (uint32_t)NQ};
+                 (heads - (uint32_t)H) * (uint32_t)NQ, (uint32_t)H * (uint32_t)NQ,
+                 (uint32_t)(NQ % 4 == 0)};
 }
+
+// keep_bits_stage's key_at for a stage of consecutive keys k0, k0 + 1, ..
+struct DenseKeys {
+  uint32_t k0;
+  __device__ __forceinline__ uint32_t operator()(int c) const { return k0 + (uint32_t)c; }
+};
+
+// keep_bits_stage's path where NQ % 4 != 0 (no MeBT shape): the lane's
+// own 32 calls, word prow & 3 of each (rows prow0 at bits 4 j + e, prow1
+// at 4 j + 2 + e). Out of line: inline, it made K2 with dropout spill 120
+// / 196 bytes (stores / loads; 20 / 20 out of line) and run up to 3.3%
+// slower (scripts/k8_variants.py, lane_inline; NVIDIA H100 80GB HBM3,
+// 700 W).
+template <typename KeyAt>
+__device__ __noinline__ uint32_t keep_bits_own(const Dropout drop, uint32_t prow0, uint32_t prow1,
+                                               int tq, KeyAt key_at) {
+  uint32_t kb = 0u;
+#pragma unroll 4
+  for (int i = 0; i < 32; ++i) {
+    const int col = (i >> 2) * 8 + 2 * tq + (i & 1);
+    kb |= (uint32_t)(drop.keep_at((i & 2) ? prow1 : prow0, key_at(col)) != 0.f) << i;
+  }
+  return kb;
+}
+
+// K8's keep bits of one 64-column stage in the wgmma accumulator layout,
+// for the wgmma kernels (K1, K2 forward, K6's and K7's dq passes). Lane 4 g
+// + tq holds rows g (h = 0) and g + 8 (h = 1) of its warp's 16 and the
+// stage's columns 8 j + 2 tq + e; bit i = 4 j + 2 h + e of the result is
+// its element i's. prow[h] are the lane's two Philox rows, key_at(c) the
+// key at the stage's column c. Grouped, the four lanes of equal tq whose g
+// share g >> 2 (lanes xor 4 and xor 8 apart) hold the four rows of two
+// Philox groups (h = 0, 1): lane m = g & 3 of them makes the 8 calls of
+// columns j = 2 m, 2 m + 1 (both rows, both e), bit c = 4 (j - 2 m) + 2 h
+// + e of byte m' taking word m' of call c: byte m' is lane m''s bits
+// 8 m .. 8 m + 7. A 4 x 4 byte transpose over the four lanes (two
+// shuffles and two byte permutations) gives lane m' byte m of each lane m.
+// Otherwise (NQ % 4 != 0) each lane makes its own 32 calls and takes word
+// prow & 3 (keep_bits_own). Every lane of the warp calls it (the
+// shuffles). UNROLL of the 8 grouped calls are unrolled (registers against
+// latency, *_DRAW_UNROLL).
+template <int UNROLL, typename KeyAt>
+__device__ __forceinline__ uint32_t keep_bits_stage(const Dropout& drop, const uint32_t (&prow)[2],
+                                                    int lane, KeyAt key_at) {
+  const int tq = lane & 3;
+  if (drop.grouped) {
+    const int m = (lane >> 2) & 3;
+    const uint32_t grp[2] = {prow[0] >> 2, prow[1] >> 2};
+    uint32_t x = 0u;
+#pragma unroll (UNROLL)
+    for (int c = 0; c < 8; ++c) {
+      const int col = (2 * m + (c >> 2)) * 8 + 2 * tq + (c & 1);
+      const uint4 w = philox_keep4(drop.seed, grp[(c >> 1) & 1], key_at(col));
+      x |= (uint32_t)(w.x >= drop.thresh) << c | (uint32_t)(w.y >= drop.thresh) << (8 + c) |
+           (uint32_t)(w.z >= drop.thresh) << (16 + c) | (uint32_t)(w.w >= drop.thresh) << (24 + c);
+    }
+    // bit m1 of m: pair the halves bound for lanes m1 (bytes 2 m1, 2 m1 + 1)
+    // of lanes m and m ^ 2, in source order; bit m0: then the bytes bound
+    // for m itself, source lanes 0 .. 3
+    const uint32_t y = __shfl_xor_sync(FULL, x, 8);
+    const uint32_t z = __byte_perm(x, y, m & 2 ? 0x3276 : 0x5410);
+    const uint32_t u = __shfl_xor_sync(FULL, z, 4);
+    return __byte_perm(z, u, m & 1 ? 0x3715 : 0x6240);
+  }
+  return keep_bits_own(drop, prow[0], prow[1], tq, key_at);
+}
+
+// How many of the grouped draw's 8 calls a kernel unrolls
+// (scripts/k8_variants.py, NVIDIA H100 80GB HBM3, 700 W): whole in K1, K2
+// and K6's dq pass (2-6% faster than 4 at a time), 4 at a time in K7's dq
+// pass (whole ran 8% slower at 128f)
+constexpr int K1_DRAW_UNROLL = 8, K2_DRAW_UNROLL = 8, K6_DRAW_UNROLL = 8, K7_DRAW_UNROLL = 4;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -637,11 +724,7 @@ largeq_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         uint32_t kbits = 0;  // block b's keep bits, bit i for sc[i]
         if (DROP && b < NKB) {
           const int k0 = b * K2W_KB;
-#pragma unroll
-          for (int i = 0; i < K2W_KB / 2; ++i)
-            kbits |= (drop.keep_at(prow[(i >> 1) & 1],
-                                   (uint32_t)(k0 + (i >> 2) * 8 + 2 * tq + (i & 1))) != 0.f)
-                     << i;
+          kbits = keep_bits_stage<K2_DRAW_UNROLL>(drop, prow, lane, DenseKeys{(uint32_t)k0});
         }
         if (b < NKB) {
           if (b > 0) wgmma_wait<1>();  // S has landed; P V may still run
@@ -1010,14 +1093,9 @@ largeq_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       wg_abt64(dp, dG, wg_desc_at(dv, 2 * b * KB_ELEMS));  // zero rows past NK
       wgmma_commit();
       uint32_t kb = 0u;  // element i's keep bit at bit i
-      if (DROP) {
-        // drawn while the products run, four Philox draws at a time:
-        // unrolled whole, ptxas ran out of registers interleaving them
-#pragma unroll 4
-        for (int i = 0; i < 32; ++i) {
-          const uint32_t key = (uint32_t)(b * K7W_KT + (i >> 2) * 8 + 2 * tq + (i & 1));
-          kb |= (uint32_t)(drop.keep_at(i & 2 ? prow[1] : prow[0], key) != 0.f) << i;
-        }
+      if (DROP) {  // drawn while the products run
+        const int k0 = b * K7W_KT;
+        kb = keep_bits_stage<K7_DRAW_UNROLL>(drop, prow, lane, DenseKeys{(uint32_t)k0});
       }
       wgmma_wait<0>();
       wgmma_fence_regs(sc);
@@ -1590,20 +1668,15 @@ __device__ __forceinline__ void gather_kv(unsigned char* st, const bf16* kg, con
   mbar_arrive_cp_async(full);
 }
 
-// The keep bits of a stage's 64 columns for rows prow[0] (g) and prow[1]
-// (g + 8) at lane quad position tq: bit i for accumulator element i
-// (column (i >> 2) 8 + 2 tq + (i & 1)); keys past n draw key 0, unused
-__device__ __forceinline__ uint32_t stage_keep_bits(const Dropout& drop, const uint32_t (&prow)[2],
-                                                    const int* keys, int n, int tq) {
-  uint32_t kb = 0u;
-#pragma unroll 4
-  for (int i = 0; i < 32; ++i) {
-    const int c = (i >> 2) * 8 + 2 * tq + (i & 1);
-    const uint32_t key = c < n ? (uint32_t)keys[c] : 0u;
-    kb |= (uint32_t)(drop.keep_at(prow[(i >> 1) & 1], key) != 0.f) << i;
+// keep_bits_stage's key_at for a gathered stage: column c holds live key
+// keys[c]; columns past n draw key 0, unused
+struct GatheredKeys {
+  const int* keys;
+  int n;
+  __device__ __forceinline__ uint32_t operator()(int c) const {
+    return c < n ? (uint32_t)keys[c] : 0u;
   }
-  return kb;
-}
+};
 
 // K1's consumer warpgroups a CTA, a 64-query tile each: four (the 256
 // latent queries of a (b, h)), which share every gathered stage, at the
@@ -1707,7 +1780,8 @@ smallq_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const bf16* __
     prow[1] = drop.philox_row(r + 8);
   }
   uint32_t kbits = 0u;  // the stage's keep bits, bit i for element i
-  if (DROP && ntiles > 0) kbits = stage_keep_bits(drop, prow, keys, n, tq);
+  if (DROP && ntiles > 0)
+    kbits = keep_bits_stage<K1_DRAW_UNROLL>(drop, prow, lane, GatheredKeys{keys, n});
   mbar_wait(q_full, 0);
   const uint64_t dQ = wg_desc(qs + wg * SQ_TILE_BYTES);
   float o[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -1791,7 +1865,8 @@ smallq_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const bf16* __
     wg_ab64<K2_PARTS>(o, pa, dV, true);  // O += P V, V MN-major
     wgmma_commit();
     if (DROP && t + 1 < ntiles)  // the next stage's keep bits while P V runs
-      kbits = stage_keep_bits(drop, prow, keys + (t + 1) * SQ_KT, n - (t + 1) * SQ_KT, tq);
+      kbits = keep_bits_stage<K1_DRAW_UNROLL>(
+          drop, prow, lane, GatheredKeys{keys + (t + 1) * SQ_KT, n - (t + 1) * SQ_KT});
     wgmma_wait<0>();
     wgmma_fence_regs(o);
     __syncwarp();
@@ -2109,7 +2184,8 @@ smallq_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     wg_abt64(dp, dG, dV);
     wgmma_commit();
     uint32_t kb = 0u;  // drawn while the products run
-    if (DROP) kb = stage_keep_bits(drop, prow, keys + t * SQ_KT, nt, tq);
+    if (DROP)
+      kb = keep_bits_stage<K6_DRAW_UNROLL>(drop, prow, lane, GatheredKeys{keys + t * SQ_KT, nt});
     wgmma_wait<0>();
     wgmma_fence_regs(sc);
     wgmma_fence_regs(dp);

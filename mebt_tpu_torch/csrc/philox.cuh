@@ -1,16 +1,22 @@
 // Philox4x32-10, shared by head_sample.cu (K3, K4: Exp(1) noise at
-// (token row, vocabulary column)) and attention.cu (dropout keep bits at
-// (query row, key)). Key (seed, 0), counter (col, row, 0, 0), first
-// output word; mebt_tpu_torch/ops/philox.py:philox_bits computes the same
-// word in plain PyTorch.
+// (token row, vocabulary column)) and attention.cu (K8: dropout keep bits
+// at (query row, key)). Key (seed, 0) for both; two counters:
+//   noise: counter (col, row, 0, 0), first output word (philox_bits);
+//   keep:  counter (key, prow >> 2, KEEP_TAG, 0), all four words
+//          (philox4): word m decides element (prow, key) of whole-model
+//          query row prow = 4 (prow >> 2) + m, so one call serves the four
+//          consecutive query rows of a group. The tag in the third counter
+//          word keeps the two streams apart.
+// mebt_tpu_torch/ops/philox.py computes the same words in plain PyTorch
+// (philox_bits, philox4, philox_keep_at).
 #pragma once
 
 #include <stdint.h>
 
-__device__ __forceinline__ uint32_t philox_bits(uint32_t seed, uint32_t row,
-                                                uint32_t col) {
-  uint32_t c0 = col, c1 = row, c2 = 0u, c3 = 0u;
-  uint32_t k0 = seed, k1 = 0u;
+constexpr uint32_t KEEP_TAG = 1u;  // the keep stream's third counter word
+
+__device__ __forceinline__ uint4 philox4(uint32_t c0, uint32_t c1, uint32_t c2, uint32_t c3,
+                                         uint32_t k0, uint32_t k1) {
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
     const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
@@ -22,5 +28,15 @@ __device__ __forceinline__ uint32_t philox_bits(uint32_t seed, uint32_t row,
     k0 += 0x9E3779B9u;
     k1 += 0xBB67AE85u;
   }
-  return c0;
+  return make_uint4(c0, c1, c2, c3);
+}
+
+__device__ __forceinline__ uint32_t philox_bits(uint32_t seed, uint32_t row, uint32_t col) {
+  return philox4(col, row, 0u, 0u, seed, 0u).x;
+}
+
+// The keep stream's four words for the group of whole-model rows 4 grp ..
+// 4 grp + 3 at one key
+__device__ __forceinline__ uint4 philox_keep4(uint32_t seed, uint32_t grp, uint32_t key) {
+  return philox4(key, grp, KEEP_TAG, 0u, seed, 0u);
 }

@@ -25,8 +25,12 @@ blocks, forward and backward, with dropout on the probabilities
      attention_pallas.py:_drop_keep / _fused_dropout_op): the keep mask is
      Philox keyed on (seed, query row, key) of the unpadded problem, so
      forward and backward regenerate the same mask whatever their tiling,
-     and `ops/philox.py:philox_keep` draws the same bits in PyTorch. On
-     a mesh the query row is that of the whole model's problem: every
+     and `ops/philox.py:philox_keep` draws the same bits in PyTorch: the
+     element at query row prow is word prow & 3 of the Philox4x32-10 call
+     at counter (key, prow >> 2, 1, 0), so one call decides four
+     consecutive rows, and in the bf16 kernels the four lanes that hold
+     them share it. On a mesh the query row is that of the whole model's
+     problem: every
      wrapper takes the offsets (b0, h0, heads) of a rank's batch rows and
      heads (0, 0 and its own H by default, the local row bit for bit).
      `dropout_branch.launches` counts the launches of any of the four

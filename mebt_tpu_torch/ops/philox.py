@@ -2,14 +2,19 @@
 compute (csrc/philox.cuh), so a kernel and its plain version can be fed
 the same random bits and compared element by element.
 
-One draw is keyed on (seed, row, column): key (seed, 0), counter
-(column, row, 0, 0), first output word. The head samplers (K3, K4) turn
-it into Exp(1) noise at (token row, vocabulary column); the attention
-kernels (K1, K2, K6, K7 with dropout) turn it into a keep mask at
-(query row of the unpadded (B, H, NQ) problem, key), which depends on
-no tiling, so forward and backward regenerate the same mask; on a mesh
-the row is that of the whole model's problem (`keep_rows`), so no two
-ranks draw the same mask for different rows or heads.
+Both streams use key (seed, 0). The noise stream: a draw keyed on
+(seed, row, column) is the first output word at counter (column, row,
+0, 0) (`philox_bits`); the head samplers (K3, K4) turn it into Exp(1)
+noise at (token row, vocabulary column). The keep stream (K8, the
+attention kernels K1, K2, K6, K7 with dropout): element (prow, key) is
+word prow & 3 of the call at counter (key, prow >> 2, KEEP_TAG, 0)
+(`philox_keep_at`), so one call decides four consecutive query rows at
+one key; KEEP_TAG = 1 in the third counter word keeps it apart from the
+noise stream. prow is the query row of the unpadded (B, H, NQ) problem,
+so the mask depends on no tiling and forward and backward regenerate
+it; on a mesh prow is the row of the whole model's problem
+(`keep_rows`), so no two ranks draw the same mask for different rows or
+heads.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
+KEEP_TAG = 1  # the keep stream's third counter word (csrc/philox.cuh)
 
 
 def _mulhilo(a: torch.Tensor, m: int):
@@ -31,22 +37,30 @@ def _mulhilo(a: torch.Tensor, m: int):
     return hi, lo
 
 
-def philox_bits(seed: int, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
-    """Philox4x32-10, key (seed, 0), counter (col, row, 0, 0); first
-    output word, as int64 in [0, 2^32). rows (R, 1); cols (1, V), or
-    (R, k) for a row's own columns."""
-    c0 = cols.to(torch.int64).expand(rows.shape[0], cols.shape[1])
-    c1 = rows.to(torch.int64).expand_as(c0)
-    c2 = torch.zeros_like(c0)
-    c3 = torch.zeros_like(c0)
-    k0, k1 = int(seed) & _MASK32, 0
+def philox4(c0, c1, c2, c3, k0: int, k1: int = 0):
+    """Philox4x32-10 of counter (c0, c1, c2, c3) under key (k0, k1): its
+    four output words, int64 tensors in [0, 2^32) of the counters'
+    broadcast shape (each counter word a tensor or an int; the tensors
+    on one device)."""
+    dev = next((c.device for c in (c0, c1, c2, c3) if isinstance(c, torch.Tensor)), None)
+    c0, c1, c2, c3 = torch.broadcast_tensors(
+        *(torch.as_tensor(c, dtype=torch.int64, device=dev) & _MASK32 for c in (c0, c1, c2, c3)))
+    k0, k1 = int(k0) & _MASK32, int(k1) & _MASK32
     for _ in range(10):
         hi0, lo0 = _mulhilo(c0, _M0)
         hi1, lo1 = _mulhilo(c2, _M1)
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
         k0 = (k0 + _W0) & _MASK32
         k1 = (k1 + _W1) & _MASK32
-    return c0
+    return c0, c1, c2, c3
+
+
+def philox_bits(seed: int, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """The noise stream: Philox4x32-10, key (seed, 0), counter (col, row,
+    0, 0); first output word, as int64 in [0, 2^32). rows (R, 1); cols
+    (1, V), or (R, k) for a row's own columns."""
+    c0 = cols.to(torch.int64).expand(rows.shape[0], cols.shape[1])
+    return philox4(c0, rows.to(torch.int64).expand_as(c0), 0, 0, seed)[0]
 
 
 def philox_exponential_at(seed: int, cols: torch.Tensor, row_offset: int = 0) -> torch.Tensor:
@@ -94,15 +108,28 @@ def keep_rows(shape, b0: int = 0, h0: int = 0, heads: int | None = None, device=
     return (((b0 + b) * heads + h0 + h) * NQ + q).reshape(-1, 1)
 
 
+def philox_keep_at(seed: int, rows: torch.Tensor, cols: torch.Tensor,
+                   p_drop: float) -> torch.Tensor:
+    """The keep stream, element by element: (prow, key) is kept iff word
+    prow & 3 of Philox4x32-10 at counter (key, prow >> 2, KEEP_TAG, 0),
+    key (seed, 0), is >= drop_threshold(p_drop). rows (R, 1) whole-model
+    query rows, cols (1, K) keys; (R, K) bool. Each group of rows is
+    drawn once."""
+    rows = rows.to(torch.int64).reshape(-1)
+    groups, at = torch.unique(rows >> 2, return_inverse=True)
+    words = torch.stack(philox4(cols.to(torch.int64).reshape(1, -1), groups[:, None],
+                                KEEP_TAG, 0, seed))
+    return words[rows & 3, at] >= drop_threshold(p_drop)
+
+
 def philox_keep(seed: int, shape, p_drop: float, device, b0: int = 0, h0: int = 0,
                 heads: int | None = None) -> torch.Tensor:
     """Dropout keep mask of attention probabilities, shape (B, H, NQ, NK)
-    bool: the draw of element (b, h, q, k) is keyed on the row
-    `keep_rows` gives it and column k. A rank that holds batch rows from
-    b0 and heads from h0 of a model of `heads` heads (data and tensor
-    parallelism) draws its block of the whole model's mask."""
+    bool: element (b, h, q, k) is `philox_keep_at` the row `keep_rows`
+    gives it and key k. A rank that holds batch rows from b0 and heads
+    from h0 of a model of `heads` heads (data and tensor parallelism)
+    draws its block of the whole model's mask."""
     B, H, NQ, NK = shape
     rows = keep_rows(shape, b0, h0, heads, device)
     cols = torch.arange(NK, device=device)[None, :]
-    bits = philox_bits(seed, rows, cols)
-    return (bits >= drop_threshold(p_drop)).view(B, H, NQ, NK)
+    return philox_keep_at(seed, rows, cols, p_drop).view(B, H, NQ, NK)

@@ -166,26 +166,28 @@ def nvcc(cu, so, include):
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def build(names, parent, out_dir):
-    """{name: library path}: the variants (and "parent") built in parallel."""
-    src = (_build.CSRC / "vq.cu").read_text()
+def build(names, parent, out_dir, source="vq", variants=VARIANTS):
+    """({name: library path}, {name: nvcc's output}): the variants of
+    csrc/<source>.cu (and "parent", its file in the tree `parent`) built
+    in parallel."""
+    src = (_build.CSRC / f"{source}.cu").read_text()
     procs = {}
     for name in names:
         text = src
-        for old, new in VARIANTS[name]:
+        for old, new in variants[name]:
             if text.count(old) != 1:
                 raise RuntimeError(f"{name}: substitution matches {text.count(old)} times, "
                                    f"not once: {old[:60]!r}")
             text = text.replace(old, new)
-        cu = os.path.join(out_dir, f"vq_{name}.cu")
+        cu = os.path.join(out_dir, f"{source}_{name}.cu")
         with open(cu, "w") as f:
             f.write(text)
-        so = os.path.join(out_dir, f"libvq_{name}.so")
+        so = os.path.join(out_dir, f"lib{source}_{name}.so")
         procs[name] = (nvcc(cu, so, _build.CSRC), so)
     if parent:
         csrc = os.path.join(parent, "mebt_tpu_torch", "csrc")
-        so = os.path.join(out_dir, "libvq_parent.so")
-        procs["parent"] = (nvcc(os.path.join(csrc, "vq.cu"), so, csrc), so)
+        so = os.path.join(out_dir, f"lib{source}_parent.so")
+        procs["parent"] = (nvcc(os.path.join(csrc, f"{source}.cu"), so, csrc), so)
     libs, logs = {}, {}
     for name, (proc, so) in procs.items():
         logs[name] = proc.communicate()[0]
@@ -194,7 +196,7 @@ def build(names, parent, out_dir):
         libs[name] = so
     with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
         f.write("\n".join(f"== {k}\n{v}" for k, v in logs.items()))
-    return libs
+    return libs, logs
 
 
 def load(so, signatures):
@@ -246,7 +248,7 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     names = ["full"] + [n for n in (args.only.split(",") if args.only else VARIANTS)
                         if n and n != "full"]
-    libs = build(names, args.parent, args.out)
+    libs, _ = build(names, args.parent, args.out)
     search = {n: parent_search(load(so, PARENT_SIGNATURES)) if n == "parent" else
               new_search(load(so, vq._SIGNATURES)) for n, so in libs.items()}
     gen = torch.Generator("cuda").manual_seed(0)

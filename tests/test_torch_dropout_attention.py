@@ -21,7 +21,7 @@ from mebt_tpu_torch.ops.attention_cuda import (
     smallq_attention_ref,
     smallq_backward_ref,
 )
-from mebt_tpu_torch.ops.philox import drop_threshold, philox_bits, philox_keep
+from mebt_tpu_torch.ops.philox import drop_threshold, keep_rows, philox_keep, philox_keep_at
 
 torch.set_num_threads(1)
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -178,11 +178,30 @@ def test_philox_mask_is_tiling_free_and_reproducible():
     b, h = 1, 2
     rows = ((b * H + h) * NQ + torch.arange(4, 9))[:, None]
     cols = torch.arange(16, 37)[None, :]
-    block = philox_bits(seed, rows, cols) >= drop_threshold(rate)
+    block = philox_keep_at(seed, rows, cols, rate)
     assert torch.equal(block, whole[b, h, 4:9, 16:37])
     # the threshold rule of the TPU kernels' _drop_keep
     assert drop_threshold(0.1) == int(0.1 * 4294967296.0)
     assert drop_threshold(1.0) == 4294967295
+
+
+@pytest.mark.parametrize("NQ,b,h,q0,q1", [(7, 1, 0, 2, 7), (10, 0, 1, 1, 6), (12, 1, 2, 5, 11),
+                                          (9, 1, 1, 3, 9)])
+def test_philox_mask_block_at_a_row_off_the_groups_of_four(NQ, b, h, q0, q1):
+    """A block whose first whole-model row is not a multiple of 4 (its
+    first group of four rows cut), with NQ % 4 != 0 (groups straddle
+    heads) or == 0: computed on its own, element by element, it equals
+    the block cut from the whole mask."""
+    B, H, NK, rate, seed = 2, 3, 37, 0.1, 42
+    whole = philox_keep(seed, (B, H, NQ, NK), rate, "cpu")
+    rows = ((b * H + h) * NQ + torch.arange(q0, q1))[:, None]
+    assert int(rows[0]) % 4 != 0
+    assert torch.equal(rows, keep_rows((B, H, NQ, NK)).view(B, H, NQ)[b, h, q0:q1, None])
+    cols = torch.arange(5, 30)[None, :]
+    block = philox_keep_at(seed, rows, cols, rate)
+    assert torch.equal(block, whole[b, h, q0:q1, 5:30])
+    for r in range(q1 - q0):  # row by row, too
+        assert torch.equal(philox_keep_at(seed, rows[r:r + 1], cols, rate), block[r:r + 1])
 
 
 def test_philox_keep_fraction():

@@ -127,12 +127,13 @@ def test_largeq_matches_plain(dev, dtype, B, NQ, NK, q_scale, p_drop):
 
 
 # The bf16 K2's wgmma tile at its edges: queries around the 64-row tile
-# (8, 64, 65, 1000, 8192), keys in one 128-key block (64), two (200, a
-# ragged one, and 256), three (320) and four (512, the most), with and
-# without dropout; two calls give the same bits.
+# (8, 64, 65, 1000, 8192; 130 with NQ % 4 == 2, where the keep stream's
+# groups of four rows straddle heads), keys in one 128-key block (64), two
+# (200, a ragged one, and 256), three (320) and four (512, the most), with
+# and without dropout; two calls give the same bits.
 K2_TILE_EDGES = [
     (2, 8, 64), (2, 64, 200), (2, 65, 256), (1, 1000, 320), (1, 8192, 512),
-    (3, 1000, 256), (2, 64, 512),
+    (3, 1000, 256), (2, 64, 512), (2, 130, 256),
 ]
 
 
@@ -627,7 +628,7 @@ def test_largeq_backward_split_walk_with_dropout(dev):
 # under the bf16 gate, the same bits on two calls.
 K7_TILE_EDGES = [
     (2, 1, 256), (2, 63, 16), (2, 65, 64), (1, 1000, 200), (3, 1000, 256), (2, 65, 320),
-    (1, 1000, 512),
+    (1, 1000, 512), (2, 130, 256),
 ]
 
 
@@ -659,11 +660,13 @@ def test_unsupported_backward_shapes_raise(dev):
 # over CTAs when the (b, h) pairs are too few to fill the card. (B, H,
 # NQ, NK, mask, scale of q): the 128f lt2l key count at B 1-2 (splits),
 # masks with runs of dead tiles, a batch row without a live key, query
-# and key counts around the tiles, and a mask with one live key.
+# and key counts around the tiles (70, 130: NQ % 4 == 2), and a mask with
+# one live key.
 SMALLQ_TC_CASES = [
     (1, 2, 256, 8448, "half", 1.0), (2, 2, 256, 8448, "dead_tiles", 1.0),
     (2, 3, 70, 1000, "empty_row", 1.0), (3, 2, 17, 130, "dead_tiles", 1.0),
     (2, 2, 256, 1280, "one_live", 1.0), (2, 2, 256, 8448, "half", 8.0),
+    (2, 2, 130, 300, "half", 1.0),
 ]
 
 
@@ -1017,3 +1020,39 @@ def test_dropout_rows_at_offsets_match_the_plain_version(dev, dtype, masked):
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
     _assert_all_close(grads, want, GRAD_TOL[dtype])
     assert torch.equal(base, same) and not torch.equal(base, out)
+
+
+# (masked, B, H, NQ, NK, offsets): K8's mask at NQ % 4 == 0 (the four
+# lanes of a group of rows share each Philox call), NQ % 4 != 0 (each lane
+# draws its own) and the tiles' edges, at a rank's rows and heads too
+K8_MASK_CASES = [
+    (False, 2, 2, 1024, 256, {}), (False, 2, 2, 130, 200, {}), (False, 1, 3, 65, 320, {}),
+    (False, 2, 2, 256, 256, dict(b0=3, h0=1, heads=4)),
+    (True, 2, 2, 256, 1280, {}), (True, 2, 3, 70, 1000, {}), (True, 2, 2, 130, 300, {}),
+    (True, 2, 2, 256, 640, dict(b0=1, h0=2, heads=5)),
+]
+
+
+@pytest.mark.parametrize("masked,B,H,NQ,NK,rows", K8_MASK_CASES)
+def test_dropout_masks_through_the_outputs_equal_philox_keep(dev, masked, B, H, NQ, NK, rows):
+    """The bf16 K1 / K2 forward's and K6 / K7 dq pass's keep masks,
+    recovered through their outputs (v, then g, as basis vectors), equal
+    ops/philox.py:philox_keep bit for bit wherever the probability passes
+    1e-6 (chip_smoke.kernel_masks); two calls give the same bits, and rate
+    0 is the kernel without dropout."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    gen = torch.Generator(dev).manual_seed(B * NQ + NK)
+    q, k, v, g = (_randn(gen, B, H, n, 64, dtype=torch.bfloat16, dev=dev) for n in (NQ, NK, NK, NQ))
+    mask = (torch.rand(B, NK, generator=gen, device=dev) < 0.5) if masked else None
+    fwd, bwd, dv_of = chip_smoke.k8_calls(q, k, v, g, mask, 31, **rows)
+    want = philox_keep(31, (B, H, NQ, NK), chip_smoke.P_DROP, dev, **rows)
+    got = chip_smoke.kernel_masks(fwd, dv_of, q, k, v, g, mask, want, "test")[0]
+    assert got["fwd_mask_bit_equal"] and got["bwd_mask_bit_equal"] and got["mask_elements"] > 0
+    out, grads = fwd(v), bwd()
+    assert torch.equal(out, fwd(v)) and all(torch.equal(a, b) for a, b in zip(grads, bwd()))
+    assert torch.equal(fwd(v, rate=0.0), fused_attention(q, k, v, mask))
