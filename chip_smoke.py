@@ -516,11 +516,16 @@ def head_slices(R, V, k=0) -> int:
 # R = 16 x bucket of the 16f decode: 16384 (its first segment), 4096 (its
 # last); 8192, the D&R passes' K3; 256 rows, which the card splits into
 # the most slices; rows and a vocab that are no multiple of the 128-row
-# block and the 128-column chunk; exact ties.
+# block and the 128-column chunk, and a vocab no multiple of the noise
+# stream's group of 4 columns; exact ties.
 K3_CASES = (("step1", 16384, 16384, False, True), ("dnr_r8192", 8192, 16384, False, True),
             ("last_seg_r4096", 4096, 16384, False, True),
             ("many_slices", 256, 16384, False, False), ("ragged", 1000, 16100, False, False),
-            ("ties", 2048, 16384, True, False))
+            ("ragged_v16101", 1000, 16101, False, False), ("ties", 2048, 16384, True, False))
+# (case, rows, vocabulary, first column): the sharded K3 of one part
+# (ops/head_sample.py:_launch_parts) whose W starts inside a noise group,
+# the kernel's straddling instantiation (two Philox calls a group)
+K3_OFFSET_CASES = (("col_offset2", 4096, 16384, 2), ("col_offset3_ragged", 1000, 16101, 3))
 
 
 # the bf16 K3's kernels: the slices and the merge
@@ -528,7 +533,7 @@ K3_KERNELS_BF16 = ("head_sample_wgmma_kernel", "head_sample_merge_kernel")
 
 
 def check_k3(dev, gen):
-    from mebt_tpu_torch.ops.head_sample import head_sample, head_sample_ref
+    from mebt_tpu_torch.ops.head_sample import _launch_parts, head_sample, head_sample_ref
     from mebt_tpu_torch.ops.sampling import sample_tokens
 
     D = 1024
@@ -584,6 +589,40 @@ def check_k3(dev, gen):
         else:
             del logits
         rows.append(row)
+
+    # a rank's W at a first column inside a noise group: the same gates
+    # against the plain version at that offset; timed beside the aligned
+    # instantiation (the same part at column 0)
+    for case, R, Vc, col_off in K3_OFFSET_CASES:
+        x, w = head_inputs(dev, gen, R, Vc, D, False)
+        logits = x.float() @ w.float().t()
+        ids, probs = _launch_parts(0, x, w, 1234, 1.0, None, 0, col_offset=col_off)
+        rids, _ = head_sample_ref(x, w, 1.0, seed=1234, col_offset=col_off)
+        local = ids.long() - col_off
+        p_plain = torch.softmax(logits, dim=-1).gather(1, local[:, None])[:, 0]
+        rel = ((probs - p_plain).abs() / p_plain).max().item()
+        differ = (ids != rids).sum().item()
+        g_ids, _ = _launch_parts(0, x, w, 99, 0.0, None, 0, col_offset=col_off)
+        top = logits.argmax(dim=-1)
+        g_local = g_ids.long() - col_off
+        g_miss = g_local != top
+        gap = logits.gather(1, top[:, None])[:, 0] - logits.gather(1, g_local[:, None])[:, 0]
+        g_gap = gap[g_miss].abs().max().item() if g_miss.any() else 0.0
+        again = _launch_parts(0, x, w, 1234, 1.0, None, 0, col_offset=col_off)
+        torch.cuda.synchronize()
+        require(bool(((local >= 0) & (local < Vc)).all()), f"K3 {case}: id out of range")
+        require(rel <= 1e-3, f"K3 {case}: chosen_prob rel err {rel}")
+        require(differ <= max(2, R // 10000), f"K3 {case}: {differ} ids differ from plain")
+        require(g_gap <= 1e-4, f"K3 {case}: greedy mismatch with logit gap {g_gap}")
+        require(bool(torch.equal(again[0], ids)) and bool(torch.equal(again[1], probs)),
+                f"K3 {case}: two calls differ")
+        rows.append(dict(
+            case=case, shape=[R, D, Vc], col_offset=col_off, rel_err=rel,
+            ids_differing_from_plain=differ, greedy_near_ties=int(g_miss.sum()),
+            ms=cuda_ms(lambda: _launch_parts(0, x, w, 7, 1.0, None, 0, col_offset=col_off)),
+            aligned_ms=cuda_ms(lambda: _launch_parts(0, x, w, 7, 1.0, None, 0, col_offset=0)),
+        ))
+        del logits, p_plain, gap
 
     # distribution: one row repeated, small vocab, temperature 1
     Vs, Rs = 16, 1 << 16
@@ -1724,7 +1763,7 @@ WGMMA_KERNELS = {"attention": {"largeq_fwd_wgmma_kernel": 4, "largeq_bwd_dq_wgmm
                                "largeq_bwd_dkdv_wgmma_kernel": 2,
                                "smallq_fwd_wgmma_kernel": 2, "smallq_bwd_dq_wgmma_kernel": 2,
                                "smallq_bwd_dkdv_wgmma_kernel": 2},
-                 "head_sample": {"head_sample_wgmma_kernel": 1, "head_topk_wgmma_kernel": 1,
+                 "head_sample": {"head_sample_wgmma_kernel": 2, "head_topk_wgmma_kernel": 1,
                                  "head_topk_v1_wgmma_kernel": 1},
                  "vq": {"nearest_code_wgmma_kernel": 1}}
 # of those, the kernels whose SASS must hold no local-memory load or store

@@ -33,10 +33,10 @@
 //
 // Bound on the card, K3, K4 and K5: 2 R D V operations, 5.5e11 at R =
 // 16384, D = 1024, V = 16384 (0.556 ms at 989 TFLOP/s bf16), against 64 MB
-// of x and W: operations. K3 also draws one Philox word and takes two logf
-// per logit (268 M of each at R = 16384), some 100 instructions a logit,
-// so its floor on the card is nearer 1 ms than the bound. K4 and K5 draw
-// only for their k survivors.
+// of x and W: operations. K3 also draws a noise word and takes two logf
+// per logit (268 M of each at R = 16384; one 10-round Philox call gives
+// the words of four columns, 67 M calls), so its floor on the card lies
+// above the bound. K4 and K5 draw only for their k survivors.
 //
 // bf16 K3, K4 and K5 (head_sample_wgmma_kernel, head_topk_wgmma_kernel,
 // head_topk_v1_wgmma_kernel: one tile, head_slice<Epi>, three epilogues)
@@ -54,14 +54,16 @@
 // (g, g + 8) and 32 columns of each in the m16n8 C layout, the four
 // threads of a quad sharing a row. The stages are shared, so the
 // warpgroups keep within the ring's 3 stages of each other and their
-// epilogues overlap each other's products little. K3's noise (one
-// 10-round Philox and two logf a logit, longer than the products) is
-// therefore drawn apart: a noise warpgroup writes each chunk's -log(q)
-// into one of two buffers in shared memory while the product warpgroups
-// multiply, and a chunk's epilogue adds it. With the noise in the
-// epilogue the products and the noise ran one after the other (1.0 and
-// 1.5 ms at R 16384 on an NVIDIA H100 80GB HBM3); three warpgroups of
-// that design took 3.1 ms, this one 3.0. K3's CTA has no producer warp
+// epilogues overlap each other's products little. K3's noise (a quarter
+// of a 10-round Philox call and two logf a logit) is therefore drawn
+// apart: a noise warpgroup writes each chunk's -log(q) into one of two
+// buffers in shared memory while the product warpgroups multiply, and a
+// chunk's epilogue adds it. With the noise in the epilogue the products
+// and the noise ran one after the other (1.0 and 1.5 ms at R 16384 on an
+// NVIDIA H100 80GB HBM3, a call a logit then); three warpgroups of that
+// design took 3.1 ms, this one 3.0. A call now serves the four columns
+// of a thread pair of a quad (SampleEpi::help), so a noise thread makes
+// 32 calls a chunk, not 128. K3's CTA has no producer warp
 // (its first product thread issues the loads as it releases a stage): at
 // 13 warps ptxas's budget was 128 registers a thread and the product
 // warpgroups spilled; at 12 it is 168.
@@ -107,10 +109,13 @@
 // logits of the chunk against the k-th pair, and only when one of them
 // has a candidate do the four take turns at the row's buffer.
 //
-// Noise: Philox4x32-10 keyed on (seed, 0) with counter (column, row, 0,
-// 0), so a draw depends on (seed, row, vocabulary column) only, never on
-// the tiling, the slices or a survivor's buffer slot. u = mantissa(bits
-// >> 9) - 1 + 2^-25, q = -log(u), the same conversion as the TPU kernel.
+// Noise: Philox4x32-10 keyed on (seed, 0); element (row, column) is word
+// column & 3 of the call at counter (column >> 2, row, NOISE_TAG, 0)
+// (philox.cuh), so a draw depends on (seed, row, vocabulary column) only,
+// never on the tiling, the slices or a survivor's buffer slot, and one
+// call serves four neighbouring columns of a row. u = mantissa(bits >> 9)
+// - 1 + 2^-25, q = -log(u), the same conversion as the TPU kernel (one
+// 32-bit word a draw: the resolution of its 32-bit hardware draw).
 // The caller passes a fresh 32-bit seed per step, drawn from a host
 // generator (no device sync).
 //
@@ -173,11 +178,26 @@ constexpr int LP = VC + 4;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 
-__device__ __forceinline__ float exp_noise(uint32_t seed, uint32_t row,
-                                           uint32_t col) {
-  const uint32_t bits = (philox_bits(seed, row, col) >> 9) | 0x3F800000u;
-  const float u = (__uint_as_float(bits) - 1.0f) + 2.9802322e-8f;  // 2^-25
+// Exp(1) draw q = -log(u) of one noise word: u = mantissa(bits >> 9) - 1
+// + 2^-25, in [2^-25, 1)
+__device__ __forceinline__ float exp_of(uint32_t bits) {
+  const float u = (__uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f) + 2.9802322e-8f;
   return -logf(u);
+}
+
+// Word i (0 .. 7) of two consecutive calls' eight, by selects on
+// registers (an indexed pick put the words in local memory)
+__device__ __forceinline__ uint32_t word_of_two(const uint4& lo, const uint4& hi, uint32_t i) {
+  const uint32_t a = i & 1u ? lo.y : lo.x, b = i & 1u ? lo.w : lo.z;
+  const uint32_t c = i & 1u ? hi.y : hi.x, d = i & 1u ? hi.w : hi.z;
+  const uint32_t e = i & 2u ? b : a, f = i & 2u ? d : c;
+  return i & 4u ? f : e;
+}
+
+// Exp(1) noise at one element (whole-head row, vocabulary column): its
+// word of its group's call, a call of its own (philox.cuh)
+__device__ __forceinline__ float exp_noise(uint32_t seed, uint32_t row, uint32_t col) {
+  return exp_of(philox_noise_bits(seed, row, col));
 }
 
 // One 64x64 tile of scaled logits, rows r0.., columns v0.., into Ls.
@@ -663,6 +683,11 @@ constexpr int K3_WG = 2;      // K3's product warpgroups a CTA (128 rows)
 // the CTA has 384 threads and 168 registers a thread (at 416 ptxas's
 // budget is 128, where the product warpgroups spilled)
 constexpr int K3_NOISE_WARPS = 4;
+// noise-stream calls a noise thread makes side by side (one warp a
+// scheduler: its own independent calls hide the chains' latencies); 4 ran
+// 0.6-1.5% faster than 8 (scripts/head_sample_variants.py, NVIDIA H100
+// 80GB HBM3, 700 W)
+constexpr int K3_NOISE_UNROLL = 4;
 constexpr int HW_MAX_STAGES = 4;
 constexpr uint32_t HW_X_BYTES = HW_ROWS * HW_BK * 2;  // a warpgroup's x rows a stage: 8 KB
 constexpr uint32_t HW_W_BYTES = HW_BN * HW_BK * 2;    // a chunk's W rows a stage: 16 KB
@@ -774,7 +799,11 @@ struct TopkRows : SliceRows {
 // draw -log(q) for each chunk of the slice into one of two buffers in
 // shared memory, value v = 32 J + c of product thread p at [v NTHR + p],
 // while the product warpgroups multiply; a chunk's epilogue adds it
-// (noise_full: drawn; noise_empty: read).
+// (noise_full: drawn; noise_empty: read). ALIGNED: the slice's first
+// column col_off is a multiple of 4, so each noise-stream group of four
+// columns lies in one thread pair's registers (the host's choice; the
+// other instantiation serves a rank's W that starts inside a group).
+template <bool ALIGNED>
 struct SampleEpi : SliceRows {
   static constexpr int HELPER_WARPS = K3_NOISE_WARPS;
   float m[2], s[2], best[2], bl[2];
@@ -799,27 +828,45 @@ struct SampleEpi : SliceRows {
     }
   }
 
-  // the noise warps: the slice's chunks [chunk0, chunk1) of the CTA's rows
-  // r0..; noise thread n draws the values q = n, n + nn, ... of the chunk's
-  // np 64 (value v = q / np of product thread p = q % np), eight Philox
-  // draws side by side (one warp a scheduler: its own independent draws
-  // hide the chains' latencies)
+  // The noise warps: the slice's chunks [chunk0, chunk1) of the CTA's rows
+  // r0... Product threads p and p + 1 (p even: quad places t = 2h, 2h + 1)
+  // hold columns 8 nt + 4 h .. 8 nt + 4 h + 3 of a chunk in rows g + 8 J:
+  // one group of the noise stream, one Philox call (philox_noise4) whose
+  // words 0 .. 3 are values 32 J + 2 nt + e of p (columns + e) and of p + 1
+  // (columns + 2 + e), stored as two float2, the pair side by side, so a
+  // warp's 32 pairs fill 256 bytes without a bank conflict. Noise thread n
+  // takes the chunk's groups q = n, n + nn, ... of NTHR / 2 x 32 (pair q %
+  // (NTHR / 2), J and nt from the quotient), K3_NOISE_UNROLL calls side by
+  // side. Where col_off % 4 != 0 (!ALIGNED) the four columns start at word
+  // col_off & 3 of one group and end in the next: two calls a group. The
+  // two logs are logf, as the plain version's torch.log: they now cost more
+  // than the call (__logf for both ran K3 12% faster at R 16384).
   __device__ __forceinline__ void help(unsigned char* bufs, int chunk0, int chunk1, int r0) {
-    constexpr int nn = 32 * HELPER_WARPS, np = NTHR;
-    const int n = threadIdx.x - np;
+    constexpr int nn = 32 * HELPER_WARPS, npair = NTHR / 2, groups = npair * (HW_BN / 4);
+    const int n = threadIdx.x - NTHR;
+    const uint32_t lead = (uint32_t)col_off & 3u;  // the first column's word (0 where ALIGNED)
     uint64_t* bar = bars(bufs);
     for (int c = chunk0, i = 0; c < chunk1; ++c, ++i) {
       const int b = i & 1;
       mbar_wait(&bar[2 + b], ((i >> 1) & 1) ^ 1);  // the buffer's last chunk is read
-      float* buf = noise(bufs) + (size_t)b * np * (HW_BN / 2);
-#pragma unroll 8
-      for (int q = n; q < np * (HW_BN / 2); q += nn) {
-        const int p = q % np, v = q / np, cc = v & 31, lane = p & 31;
-        // product thread p's row g + 8 (v >> 5) and its column cc
+      float* buf = noise(bufs) + (size_t)b * NTHR * (HW_BN / 2);
+#pragma unroll (K3_NOISE_UNROLL)
+      for (int q = n; q < groups; q += nn) {
+        const int p = 2 * (q % npair), v = q / npair, nt = v & 15, J = v >> 4, lane = p & 31;
+        // the pair's row g + 8 J and its first column of the group
         const uint32_t r = row_off + (uint32_t)(r0 + (p >> 7) * HW_ROWS + ((p >> 5) & 3) * 16 +
-                                                (lane >> 2) + 8 * (v >> 5));
-        const int gcol = col_off + c * HW_BN + (cc >> 1) * 8 + 2 * (lane & 3) + (cc & 1);
-        buf[q] = -logf(exp_noise(seed, r, (uint32_t)gcol));
+                                                (lane >> 2) + 8 * J);
+        const uint32_t col = (uint32_t)(col_off + c * HW_BN + nt * 8 + 2 * (lane & 3));
+        uint4 w = philox_noise4(seed, r, col >> 2);
+        if (!ALIGNED) {
+          const uint4 lo = w, hi = philox_noise4(seed, r, (col >> 2) + 1u);
+          w = make_uint4(word_of_two(lo, hi, lead), word_of_two(lo, hi, lead + 1u),
+                         word_of_two(lo, hi, lead + 2u), word_of_two(lo, hi, lead + 3u));
+        }
+        float* at = buf + (32 * J + 2 * nt) * NTHR + p;
+        *reinterpret_cast<float2*>(at) = make_float2(-logf(exp_of(w.x)), -logf(exp_of(w.z)));
+        *reinterpret_cast<float2*>(at + NTHR) =
+            make_float2(-logf(exp_of(w.y)), -logf(exp_of(w.w)));
       }
       mbar_arrive(&bar[b]);  // after this thread's stores (release)
     }
@@ -1325,8 +1372,9 @@ __device__ __forceinline__ void head_slice(unsigned char* smem, const CUtensorMa
 // product warpgroups and K3_NOISE_WARPS noise warps (384 threads, no
 // producer warp). W holds the vocabulary's columns [col_off, col_off +
 // V) and x the batch's rows [row_off, row_off + R): the noise and the
-// stored columns are the whole head's.
+// stored columns are the whole head's. ALIGNED: col_off % 4 == 0.
 constexpr int K3_THREADS = K3_WG * 128 + 32 * K3_NOISE_WARPS;
+template <bool ALIGNED>
 __global__ void __launch_bounds__(K3_THREADS, 1)
 head_sample_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                          const __grid_constant__ CUtensorMap wmap, float4* __restrict__ part,
@@ -1334,7 +1382,7 @@ head_sample_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                          float inv_temp, uint32_t seed, uint32_t row_off, int col_off,
                          int stages) {
   extern __shared__ unsigned char hw_smem[];
-  SampleEpi epi;
+  SampleEpi<ALIGNED> epi;
   epi.part = part;
   epi.part_col = part_col;
   epi.seed = seed;
@@ -1523,19 +1571,22 @@ inline cudaError_t head_maps(const void* x, const void* w, int R, int D, int V,
 }
 
 // K3's slices (bf16) into `scratch`: rows row_off.. of the batch against
-// the vocabulary's columns col_off..
+// the vocabulary's columns col_off.., by the instantiation whose noise
+// groups fit col_off
 cudaError_t launch_sample_part(const void* x, const void* w, void* scratch, int R, int D,
                                int V, float inv_temp, uint32_t seed, uint32_t row_off,
                                int col_off, const HeadPlan& p, cudaStream_t stream) {
+  if (col_off < 0) return cudaErrorInvalidValue;
+  const auto kern =
+      col_off % 4 == 0 ? head_sample_wgmma_kernel<true> : head_sample_wgmma_kernel<false>;
   CUtensorMap xm, wm;
   cudaError_t e = head_maps(x, w, R, D, V, p, xm, wm);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(head_sample_wgmma_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (e != cudaSuccess) return e;
   float4* part = static_cast<float4*>(scratch);
   int* part_col = reinterpret_cast<int*>(part + (size_t)p.splits * R);
-  head_sample_wgmma_kernel<<<dim3(p.blocks, p.splits), K3_THREADS, p.smem, stream>>>(
+  kern<<<dim3(p.blocks, p.splits), K3_THREADS, p.smem, stream>>>(
       xm, wm, part, part_col, R, D, V, p.cps, inv_temp, seed, row_off, col_off, p.stages);
   return cudaGetLastError();
 }

@@ -18,12 +18,16 @@ each (csrc/head_sample.cu).
 
 Each returns (ids int32, prob of the id fp32); the (R, V) logits never
 reach device memory. `w` is the head's nn.Linear weight, (V, D). The
-noise is Philox4x32-10 keyed on (seed, row, vocabulary column);
-`philox_exponential` (ops/philox.py) computes the same draws in plain
-PyTorch, so each kernel and its plain version (`*_ref`) agree on the samples for one
-seed, up to near-ties of the logits.
+noise is Philox4x32-10 keyed on (seed, row, vocabulary column): element
+(row, col) is word col & 3 of the call at counter (col >> 2, row,
+NOISE_TAG, 0), so one call gives the noise of four neighbouring columns
+(K3's noise warps make one call a group; K4's and K5's draws at their
+survivors one call each). `philox_exponential` (ops/philox.py) computes
+the same draws in plain PyTorch, so each kernel and its plain version
+(`*_ref`) agree on the samples for one seed, up to near-ties of the
+logits.
 
-In bf16, K3, K4 and K5 multiply on the tensor cores (mma.sync, fp32
+In bf16, K3, K4 and K5 multiply on the tensor cores (wgmma, fp32
 sums) over S slices of the vocabulary, S picked from the card's SM count
 so that the CTAs fill it; each slice leaves its state in scratch that the
 wrapper allocates and a merge kernel folds the slices in order (one
@@ -249,17 +253,21 @@ def _launch(entry: str, x, w, seed: int, temperature: float, *extra: int):
 
 
 def _launch_parts(k: int, x, w, seed: int, temperature: float, mesh: Mesh | None,
-                  row_offset: int):
+                  row_offset: int, col_offset: int | None = None):
     """The sharded K3 (k = 0) or K4: this rank's slice kernel into a part
     of the scratch, the parts gathered over `model` (rank order, each
     part padded to 256 bytes so that a part's float4 states stay
-    aligned), then the merge kernel over all the parts' slices."""
+    aligned), then the merge kernel over all the parts' slices. w's first
+    column is col_offset of the whole head (default: the rank's, rank x
+    rows); K3 takes its straddling instantiation where that is no
+    multiple of 4."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the sharded head kernels take bf16, not {x.dtype}")
     x, w = _operands(x, w)
     R, V = x.shape[0], w.shape[0]
     n_parts = tp_size(mesh)
-    col_offset = 0 if mesh is None else mesh.index("model") * V
+    if col_offset is None:
+        col_offset = 0 if mesh is None else mesh.index("model") * V
     lib = _build.load("head_sample", _SIGNATURES)
     splits, err = ctypes.c_int(0), ctypes.c_int(0)
     n = lib.mebt_head_part_plan(R, V, k, n_parts, ctypes.byref(splits), ctypes.byref(err))

@@ -2,15 +2,17 @@
 compute (csrc/philox.cuh), so a kernel and its plain version can be fed
 the same random bits and compared element by element.
 
-Both streams use key (seed, 0). The noise stream: a draw keyed on
-(seed, row, column) is the first output word at counter (column, row,
-0, 0) (`philox_bits`); the head samplers (K3, K4) turn it into Exp(1)
-noise at (token row, vocabulary column). The keep stream (K8, the
+Both streams use key (seed, 0), and each uses all four words of a call.
+The noise stream (`philox_bits`): element (row, col) is word col & 3 of
+the call at counter (col >> 2, row, NOISE_TAG, 0), so one call gives the
+draws of four neighbouring vocabulary columns of a row; the head
+samplers (K3, K4, K5) turn a word into Exp(1) noise at (token row,
+vocabulary column). The keep stream (K8, the
 attention kernels K1, K2, K6, K7 with dropout): element (prow, key) is
 word prow & 3 of the call at counter (key, prow >> 2, KEEP_TAG, 0)
 (`philox_keep_at`), so one call decides four consecutive query rows at
-one key; KEEP_TAG = 1 in the third counter word keeps it apart from the
-noise stream. prow is the query row of the unpadded (B, H, NQ) problem,
+one key. The tags in the third counter word (NOISE_TAG = 2, KEEP_TAG = 1)
+keep the two streams apart. prow is the query row of the unpadded (B, H, NQ) problem,
 so the mask depends on no tiling and forward and backward regenerate
 it; on a mesh prow is the row of the whole model's problem
 (`keep_rows`), so no two ranks draw the same mask for different rows or
@@ -25,6 +27,7 @@ _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
 KEEP_TAG = 1  # the keep stream's third counter word (csrc/philox.cuh)
+NOISE_TAG = 2  # the noise stream's third counter word
 
 
 def _mulhilo(a: torch.Tensor, m: int):
@@ -56,11 +59,22 @@ def philox4(c0, c1, c2, c3, k0: int, k1: int = 0):
 
 
 def philox_bits(seed: int, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
-    """The noise stream: Philox4x32-10, key (seed, 0), counter (col, row,
-    0, 0); first output word, as int64 in [0, 2^32). rows (R, 1); cols
-    (1, V), or (R, k) for a row's own columns."""
-    c0 = cols.to(torch.int64).expand(rows.shape[0], cols.shape[1])
-    return philox4(c0, rows.to(torch.int64).expand_as(c0), 0, 0, seed)[0]
+    """The noise stream: element (row, col) is word col & 3 of
+    Philox4x32-10 at counter (col >> 2, row, NOISE_TAG, 0), key (seed, 0),
+    as int64 in [0, 2^32). rows (R, 1); cols (1, V), whose groups are
+    drawn once a row, or (R, k) for a row's own columns, a call each."""
+    rows, cols = rows.to(torch.int64), cols.to(torch.int64)
+    if cols.shape[0] != 1:
+        c = cols.expand(rows.shape[0], cols.shape[1])
+        words = torch.stack(philox4(c >> 2, rows.expand_as(c), NOISE_TAG, 0, seed))
+        return words.gather(0, (c & 3)[None])[0]
+    groups, at = torch.unique(cols[0] >> 2, return_inverse=True)
+    words = philox4(groups[None, :], rows, NOISE_TAG, 0, seed)
+    out = torch.empty(rows.shape[0], cols.shape[1], dtype=torch.int64, device=cols.device)
+    for m, word in enumerate(words):
+        take = (cols[0] & 3) == m
+        out[:, take] = word[:, at[take]]
+    return out
 
 
 def philox_exponential_at(seed: int, cols: torch.Tensor, row_offset: int = 0) -> torch.Tensor:

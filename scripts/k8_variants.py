@@ -120,10 +120,10 @@ DROP_KERNELS = ("smallq_fwd_wgmma_kernel", "largeq_fwd_wgmma_kernel",
                 "smallq_bwd_dq_wgmma_kernel", "largeq_bwd_dq_wgmma_kernel")
 
 
-def ptxas_report(log: str) -> dict:
+def ptxas_report(log: str, kernels=DROP_KERNELS) -> dict:
     """{kernel label: (registers, spill stores, spill loads)} of the
-    DROP_KERNELS' instantiations (with and without dropout) in nvcc's
-    -Xptxas -v output."""
+    instantiations of `kernels` (default the DROP_KERNELS, with and
+    without dropout) in nvcc's -Xptxas -v output."""
     rows, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -139,7 +139,7 @@ def ptxas_report(log: str) -> dict:
     names = subprocess.run([filt, *rows], capture_output=True, text=True,
                            timeout=60).stdout.splitlines() if rows else []
     named = dict(zip(names, rows.values())) if len(names) == len(rows) else rows
-    return {_kernel_label(n): v for n, v in named.items() if any(k in n for k in DROP_KERNELS)}
+    return {_kernel_label(n): v for n, v in named.items() if any(k in n for k in kernels)}
 
 
 def device_ms(fn, n=5) -> dict:

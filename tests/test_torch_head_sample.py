@@ -55,19 +55,21 @@ def test_head_sample_ref_matches_pallas(R, V, temp, vocab_chunk):
 
 
 def _philox_python(seed, row, col):
-    """Philox4x32-10 on Python integers, the kernel's algorithm verbatim."""
+    """The noise word of (row, col) on Python integers, the kernel's
+    algorithm verbatim: word col & 3 of Philox4x32-10 at counter (col >> 2,
+    row, NOISE_TAG = 2, 0), key (seed, 0)."""
     m32 = 0xFFFFFFFF
-    c = [col, row, 0, 0]
+    c = [col >> 2, row, 2, 0]
     k0, k1 = seed, 0
     for _ in range(10):
         p0 = 0xD2511F53 * c[0]
         p1 = 0xCD9E8D57 * c[2]
         c = [(p1 >> 32) ^ c[1] ^ k0, p1 & m32, (p0 >> 32) ^ c[3] ^ k1, p0 & m32]
         k0, k1 = (k0 + 0x9E3779B9) & m32, (k1 + 0xBB67AE85) & m32
-    return c[0]
+    return c[col & 3]
 
 
-def test_philox_matches_integer_reference():
+def test_philox_noise_word_at_col_div_4_matches_integer_reference():
     seed = 0xDEADBEEF
     rows = torch.tensor([[0], [1], [4095], [65535]])
     cols = torch.tensor([[0, 1, 7, 16383, 123456]])

@@ -340,6 +340,23 @@ def test_offsets_draw_the_whole_batchs_noise():
                        whole[48:].gather(1, cols))
 
 
+@pytest.mark.parametrize("col_offset", [1, 2, 203])
+def test_offsets_off_a_group_draw_the_whole_batchs_noise(col_offset):
+    """A block whose first column starts inside a group of four (col_offset
+    % 4 != 0, where the straddling K3 takes words of two calls) draws the
+    noise of those columns of the whole vocabulary, and so does a plain
+    K3 slice state there: its merge gives the whole head's columns."""
+    whole = philox_exponential(7, 50, 300, "cpu")
+    assert torch.equal(philox_exponential(7, 20, 97, "cpu", row_offset=30, col_offset=col_offset),
+                       whole[30:, col_offset:col_offset + 97])
+    x, w = _inputs(col_offset, 6, 300, 16)
+    states = k3_slice_states(x, w[col_offset:], 1.0, 3, seed=7, row_offset=9,
+                             col_offset=col_offset)
+    rids, rprobs = head_sample_ref(x, w[col_offset:], 1.0, seed=7, row_offset=9,
+                                   col_offset=col_offset)
+    _assert_same(*k3_merge(states), rids, rprobs)
+
+
 @pytest.mark.parametrize("n,S", [(2, 1), (2, 16), (4, 8), (8, 4)])  # n S up to the cap, 32
 @pytest.mark.parametrize("k", [1, 32, 200])
 @pytest.mark.parametrize("temperature", [1.0, 0.0])

@@ -256,12 +256,12 @@ def test_head_sample_slices_match_plain(dev, R):
 # The bf16 K3's wgmma tile (two 64-row product warpgroups and a noise
 # warpgroup a CTA) at its edges: rows around the CTA's 128 (1, 127, 129,
 # 1000), a vocabulary narrower
-# than a chunk (24) and no multiple of it (16100), the head width no
-# multiple of the 64-deep stage (96); ids but at near-ties, the chosen
-# probability under the logits' softmax, one launch a call, two calls
-# bit-equal.
+# than a chunk (24) and no multiple of it (16100; 16101, whose last noise
+# group is partial), the head width no multiple of the 64-deep stage
+# (96); ids but at near-ties, the chosen probability under the logits'
+# softmax, one launch a call, two calls bit-equal.
 @pytest.mark.parametrize("R", [1, 127, 129, 1000])
-@pytest.mark.parametrize("V,D", [(24, 1024), (16100, 1024), (1000, 96)])
+@pytest.mark.parametrize("V,D", [(24, 1024), (16100, 1024), (1000, 96), (16101, 1024)])
 def test_head_sample_wgmma_tile_edges_match_plain(dev, R, V, D):
     gen = torch.Generator(dev).manual_seed(R * 3 + V + D)
     x, w = _head_case(gen, dev, R, V, D=D)
@@ -279,6 +279,33 @@ def test_head_sample_wgmma_tile_edges_match_plain(dev, R, V, D):
         else:
             assert _greedy_gap(logits, ids) <= 1e-4
         again = head_sample(x, w, 5, temp)
+        assert torch.equal(again[0], ids) and torch.equal(again[1], probs)
+
+
+@pytest.mark.parametrize("R", [1, 127, 129, 1000])
+@pytest.mark.parametrize("V", [24, 16100, 16101])
+def test_head_sample_part_at_a_column_offset_off_a_group_matches_plain(dev, R, V):
+    """The sharded K3 with one part whose W starts at column 2 of the whole
+    head (the straddling instantiation: a thread pair's four columns take
+    words of two noise groups): the plain version's ids at that offset but
+    at near-ties, the chosen probability, two calls bit-equal."""
+    from mebt_tpu_torch.ops.head_sample import _launch_parts
+
+    gen = torch.Generator(dev).manual_seed(R + V)
+    x, w = _head_case(gen, dev, R, V)
+    logits = x.float() @ w.float().t()
+    for temp in (1.0, 0.0):
+        ids, probs = _launch_parts(0, x, w, 5, temp, None, 0, col_offset=2)
+        rids, _ = head_sample_ref(x, w, temp, seed=5, col_offset=2)
+        assert bool(((ids >= 2) & (ids < V + 2)).all())
+        assert (ids != rids).sum().item() <= 1  # a near-tie may flip
+        local = ids.long() - 2
+        if temp == 1.0:
+            p = torch.softmax(logits, -1).gather(1, local[:, None])[:, 0]
+            torch.testing.assert_close(probs, p, rtol=1e-3, atol=0.0)
+        else:
+            assert _greedy_gap(logits, local) <= 1e-4
+        again = _launch_parts(0, x, w, 5, temp, None, 0, col_offset=2)
         assert torch.equal(again[0], ids) and torch.equal(again[1], probs)
 
 

@@ -1,8 +1,9 @@
 """The Philox streams of the port (mebt_tpu_torch/ops/philox.py, the plain
 versions of csrc/philox.cuh), on the CPU: Philox4x32-10's known answers,
-the noise stream of K3 / K4 (the first word at counter (col, row, 0, 0),
-unchanged), the keep stream of K8 (word prow & 3 of the call at counter
-(key, prow >> 2, KEEP_TAG, 0)), its statistics, and an emulation of the
+the noise stream of K3 / K4 / K5 (word col & 3 of the call at counter
+(col >> 2, row, NOISE_TAG, 0)), the keep stream of K8 (word prow & 3 of
+the call at counter (key, prow >> 2, KEEP_TAG, 0)), their statistics, and
+an emulation of the
 wgmma kernels' warp-cooperative draw (csrc/attention.cu:keep_bits_stage:
 four lanes share each call, a byte transpose by two shuffles) against the
 plain mask bit for bit. Inputs from numpy seeds.
@@ -14,11 +15,13 @@ import torch
 
 from mebt_tpu_torch.ops.philox import (
     KEEP_TAG,
+    NOISE_TAG,
     drop_threshold,
     keep_rows,
     philox4,
     philox_bits,
     philox_keep,
+    philox_exponential,
     philox_keep_at,
 )
 
@@ -48,18 +51,73 @@ def _philox_int(c, k0, k1=0):
     return c
 
 
-def test_noise_stream_is_the_first_word_at_col_row_0_0():
-    """philox_bits (K3's and K4's noise) is word 0 of philox4 at counter
-    (col, row, 0, 0), the integer reference's first word."""
+def test_noise_stream_is_word_col_and_3_at_col_div_4_row_noise_tag_0():
+    """philox_bits (the noise of K3, K4 and K5) is word col & 3 of
+    philox4 at counter (col >> 2, row, NOISE_TAG, 0), the integer
+    reference's word, for a row's shared columns and a row's own."""
     seed = 0x9E3779B9
     rng = np.random.default_rng(0)
     rows = torch.from_numpy(rng.integers(0, 2**32, (6, 1)))
     cols = torch.from_numpy(rng.integers(0, 2**32, (1, 5)))
     got = philox_bits(seed, rows, cols)
-    assert torch.equal(got, philox4(cols, rows, 0, 0, seed)[0])
+    words = torch.stack(philox4(cols >> 2, rows, NOISE_TAG, 0, seed))
+    assert torch.equal(got, words.gather(0, (cols & 3).expand(6, 5)[None])[0])
+    own = torch.from_numpy(rng.integers(0, 2**32, (6, 3)))
+    got_own = philox_bits(seed, rows, own)
     for i, r in enumerate(rows[:, 0].tolist()):
         for j, c in enumerate(cols[0].tolist()):
-            assert int(got[i, j]) == _philox_int([c, r, 0, 0], seed)[0]
+            assert int(got[i, j]) == _philox_int([c >> 2, r, NOISE_TAG, 0], seed)[c & 3]
+        for j, c in enumerate(own[i].tolist()):
+            assert int(got_own[i, j]) == _philox_int([c >> 2, r, NOISE_TAG, 0], seed)[c & 3]
+
+
+def test_four_columns_share_a_call():
+    """Columns 4i .. 4i + 3 of one row take words 0 .. 3 of the call at
+    (i, row, NOISE_TAG, 0), wherever the columns start (a rank's block
+    of the vocabulary at an offset that is no multiple of 4)."""
+    seed = 4321
+    rng = np.random.default_rng(1)
+    rows = torch.from_numpy(rng.integers(0, 2**32, (3, 1)))
+    for first in (0, 2, 4 * int(rng.integers(1, 2**29)) + 3):
+        cols = torch.arange(first, first + 12)[None, :]
+        got = philox_bits(seed, rows, cols)
+        for i, r in enumerate(rows[:, 0].tolist()):
+            for j, c in enumerate(cols[0].tolist()):
+                assert int(got[i, j]) == _philox_int([c >> 2, r, NOISE_TAG, 0], seed)[c & 3]
+    grp = philox_bits(seed, rows, torch.arange(40, 44)[None, :])
+    assert torch.equal(grp, torch.stack(philox4(10, rows[:, 0], NOISE_TAG, 0, seed), dim=1))
+
+
+def test_noise_and_keep_streams_stay_apart():
+    """On a 64 x 64 block the noise stream's words are not the keep
+    stream's (both key (seed, 0); the tags differ), nor are its keep
+    decisions at either rate."""
+    seed = 77
+    rows, cols = torch.arange(64)[:, None], torch.arange(64)[None, :]
+    noise = philox_bits(seed, rows, cols)
+    keep_words = torch.stack(philox4(cols, rows >> 2, KEEP_TAG, 0, seed)).gather(
+        0, (rows & 3).expand(64, 64)[None])[0]
+    assert int((noise == keep_words).sum()) == 0
+    for rate in (0.1, 0.5):
+        assert not torch.equal(philox_keep_at(seed, rows, cols, rate),
+                               noise >= drop_threshold(rate))
+
+
+def test_noise_word_statistics():
+    """philox_exponential's draws of each word m = col & 3 have mean and
+    variance within 4 sigma of 1 (Exp(1)), and the draws of columns 4i
+    and 4i + 1 (words 0 and 1 of one call) have a correlation within 4
+    sigma of 0."""
+    q = philox_exponential(13, 256, 1024, "cpu", row_offset=5).double().reshape(256, 256, 4)
+    n = q[..., 0].numel()
+    for m in range(4):
+        w = q[..., m]
+        assert abs(w.mean().item() - 1.0) < 4 / n**0.5
+        # Var of the sample variance of Exp(1): (mu4 - sigma^4) / n = 8 / n
+        assert abs(w.var().item() - 1.0) < 4 * (8 / n) ** 0.5
+    a, b = q[..., 0].flatten(), q[..., 1].flatten()
+    corr = torch.corrcoef(torch.stack([a, b]))[0, 1].item()
+    assert abs(corr) < 4 / n**0.5
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.5])

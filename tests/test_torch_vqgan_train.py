@@ -18,21 +18,30 @@ layers, video (2, 4, 16, 16, 3)).
   rule and the codebook buffers within 1e-5 (1 + |value|) on the rows
   whose codes agree.
 
-LPIPS max-pools its VGG features over 2x2 windows, and which input of a
-window wins is a kink: where a window's two largest inputs lie within
-rounding of each other, the port's reconstruction (which rounds its
-convolutions differently from XLA's) may pick the other one, which moves
-the gradient reaching the reconstruction by far more than rounding (one
-such window at relu1_2, 5e-6 apart at values near 15, moved the generator's
+LPIPS's ReLUs and max-pools are kinks: where a ReLU's input lies within
+rounding of 0, or a 2x2 window's two largest inputs lie within rounding
+of each other, the port's reconstruction (which rounds its convolutions
+differently from XLA's) may take the other branch, which moves the
+gradient reaching the reconstruction by far more than rounding (one such
+window at relu1_2, 5e-6 apart at values near 15, moved the generator's
 gradients to 10x their tolerance on some CPUs). The port's step replays
-JAX's picks, computed by the JAX package's LPIPS on JAX's reconstruction,
-and a pick may differ from the port's own only within 1e-4 of the pool
-input's largest value (the near-tie rule of chip_smoke.KinkReplay).
+the branches of the JAX step itself: the compiled step sends its LPIPS's
+convolution outputs to the host (jax.debug.callback, through flax's
+method interception; the step's state stays bit-equal to the plain
+step's), and each ReLU of the port's LPIPS keeps its input where JAX's
+was > 0, each max-pool takes JAX's pick. They come from the compiled step
+and not from the JAX package run op by op: the two round the
+reconstruction differently (6.7e-6 apart on an AVX-512 CPU), enough to
+move a window whose top two inputs lie 3.6e-6 apart near 0.53. A branch
+may differ from the port's own only within 1e-4 of that input's largest
+|x| (the near-tie rule of chip_smoke.KinkReplay).
 """
 
 import contextlib
 import copy
+import functools
 
+import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,7 +52,7 @@ import torch.nn.functional as F
 from _torch_port import seeded_lpips_weights
 from mebt_tpu.models import vqgan as jvq
 from mebt_tpu.models.lpips import LPIPS as JaxLPIPS
-from mebt_tpu.models.lpips import VGG_SLICES
+from mebt_tpu.models.lpips import VGG_SLICES, VGG16Features
 from mebt_tpu.models.lpips import import_lpips_params as jax_import_lpips
 from mebt_tpu.train.vqgan_train import VQGANTrainer as JaxVQGANTrainer
 from mebt_tpu_torch.models.lpips import LPIPS, import_lpips_params
@@ -158,53 +167,101 @@ def test_codebook_draws_from_a_generator():
 KINK_BAND = 1e-4  # chip_smoke.KinkReplay's band
 
 
-def _jax_pool_picks(lp_params, frames, frames_recon):
-    """The input each 2x2 window of the JAX LPIPS's four max-pools
-    takes, for its two passes (frames, then the reconstruction's), as
-    F.max_pool2d's indices: (B, C, H / 2, W / 2) of h W + w into the
-    pool input's (H, W) plane. The first of tied inputs, as both take it."""
-    _, inter = JaxLPIPS().apply({"params": lp_params}, frames, frames_recon,
-                               capture_intermediates=True, mutable=["intermediates"])
-    convs = inter["intermediates"]["vgg"]
-    picks = []
+def _jax_step_with_lpips_convs(jt, state, video):
+    """The compiled JAX step on `video`, with its LPIPS's convolution
+    outputs sent to the host: (new state, metrics, {(conv name, pass):
+    (B, H, W, C) array}), pass 0 the frames', 1 the reconstruction's."""
+    convs, calls = {}, {}
+
+    def keep(key, x):
+        convs[key] = np.asarray(x)
+
+    def send(next_fun, args, kwargs, context):
+        out = next_fun(*args, **kwargs)
+        if (isinstance(context.module, nn.Conv) and context.method_name == "__call__"
+                and isinstance(context.module.parent, VGG16Features)):
+            name = context.module.name
+            calls[name] = calls.get(name, 0) + 1  # a pass a call, while tracing
+            jax.debug.callback(functools.partial(keep, (name, calls[name] - 1)), out)
+        return out
+
+    with nn.intercept_methods(send):
+        new_state, metrics = jax.jit(jt.make_step())(state, jnp.asarray(video))
+    jax.effects_barrier()
+    return new_state, metrics, convs
+
+
+def _jax_kinks(convs):
+    """The branches of the JAX step's LPIPS kinks for its two passes, in
+    the order the port's LPIPS reaches them: each of its 13 ReLUs a pass,
+    whether its input (the conv's output) is > 0, (B, C, H, W) bool; each
+    of its four max-pools a pass, the input each 2x2 window takes, as
+    F.max_pool2d's indices: (B, C, H / 2, W / 2) of h W + w into the pool
+    input's (H, W) plane, the first of tied inputs, as both take it."""
+    relus, picks = [], []
     for pass_ in range(2):
+        for convs_of_slice in VGG_SLICES:
+            for idx in convs_of_slice:
+                relus.append(torch.from_numpy(convs[f"conv{idx}", pass_].transpose(0, 3, 1, 2) > 0))
         for convs_of_slice in VGG_SLICES[:-1]:  # each pool's input: relu(the slice's last conv)
-            a = np.maximum(np.asarray(convs[f"conv{convs_of_slice[-1]}"]["__call__"][pass_]), 0)
+            a = np.maximum(convs[f"conv{convs_of_slice[-1]}", pass_], 0)
             B, H, W, C = a.shape
             win = a.reshape(B, H // 2, 2, W // 2, 2, C).transpose(0, 5, 1, 3, 2, 4)
             k = win.reshape(B, C, H // 2, W // 2, 4).argmax(-1)
             rows = 2 * np.arange(H // 2)[:, None] + k // 2
             cols = 2 * np.arange(W // 2)[None, :] + k % 2
             picks.append(torch.from_numpy(rows * W + cols))
-    return picks
+    return relus, picks
+
+
+def _flip(report, n, gap, x):
+    """Count n flipped branches, the largest `gap` from the kink over
+    KINK_BAND times the input's largest |x|."""
+    report["calls"] += 1
+    if n:
+        report["flips"] += n
+        report["over"] = max(report["over"], gap / (KINK_BAND * x.detach().abs().max().item()))
 
 
 @contextlib.contextmanager
-def _replay_pool_picks(picks, report):
-    """F.max_pool2d takes the given picks, call by call; `report` gets
-    the number of windows whose pick differs from the port's own and
-    their largest gap (the port's max less the value picked) over
-    KINK_BAND times that pool input's largest |x|."""
-    real, calls = F.max_pool2d, iter(picks)
-    report.update(calls=0, flips=0, over=0.0)
+def _replay_kinks(lpips, relus, picks, report):
+    """The LPIPS's kinks take JAX's branches, call by call: each of its
+    ReLU modules (forward hooks that return where(JAX's input > 0, input,
+    0)) and F.max_pool2d (which only the LPIPS calls in the step).
+    `report["relu"]` and `report["pool"]` get the number of calls, the
+    number of branches that differ from the port's own and their largest
+    distance from the kink (a ReLU's |input|; a pool's max less the value
+    picked) over KINK_BAND times that input's largest |x|."""
+    real, relu_calls, pool_calls = F.max_pool2d, iter(relus), iter(picks)
+    for kind in ("relu", "pool"):
+        report[kind] = dict(calls=0, flips=0, over=0.0)
+
+    def relu(module, args, out):
+        (x,) = args
+        keep = next(relu_calls)
+        differ = keep != (x > 0)
+        gap = x.detach().abs()[differ].max().item() if bool(differ.any()) else 0.0
+        _flip(report["relu"], int(differ.sum()), gap, x)
+        return torch.where(keep, x, torch.zeros((), dtype=x.dtype))
 
     def pool(x, *args, return_indices=False, **kwargs):
         out, idx = real(x, *args, return_indices=True, **kwargs)
-        pick = next(calls)
+        pick = next(pool_calls)
         picked = x.flatten(2).gather(2, pick.flatten(2)).view_as(out)
         differ = idx != pick
-        report["calls"] += 1
-        if bool(differ.any()):
-            gap = (out - picked).detach()[differ].max().item()
-            report["flips"] += int(differ.sum())
-            report["over"] = max(report["over"], gap / (KINK_BAND * x.detach().abs().max().item()))
+        gap = (out - picked).detach()[differ].max().item() if bool(differ.any()) else 0.0
+        _flip(report["pool"], int(differ.sum()), gap, x)
         return (picked, pick) if return_indices else picked
 
+    hooks = [m.register_forward_hook(relu) for m in lpips.modules()
+             if isinstance(m, torch.nn.ReLU)]
     F.max_pool2d = pool
     try:
         yield report
     finally:
         F.max_pool2d = real
+        for h in hooks:
+            h.remove()
 
 
 def _disc_sd(jax_tree):
@@ -224,7 +281,11 @@ def step_pair():
                          lpips_bundle=(JaxLPIPS(), jax_import_lpips(vgg, lin)), seed=0)
     video = np.random.default_rng(1).uniform(-0.5, 0.5, size=VIDEO_SHAPE).astype(np.float32)
     s0 = jax.jit(jt.init_state)(video)
-    s1, jm = jax.jit(jt.make_step())(s0, jnp.asarray(video))
+    s1, jm, convs = _jax_step_with_lpips_convs(jt, s0, video)
+    s1_plain, _ = jax.jit(jt.make_step())(s0, jnp.asarray(video))
+    parts = lambda s: (s.gen_params, s.codebook, s.disc_params, s.gen_opt, s.disc_opt)  # noqa: E731
+    bit_equal = all(bool(np.array_equal(np.asarray(a), np.asarray(b)))
+                    for a, b in zip(jax.tree.leaves(parts(s1)), jax.tree.leaves(parts(s1_plain))))
 
     # the draws of the JAX step's key chain (vqgan_train.py step_fn)
     r_frame, r_restart, r_init = jax.random.split(jax.random.fold_in(s0.rng, 0), 3)
@@ -248,21 +309,15 @@ def step_pair():
     # after the data init
     jz = jt.core.apply({"params": s0.gen_params}, jnp.asarray(video),
                        method=jvq.VQGANCore.encode_latent)
-    jcodes, emb_st, _ = jvq.codebook_quantize(
+    jcodes, _, _ = jvq.codebook_quantize(
         jvq.codebook_init_from_data(s0.codebook, jz, r_init), jz)
-    # JAX's reconstruction of the step's frames, and its LPIPS's pool picks
-    jrecon = jt.core.apply({"params": s0.gen_params}, emb_st,
-                           method=jvq.VQGANCore.decode_latent)
-    rows = np.arange(VIDEO_SHAPE[0])
-    frame_idx = draws["frame_idx"].numpy()
-    picks = _jax_pool_picks(jax_import_lpips(vgg, lin), video[rows, frame_idx],
-                            np.asarray(jrecon)[rows, frame_idx])
+    relus, picks = _jax_kinks(convs)
     with torch.no_grad():
         pz = st.vqgan.encode_latent(torch.from_numpy(video)).reshape(-1, 8)
         cb = copy.deepcopy(st.vqgan.codebook)
         codebook_init_from_data(cb, pz, perm=draws["init_perm"])
         pcodes = nearest_code(pz, cb.embeddings)
-    with _replay_pool_picks(picks, {}) as kinks:
+    with _replay_kinks(lpips, relus, picks, {}) as kinks:
         pm = pt.step(torch.from_numpy(video), draws=draws)
 
     mu_g, mu_d = s1.gen_opt[0].mu, s1.disc_opt[0].mu  # (1 - b1) g on Adam's first step
@@ -270,7 +325,8 @@ def step_pair():
                  image=_disc_sd(jax.tree.map(lambda m: m / 0.5, mu_d["image"])),
                  video=_disc_sd(jax.tree.map(lambda m: m / 0.5, mu_d["video"])))
     return dict(s1=s1, jm=jm, pt=pt, pm=pm, grads=grads, pz=pz, embeddings=cb.embeddings,
-                pcodes=pcodes, jcodes=_t(jcodes).reshape(-1), kinks=kinks)
+                pcodes=pcodes, jcodes=_t(jcodes).reshape(-1), kinks=kinks,
+                bit_equal=bit_equal)
 
 
 def _port_modules(pt):
@@ -278,13 +334,18 @@ def _port_modules(pt):
     return dict(gen=st.vqgan, image=st.disc_img, video=st.disc_vid)
 
 
-def test_step_replays_jax_pool_picks_within_rounding(step_pair):
-    """The port's LPIPS took JAX's pick in every window of its eight
-    max-pools (two passes of four), and where that differs from its own
-    pick the two inputs lie within rounding of each other."""
+def test_step_replays_jax_kinks_within_rounding(step_pair):
+    """The port's LPIPS took the JAX step's branch at every kink of its two
+    passes: each of its 26 ReLU calls (13 a pass) and each window of its
+    eight max-pools (four a pass); where that differs from its own branch
+    the input lies within rounding of the kink. The step that sent its
+    branches is the plain step: its optimizer state is bit-equal."""
     kinks = step_pair["kinks"]
-    assert kinks["calls"] == 8
-    assert kinks["over"] <= 1.0, kinks
+    assert step_pair["bit_equal"]
+    assert kinks["relu"]["calls"] == 2 * sum(map(len, VGG_SLICES)) == 26
+    assert kinks["pool"]["calls"] == 2 * (len(VGG_SLICES) - 1) == 8
+    for kind in ("relu", "pool"):
+        assert kinks[kind]["over"] <= 1.0, kinks
 
 
 def test_step_metrics_match_jax(step_pair):
