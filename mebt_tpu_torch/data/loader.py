@@ -2,7 +2,9 @@
 port's own copy of mebt_tpu/data/loader.py).
 
 Decode happens on host threads (PIL/h5py release the GIL), batches are
-collated into numpy arrays, and each data rank of a torch.distributed run
+collated into numpy arrays on the iterating thread (a profile names the
+wait on the workers `mebt::loader_wait` and the collation
+`mebt::collate`), and each data rank of a torch.distributed run
 sees a disjoint shard of every epoch, as DistributedSampler(num_replicas,
 rank) gives it: the ranks of one data index (tensor, sequence or
 pipeline parallel ranks, which hold the same rows) see the same shard.
@@ -15,6 +17,8 @@ import concurrent.futures as cf
 from typing import Any, Iterator, Mapping
 
 import numpy as np
+
+from mebt_tpu_torch.utils.trace import span
 
 
 def default_collate(items: list[Mapping[str, Any]]) -> dict[str, np.ndarray]:
@@ -118,8 +122,11 @@ class DataLoader:
             next_submit = ahead
             while pending:
                 futs = pending.popleft()
-                items = [f.result() for f in futs]
+                with span("mebt::loader_wait"):
+                    items = [f.result() for f in futs]
                 if next_submit < len(batches):
                     submit(batches[next_submit])
                     next_submit += 1
-                yield default_collate(items)
+                with span("mebt::collate"):
+                    batch = default_collate(items)
+                yield batch

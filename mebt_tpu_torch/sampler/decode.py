@@ -37,6 +37,11 @@ kernels' per-step seeds come from a host generator and the other noise
 from a device generator. Padding slots of a compact index hold N:
 gathers clip them, scatters drop them.
 
+A profile (utils/trace.py) names each pass `mebt::decode.<strategy>`,
+each live step of the MaskGIT, random and bootstrap scans `mebt::step`,
+the host's buckets and segments `mebt::plan` and each read of the
+device's counts `mebt::fetch`.
+
 On a mesh (a model from models/mebt.py:on_mesh; the JAX package's
 sharded decode, tests/test_multichip.py): each data rank decodes its
 rows of the batch, and the ranks of a tensor-parallel group, which hold
@@ -73,6 +78,7 @@ from mebt_tpu_torch.sampler.mask_schedule import (
     plan_segments_joint,
     segment_counts,
 )
+from mebt_tpu_torch.utils.trace import span
 
 
 def _ctx_weight(cfg) -> float:
@@ -187,28 +193,29 @@ def _maskgit_scan(model, state: DecodeState, plan: DecodePlan, *,
         if not plan.do_step[i]:
             _record(history, state)
             continue
-        tgt_mask = ~state.ctx_mask if valid_mask is None else valid_mask & ~state.ctx_mask
-        logits = model(state.codes, state.ctx_mask, tgt_mask)
-        sampled, chosen_p, probs = sample_tokens(
-            logits, temperature, top_k, top_p,
-            need_probs=score_mode == "entropy",
-            noise=None if sample_noise is None else sample_noise[i],
-            generator=rng.draws,
-        )
-        scores, ctemp = _scores(score_mode, chosen_p, probs, tgt_mask,
-                                context_temperature, plan.ctemp_scale[i])
-        promote = promote_targets(
-            scores, tgt_mask, int(plan.n_new[i]), ctemp,
-            random_scores=random_scores,
-            noise=None if promote_noise is None else promote_noise[i],
-            generator=rng.draws,
-        )
-        state = DecodeState(
-            codes=torch.where(tgt_mask, sampled.long(), state.codes),
-            ctx_mask=state.ctx_mask | promote,
-            chosen_prob=torch.where(tgt_mask, chosen_p, state.chosen_prob),
-        )
-        _record(history, state)
+        with span("mebt::step"):
+            tgt_mask = ~state.ctx_mask if valid_mask is None else valid_mask & ~state.ctx_mask
+            logits = model(state.codes, state.ctx_mask, tgt_mask)
+            sampled, chosen_p, probs = sample_tokens(
+                logits, temperature, top_k, top_p,
+                need_probs=score_mode == "entropy",
+                noise=None if sample_noise is None else sample_noise[i],
+                generator=rng.draws,
+            )
+            scores, ctemp = _scores(score_mode, chosen_p, probs, tgt_mask,
+                                    context_temperature, plan.ctemp_scale[i])
+            promote = promote_targets(
+                scores, tgt_mask, int(plan.n_new[i]), ctemp,
+                random_scores=random_scores,
+                noise=None if promote_noise is None else promote_noise[i],
+                generator=rng.draws,
+            )
+            state = DecodeState(
+                codes=torch.where(tgt_mask, sampled.long(), state.codes),
+                ctx_mask=state.ctx_mask | promote,
+                chosen_prob=torch.where(tgt_mask, chosen_p, state.chosen_prob),
+            )
+            _record(history, state)
     return state
 
 
@@ -271,32 +278,34 @@ def _staged_confidence_scan(model, state: DecodeState, plan: DecodePlan,
         if not plan.do_step[i]:
             _record(history, state)
             continue
-        idx = compact_indices(~state.ctx_mask, bucket)
-        cvalid = (slots < int(n_tgt[i])).expand(B, bucket)
-        latents = _stage_a_latents(model, state, ctx_bucket)
-        sampled, chosen_p, probs = _sample_compact_bucket(
-            model, latents, idx, cvalid, temperature, top_k, top_p, rng,
-            score_mode,
-        )
-        scores, ctemp = _scores(score_mode, chosen_p, probs, cvalid,
-                                context_temperature, plan.ctemp_scale[i])
-        promote_c = promote_targets(
-            scores, cvalid, int(plan.n_new[i]), ctemp, generator=rng.draws,
-        )
-        state = DecodeState(
-            codes=_scatter_drop(state.codes, idx, sampled),
-            ctx_mask=state.ctx_mask
-            | _scatter_drop(torch.zeros_like(state.ctx_mask), idx, promote_c),
-            chosen_prob=_scatter_drop(state.chosen_prob, idx, chosen_p),
-        )
-        _record(history, state)
+        with span("mebt::step"):
+            idx = compact_indices(~state.ctx_mask, bucket)
+            cvalid = (slots < int(n_tgt[i])).expand(B, bucket)
+            latents = _stage_a_latents(model, state, ctx_bucket)
+            sampled, chosen_p, probs = _sample_compact_bucket(
+                model, latents, idx, cvalid, temperature, top_k, top_p, rng,
+                score_mode,
+            )
+            scores, ctemp = _scores(score_mode, chosen_p, probs, cvalid,
+                                    context_temperature, plan.ctemp_scale[i])
+            promote_c = promote_targets(
+                scores, cvalid, int(plan.n_new[i]), ctemp, generator=rng.draws,
+            )
+            state = DecodeState(
+                codes=_scatter_drop(state.codes, idx, sampled),
+                ctx_mask=state.ctx_mask
+                | _scatter_drop(torch.zeros_like(state.ctx_mask), idx, promote_c),
+                chosen_prob=_scatter_drop(state.chosen_prob, idx, chosen_p),
+            )
+            _record(history, state)
     return state
 
 
 def _batch_values(x: torch.Tensor, mesh) -> np.ndarray:
     """x (rows,) of this rank as numpy over the whole batch: gathered over
     `data` on a mesh, so the host's decisions are the single-rank decode's."""
-    return (x if mesh is None else all_gather(x, mesh, "data")).cpu().numpy()
+    with span("mebt::fetch"):
+        return (x if mesh is None else all_gather(x, mesh, "data")).cpu().numpy()
 
 
 def _rows_of(mesh, B: int) -> slice:
@@ -346,21 +355,22 @@ def _staged_random_scan(model, state: DecodeState, plan: DecodePlan, *,
         if not plan.do_step[i]:
             _record(history, state)
             continue
-        off, n_new = int(offsets[i]), int(plan.n_new[i])
-        promote = tgt0 & (perm_rank >= off) & (perm_rank < off + n_new)
-        idx = compact_indices(promote, bucket)
-        cvalid = (slots < n_new).expand(B, bucket)
-        latents = _stage_a_latents(model, state, ctx_bucket)
-        logits = model.stage_b_compact(latents, idx, cvalid)
-        sampled, chosen_p, _ = sample_tokens(
-            logits, temperature, top_k, top_p, generator=rng.draws
-        )
-        state = DecodeState(
-            codes=_scatter_drop(state.codes, idx, sampled),
-            ctx_mask=state.ctx_mask | promote,
-            chosen_prob=_scatter_drop(state.chosen_prob, idx, chosen_p),
-        )
-        _record(history, state)
+        with span("mebt::step"):
+            off, n_new = int(offsets[i]), int(plan.n_new[i])
+            promote = tgt0 & (perm_rank >= off) & (perm_rank < off + n_new)
+            idx = compact_indices(promote, bucket)
+            cvalid = (slots < n_new).expand(B, bucket)
+            latents = _stage_a_latents(model, state, ctx_bucket)
+            logits = model.stage_b_compact(latents, idx, cvalid)
+            sampled, chosen_p, _ = sample_tokens(
+                logits, temperature, top_k, top_p, generator=rng.draws
+            )
+            state = DecodeState(
+                codes=_scatter_drop(state.codes, idx, sampled),
+                ctx_mask=state.ctx_mask | promote,
+                chosen_prob=_scatter_drop(state.chosen_prob, idx, chosen_p),
+            )
+            _record(history, state)
     return state
 
 
@@ -374,14 +384,16 @@ def _staged_sample(model, state: DecodeState, plan: DecodePlan, *,
     package's scans give them."""
     N = state.codes.shape[1]
     if random_scores:
-        bucket, ctx_bucket = random_path_buckets(plan, N, n_ctx0)
+        with span("mebt::plan"):
+            bucket, ctx_bucket = random_path_buckets(plan, N, n_ctx0)
         return _staged_random_scan(
             model, state, plan, bucket=bucket, ctx_bucket=ctx_bucket,
             temperature=temperature, top_k=top_k, top_p=top_p, rng=rng,
             perm_noise=perm_noise, history=history,
         )
-    n_tgt = plan.n_targets_before(N)
-    segments = plan_segments_joint(plan, N, ctx_weight=_ctx_weight(model.config))
+    with span("mebt::plan"):
+        n_tgt = plan.n_targets_before(N)
+        segments = plan_segments_joint(plan, N, ctx_weight=_ctx_weight(model.config))
     for start, stop, bucket, ctx_bucket in segments:
         state = _staged_confidence_scan(
             model, state, plan, n_tgt, start, stop,
@@ -444,63 +456,64 @@ def maskgit_sample(
     del approx_top_k  # the exact top-k on both paths: nothing to pass on
     if strategy not in ("maskgit", "random", "bootstrap", "entp", "ar"):
         raise ValueError(f"unknown decoding strategy {strategy!r}")
-    device = next(model.parameters()).device
-    N = model.config.seq_len
-    rows = _rows_of(model.mesh, B)
-    state = DecodeState.create(rows.stop - rows.start, N, device, codes, ctx_mask, chosen_prob)
-    rng = _Rng(seed, device, rows, B)
-    random_scores = strategy in ("random", "bootstrap")
-    score_mode = {"entp": "entropy", "ar": "position"}.get(strategy, "prob")
-    with_noise = sample_noise is not None or promote_noise is not None
-    use_staged = (
-        staged in (True, "auto") and transformer_split(model.config) is not None
-        and valid_mask is None and strategy != "ar" and not with_noise
-    )
-    if staged is True and not use_staged:
-        raise ValueError(
-            "staged=True requires a stageable mode list, no valid_mask, "
-            "and a non-'ar' strategy"
+    with span(f"mebt::decode.{strategy}"):
+        device = next(model.parameters()).device
+        N = model.config.seq_len
+        rows = _rows_of(model.mesh, B)
+        state = DecodeState.create(rows.stop - rows.start, N, device, codes, ctx_mask, chosen_prob)
+        rng = _Rng(seed, device, rows, B)
+        random_scores = strategy in ("random", "bootstrap")
+        score_mode = {"entp": "entropy", "ar": "position"}.get(strategy, "prob")
+        with_noise = sample_noise is not None or promote_noise is not None
+        use_staged = (
+            staged in (True, "auto") and transformer_split(model.config) is not None
+            and valid_mask is None and strategy != "ar" and not with_noise
         )
-    if perm_noise is not None and not (use_staged and random_scores):
-        raise ValueError(
-            "perm_noise belongs to the staged random/bootstrap decode only"
-        )
-    history = [] if return_history else None
-    if use_staged:
-        # the given context's per-row counts: one host fetch, before any step
-        n_ctx = (
-            np.zeros(1, np.int64) if ctx_mask is None
-            else np.unique(_batch_values(state.ctx_mask.sum(dim=-1), model.mesh))
-        )
-        # the confidence scan takes its target counts from the plan
-        if not random_scores and not np.all(n_ctx == plan.n_ctx_init):
+        if staged is True and not use_staged:
             raise ValueError(
-                f"ctx_mask context counts {n_ctx} != plan.n_ctx_init "
-                f"{plan.n_ctx_init}; build the plan with matching "
-                "n_ctx_init (and pass the ctx_mask) or pass staged=False"
+                "staged=True requires a stageable mode list, no valid_mask, "
+                "and a non-'ar' strategy"
             )
-        state = _staged_sample(
-            model, state, plan, temperature=float(temperature), top_k=top_k,
-            top_p=top_p, context_temperature=float(context_temperature),
-            random_scores=random_scores, score_mode=score_mode,
-            n_ctx0=int(n_ctx.max()), rng=rng,
-            perm_noise=None if perm_noise is None else perm_noise[rows],
-            history=history,
-        )
-    else:
-        if with_noise and (sample_noise is None or promote_noise is None):
-            raise ValueError("sample_noise and promote_noise must be passed together")
-        state = _maskgit_scan(
-            model, state, plan,
-            temperature=float(temperature), top_k=top_k, top_p=top_p,
-            context_temperature=float(context_temperature),
-            random_scores=random_scores, score_mode=score_mode, rng=rng,
-            valid_mask=None if valid_mask is None else valid_mask.to(device, torch.bool),
-            sample_noise=None if sample_noise is None else sample_noise[:, rows].to(device),
-            promote_noise=None if promote_noise is None else promote_noise[:, rows].to(device),
-            history=history,
-        )
-    return state if history is None else (state, _stacked(history, state))
+        if perm_noise is not None and not (use_staged and random_scores):
+            raise ValueError(
+                "perm_noise belongs to the staged random/bootstrap decode only"
+            )
+        history = [] if return_history else None
+        if use_staged:
+            # the given context's per-row counts: one host fetch, before any step
+            n_ctx = (
+                np.zeros(1, np.int64) if ctx_mask is None
+                else np.unique(_batch_values(state.ctx_mask.sum(dim=-1), model.mesh))
+            )
+            # the confidence scan takes its target counts from the plan
+            if not random_scores and not np.all(n_ctx == plan.n_ctx_init):
+                raise ValueError(
+                    f"ctx_mask context counts {n_ctx} != plan.n_ctx_init "
+                    f"{plan.n_ctx_init}; build the plan with matching "
+                    "n_ctx_init (and pass the ctx_mask) or pass staged=False"
+                )
+            state = _staged_sample(
+                model, state, plan, temperature=float(temperature), top_k=top_k,
+                top_p=top_p, context_temperature=float(context_temperature),
+                random_scores=random_scores, score_mode=score_mode,
+                n_ctx0=int(n_ctx.max()), rng=rng,
+                perm_noise=None if perm_noise is None else perm_noise[rows],
+                history=history,
+            )
+        else:
+            if with_noise and (sample_noise is None or promote_noise is None):
+                raise ValueError("sample_noise and promote_noise must be passed together")
+            state = _maskgit_scan(
+                model, state, plan,
+                temperature=float(temperature), top_k=top_k, top_p=top_p,
+                context_temperature=float(context_temperature),
+                random_scores=random_scores, score_mode=score_mode, rng=rng,
+                valid_mask=None if valid_mask is None else valid_mask.to(device, torch.bool),
+                sample_noise=None if sample_noise is None else sample_noise[:, rows].to(device),
+                promote_noise=None if promote_noise is None else promote_noise[:, rows].to(device),
+                history=history,
+            )
+        return state if history is None else (state, _stacked(history, state))
 
 
 def entp_sample(model, seed: int, B: int, plan: DecodePlan, **kwargs):

@@ -10,6 +10,11 @@ package. With `vqgan=None` a driver generates codes only: the temporal
 ratio is taken as 4 and `samples` is a zero stub (B, T, 1, 1, 3), as the
 JAX package returns it.
 
+A profile names the host's parts (utils/trace.py): `mebt::plan` for the
+plans, each decode pass and its steps (sampler/decode.py), `mebt::fetch`
+for every read of the device's results, `mebt::vqgan_decode` for the
+pixels' decode on the device.
+
 On a mesh (a model from models/mebt.py:on_mesh), `batch_size` is the
 whole batch and every array given or returned holds this rank's rows
 (parallel/mesh.py:batch_rows): each data rank decodes its rows, to
@@ -26,6 +31,7 @@ import torch
 from mebt_tpu_torch.parallel.mesh import batch_rows
 from mebt_tpu_torch.sampler.decode import draft_and_revise, maskgit_sample
 from mebt_tpu_torch.sampler.mask_schedule import bootstrap_plan, maskgit_plan
+from mebt_tpu_torch.utils.trace import span
 
 
 @dataclass
@@ -44,10 +50,17 @@ def _decode_pixels(vqgan, codes_bthw: torch.Tensor) -> np.ndarray:
     if vqgan is None:
         B, T = codes_bthw.shape[:2]
         return np.zeros((B, T * 4, 1, 1, 3), np.uint8)  # reference ratio 0.25 (script:30)
-    pix = vqgan.decode(codes_bthw).float()  # (B, C, T, H, W)
-    pix = torch.clamp(pix, -0.5, 0.5) + 0.5
-    pix = torch.round(pix * 255.0).to(torch.uint8)
-    return np.moveaxis(pix.cpu().numpy(), 1, -1)
+    with span("mebt::vqgan_decode"):
+        pix = vqgan.decode(codes_bthw).float()  # (B, C, T, H, W)
+        pix = torch.clamp(pix, -0.5, 0.5) + 0.5
+        pix = torch.round(pix * 255.0).to(torch.uint8)
+    return np.moveaxis(_fetch(pix), 1, -1)
+
+
+def _fetch(x: torch.Tensor) -> np.ndarray:
+    """x on the host as numpy: a read that waits for the device."""
+    with span("mebt::fetch"):
+        return x.cpu().numpy()
 
 
 def _split(seed_gen: torch.Generator) -> int:
@@ -127,28 +140,32 @@ def bidirect_generate(
 
     carried = {}
     if bootstrap > 0:
+        with span("mebt::plan"):
+            boot_plan = bootstrap_plan(N, bootstrap)
         state = decode(
-            bootstrap_plan(N, bootstrap), temperature=1.0,
+            boot_plan, temperature=1.0,
             strategy="bootstrap", context_temperature=vid_c_temp,
         )
         # positions promoted here are never sampled again: their
         # probabilities enter the score with those of the main phase
         carried = dict(codes=state.codes, ctx_mask=state.ctx_mask,
                        chosen_prob=state.chosen_prob)
-    plan = maskgit_plan(N, vid_n_steps, schedule, ctemp_schedule,
-                        n_ctx_init=bootstrap if carried else 0)
+    with span("mebt::plan"):
+        plan = maskgit_plan(N, vid_n_steps, schedule, ctemp_schedule,
+                            n_ctx_init=bootstrap if carried else 0)
     state = decode(plan, **carried, **sample_kw)
     # per-sample score: sum log prob of each token at its final sampling
     # (reference sample script:85-91; first window only)
-    score = torch.log(state.chosen_prob).sum(dim=-1).cpu().numpy().astype(np.float64)
+    score = _fetch(torch.log(state.chosen_prob).sum(dim=-1)).astype(np.float64)
 
     codes = np.zeros((B, max(total_lat, T), h, w), np.int64)
-    codes[:, :T] = state.codes.cpu().numpy().reshape(B, T, h, w)
+    codes[:, :T] = _fetch(state.codes).reshape(B, T, h, w)
     curr = T
     if total_lat > T:
-        shift_plan = maskgit_plan(
-            N, vid_n_steps, schedule, ctemp_schedule, n_ctx_init=ctx_lat * num_pos
-        )
+        with span("mebt::plan"):
+            shift_plan = maskgit_plan(
+                N, vid_n_steps, schedule, ctemp_schedule, n_ctx_init=ctx_lat * num_pos
+            )
         ctx_mask = torch.zeros((B, N), dtype=torch.bool, device=device)
         ctx_mask[:, : ctx_lat * num_pos] = True
         while curr < total_lat:
@@ -158,7 +175,7 @@ def bidirect_generate(
                 shift_plan, codes=torch.from_numpy(window.reshape(B, N)),
                 ctx_mask=ctx_mask, **sample_kw,
             )
-            fresh = state.codes.cpu().numpy().reshape(B, T, h, w)[:, ctx_lat:]
+            fresh = _fetch(state.codes).reshape(B, T, h, w)[:, ctx_lat:]
             take = min(T - ctx_lat, total_lat - curr)
             codes[:, curr : curr + take] = fresh[:, :take]
             curr += take
@@ -208,10 +225,11 @@ def extrapolate_generate(
     num_pos = h * w
     N = T * num_pos
     n_jumps = int(np.ceil((total_lat - step_lat) / (step_lat - ctx_lat)))
-    plan = maskgit_plan(
-        N, vid_n_steps, schedule, ctemp_schedule,
-        n_ctx_init=ctx_lat * num_pos, edit_N=(T - ctx_lat) * num_pos,
-    )
+    with span("mebt::plan"):
+        plan = maskgit_plan(
+            N, vid_n_steps, schedule, ctemp_schedule,
+            n_ctx_init=ctx_lat * num_pos, edit_N=(T - ctx_lat) * num_pos,
+        )
     ctx_mask = torch.zeros((B, N), dtype=torch.bool, device=device)
     ctx_mask[:, : ctx_lat * num_pos] = True
     seeds = torch.Generator().manual_seed(int(seed))
@@ -228,7 +246,7 @@ def extrapolate_generate(
             temperature=temperature, top_k=top_k, top_p=top_p,
             context_temperature=vid_c_temp, **noise,
         )
-        last = state.codes.cpu().numpy().reshape(B, T, h, w)
+        last = _fetch(state.codes).reshape(B, T, h, w)
         chunks.append(last[:, ctx_lat:])
     codes = np.concatenate(chunks, axis=1)[:, :total_lat]
     samples = _decode_pixels(vqgan, torch.from_numpy(codes).to(device))
@@ -274,7 +292,7 @@ def dnr_generate(
         n_revise=n_revise, revise_t=revise_t, revise_k=revise_k,
         revise_p=revise_p, M=M, skip_draft=draft is not None, **hooks,
     )
-    codes = out.cpu().numpy().reshape(B, T, h, w)
+    codes = _fetch(out).reshape(B, T, h, w)
     samples = _decode_pixels(vqgan, out.view(B, T, h, w))
     return GenerationResult(
         samples=samples[:, :total_length], code_maps=codes, score=np.zeros(B)

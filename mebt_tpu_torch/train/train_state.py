@@ -58,6 +58,7 @@ from mebt_tpu_torch.parallel.mesh import (
     spec_for_state_dict,
     zero1_specs,
 )
+from mebt_tpu_torch.utils.trace import span
 
 
 def lr_schedule(exact_lr: float, warmup_steps: int = 0, cosine_lr: bool = False,
@@ -93,7 +94,8 @@ class Optimizer:
     parallelism), divides them by k, clips, sets the learning rate of
     optimizer step `opt_step` and updates. Returns the global gradient
     norm (a 0-d tensor, before clipping) on an update and None on an
-    accumulating call. `zero1`: ZeRO-1 over `data` (module docstring)."""
+    accumulating call; a profile names an update `mebt::optimizer`.
+    `zero1`: ZeRO-1 over `data` (module docstring)."""
 
     def __init__(self, model: nn.Module, exact_lr: float, warmup_steps: int = 0,
                  weight_decay: float = 0.01, cosine_lr: bool = False,
@@ -172,6 +174,10 @@ class Optimizer:
         self.mini_step += 1
         if self.mini_step < self.k:
             return None
+        with span("mebt::optimizer"):
+            return self._update()
+
+    def _update(self):
         for p in self.params:
             if p.grad is None:  # out of the graph: a zero gradient, still decayed
                 p.grad = torch.zeros_like(p)
@@ -307,7 +313,7 @@ def _encode_codes(vqgan: VQGAN, video_bthwc: torch.Tensor,
     outputs are not needed here. A profile names the encode's work
     `ENCODE_SPAN`."""
     vqgan.eval()
-    with torch.profiler.record_function(ENCODE_SPAN):
+    with span(ENCODE_SPAN):
         z = vqgan.encode_latent(video_bthwc)
         codes = nearest_code(z.reshape(-1, z.shape[-1]), vqgan.codebook.embeddings)
     codes = codes.view(z.shape[:-1])

@@ -13,7 +13,9 @@ written every `exp.ckpt_every` optimizer steps and at the end of `fit`
 (also with `exp.ckpt_every: 0`, as in the JAX trainer), and kept all;
 `fit` resumes from the newest. `exp.vis_every` samples and logs a video grid
 (`log_samples`); `exp.profile_step` traces `exp.profile_n_steps` steps
-with torch.profiler into `logdir/profile/`.
+with torch.profiler into `logdir/profile/`, the port's spans
+(utils/trace.py) included: a step's launches, the loader's wait and
+collation, the host masks, the copy, the update and the logged reads.
 
 Under torch.distributed (cli/train.py --multihost, or any initialized
 default group) the trainer runs on a (data, model) mesh
@@ -54,6 +56,7 @@ from mebt_tpu_torch.train.train_state import (
     make_train_step,
 )
 from mebt_tpu_torch.utils.metrics import MetricsLogger, NullLogger
+from mebt_tpu_torch.utils.trace import span
 
 
 def _spin(device: torch.device, n: int) -> None:
@@ -225,10 +228,11 @@ class MeBTTrainer:
         return out
 
     def prepare_batch(self, batch: Mapping[str, np.ndarray], step: int):
-        t = self.sample_t(step)
-        start_t, T = self.sample_window(step)
-        masks = self.mask_gen.train_masks(np.asarray(batch["indices"]), t, start_t, T)
-        return self._batch(batch, masks)
+        with span("mebt::prepare_batch"):
+            t = self.sample_t(step)
+            start_t, T = self.sample_window(step)
+            masks = self.mask_gen.train_masks(np.asarray(batch["indices"]), t, start_t, T)
+            return self._batch(batch, masks)
 
     def prepare_val_batch(self, batch: Mapping[str, np.ndarray], rng):
         """Eval-mode masks: the full temporal window and the budget
@@ -330,7 +334,9 @@ class MeBTTrainer:
             """Host mask construction + copy to the device, done while
             the device still runs step s - 1. The curriculum sees
             OPTIMIZER steps."""
-            return batch_to_device(self.prepare_batch(batch, s // k), self.device)
+            host = self.prepare_batch(batch, s // k)
+            with span("mebt::h2d"):
+                return batch_to_device(host, self.device)
 
         while step < max_steps:
             train_loader.set_epoch(epoch)
@@ -348,7 +354,8 @@ class MeBTTrainer:
                 dev_batch = next_dev
                 if self.profile_step and step == self.profile_step * k and self.rank0:
                     prof = self._start_profile()
-                state, metrics = self.step_fn(state, dev_batch)
+                with span("mebt::train_step"):
+                    state, metrics = self.step_fn(state, dev_batch)
                 # prepare the following batch while this step executes
                 try:
                     next_dev = put(next(it), step + 1)
@@ -359,7 +366,8 @@ class MeBTTrainer:
                     self._stop_profile(prof, step // k)
                     prof = None
                 if step % (log_every * k) == 0:
-                    m = {f"train/{key}": float(v) for key, v in metrics.items()}
+                    with span("mebt::fetch"):
+                        m = {f"train/{key}": float(v) for key, v in metrics.items()}
                     now = time.time()
                     m["train/steps_per_sec"] = log_every / (now - t_last)
                     m["learning_rate"] = float(self._lr_fn(step // k))

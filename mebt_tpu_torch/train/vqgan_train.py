@@ -21,8 +21,8 @@ the discriminators. Each discriminator call normalises with its own
 batch's statistics (real and fake are separate calls). The nearest-code
 search inside `codebook_quantize` is kernel K9 on the card, once a step.
 After a step every parameter's `.grad` holds the gradient its optimizer
-took. Host ranges (`torch.profiler.record_function`, names in SPANS)
-mark the step's parts for a profile.
+took. Host spans (utils/trace.py:span, names in SPANS) mark the step's
+parts for a profile.
 
 The step's random draws (the frame index of each sample, the init's and
 the restart's tile noise and permutations) come from the trainer's
@@ -36,7 +36,6 @@ import copy
 from dataclasses import dataclass
 
 import torch
-from torch.profiler import record_function
 
 from mebt_tpu_torch.models.discriminator import (
     NLayerDiscriminator,
@@ -54,11 +53,10 @@ from mebt_tpu_torch.models.vqgan import (
     codebook_quantize,
 )
 from mebt_tpu_torch.runtime import resolve_device
+from mebt_tpu_torch.utils.trace import SPANS as TRACE_SPANS, span
 
 # the host ranges of a step, in order
-SPANS = ("vqgan::init", "vqgan::encoder", "vqgan::quantize", "vqgan::decoder", "vqgan::lpips",
-         "vqgan::disc_gen", "vqgan::gen_backward", "vqgan::gen_adam", "vqgan::ema",
-         "vqgan::disc_step")
+SPANS = tuple(name for name, _ in TRACE_SPANS if name.startswith("vqgan::"))
 METRICS = ("recon_loss", "commitment_loss", "perplexity", "g_loss", "gan_feat_loss",
            "perceptual_loss", "d_image_loss", "d_video_loss", "discloss", "loss")
 DRAWS = ("frame_idx", "init_perm", "init_noise", "restart_perm", "restart_noise")
@@ -138,25 +136,25 @@ class VQGANTrainer:
 
         if st.step == 0:
             # data-dependent codebook init (reference codebook.py:48-51)
-            with record_function(SPANS[0]), torch.no_grad():
+            with span(SPANS[0]), torch.no_grad():
                 codebook_init_from_data(vq.codebook, vq.encode_latent(video), st.generator,
                                         perm=draws.get("init_perm"),
                                         noise=draws.get("init_noise"))
 
         # ---- generator
-        with record_function(SPANS[1]):
+        with span(SPANS[1]):
             z = vq.encode_latent(video)
-        with record_function(SPANS[2]):
+        with span(SPANS[2]):
             codes, emb_st, aux = codebook_quantize(vq.codebook, z)
-        with record_function(SPANS[3]):
+        with span(SPANS[3]):
             recon = vq.decode_latent(emb_st)
         recon_loss = torch.mean(torch.abs(recon - real)) * cfg.l1_weight
         frames, frames_recon = take_frame(real), take_frame(recon)
         perceptual = torch.zeros((), device=self.device)
         if self.lpips is not None and cfg.perceptual_weight > 0:
-            with record_function(SPANS[4]):
+            with span(SPANS[4]):
                 perceptual = torch.mean(self.lpips(frames, frames_recon)) * cfg.perceptual_weight
-        with record_function(SPANS[5]):
+        with span(SPANS[5]):
             li_fake, feat_i_fake = disc_img(frames_recon)
             lv_fake, feat_v_fake = disc_vid(recon)
             g_loss = disc_factor * (cfg.image_gan_weight * -torch.mean(li_fake)
@@ -173,22 +171,22 @@ class VQGANTrainer:
                         feat_loss = feat_loss + feat_w * torch.mean(torch.abs(f - r))
             feat_loss = disc_factor * cfg.gan_feat_weight * feat_loss
         total = recon_loss + aux["commitment_loss"] + g_loss + perceptual + feat_loss
-        with record_function(SPANS[6]):
+        with span(SPANS[6]):
             gen_params = list(vq.parameters())
             for p, g in zip(gen_params, torch.autograd.grad(total, gen_params)):
                 p.grad = g
-        with record_function(SPANS[7]):
+        with span(SPANS[7]):
             st.gen_opt.step()
 
         # ---- EMA codebook update (reference codebook.py:66-89)
-        with record_function(SPANS[8]):
+        with span(SPANS[8]):
             codebook_ema_update(vq.codebook, z.detach(), codes, st.generator,
                                 no_random_restart=cfg.no_random_restart,
                                 restart_thres=cfg.restart_thres,
                                 perm=draws.get("restart_perm"), noise=draws.get("restart_noise"))
 
         # ---- discriminators on the detached reconstruction
-        with record_function(SPANS[9]):
+        with span(SPANS[9]):
             recon_d = recon.detach()
             li_real, _ = disc_img(frames)
             li_fake, _ = disc_img(take_frame(recon_d))
